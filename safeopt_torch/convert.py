@@ -1,0 +1,87 @@
+"""Carry kernels and fitted GP factors across as plain NumPy arrays.
+
+``kernel_params`` and ``gp_arrays`` read any kernel or ``GPRegression``
+with the attribute layout this package shares with ``safeopt_tpu``
+(``variance``, ``lengthscale``, ``ARD``, ``active_dims``; the host
+factor ``gp._host`` with ``X``, ``Y``, ``L``, ``Linv``, ``w``), through
+``numpy.asarray`` only. ``kernel_from_params`` and ``gp_from_arrays``
+build this package's objects from those arrays. Given the float64
+factor arrays, the new ``GPRegression`` holds that very factor instead
+of refactorizing, so both packages compute from identical operands.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .gp.kernels import Exponential, Matern32, Matern52, RBF
+from .gp.regression import GPRegression
+
+__all__ = ["kernel_params", "kernel_from_params", "gp_arrays",
+           "gp_from_arrays"]
+
+_FAMILIES = {"rbf": RBF, "matern32": Matern32, "matern52": Matern52,
+             "exponential": Exponential}
+
+
+def kernel_params(kernel) -> dict:
+    """Plain parameters of a stationary kernel (either package)."""
+    kind = type(kernel).__name__.lower()
+    if kind not in _FAMILIES:
+        raise NotImplementedError(f"no conversion for {type(kernel).__name__}")
+    return dict(kind=kind, input_dim=int(kernel.input_dim),
+                variance=float(np.asarray(kernel.variance)),
+                lengthscale=np.array(kernel.lengthscale, dtype=np.float64),
+                ARD=bool(kernel.ARD),
+                active_dims=tuple(int(a) for a in kernel.active_dims))
+
+
+def kernel_from_params(kind: str, input_dim: int, variance, lengthscale,
+                       ARD: bool = False, active_dims=None):
+    """Build one of the four stationary kernels from plain values."""
+    if kind not in _FAMILIES:
+        raise NotImplementedError(
+            f"kernel kind {kind!r}; the port has {sorted(_FAMILIES)}")
+    return _FAMILIES[kind](input_dim, variance=variance,
+                           lengthscale=np.asarray(lengthscale, np.float64),
+                           ARD=ARD, active_dims=active_dims)
+
+
+def gp_arrays(gp) -> dict:
+    """Float64 copies of a ``GPRegression``'s data and host factor, as
+    keyword arguments of ``gp_from_arrays`` (kernel excluded)."""
+    h = gp._host
+    n = int(h.count)
+    return dict(X=np.array(h.X[:n]), Y=np.array(h.Y[:n]),
+                noise_var=float(h.noise_var), capacity=int(h.X.shape[0]),
+                L=np.array(h.L), Linv=np.array(h.Linv), w=np.array(h.w))
+
+
+def gp_from_arrays(kernel, X, Y, noise_var: float, capacity: int,
+                   L=None, Linv=None, w=None, device="cpu",
+                   dtype: Optional[torch.dtype] = None) -> GPRegression:
+    """A ``GPRegression`` over (X, Y) with the given capacity.
+
+    With ``L``, ``Linv`` ((capacity, capacity)) and ``w`` ((capacity,))
+    — the padded float64 factor of another model — the host factor
+    takes those arrays as they are; without them it factorizes.
+    """
+    gp = GPRegression(X, Y, kernel, noise_var=noise_var, capacity=capacity,
+                      device=device, dtype=dtype)
+    given = [a is not None for a in (L, Linv, w)]
+    if any(given):
+        if not all(given):
+            raise ValueError("pass all of L, Linv and w, or none")
+        L, Linv, w = (np.array(a, dtype=np.float64) for a in (L, Linv, w))
+        want = {"L": (capacity, capacity), "Linv": (capacity, capacity),
+                "w": (capacity,)}
+        for name, a in zip(want, (L, Linv, w)):
+            if a.shape != want[name]:
+                raise ValueError(f"{name} has shape {a.shape}, expected "
+                                 f"{want[name]}")
+        gp._host.L, gp._host.Linv, gp._host.w = L, Linv, w
+        gp._state = gp._device_state()
+    return gp

@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``ops/csrc/`` are plain CUDA C++ with a C interface
+(no PyTorch headers), compiled at first use into ONE shared library
+with ``nvcc`` for Hopper (``sm_90a``) and loaded with ``ctypes``. The
+library is cached under ``build/safeopt_torch/`` at the repository
+root, keyed on a hash of the sources and flags, so an edited source
+rebuilds. Nothing here runs at import time: a machine without ``nvcc``
+imports the package and runs the plain PyTorch versions on the CPU.
+
+A missing compiler or a failed build raises with nvcc's output; there
+is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+__all__ = ["library", "build_info"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "safeopt_torch"
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types (pointers and the stream are
+# c_void_p; a bare int argument would be cut to 32 bits)
+_SIGNATURES = {
+    "safeopt_intervals_f32": [_P] * 7 + [_I] * 5 + [_P],
+    "safeopt_intervals_f64": [_P] * 7 + [_I] * 5 + [_P],
+    "safeopt_expander_f32": [_P] * 11 + [_I] * 6 + [_P],
+    "safeopt_expander_f64": [_P] * 11 + [_I] * 6 + [_P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_info: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the "
+            "CUDA kernels of safeopt_torch cannot be built")
+    return found
+
+
+def _sources():
+    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+
+
+def _build() -> Path:
+    sources = _sources()
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so = _BUILD_DIR / f"libsafeopt_kernels_{digest.hexdigest()[:16]}.so"
+    if so.exists():
+        _info.update(path=str(so), seconds=0.0, cached=True, log="")
+        return so
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build to a private name, then rename: a process building at the
+    # same time never loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *_FLAGS, "-o", tmp,
+           *[str(s) for s in sources if s.suffix == ".cu"]]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, so)
+    log = proc.stdout + proc.stderr
+    (so.with_suffix(".log")).write_text(log)
+    _info.update(path=str(so), seconds=time.perf_counter() - start,
+                 cached=False, log=log)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(_build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.safeopt_error_string.argtypes = [ctypes.c_int]
+        lib.safeopt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def build_info() -> dict:
+    """Path, build seconds, cache hit and compiler log of the library
+    (empty before the first ``library()`` call)."""
+    return dict(_info)

@@ -1,0 +1,66 @@
+"""Structured per-iteration stats.
+
+Counterpart of ``safeopt_tpu/utils/observability.py:24-78``: every
+``SafeOpt.optimize()`` records one ``IterationStats`` from scalars the
+host already pulled. The certified-path telemetry fields of the JAX
+package are absent, because the port has no certified path yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import List, Optional
+
+__all__ = ["IterationStats", "StatsRecorder"]
+
+logger = logging.getLogger("safeopt_torch")
+
+
+@dataclasses.dataclass
+class IterationStats:
+    """One optimize() iteration's diagnostics."""
+
+    t: int                      # time step (observation count)
+    duration_s: float           # wall clock of the step, host pull included
+    safe_count: int             # |S|
+    maximizer_count: int        # |M|
+    expander_found: bool        # G nonempty
+    next_index: Optional[int]   # chosen grid index
+    beta: float
+    walk_chunks: int = 0        # candidate chunks the expander walk tested
+
+    def as_dict(self):
+        """Plain-dict view (for logging/JSON sinks)."""
+        return dataclasses.asdict(self)
+
+
+class StatsRecorder:
+    """Ring buffer of per-iteration stats with logging passthrough."""
+
+    def __init__(self, maxlen: int = 1000):
+        self.maxlen = maxlen
+        self.history: List[IterationStats] = []
+
+    def record(self, stats: IterationStats) -> None:
+        """Append one iteration's stats (evicts past ``maxlen``)."""
+        self.history.append(stats)
+        if len(self.history) > self.maxlen:
+            self.history.pop(0)
+        logger.debug("iteration stats: %s", stats)
+
+    @property
+    def last(self) -> Optional[IterationStats]:
+        """Most recent iteration's stats (None before any record)."""
+        return self.history[-1] if self.history else None
+
+    def summary(self) -> dict:
+        """Aggregate view: iteration count, mean step time, last |S|."""
+        if not self.history:
+            return {}
+        times = [s.duration_s for s in self.history]
+        return {
+            "iterations": len(self.history),
+            "mean_step_s": sum(times) / len(times),
+            "last_safe_count": self.history[-1].safe_count,
+        }

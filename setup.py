@@ -10,6 +10,8 @@ setup(
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
     packages=find_packages(exclude=("tests", "examples", "benchmarks")),
+    # safeopt_torch builds its CUDA kernels from these sources at first use
+    package_data={"safeopt_torch": ["ops/csrc/*.cu", "ops/csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -18,6 +20,7 @@ setup(
     extras_require={
         "plotting": ["matplotlib"],
         "sampling-linear": ["scipy"],
+        "torch": ["torch", "scipy"],
         "dev": ["pytest", "scipy", "matplotlib"],
     },
     license="MIT",

@@ -1,0 +1,152 @@
+"""K1, K3 and the exact top-k on the card, against their plain versions.
+
+Needs an NVIDIA GPU with ``nvcc``: every test is marked ``gpu`` and
+skips when ``torch.cuda.is_available()`` is false. Run on the card with
+``python -m pytest --noconftest tests/test_torch_cuda.py`` (the suite's
+conftest imports jax, which the card's machine need not have).
+
+Tolerances: in float64 the kernel and the plain version differ only in
+summation order, so intervals agree to 1e-9 and predicates exactly. In
+float32 the intervals are held against the float64 plain version to
+1e-3 (f32 round-off through factors with entries up to ~1e2 at these
+sizes), and decisions must agree outside a 1e-3 band. K3 runs at
+thresholds raised far enough that its plain predicate is false for some
+candidates, and with a padding slot that must come back false.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import safeopt_torch as pt
+from safeopt_torch.algorithms import safe_opt_core as core
+from safeopt_torch.ops import fused_expander as fe
+from safeopt_torch.ops import fused_posterior as fp
+from safeopt_torch.ops.topk import top_k
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _gps(family, n_gps, cap, device, dtype, n_obs=20, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2.0, 2.0, size=(n_obs, 2))
+    gps = []
+    for g in range(n_gps):
+        Y = (1.0 - 0.2 * g + np.cos(X.sum(axis=1))
+             + 0.05 * rng.normal(size=n_obs))[:, None]
+        kern = getattr(pt, family)(2, variance=1.0 + 0.5 * g,
+                                   lengthscale=[0.8 + 0.3 * g, 1.3],
+                                   ARD=True)
+        gps.append(pt.GPRegression(X, Y, kern, noise_var=0.01, capacity=cap,
+                                   device=device, dtype=dtype))
+    grid = torch.tensor(rng.uniform(-3.0, 3.0, size=(5000, 2)),
+                        dtype=dtype, device=device)
+    return gps, grid
+
+
+# capacities below, at and above one row tile, and one (100) that is no
+# multiple of the kernels' 32-row chunks
+CASES = [("RBF", 2, 64), ("Matern32", 1, 32), ("Matern52", 3, 128),
+         ("Exponential", 2, 512), ("RBF", 1, 100)]
+
+
+@pytest.mark.parametrize("family,n_gps,cap", CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_intervals_kernel_matches_plain(cuda, family, n_gps, cap, dtype):
+    gps, grid = _gps(family, n_gps, cap, cuda, dtype)
+    ops = fp.interval_operands([g.kern for g in gps], [g.state for g in gps],
+                               grid, 2.0)
+    out = fp.fused_intervals(*ops)
+    torch.cuda.synchronize()
+    ref = fp.fused_intervals_plain(*[o.double() if torch.is_tensor(o)
+                                     else o for o in ops])
+    err = (out.double() - ref).abs().max().item()
+    assert err <= (1e-9 if dtype == torch.float64 else 1e-3), err
+
+
+@pytest.mark.parametrize("family,n_gps,cap", CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_expander_kernel_matches_plain(cuda, family, n_gps, cap, dtype):
+    gps, grid = _gps(family, n_gps, cap, cuda, dtype)
+    kerns, states = [g.kern for g in gps], [g.state for g in gps]
+    fmin = torch.tensor([0.4, 0.6, 0.5][:n_gps], dtype=dtype, device=cuda)
+    beta = 2.0
+    out = fp.fused_intervals_plain(*fp.interval_operands(kerns, states, grid,
+                                                         beta))
+    l, u = out[:, 0], out[:, 1]
+    mu, sigma = (l + u) / 2, (u - l) / (2 * beta)
+    safe = torch.all(l > fmin[:, None], dim=0)
+    assert bool(safe.any()) and bool((~safe).any())
+    # 37 candidates (two candidate tiles) spread over the safe set; the
+    # last slot is padding
+    safe_idx = torch.nonzero(safe).squeeze(1)
+    cand = safe_idx[torch.linspace(0, safe_idx.numel() - 1, 37,
+                                   device=cuda).long()]
+    valid = torch.ones(cand.numel(), dtype=torch.bool, device=cuda)
+    valid[-1] = False
+    ops = fe.expander_operands(kerns, states, grid, ~safe, mu, sigma,
+                               grid[cand], u[:, cand], valid, beta, fmin)
+
+    def at(shift):       # the operands with every fmin raised by ``shift``
+        scal = ops[9].clone()
+        scal[:, 3] += shift
+        return ops[:9] + (scal, ops[10])
+
+    seen = set()
+    # raised thresholds turn some predicates false
+    for shift in (0.0, 0.3, 1.0):
+        got = fe.fused_expander(*at(shift))
+        want = fe.fused_expander_plain(*at(shift))
+        torch.cuda.synchronize()
+        assert not bool(got[:, -1].any())               # the padding slot
+        seen.update(want[:, :-1].flatten().tolist())
+        if dtype == torch.float64:
+            assert torch.equal(got, want)
+        else:
+            # f32: the same operands, only summation order differs, so a
+            # predicate may flip only where the plain one changes within
+            # 1e-3 of the threshold
+            decided = (fe.fused_expander_plain(*at(shift - 1e-3))
+                       == fe.fused_expander_plain(*at(shift + 1e-3)))
+            assert not bool(((got != want) & decided).any())
+    assert seen == {True, False}
+
+
+def test_topk_on_cuda(cuda):
+    key = torch.tensor(np.random.default_rng(5).integers(0, 5, 200_000),
+                       dtype=torch.float32, device=cuda)
+    v, i = top_k(key, 64)
+    vs, is_ = torch.sort(key.cpu(), descending=True, stable=True)
+    assert torch.equal(v.cpu(), vs[:64]) and torch.equal(i.cpu(), is_[:64])
+    ninf = torch.full((70_000,), float("-inf"), device=cuda)
+    v, i = top_k(ninf, 32)
+    assert torch.equal(i.cpu(), torch.arange(32))
+
+
+def test_step_on_cuda_matches_cpu_float64(cuda):
+    gps_c, grid_c = _gps("RBF", 2, 64, cuda, torch.float64, seed=3)
+    gps_h, grid_h = _gps("RBF", 2, 64, "cpu", torch.float64, seed=3)
+    args = dict(fmin=[0.3, 0.5], scaling=[np.sqrt(2.0), np.sqrt(1.5)],
+                threshold=[0.0, 0.0])
+
+    def step(gps, grid):
+        t = {k: torch.tensor(v, dtype=torch.float64, device=grid.device)
+             for k, v in args.items()}
+        return core.safeopt_step(tuple(g.kern for g in gps),
+                                 tuple(g.state for g in gps), grid,
+                                 t["fmin"], 2.0, t["scaling"],
+                                 t["threshold"], chunk=16)
+
+    launches = fp.fused_intervals.launches
+    r_c, r_h = step(gps_c, grid_c), step(gps_h, grid_h)
+    assert fp.fused_intervals.launches == launches + 1
+    for name in ("S", "M", "G"):
+        assert torch.equal(getattr(r_c, name).cpu(), getattr(r_h, name))
+    assert int(r_c.next_idx) == int(r_h.next_idx)

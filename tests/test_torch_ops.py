@@ -1,0 +1,187 @@
+"""The plain versions of K1, K3 and the exact top-k against the JAX ops.
+
+The JAX kernels run as the JAX package's own tests run them on the CPU
+(Pallas interpret mode, float64). Both packages hold the identical host
+factor (``safeopt_torch.convert``). K1's intervals must agree to atol
+1e-10 (difference-form grams in both; only summation order differs),
+K3's predicates must be identical, and ``top_k`` must equal
+``lax.top_k`` exactly, ties included. On CPU tensors the wrappers run
+the plain versions and never count a kernel launch.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import safeopt_tpu as jt
+import torch
+from safeopt_torch.convert import (gp_arrays, gp_from_arrays,
+                                   kernel_from_params, kernel_params)
+from safeopt_torch.ops import fused_expander as pfe
+from safeopt_torch.ops import fused_posterior as pfp
+from safeopt_torch.ops.topk import top_k
+from safeopt_tpu.ops import fused_expander as jfe
+from safeopt_tpu.ops import fused_posterior as jfp
+
+
+def _models(family, n_gps, cap, seed, d=2):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2.0, 2.0, size=(11, d))
+    jgps = []
+    for g in range(n_gps):
+        Y = (1.0 - 0.2 * g + np.cos(X.sum(axis=1))
+             + 0.05 * rng.normal(size=11))[:, None]
+        kern = getattr(jt, family)(d, variance=1.0 + 0.5 * g,
+                                   lengthscale=[0.8 + 0.3 * g, 1.3][:d],
+                                   ARD=True)
+        jgps.append(jt.GPRegression(X, Y, kern, noise_var=0.01,
+                                    capacity=cap))
+    pgps = [gp_from_arrays(kernel_from_params(**kernel_params(g.kern)),
+                           **gp_arrays(g)) for g in jgps]
+    grid = rng.uniform(-3.0, 3.0, size=(1000, d))
+    return jgps, pgps, grid
+
+
+CASES = [("RBF", 2, 64), ("Matern32", 2, 16), ("Matern52", 1, 16),
+         ("Exponential", 3, 32)]
+
+
+@pytest.mark.parametrize("family,n_gps,cap", CASES)
+def test_intervals_plain_matches_pallas(family, n_gps, cap):
+    jgps, pgps, grid = _models(family, n_gps, cap, seed=cap + n_gps)
+    beta = 2.0
+    jout = jfp.fused_intervals_batched(
+        tuple(g.kern for g in jgps), tuple(g.state for g in jgps),
+        jnp.asarray(grid), beta, block=256)
+    before = pfp.fused_intervals.launches
+    pout = pfp.fused_intervals_batched(
+        [g.kern for g in pgps], [g.state for g in pgps],
+        torch.tensor(grid), beta)
+    assert pfp.fused_intervals.launches == before   # CPU: no kernel launch
+    assert pout.shape == (n_gps, 2, grid.shape[0])
+    for g, (l, u) in enumerate(jout):
+        np.testing.assert_allclose(pout[g, 0].numpy(), np.asarray(l),
+                                   rtol=0, atol=1e-10)
+        np.testing.assert_allclose(pout[g, 1].numpy(), np.asarray(u),
+                                   rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("family,n_gps,cap", CASES)
+def test_expander_plain_matches_pallas(family, n_gps, cap):
+    jgps, pgps, grid = _models(family, n_gps, cap, seed=7 * cap + n_gps)
+    beta = 2.0
+    fmin = np.array([0.4, 0.6, 0.5][:n_gps])
+    kerns = tuple(g.kern for g in jgps)
+    states = tuple(g.state for g in jgps)
+    jint = jfp.fused_intervals_batched(kerns, states, jnp.asarray(grid),
+                                       beta, block=256)
+    l = np.stack([np.asarray(a) for a, _ in jint])           # (G, N)
+    u = np.stack([np.asarray(b) for _, b in jint])
+    mu, sigma = (l + u) / 2, (u - l) / (2 * beta)
+    safe = np.all(l > fmin[:, None], axis=0)
+    unsafe = ~safe
+    cand = np.flatnonzero(safe)[:16]
+    assert cand.size > 0 and unsafe.any()
+    Xc = grid[cand]
+    ucs = u[:, cand]
+    valid = np.ones(cand.size, bool)
+    valid[-1] = False                                         # a pad slot
+    jpred = np.asarray(jfe.fused_expander_predicate_batched(
+        kerns, states, jnp.asarray(grid), jnp.asarray(unsafe),
+        jnp.asarray(mu), jnp.asarray(sigma), jnp.asarray(Xc),
+        jnp.asarray(ucs), jnp.asarray(valid), jnp.asarray(beta),
+        jnp.asarray(fmin), block=256))
+    t = torch.tensor
+    before = pfe.fused_expander.launches
+    ppred = pfe.fused_expander_predicate_batched(
+        [g.kern for g in pgps], [g.state for g in pgps], t(grid), t(unsafe),
+        t(mu), t(sigma), t(Xc), t(ucs), t(valid), beta, t(fmin))
+    assert pfe.fused_expander.launches == before
+    np.testing.assert_array_equal(ppred.numpy(), jpred)
+    assert jpred.any() and not jpred[:, -1].any()
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    _, pgps, grid = _models("RBF", 1, 16, seed=0)
+    ops = pfp.interval_operands([pgps[0].kern], [pgps[0].state],
+                                torch.tensor(grid), 2.0)
+    meta = [o.to("meta") if torch.is_tensor(o) else o for o in ops]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        pfp.fused_intervals(*meta)
+
+
+def test_mixed_families_are_rejected_in_one_launch():
+    _, pgps, grid = _models("RBF", 1, 16, seed=0)
+    with pytest.raises(ValueError, match="one stationary family"):
+        pfp.kind_of([pgps[0].kern, jt.Matern32(2)])
+
+
+def test_operand_checks():
+    zt = torch.zeros((2, 10), dtype=torch.float32)
+    cpu = torch.device("cpu")
+    pfp.check_operands(dict(zt=zt), cpu, torch.float32, dict(zt=(2, 10)))
+    wide = torch.zeros((pfp.MAX_DIM + 1, 10), dtype=torch.float32)
+    with pytest.raises(ValueError, match="grid columns"):
+        pfp.check_operands(dict(zt=wide), cpu, torch.float32,
+                           dict(zt=tuple(wide.shape)))
+    with pytest.raises(TypeError, match="dtype"):
+        pfp.check_operands(dict(zt=zt), cpu, torch.float64, dict(zt=(2, 10)))
+    with pytest.raises(ValueError, match="shape"):
+        pfp.check_operands(dict(zt=zt), cpu, torch.float32, dict(zt=(2, 9)))
+    with pytest.raises(ValueError, match="contiguous"):
+        pfp.check_operands(dict(zt=zt.T), cpu, torch.float32,
+                           dict(zt=(10, 2)))
+
+
+# -- K5: exact top-k ----------------------------------------------------------
+
+def _check_topk(key, k):
+    v_ref, i_ref = jax.lax.top_k(jnp.asarray(key), k)
+    v, i = top_k(torch.tensor(key), k)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+@pytest.mark.parametrize("k", [1, 32, 128])
+def test_topk_random(k):
+    rng = np.random.default_rng(99_991 + k)
+    _check_topk(rng.normal(size=99_991).astype(np.float32), k)
+
+
+def test_topk_massive_ties():
+    rng = np.random.default_rng(0)
+    _check_topk(rng.integers(0, 5, size=50_000).astype(np.float32), 64)
+
+
+def test_topk_single_value_everywhere():
+    _check_topk(np.full(40_000, 3.5, np.float32), 32)
+
+
+def test_topk_masked_minus_inf():
+    rng = np.random.default_rng(1)
+    key = np.full(80_000, -np.inf, np.float32)
+    live = rng.choice(80_000, size=17, replace=False)
+    key[live] = rng.normal(size=17).astype(np.float32)
+    _check_topk(key, 64)          # fewer finite entries than k
+
+
+def test_topk_all_minus_inf():
+    _check_topk(np.full(70_000, -np.inf, np.float32), 32)
+
+
+def test_topk_flip_trick_tie_order():
+    key = np.zeros(30_000, np.float32)
+    key[[7, 19, 19_000]] = 2.0
+    _check_topk(key[::-1].copy(), 16)
+
+
+@pytest.mark.parametrize("n,k", [(300, 32), (31, 31), (20_000, 4096)])
+def test_topk_sort_path(n, k):
+    rng = np.random.default_rng(n)
+    _check_topk(rng.integers(0, 9, size=n).astype(np.float64), k)
+
+
+def test_topk_rejects_bad_k():
+    with pytest.raises(ValueError):
+        top_k(torch.zeros(4), 5)
