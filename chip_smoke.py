@@ -8,7 +8,8 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each reported on its own line:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compiles the CUDA kernels from ``safeopt_torch/ops/csrc``;
+2. build: compiles the CUDA kernels from ``safeopt_torch/ops/csrc``
+   (one nvcc per source, in parallel);
 3. K1 (fused intervals) against its plain PyTorch version at G=2, d=2,
    N=1e6, capacity 64 (the flagship) and 512 (factor streamed), and
    G=1 at capacity 64: float64 kernel vs float64 plain to 1e-9; float32
@@ -18,13 +19,29 @@ Phases, each reported on its own line:
    from the head and the middle of the visit order, with padding slots,
    at several raised thresholds so that the plain predicate holds both
    values: float64 identical, float32 identical outside the band;
-5. K5 (exact top-k) on CUDA tensors with massive ties and all -inf;
-6. the main path: the flagship problem (two RBF GPs, 1000 x 1000 grid,
-   50 observations, capacity 64, chunk 32) through ``SafeOpt.optimize``
-   and ``add_new_data_point`` for 10 iterations against a NumPy plant,
-   with the first query checked against the float64 plain path on the
-   CPU and every kernel's launch count read around the run;
-7. times of the main path and of each kernel against its plain version.
+5. K2 (intervals of one GP with a kernel algebra) against its plain
+   version on the bench's contextual kernel, RBF(parameter) x
+   RBF(context), over the same grid (column 1 is the context): capacity
+   64 with 50 observations, capacity 256 with 250 (factor streamed), and
+   a Sum with a Bias leaf and a Cosine leaf on one column; tolerances
+   as K1's;
+6. K4 (expander predicate of one GP with a kernel algebra) as K3's
+   check, on the contextual kernel's two GPs at capacity 256;
+7. K5 (exact top-k) on CUDA tensors with massive ties and all -inf;
+8. the flagship path: two RBF GPs, 1000 x 1000 grid, 50 observations,
+   capacity 64, chunk 32, through ``SafeOpt.optimize`` and
+   ``add_new_data_point`` for 10 iterations against a NumPy plant, with
+   the first query checked against the float64 plain path on the CPU;
+9. the contextual path: two GPs (objective + constraint) with the
+   contextual kernel, 240 observations at context 0, capacity 256, a
+   1e6-point parameter grid with one context column, chunk 32, through
+   ``optimize(context=...)`` and ``add_new_data_point(..., context=...)``
+   for 10 iterations (context 0.0, then 0.1 from iteration 6) and
+   ``get_maximum(context=0.1)``, first query checked as in phase 8.
+   Every kernel's launch count is zeroed just before each path and read
+   just after it;
+10. times of both paths and of each kernel against its plain version,
+    beside the least time the card could take (``bound_ms``).
 
 Any failed check exits non-zero. The last lines are one JSON object of
 the kernels, the nvidia-smi line, and the result line.
@@ -44,6 +61,17 @@ FMIN = [0.2, 0.5]
 SCALING = [math.sqrt(2.0), 1.0]
 BETA = 2.0
 K3_SHIFTS = (0.0, 0.1, 0.3, 1.0)   # fmin raises, in units of scaling
+# K4's state (250 observations, contexts over [-5, 5]) lifts unsafe
+# points further: its plain predicate holds for every candidate up to a
+# raise of 1.0 and turns mixed between 1.5 and 2.0
+K4_SHIFTS = (0.0, 1.0, 1.5, 2.0, 2.5)
+# the contextual path (bench.py _context_config / _context_measure)
+CTX_FMIN = [0.2, 0.3]
+CTX_SCALING = [math.sqrt(2.0), 1.0]
+# Published peaks of one H100 SXM at 700 W: FP32 outside the tensor
+# cores, FP64 likewise, and HBM3 bandwidth.
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg):
@@ -72,6 +100,45 @@ def build_gps(rng, n_obs, capacity, device, dtype, spread=1.5, d=2):
             GPRegression(X, Yg, RBF(d, variance=1.0, lengthscale=1.5),
                          noise_var=0.05 ** 2, capacity=capacity,
                          device=device, dtype=dtype)]
+
+
+def context_kernel(extra=False):
+    """The bench's contextual kernel, RBF on the parameter column times
+    RBF on the context column; with ``extra``, a Sum with a Bias leaf
+    and a Cosine leaf on the context column."""
+    from safeopt_torch import RBF, Bias, Cosine
+
+    if extra:
+        return (RBF(1, variance=2.0, lengthscale=1.0, active_dims=[0])
+                * Cosine(1, variance=1.0, lengthscale=3.0, active_dims=[1])
+                + Bias(2, variance=0.5))
+    return (RBF(1, variance=2.0, lengthscale=1.0, active_dims=[0])
+            * RBF(1, variance=1.0, lengthscale=1.5, active_dims=[1]))
+
+
+def context_gps(n_gps, n_obs, cap, device, dtype, extra=False):
+    """``n_gps`` contextual GPs with ``n_obs`` shared observations in
+    [-3, 3] at context 0 (``bench.py`` ``_context_config``; with
+    ``extra``, contexts uniform in [-1, 1])."""
+    from safeopt_torch import GPRegression
+
+    rng = np.random.default_rng(3)
+    ctx = (rng.uniform(-1.0, 1.0, size=(n_obs, 1)) if extra
+           else np.zeros((n_obs, 1)))
+    X = np.hstack([rng.uniform(-3.0, 3.0, size=(n_obs, 1)), ctx])
+    return [GPRegression(X, context_truth(X)[:, g:g + 1],
+                         context_kernel(extra), noise_var=0.05 ** 2,
+                         capacity=cap, device=device, dtype=dtype)
+            for g in range(n_gps)]
+
+
+def context_truth(X):
+    """The contextual plant's two functions at rows (parameter,
+    context): ``bench.py``'s objective and constraint, damped away from
+    context 0."""
+    X = np.atleast_2d(X)
+    base = np.exp(-0.5 * X[:, 0] ** 2) * np.exp(-0.5 * (X[:, 1] / 1.5) ** 2)
+    return np.stack([2.0 * base, 1.5 * base], axis=1)
 
 
 def plant(rng, x):
@@ -105,6 +172,57 @@ def timed_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def bound(dtype, flops, nbytes):
+    """(least ms, what bounds it): the larger of ``flops`` over the
+    card's peak rate for ``dtype`` and ``nbytes`` over its memory rate."""
+    t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
+                                     else "bytes")
+
+
+def plan_leaves(scales, plan):
+    """``(kind, active columns)`` of each leaf of a K2/K4 plan: the
+    columns where its scale row is not 0."""
+    return list(zip(plan[0].tolist(), (scales != 0).sum(dim=1).tolist()))
+
+
+def gram_flops(d, leaves=None):
+    """Operations of one gram entry: per distance leaf a difference,
+    scale, square and add on each of its active columns (a column with
+    scale 0 adds exactly nothing) plus its kind's few operations, a
+    transcendental counted as one; a Bias leaf is its variance. Leaves
+    multiply or add: one operation each. ``leaves`` (from
+    ``plan_leaves``) None is one stationary family on prescaled inputs,
+    a difference, square and add per column."""
+    if leaves is None:
+        return 3 * d + 4
+    return sum(1 if k == 5 else 4 * a + 4 for k, a in leaves) + len(leaves)
+
+
+def interval_bound(dtype, G, N, d, cap, n, leaves=None):
+    """Least time of K1/K2 on these inputs: per point and GP the gram of
+    the n active rows, the n(n+1)/2 FMAs of the triangular product, mu
+    and the sum of squares; inputs read once, the (G, 2, N) rows written
+    once."""
+    flops = G * N * (n * gram_flops(d, leaves) + n * (n + 1) + 4 * n + 8)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (d * N + G * (cap * d + cap * cap + cap + 4 + 2 * N))
+    return bound(dtype, flops, nbytes)
+
+
+def expander_bound(dtype, G, N, U, d, cap, n, C, leaves=None):
+    """Least time of K3/K4 on these inputs: at each of the U unsafe
+    points and per GP the gram of the n active rows and of the C
+    candidates, the C n FMAs of the cross term and the epilogue; inputs
+    read once, the (G, C) predicate written once."""
+    g = gram_flops(d, leaves)
+    flops = G * U * (n * g + C * g + 2 * C * n + 12 * C)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (size * (d * N + G * (2 * N + cap * d + C * d + C * cap
+                                   + 3 * C + 4)) + N + 4 * G * C)
+    return bound(dtype, flops, nbytes)
 
 
 def decisions_agree(l32, l64, fmin, scaling):
@@ -220,12 +338,180 @@ def check_k3(gps64, gps32, grid64):
     return err64, ops32
 
 
+def check_k2(label, n_obs, cap, grid64, extra=False):
+    """K2 vs its plain version in f64 and f32 on one contextual GP;
+    returns the f64 error and the float32 operands."""
+    from safeopt_torch.ops import fused_posterior as fp
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        gp = context_gps(1, n_obs, cap, "cuda", dtype, extra=extra)[0]
+        ops = fp.interval_plan_operands(gp.kern, gp.state, grid64.to(dtype),
+                                        BETA)
+        out[dtype] = (fp.fused_intervals_plan(*ops), ops)
+    k64, ops64 = out[torch.float64]
+    k32, ops32 = out[torch.float32]
+    p64 = fp.fused_intervals_plan_plain(*ops64)
+    torch.cuda.synchronize()
+    err64 = (k64 - p64).abs().max().item()
+    scale = math.sqrt(float(ops64[7][1]))          # prior std, sqrt(kdiag)
+    diff32 = (k32.double() - p64).abs()
+    wrong, in_band = decisions_agree(k32[0].double(), p64[0], CTX_FMIN[0],
+                                     scale)
+    print(f"K2 {label}: plan kinds/terms {ops64[6].tolist()}; f64 "
+          f"max|kernel-plain|={err64:.3e} (limit 1e-9); f32 max abs err="
+          f"{diff32.max().item():.3e}, max scaled err="
+          f"{diff32.max().item() / scale:.3e}; f32 decisions differing "
+          f"outside the {BAND:g} band={wrong} (rows inside the band: "
+          f"{in_band})", flush=True)
+    check(err64 <= 1e-9, f"K2 {label} f64 error {err64}")
+    check(wrong == 0, f"K2 {label} f32 decisions differ outside the band")
+    return err64, ops32
+
+
+def check_k4(grid64):
+    """K4 vs its plain version in f64 and f32, as ``check_k3``: the two
+    contextual GPs at capacity 256 with 250 observations, one chunk of
+    32 candidates (16 from the head of the visit order, 16 from its
+    middle, the last 4 slots padding) at fmin raised by each of
+    ``K4_SHIFTS`` times the scaling. The candidates are safe points in
+    the walk's order (width descending): on this state every wide safe
+    point is also a potential maximizer, so the expander candidates
+    proper are empty, and the predicate takes any safe point, as
+    ``compute_sets(full_sets=True)`` does. Returns the f64 error and the
+    float32 operands of GP 0 at the path's fmin."""
+    from safeopt_torch.algorithms import safe_opt_core as core
+    from safeopt_torch.ops import fused_expander as fe
+
+    f64 = torch.tensor(CTX_FMIN, dtype=torch.float64, device="cuda")
+    s64 = torch.tensor(CTX_SCALING, dtype=torch.float64, device="cuda")
+    gps = {dt: context_gps(2, 250, 256, "cuda", dt)
+           for dt in (torch.float64, torch.float32)}
+    kerns = [g.kern for g in gps[torch.float64]]
+    states = [g.state for g in gps[torch.float64]]
+    Q, mu, sigma = core._confidence_intervals(kerns, states, grid64, BETA)
+    S, _, _, width, _ = core._classify(
+        Q, f64, s64, torch.zeros(2, dtype=torch.float64, device="cuda"),
+        BETA)
+    n_cand = int(S.sum())
+    check(n_cand >= 64, f"only {n_cand} contextual safe points")
+    order = core._visit_order(torch.where(S, width, float("-inf")), n_cand)
+    gidx = torch.cat([order[:16], order[n_cand // 2:n_cand // 2 + 16]])
+    valid = torch.ones(32, dtype=torch.bool, device="cuda")
+    valid[-4:] = False
+
+    def operands(i, dt):
+        g = gps[dt][i]
+        args = (grid64, ~S, mu[i], sigma[i], grid64[gidx], Q[gidx, 2 * i + 1],
+                valid, BETA, f64[i])
+        return fe.expander_plan_operands(
+            g.kern, g.state, *[a.to(dt) if torch.is_tensor(a)
+                               and a.is_floating_point() else a
+                               for a in args])
+
+    def at(ops, i, delta):      # the operands at fmin + delta * scaling
+        scal = ops[11].clone()
+        scal[3] += delta * CTX_SCALING[i]
+        return ops[:11] + (scal,)
+
+    wrong64 = wrong32 = in_band = mixed = pad_hits = 0
+    counts = []
+    for i in range(2):
+        ops64, ops32 = operands(i, torch.float64), operands(i, torch.float32)
+        if i == 0:
+            ops32_gp0 = ops32
+        for delta in K4_SHIFTS:
+            plain = fe.fused_expander_plan_plain(*at(ops64, i, delta))
+            k64 = fe.fused_expander_plan(*at(ops64, i, delta))
+            k32 = fe.fused_expander_plan(*at(ops32, i, delta))
+            decided = (
+                fe.fused_expander_plan_plain(*at(ops64, i, delta + BAND))
+                == fe.fused_expander_plan_plain(*at(ops64, i, delta - BAND)))
+            torch.cuda.synchronize()
+            hits = int(plain[valid].sum())
+            counts.append(hits)
+            mixed += 0 < hits < int(valid.sum())
+            pad_hits += int(k64[~valid].sum() + k32[~valid].sum())
+            wrong64 += int((k64 != plain).sum())
+            wrong32 += int(((k32 != plain) & decided).sum())
+            in_band += int((~decided).sum())
+    print(f"K4 2 GPs cap=256 C=32 (16 head + 16 mid-order of {n_cand} safe "
+          f"points, 4 pad slots) at fmin + {list(K4_SHIFTS)} x scaling: "
+          f"plain hits per GP and shift {counts} of {int(valid.sum())} "
+          f"valid; f64 predicates differing={wrong64} (limit 0); f32 "
+          f"differing outside the band={wrong32}, inside the band="
+          f"{in_band}; hits in pad slots={pad_hits}", flush=True)
+    check(mixed > 0, "no K4 launch had a plain predicate holding both "
+                     "values, so the check cannot see a wrong hit")
+    check(pad_hits == 0, "K4 reported a hit in a padding slot")
+    check(wrong64 == 0, "K4 f64 predicate differs from its plain version")
+    check(wrong32 == 0, "K4 f32 predicate differs outside the band")
+    return float(wrong64 > 0), ops32_gp0
+
+
+def zero_launches():
+    """Set every kernel's launch count to 0."""
+    from safeopt_torch.ops import fused_expander as fe
+    from safeopt_torch.ops import fused_posterior as fp
+
+    for fn in (fp.fused_intervals, fe.fused_expander,
+               fp.fused_intervals_plan, fe.fused_expander_plan):
+        fn.launches = 0
+
+
+def read_launches():
+    """Every kernel's launch count."""
+    from safeopt_torch.ops import fused_expander as fe
+    from safeopt_torch.ops import fused_posterior as fp
+
+    return {"K1": fp.fused_intervals.launches,
+            "K3": fe.fused_expander.launches,
+            "K2": fp.fused_intervals_plan.launches,
+            "K4": fe.fused_expander_plan.launches}
+
+
+def drive(opt, ref, label, plant_fn, contexts, scaling, get_max):
+    """Run ``opt`` for ``len(contexts)`` iterations and check the first
+    query against ``ref`` (the float64 plain path on the CPU, already
+    stepped once at ``contexts[0]``). Returns (launches, optimize ms,
+    add ms, walk chunks, get_maximum result)."""
+    idx_ref = ref.stats.last.next_index
+    kw = (lambda c: {}) if contexts[0] is None else (lambda c: {"context": c})
+    zero_launches()
+    opt_ms, add_ms, walked = [], [], 0
+    for it, c in enumerate(contexts):
+        x, ms = timed_ms(lambda: opt.optimize(**kw(c)))
+        opt_ms.append(ms)
+        last = opt.stats.last
+        check(last.safe_count > 0, f"{label}: empty safe set at {it}")
+        walked += last.walk_chunks
+        if it == 0:
+            idx0 = last.next_index
+            w = (ref.Q[:, 1::2] - ref.Q[:, 0::2]) / np.asarray(scaling)
+            gap = abs(w[idx0].max() - w[idx_ref].max())
+            print(f"{label} first query: port f32 index {idx0}, f64 plain "
+                  f"index {idx_ref}, scaled-width gap {gap:.3e}", flush=True)
+            check(idx0 == idx_ref or gap <= BAND,
+                  f"{label}: first query differs from the float64 plain "
+                  "path")
+        y = plant_fn(x, c)
+        add_ms.append(timed_ms(
+            lambda: opt.add_new_data_point(x, y, **kw(c)))[1])
+    maximum = get_max()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(maximum is not None and np.all(np.isfinite(maximum[0])),
+          f"{label}: get_maximum returned no point")
+    return launches, opt_ms, add_ms, walked, maximum
+
+
 def main():
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
 
     from safeopt_torch import SafeOpt, linearly_spaced_combinations
     from safeopt_torch.ops import fused_expander as fe
@@ -268,7 +554,20 @@ def main():
                       torch.float32)
     k3_err64, ops32 = check_k3(gps64, gps32, grid64)
 
-    # 5. K5: exact top-k on the card ------------------------------------------
+    # 5. K2 against its plain version on contextual GPs ----------------------
+    k2_err, _ = check_k2("1 GP cap=64 (50 obs)", 50, 64, grid64)
+    n_k2 = 250          # K2 and K4 are timed at the 250-observation GP
+    err, k2_ops32 = check_k2("1 GP cap=256 (250 obs, factor streamed)", n_k2,
+                             256, grid64)
+    k2_err = max(k2_err, err)
+    err, _ = check_k2("Sum with Bias and Cosine leaves, cap=64", 50, 64,
+                      grid64, extra=True)
+    k2_err = max(k2_err, err)
+
+    # 6. K4 against its plain version on contextual candidates ---------------
+    k4_err, k4_ops32 = check_k4(grid64)
+
+    # 7. K5: exact top-k on the card ------------------------------------------
     ties = torch.tensor(np.random.default_rng(5).integers(0, 5, 1_000_000),
                         dtype=torch.float32, device="cuda")
     for key, k in ((ties, 32), (ties, 4096),
@@ -281,86 +580,129 @@ def main():
     print("K5 top_k: massive ties (k=32, 4096) and all -inf match a stable "
           "sort", flush=True)
 
-    # 6. main path ------------------------------------------------------------
+    # 8. the flagship path ----------------------------------------------------
     def flagship(device, dtype):
         gps = build_gps(np.random.default_rng(0), 50, 64, device, dtype)
         return SafeOpt(gps, grid_np, fmin=FMIN, beta=BETA, scaling=SCALING,
                        expander_chunk=32)
 
     ref = flagship("cpu", torch.float64)        # plain path, float64
-    x_ref = ref.optimize()
-    idx_ref = ref.stats.last.next_index
-    opt = flagship("cuda", None)                # float32 on the card
+    ref.optimize()
     plant_rng = np.random.default_rng(1)
-
-    fp.fused_intervals.launches = 0
-    fe.fused_expander.launches = 0
-    opt_ms, add_ms, walked = [], [], 0
-    for it in range(10):
-        x, ms = timed_ms(opt.optimize)
-        opt_ms.append(ms)
-        last = opt.stats.last
-        check(last.safe_count > 0, f"empty safe set at iteration {it}")
-        walked += last.walk_chunks
-        if it == 0:
-            idx0 = last.next_index
-            w = (ref.Q[:, 1::2] - ref.Q[:, 0::2]) / np.asarray(SCALING)
-            gap = abs(w[idx0].max() - w[idx_ref].max())
-            print(f"first query: port f32 index {idx0}, f64 plain index "
-                  f"{idx_ref}, scaled-width gap {gap:.3e}", flush=True)
-            check(idx0 == idx_ref or gap <= BAND,
-                  "first query differs from the float64 plain path")
-        y = plant(plant_rng, x)
-        add_ms.append(timed_ms(lambda: opt.add_new_data_point(x, y))[1])
-    maximum = opt.get_maximum()
-    torch.cuda.synchronize()
-    launches = {"K1": fp.fused_intervals.launches,
-                "K3": fe.fused_expander.launches}
-    check(maximum is not None and np.all(np.isfinite(maximum[0])),
-          "get_maximum returned no point")
-    check(launches["K1"] > 0, "K1 was never launched on the main path")
+    opt_f = flagship("cuda", None)              # float32 on the card
+    launches, opt_ms, add_ms, walked, maximum = drive(
+        opt_f, ref, "flagship", lambda x, c: plant(plant_rng, x),
+        [None] * 10, SCALING, opt_f.get_maximum)
+    check(launches["K1"] > 0, "K1 was never launched on the flagship path")
     check(launches["K3"] > 0 or walked == 0,
           "the walk ran but K3 was never launched")
-    print(f"main path: 10 iterations, |S| last={opt.stats.last.safe_count}, "
-          f"walk chunks={walked}, launches {launches}, "
-          f"get_maximum x={np.round(maximum[0], 4).tolist()} "
-          f"lb={maximum[1]:.4f}; x0 ref={np.round(x_ref, 4).tolist()}",
+    print(f"flagship path: 10 iterations, |S| last="
+          f"{opt_f.stats.last.safe_count}, walk chunks={walked}, launches "
+          f"{launches}, get_maximum x={np.round(maximum[0], 4).tolist()} "
+          f"lb={maximum[1]:.4f}", flush=True)
+
+    # 9. the contextual path --------------------------------------------------
+    params_np = linearly_spaced_combinations([(-3.0, 3.0)], 1_000_000)
+    contexts = [0.0] * 5 + [0.1] * 5
+
+    def contextual(device, dtype):
+        return SafeOpt(context_gps(2, 240, 256, device, dtype), params_np,
+                       fmin=CTX_FMIN, beta=BETA, num_contexts=1,
+                       expander_chunk=32)
+
+    ctx_ref = contextual("cpu", torch.float64)
+    ctx_ref.optimize(context=contexts[0])
+    opt_c = contextual("cuda", None)
+    check(np.allclose(opt_c.scaling, math.sqrt(2.0)),
+          f"scaling='auto' gave {opt_c.scaling}, not the product's prior "
+          "std sqrt(2)")
+    ctx_rng = np.random.default_rng(2)
+    ctx_launches, ctx_opt_ms, ctx_add_ms, ctx_walked, ctx_max = drive(
+        opt_c, ctx_ref, "contextual",
+        lambda x, c: (context_truth([[float(x[0]), c]])
+                      + 0.05 * ctx_rng.normal(size=(1, 2))),
+        contexts, opt_c.scaling, lambda: opt_c.get_maximum(context=0.1))
+    check(ctx_launches["K2"] > 0,
+          "K2 was never launched on the contextual path")
+    check(ctx_launches["K4"] > 0 or ctx_walked == 0,
+          "the contextual walk ran but K4 was never launched")
+    check(ctx_launches["K1"] == ctx_launches["K3"] == 0,
+          "the contextual path launched the stationary kernels")
+    print(f"contextual path: 10 iterations (context 0.0 x5, 0.1 x5), |S| "
+          f"last={opt_c.stats.last.safe_count}, walk chunks={ctx_walked}, "
+          f"launches {ctx_launches}, get_maximum(context=0.1) x="
+          f"{np.round(ctx_max[0], 4).tolist()} lb={ctx_max[1]:.4f}",
           flush=True)
 
-    # 7. times ----------------------------------------------------------------
-    med_opt = float(np.median(opt_ms[1:]))
-    med_add = float(np.median(add_ms[1:]))
-    print(f"main path times (CUDA events, iterations 2-10): median "
-          f"optimize() {med_opt:.3f} ms, median add_new_data_point() "
-          f"{med_add:.3f} ms; grid points/s "
-          f"{grid_np.shape[0] / (med_opt / 1e3):.4g}",
-          flush=True)
+    # 10. times ---------------------------------------------------------------
+    for label, o_ms, a_ms, n in (("flagship", opt_ms, add_ms,
+                                  grid_np.shape[0]),
+                                 ("contextual", ctx_opt_ms, ctx_add_ms,
+                                  params_np.shape[0])):
+        med_opt = float(np.median(o_ms[1:]))
+        print(f"{label} path times (CUDA events, iterations 2-10): median "
+              f"optimize() {med_opt:.3f} ms, median add_new_data_point() "
+              f"{float(np.median(a_ms[1:])):.3f} ms; grid points/s "
+              f"{n / (med_opt / 1e3):.4g}", flush=True)
     ops32_k1 = fp.interval_operands(
         [g.kern for g in gps32], [g.state for g in gps32],
         grid64.float(), BETA)
-    times = {
-        "K1": (cuda_ms(lambda: fp.fused_intervals(*ops32_k1)),
-               cuda_ms(lambda: fp.fused_intervals_plain(*ops32_k1))),
-        "K3": (cuda_ms(lambda: fe.fused_expander(*ops32)),
-               cuda_ms(lambda: fe.fused_expander_plain(*ops32))),
+    f32 = torch.float32
+    N, d = grid_np.shape
+    C = 32
+    n_flag = int(gps32[0].state.count)
+    leaves = plan_leaves(k2_ops32[4], k2_ops32[6])
+    timed = {
+        "K1": (lambda: fp.fused_intervals(*ops32_k1),
+               lambda: fp.fused_intervals_plain(*ops32_k1),
+               interval_bound(f32, 2, N, d, 64, n_flag)),
+        "K3": (lambda: fe.fused_expander(*ops32),
+               lambda: fe.fused_expander_plain(*ops32),
+               expander_bound(f32, 2, N, int(ops32[1].sum()), d, 64, n_flag,
+                              C)),
+        "K2": (lambda: fp.fused_intervals_plan(*k2_ops32),
+               lambda: fp.fused_intervals_plan_plain(*k2_ops32),
+               interval_bound(f32, 1, N, d, 256, n_k2, leaves)),
+        "K4": (lambda: fe.fused_expander_plan(*k4_ops32),
+               lambda: fe.fused_expander_plan_plain(*k4_ops32),
+               expander_bound(f32, 1, N, int(k4_ops32[1].sum()), d, 256,
+                              n_k2, C, leaves)),
     }
-    for name, (k_ms, p_ms) in times.items():
-        print(f"{name} float32 at the flagship shapes: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms", flush=True)
+    times = {}
+    for name, (kernel, plain, (bound_ms, bound_by)) in timed.items():
+        times[name] = (cuda_ms(kernel), cuda_ms(plain), bound_ms, bound_by)
+        print(f"{name} float32: kernel {times[name][0]:.4f} ms, plain "
+              f"{times[name][1]:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
 
-    kernels = [
-        {"name": "K1 fused_intervals", "route": "cuda",
-         "source": "safeopt_torch/ops/csrc/fused_intervals.cu",
-         "replaces": "safeopt_tpu/ops/fused_posterior.py:454",
-         "launches": launches["K1"], "max_abs_err": k1_err64,
-         "max_abs_err_f32": k1_err32,
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
-        {"name": "K3 fused_expander", "route": "cuda",
-         "source": "safeopt_torch/ops/csrc/fused_expander.cu",
-         "replaces": "safeopt_tpu/ops/fused_expander.py:233",
-         "launches": launches["K3"], "max_abs_err": k3_err64,
-         "ms": times["K3"][0], "plain_ms": times["K3"][1]},
-    ]
+    meta = {
+        "K1": ("K1 fused_intervals", "fused_intervals.cu",
+               "safeopt_tpu/ops/fused_posterior.py:454", launches["K1"],
+               k1_err64),
+        "K3": ("K3 fused_expander", "fused_expander.cu",
+               "safeopt_tpu/ops/fused_expander.py:233", launches["K3"],
+               k3_err64),
+        "K2": ("K2 fused_intervals_plan", "fused_intervals_plan.cu",
+               "safeopt_tpu/ops/fused_posterior.py:294", ctx_launches["K2"],
+               k2_err),
+        "K4": ("K4 fused_expander_plan", "fused_expander_plan.cu",
+               "safeopt_tpu/ops/fused_expander.py:44", ctx_launches["K4"],
+               k4_err),
+    }
+    kernels = []
+    for key in ("K1", "K3", "K2", "K4"):
+        name, src, replaces, n_launch, err = meta[key]
+        k_ms, p_ms, b_ms, b_by = times[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"safeopt_torch/ops/csrc/{src}", "replaces": replaces,
+            "launches": n_launch, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes these fused functions
+            "library_ms": None})
+    kernels[0]["max_abs_err_f32"] = k1_err32
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

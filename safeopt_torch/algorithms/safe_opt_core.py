@@ -4,20 +4,23 @@ Counterpart of ``safeopt_tpu/algorithms/safe_opt_core.py:68-592``. One
 ``safeopt_step`` runs the reference call stack optimize() ->
 update_confidence_intervals -> compute_sets -> get_new_query_point:
 
-1. **Intervals** (K1, ``ops/fused_posterior.py``): every GP's posterior
-   over the grid and ``Q = mu -+ beta sigma``, one grid pass per group
-   of GPs that share a family and a capacity.
+1. **Intervals** (``ops/fused_posterior.py``): every GP's posterior
+   over the grid and ``Q = mu -+ beta sigma``. GPs of one stationary
+   family over every grid column share one K1 pass per capacity; every
+   other GP (a Sum/Product algebra, Cosine or Bias leaves, an
+   ``active_dims`` subset, as contextual SafeOpt uses) gets a K2 pass of
+   its own, as the JAX package routes them (``safe_opt_core.py:189-198``).
 2. **Classification**: safe set S (strict ``l > fmin`` over every GP),
    maximizers M and the expander candidates.
 3. **Expander walk**: candidates are visited in the reference order —
    width descending, the larger grid index first on exact ties — a
    chunk at a time; K3 (``ops/fused_expander.py``) tests a whole chunk
    by rank-1 conditioning on a virtual observation, and the walk stops
-   at the first chunk with a success. The order comes from the exact
-   top-k (K5, ``ops/topk.py``) on a flipped key: the first chunk from a
-   top-k of ``chunk``, and, only if the walk goes on, the whole order
-   once. The JAX package's ``lax.while_loop`` becomes a Python loop with
-   one host sync per chunk.
+   at the first chunk with a success (K4 for the GPs on K2). The order
+   comes from the exact top-k (K5, ``ops/topk.py``) on a flipped key:
+   the first chunk from a top-k of ``chunk``, and, only if the walk goes
+   on, the whole order once. The JAX package's ``lax.while_loop``
+   becomes a Python loop with one host sync per chunk.
 4. **Selection**: masked argmax (first maximum) of the scaled width over
    M | G, or of the objective upper bound over S for safe-UCB.
 
@@ -27,12 +30,14 @@ scalars per step (the walk's syncs and the packed ``diag``).
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
-from ..ops.fused_expander import fused_expander_predicate_batched
-from ..ops.fused_posterior import check_kernel, fused_intervals_batched
+from ..ops.fused_expander import (fused_expander_predicate_batched,
+                                  fused_expander_predicate_single)
+from ..ops.fused_posterior import (check_kernel, fused_intervals_batched,
+                                   fused_intervals_single, supports_kernel)
 from ..ops.topk import top_k
 
 __all__ = ["StepResult", "safeopt_step", "safe_maximum",
@@ -76,16 +81,23 @@ def _pack_result(Q, S, M, G, next_idx, has_safe, walk_chunks) -> StepResult:
                       walk_chunks=walk_chunks)
 
 
-def _gp_groups(kernels, states, d: int) -> List[slice]:
-    """GPs sharing one K1/K3 launch: all of them when they share a
-    family and a capacity, otherwise one launch per GP."""
-    for kern in kernels:
+def _gp_groups(kernels, states, d: int) -> List[Tuple[List[int], bool]]:
+    """``(indices, planned)`` per grid launch: the GPs K1/K3 take, one
+    group per family and capacity, then every other GP alone on K2/K4
+    (``planned``). Raises ``NotImplementedError`` for a kernel neither
+    takes."""
+    groups, batched = [], {}
+    for i, (kern, st) in enumerate(zip(kernels, states)):
         check_kernel(kern, d)
-    G = len(kernels)
-    if (len({type(k) for k in kernels}) == 1
-            and len({st.capacity for st in states}) == 1):
-        return [slice(0, G)]
-    return [slice(i, i + 1) for i in range(G)]
+        if supports_kernel(kern, d):
+            key = (type(kern), st.capacity)
+            if key not in batched:
+                batched[key] = []
+                groups.append((batched[key], False))
+            batched[key].append(i)
+        else:
+            groups.append(([i], True))
+    return groups
 
 
 # ---------------------------------------------------------------------------
@@ -96,13 +108,17 @@ def _confidence_intervals(kernels, states, grid, beta):
     """``Q`` (N, 2G), plus the posterior ``mu`` and ``sigma`` (G, N)
     recovered from the interval rows for the expander pass."""
     N, d = grid.shape
-    groups = _gp_groups(kernels, states, d)
-    if len(groups) == 1:
-        out = fused_intervals_batched(kernels, states, grid, beta)
-    else:
-        out = torch.cat([fused_intervals_batched(kernels[s], states[s],
-                                                 grid, beta)
-                         for s in groups])                  # (G, 2, N)
+    rows = [None] * len(kernels)
+    for idx, planned in _gp_groups(kernels, states, d):
+        if planned:
+            rows[idx[0]] = fused_intervals_single(
+                kernels[idx[0]], states[idx[0]], grid, beta)
+            continue
+        out = fused_intervals_batched([kernels[i] for i in idx],
+                                      [states[i] for i in idx], grid, beta)
+        for j, i in enumerate(idx):
+            rows[i] = out[j]
+    out = torch.stack(rows)                                  # (G, 2, N)
     l, u = out[:, 0], out[:, 1]
     Q = out.permute(2, 0, 1).reshape(N, -1)                  # [l0,u0,l1,..]
     mu = (l + u) * 0.5
@@ -160,12 +176,19 @@ def _chunk_expander_predicate(kernels, states, grid, Q, unsafe, mu, sigma,
 
     if lipschitz is None:
         valid = torch.ones_like(pred)
-        for s in _gp_groups(kernels, states, grid.shape[1]):
-            ucs = Q[grid_idx][:, 2 * s.start + 1:2 * s.stop:2].T  # (g, C)
-            preds = fused_expander_predicate_batched(
-                kernels[s], states[s], grid, unsafe, mu[s], sigma[s], Xc,
-                ucs, valid, beta, fmin[s])
-            for j, i in enumerate(range(s.start, s.stop)):
+        ucs = Q[grid_idx][:, 1::2].T                             # (G, C)
+        for idx, planned in _gp_groups(kernels, states, grid.shape[1]):
+            if planned:
+                i = idx[0]
+                preds = fused_expander_predicate_single(
+                    kernels[i], states[i], grid, unsafe, mu[i], sigma[i],
+                    Xc, ucs[i], valid, beta, fmin[i])[None]
+            else:
+                preds = fused_expander_predicate_batched(
+                    [kernels[i] for i in idx], [states[i] for i in idx],
+                    grid, unsafe, mu[idx], sigma[idx], Xc, ucs[idx], valid,
+                    beta, fmin[idx])
+            for j, i in enumerate(idx):
                 pred &= preds[j] | (fmin[i] == _NINF)
     else:
         d2 = (torch.sum(Xc * Xc, dim=1)[:, None]

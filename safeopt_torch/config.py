@@ -3,9 +3,10 @@
 Counterpart of ``safeopt_tpu/config.py``. The port is dtype-polymorphic
 like the JAX package: the default compute dtype follows the device a
 model lives on — float64 on the CPU (where the parity tests run, like
-x64 in the JAX tests) and float32 on CUDA (like f32 on the TPU). There
-is no implicit move between devices and no default device that depends
-on what hardware is present: every model and grid names its device.
+x64 in the JAX tests) and float32 on CUDA (like f32 on the TPU). The
+entry points default to the card (``device='cuda'``) and run on the CPU
+only when the caller asks for it; no default depends on what hardware is
+present, and nothing moves between devices implicitly.
 
 Decision-path products run at full float32 on the card. PyTorch's
 float32 matrix products may use TF32 (about three decimal digits) when

@@ -2,12 +2,14 @@
 
 ``kernel_params`` and ``gp_arrays`` read any kernel or ``GPRegression``
 with the attribute layout this package shares with ``safeopt_tpu``
-(``variance``, ``lengthscale``, ``ARD``, ``active_dims``; the host
-factor ``gp._host`` with ``X``, ``Y``, ``L``, ``Linv``, ``w``), through
-``numpy.asarray`` only. ``kernel_from_params`` and ``gp_from_arrays``
-build this package's objects from those arrays. Given the float64
-factor arrays, the new ``GPRegression`` holds that very factor instead
-of refactorizing, so both packages compute from identical operands.
+(``variance``, ``lengthscale``, ``ARD``, ``active_dims``; ``k1`` and
+``k2`` of a ``Product`` or ``Sum``; the host factor ``gp._host`` with
+``X``, ``Y``, ``L``, ``Linv``, ``w``), through ``numpy.asarray`` only. A
+kernel tree becomes nested plain dicts. ``kernel_from_params`` and
+``gp_from_arrays`` build this package's objects from those values.
+Given the float64 factor arrays, the new ``GPRegression`` holds that
+very factor instead of refactorizing, so both packages compute from
+identical operands.
 """
 
 from __future__ import annotations
@@ -17,37 +19,52 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .gp.kernels import Exponential, Matern32, Matern52, RBF
+from .gp.kernels import (Bias, Cosine, Exponential, Matern32, Matern52,
+                         Product, RBF, Sum, White)
 from .gp.regression import GPRegression
 
 __all__ = ["kernel_params", "kernel_from_params", "gp_arrays",
            "gp_from_arrays"]
 
-_FAMILIES = {"rbf": RBF, "matern32": Matern32, "matern52": Matern52,
-             "exponential": Exponential}
+_LEAVES = {"rbf": RBF, "matern32": Matern32, "matern52": Matern52,
+           "exponential": Exponential, "cosine": Cosine, "bias": Bias,
+           "white": White}
+_CONSTANT = ("bias", "white")          # leaves without a lengthscale
+_COMPOSITES = {"product": Product, "sum": Sum}
 
 
 def kernel_params(kernel) -> dict:
-    """Plain parameters of a stationary kernel (either package)."""
+    """Plain parameters of a kernel tree (either package): a leaf's
+    ``kind``, ``input_dim``, ``variance``, ``active_dims`` and, where it
+    has them, ``lengthscale`` and ``ARD``; a Product or Sum as ``kind``
+    with the dicts ``k1`` and ``k2`` of its parts."""
     kind = type(kernel).__name__.lower()
-    if kind not in _FAMILIES:
+    if kind in _COMPOSITES:
+        return dict(kind=kind, k1=kernel_params(kernel.k1),
+                    k2=kernel_params(kernel.k2))
+    if kind not in _LEAVES:
         raise NotImplementedError(f"no conversion for {type(kernel).__name__}")
-    return dict(kind=kind, input_dim=int(kernel.input_dim),
-                variance=float(np.asarray(kernel.variance)),
-                lengthscale=np.array(kernel.lengthscale, dtype=np.float64),
-                ARD=bool(kernel.ARD),
-                active_dims=tuple(int(a) for a in kernel.active_dims))
+    out = dict(kind=kind, input_dim=int(kernel.input_dim),
+               variance=float(np.asarray(kernel.variance)),
+               active_dims=tuple(int(a) for a in kernel.active_dims))
+    if kind not in _CONSTANT:
+        out.update(lengthscale=np.array(kernel.lengthscale, dtype=np.float64),
+                   ARD=bool(kernel.ARD))
+    return out
 
 
-def kernel_from_params(kind: str, input_dim: int, variance, lengthscale,
-                       ARD: bool = False, active_dims=None):
-    """Build one of the four stationary kernels from plain values."""
-    if kind not in _FAMILIES:
+def kernel_from_params(kind: str, **params):
+    """Build this package's kernel tree from ``kernel_params`` values."""
+    if kind in _COMPOSITES:
+        return _COMPOSITES[kind](kernel_from_params(**params["k1"]),
+                                 kernel_from_params(**params["k2"]))
+    if kind not in _LEAVES:
         raise NotImplementedError(
-            f"kernel kind {kind!r}; the port has {sorted(_FAMILIES)}")
-    return _FAMILIES[kind](input_dim, variance=variance,
-                           lengthscale=np.asarray(lengthscale, np.float64),
-                           ARD=ARD, active_dims=active_dims)
+            f"kernel kind {kind!r}; the port has "
+            f"{sorted(_LEAVES) + sorted(_COMPOSITES)}")
+    if "lengthscale" in params:
+        params["lengthscale"] = np.asarray(params["lengthscale"], np.float64)
+    return _LEAVES[kind](**params)
 
 
 def gp_arrays(gp) -> dict:
@@ -61,7 +78,7 @@ def gp_arrays(gp) -> dict:
 
 
 def gp_from_arrays(kernel, X, Y, noise_var: float, capacity: int,
-                   L=None, Linv=None, w=None, device="cpu",
+                   L=None, Linv=None, w=None, device="cuda",
                    dtype: Optional[torch.dtype] = None) -> GPRegression:
     """A ``GPRegression`` over (X, Y) with the given capacity.
 

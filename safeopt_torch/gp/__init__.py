@@ -1,7 +1,8 @@
 """GP engine of the PyTorch port: kernels, host f64 factor, regression."""
 
-from .kernels import Exponential, Kernel, Matern32, Matern52, RBF
+from .kernels import (Bias, Cosine, Exponential, Kernel, Matern32, Matern52,
+                      Product, RBF, Sum, White)
 from .regression import GPRegression, GPState
 
-__all__ = ["Kernel", "RBF", "Matern32", "Matern52", "Exponential",
-           "GPRegression", "GPState"]
+__all__ = ["Kernel", "RBF", "Matern32", "Matern52", "Exponential", "Cosine",
+           "Bias", "White", "Product", "Sum", "GPRegression", "GPState"]

@@ -7,9 +7,9 @@ silently emptying the safe set. So the factor is computed and updated
 on the host in NumPy/SciPy float64, and the device holds a cast copy
 for the O(N) grid work (``regression.GPRegression``).
 
-This module covers the slice's four stationary kernels on the SciPy
-path. The JAX package's native C++ engine (``csrc/host_factor.cpp``)
-is not bound here yet.
+This module covers the stationary families, Bias, White and their
+Product/Sum algebras on the SciPy path. The JAX package's native C++
+engine (``csrc/host_factor.cpp``) is not bound here yet.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import scipy.linalg
 
-from .kernels import Exponential, Kernel, Matern32, Matern52, RBF
+from .kernels import (Bias, Cosine, Exponential, Kernel, Matern32, Matern52,
+                      Product, RBF, Sum, White)
 
 __all__ = ["np_kernel", "np_kdiag", "HostFactor"]
 
@@ -25,7 +26,21 @@ __all__ = ["np_kernel", "np_kdiag", "HostFactor"]
 def np_kernel(kernel: Kernel, X: np.ndarray, X2=None) -> np.ndarray:
     """Evaluate a kernel gram in NumPy float64 (host mirror of
     ``kernels.Kernel.K``)."""
-    if not isinstance(kernel, (RBF, Matern32, Matern52, Exponential)):
+    if isinstance(kernel, Product):
+        return np_kernel(kernel.k1, X, X2) * np_kernel(kernel.k2, X, X2)
+    if isinstance(kernel, Sum):
+        return np_kernel(kernel.k1, X, X2) + np_kernel(kernel.k2, X, X2)
+    if isinstance(kernel, White):
+        n = np.atleast_2d(X).shape[0]
+        if X2 is None:
+            return float(kernel.variance) * np.eye(n)
+        return np.zeros((n, np.atleast_2d(X2).shape[0]))
+    if isinstance(kernel, Bias):
+        n = np.atleast_2d(X).shape[0]
+        m = n if X2 is None else np.atleast_2d(X2).shape[0]
+        return float(kernel.variance) * np.ones((n, m))
+    if not isinstance(kernel, (RBF, Matern32, Matern52, Exponential,
+                               Cosine)):
         raise TypeError(f"no host implementation for {type(kernel).__name__}")
 
     ls = kernel.lengthscale.numpy()
@@ -41,6 +56,8 @@ def np_kernel(kernel: Kernel, X: np.ndarray, X2=None) -> np.ndarray:
     if isinstance(kernel, RBF):
         return var * np.exp(-0.5 * r2)
     r = np.sqrt(r2)
+    if isinstance(kernel, Cosine):
+        return var * np.cos(r)
     if isinstance(kernel, Exponential):
         return var * np.exp(-r)
     if isinstance(kernel, Matern52):
@@ -52,6 +69,10 @@ def np_kernel(kernel: Kernel, X: np.ndarray, X2=None) -> np.ndarray:
 
 def np_kdiag(kernel: Kernel, X: np.ndarray) -> np.ndarray:
     """Prior variance diagonal in float64."""
+    if isinstance(kernel, Product):
+        return np_kdiag(kernel.k1, X) * np_kdiag(kernel.k2, X)
+    if isinstance(kernel, Sum):
+        return np_kdiag(kernel.k1, X) + np_kdiag(kernel.k2, X)
     return float(kernel.variance) * np.ones(np.atleast_2d(X).shape[0])
 
 

@@ -1,10 +1,11 @@
-"""Stationary covariance kernels for the PyTorch port.
+"""Covariance kernels for the PyTorch port.
 
-Counterpart of ``safeopt_tpu/gp/kernels.py:58-222``: ``Kernel``,
-``_Stationary`` (scalar or ARD lengthscales, ``active_dims``, ``copy``)
-and the four stationary families RBF, Matern-3/2, Matern-5/2 and
-Exponential. Hyperparameters are float64 CPU tensors; ``K`` and
-``Kdiag`` cast them to the dtype and device of their inputs.
+Counterpart of ``safeopt_tpu/gp/kernels.py``: ``Kernel`` (with ``*``
+and ``+`` building ``Product`` and ``Sum``), ``_Stationary`` (scalar or
+ARD lengthscales, ``active_dims``, ``copy``), the stationary families
+RBF, Matern-3/2, Matern-5/2, Exponential and Cosine, the constant
+``Bias`` and ``White`` noise. Hyperparameters are float64 CPU tensors;
+``K`` and ``Kdiag`` cast them to the dtype and device of their inputs.
 
 ``K`` keeps the JAX package's gram form, ``|x|^2 + |z|^2 - 2 x.z^T``
 with the cross term as one matrix product, so that it agrees with the
@@ -19,7 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["Kernel", "RBF", "Matern32", "Matern52", "Exponential"]
+__all__ = ["Kernel", "RBF", "Matern32", "Matern52", "Exponential", "Cosine",
+           "Bias", "White", "Product", "Sum"]
 
 
 def _as_active_dims(active_dims, input_dim: int) -> Tuple[int, ...]:
@@ -57,6 +59,12 @@ class Kernel:
     def Kdiag(self, X) -> torch.Tensor:
         """Diagonal of k(X, X) — the prior variance at each input."""
         raise NotImplementedError
+
+    def __mul__(self, other: "Kernel") -> "Product":
+        return Product(self, other)
+
+    def __add__(self, other: "Kernel") -> "Sum":
+        return Sum(self, other)
 
 
 class _Stationary(Kernel):
@@ -155,3 +163,108 @@ class Exponential(_Stationary):
     def _K_of_r2(self, r2):
         r = torch.sqrt(r2 + 1e-36)
         return self.variance.to(r2) * torch.exp(-r)
+
+
+class Cosine(_Stationary):
+    """Cosine kernel: k(r) = variance * cos(r) (GPy.kern.Cosine).
+
+    Restricted to ``input_dim == 1``, as in the JAX package: cos(|x - z|)
+    is a valid covariance only in 1-D (its gram is indefinite for
+    ``input_dim >= 2``). Apply it to one column with ``active_dims`` and
+    compose with products for more.
+    """
+
+    def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
+                 active_dims=None, name: Optional[str] = None):
+        if int(input_dim) != 1:
+            raise ValueError(
+                "Cosine is a valid covariance only in 1-D (its gram is "
+                "indefinite for input_dim >= 2); apply it to one column "
+                "via active_dims and compose with products instead")
+        super().__init__(input_dim, variance=variance,
+                         lengthscale=lengthscale, ARD=ARD,
+                         active_dims=active_dims, name=name)
+
+    def _K_of_r2(self, r2):
+        return self.variance.to(r2) * torch.cos(torch.sqrt(r2 + 1e-36))
+
+
+class _Constant(_Stationary):
+    """A kernel with a variance and no lengthscale (Bias, White)."""
+
+    def __init__(self, input_dim, variance=1.0, active_dims=None,
+                 name: Optional[str] = None):
+        super().__init__(input_dim, variance=variance,
+                         active_dims=active_dims, name=name)
+
+    def copy(self) -> "_Constant":
+        return type(self)(self.input_dim, variance=self.variance.clone(),
+                          active_dims=self.active_dims, name=self.name)
+
+
+class Bias(_Constant):
+    """Constant kernel: k(x, z) = variance everywhere (GPy.kern.Bias)."""
+
+    def K(self, X, X2=None) -> torch.Tensor:
+        X = torch.atleast_2d(X)
+        m = X.shape[0] if X2 is None else torch.atleast_2d(X2).shape[0]
+        return self.variance.to(X).expand(X.shape[0], m).clone()
+
+
+class White(_Constant):
+    """White-noise kernel (GPy.kern.White): ``K(X) = variance * I`` on one
+    input set and ``K(X, X2) = 0`` across two, so it only adds prior
+    variance on the diagonal."""
+
+    def K(self, X, X2=None) -> torch.Tensor:
+        X = torch.atleast_2d(X)
+        if X2 is None:
+            return self.variance.to(X) * torch.eye(
+                X.shape[0], dtype=X.dtype, device=X.device)
+        return X.new_zeros((X.shape[0], torch.atleast_2d(X2).shape[0]))
+
+
+class _Composite(Kernel):
+    """Shared machinery of the two-part compositions Product and Sum."""
+
+    def __init__(self, k1: Kernel, k2: Kernel):
+        self.k1 = k1
+        self.k2 = k2
+
+    @property
+    def input_dim(self) -> int:
+        # one past the largest active dim of either part
+        return max(max(self.k1.active_dims), max(self.k2.active_dims)) + 1
+
+    @property
+    def active_dims(self) -> Tuple[int, ...]:
+        return tuple(sorted(set(self.k1.active_dims)
+                            | set(self.k2.active_dims)))
+
+    def copy(self) -> "_Composite":
+        """Independent copy of both parts."""
+        return type(self)(self.k1.copy(), self.k2.copy())
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.k1!r}, {self.k2!r})"
+
+
+class Product(_Composite):
+    """Product composition ``k1 * k2``; the reference's contextual kernel
+    is ``RBF(active_dims=[0]) * RBF(active_dims=[1])``."""
+
+    def K(self, X, X2=None) -> torch.Tensor:
+        return self.k1.K(X, X2) * self.k2.K(X, X2)
+
+    def Kdiag(self, X) -> torch.Tensor:
+        return self.k1.Kdiag(X) * self.k2.Kdiag(X)
+
+
+class Sum(_Composite):
+    """Sum composition ``k1 + k2`` (GPy ``kern + kern``)."""
+
+    def K(self, X, X2=None) -> torch.Tensor:
+        return self.k1.K(X, X2) + self.k2.K(X, X2)
+
+    def Kdiag(self, X) -> torch.Tensor:
+        return self.k1.Kdiag(X) + self.k2.Kdiag(X)

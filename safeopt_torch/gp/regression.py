@@ -116,14 +116,15 @@ class GPRegression:
     capacity : int, optional
         Initial padded buffer size; grows automatically (x2 refit).
     device : str or torch.device
-        Where the device mirror lives (``'cpu'`` or ``'cuda'``).
+        Where the device mirror lives: the card (``'cuda'``, the
+        default) unless the caller asks for ``'cpu'``.
     dtype : torch.dtype, optional
         Device mirror dtype; defaults to ``config.default_dtype(device)``.
     """
 
     def __init__(self, X, Y, kernel: Optional[Kernel] = None,
                  noise_var: float = 1.0, capacity: Optional[int] = None,
-                 device="cpu", dtype: Optional[torch.dtype] = None):
+                 device="cuda", dtype: Optional[torch.dtype] = None):
         X = np.atleast_2d(np.asarray(X, dtype=np.float64))
         Y = np.asarray(Y, dtype=np.float64).reshape(X.shape[0], -1)
         if Y.shape[1] != 1:

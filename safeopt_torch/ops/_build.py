@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``ops/csrc/`` are plain CUDA C++ with a C interface
-(no PyTorch headers), compiled at first use into ONE shared library
-with ``nvcc`` for Hopper (``sm_90a``) and loaded with ``ctypes``. The
+(no PyTorch headers), compiled at first use with ``nvcc`` for Hopper
+(``sm_90a``), one ``nvcc`` per source all started together, linked into
+ONE shared library and loaded with ``ctypes``. The
 library is cached under ``build/safeopt_torch/`` at the repository
 root, keyed on a hash of the sources and flags, so an edited source
 rebuilds. Nothing here runs at import time: a machine without ``nvcc``
@@ -29,7 +30,7 @@ __all__ = ["library", "build_info"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "safeopt_torch"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,10 @@ _SIGNATURES = {
     "safeopt_intervals_f64": [_P] * 7 + [_I] * 5 + [_P],
     "safeopt_expander_f32": [_P] * 11 + [_I] * 6 + [_P],
     "safeopt_expander_f64": [_P] * 11 + [_I] * 6 + [_P],
+    "safeopt_intervals_plan_f32": [_P] * 9 + [_I] * 4 + [_P],
+    "safeopt_intervals_plan_f64": [_P] * 9 + [_I] * 4 + [_P],
+    "safeopt_expander_plan_f32": [_P] * 13 + [_I] * 5 + [_P],
+    "safeopt_expander_plan_f64": [_P] * 13 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -74,21 +79,37 @@ def _build() -> Path:
         _info.update(path=str(so), seconds=0.0, cached=True, log="")
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: a process building at the
-    # same time never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp,
-           *[str(s) for s in sources if s.suffix == ".cu"]]
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
-    log = proc.stdout + proc.stderr
+    # build into a private directory, then rename the library: a process
+    # building at the same time never loads a half-written one
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in (s for s in sources if s.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(lib, so)
+    log = "".join(log)
     (so.with_suffix(".log")).write_text(log)
     _info.update(path=str(so), seconds=time.perf_counter() - start,
                  cached=False, log=log)

@@ -1,8 +1,10 @@
 // Shared device helpers of the safeopt_torch kernels.
 //
-// Both grid kernels (K1, K3) are a small matrix product A^T K per block
-// of grid points followed by a per-point epilogue, where K is the block's
-// gram (kernel values between the training inputs and the points). They
+// The grid kernels (K1-K4) are a small matrix product A^T K per block of
+// grid points followed by a per-point epilogue, where K is the block's
+// gram (kernel values between the training inputs and the points). How
+// one gram entry is computed is a policy (StationaryGram for K1/K3,
+// PlanGram for K2/K4); the tiling is shared. They
 // share one tiling: a block of kThreads threads owns kP grid points and a
 // tile of R rows (R = kNTY * TM); each thread accumulates a TM x kTN
 // register tile of the product. The contraction runs over the training
@@ -20,8 +22,19 @@
 
 namespace safeopt {
 
-// Kernel families; the numbering matches KINDS in ops/fused_posterior.py.
-enum Kind { kRBF = 0, kMatern32 = 1, kMatern52 = 2, kExponential = 3 };
+// Leaf kinds; the numbering matches LEAF_KINDS in ops/fused_posterior.py
+// (K1/K3 take the first four).
+enum Kind {
+  kRBF = 0,
+  kMatern32 = 1,
+  kMatern52 = 2,
+  kExponential = 3,
+  kCosine = 4,
+  kBias = 5
+};
+
+constexpr int kMaxLeaves = 8;  // leaves of a K2/K4 plan (MAX_LEAVES)
+constexpr int kMaxDim = 64;    // grid columns (MAX_DIM)
 
 constexpr int kThreads = 256;       // threads per block
 constexpr int kNTX = 16;            // point groups per block
@@ -34,14 +47,19 @@ __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
 __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
+// the accurate cosine (cosf, not the __cosf intrinsic)
+__device__ __forceinline__ float dcos(float x) { return cosf(x); }
+__device__ __forceinline__ double dcos(double x) { return cos(x); }
 
-// Stationary kernel value from the lengthscale-scaled squared distance,
-// the same expressions as the JAX package's kernel bodies (including
-// the sqrt guard of the Matern and exponential families).
+// Distance-based leaf value from the lengthscale-scaled squared
+// distance, the same expressions as the JAX package's kernel bodies
+// (including the sqrt guard of the Matern, exponential and cosine
+// kinds).
 template <typename T>
 __device__ __forceinline__ T kfun(int kind, T r2, T variance) {
   if (kind == kRBF) return variance * dexp(T(-0.5) * r2);
   const T r = dsqrt(r2 + T(1e-36));
+  if (kind == kCosine) return variance * dcos(r);
   if (kind == kExponential) return variance * dexp(-r);
   if (kind == kMatern52) {
     const T s5r = T(2.23606797749978969640917366873128) * r;
@@ -105,26 +123,97 @@ __device__ __forceinline__ void stage_a(T* at, const T* __restrict__ a,
   }
 }
 
-// kt[c * kP + p] = k(xs[c], zs[:, p]) for the chunk's first `rows`
-// training rows (xs already offset to the chunk, scaled by the
-// lengthscale), zero past them. Distances in difference form.
+// One stationary family over every column: x and the points are both
+// already divided by the lengthscale (K1, K3).
 template <typename T>
+struct StationaryGram {
+  int kind;
+  T variance;
+  // k(x, zs[:, p]) for a row x (global or shared memory) and the block's
+  // staged points zs (d x kP)
+  __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
+                                          int d) const {
+    T r2 = T(0);
+    for (int k = 0; k < d; ++k) {
+      const T diff = x[k] - zs[k * kP + p];
+      r2 += diff * diff;
+    }
+    return kfun(kind, r2, variance);
+  }
+};
+
+// A plan of a Sum/Product algebra (K2, K4; the JAX package's _part_gram):
+// raw inputs, per leaf q a kind, a variance and a scale row (1 /
+// lengthscale on its active columns, 0 elsewhere, so inactive columns
+// add exactly 0). Leaf values multiply within a term and terms add;
+// last[q] marks the leaf that ends its term. All arrays in shared memory.
+template <typename T>
+struct PlanGram {
+  const T* scales;  // P x d
+  const T* pvar;    // P
+  const int* kind;  // P
+  const int* last;  // P
+  int P;
+  __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
+                                          int d) const {
+    T sum = T(0), prod = T(1);
+    for (int q = 0; q < P; ++q) {
+      T v = pvar[q];
+      if (kind[q] != kBias) {  // a constant leaf reads no distance
+        const T* s = scales + q * d;
+        T r2 = T(0);
+        for (int k = 0; k < d; ++k) {
+          const T diff = (x[k] - zs[k * kP + p]) * s[k];
+          r2 += diff * diff;
+        }
+        v = kfun(kind[q], r2, v);
+      }
+      prod *= v;
+      if (last[q]) {
+        sum += prod;
+        prod = T(1);
+      }
+    }
+    return sum;
+  }
+};
+
+// A plan staged in shared memory once per block: plan is the int32 (2, P)
+// array [kinds; term indices] and scales (P, d) as ops/fused_posterior.py
+// part_plan builds them. Ends with a barrier.
+template <typename T>
+struct PlanSmem {
+  T scales[kMaxLeaves * kMaxDim];
+  T pvar[kMaxLeaves];
+  int kind[kMaxLeaves];
+  int last[kMaxLeaves];
+
+  __device__ __forceinline__ PlanGram<T> stage(const T* __restrict__ g_scales,
+                                               const T* __restrict__ g_pvar,
+                                               const int* __restrict__ plan,
+                                               int P, int d) {
+    for (int t = threadIdx.x; t < P * d; t += kThreads) scales[t] = g_scales[t];
+    const int q = threadIdx.x;
+    if (q < P) {
+      pvar[q] = g_pvar[q];
+      kind[q] = plan[q];
+      last[q] = q == P - 1 || plan[P + q + 1] != plan[P + q];
+    }
+    __syncthreads();
+    return PlanGram<T>{scales, pvar, kind, last, P};
+  }
+};
+
+// kt[c * kP + p] = gram(xs[c], zs[:, p]) for the chunk's first `rows`
+// training rows (xs already offset to the chunk), zero past them.
+template <typename T, class Gram>
 __device__ __forceinline__ void stage_gram(T* kt, const T* __restrict__ xs,
                                            const T* zs, int rows, int d,
-                                           int kind, T variance) {
+                                           const Gram& gram) {
   for (int t = threadIdx.x; t < kKC * kP; t += kThreads) {
     const int c = t / kP;
     const int p = t - c * kP;
-    T v = T(0);
-    if (c < rows) {
-      T r2 = T(0);
-      for (int k = 0; k < d; ++k) {
-        const T diff = __ldg(xs + (size_t)c * d + k) - zs[k * kP + p];
-        r2 += diff * diff;
-      }
-      v = kfun(kind, r2, variance);
-    }
-    kt[t] = v;
+    kt[t] = c < rows ? gram(xs + (size_t)c * d, zs, p, d) : T(0);
   }
 }
 
@@ -146,8 +235,8 @@ __device__ __forceinline__ void mma_chunk(T (&acc)[TM][kTN], const T* at,
   }
 }
 
-// Scaled grid points of the block: zs[k * kP + p] = zt[k, i0 + p] *
-// ils[k], zero past N.
+// Grid points of the block: zs[k * kP + p] = zt[k, i0 + p] * ils[k]
+// (raw when ils is null), zero past N.
 template <typename T>
 __device__ __forceinline__ void stage_points(T* zs, const T* __restrict__ zt,
                                              const T* __restrict__ ils,
@@ -155,7 +244,8 @@ __device__ __forceinline__ void stage_points(T* zs, const T* __restrict__ zt,
   for (int t = threadIdx.x; t < d * kP; t += kThreads) {
     const int k = t / kP;
     const int i = i0 + t - k * kP;
-    zs[t] = i < N ? zt[(size_t)k * N + i] * ils[k] : T(0);
+    const T z = i < N ? zt[(size_t)k * N + i] : T(0);
+    zs[t] = ils != nullptr ? z * ils[k] : z;
   }
 }
 

@@ -1,6 +1,6 @@
-"""K3: fused expander predicate for a chunk of candidates.
+"""K3 and K4: fused expander predicate for a chunk of candidates.
 
-Counterpart of ``safeopt_tpu/ops/fused_expander.py:233-477``
+K3 is the counterpart of ``safeopt_tpu/ops/fused_expander.py:233-477``
 (``_expander_kernel_multi`` / ``fused_expander_predicate_batched``).
 For each GP g and each candidate j of a chunk of C, condition GP g on a
 virtual observation at the candidate's upper bound (a closed-form
@@ -12,10 +12,17 @@ has a lower bound at or above ``fmin_g``:
     l2     = mu + E * gain - beta * sqrt(max(sigma^2 - E^2, 0))
     out    = any over z of (unsafe & l2 >= fmin & valid)     -> (G, C)
 
+K4 is the counterpart of ``:44-226`` (``_expander_kernel`` /
+``fused_expander_predicate``): the same (C,) predicate for ONE GP whose
+kernel K2 takes, with both grams from its plan
+(``fused_posterior.part_plan``).
+
 The candidate-side terms (``Cm``, ``dd``, ``gain``, ``M2``; O(C cap^2))
-are plain PyTorch at full precision, as the JAX package leaves them to
-XLA. The grid pass is the hand-written kernel ``csrc/fused_expander.cu``
-on CUDA tensors and ``fused_expander_plain`` on CPU tensors.
+are plain PyTorch at full precision through ``Kernel.K`` / ``Kdiag``,
+as the JAX package leaves them to XLA. The grid passes are the
+hand-written kernels ``csrc/fused_expander.cu`` (K3) and
+``csrc/fused_expander_plan.cu`` (K4) on CUDA tensors, and
+``fused_expander_plain`` / ``fused_expander_plan_plain`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,11 +32,28 @@ import ctypes
 import torch
 
 from ..gp.regression import row_mask
-from .fused_posterior import (PLAIN_COLS, check_operands, gram, kind_of,
-                              lengthscales, ptr, raise_on_error)
+from .fused_posterior import (PLAIN_COLS, check_operands, float_dtype, gram,
+                              kind_of, lengthscales, part_plan, plan_gram,
+                              ptr, raise_on_error)
 
 __all__ = ["expander_operands", "fused_expander", "fused_expander_plain",
-           "fused_expander_predicate_batched"]
+           "fused_expander_predicate_batched", "expander_plan_operands",
+           "fused_expander_plan", "fused_expander_plan_plain",
+           "fused_expander_predicate_single"]
+
+
+def candidate_terms(kernel, state, Xc, uc, valid):
+    """``(m2, cvec)`` of one GP for candidates ``Xc`` (C, d) with upper
+    bounds ``uc`` (C,): ``m2`` (C, cap) = Cm^T Lm and ``cvec`` (3, C) =
+    [1/dd, gain, valid], at the grid's full precision."""
+    mask = row_mask(state)
+    kmat_c = kernel.K(state.X, Xc) * mask[:, None]           # (cap, C)
+    Cm = state.Linv @ kmat_c                                 # (cap, C)
+    dd2 = kernel.Kdiag(Xc) + state.noise_var - torch.sum(Cm * Cm, dim=0)
+    dd = torch.sqrt(torch.clamp(dd2, min=1e-30))
+    gain = (uc - Cm.T @ state.w) / dd
+    m2 = Cm.T @ (state.Linv * mask[None, :])                 # (C, cap)
+    return m2, torch.stack([1.0 / dd, gain, valid.to(Xc.dtype)])
 
 
 def expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc, ucs,
@@ -45,20 +69,11 @@ def expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc, ucs,
     n, d = grid.shape
     kind = kind_of(kernels)
     ls = lengthscales(kernels, d, grid)
-    dtype = grid.dtype
-    cvec, m2 = [], []
-    for g, (kern, st) in enumerate(zip(kernels, states)):
-        mask = row_mask(st)
-        kmat_c = kern.K(st.X, Xc) * mask[:, None]             # (cap, C)
-        Cm = st.Linv @ kmat_c                                 # (cap, C)
-        dd2 = kern.Kdiag(Xc) + st.noise_var - torch.sum(Cm * Cm, dim=0)
-        dd = torch.sqrt(torch.clamp(dd2, min=1e-30))
-        gain = (ucs[g] - Cm.T @ st.w) / dd
-        m2.append(Cm.T @ (st.Linv * mask[None, :]))           # (C, cap)
-        cvec.append(torch.stack([1.0 / dd, gain, valid.to(dtype)]))
+    m2, cvec = zip(*[candidate_terms(kern, st, Xc, ucs[g], valid)
+                     for g, (kern, st) in enumerate(zip(kernels, states))])
     scal = torch.tensor([[float(k.variance), float(k.variance),
                           float(beta), 0.0] for k in kernels],
-                        dtype=dtype, device=grid.device)
+                        dtype=grid.dtype, device=grid.device)
     scal[:, 3] = fmin
     xs = torch.stack([st.X for st in states]) / ls[:, None, :]
     xc = Xc[None, :, :] / ls[:, None, :]
@@ -68,26 +83,35 @@ def expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc, ucs,
             torch.stack(cvec).contiguous(), scal, kind)
 
 
+def candidate_hits(gram_at, xs, xc, unsafe, mu, sigma, m2, cvec, beta,
+                   fmin) -> torch.Tensor:
+    """(C,) plain expander predicate of one GP; ``gram_at(a, s, e)`` is
+    the gram of the rows ``a`` against grid columns s:e."""
+    N = unsafe.shape[0]
+    out = torch.zeros((xc.shape[0],), dtype=torch.bool, device=xc.device)
+    inv_dd, gain = cvec[0][:, None], cvec[1][:, None]
+    valid = cvec[2][:, None] > 0.5
+    for s in range(0, N, PLAIN_COLS):
+        e = min(s + PLAIN_COLS, N)
+        cross = m2 @ gram_at(xs, s, e)
+        E = (gram_at(xc, s, e) - cross) * inv_dd
+        var2 = torch.clamp(sigma[s:e] * sigma[s:e] - E * E, min=0.0)
+        l2 = mu[s:e] + E * gain - beta * torch.sqrt(var2)
+        hit = unsafe[None, s:e] & (l2 >= fmin) & valid
+        out |= torch.any(hit, dim=1)
+    return out
+
+
 def fused_expander_plain(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal,
                          kind):
     """Plain PyTorch version of K3: same operands, same function."""
-    G, C = xc.shape[0], xc.shape[1]
-    N = zt.shape[1]
-    out = torch.zeros((G, C), dtype=torch.bool, device=zt.device)
-    for g in range(G):
-        inv_dd, gain = cvec[g, 0][:, None], cvec[g, 1][:, None]
-        valid = cvec[g, 2][:, None] > 0.5
-        for s in range(0, N, PLAIN_COLS):
-            e = s + PLAIN_COLS
-            zs = zt[:, s:e] * ils[g][:, None]
-            cross = m2[g] @ gram(kind, xs[g], zs, scal[g, 0])
-            E = (gram(kind, xc[g], zs, scal[g, 0]) - cross) * inv_dd
-            var2 = torch.clamp(sigma[g, s:e] * sigma[g, s:e] - E * E,
-                               min=0.0)
-            l2 = mu[g, s:e] + E * gain - scal[g, 2] * torch.sqrt(var2)
-            hit = unsafe[None, s:e] & (l2 >= scal[g, 3]) & valid
-            out[g] |= torch.any(hit, dim=1)
-    return out
+    return torch.stack([
+        candidate_hits(lambda a, s, e, g=g: gram(kind, a,
+                                                 zt[:, s:e] * ils[g][:, None],
+                                                 scal[g, 0]),
+                       xs[g], xc[g], unsafe, mu[g], sigma[g], m2[g], cvec[g],
+                       scal[g, 2], scal[g, 3])
+        for g in range(xs.shape[0])])
 
 
 def fused_expander(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, kind):
@@ -103,9 +127,7 @@ def fused_expander(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, kind):
     G, cap, d = xs.shape
     C = xc.shape[1]
     N = zt.shape[1]
-    dtype = zt.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"K3 takes float32 or float64, not {dtype}")
+    dtype = float_dtype(zt, "K3")
     check_operands(
         dict(zt=zt, unsafe=unsafe, mu=mu, sigma=sigma, ils=ils, xs=xs,
              xc=xc, m2=m2, cvec=cvec, scal=scal), zt.device, dtype,
@@ -140,3 +162,80 @@ def fused_expander_predicate_batched(kernels, states, grid, unsafe, mus,
     return fused_expander(*expander_operands(
         kernels, states, grid, unsafe, mus, sigmas, Xc, ucs, valid, beta,
         fmin))
+
+
+def expander_plan_operands(kernel, state, grid, unsafe, mu, sigma, Xc, uc,
+                           valid, beta, fmin):
+    """K4's operands ``(zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales,
+    pvar, plan, scal)`` for one GP: ``mu`` / ``sigma`` (N,) its grid
+    posterior, ``uc`` (C,) its candidates' upper bounds, ``fmin`` its
+    threshold; ``scal`` = [0, 0, beta, fmin]."""
+    scales, pvar, plan, _ = part_plan(kernel, grid.shape[1], grid)
+    m2, cvec = candidate_terms(kernel, state, Xc, uc, valid)
+    scal = torch.tensor([0.0, 0.0, float(beta), 0.0], dtype=grid.dtype,
+                        device=grid.device)
+    scal[3] = fmin
+    return (grid.T.contiguous(), unsafe.contiguous(), mu.contiguous(),
+            sigma.contiguous(), state.X.contiguous(), Xc.contiguous(),
+            m2.contiguous(), cvec.contiguous(), scales, pvar, plan, scal)
+
+
+def fused_expander_plan_plain(zt, unsafe, mu, sigma, xs, xc, m2, cvec,
+                              scales, pvar, plan, scal):
+    """Plain PyTorch version of K4: same operands, same function."""
+    kinds, terms = plan.tolist()
+    rows = scales.tolist()
+    return candidate_hits(
+        lambda a, s, e: plan_gram(a, zt[:, s:e], rows, pvar, kinds, terms),
+        xs, xc, unsafe, mu, sigma, m2, cvec, scal[2], scal[3])
+
+
+def fused_expander_plan(zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales,
+                        pvar, plan, scal):
+    """(C,) bool expander predicate of one GP with a kernel plan: K4 on
+    CUDA, the plain version on CPU. Operands as built by
+    ``expander_plan_operands``. Adds one to
+    ``fused_expander_plan.launches`` per kernel launch."""
+    if zt.device.type == "cpu":
+        return fused_expander_plan_plain(zt, unsafe, mu, sigma, xs, xc, m2,
+                                         cvec, scales, pvar, plan, scal)
+    if zt.device.type != "cuda":
+        raise ValueError(f"K4 runs on CUDA or CPU tensors, not {zt.device}")
+    cap, d = xs.shape
+    C = xc.shape[0]
+    N = zt.shape[1]
+    P = pvar.shape[0]
+    dtype = float_dtype(zt, "K4")
+    check_operands(
+        dict(zt=zt, unsafe=unsafe, mu=mu, sigma=sigma, xs=xs, xc=xc, m2=m2,
+             cvec=cvec, scales=scales, pvar=pvar, plan=plan, scal=scal),
+        zt.device, dtype,
+        dict(zt=(d, N), unsafe=(N,), mu=(N,), sigma=(N,), xs=(cap, d),
+             xc=(C, d), m2=(C, cap), cvec=(3, C), scales=(P, d), pvar=(P,),
+             plan=(2, P), scal=(4,)))
+    m2t = m2.T.contiguous()                 # the kernel reads M2^T rows
+    out = torch.zeros((C,), dtype=torch.int32, device=zt.device)
+
+    from ._build import library
+    lib = library()
+    fn = (lib.safeopt_expander_plan_f32 if dtype == torch.float32
+          else lib.safeopt_expander_plan_f64)
+    with torch.cuda.device(zt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ptr(zt), ptr(unsafe), ptr(mu), ptr(sigma), ptr(xs), ptr(xc),
+                 ptr(m2t), ptr(cvec), ptr(scales), ptr(pvar), ptr(plan),
+                 ptr(scal), ptr(out), N, d, cap, C, P,
+                 ctypes.c_void_p(stream))
+    raise_on_error(err, "K4 (fused_expander_plan)")
+    fused_expander_plan.launches += 1
+    return out != 0
+
+
+fused_expander_plan.launches = 0
+
+
+def fused_expander_predicate_single(kernel, state, grid, unsafe, mu, sigma,
+                                    Xc, uc, valid, beta, fmin):
+    """(C,) expander predicate of one GP whose kernel K2/K4 take."""
+    return fused_expander_plan(*expander_plan_operands(
+        kernel, state, grid, unsafe, mu, sigma, Xc, uc, valid, beta, fmin))

@@ -1,6 +1,6 @@
-"""K1: fused grid posterior + confidence intervals.
+"""K1 and K2: fused grid posterior + confidence intervals.
 
-Counterpart of ``safeopt_tpu/ops/fused_posterior.py:454-664``
+K1 is the counterpart of ``safeopt_tpu/ops/fused_posterior.py:454-664``
 (``_interval_kernel_multi`` / ``fused_intervals_batched``). For G GPs
 of one stationary family and one capacity, one pass over the grid
 computes every GP's interval rows without materialising the (cap, N)
@@ -12,17 +12,28 @@ gram or whitened solve:
     var  (B,)     = max(kdiag - sum_r V[r]^2, 0)
     out  (G, 2, N): rows mu - beta sqrt(var), mu + beta sqrt(var)
 
-On a CUDA tensor ``fused_intervals`` launches the hand-written kernel
-``csrc/fused_intervals.cu``; on a CPU tensor it runs
-``fused_intervals_plain``, the same function in plain PyTorch. Any G
->= 1 is accepted; GPs of different families or capacities run as one
-launch each (the caller groups them). The TPU-only machinery (VMEM
-gates, block picking, block-diagonal MXU stacking, 3-pass limbs) has
-no counterpart here.
+K2 is the counterpart of ``:294-447`` (``_interval_kernel`` /
+``fused_intervals``): the same rows for ONE GP whose kernel is a
+Sum/Product algebra of RBF, Matern32, Matern52, Exponential, Cosine and
+Bias leaves, any of them on a subset of the columns (``active_dims``),
+which is how contextual SafeOpt models its context columns. The kernel
+is expanded into a sum of products (``terms_of``) and shipped as a
+*plan* (``part_plan``): per leaf a kind code, a term index, a variance
+and a scale row with 1/lengthscale on its active columns and 0 on the
+others. The gram takes raw inputs; each leaf's distance is
+``sum_k ((x_k - z_k) s_k)^2``, leaf values multiply within a term and
+terms add.
 
-Distances use the difference form ``sum_k (x_k - z_k ils_k)^2``: the
-``|x|^2 + |z|^2 - 2 x.z`` form loses digits that the ill-conditioned
-factor then amplifies.
+On a CUDA tensor ``fused_intervals`` / ``fused_intervals_plan`` launch
+the hand-written kernels ``csrc/fused_intervals.cu`` /
+``csrc/fused_intervals_plan.cu``; on a CPU tensor they run
+``fused_intervals_plain`` / ``fused_intervals_plan_plain``, the same
+functions in plain PyTorch. The TPU-only machinery (VMEM gates, block
+picking, block-diagonal MXU stacking, 3-pass limbs, the TPU's
+products-fused-or-not policy) has no counterpart here.
+
+Distances use the difference form: the ``|x|^2 + |z|^2 - 2 x.z`` form
+loses digits that the ill-conditioned factor then amplifies.
 """
 
 from __future__ import annotations
@@ -33,19 +44,29 @@ import math
 import numpy as np
 import torch
 
-from ..gp.kernels import Exponential, Matern32, Matern52, RBF
+from ..gp.kernels import (Bias, Cosine, Exponential, Matern32, Matern52,
+                          Product, RBF, Sum)
 from ..gp.regression import row_mask
 
-__all__ = ["KINDS", "kind_of", "supports_kernel", "check_kernel",
+__all__ = ["KINDS", "LEAF_KINDS", "kind_of", "supports_kernel",
+           "supports_plan", "check_kernel", "terms_of", "part_plan",
            "interval_operands", "fused_intervals", "fused_intervals_plain",
-           "fused_intervals_batched"]
+           "fused_intervals_batched", "interval_plan_operands",
+           "fused_intervals_plan", "fused_intervals_plan_plain",
+           "fused_intervals_single"]
 
-# kernel family -> kind code of the CUDA kernels (csrc/common.cuh)
+# kernel family -> kind code of the CUDA kernels (csrc/common.cuh); K1/K3
+# take the first four, K2/K4 every leaf kind
 KINDS = {RBF: 0, Matern32: 1, Matern52: 2, Exponential: 3}
+LEAF_KINDS = {**KINDS, Cosine: 4, Bias: 5}
+BIAS = LEAF_KINDS[Bias]
 
 # Widest grid the CUDA kernels take: their shared memory grows with d
 # (the block's scaled points), and stays independent of the capacity.
 MAX_DIM = 64
+# Most leaves of a K2/K4 plan (csrc/common.cuh kMaxLeaves); a plan has at
+# most as many terms as leaves.
+MAX_LEAVES = 8
 # grid columns per step of the plain versions (bounds their memory)
 PLAIN_COLS = 1 << 16
 
@@ -57,16 +78,34 @@ def supports_kernel(kernel, d: int) -> bool:
             and kernel.active_dims == tuple(range(d)))
 
 
+def terms_of(kernel):
+    """A kernel tree in sum-of-products form: a list of terms, each a
+    list of leaves whose grams multiply; term grams add."""
+    if isinstance(kernel, Sum):
+        return terms_of(kernel.k1) + terms_of(kernel.k2)
+    if isinstance(kernel, Product):
+        return [a + b for a in terms_of(kernel.k1)
+                for b in terms_of(kernel.k2)]
+    return [[kernel]]
+
+
+def supports_plan(kernel, d: int) -> bool:
+    """True when K2/K4 take this kernel over a d-column grid: a
+    Sum/Product algebra whose leaves are RBF, Matern32, Matern52,
+    Exponential, Cosine or Bias, each reading grid columns only."""
+    return all(type(p) in LEAF_KINDS and max(p.active_dims) < d
+               for term in terms_of(kernel) for p in term)
+
+
 def check_kernel(kernel, d: int) -> None:
-    """Raise ``NotImplementedError`` for a kernel K1/K3 do not take."""
-    if not supports_kernel(kernel, d):
+    """Raise ``NotImplementedError`` for a kernel no grid kernel takes."""
+    if not (supports_kernel(kernel, d) or supports_plan(kernel, d)):
         raise NotImplementedError(
             f"{kernel!r} over a {d}-column grid: the port's grid kernels "
-            "(K1/K3) take RBF, Matern32, Matern52 and Exponential over "
-            "every grid column. Kernel algebras, context kernels and "
-            "active_dims subsets need K2/K4 (the JAX package's "
-            "_interval_kernel and _expander_kernel), which are still to "
-            "port (ROADMAP Queue 2).")
+            "take Sum/Product algebras of RBF, Matern32, Matern52, "
+            "Exponential, Cosine and Bias on grid columns. White needs an "
+            "eager grid path and the other families are still to port "
+            "(ROADMAP Queue 1 items 2 and 12).")
 
 
 def kind_of(kernels) -> int:
@@ -77,18 +116,14 @@ def kind_of(kernels) -> int:
     return kinds.pop()
 
 
-def gram(kind: int, a: torch.Tensor, b_t: torch.Tensor,
-         variance: torch.Tensor) -> torch.Tensor:
-    """(rows, B) gram in difference form: ``a`` (rows, d) and ``b_t``
-    (d, B) are both already divided by the lengthscale."""
-    r2 = torch.zeros((a.shape[0], b_t.shape[1]), dtype=a.dtype,
-                     device=a.device)
-    for k in range(a.shape[1]):
-        diff = a[:, k, None] - b_t[k, None, :]
-        r2 = r2 + diff * diff
+def kfun(kind: int, r2: torch.Tensor, variance) -> torch.Tensor:
+    """Leaf value of a distance-based kind from the scaled squared
+    distance, the expressions of the JAX package's kernel bodies."""
     if kind == KINDS[RBF]:
         return variance * torch.exp(-0.5 * r2)
     r = torch.sqrt(r2 + 1e-36)
+    if kind == LEAF_KINDS[Cosine]:
+        return variance * torch.cos(r)
     if kind == KINDS[Exponential]:
         return variance * torch.exp(-r)
     if kind == KINDS[Matern52]:
@@ -96,6 +131,74 @@ def gram(kind: int, a: torch.Tensor, b_t: torch.Tensor,
         return variance * (1.0 + s5r + (5.0 / 3.0) * r2) * torch.exp(-s5r)
     s3r = math.sqrt(3.0) * r
     return variance * (1.0 + s3r) * torch.exp(-s3r)
+
+
+def plan_gram(a: torch.Tensor, b_t: torch.Tensor, scales, pvar, kinds,
+              terms) -> torch.Tensor:
+    """(rows, B) gram of a plan (``_part_gram`` of the JAX package):
+    ``a`` (rows, d) and ``b_t`` (d, B) are raw inputs; leaf q scales
+    the differences by ``scales[q]`` (nested lists), leaves multiply
+    within a term and terms add. A zero scale adds exactly 0 to a
+    leaf's distance, so its column is skipped; a unit scale is exact,
+    so its multiply is skipped."""
+    out = prod = None
+    for q, kind in enumerate(kinds):
+        if kind == BIAS:
+            kp = pvar[q] * a.new_ones((a.shape[0], b_t.shape[1]))
+        else:
+            r2 = torch.zeros((a.shape[0], b_t.shape[1]), dtype=a.dtype,
+                             device=a.device)
+            for k, scale in enumerate(scales[q]):
+                if scale == 0.0:
+                    continue
+                diff = a[:, k, None] - b_t[k, None, :]
+                if scale != 1.0:
+                    diff = diff * scale
+                r2 = r2 + diff * diff
+            kp = kfun(kind, r2, pvar[q])
+        prod = kp if q == 0 or terms[q] != terms[q - 1] else prod * kp
+        if q == len(kinds) - 1 or terms[q + 1] != terms[q]:
+            out = prod if out is None else out + prod
+    return out
+
+
+def gram(kind: int, a: torch.Tensor, b_t: torch.Tensor,
+         variance: torch.Tensor) -> torch.Tensor:
+    """(rows, B) gram of one stationary family (K1/K3): a one-leaf plan
+    with unit scales, since ``a`` (rows, d) and ``b_t`` (d, B) are both
+    already divided by the lengthscale."""
+    return plan_gram(a, b_t, [[1.0] * a.shape[1]], [variance], [kind], [0])
+
+
+def part_plan(kernel, d: int, like: torch.Tensor):
+    """K2/K4's plan of ``kernel`` over a d-column grid, in the dtype and
+    on the device of ``like``: ``(scales, pvar, plan, kdiag)`` with
+    ``scales`` (P, d) 1/lengthscale on each leaf's active columns and 0
+    elsewhere, ``pvar`` (P,) the leaf variances, ``plan`` (2, P) int32
+    rows of leaf kind codes and term indices, and ``kdiag`` the prior
+    variance (a float: the sum over terms of the product of their leaf
+    variances). Raises ``NotImplementedError`` past ``MAX_LEAVES``."""
+    terms = terms_of(kernel)
+    leaves = [p for term in terms for p in term]
+    if len(leaves) > MAX_LEAVES:
+        raise NotImplementedError(
+            f"{kernel!r} expands to {len(leaves)} leaves; K2/K4 take at "
+            f"most {MAX_LEAVES}")
+    scales = np.zeros((len(leaves), d))
+    for q, p in enumerate(leaves):
+        if not isinstance(p, Bias):      # constant: distances don't enter
+            ls = np.broadcast_to(p.lengthscale.numpy(), (p.input_dim,))
+            scales[q, list(p.active_dims)] = 1.0 / ls
+    kinds = [LEAF_KINDS[type(p)] for p in leaves]
+    term_idx = [t for t, term in enumerate(terms) for _ in term]
+    kdiag = sum(math.prod(float(p.variance) for p in term)
+                for term in terms)
+    to = dict(dtype=like.dtype, device=like.device)
+    return (torch.tensor(scales, **to),
+            torch.tensor([float(p.variance) for p in leaves], **to),
+            torch.tensor([kinds, term_idx], dtype=torch.int32,
+                         device=like.device),
+            kdiag)
 
 
 def lengthscales(kernels, d: int, like: torch.Tensor) -> torch.Tensor:
@@ -121,35 +224,48 @@ def interval_operands(kernels, states, grid: torch.Tensor, beta):
             lm.contiguous(), w.contiguous(), scal, kind)
 
 
-def fused_intervals_plain(zt, ils, xs, lm, w, scal, kind):
-    """Plain PyTorch version of K1: same operands, same function."""
-    G = xs.shape[0]
-    N = zt.shape[1]
-    out = zt.new_empty((G, 2, N))
-    for g in range(G):
-        for s in range(0, N, PLAIN_COLS):
-            zs = zt[:, s:s + PLAIN_COLS] * ils[g][:, None]
-            V = lm[g] @ gram(kind, xs[g], zs, scal[g, 0])
-            mu = torch.sum(w[g][:, None] * V, dim=0)
-            var = torch.clamp(scal[g, 1] - torch.sum(V * V, dim=0), min=0.0)
-            spread = scal[g, 2] * torch.sqrt(var)
-            out[g, 0, s:s + PLAIN_COLS] = mu - spread
-            out[g, 1, s:s + PLAIN_COLS] = mu + spread
+def interval_rows(gram_at, lm, w, kdiag, beta, N: int) -> torch.Tensor:
+    """(2, N) rows ``mu -+ beta sigma`` of one GP in plain PyTorch;
+    ``gram_at(s, e)`` is its (cap, e - s) gram against grid columns
+    s:e."""
+    out = lm.new_empty((2, N))
+    for s in range(0, N, PLAIN_COLS):
+        e = min(s + PLAIN_COLS, N)
+        V = lm @ gram_at(s, e)
+        mu = torch.sum(w[:, None] * V, dim=0)
+        var = torch.clamp(kdiag - torch.sum(V * V, dim=0), min=0.0)
+        spread = beta * torch.sqrt(var)
+        out[0, s:e] = mu - spread
+        out[1, s:e] = mu + spread
     return out
 
 
+def fused_intervals_plain(zt, ils, xs, lm, w, scal, kind):
+    """Plain PyTorch version of K1: same operands, same function."""
+    return torch.stack([
+        interval_rows(lambda s, e, g=g: gram(kind, xs[g],
+                                             zt[:, s:e] * ils[g][:, None],
+                                             scal[g, 0]),
+                      lm[g], w[g], scal[g, 1], scal[g, 2], zt.shape[1])
+        for g in range(xs.shape[0])])
+
+
 def check_operands(named, device, dtype, shapes) -> None:
-    """Raise unless every tensor is on ``device``, of ``dtype`` (where
-    given), contiguous and of its expected shape, and the grid is at
-    most ``MAX_DIM`` wide."""
+    """Raise unless every tensor is on ``device``, of ``dtype`` (bool for
+    ``unsafe``, int32 for ``plan``), contiguous and of its expected
+    shape, the grid is at most ``MAX_DIM`` wide and a plan has at most
+    ``MAX_LEAVES`` leaves."""
     d = shapes["zt"][0]
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"the CUDA kernels take 1 to {MAX_DIM} grid "
                          f"columns, got {d}")
+    if "plan" in shapes and not 1 <= shapes["plan"][1] <= MAX_LEAVES:
+        raise NotImplementedError(
+            f"K2/K4 take 1 to {MAX_LEAVES} leaves, got {shapes['plan'][1]}")
     for name, t in named.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        want = dtype if name != "unsafe" else torch.bool
+        want = {"unsafe": torch.bool, "plan": torch.int32}.get(name, dtype)
         if t.dtype != want:
             raise TypeError(f"{name} has dtype {t.dtype}, expected {want}")
         if not t.is_contiguous():
@@ -157,6 +273,14 @@ def check_operands(named, device, dtype, shapes) -> None:
         if tuple(t.shape) != tuple(shapes[name]):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shapes[name])}")
+
+
+def float_dtype(t: torch.Tensor, what: str) -> torch.dtype:
+    """The dtype of ``t``, which the CUDA kernels take in float32 or
+    float64 only."""
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what} takes float32 or float64, not {t.dtype}")
+    return t.dtype
 
 
 def raise_on_error(err: int, what: str) -> None:
@@ -187,9 +311,7 @@ def fused_intervals(zt, ils, xs, lm, w, scal, kind):
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not {zt.device}")
     G, cap, d = xs.shape
     N = zt.shape[1]
-    dtype = zt.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"K1 takes float32 or float64, not {dtype}")
+    dtype = float_dtype(zt, "K1")
     if kind not in KINDS.values():
         raise ValueError(f"unknown kernel kind {kind}")
     check_operands(
@@ -219,3 +341,73 @@ def fused_intervals_batched(kernels, states, grid: torch.Tensor, beta):
     """(G, 2, N) interval rows of GPs of one family and capacity, one
     pass over the grid for all of them."""
     return fused_intervals(*interval_operands(kernels, states, grid, beta))
+
+
+def interval_plan_operands(kernel, state, grid: torch.Tensor, beta):
+    """K2's operands ``(zt, xs, lm, w, scales, pvar, plan, scal)`` for
+    one GP over ``grid`` (N, d); ``scal`` = [0, kdiag, beta, 0]."""
+    scales, pvar, plan, kdiag = part_plan(kernel, grid.shape[1], grid)
+    scal = torch.tensor([0.0, kdiag, float(beta), 0.0], dtype=grid.dtype,
+                        device=grid.device)
+    lm = state.Linv * row_mask(state)[None, :]
+    return (grid.T.contiguous(), state.X.contiguous(), lm.contiguous(),
+            state.w.contiguous(), scales, pvar, plan, scal)
+
+
+def fused_intervals_plan_plain(zt, xs, lm, w, scales, pvar, plan, scal):
+    """Plain PyTorch version of K2: same operands, same function."""
+    kinds, terms = plan.tolist()
+    rows = scales.tolist()
+    return interval_rows(
+        lambda s, e: plan_gram(xs, zt[:, s:e], rows, pvar, kinds, terms),
+        lm, w, scal[1], scal[2], zt.shape[1])
+
+
+def fused_intervals_plan(zt, xs, lm, w, scales, pvar, plan, scal):
+    """(2, N) interval rows of one GP with a kernel plan: K2 on CUDA, the
+    plain version on CPU.
+
+    ``zt`` (d, N) raw grid, features first; ``xs`` (cap, d) raw
+    training inputs; ``lm`` (cap, cap) masked ``Linv``; ``w`` (cap,)
+    whitened targets; ``scales``, ``pvar``, ``plan`` from ``part_plan``;
+    ``scal`` (4,) = [0, kdiag, beta, 0]. Adds one to
+    ``fused_intervals_plan.launches`` per kernel launch.
+    """
+    if zt.device.type == "cpu":
+        return fused_intervals_plan_plain(zt, xs, lm, w, scales, pvar, plan,
+                                          scal)
+    if zt.device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA or CPU tensors, not {zt.device}")
+    cap, d = xs.shape
+    N = zt.shape[1]
+    P = pvar.shape[0]
+    dtype = float_dtype(zt, "K2")
+    check_operands(
+        dict(zt=zt, xs=xs, lm=lm, w=w, scales=scales, pvar=pvar, plan=plan,
+             scal=scal), zt.device, dtype,
+        dict(zt=(d, N), xs=(cap, d), lm=(cap, cap), w=(cap,),
+             scales=(P, d), pvar=(P,), plan=(2, P), scal=(4,)))
+    lmt = lm.T.contiguous()                 # the kernel reads Lm^T rows
+    out = torch.empty((2, N), dtype=dtype, device=zt.device)
+
+    from ._build import library
+    lib = library()
+    fn = (lib.safeopt_intervals_plan_f32 if dtype == torch.float32
+          else lib.safeopt_intervals_plan_f64)
+    with torch.cuda.device(zt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ptr(zt), ptr(xs), ptr(lmt), ptr(w), ptr(scales), ptr(pvar),
+                 ptr(plan), ptr(scal), ptr(out), N, d, cap, P,
+                 ctypes.c_void_p(stream))
+    raise_on_error(err, "K2 (fused_intervals_plan)")
+    fused_intervals_plan.launches += 1
+    return out
+
+
+fused_intervals_plan.launches = 0
+
+
+def fused_intervals_single(kernel, state, grid: torch.Tensor, beta):
+    """(2, N) interval rows of one GP whose kernel K2 takes."""
+    return fused_intervals_plan(*interval_plan_operands(kernel, state, grid,
+                                                        beta))

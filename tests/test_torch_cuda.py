@@ -1,4 +1,4 @@
-"""K1, K3 and the exact top-k on the card, against their plain versions.
+"""K1-K4 and the exact top-k on the card, against their plain versions.
 
 Needs an NVIDIA GPU with ``nvcc``: every test is marked ``gpu`` and
 skips when ``torch.cuda.is_available()`` is false. Run on the card with
@@ -11,7 +11,8 @@ float32 the intervals are held against the float64 plain version to
 1e-3 (f32 round-off through factors with entries up to ~1e2 at these
 sizes), and decisions must agree outside a 1e-3 band. K3 runs at
 thresholds raised far enough that its plain predicate is false for some
-candidates, and with a padding slot that must come back false.
+candidates, and with a padding slot that must come back false; K4
+likewise, and both tests assert that the plain predicate was mixed.
 """
 
 import numpy as np
@@ -117,6 +118,92 @@ def test_expander_kernel_matches_plain(cuda, family, n_gps, cap, dtype):
                        == fe.fused_expander_plain(*at(shift + 1e-3)))
             assert not bool(((got != want) & decided).any())
     assert seen == {True, False}
+
+
+def _algebra_gp(name, cap, device, dtype, n_obs=40, seed=1):
+    """One GP with a kernel algebra over 2 columns (K2/K4)."""
+    kern = {
+        "context": lambda: (pt.RBF(1, variance=2.0, active_dims=[0])
+                            * pt.RBF(1, variance=1.0, lengthscale=1.5,
+                                     active_dims=[1])),
+        "sum_bias": lambda: (pt.RBF(2, variance=1.5, lengthscale=[0.8, 1.2],
+                                    ARD=True) + pt.Bias(2, variance=0.5)),
+        "cosine": lambda: (pt.Cosine(1, lengthscale=2.0, active_dims=[1])
+                           * pt.Matern52(1, variance=1.5, active_dims=[0])),
+    }[name]()
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2.0, 2.0, size=(n_obs, 2))
+    Y = (1.0 + np.cos(X.sum(axis=1)) + 0.05 * rng.normal(size=n_obs))[:, None]
+    gp = pt.GPRegression(X, Y, kern, noise_var=0.01, capacity=cap,
+                         device=device, dtype=dtype)
+    grid = torch.tensor(rng.uniform(-3.0, 3.0, size=(5000, 2)), dtype=dtype,
+                        device=device)
+    return gp, grid
+
+
+PLAN_CASES = [("context", 64), ("sum_bias", 100), ("cosine", 256)]
+
+
+@pytest.mark.parametrize("name,cap", PLAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plan_intervals_kernel_matches_plain(cuda, name, cap, dtype):
+    gp, grid = _algebra_gp(name, cap, cuda, dtype)
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid, 2.0)
+    before = fp.fused_intervals_plan.launches
+    out = fp.fused_intervals_plan(*ops)
+    torch.cuda.synchronize()
+    assert fp.fused_intervals_plan.launches == before + 1
+    ref = fp.fused_intervals_plan_plain(*[o.double() if o.is_floating_point()
+                                          else o for o in ops])
+    err = (out.double() - ref).abs().max().item()
+    assert err <= (1e-9 if dtype == torch.float64 else 1e-3), err
+
+
+@pytest.mark.parametrize("name,cap", PLAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plan_expander_kernel_matches_plain(cuda, name, cap, dtype):
+    gp, grid = _algebra_gp(name, cap, cuda, dtype)
+    beta = 2.0
+    out = fp.fused_intervals_plan_plain(*fp.interval_plan_operands(
+        gp.kern, gp.state, grid, beta))
+    l, u = out[0], out[1]
+    mu, sigma = (l + u) / 2, (u - l) / (2 * beta)
+    fmin = torch.quantile(l.double(), 0.4).to(dtype)
+    safe = l > fmin
+    safe_idx = torch.nonzero(safe).squeeze(1)
+    cand = safe_idx[torch.linspace(0, safe_idx.numel() - 1, 37,
+                                   device=cuda).long()]
+    valid = torch.ones(cand.numel(), dtype=torch.bool, device=cuda)
+    valid[-1] = False
+    ops = fe.expander_plan_operands(gp.kern, gp.state, grid, ~safe, mu,
+                                    sigma, grid[cand], u[cand], valid, beta,
+                                    fmin)
+
+    def at(shift):       # the operands with fmin raised by ``shift``
+        scal = ops[11].clone()
+        scal[3] += shift
+        return ops[:11] + (scal,)
+
+    seen = set()
+    for shift in (0.0, 0.3, 1.0):
+        got = fe.fused_expander_plan(*at(shift))
+        want = fe.fused_expander_plan_plain(*at(shift))
+        torch.cuda.synchronize()
+        assert not bool(got[-1])                        # the padding slot
+        seen.update(want[:-1].tolist())
+        if dtype == torch.float64:
+            assert torch.equal(got, want)
+        else:
+            decided = (fe.fused_expander_plan_plain(*at(shift - 1e-3))
+                       == fe.fused_expander_plan_plain(*at(shift + 1e-3)))
+            assert not bool(((got != want) & decided).any())
+    assert seen == {True, False}
+
+
+def test_models_default_to_the_card(cuda):
+    gp = pt.GPRegression(np.zeros((1, 2)), np.ones((1, 1)))
+    assert gp.state.X.device.type == "cuda"
+    assert gp.state.X.dtype == torch.float32
 
 
 def test_topk_on_cuda(cuda):

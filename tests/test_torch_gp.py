@@ -7,6 +7,8 @@ updates must equal a full rebuild of the mirror bit for bit, and
 ``convert.py`` must carry a JAX model's factor across unchanged.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 from numpy.testing import assert_allclose
@@ -32,7 +34,7 @@ def _pair(family="RBF", n=8, capacity=None, seed=0):
     X, Y = _data(seed, n)
     kw = dict(variance=1.5, lengthscale=[0.7, 1.4], ARD=True)
     pgp = pt.GPRegression(X, Y, getattr(pt, family)(2, **kw),
-                          noise_var=0.01, capacity=capacity)
+                          noise_var=0.01, capacity=capacity, device="cpu")
     jgp = jt.GPRegression(X, Y, getattr(jt, family)(2, **kw),
                           noise_var=0.01, capacity=capacity)
     return pgp, jgp
@@ -86,7 +88,7 @@ def _rebuilt(gp):
 def test_row_scatter_equals_rebuild_bitwise(dtype):
     X, Y = _data(1, 5)
     gp = pt.GPRegression(X, Y, pt.RBF(2, variance=2.0), noise_var=0.01,
-                         capacity=16, dtype=dtype)
+                         capacity=16, device="cpu", dtype=dtype)
     rng = np.random.default_rng(9)
     for step in range(6):
         if step == 3:
@@ -101,7 +103,7 @@ def test_row_scatter_equals_rebuild_bitwise(dtype):
 
 def test_state_is_a_copy_of_the_host_factor():
     X, Y = _data(2, 4)
-    gp = pt.GPRegression(X, Y, pt.RBF(2), noise_var=0.01)
+    gp = pt.GPRegression(X, Y, pt.RBF(2), noise_var=0.01, device="cpu")
     before = gp.state.L.clone()
     gp._host.L[0, 0] = 123.0          # host mutation must not leak
     assert torch.equal(gp.state.L, before)
@@ -109,9 +111,11 @@ def test_state_is_a_copy_of_the_host_factor():
 
 def test_set_xy_append_truncate_and_refit():
     X, Y = _data(5, 9)
-    gp = pt.GPRegression(X[:4], Y[:4], pt.Matern32(2), noise_var=0.01)
+    gp = pt.GPRegression(X[:4], Y[:4], pt.Matern32(2), noise_var=0.01,
+                         device="cpu")
     gp.set_XY(X, Y)                                    # pure append
-    ref = pt.GPRegression(X, Y, pt.Matern32(2), noise_var=0.01)
+    ref = pt.GPRegression(X, Y, pt.Matern32(2), noise_var=0.01,
+                          device="cpu")
     assert_allclose(gp._host.L, ref._host.L, **TOL)
     gp.set_XY(X[:6], Y[:6])                            # pure truncate
     assert gp.num_data == 6
@@ -130,7 +134,7 @@ def test_convert_carries_the_jax_factor():
     _, jgp = _pair("Matern52", n=7)
     kern = kernel_from_params(**kernel_params(jgp.kern))
     assert type(kern) is pt.Matern52
-    pgp = gp_from_arrays(kern, **gp_arrays(jgp))
+    pgp = gp_from_arrays(kern, **gp_arrays(jgp), device="cpu")
     for name in ("X", "Y", "L", "Linv", "w"):
         np.testing.assert_array_equal(getattr(pgp._host, name),
                                       np.asarray(getattr(jgp._host, name)))
@@ -142,7 +146,7 @@ def test_convert_round_trip_within_the_port():
     pgp, _ = _pair("Exponential", n=5)
     params = kernel_params(pgp.kern)
     twin = gp_from_arrays(kernel_from_params(**params), **gp_arrays(pgp),
-                          dtype=torch.float32)
+                          device="cpu", dtype=torch.float32)
     assert kernel_params(twin.kern).keys() == params.keys()
     assert twin.state.L.dtype == torch.float32
     assert torch.equal(twin.state.L, pgp.state.L.float())
@@ -152,8 +156,28 @@ def test_convert_rejects_partial_or_misshapen_factors():
     pgp, _ = _pair(n=3)
     arrays = gp_arrays(pgp)
     with pytest.raises(ValueError, match="all of"):
-        gp_from_arrays(pgp.kern, **dict(arrays, Linv=None))
+        gp_from_arrays(pgp.kern, **dict(arrays, Linv=None), device="cpu")
     with pytest.raises(ValueError, match="shape"):
-        gp_from_arrays(pgp.kern, **dict(arrays, w=arrays["w"][:3]))
+        gp_from_arrays(pgp.kern, **dict(arrays, w=arrays["w"][:3]),
+                       device="cpu")
     with pytest.raises(NotImplementedError):
-        kernel_from_params("cosine", 1, 1.0, 1.0)
+        kernel_from_params("ratquad", input_dim=1, variance=1.0,
+                           lengthscale=1.0)
+
+
+def test_convert_carries_a_jax_kernel_tree():
+    jk = (jt.RBF(1, variance=2.0, lengthscale=1.5, active_dims=[0])
+          * jt.Cosine(1, variance=0.7, active_dims=[1])
+          + jt.Bias(2, variance=0.3) + jt.White(2, variance=0.01))
+    params = kernel_params(jk)
+    assert params["kind"] == "sum" and params["k1"]["k2"]["kind"] == "bias"
+    pk = kernel_from_params(**params)
+    assert type(pk.k1.k1.k1) is pt.RBF and type(pk.k2) is pt.White
+    X = np.random.default_rng(6).uniform(-2, 2, size=(9, 2))
+    assert_allclose(pk.K(torch.tensor(X)).numpy(), np.asarray(jk.K(X)),
+                    rtol=1e-12, atol=1e-14)
+
+
+def test_entry_points_default_to_the_card():
+    for fn in (pt.GPRegression.__init__, gp_from_arrays):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -1,12 +1,12 @@
-"""The plain versions of K1, K3 and the exact top-k against the JAX ops.
+"""The plain versions of K1-K4 and the exact top-k against the JAX ops.
 
 The JAX kernels run as the JAX package's own tests run them on the CPU
 (Pallas interpret mode, float64). Both packages hold the identical host
-factor (``safeopt_torch.convert``). K1's intervals must agree to atol
-1e-10 (difference-form grams in both; only summation order differs),
-K3's predicates must be identical, and ``top_k`` must equal
-``lax.top_k`` exactly, ties included. On CPU tensors the wrappers run
-the plain versions and never count a kernel launch.
+factor (``safeopt_torch.convert``). K1's and K2's intervals must agree
+to atol 1e-10 (difference-form grams in both; only summation order
+differs), K3's and K4's predicates must be identical, and ``top_k``
+must equal ``lax.top_k`` exactly, ties included. On CPU tensors the
+wrappers run the plain versions and never count a kernel launch.
 """
 
 import jax
@@ -38,7 +38,7 @@ def _models(family, n_gps, cap, seed, d=2):
         jgps.append(jt.GPRegression(X, Y, kern, noise_var=0.01,
                                     capacity=cap))
     pgps = [gp_from_arrays(kernel_from_params(**kernel_params(g.kern)),
-                           **gp_arrays(g)) for g in jgps]
+                           **gp_arrays(g), device="cpu") for g in jgps]
     grid = rng.uniform(-3.0, 3.0, size=(1000, d))
     return jgps, pgps, grid
 
@@ -132,6 +132,107 @@ def test_operand_checks():
     with pytest.raises(ValueError, match="contiguous"):
         pfp.check_operands(dict(zt=zt.T), cpu, torch.float32,
                            dict(zt=(10, 2)))
+
+
+# -- K2 / K4: kernel algebras, one GP --------------------------------------
+
+def _algebra(name):
+    """The bench's context product, a Sum with a Bias leaf, and a
+    Cosine product, as JAX kernels over 2 columns."""
+    if name == "context":
+        return (jt.RBF(1, variance=2.0, lengthscale=1.0, active_dims=[0])
+                * jt.RBF(1, variance=1.0, lengthscale=1.5, active_dims=[1]))
+    if name == "sum_bias":
+        return (jt.RBF(2, variance=1.5, lengthscale=[0.8, 1.2], ARD=True)
+                + jt.Bias(2, variance=0.5))
+    return (jt.Cosine(1, variance=1.0, lengthscale=2.0, active_dims=[1])
+            * jt.Matern52(1, variance=1.5, active_dims=[0])
+            + jt.Exponential(2, variance=0.3, lengthscale=2.0))
+
+
+def _algebra_model(name, cap, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-2.0, 2.0, size=(23, 2))
+    Y = (1.0 + np.cos(X.sum(axis=1)) + 0.05 * rng.normal(size=23))[:, None]
+    jgp = jt.GPRegression(X, Y, _algebra(name), noise_var=0.01,
+                          capacity=cap)
+    pgp = gp_from_arrays(kernel_from_params(**kernel_params(jgp.kern)),
+                         **gp_arrays(jgp), device="cpu")
+    return jgp, pgp, rng.uniform(-3.0, 3.0, size=(1000, 2))
+
+
+ALGEBRAS = [("context", 64), ("sum_bias", 32), ("cosine", 40)]
+
+
+@pytest.mark.parametrize("name,cap", ALGEBRAS)
+def test_plan_intervals_plain_matches_pallas(name, cap):
+    jgp, pgp, grid = _algebra_model(name, cap, seed=cap)
+    assert pfp.supports_plan(pgp.kern, 2)
+    assert not pfp.supports_kernel(pgp.kern, 2)
+    l, u = jfp.fused_intervals(jgp.kern, jgp.state, jnp.asarray(grid), 2.0,
+                               block=256)
+    before = pfp.fused_intervals_plan.launches
+    out = pfp.fused_intervals_single(pgp.kern, pgp.state,
+                                     torch.tensor(grid), 2.0)
+    assert pfp.fused_intervals_plan.launches == before
+    assert out.shape == (2, grid.shape[0])
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(l), rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(u), rtol=0,
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("name,cap", ALGEBRAS)
+def test_plan_expander_plain_matches_pallas(name, cap):
+    jgp, pgp, grid = _algebra_model(name, cap, seed=3 * cap)
+    beta = 2.0
+    l, u = (np.asarray(a) for a in jfp.fused_intervals(
+        jgp.kern, jgp.state, jnp.asarray(grid), beta, block=256))
+    mu, sigma = (l + u) / 2, (u - l) / (2 * beta)
+    fmin = float(np.quantile(l, 0.4))
+    safe = l > fmin
+    cand = np.flatnonzero(safe)[::40][:16]
+    Xc, uc = grid[cand], u[cand]
+    valid = np.ones(cand.size, bool)
+    valid[-2:] = False                                        # pad slots
+    seen = set()
+    for shift in (0.0, 0.2, 0.6):
+        jpred = np.asarray(jfe.fused_expander_predicate(
+            jgp.kern, jgp.state, jnp.asarray(grid), jnp.asarray(~safe),
+            jnp.asarray(mu), jnp.asarray(sigma), jnp.asarray(Xc),
+            jnp.asarray(uc), jnp.asarray(valid), beta, fmin + shift,
+            block=256))
+        t = torch.tensor
+        before = pfe.fused_expander_plan.launches
+        ppred = pfe.fused_expander_predicate_single(
+            pgp.kern, pgp.state, t(grid), t(~safe), t(mu), t(sigma), t(Xc),
+            t(uc), t(valid), beta, t(fmin + shift))
+        assert pfe.fused_expander_plan.launches == before
+        np.testing.assert_array_equal(ppred.numpy(), jpred)
+        assert not jpred[-2:].any()
+        seen.update(jpred[:-2].tolist())
+    assert seen == {True, False}
+
+
+def test_plan_layout_and_limits():
+    kern = kernel_from_params(**kernel_params(_algebra("cosine")))
+    f64 = torch.zeros(1, dtype=torch.float64)
+    scales, pvar, plan, kdiag = pfp.part_plan(kern, 2, f64)
+    # cos(col 1) * matern52(col 0) + exponential(both): 3 leaves, 2 terms
+    np.testing.assert_array_equal(plan.numpy(), [[4, 2, 3], [0, 0, 1]])
+    np.testing.assert_allclose(scales.numpy(),
+                               [[0.0, 0.5], [1.0, 0.0], [0.5, 0.5]])
+    np.testing.assert_array_equal(pvar.numpy(), [1.0, 1.5, 0.3])
+    assert kdiag == 1.0 * 1.5 + 0.3
+    big = jt.RBF(2)
+    for _ in range(pfp.MAX_LEAVES):
+        big = big * jt.RBF(2)
+    with pytest.raises(NotImplementedError, match="leaves"):
+        pfp.part_plan(kernel_from_params(**kernel_params(big)), 2, f64)
+    assert not pfp.supports_plan(kernel_from_params(**kernel_params(
+        jt.RBF(1) + jt.White(1))), 1)
+    assert not pfp.supports_plan(kernel_from_params(**kernel_params(
+        jt.RBF(1, active_dims=[2]))), 2)
 
 
 # -- K5: exact top-k ----------------------------------------------------------

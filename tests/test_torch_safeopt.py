@@ -24,6 +24,7 @@ import safeopt_tpu as jt
 from safeopt_torch.algorithms import safe_opt_core as pcore
 from safeopt_torch.convert import (gp_arrays, gp_from_arrays,
                                    kernel_from_params, kernel_params)
+from safeopt_torch.ops import fused_posterior as pfp
 from safeopt_tpu.algorithms import safe_opt_core as jcore
 
 from reference_impl import RefGP, RefMatern32, RefRBF, RefSafeOpt
@@ -46,12 +47,13 @@ def rkhs_fn(kern_eval, centers, weights):
 def _triple(kerns, x0, fns, noise_var, grid, capacity=None, **opt_kw):
     """The same problem as (port, JAX, reference) optimizers."""
     def gps(pkg):
+        where = dict(device="cpu") if pkg is pt else {}
         out = []
         for (cls, kw), fn in zip(kerns, fns):
             kern = getattr(pkg, cls)(x0.shape[1], **kw)
             out.append(pkg.GPRegression(x0, fn(x0)[:, None], kern,
                                         noise_var=noise_var,
-                                        capacity=capacity))
+                                        capacity=capacity, **where))
         return out
 
     ref_cls = {"RBF": RefRBF, "Matern32": RefMatern32}
@@ -201,6 +203,101 @@ def test_full_sets_parity():
     assert port.G.sum() >= 1
 
 
+# -- contextual golden configs (tests/test_safeopt.py) -----------------------
+
+def _context_kernel(pkg, ctx_dims):
+    """The context_example kernel: RBF on the parameter column times RBF
+    on the context columns (K2/K4 on the port)."""
+    rbf = RefRBF if pkg is None else pkg.RBF
+    return (rbf(1, variance=2.0, active_dims=[0])
+            * rbf(len(ctx_dims), variance=1.0, lengthscale=2.0,
+                  active_dims=ctx_dims))
+
+
+def _context_triple(ctx_dims, centers, weights, params, noise_var, **kw):
+    """(port, JAX, reference) contextual optimizers and the function."""
+    f = rkhs_fn(_context_kernel(None, ctx_dims).K, centers, weights)
+    x0 = np.zeros((1, 1 + len(ctx_dims)))      # parameter 0 at context 0
+    assert f(x0)[0] > 0.5
+    y0 = f(x0)[:, None]
+    port = pt.SafeOpt(pt.GPRegression(x0, y0, _context_kernel(pt, ctx_dims),
+                                      noise_var=noise_var, device="cpu"),
+                      params, fmin=[0.0], num_contexts=len(ctx_dims), **kw)
+    jax_opt = jt.SafeOpt(jt.GPRegression(x0, y0,
+                                         _context_kernel(jt, ctx_dims),
+                                         noise_var=noise_var),
+                         params, fmin=[0.0], num_contexts=len(ctx_dims), **kw)
+    ref = RefSafeOpt(RefGP(x0, y0, _context_kernel(None, ctx_dims),
+                           noise_var=noise_var),
+                     params, fmin=[0.0], num_contexts=len(ctx_dims), **kw)
+    return (port, jax_opt, ref), f
+
+
+def _context_steps(opts, f, context, iters):
+    for it in range(iters):
+        x = np.asarray(opts[0].optimize(context=context))
+        for other, name in zip(opts[1:], ("safeopt_tpu", "reference")):
+            assert_allclose(x, np.asarray(other.optimize(context=context)),
+                            atol=1e-9, err_msg=f"port vs {name} at {it}")
+        y = float(f(np.concatenate([x, np.atleast_1d(context)])[None])[0])
+        for opt in opts:
+            opt.add_new_data_point(x, y, context=context)
+
+
+def test_context_switch_three_way():
+    """TestContext.test_trajectory_parity: context 0 for 4 iterations,
+    then 0.1 for 4, then the safe maximum at 0.1."""
+    opts, f = _context_triple([1], [[0.0, 0.0], [2.0, 0.5], [-3.0, 0.0]],
+                              [2.0, 1.0, -1.0],
+                              pt.linearly_spaced_combinations(
+                                  [(-5.0, 5.0)], 200),
+                              0.05 ** 2, threshold=0.1)
+    before = pfp.fused_intervals_plan.launches
+    _context_steps(opts, f, 0.0, 4)
+    _context_steps(opts, f, 0.1, 4)
+    assert pfp.fused_intervals_plan.launches == before     # plain on CPU
+    (xm, ym), (xj, yj), (xr, yr) = (o.get_maximum(context=0.1)
+                                    for o in opts)
+    assert_allclose(np.asarray(xm), xr, atol=1e-9)
+    assert_allclose(np.asarray(xm), np.asarray(xj), atol=1e-9)
+    assert_allclose(ym, yr, rtol=1e-8)
+    assert_allclose(opts[0].scaling, [np.sqrt(2.0)])   # prior std at 0
+
+
+def test_two_context_columns_three_way():
+    """TestMultipleContexts.test_two_context_columns."""
+    opts, f = _context_triple([1, 2], [[0.0, 0.0, 0.0], [1.5, 0.3, -0.2]],
+                              [2.0, 1.0],
+                              pt.linearly_spaced_combinations(
+                                  [(-3.0, 3.0)], 120), 1e-3)
+    ctx = np.array([0.2, -0.1])
+    _context_steps(opts, f, ctx, 4)
+    assert opts[0].inputs.shape[1] == 3
+    assert_allclose(opts[0].context, ctx)
+
+
+def test_compute_sets_after_contextual_optimize_three_way():
+    """TestAdvisorRegressions.test_compute_sets_after_contextual_optimize:
+    compute_sets keeps the current context."""
+    opts, _ = _context_triple([1], [[0.0, 0.0], [2.0, 0.5]], [2.0, 1.0],
+                              pt.linearly_spaced_combinations(
+                                  [(-5.0, 5.0)], 100),
+                              0.05 ** 2, threshold=0.1)
+    for opt in opts:
+        opt.optimize(context=0.3)
+        opt.compute_sets()
+    port, jax_opt, ref = opts
+    assert_allclose(port.context, [0.3])
+    for name in ("S", "M", "G"):
+        np.testing.assert_array_equal(getattr(port, name),
+                                      getattr(ref, name), err_msg=name)
+        np.testing.assert_array_equal(getattr(port, name),
+                                      np.asarray(getattr(jax_opt, name)),
+                                      err_msg=name)
+    with pytest.raises(ValueError):
+        port.optimize(context=None)
+
+
 # -- safeopt_step against the JAX step on random problems -----------------
 
 def _random_problem(seed, d, n_obs, n_grid):
@@ -217,7 +314,7 @@ def _random_problem(seed, d, n_obs, n_grid):
     jgps = [jt.GPRegression(X, Y, k, noise_var=0.05 ** 2)
             for Y, k in zip((Yf, Yg), kerns)]
     pgps = [gp_from_arrays(kernel_from_params(**kernel_params(g.kern)),
-                           **gp_arrays(g)) for g in jgps]
+                           **gp_arrays(g), device="cpu") for g in jgps]
     return jgps, pgps, grid
 
 
@@ -266,7 +363,8 @@ def test_expander_walk_past_first_chunk_matches_jax(chunk):
 
 def _port_opt(y0=1.5, **kw):
     gp = pt.GPRegression(np.array([[0.0]]), np.array([[y0]]),
-                         pt.RBF(1, variance=2.0), noise_var=1e-3)
+                         pt.RBF(1, variance=2.0), noise_var=1e-3,
+                         device="cpu")
     grid = pt.linearly_spaced_combinations([(-4.0, 4.0)], 100)
     return pt.SafeOpt(gp, grid, fmin=[0.0], **kw)
 
@@ -316,16 +414,25 @@ def test_plain_path_defaults_accepted():
 
 
 def test_unsupported_kernel_raises():
-    gp = pt.GPRegression(np.array([[0.0, 0.0]]), np.array([[1.0]]),
-                         pt.RBF(1, active_dims=[0]), noise_var=1e-3)
     grid = pt.linearly_spaced_combinations([(-1.0, 1.0)] * 2, 5)
-    with pytest.raises(NotImplementedError, match="K2/K4"):
-        pt.SafeOpt(gp, grid, fmin=[0.0]).optimize()
+
+    def opt(kern):
+        gp = pt.GPRegression(np.array([[0.0, 0.0]]), np.array([[1.0]]),
+                             kern, noise_var=1e-3, device="cpu")
+        return pt.SafeOpt(gp, grid, fmin=[0.0])
+
+    # White anywhere in the tree has no grid kernel yet
+    for kern in (pt.White(2), pt.RBF(2) + pt.White(2, variance=0.1),
+                 pt.RBF(1, active_dims=[0]) * pt.White(1, active_dims=[1])):
+        with pytest.raises(NotImplementedError, match="item"):
+            opt(kern).optimize()
+    # an active_dims subset now runs (K2/K4)
+    assert opt(pt.RBF(1, active_dims=[0])).optimize().shape == (2,)
 
 
 def test_device_mismatch_raises():
     gps = [pt.GPRegression(np.array([[0.0]]), np.array([[1.0]]),
-                           pt.RBF(1), noise_var=1e-3, dtype=dt)
+                           pt.RBF(1), noise_var=1e-3, device="cpu", dtype=dt)
            for dt in (torch.float64, torch.float32)]
     grid = pt.linearly_spaced_combinations([(-1.0, 1.0)], 5)
     with pytest.raises(ValueError, match="one device and dtype"):
@@ -337,7 +444,7 @@ def test_device_mismatch_raises():
 
 def test_nan_observation_routing():
     gps = [pt.GPRegression(np.array([[0.0]]), np.array([[1.0]]), pt.RBF(1),
-                           noise_var=1e-4) for _ in range(2)]
+                           noise_var=1e-4, device="cpu") for _ in range(2)]
     grid = pt.linearly_spaced_combinations([(-5.0, 5.0)], 50)
     opt = pt.SafeOpt(gps, grid, fmin=[-np.inf, 0.0], beta=lambda t: 2.0)
     opt.add_new_data_point(np.array([[1.0]]), np.array([[2.0, np.nan]]))

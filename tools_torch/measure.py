@@ -3,21 +3,32 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 tools_torch/measure.py [--caps 64 512] [--reps 10]
+    python3 tools_torch/measure.py [--configs flagship cap512 context]
+                                   [--reps 10]
                                    [--out chiprun_out/measure.json]
 
-For each capacity it builds the flagship problem of ``chip_smoke.py`` in
-float32: two RBF GPs on a 1000 x 1000 grid, expander chunk 32. Capacity
-64 holds the 50 observations from ``default_rng(0)`` in [-1.5, 1.5]^2,
-capacity 512 the 400 from ``default_rng(512)`` in [-4, 4]^2, as
-chip_smoke's K1 checks do. It measures:
+Each configuration is one of ``chip_smoke.py``'s problems in float32,
+expander chunk 32:
+
+- ``flagship``: two RBF GPs on a 1000 x 1000 grid, capacity 64 with the
+  50 observations from ``default_rng(0)`` in [-1.5, 1.5]^2 (K1, K3);
+- ``cap512``: the same GPs at capacity 512 with the 400 observations
+  from ``default_rng(512)`` in [-4, 4]^2 (K1, K3);
+- ``context``: two GPs with the contextual kernel RBF(parameter) x
+  RBF(context), 240 observations at context 0, capacity 256, a 1e6-point
+  parameter grid on [-3, 3] at context 0 (K2, K4).
+
+For each it measures:
 
 - ``optimize_ms`` / ``add_ms``: 10 iterations of ``optimize()`` and
   ``add_new_data_point()`` against chip_smoke's plant, CUDA-event ms per
   call, median of iterations 2-10;
-- ``kernels``: K1 and K3 against their plain versions, CUDA-event ms per
-  call over ``--reps`` calls after 2 warm-ups, on the starting state (K3
-  on the first chunk of the walk);
+- ``kernels``: its interval and expander kernels against their plain
+  versions, CUDA-event ms per call over ``--reps`` calls after 2
+  warm-ups, on the starting state (the expander kernel on the first
+  chunk of the walk, for the contextual GP 0), beside ``bound_ms``, the
+  least time the card could take for the same work
+  (``chip_smoke.interval_bound`` / ``expander_bound``);
 - ``stages``: one ``safeopt_step`` on the starting state split into
   intervals, classify, expander walk and select + pack + diag pull;
   host-clock ms with a device sync after each stage, median of ``--reps``;
@@ -27,7 +38,7 @@ chip_smoke's K1 checks do. It measures:
   with the most device time. ``device_ms`` is null when the profiler
   recorded no kernel.
 
-Prints one JSON object per capacity and writes them all, after the
+Prints one JSON object per configuration and writes them all, after the
 card's ``nvidia-smi`` line, to ``--out``.
 """
 
@@ -44,30 +55,42 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (BETA, FMIN, SCALING, build_gps,  # noqa: E402
-                        cuda_ms, plant, timed_ms)
+from chip_smoke import (BETA, CTX_FMIN, FMIN, SCALING,  # noqa: E402
+                        build_gps, context_gps, context_truth, cuda_ms,
+                        expander_bound, interval_bound, plan_leaves, plant,
+                        timed_ms)
 
 
-# capacity -> (observations, seed, spread of the observations)
-CONFIGS = {64: (50, 0, 1.5), 512: (400, 512, 4.0)}
+# name -> (capacity, observations, seed, spread of the observations)
+CONFIGS = {"flagship": (64, 50, 0, 1.5), "cap512": (512, 400, 512, 4.0),
+           "context": (256, 240, 3, 3.0)}
 
 
-def problem(cap, grid_np):
-    """A float32 SafeOpt on the card at capacity ``cap``."""
+def problem(name, grids):
+    """A float32 SafeOpt on the card, its plant and its step keywords."""
     from safeopt_torch import SafeOpt
 
-    n_obs, seed, spread = CONFIGS[cap]
+    cap, n_obs, seed, spread = CONFIGS[name]
+    if name == "context":
+        opt = SafeOpt(context_gps(2, n_obs, cap, "cuda", None),
+                      grids["context"], fmin=CTX_FMIN, beta=BETA,
+                      num_contexts=1, expander_chunk=32)
+        rng = np.random.default_rng(2)
+        return (opt, lambda x: (context_truth([[float(x[0]), 0.0]])
+                                + 0.05 * rng.normal(size=(1, 2))),
+                {"context": 0.0})
     gps = build_gps(np.random.default_rng(seed), n_obs, cap, "cuda", None,
                     spread=spread)
-    return SafeOpt(gps, grid_np, fmin=FMIN, beta=BETA, scaling=SCALING,
-                   expander_chunk=32)
+    rng = np.random.default_rng(1)
+    return (SafeOpt(gps, grids["flagship"], fmin=FMIN, beta=BETA,
+                    scaling=SCALING, expander_chunk=32),
+            lambda x: plant(rng, x), {})
 
 
 def stage_ms(opt, reps):
     """Median host ms of each stage of one step on ``opt``'s state, plus
-    the float32 K3 operands of the walk's first chunk."""
+    the walk's first chunk (grid indices) and the step's intermediates."""
     from safeopt_torch.algorithms import safe_opt_core as core
-    from safeopt_torch.ops import fused_expander as fe
 
     kernels, states = opt._model_args()
     c = opt._step_consts()
@@ -95,15 +118,51 @@ def stage_ms(opt, reps):
         for name, t0, t1 in zip(names, marks, marks[1:]):
             times[name].append((t1 - t0) * 1e3)
     gidx = core._visit_order(torch.where(cand, width, float("-inf")), 32)
-    k3_ops = fe.expander_operands(
-        kernels, states, grid, ~S, mu, sigma, grid[gidx],
-        Q[gidx][:, 1::2].T.clone(),
-        torch.ones(32, dtype=torch.bool, device=grid.device), BETA,
-        c["fmin"])
-    return {name: statistics.median(v) for name, v in times.items()}, k3_ops
+    return ({name: statistics.median(v) for name, v in times.items()},
+            (gidx, Q, S, mu, sigma, c["fmin"]))
 
 
-def profile(opt, calls=5, top=6):
+def kernel_times(opt, chunk, reps):
+    """Interval and expander kernel vs plain ms and bounds on ``opt``'s
+    state: K1/K3 for the stationary GPs, K2/K4 for the contextual GP 0."""
+    from safeopt_torch.ops import fused_expander as fe
+    from safeopt_torch.ops import fused_posterior as fp
+
+    kernels, states = opt._model_args()
+    grid = opt._grid()
+    gidx, Q, S, mu, sigma, fmin = chunk
+    N, d = grid.shape
+    C, cap, n = gidx.shape[0], states[0].capacity, int(states[0].count)
+    valid = torch.ones(C, dtype=torch.bool, device=grid.device)
+    U = int((~S).sum())
+    f32 = torch.float32
+    if fp.supports_kernel(kernels[0], d):
+        G = len(kernels)
+        iv = fp.interval_operands(kernels, states, grid, BETA)
+        ex = fe.expander_operands(kernels, states, grid, ~S, mu, sigma,
+                                  grid[gidx], Q[gidx][:, 1::2].T.clone(),
+                                  valid, BETA, fmin)
+        runs = {"K1": (fp.fused_intervals, fp.fused_intervals_plain, iv,
+                       interval_bound(f32, G, N, d, cap, n)),
+                "K3": (fe.fused_expander, fe.fused_expander_plain, ex,
+                       expander_bound(f32, G, N, U, d, cap, n, C))}
+    else:
+        iv = fp.interval_plan_operands(kernels[0], states[0], grid, BETA)
+        ex = fe.expander_plan_operands(kernels[0], states[0], grid, ~S,
+                                       mu[0], sigma[0], grid[gidx],
+                                       Q[gidx, 1], valid, BETA, fmin[0])
+        leaves = plan_leaves(iv[4], iv[6])
+        runs = {"K2": (fp.fused_intervals_plan, fp.fused_intervals_plan_plain,
+                       iv, interval_bound(f32, 1, N, d, cap, n, leaves)),
+                "K4": (fe.fused_expander_plan, fe.fused_expander_plan_plain,
+                       ex, expander_bound(f32, 1, N, U, d, cap, n, C, leaves))}
+    return {key: {"kernel_ms": cuda_ms(lambda: kern(*ops), reps=reps),
+                  "plain_ms": cuda_ms(lambda: plain(*ops), reps=reps),
+                  "bound_ms": b[0], "bound_by": b[1]}
+            for key, (kern, plain, ops, b) in runs.items()}
+
+
+def profile(opt, kw, calls=5, top=6):
     """Wall ms, summed kernel ms and the top kernels of ``calls`` steps."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -113,7 +172,7 @@ def profile(opt, calls=5, top=6):
         torch.cuda.synchronize()
         start = time.perf_counter()
         for _ in range(calls):
-            opt.optimize()
+            opt.optimize(**kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     per_kernel = {}
@@ -128,54 +187,40 @@ def profile(opt, calls=5, top=6):
             "top_kernels_ms": {name[:80]: ms for name, ms in ranked}}
 
 
-def measure(cap, grid_np, reps):
-    """Every measurement of one capacity, as a dict. The iterations run
-    first, on a problem of their own, so that no profiler session has
-    run in the process before them."""
-    from safeopt_torch.ops import fused_expander as fe
-    from safeopt_torch.ops import fused_posterior as fp
-
-    opt = problem(cap, grid_np)
-    rng = np.random.default_rng(1)
+def measure(name, grids, reps):
+    """Every measurement of one configuration, as a dict. The iterations
+    run first, on a problem of their own, so that no profiler session
+    has run in the process before them."""
+    opt, plant_fn, kw = problem(name, grids)
     opt_ms, add_ms, chunks = [], [], []
     for _ in range(10):
-        x, ms = timed_ms(opt.optimize)
+        x, ms = timed_ms(lambda: opt.optimize(**kw))
         opt_ms.append(ms)
         chunks.append(opt.stats.last.walk_chunks)
-        y = plant(rng, x)
-        add_ms.append(timed_ms(lambda: opt.add_new_data_point(x, y))[1])
+        y = plant_fn(x)
+        add_ms.append(timed_ms(lambda: opt.add_new_data_point(x, y,
+                                                              **kw))[1])
 
-    opt = problem(cap, grid_np)
-    opt.optimize()                                   # warm-up
-    stages, k3_ops = stage_ms(opt, reps)
-    kernels, states = opt._model_args()
-    k1_ops = fp.interval_operands(kernels, states, opt._grid(), BETA)
-    result = {
-        "capacity": cap, "observations": CONFIGS[cap][0],
-        "kernels": {
-            "K1": {"kernel_ms": cuda_ms(lambda: fp.fused_intervals(*k1_ops),
-                                        reps=reps),
-                   "plain_ms": cuda_ms(
-                       lambda: fp.fused_intervals_plain(*k1_ops), reps=reps)},
-            "K3": {"kernel_ms": cuda_ms(lambda: fe.fused_expander(*k3_ops),
-                                        reps=reps),
-                   "plain_ms": cuda_ms(
-                       lambda: fe.fused_expander_plain(*k3_ops), reps=reps)},
-        },
+    opt, _, kw = problem(name, grids)
+    opt.optimize(**kw)                               # warm-up
+    stages, chunk = stage_ms(opt, reps)
+    return {
+        "config": name, "capacity": CONFIGS[name][0],
+        "observations": CONFIGS[name][1],
+        "kernels": kernel_times(opt, chunk, reps),
         "stages_ms": stages,
-        "profile": profile(opt),
+        "profile": profile(opt, kw),
         "optimize_ms": statistics.median(opt_ms[1:]),
         "add_ms": statistics.median(add_ms[1:]),
         "optimize_ms_all": opt_ms, "walk_chunks": chunks,
     }
-    return result
 
 
 def main():
     """Measure every requested capacity; returns the exit code."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--caps", type=int, nargs="+", default=[64, 512],
-                        choices=sorted(CONFIGS))
+    parser.add_argument("--configs", nargs="+", default=list(CONFIGS),
+                        choices=list(CONFIGS))
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--out", default="chiprun_out/measure.json")
     args = parser.parse_args()
@@ -189,10 +234,13 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}", flush=True)
-    grid_np = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
+    grids = {"flagship": linearly_spaced_combinations([(-5.0, 5.0),
+                                                      (-5.0, 5.0)], 1000),
+             "context": linearly_spaced_combinations([(-3.0, 3.0)],
+                                                     1_000_000)}
     results = []
-    for cap in args.caps:
-        results.append(measure(cap, grid_np, args.reps))
+    for name in args.configs:
+        results.append(measure(name, grids, args.reps))
         print(json.dumps(results[-1]), flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
