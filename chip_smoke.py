@@ -11,8 +11,11 @@ Phases, each reported on its own line:
 2. build: compiles the CUDA kernels from ``safeopt_torch/ops/csrc``
    (one nvcc per source, in parallel);
 3. K1 (fused intervals) against its plain PyTorch version at G=2, d=2,
-   N=1e6, capacity 64 (the flagship) and 512 (factor streamed), and
-   G=1 at capacity 64: float64 kernel vs float64 plain to 1e-9; float32
+   N=1e6, capacity 64 (the flagship) and 512 (400 observations), one
+   launch of two GPs at capacity 512 whose counts differ (20 and 300),
+   G=1 at capacity 1024 (600 observations: the gram is not resident in
+   shared memory, in float32 past row 512, in float64 past 256) and G=1
+   at capacity 64: float64 kernel vs float64 plain to 1e-9; float32
    kernel vs float64 plain with identical ``l > fmin`` decisions outside
    a scaled band of 1e-3;
 4. K3 (fused expander predicate) on a chunk of 32 flagship candidates
@@ -22,9 +25,9 @@ Phases, each reported on its own line:
 5. K2 (intervals of one GP with a kernel algebra) against its plain
    version on the bench's contextual kernel, RBF(parameter) x
    RBF(context), over the same grid (column 1 is the context): capacity
-   64 with 50 observations, capacity 256 with 250 (factor streamed), and
-   a Sum with a Bias leaf and a Cosine leaf on one column; tolerances
-   as K1's;
+   64 with 50 observations, capacity 256 with 250, capacity 1024 with
+   600 (gram not resident), and a Sum with a Bias leaf and a Cosine leaf
+   on one column; tolerances as K1's;
 6. K4 (expander predicate of one GP with a kernel algebra) as K3's
    check, on the contextual kernel's two GPs at capacity 256;
 7. K5 (exact top-k) on CUDA tensors with massive ties and all -inf;
@@ -41,7 +44,8 @@ Phases, each reported on its own line:
    Every kernel's launch count is zeroed just before each path and read
    just after it;
 10. times of both paths and of each kernel against its plain version,
-    beside the least time the card could take (``bound_ms``).
+    beside the least time the card could take (``bound_ms``) and the
+    share of that bound the kernel reaches.
 
 Any failed check exits non-zero. The last lines are one JSON object of
 the kernels, the nvidia-smi line, and the result line.
@@ -212,6 +216,12 @@ def interval_bound(dtype, G, N, d, cap, n, leaves=None):
     return bound(dtype, flops, nbytes)
 
 
+def band_macs(n):
+    """Multiply-adds per point and GP that K1/K2 execute at count n:
+    band b of 32 rows contracts over min(32 (b + 1), n) columns."""
+    return sum(32 * min(32 * (b + 1), n) for b in range(-(-n // 32)))
+
+
 def expander_bound(dtype, G, N, U, d, cap, n, C, leaves=None):
     """Least time of K3/K4 on these inputs: at each of the U unsafe
     points and per GP the gram of the n active rows and of the C
@@ -234,13 +244,16 @@ def decisions_agree(l32, l64, fmin, scaling):
 
 
 def check_k1(label, n_obs, cap, n_gps, grid64, seed, spread=1.5):
-    """K1 vs its plain version in f64 and f32; returns both errors."""
+    """K1 vs its plain version in f64 and f32; returns both errors.
+    ``n_obs`` is one count for every GP or a tuple of one per GP (GP g
+    taken from the flagship pair built with that count)."""
     from safeopt_torch.ops import fused_posterior as fp
 
+    counts = n_obs if isinstance(n_obs, tuple) else (n_obs,) * n_gps
     out = {}
     for dtype in (torch.float64, torch.float32):
-        gps = build_gps(np.random.default_rng(seed), n_obs, cap, "cuda",
-                        dtype, spread=spread)[:n_gps]
+        gps = [build_gps(np.random.default_rng(seed), n, cap, "cuda", dtype,
+                         spread=spread)[g] for g, n in enumerate(counts)]
         ops = fp.interval_operands([g.kern for g in gps],
                                    [g.state for g in gps],
                                    grid64.to(dtype), BETA)
@@ -545,6 +558,10 @@ def main():
     # 3. K1 against its plain version -----------------------------------------
     k1_err64, k1_err32 = check_k1("G=2 cap=64", 50, 64, 2, grid64, seed=0)
     check_k1("G=2 cap=512", 400, 512, 2, grid64, seed=512, spread=4.0)
+    check_k1("G=2 cap=512, counts 20 and 300 in one launch", (20, 300), 512,
+             2, grid64, seed=512, spread=4.0)
+    check_k1("G=1 cap=1024 (600 obs, gram not resident)", 600, 1024, 1,
+             grid64, seed=1024, spread=4.0)
     check_k1("G=1 cap=64", 50, 64, 1, grid64, seed=0)
 
     # 4. K3 against its plain version on flagship candidates ------------------
@@ -559,6 +576,9 @@ def main():
     n_k2 = 250          # K2 and K4 are timed at the 250-observation GP
     err, k2_ops32 = check_k2("1 GP cap=256 (250 obs, factor streamed)", n_k2,
                              256, grid64)
+    k2_err = max(k2_err, err)
+    err, _ = check_k2("1 GP cap=1024 (600 obs, gram not resident)", 600,
+                      1024, grid64)
     k2_err = max(k2_err, err)
     err, _ = check_k2("Sum with Bias and Cosine leaves, cap=64", 50, 64,
                       grid64, extra=True)
@@ -673,7 +693,8 @@ def main():
         times[name] = (cuda_ms(kernel), cuda_ms(plain), bound_ms, bound_by)
         print(f"{name} float32: kernel {times[name][0]:.4f} ms, plain "
               f"{times[name][1]:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
+              f"({bound_by}), share of the bound "
+              f"{bound_ms / times[name][0]:.1%}", flush=True)
 
     meta = {
         "K1": ("K1 fused_intervals", "fused_intervals.cu",

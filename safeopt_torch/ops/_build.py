@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["library", "build_info"]
+__all__ = ["library", "build_info", "build", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "safeopt_torch"
@@ -64,19 +64,23 @@ def _nvcc() -> str:
     return found
 
 
-def _sources():
-    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+def _sources(csrc: Path = _CSRC):
+    return sorted(list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")))
 
 
-def _build() -> Path:
-    sources = _sources()
+def build(csrc: Path = _CSRC) -> Path:
+    """Path of the kernel library built from the sources in ``csrc``,
+    compiled unless cached."""
+    sources = _sources(csrc)
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     so = _BUILD_DIR / f"libsafeopt_kernels_{digest.hexdigest()[:16]}.so"
     if so.exists():
-        _info.update(path=str(so), seconds=0.0, cached=True, log="")
+        log = so.with_suffix(".log")
+        _info.update(path=str(so), seconds=0.0, cached=True,
+                     log=log.read_text() if log.exists() else "")
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -116,18 +120,23 @@ def _build() -> Path:
     return so
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library, loaded with its C signatures set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.safeopt_error_string.argtypes = [ctypes.c_int]
+    lib.safeopt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.safeopt_error_string.argtypes = [ctypes.c_int]
-        lib.safeopt_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(build())
     return _lib
 
 

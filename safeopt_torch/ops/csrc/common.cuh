@@ -4,16 +4,19 @@
 // grid points followed by a per-point epilogue, where K is the block's
 // gram (kernel values between the training inputs and the points). How
 // one gram entry is computed is a policy (StationaryGram for K1/K3,
-// PlanGram for K2/K4); the tiling is shared. They
-// share one tiling: a block of kThreads threads owns kP grid points and a
-// tile of R rows (R = kNTY * TM); each thread accumulates a TM x kTN
-// register tile of the product. The contraction runs over the training
-// rows in chunks of kKC: per chunk the block stages A's chunk (rows of
-// the transposed factor or M2) and computes the gram chunk into shared
-// memory, then every thread does kKC rank-1 updates of its register tile.
-// Per update a thread reads TM + kTN values from shared memory for
-// TM * kTN FMAs; a warp covers 4 row groups x 8 point groups, so those
-// reads are a few contiguous vectors (broadcast within the warp).
+// PlanGram for K2/K4) with one body, rows<R>, for R rows at once (the
+// interval body's resident gram takes four; one entry is rows<1>). The
+// interval kernels K1/K2 have their own tiling (intervals.cuh). The
+// expander kernels K3/K4 share this one: a block of kThreads threads owns
+// kP grid points and a tile of R rows (R = kNTY * TM); each thread
+// accumulates a TM x kTN register tile of the product. The contraction
+// runs over the training rows in chunks of kKC: per chunk the block
+// stages A's chunk (rows of the transposed M2) and computes the gram
+// chunk into shared memory, then every thread does kKC rank-1 updates of
+// its register tile. Per update a thread reads TM + kTN values from
+// shared memory for TM * kTN FMAs; a warp covers 4 row groups x 8 point
+// groups, so those reads are a few contiguous vectors (broadcast within
+// the warp).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -123,58 +126,136 @@ __device__ __forceinline__ void stage_a(T* at, const T* __restrict__ a,
   }
 }
 
+// Asynchronous copies (cp.async, sm_80 and later): 16 bytes from global
+// to shared memory without passing through registers. A thread's copies
+// are grouped by cp_async_commit; cp_async_wait<N> returns once at most N
+// of its groups are still in flight. Other threads see the data only
+// after a barrier (__syncwarp or __syncthreads) that follows the wait.
+// Both pointers are 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // One stationary family over every column: x and the points are both
 // already divided by the lengthscale (K1, K3).
 template <typename T>
 struct StationaryGram {
   int kind;
   T variance;
-  // k(x, zs[:, p]) for a row x (global or shared memory) and the block's
-  // staged points zs (d x kP)
-  __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
-                                          int d) const {
-    T r2 = T(0);
+  // v[r] = k(x[r], zs[:, p]) for R rows (global or shared memory) and the
+  // block's staged points zs (d rows of stride ldz): the point's
+  // coordinates are read once and the R evaluations are independent
+  template <int R>
+  __device__ __forceinline__ void rows(T (&v)[R], const T* const (&x)[R],
+                                       const T* zs, int p, int d,
+                                       int ldz) const {
+    T r2[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) r2[r] = T(0);
     for (int k = 0; k < d; ++k) {
-      const T diff = x[k] - zs[k * kP + p];
-      r2 += diff * diff;
+      const T z = zs[k * ldz + p];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const T diff = x[r][k] - z;
+        r2[r] += diff * diff;
+      }
     }
-    return kfun(kind, r2, variance);
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = kfun(kind, r2[r], variance);
+  }
+  // k(x, zs[:, p]) for one row
+  __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
+                                          int d, int ldz = kP) const {
+    T v[1];
+    const T* const xr[1] = {x};
+    rows<1>(v, xr, zs, p, d, ldz);
+    return v[0];
   }
 };
 
 // A plan of a Sum/Product algebra (K2, K4; the JAX package's _part_gram):
 // raw inputs, per leaf q a kind, a variance and a scale row (1 /
-// lengthscale on its active columns, 0 elsewhere, so inactive columns
-// add exactly 0). Leaf values multiply within a term and terms add;
-// last[q] marks the leaf that ends its term. All arrays in shared memory.
+// lengthscale on its active columns, 0 elsewhere). A leaf reads its
+// active columns only, in order, as the plain version skips a zero
+// scale. Leaf values multiply within a term and terms add; last[q] marks
+// the leaf that ends its term. All arrays in shared memory.
 template <typename T>
 struct PlanGram {
-  const T* scales;  // P x d
-  const T* pvar;    // P
-  const int* kind;  // P
-  const int* last;  // P
+  const T* scales;   // P x d
+  const T* pvar;     // P
+  const int* kind;   // P
+  const int* last;   // P
+  const int* cols;   // P x d: row q starts with leaf q's active columns
+  const int* ncols;  // P: how many
   int P;
-  __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
-                                          int d) const {
-    T sum = T(0), prod = T(1);
+  // v[r] = the plan at (x[r], zs[:, p]) for R rows at once: each leaf's
+  // constants and the point's coordinates are read once for the R rows
+  template <int R>
+  __device__ __forceinline__ void rows(T (&v)[R], const T* const (&x)[R],
+                                       const T* zs, int p, int d,
+                                       int ldz) const {
+    T prod[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      v[r] = T(0);
+      prod[r] = T(1);
+    }
     for (int q = 0; q < P; ++q) {
-      T v = pvar[q];
-      if (kind[q] != kBias) {  // a constant leaf reads no distance
+      const T var = pvar[q];
+      const int kd = kind[q];
+      T leaf[R];
+      if (kd == kBias) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) leaf[r] = var;
+      } else {
         const T* s = scales + q * d;
-        T r2 = T(0);
-        for (int k = 0; k < d; ++k) {
-          const T diff = (x[k] - zs[k * kP + p]) * s[k];
-          r2 += diff * diff;
+        const int* cq = cols + q * d;
+        T r2[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) r2[r] = T(0);
+        // bounded by d, not ncols[q], so that it unrolls where the caller
+        // knows d at compile time (the resident gram)
+        for (int j = 0; j < d; ++j) {
+          if (j == ncols[q]) break;
+          const int k = cq[j];
+          const T sk = s[k];
+          const T z = zs[k * ldz + p];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const T diff = (x[r][k] - z) * sk;
+            r2[r] += diff * diff;
+          }
         }
-        v = kfun(kind[q], r2, v);
+#pragma unroll
+        for (int r = 0; r < R; ++r) leaf[r] = kfun(kd, r2[r], var);
       }
-      prod *= v;
-      if (last[q]) {
-        sum += prod;
-        prod = T(1);
+      const bool end = last[q];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        prod[r] *= leaf[r];
+        if (end) {
+          v[r] += prod[r];
+          prod[r] = T(1);
+        }
       }
     }
-    return sum;
+  }
+  // the plan at (x, zs[:, p]) for one row
+  __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
+                                          int d, int ldz = kP) const {
+    T v[1];
+    const T* const xr[1] = {x};
+    rows<1>(v, xr, zs, p, d, ldz);
+    return v[0];
   }
 };
 
@@ -187,6 +268,8 @@ struct PlanSmem {
   T pvar[kMaxLeaves];
   int kind[kMaxLeaves];
   int last[kMaxLeaves];
+  int cols[kMaxLeaves * kMaxDim];
+  int ncols[kMaxLeaves];
 
   __device__ __forceinline__ PlanGram<T> stage(const T* __restrict__ g_scales,
                                                const T* __restrict__ g_pvar,
@@ -198,9 +281,13 @@ struct PlanSmem {
       pvar[q] = g_pvar[q];
       kind[q] = plan[q];
       last[q] = q == P - 1 || plan[P + q + 1] != plan[P + q];
+      int m = 0;
+      for (int k = 0; k < d; ++k)
+        if (g_scales[q * d + k] != T(0)) cols[q * d + m++] = k;
+      ncols[q] = m;
     }
     __syncthreads();
-    return PlanGram<T>{scales, pvar, kind, last, P};
+    return PlanGram<T>{scales, pvar, kind, last, cols, ncols, P};
   }
 };
 

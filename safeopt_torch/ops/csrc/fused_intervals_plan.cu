@@ -10,75 +10,71 @@
 //   k[c]  = sum_terms prod_leaves k_q(r2_q),  r2_q = sum_k ((x_k - z_k) s_qk)^2
 //   V, mu, var, out as in K1 (intervals.cuh)
 //
-// What bounds it on Hopper: as K1, about cap^2 / 2 FMAs per point of
-// the triangular product against cap plan evaluations (P leaves of d
-// scaled differences and one transcendental each) and 8 d bytes of
-// grid: the FP32 (or FP64) pipe, not device memory. Design: K1's body
+// What bounds it on Hopper: as K1, n(n+1)/2 FMAs per point of the
+// triangular product against n plan evaluations (P leaves of d scaled
+// differences and one transcendental each) and 8 d bytes of grid: the
+// FP32 (or FP64) pipe, not device memory. Design: K1's body
 // (intervals.cuh) with raw points and the PlanGram policy: the plan
 // (kinds, term ends, variances, the P x d scale rows) is staged in
-// shared memory once per block, so the gram chunk reads it as
-// broadcasts. A Bias leaf skips the distance loop; a zero scale adds
-// exactly 0, so inactive columns drop out. No TF32, no tensor cores.
+// shared memory once per block, so the gram reads it as broadcasts, and
+// the body evaluates each plan entry once per block while the gram is
+// resident. A Bias leaf skips the distance loop, and a leaf reads only
+// its active columns (nonzero scale). No TF32, no tensor cores.
 
 #include "intervals.cuh"
 
 namespace safeopt {
 
-template <typename T, int TM>
-__global__ void __launch_bounds__(kThreads) intervals_plan_kernel(
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kIvMinBlocks)
+    intervals_plan_kernel(
     const T* __restrict__ zt, const T* __restrict__ xs,
     const T* __restrict__ lmt, const T* __restrict__ w,
     const T* __restrict__ scales, const T* __restrict__ pvar,
     const int* __restrict__ plan, const T* __restrict__ scal,
-    T* __restrict__ out, int N, int d, int cap, int P) {
+    T* __restrict__ out, int N, int d, int cap, int ldl, int P, int S,
+    int res) {
   __shared__ PlanSmem<T> smem_plan;
   const PlanGram<T> gram = smem_plan.stage(scales, pvar, plan, P, d);
-  interval_rows<T, TM>(zt, (const T*)nullptr, xs, lmt, w, scal[1], scal[2],
-                       out, N, d, cap, gram);
+  const int count = (int)scal[3];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  interval_rows<T>(zt, (const T*)nullptr, xs, lmt, ldl, w, scal[1], scal[2],
+                   out, N, d, cap, n, S, res, gram);
 }
 
-template <typename T, int TM>
+template <typename T>
 int launch_intervals_plan(const T* zt, const T* xs, const T* lmt, const T* w,
                           const T* scales, const T* pvar, const int* plan,
                           const T* scal, T* out, int N, int d, int cap, int P,
                           cudaStream_t stream) {
-  const size_t smem = interval_smem_bytes<T, TM>(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      intervals_plan_kernel<T, TM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kP - 1) / kP);
-  intervals_plan_kernel<T, TM><<<grid, kThreads, smem, stream>>>(
-      zt, xs, lmt, w, scales, pvar, plan, scal, out, N, d, cap, P);
-  return (int)cudaGetLastError();
-}
-
-// Rows per thread as K1: 4 up to capacity 64, else 8.
-template <typename T>
-int launch_intervals_plan_any(const T* zt, const T* xs, const T* lmt,
-                              const T* w, const T* scales, const T* pvar,
-                              const int* plan, const T* scal, T* out, int N,
-                              int d, int cap, int P, cudaStream_t stream) {
   if (P < 1 || P > kMaxLeaves || d < 1 || d > kMaxDim)
     return (int)cudaErrorInvalidValue;
-  if (cap <= 4 * kNTY)
-    return launch_intervals_plan<T, 4>(zt, xs, lmt, w, scales, pvar, plan,
-                                       scal, out, N, d, cap, P, stream);
-  return launch_intervals_plan<T, 8>(zt, xs, lmt, w, scales, pvar, plan, scal,
-                                     out, N, d, cap, P, stream);
+  const IvLayout<T> lay = interval_layout<T>(cap, d);
+  cudaError_t err = cudaFuncSetAttribute(
+      intervals_plan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)lay.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int ldl = (cap + kBand - 1) / kBand * kBand;  // Lm^T row stride
+  const dim3 grid((N + lay.P - 1) / lay.P);
+  intervals_plan_kernel<T><<<grid, kThreads, lay.bytes, stream>>>(
+      zt, xs, lmt, w, scales, pvar, plan, scal, out, N, d, cap, ldl, P, lay.S,
+      lay.res);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace safeopt
 
 extern "C" {
 
-// lmt is Lm transposed: lmt[c, r] = Lm[r, c]; plan is int32 (2, P).
+// lmt is Lm transposed with rows padded to a multiple of 32: lmt[c, r] =
+// Lm[r, c] for r < cap, zero past it; plan is int32 (2, P); scal[3] is the
+// GP's count.
 int safeopt_intervals_plan_f32(const void* zt, const void* xs,
                                const void* lmt, const void* w,
                                const void* scales, const void* pvar,
                                const void* plan, const void* scal, void* out,
                                int N, int d, int cap, int P, void* stream) {
-  return safeopt::launch_intervals_plan_any<float>(
+  return safeopt::launch_intervals_plan<float>(
       (const float*)zt, (const float*)xs, (const float*)lmt, (const float*)w,
       (const float*)scales, (const float*)pvar, (const int*)plan,
       (const float*)scal, (float*)out, N, d, cap, P, (cudaStream_t)stream);
@@ -89,7 +85,7 @@ int safeopt_intervals_plan_f64(const void* zt, const void* xs,
                                const void* scales, const void* pvar,
                                const void* plan, const void* scal, void* out,
                                int N, int d, int cap, int P, void* stream) {
-  return safeopt::launch_intervals_plan_any<double>(
+  return safeopt::launch_intervals_plan<double>(
       (const double*)zt, (const double*)xs, (const double*)lmt,
       (const double*)w, (const double*)scales, (const double*)pvar,
       (const int*)plan, (const double*)scal, (double*)out, N, d, cap, P,

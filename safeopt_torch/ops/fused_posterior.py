@@ -210,13 +210,15 @@ def lengthscales(kernels, d: int, like: torch.Tensor) -> torch.Tensor:
 
 def interval_operands(kernels, states, grid: torch.Tensor, beta):
     """K1's operands ``(zt, ils, xs, lm, w, scal, kind)`` for GPs of one
-    family and one capacity over ``grid`` (N, d)."""
+    family and one capacity over ``grid`` (N, d). ``scal[:, 3]`` holds
+    each GP's count, copied on the device (no host sync)."""
     n, d = grid.shape
     kind = kind_of(kernels)
     ls = lengthscales(kernels, d, grid)
     scal = torch.tensor([[float(k.variance), float(k.variance),
                           float(beta), 0.0] for k in kernels],
                         dtype=grid.dtype, device=grid.device)
+    scal[:, 3] = torch.stack([st.count for st in states])
     xs = torch.stack([st.X for st in states]) / ls[:, None, :]
     lm = torch.stack([st.Linv * row_mask(st)[None, :] for st in states])
     w = torch.stack([st.w for st in states])
@@ -296,14 +298,30 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def transposed_factor(lm: torch.Tensor) -> torch.Tensor:
+    """(G, cap, ldl) ``Lm^T`` as K1/K2 read it: ``lm`` (G, cap, cap)
+    transposed, its rows padded with zeros to ``ldl``, the capacity
+    rounded up to 32, so that every 32-row band the kernels copy is in
+    bounds and 16-byte aligned."""
+    G, cap, _ = lm.shape
+    ldl = -(-cap // 32) * 32
+    if ldl == cap:
+        return lm.transpose(1, 2).contiguous()
+    lmt = lm.new_zeros((G, cap, ldl))
+    lmt[:, :, :cap] = lm.transpose(1, 2)
+    return lmt
+
+
 def fused_intervals(zt, ils, xs, lm, w, scal, kind):
     """(G, 2, N) interval rows: K1 on CUDA, the plain version on CPU.
 
     ``zt`` (d, N) grid, features first; ``ils`` (G, d) inverse
     lengthscales; ``xs`` (G, cap, d) training inputs divided by the
     lengthscale; ``lm`` (G, cap, cap) masked ``Linv``; ``w`` (G, cap)
-    whitened targets; ``scal`` (G, 4) = [variance, kdiag, beta, 0].
-    Adds one to ``fused_intervals.launches`` per kernel launch.
+    whitened targets; ``scal`` (G, 4) = [variance, kdiag, beta, count].
+    The kernel reads rows and columns below each GP's count only: past
+    it ``lm`` must be zero, as the masked factor is. Adds one to
+    ``fused_intervals.launches`` per kernel launch.
     """
     if zt.device.type == "cpu":
         return fused_intervals_plain(zt, ils, xs, lm, w, scal, kind)
@@ -318,7 +336,7 @@ def fused_intervals(zt, ils, xs, lm, w, scal, kind):
         dict(zt=zt, ils=ils, xs=xs, lm=lm, w=w, scal=scal), zt.device, dtype,
         dict(zt=(d, N), ils=(G, d), xs=(G, cap, d), lm=(G, cap, cap),
              w=(G, cap), scal=(G, 4)))
-    lmt = lm.transpose(1, 2).contiguous()   # the kernel reads Lm^T rows
+    lmt = transposed_factor(lm)
     out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
 
     from ._build import library
@@ -345,10 +363,11 @@ def fused_intervals_batched(kernels, states, grid: torch.Tensor, beta):
 
 def interval_plan_operands(kernel, state, grid: torch.Tensor, beta):
     """K2's operands ``(zt, xs, lm, w, scales, pvar, plan, scal)`` for
-    one GP over ``grid`` (N, d); ``scal`` = [0, kdiag, beta, 0]."""
+    one GP over ``grid`` (N, d); ``scal`` = [0, kdiag, beta, count]."""
     scales, pvar, plan, kdiag = part_plan(kernel, grid.shape[1], grid)
     scal = torch.tensor([0.0, kdiag, float(beta), 0.0], dtype=grid.dtype,
                         device=grid.device)
+    scal[3] = state.count
     lm = state.Linv * row_mask(state)[None, :]
     return (grid.T.contiguous(), state.X.contiguous(), lm.contiguous(),
             state.w.contiguous(), scales, pvar, plan, scal)
@@ -370,8 +389,9 @@ def fused_intervals_plan(zt, xs, lm, w, scales, pvar, plan, scal):
     ``zt`` (d, N) raw grid, features first; ``xs`` (cap, d) raw
     training inputs; ``lm`` (cap, cap) masked ``Linv``; ``w`` (cap,)
     whitened targets; ``scales``, ``pvar``, ``plan`` from ``part_plan``;
-    ``scal`` (4,) = [0, kdiag, beta, 0]. Adds one to
-    ``fused_intervals_plan.launches`` per kernel launch.
+    ``scal`` (4,) = [0, kdiag, beta, count]; as in K1, ``lm`` is zero
+    past the count. Adds one to ``fused_intervals_plan.launches`` per
+    kernel launch.
     """
     if zt.device.type == "cpu":
         return fused_intervals_plan_plain(zt, xs, lm, w, scales, pvar, plan,
@@ -387,7 +407,7 @@ def fused_intervals_plan(zt, xs, lm, w, scales, pvar, plan, scal):
              scal=scal), zt.device, dtype,
         dict(zt=(d, N), xs=(cap, d), lm=(cap, cap), w=(cap,),
              scales=(P, d), pvar=(P,), plan=(2, P), scal=(4,)))
-    lmt = lm.T.contiguous()                 # the kernel reads Lm^T rows
+    lmt = transposed_factor(lm[None])[0]
     out = torch.empty((2, N), dtype=dtype, device=zt.device)
 
     from ._build import library

@@ -13,6 +13,10 @@ sizes), and decisions must agree outside a 1e-3 band. K3 runs at
 thresholds raised far enough that its plain predicate is false for some
 candidates, and with a padding slot that must come back false; K4
 likewise, and both tests assert that the plain predicate was mixed.
+The K1/K2 cases past the resident gram, far below capacity and with
+unequal counts check float32 by its decisions: no ``l > fmin`` decision
+differs from the float64 plain one outside a band of 1e-3 times the
+prior std (fmin at two quantiles of l).
 """
 
 import numpy as np
@@ -198,6 +202,85 @@ def test_plan_expander_kernel_matches_plain(cuda, name, cap, dtype):
                        == fe.fused_expander_plan_plain(*at(shift + 1e-3)))
             assert not bool(((got != want) & decided).any())
     assert seen == {True, False}
+
+
+def _decisions_differ(out, ref, kdiag, band=1e-3):
+    """Rows of ``out`` (float32) whose ``l > fmin`` decision differs from
+    the float64 plain ``ref`` where the plain margin, scaled by the prior
+    std, exceeds ``band``; fmin at the 30 % and 60 % quantiles of l."""
+    wrong = 0
+    l32, l64 = out[0].double(), ref[0]
+    for q in (0.3, 0.6):
+        fmin = torch.quantile(l64[::7], q)
+        outside = ((l64 - fmin) / kdiag ** 0.5).abs() > band
+        wrong += int((((l32 > fmin) != (l64 > fmin)) & outside).sum())
+    return wrong
+
+
+def _check_rows(out, ref, dtype, kdiag):
+    if dtype == torch.float64:
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-9, err
+    else:
+        assert bool(torch.isfinite(out).all())
+        assert _decisions_differ(out, ref, kdiag) == 0
+
+
+# K1 and K2 past their resident gram (capacity 1024; float64 already at
+# 512), past the 32 bands a block adds at once (1100 rows at capacity
+# 2048), far below capacity, at counts that are no multiple of 32, at
+# capacities whose last band reaches past cap (100) or whose factor rows
+# are not 16-byte aligned (50 in float32), and (K1) GPs of different
+# counts in one launch
+ACTIVE_CASES = [((600,), 1024), ((1100,), 2048), ((400,), 512),
+                ((20,), 512), ((77, 45), 128), ((20, 300), 512),
+                ((97,), 100), ((47, 45), 50)]
+
+
+@pytest.mark.parametrize("counts,cap", ACTIVE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_intervals_kernel_active_rows(cuda, counts, cap, dtype):
+    rng = np.random.default_rng(sum(counts) + cap)
+    gps = []
+    for g, n in enumerate(counts):
+        X = rng.uniform(-4.0, 4.0, size=(n, 2))
+        Y = (np.cos(X.sum(axis=1)) + 0.05 * rng.normal(size=n))[:, None]
+        kern = pt.RBF(2, variance=1.0 + 0.5 * g, lengthscale=[0.8 + 0.3 * g,
+                                                              1.3], ARD=True)
+        gps.append(pt.GPRegression(X, Y, kern, noise_var=0.01, capacity=cap,
+                                   device=cuda, dtype=dtype))
+    grid = torch.tensor(rng.uniform(-5.0, 5.0, size=(20000, 2)), dtype=dtype,
+                        device=cuda)
+    ops = fp.interval_operands([g.kern for g in gps], [g.state for g in gps],
+                               grid, 2.0)
+    assert ops[5][:, 3].tolist() == list(counts)
+    before = fp.fused_intervals.launches
+    out = fp.fused_intervals(*ops)
+    torch.cuda.synchronize()
+    assert fp.fused_intervals.launches == before + 1
+    ref = fp.fused_intervals_plain(*[o.double() if torch.is_tensor(o)
+                                     else o for o in ops])
+    for g in range(len(counts)):
+        _check_rows(out[g], ref[g], dtype, ops[5][g, 1].item())
+
+
+PLAN_ACTIVE_CASES = [("context", 600, 1024), ("sum_bias", 1100, 2048),
+                     ("cosine", 400, 512), ("sum_bias", 20, 512),
+                     ("context", 77, 128), ("context", 97, 100),
+                     ("cosine", 47, 50)]
+
+
+@pytest.mark.parametrize("name,n_obs,cap", PLAN_ACTIVE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plan_intervals_kernel_active_rows(cuda, name, n_obs, cap, dtype):
+    gp, grid = _algebra_gp(name, cap, cuda, dtype, n_obs=n_obs)
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid, 2.0)
+    assert ops[7][3].item() == n_obs
+    out = fp.fused_intervals_plan(*ops)
+    torch.cuda.synchronize()
+    ref = fp.fused_intervals_plan_plain(*[o.double() if o.is_floating_point()
+                                          else o for o in ops])
+    _check_rows(out, ref, dtype, ops[7][1].item())
 
 
 def test_models_default_to_the_card(cuda):

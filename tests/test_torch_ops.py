@@ -6,7 +6,12 @@ factor (``safeopt_torch.convert``). K1's and K2's intervals must agree
 to atol 1e-10 (difference-form grams in both; only summation order
 differs), K3's and K4's predicates must be identical, and ``top_k``
 must equal ``lax.top_k`` exactly, ties included. On CPU tensors the
-wrappers run the plain versions and never count a kernel launch.
+wrappers run the plain versions and never count a kernel launch. The
+CUDA K1/K2 stop at each GP's count: the operands carry the JAX state's
+count, the factor is exactly zero past it, and interval rows summed in
+index order over the leading block equal those over the capacity
+bitwise (the plain version's BLAS sums only to 1e-12), at capacities
+that are and are not multiples of the kernels' 32-row bands.
 """
 
 import jax
@@ -100,6 +105,69 @@ def test_expander_plain_matches_pallas(family, n_gps, cap):
     assert pfe.fused_expander.launches == before
     np.testing.assert_array_equal(ppred.numpy(), jpred)
     assert jpred.any() and not jpred[:, -1].any()
+
+
+def _ordered_rows(k, lm, w, kdiag, beta):
+    """(2, B) interval rows with every sum taken in index order (no BLAS
+    blocking), so that two problems that differ only by terms that are
+    exact zeros give the same bits."""
+    V = torch.zeros_like(k)
+    for c in range(lm.shape[1]):
+        V = V + lm[:, c, None] * k[c, None, :]
+    mu, ssq = torch.zeros_like(k[0]), torch.zeros_like(k[0])
+    for r in range(lm.shape[0]):
+        mu = mu + w[r] * V[r]
+        ssq = ssq + V[r] * V[r]
+    spread = beta * torch.sqrt(torch.clamp(kdiag - ssq, min=0.0))
+    return torch.stack([mu - spread, mu + spread])
+
+
+def _check_active_rows(k, lm, w, kdiag, beta, n, plain_full, plain_cut):
+    """Past the count n the masked factor and w are exactly zero, so the
+    rows summed in order over the leading n x n block equal those over
+    cap bitwise, and the plain version (BLAS order) agrees to 1e-12."""
+    assert not lm[n:].any() and not lm[:, n:].any() and not w[n:].any()
+    assert torch.equal(_ordered_rows(k, lm, w, kdiag, beta),
+                       _ordered_rows(k[:n], lm[:n, :n], w[:n], kdiag, beta))
+    assert (plain_full - plain_cut).abs().max().item() <= 1e-12
+
+
+@pytest.mark.parametrize("family,n_gps,cap", [("RBF", 2, 64),
+                                              ("Matern52", 1, 100),
+                                              ("Matern32", 2, 13),
+                                              ("Exponential", 3, 512)])
+def test_intervals_read_only_the_active_rows(family, n_gps, cap):
+    # K1 stops its rows and its contraction at each GP's count, which it
+    # reads from scal[:, 3]
+    jgps, pgps, grid = _models(family, n_gps, cap, seed=5 * cap + n_gps)
+    zt, ils, xs, lm, w, scal, kind = pfp.interval_operands(
+        [g.kern for g in pgps], [g.state for g in pgps], torch.tensor(grid),
+        2.0)
+    for g, jgp in enumerate(jgps):
+        n = int(jgp.state.count)
+        assert 0 < n < cap
+        assert scal[g, 3].item() == n
+        one = dict(zt=zt, ils=ils[g:g + 1], scal=scal[g:g + 1], kind=kind)
+        full = pfp.fused_intervals_plain(xs=xs[g:g + 1], lm=lm[g:g + 1],
+                                         w=w[g:g + 1], **one)
+        cut = pfp.fused_intervals_plain(
+            xs=xs[g:g + 1, :n].contiguous(),
+            lm=lm[g:g + 1, :n, :n].contiguous(),
+            w=w[g:g + 1, :n].contiguous(), **one)
+        k = pfp.gram(kind, xs[g], zt * ils[g][:, None], scal[g, 0])
+        _check_active_rows(k, lm[g], w[g], scal[g, 1], scal[g, 2], n,
+                           full[0], cut[0])
+
+
+def test_transposed_factor_pads_rows():
+    lm = torch.arange(2 * 40 * 40, dtype=torch.float64).reshape(2, 40, 40)
+    lmt = pfp.transposed_factor(lm)
+    assert lmt.shape == (2, 40, 64)
+    assert torch.equal(lmt[:, :, :40], lm.transpose(1, 2))
+    assert not lmt[:, :, 40:].any()
+    lm = lm[:, :32, :32].contiguous()   # a multiple of 32: no padding
+    lmt = pfp.transposed_factor(lm)
+    assert lmt.is_contiguous() and torch.equal(lmt, lm.transpose(1, 2))
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
@@ -212,6 +280,25 @@ def test_plan_expander_plain_matches_pallas(name, cap):
         assert not jpred[-2:].any()
         seen.update(jpred[:-2].tolist())
     assert seen == {True, False}
+
+
+@pytest.mark.parametrize("name,cap", ALGEBRAS)
+def test_plan_intervals_read_only_the_active_rows(name, cap):
+    # K2 as K1: scal[3] is the JAX state's count
+    jgp, pgp, grid = _algebra_model(name, cap, seed=cap + 1)
+    zt, xs, lm, w, scales, pvar, plan, scal = pfp.interval_plan_operands(
+        pgp.kern, pgp.state, torch.tensor(grid), 2.0)
+    n = int(jgp.state.count)
+    assert 0 < n < cap
+    assert scal[3].item() == n
+    full = pfp.fused_intervals_plan_plain(zt, xs, lm, w, scales, pvar, plan,
+                                          scal)
+    cut = pfp.fused_intervals_plan_plain(
+        zt, xs[:n].contiguous(), lm[:n, :n].contiguous(), w[:n].contiguous(),
+        scales, pvar, plan, scal)
+    kinds, terms = plan.tolist()
+    k = pfp.plan_gram(xs, zt, scales.tolist(), pvar, kinds, terms)
+    _check_active_rows(k, lm, w, scal[1], scal[2], n, full, cut)
 
 
 def test_plan_layout_and_limits():

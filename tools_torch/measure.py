@@ -6,6 +6,11 @@ Run from the repository root on a machine with one CUDA card:
     python3 tools_torch/measure.py [--configs flagship cap512 context]
                                    [--reps 10]
                                    [--out chiprun_out/measure.json]
+                                   [--package-root DIR]
+
+``--package-root`` measures the ``safeopt_torch`` of another tree (for
+example a parent commit, ``tools_torch/compare_trees.py``) with this
+script, so that two trees go through the same measurements.
 
 Each configuration is one of ``chip_smoke.py``'s problems in float32,
 expander chunk 32:
@@ -28,10 +33,18 @@ For each it measures:
   warm-ups, on the starting state (the expander kernel on the first
   chunk of the walk, for the contextual GP 0), beside ``bound_ms``, the
   least time the card could take for the same work
-  (``chip_smoke.interval_bound`` / ``expander_bound``);
+  (``chip_smoke.interval_bound`` / ``expander_bound``); beside K1, the
+  multiply-adds per point and GP that K1 executes against the n(n+1)/2
+  its bound counts (``chip_smoke.band_macs``), and one FP32
+  ``torch.matmul`` of an (n, n) by an (n, 65536) matrix with TF32 off:
+  the rate the card's FP32 pipe reaches on the product's shapes, a
+  ceiling for K1's product share (the port never calls it);
 - ``stages``: one ``safeopt_step`` on the starting state split into
   intervals, classify, expander walk and select + pack + diag pull;
   host-clock ms with a device sync after each stage, median of ``--reps``;
+  ``intervals_host`` is the host's part of the interval stage: the ms
+  until the stage returns, before its sync (operand preparation and the
+  launches, on an idle device);
 - ``profile``: 5 ``optimize()`` calls under ``torch.profiler``: wall ms,
   the summed duration of every CUDA kernel, their ratio (the device's
   busy share; the profiler adds host time of its own) and the kernels
@@ -56,9 +69,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (BETA, CTX_FMIN, FMIN, SCALING,  # noqa: E402
-                        build_gps, context_gps, context_truth, cuda_ms,
-                        expander_bound, interval_bound, plan_leaves, plant,
-                        timed_ms)
+                        band_macs, build_gps, context_gps, context_truth,
+                        cuda_ms, expander_bound, interval_bound, plan_leaves,
+                        plant, timed_ms)
 
 
 # name -> (capacity, observations, seed, spread of the observations)
@@ -96,11 +109,12 @@ def stage_ms(opt, reps):
     c = opt._step_consts()
     grid = opt._grid()
     names = ("intervals", "classify", "walk", "select_pack_pull")
-    times = {name: [] for name in names}
+    times = {name: [] for name in names + ("intervals_host",)}
     for _ in range(reps):
         torch.cuda.synchronize()
         marks = [time.perf_counter()]
         Q, mu, sigma = core._confidence_intervals(kernels, states, grid, BETA)
+        times["intervals_host"].append((time.perf_counter() - marks[0]) * 1e3)
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         S, M, cand, width, has_safe = core._classify(
@@ -120,6 +134,18 @@ def stage_ms(opt, reps):
     gidx = core._visit_order(torch.where(cand, width, float("-inf")), 32)
     return ({name: statistics.median(v) for name, v in times.items()},
             (gidx, Q, S, mu, sigma, c["fmin"]))
+
+
+def matmul_ceiling(n, reps, cols=1 << 16):
+    """ms and TFLOP/s of one FP32 ``torch.matmul`` of (n, n) by (n,
+    cols), TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((n, n), device="cuda", generator=gen)
+    b = torch.randn((n, cols), device="cuda", generator=gen)
+    ms = cuda_ms(lambda: torch.matmul(a, b), reps=reps)
+    return {"n": n, "cols": cols, "ms": ms,
+            "tflops": 2 * n * n * cols / ms / 1e9}
 
 
 def kernel_times(opt, chunk, reps):
@@ -156,10 +182,16 @@ def kernel_times(opt, chunk, reps):
                        iv, interval_bound(f32, 1, N, d, cap, n, leaves)),
                 "K4": (fe.fused_expander_plan, fe.fused_expander_plan_plain,
                        ex, expander_bound(f32, 1, N, U, d, cap, n, C, leaves))}
-    return {key: {"kernel_ms": cuda_ms(lambda: kern(*ops), reps=reps),
-                  "plain_ms": cuda_ms(lambda: plain(*ops), reps=reps),
-                  "bound_ms": b[0], "bound_by": b[1]}
-            for key, (kern, plain, ops, b) in runs.items()}
+    out = {key: {"kernel_ms": cuda_ms(lambda: kern(*ops), reps=reps),
+                 "plain_ms": cuda_ms(lambda: plain(*ops), reps=reps),
+                 "bound_ms": b[0], "bound_by": b[1]}
+           for key, (kern, plain, ops, b) in runs.items()}
+    interval = "K1" if "K1" in out else "K2"
+    out[interval]["macs_per_point"] = {"executed": band_macs(n),
+                                       "counted": n * (n + 1) // 2}
+    if interval == "K1":
+        out["K1"]["fp32_matmul"] = matmul_ceiling(n, reps)
+    return out
 
 
 def profile(opt, kw, calls=5, top=6):
@@ -223,10 +255,14 @@ def main():
                         choices=list(CONFIGS))
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--out", default="chiprun_out/measure.json")
+    parser.add_argument("--package-root", default=None,
+                        help="a tree whose safeopt_torch is measured")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("measure: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    if args.package_root is not None:
+        sys.path.insert(0, str(Path(args.package_root).resolve()))
     from safeopt_torch import linearly_spaced_combinations
 
     smi = subprocess.run(
@@ -244,7 +280,10 @@ def main():
         print(json.dumps(results[-1]), flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
+    import safeopt_torch
+
     out.write_text(json.dumps({"nvidia_smi": smi, "torch": torch.__version__,
+                               "package": safeopt_torch.__file__,
                                "results": results}, indent=1))
     return 0
 
