@@ -18,10 +18,15 @@ Phases, each reported on its own line:
    at capacity 64: float64 kernel vs float64 plain to 1e-9; float32
    kernel vs float64 plain with identical ``l > fmin`` decisions outside
    a scaled band of 1e-3;
-4. K3 (fused expander predicate) on a chunk of 32 flagship candidates
-   from the head and the middle of the visit order, with padding slots,
-   at several raised thresholds so that the plain predicate holds both
-   values: float64 identical, float32 identical outside the band;
+4. K3 (fused expander predicate) on a chunk of 32 candidates from the
+   head and the middle of the visit order, with padding slots, at
+   several raised thresholds so that the plain predicate holds both
+   values: float64 identical, float32 identical outside the band; on the
+   flagship's GPs (capacity 64), at capacity 512 (400 observations), one
+   launch of two GPs at capacity 512 whose counts differ (20 and 300,
+   observations in [-1.5, 1.5]^2), and G=1 at capacity 1024 (600
+   observations in [-1.5, 1.5]^2: M2 is not all resident in shared
+   memory, in float32 past row 512, in float64 past 256);
 5. K2 (intervals of one GP with a kernel algebra) against its plain
    version on the bench's contextual kernel, RBF(parameter) x
    RBF(context), over the same grid (column 1 is the context): capacity
@@ -43,9 +48,9 @@ Phases, each reported on its own line:
    ``get_maximum(context=0.1)``, first query checked as in phase 8.
    Every kernel's launch count is zeroed just before each path and read
    just after it;
-10. times of both paths and of each kernel against its plain version,
-    beside the least time the card could take (``bound_ms``) and the
-    share of that bound the kernel reaches.
+10. times of both paths and of each kernel against its plain version
+    (K3 also at capacity 512), beside the least time the card could
+    take (``bound_ms``) and the share of that bound the kernel reaches.
 
 Any failed check exits non-zero. The last lines are one JSON object of
 the kernels, the nvidia-smi line, and the result line.
@@ -222,6 +227,17 @@ def band_macs(n):
     return sum(32 * min(32 * (b + 1), n) for b in range(-(-n // 32)))
 
 
+def expander_macs(n, C, dtype):
+    """Multiply-adds per point and GP that K3/K4 execute at count n: a
+    pass of CW candidates (the power of two from 32 to 256 that covers C;
+    passes of 256 past it) over n rounded up to one 16-byte vector."""
+    cw = 32
+    while cw < C and cw < 256:
+        cw *= 2
+    v = 16 // (torch.finfo(dtype).bits // 8)
+    return -(-C // cw) * cw * (-(-n // v) * v)
+
+
 def expander_bound(dtype, G, N, U, d, cap, n, C, leaves=None):
     """Least time of K3/K4 on these inputs: at each of the U unsafe
     points and per GP the gram of the n active rows and of the C
@@ -281,28 +297,37 @@ def check_k1(label, n_obs, cap, n_gps, grid64, seed, spread=1.5):
     return err64, err32
 
 
-def check_k3(gps64, gps32, grid64):
-    """K3 vs its plain version in f64 and f32 on one chunk of 32 flagship
-    candidates: the first 16 in visit order and 16 from the middle of it,
-    with the last 4 slots padding (valid=False). It runs at fmin raised
-    by each of ``K3_SHIFTS`` times the scaling, so that the plain
-    predicate is false for some valid candidates; the check fails unless
-    some launch holds both values. Returns the f64 error and the float32
-    operands at the flagship's fmin."""
+def check_k3(label, n_obs, cap, n_gps, grid64, seed, spread=1.5):
+    """K3 vs its plain version in f64 and f32 on one chunk of 32
+    candidates of GPs built as ``check_k1`` builds them: the first 16 in
+    visit order and 16 from the middle of it, with the last 4 slots
+    padding (valid=False). The candidates are the expander candidates,
+    or the safe points where there are fewer than 64 of those (as
+    ``compute_sets(full_sets=True)`` tests every safe point). It runs at
+    fmin raised by each of ``K3_SHIFTS`` times the scaling, so that the
+    plain predicate is false for some valid candidates; the check fails
+    unless some launch holds both values. Returns the f64 error and the
+    float32 operands at the path's fmin."""
     from safeopt_torch.algorithms import safe_opt_core as core
     from safeopt_torch.ops import fused_expander as fe
 
-    f64 = torch.tensor(FMIN, dtype=torch.float64, device="cuda")
-    s64 = torch.tensor(SCALING, dtype=torch.float64, device="cuda")
+    per_gp = n_obs if isinstance(n_obs, tuple) else (n_obs,) * n_gps
+    gps64, gps32 = ([build_gps(np.random.default_rng(seed), n, cap, "cuda",
+                               dtype, spread=spread)[g]
+                     for g, n in enumerate(per_gp)]
+                    for dtype in (torch.float64, torch.float32))
+    f64 = torch.tensor(FMIN[:n_gps], dtype=torch.float64, device="cuda")
+    s64 = torch.tensor(SCALING[:n_gps], dtype=torch.float64, device="cuda")
     kerns = [g.kern for g in gps64]
     Q, mu, sigma = core._confidence_intervals(
         kerns, [g.state for g in gps64], grid64, BETA)
     S, _, cand, width, _ = core._classify(
-        Q, f64, s64, torch.zeros(2, dtype=torch.float64, device="cuda"),
+        Q, f64, s64, torch.zeros(n_gps, dtype=torch.float64, device="cuda"),
         BETA)
-    n_cand = int(cand.sum())
-    check(n_cand >= 64, f"only {n_cand} expander candidates")
-    order = core._visit_order(torch.where(cand, width, float("-inf")),
+    pool = cand if int(cand.sum()) >= 64 else S
+    n_cand = int(pool.sum())
+    check(n_cand >= 64, f"K3 {label}: only {n_cand} safe points")
+    order = core._visit_order(torch.where(pool, width, float("-inf")),
                               n_cand)
     gidx = torch.cat([order[:16], order[n_cand // 2:n_cand // 2 + 16]])
     valid = torch.ones(32, dtype=torch.bool, device="cuda")
@@ -337,17 +362,19 @@ def check_k3(gps64, gps32, grid64):
         wrong64 += int((k64 != plain).sum())
         wrong32 += int(((k32 != plain) & decided).sum())
         in_band += int((~decided).sum())
-    print(f"K3 G=2 cap=64 C=32 (16 head + 16 mid-order candidates, 4 pad "
+    print(f"K3 {label} C=32 (16 head + 16 mid-order of {n_cand} "
+          f"{'candidates' if pool is cand else 'safe points'}, 4 pad "
           f"slots) at fmin + {list(K3_SHIFTS)} x scaling: plain hits per "
-          f"shift {counts} of {2 * int(valid.sum())} valid; f64 predicates "
-          f"differing={wrong64} (limit 0); f32 differing outside the band="
-          f"{wrong32}, inside the band={in_band}; hits in pad slots="
-          f"{pad_hits}", flush=True)
-    check(mixed > 0, "no K3 launch had a plain predicate holding both "
-                     "values, so the check cannot see a wrong hit")
-    check(pad_hits == 0, "K3 reported a hit in a padding slot")
-    check(wrong64 == 0, "K3 f64 predicate differs from its plain version")
-    check(wrong32 == 0, "K3 f32 predicate differs outside the band")
+          f"shift {counts} of {n_gps * int(valid.sum())} valid; f64 "
+          f"predicates differing={wrong64} (limit 0); f32 differing outside "
+          f"the band={wrong32}, inside the band={in_band}; hits in pad "
+          f"slots={pad_hits}", flush=True)
+    check(mixed > 0, f"no K3 {label} launch had a plain predicate holding "
+                     "both values, so the check cannot see a wrong hit")
+    check(pad_hits == 0, f"K3 {label} reported a hit in a padding slot")
+    check(wrong64 == 0, f"K3 {label} f64 predicate differs from its plain "
+                        "version")
+    check(wrong32 == 0, f"K3 {label} f32 predicate differs outside the band")
     return err64, ops32
 
 
@@ -564,12 +591,19 @@ def main():
              grid64, seed=1024, spread=4.0)
     check_k1("G=1 cap=64", 50, 64, 1, grid64, seed=0)
 
-    # 4. K3 against its plain version on flagship candidates ------------------
-    gps64 = build_gps(np.random.default_rng(0), 50, 64, "cuda",
-                      torch.float64)
+    # 4. K3 against its plain version ------------------------------------------
+    k3_err64, ops32 = check_k3("G=2 cap=64", 50, 64, 2, grid64, seed=0)
+    err, k3_ops512 = check_k3("G=2 cap=512 (400 obs)", 400, 512, 2, grid64,
+                              seed=512, spread=4.0)
+    k3_err64 = max(k3_err64, err)
+    err, _ = check_k3("G=2 cap=512, counts 20 and 300 in one launch",
+                      (20, 300), 512, 2, grid64, seed=512)
+    k3_err64 = max(k3_err64, err)
+    err, _ = check_k3("G=1 cap=1024 (600 obs, M2 streamed)", 600, 1024, 1,
+                      grid64, seed=1024)
+    k3_err64 = max(k3_err64, err)
     gps32 = build_gps(np.random.default_rng(0), 50, 64, "cuda",
                       torch.float32)
-    k3_err64, ops32 = check_k3(gps64, gps32, grid64)
 
     # 5. K2 against its plain version on contextual GPs ----------------------
     k2_err, _ = check_k2("1 GP cap=64 (50 obs)", 50, 64, grid64)
@@ -680,6 +714,10 @@ def main():
                lambda: fe.fused_expander_plain(*ops32),
                expander_bound(f32, 2, N, int(ops32[1].sum()), d, 64, n_flag,
                               C)),
+        "K3 cap=512": (lambda: fe.fused_expander(*k3_ops512),
+                       lambda: fe.fused_expander_plain(*k3_ops512),
+                       expander_bound(f32, 2, N, int(k3_ops512[1].sum()), d,
+                                      512, 400, C)),
         "K2": (lambda: fp.fused_intervals_plan(*k2_ops32),
                lambda: fp.fused_intervals_plan_plain(*k2_ops32),
                interval_bound(f32, 1, N, d, 256, n_k2, leaves)),

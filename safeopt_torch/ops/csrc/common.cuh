@@ -1,22 +1,14 @@
 // Shared device helpers of the safeopt_torch kernels.
 //
-// The grid kernels (K1-K4) are a small matrix product A^T K per block of
-// grid points followed by a per-point epilogue, where K is the block's
-// gram (kernel values between the training inputs and the points). How
-// one gram entry is computed is a policy (StationaryGram for K1/K3,
-// PlanGram for K2/K4) with one body, rows<R>, for R rows at once (the
-// interval body's resident gram takes four; one entry is rows<1>). The
-// interval kernels K1/K2 have their own tiling (intervals.cuh). The
-// expander kernels K3/K4 share this one: a block of kThreads threads owns
-// kP grid points and a tile of R rows (R = kNTY * TM); each thread
-// accumulates a TM x kTN register tile of the product. The contraction
-// runs over the training rows in chunks of kKC: per chunk the block
-// stages A's chunk (rows of the transposed M2) and computes the gram
-// chunk into shared memory, then every thread does kKC rank-1 updates of
-// its register tile. Per update a thread reads TM + kTN values from
-// shared memory for TM * kTN FMAs; a warp covers 4 row groups x 8 point
-// groups, so those reads are a few contiguous vectors (broadcast within
-// the warp).
+// The grid kernels (K1-K4) are a small matrix product per block of grid
+// points followed by a per-point epilogue: K1/K2 contract the factor Lm,
+// K3/K4 the candidates' M2, against the block's gram (kernel values
+// between the training inputs and the points). How one gram entry is
+// computed is a policy (StationaryGram for K1/K3, PlanGram for K2/K4)
+// with one body, rows<R>, for R rows at once (the interval body takes
+// four, the expander body eight; one entry is rows<1>). The block bodies
+// and their tiling are in intervals.cuh (K1/K2) and expander.cuh
+// (K3/K4); both stage operands with the asynchronous copies below.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,11 +32,6 @@ constexpr int kMaxLeaves = 8;  // leaves of a K2/K4 plan (MAX_LEAVES)
 constexpr int kMaxDim = 64;    // grid columns (MAX_DIM)
 
 constexpr int kThreads = 256;       // threads per block
-constexpr int kNTX = 16;            // point groups per block
-constexpr int kNTY = 16;            // row groups per block
-constexpr int kTN = 4;              // points per thread
-constexpr int kP = kNTX * kTN;      // grid points per block
-constexpr int kKC = 32;             // training rows per contraction chunk
 
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
@@ -57,12 +44,14 @@ __device__ __forceinline__ double dcos(double x) { return cos(x); }
 // Distance-based leaf value from the lengthscale-scaled squared
 // distance, the same expressions as the JAX package's kernel bodies
 // (including the sqrt guard of the Matern, exponential and cosine
-// kinds).
-template <typename T>
+// kinds). Cos false leaves the cosine kind out (the stationary families
+// of K1/K3), and with it cosf's slow path for huge arguments, whose
+// local array made the float32 K3 spill.
+template <bool Cos = true, typename T>
 __device__ __forceinline__ T kfun(int kind, T r2, T variance) {
   if (kind == kRBF) return variance * dexp(T(-0.5) * r2);
   const T r = dsqrt(r2 + T(1e-36));
-  if (kind == kCosine) return variance * dcos(r);
+  if (Cos && kind == kCosine) return variance * dcos(r);
   if (kind == kExponential) return variance * dexp(-r);
   if (kind == kMatern52) {
     const T s5r = T(2.23606797749978969640917366873128) * r;
@@ -70,14 +59,6 @@ __device__ __forceinline__ T kfun(int kind, T r2, T variance) {
   }
   const T s3r = T(1.73205080756887729352744634150587) * r;
   return variance * (T(1) + s3r) * dexp(-s3r);
-}
-
-// Thread -> (row group ty, point group tx). The 8 warps tile the 16 x 16
-// groups as 4 x 2 patches of 4 row groups x 8 point groups.
-__device__ __forceinline__ void tile_coords(int tid, int& ty, int& tx) {
-  const int warp = tid >> 5, lane = tid & 31;
-  ty = (warp >> 1) * 4 + (lane >> 3);
-  tx = (warp & 1) * 8 + (lane & 7);
 }
 
 // dst = src[0:N] from shared memory; src is aligned to min(16, N *
@@ -107,22 +88,6 @@ __device__ __forceinline__ void load_vec(T (&dst)[N], const T* src) {
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) dst[i] = src[i];
-  }
-}
-
-// at[c * R + r] = a[(k0 + c) * lda + r0 + r]: a chunk of kKC rows and R
-// columns of the row-major A, zero past row kend or column rend.
-// Neighbouring threads read neighbouring columns (coalesced).
-template <typename T, int R>
-__device__ __forceinline__ void stage_a(T* at, const T* __restrict__ a,
-                                        int lda, int k0, int kend, int r0,
-                                        int rend) {
-  for (int t = threadIdx.x; t < kKC * R; t += kThreads) {
-    const int c = t / R;
-    const int r = t - c * R;
-    at[t] = (k0 + c < kend && r0 + r < rend)
-                ? a[(size_t)(k0 + c) * lda + r0 + r]
-                : T(0);
   }
 }
 
@@ -170,11 +135,11 @@ struct StationaryGram {
       }
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = kfun(kind, r2[r], variance);
+    for (int r = 0; r < R; ++r) v[r] = kfun<false>(kind, r2[r], variance);
   }
   // k(x, zs[:, p]) for one row
   __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
-                                          int d, int ldz = kP) const {
+                                          int d, int ldz) const {
     T v[1];
     const T* const xr[1] = {x};
     rows<1>(v, xr, zs, p, d, ldz);
@@ -251,7 +216,7 @@ struct PlanGram {
   }
   // the plan at (x, zs[:, p]) for one row
   __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
-                                          int d, int ldz = kP) const {
+                                          int d, int ldz) const {
     T v[1];
     const T* const xr[1] = {x};
     rows<1>(v, xr, zs, p, d, ldz);
@@ -290,50 +255,5 @@ struct PlanSmem {
     return PlanGram<T>{scales, pvar, kind, last, cols, ncols, P};
   }
 };
-
-// kt[c * kP + p] = gram(xs[c], zs[:, p]) for the chunk's first `rows`
-// training rows (xs already offset to the chunk), zero past them.
-template <typename T, class Gram>
-__device__ __forceinline__ void stage_gram(T* kt, const T* __restrict__ xs,
-                                           const T* zs, int rows, int d,
-                                           const Gram& gram) {
-  for (int t = threadIdx.x; t < kKC * kP; t += kThreads) {
-    const int c = t / kP;
-    const int p = t - c * kP;
-    kt[t] = c < rows ? gram(xs + (size_t)c * d, zs, p, d) : T(0);
-  }
-}
-
-// acc[i][j] += sum_c at[c][ty * TM + i] * kt[c][tx * kTN + j] over one
-// staged chunk: kKC rank-1 updates of the thread's register tile.
-template <typename T, int TM>
-__device__ __forceinline__ void mma_chunk(T (&acc)[TM][kTN], const T* at,
-                                          const T* kt, int ty, int tx) {
-  constexpr int R = kNTY * TM;
-#pragma unroll 8
-  for (int c = 0; c < kKC; ++c) {
-    T a[TM], b[kTN];
-    load_vec(a, at + c * R + ty * TM);
-    load_vec(b, kt + c * kP + tx * kTN);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] += a[i] * b[j];
-  }
-}
-
-// Grid points of the block: zs[k * kP + p] = zt[k, i0 + p] * ils[k]
-// (raw when ils is null), zero past N.
-template <typename T>
-__device__ __forceinline__ void stage_points(T* zs, const T* __restrict__ zt,
-                                             const T* __restrict__ ils,
-                                             int N, int d, int i0) {
-  for (int t = threadIdx.x; t < d * kP; t += kThreads) {
-    const int k = t / kP;
-    const int i = i0 + t - k * kP;
-    const T z = i < N ? zt[(size_t)k * N + i] : T(0);
-    zs[t] = ils != nullptr ? z * ils[k] : z;
-  }
-}
 
 }  // namespace safeopt

@@ -14,81 +14,86 @@
 //
 // The candidate-side terms (Cm, dd, gain, M2; O(C cap^2)) come from
 // plain PyTorch outside the kernel, as the JAX package leaves them to
-// XLA. What bounds it on Hopper: per point C cap FMAs of the cross term
-// against cap + C kernel evaluations and a few reads of mu/sigma, so it
-// is bound by the FP32 pipe and shared-memory bandwidth. Design:
-// expander.cuh (cross = M2 K as a register-tiled product over tiles of
-// 32 candidates, hits ORed across blocks with atomicOr into an output
-// the wrapper zeroes, blocks with no unsafe point skipped), with the
-// points scaled by the GP's inverse lengthscales and the StationaryGram
-// policy; the GP is the grid's y axis.
+// XLA. What bounds it on Hopper: per unsafe point and GP C n FMAs of the
+// cross term (n the GP's active count) against n + C kernel evaluations
+// and a few bytes of grid, so it is bound by the FP32 (FP64) pipe.
+// Design: expander.cuh (active rows only, M2 resident in shared memory and
+// read once per block of a grid that fits the card at once, an 8 x 4
+// register tile fed by 16-byte loads along the contraction, each gram
+// entry once per block, hits ORed across blocks with atomicOr into an
+// output the wrapper zeroes, tiles with no unsafe point skipped), with
+// the points scaled by the GP's inverse lengthscales and the
+// StationaryGram policy; the GP is the grid's y axis, and each GP's count
+// comes from its scal row.
 
 #include "expander.cuh"
 
 namespace safeopt {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) expander_kernel(
+template <typename T, int CW>
+__global__ void __launch_bounds__(kThreads, kExBlocks<T, CW>) expander_kernel(
     const T* __restrict__ zt, const unsigned char* __restrict__ unsafe,
     const T* __restrict__ mu, const T* __restrict__ sigma,
     const T* __restrict__ ils, const T* __restrict__ xs,
-    const T* __restrict__ xc, const T* __restrict__ m2t,
+    const T* __restrict__ xc, const T* __restrict__ m2,
     const T* __restrict__ cvec, const T* __restrict__ scal,
     int* __restrict__ out, int N, int d, int cap, int C, int kind) {
   const int g = blockIdx.y;
-  candidate_hits<T>(zt, ils + g * d, unsafe, mu + (size_t)g * N,
-                    sigma + (size_t)g * N, xs + (size_t)g * cap * d,
-                    xc + (size_t)g * C * d, m2t + (size_t)g * cap * C,
-                    cvec + (size_t)g * 3 * C, scal[g * 4 + 2],
-                    scal[g * 4 + 3], out + (size_t)g * C, N, d, cap, C,
-                    StationaryGram<T>{kind, scal[g * 4 + 0]});
+  const int count = (int)scal[g * 4 + 1];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  candidate_hits<T, CW>(zt, ils, unsafe, mu, sigma, xs, xc, m2, cvec,
+                        scal[g * 4 + 2], scal[g * 4 + 3], out, N, d, cap, C,
+                        n, g, StationaryGram<T>{kind, scal[g * 4 + 0]});
 }
 
 template <typename T>
 int launch_expander(const T* zt, const unsigned char* unsafe, const T* mu,
                     const T* sigma, const T* ils, const T* xs, const T* xc,
-                    const T* m2t, const T* cvec, const T* scal, int* out,
+                    const T* m2, const T* cvec, const T* scal, int* out,
                     int G, int N, int d, int cap, int C, int kind,
                     cudaStream_t stream) {
-  const size_t smem = expander_smem_bytes<T>(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      expander_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kP - 1) / kP, G);
-  expander_kernel<T><<<grid, kThreads, smem, stream>>>(
-      zt, unsafe, mu, sigma, ils, xs, xc, m2t, cvec, scal, out, N, d, cap, C,
-      kind);
-  return (int)cudaGetLastError();
+  if (G < 1 || N < 1 || C < 1) return 0;  // nothing to test
+  return with_pass_width(C, [&](auto cw) {
+    constexpr int CW = decltype(cw)::value;
+    const ExLayout<T, CW> lay(cap, d);
+    dim3 grid;
+    const int err = expander_grid(expander_kernel<T, CW>, lay.bytes,
+                                  lay.TP, G, N, grid);
+    if (err) return err;
+    expander_kernel<T, CW><<<grid, kThreads, lay.bytes, stream>>>(
+        zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, out, N, d, cap,
+        C, kind);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace safeopt
 
 extern "C" {
 
-// m2t is M2 transposed: m2t[g, r, j] = M2[g, j, r].
+// m2 is M2 row-major (G, C, cap); scal[g, 1] is GP g's count.
 int safeopt_expander_f32(const void* zt, const void* unsafe, const void* mu,
                          const void* sigma, const void* ils, const void* xs,
-                         const void* xc, const void* m2t, const void* cvec,
+                         const void* xc, const void* m2, const void* cvec,
                          const void* scal, void* out, int G, int N, int d,
                          int cap, int C, int kind, void* stream) {
   return safeopt::launch_expander<float>(
       (const float*)zt, (const unsigned char*)unsafe, (const float*)mu,
       (const float*)sigma, (const float*)ils, (const float*)xs,
-      (const float*)xc, (const float*)m2t, (const float*)cvec,
+      (const float*)xc, (const float*)m2, (const float*)cvec,
       (const float*)scal, (int*)out, G, N, d, cap, C, kind,
       (cudaStream_t)stream);
 }
 
 int safeopt_expander_f64(const void* zt, const void* unsafe, const void* mu,
                          const void* sigma, const void* ils, const void* xs,
-                         const void* xc, const void* m2t, const void* cvec,
+                         const void* xc, const void* m2, const void* cvec,
                          const void* scal, void* out, int G, int N, int d,
                          int cap, int C, int kind, void* stream) {
   return safeopt::launch_expander<double>(
       (const double*)zt, (const unsigned char*)unsafe, (const double*)mu,
       (const double*)sigma, (const double*)ils, (const double*)xs,
-      (const double*)xc, (const double*)m2t, (const double*)cvec,
+      (const double*)xc, (const double*)m2, (const double*)cvec,
       (const double*)scal, (int*)out, G, N, d, cap, C, kind,
       (cudaStream_t)stream);
 }

@@ -13,63 +13,70 @@
 //
 // with both grams (the cap training rows and the C candidates) from the
 // plan. The candidate-side terms come from plain PyTorch, as for K3.
-// What bounds it on Hopper: per point C cap FMAs of the cross term
-// against cap + C plan evaluations: the FP32 pipe and shared-memory
-// bandwidth. Design: K3's body (expander.cuh: register-tiled cross term
-// over 32-candidate tiles, atomicOr of per-block hit flags into an
-// output the wrapper zeroes, since CUDA blocks run in no order, and a
-// __syncthreads_or skip of blocks with no unsafe point), with raw points
-// and the PlanGram policy, the plan staged in shared memory once per
-// block.
+// What bounds it on Hopper: per unsafe point C n FMAs of the cross term
+// against n + C plan evaluations: the FP32 (FP64) pipe. Design: K3's body
+// (expander.cuh: active rows only, M2 resident in shared memory and read
+// once per block, an 8 x 4 register tile, each gram entry once per block,
+// atomicOr of per-block hits into an output the wrapper zeroes, since
+// CUDA blocks run in no order, and tiles with no unsafe point skipped),
+// with raw points and the PlanGram policy, the plan staged in shared
+// memory once per block; the count comes from scal[1].
 
 #include "expander.cuh"
 
 namespace safeopt {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) expander_plan_kernel(
+template <typename T, int CW>
+__global__ void __launch_bounds__(kThreads, kExBlocks<T, CW>)
+    expander_plan_kernel(
     const T* __restrict__ zt, const unsigned char* __restrict__ unsafe,
     const T* __restrict__ mu, const T* __restrict__ sigma,
     const T* __restrict__ xs, const T* __restrict__ xc,
-    const T* __restrict__ m2t, const T* __restrict__ cvec,
+    const T* __restrict__ m2, const T* __restrict__ cvec,
     const T* __restrict__ scales, const T* __restrict__ pvar,
     const int* __restrict__ plan, const T* __restrict__ scal,
     int* __restrict__ out, int N, int d, int cap, int C, int P) {
   __shared__ PlanSmem<T> smem_plan;
   const PlanGram<T> gram = smem_plan.stage(scales, pvar, plan, P, d);
-  candidate_hits<T>(zt, (const T*)nullptr, unsafe, mu, sigma, xs, xc, m2t,
-                    cvec, scal[2], scal[3], out, N, d, cap, C, gram);
+  const int count = (int)scal[1];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  candidate_hits<T, CW>(zt, (const T*)nullptr, unsafe, mu, sigma, xs, xc, m2,
+                        cvec, scal[2], scal[3], out, N, d, cap, C, n, 0, gram);
 }
 
 template <typename T>
 int launch_expander_plan(const T* zt, const unsigned char* unsafe,
                          const T* mu, const T* sigma, const T* xs,
-                         const T* xc, const T* m2t, const T* cvec,
+                         const T* xc, const T* m2, const T* cvec,
                          const T* scales, const T* pvar, const int* plan,
                          const T* scal, int* out, int N, int d, int cap,
                          int C, int P, cudaStream_t stream) {
   if (P < 1 || P > kMaxLeaves || d < 1 || d > kMaxDim)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = expander_smem_bytes<T>(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      expander_plan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kP - 1) / kP);
-  expander_plan_kernel<T><<<grid, kThreads, smem, stream>>>(
-      zt, unsafe, mu, sigma, xs, xc, m2t, cvec, scales, pvar, plan, scal, out,
-      N, d, cap, C, P);
-  return (int)cudaGetLastError();
+  if (N < 1 || C < 1) return 0;  // nothing to test
+  return with_pass_width(C, [&](auto cw) {
+    constexpr int CW = decltype(cw)::value;
+    const ExLayout<T, CW> lay(cap, d);
+    dim3 grid;
+    const int err = expander_grid(expander_plan_kernel<T, CW>, lay.bytes,
+                                  lay.TP, 1, N, grid);
+    if (err) return err;
+    expander_plan_kernel<T, CW><<<grid, kThreads, lay.bytes, stream>>>(
+        zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales, pvar, plan, scal,
+        out, N, d, cap, C, P);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace safeopt
 
 extern "C" {
 
-// m2t is M2 transposed: m2t[r, j] = M2[j, r]; plan is int32 (2, P).
+// m2 is M2 row-major (C, cap); plan is int32 (2, P); scal[1] is the
+// GP's count.
 int safeopt_expander_plan_f32(const void* zt, const void* unsafe,
                               const void* mu, const void* sigma,
-                              const void* xs, const void* xc, const void* m2t,
+                              const void* xs, const void* xc, const void* m2,
                               const void* cvec, const void* scales,
                               const void* pvar, const void* plan,
                               const void* scal, void* out, int N, int d,
@@ -77,14 +84,14 @@ int safeopt_expander_plan_f32(const void* zt, const void* unsafe,
   return safeopt::launch_expander_plan<float>(
       (const float*)zt, (const unsigned char*)unsafe, (const float*)mu,
       (const float*)sigma, (const float*)xs, (const float*)xc,
-      (const float*)m2t, (const float*)cvec, (const float*)scales,
+      (const float*)m2, (const float*)cvec, (const float*)scales,
       (const float*)pvar, (const int*)plan, (const float*)scal, (int*)out, N,
       d, cap, C, P, (cudaStream_t)stream);
 }
 
 int safeopt_expander_plan_f64(const void* zt, const void* unsafe,
                               const void* mu, const void* sigma,
-                              const void* xs, const void* xc, const void* m2t,
+                              const void* xs, const void* xc, const void* m2,
                               const void* cvec, const void* scales,
                               const void* pvar, const void* plan,
                               const void* scal, void* out, int N, int d,
@@ -92,7 +99,7 @@ int safeopt_expander_plan_f64(const void* zt, const void* unsafe,
   return safeopt::launch_expander_plan<double>(
       (const double*)zt, (const unsigned char*)unsafe, (const double*)mu,
       (const double*)sigma, (const double*)xs, (const double*)xc,
-      (const double*)m2t, (const double*)cvec, (const double*)scales,
+      (const double*)m2, (const double*)cvec, (const double*)scales,
       (const double*)pvar, (const int*)plan, (const double*)scal, (int*)out,
       N, d, cap, C, P, (cudaStream_t)stream);
 }

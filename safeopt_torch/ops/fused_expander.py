@@ -32,9 +32,9 @@ import ctypes
 import torch
 
 from ..gp.regression import row_mask
-from .fused_posterior import (PLAIN_COLS, check_operands, float_dtype, gram,
-                              kind_of, lengthscales, part_plan, plan_gram,
-                              ptr, raise_on_error)
+from .fused_posterior import (KINDS, PLAIN_COLS, check_operands, float_dtype,
+                              gram, kind_of, lengthscales, part_plan,
+                              plan_gram, ptr, raise_on_error)
 
 __all__ = ["expander_operands", "fused_expander", "fused_expander_plain",
            "fused_expander_predicate_batched", "expander_plan_operands",
@@ -64,7 +64,8 @@ def expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc, ucs,
     ``unsafe`` (N,) bool; ``mus`` / ``sigmas`` (G, N) grid posteriors
     from the interval pass; ``Xc`` (C, d) candidate rows; ``ucs`` (G, C)
     the candidates' upper bounds per GP; ``valid`` (C,) bool;
-    ``fmin`` (G,) thresholds.
+    ``fmin`` (G,) thresholds. ``scal[:, 1]`` holds each GP's count,
+    copied on the device (no host sync).
     """
     n, d = grid.shape
     kind = kind_of(kernels)
@@ -74,6 +75,7 @@ def expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc, ucs,
     scal = torch.tensor([[float(k.variance), float(k.variance),
                           float(beta), 0.0] for k in kernels],
                         dtype=grid.dtype, device=grid.device)
+    scal[:, 1] = torch.stack([st.count for st in states])
     scal[:, 3] = fmin
     xs = torch.stack([st.X for st in states]) / ls[:, None, :]
     xc = Xc[None, :, :] / ls[:, None, :]
@@ -116,9 +118,12 @@ def fused_expander_plain(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal,
 
 def fused_expander(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, kind):
     """(G, C) bool expander predicates: K3 on CUDA, the plain version on
-    CPU. Operands as built by ``expander_operands``; ``scal`` (G, 4) =
-    [variance, variance, beta, fmin]. Adds one to
-    ``fused_expander.launches`` per kernel launch."""
+    CPU. Operands as built by ``expander_operands``; ``m2`` (G, C, cap)
+    is read in its own layout; ``scal`` (G, 4) = [variance, count, beta,
+    fmin]. The kernel reads training rows and columns of ``m2`` below
+    each GP's count only: past it ``m2`` must be zero, as it is for the
+    masked factor. Adds one to ``fused_expander.launches`` per kernel
+    launch."""
     if zt.device.type == "cpu":
         return fused_expander_plain(zt, unsafe, mu, sigma, ils, xs, xc, m2,
                                     cvec, scal, kind)
@@ -128,13 +133,14 @@ def fused_expander(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, kind):
     C = xc.shape[1]
     N = zt.shape[1]
     dtype = float_dtype(zt, "K3")
+    if kind not in KINDS.values():
+        raise ValueError(f"unknown kernel kind {kind}")
     check_operands(
         dict(zt=zt, unsafe=unsafe, mu=mu, sigma=sigma, ils=ils, xs=xs,
              xc=xc, m2=m2, cvec=cvec, scal=scal), zt.device, dtype,
         dict(zt=(d, N), unsafe=(N,), mu=(G, N), sigma=(G, N), ils=(G, d),
              xs=(G, cap, d), xc=(G, C, d), m2=(G, C, cap), cvec=(G, 3, C),
              scal=(G, 4)))
-    m2t = m2.transpose(1, 2).contiguous()   # the kernel reads M2^T rows
     out = torch.zeros((G, C), dtype=torch.int32, device=zt.device)
 
     from ._build import library
@@ -144,7 +150,7 @@ def fused_expander(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, kind):
     with torch.cuda.device(zt.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(ptr(zt), ptr(unsafe), ptr(mu), ptr(sigma), ptr(ils),
-                 ptr(xs), ptr(xc), ptr(m2t), ptr(cvec), ptr(scal), ptr(out),
+                 ptr(xs), ptr(xc), ptr(m2), ptr(cvec), ptr(scal), ptr(out),
                  G, N, d, cap, C, kind, ctypes.c_void_p(stream))
     raise_on_error(err, "K3 (fused_expander)")
     fused_expander.launches += 1
@@ -169,11 +175,13 @@ def expander_plan_operands(kernel, state, grid, unsafe, mu, sigma, Xc, uc,
     """K4's operands ``(zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales,
     pvar, plan, scal)`` for one GP: ``mu`` / ``sigma`` (N,) its grid
     posterior, ``uc`` (C,) its candidates' upper bounds, ``fmin`` its
-    threshold; ``scal`` = [0, 0, beta, fmin]."""
+    threshold; ``scal`` = [0, count, beta, fmin], the count copied on
+    the device."""
     scales, pvar, plan, _ = part_plan(kernel, grid.shape[1], grid)
     m2, cvec = candidate_terms(kernel, state, Xc, uc, valid)
     scal = torch.tensor([0.0, 0.0, float(beta), 0.0], dtype=grid.dtype,
                         device=grid.device)
+    scal[1] = state.count
     scal[3] = fmin
     return (grid.T.contiguous(), unsafe.contiguous(), mu.contiguous(),
             sigma.contiguous(), state.X.contiguous(), Xc.contiguous(),
@@ -194,7 +202,8 @@ def fused_expander_plan(zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales,
                         pvar, plan, scal):
     """(C,) bool expander predicate of one GP with a kernel plan: K4 on
     CUDA, the plain version on CPU. Operands as built by
-    ``expander_plan_operands``. Adds one to
+    ``expander_plan_operands``; as in K3, ``m2`` (C, cap) is read in its
+    own layout and must be zero past the count ``scal[1]``. Adds one to
     ``fused_expander_plan.launches`` per kernel launch."""
     if zt.device.type == "cpu":
         return fused_expander_plan_plain(zt, unsafe, mu, sigma, xs, xc, m2,
@@ -213,7 +222,6 @@ def fused_expander_plan(zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales,
         dict(zt=(d, N), unsafe=(N,), mu=(N,), sigma=(N,), xs=(cap, d),
              xc=(C, d), m2=(C, cap), cvec=(3, C), scales=(P, d), pvar=(P,),
              plan=(2, P), scal=(4,)))
-    m2t = m2.T.contiguous()                 # the kernel reads M2^T rows
     out = torch.zeros((C,), dtype=torch.int32, device=zt.device)
 
     from ._build import library
@@ -223,7 +231,7 @@ def fused_expander_plan(zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales,
     with torch.cuda.device(zt.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(ptr(zt), ptr(unsafe), ptr(mu), ptr(sigma), ptr(xs), ptr(xc),
-                 ptr(m2t), ptr(cvec), ptr(scales), ptr(pvar), ptr(plan),
+                 ptr(m2), ptr(cvec), ptr(scales), ptr(pvar), ptr(plan),
                  ptr(scal), ptr(out), N, d, cap, C, P,
                  ctypes.c_void_p(stream))
     raise_on_error(err, "K4 (fused_expander_plan)")

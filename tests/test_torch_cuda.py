@@ -16,7 +16,11 @@ likewise, and both tests assert that the plain predicate was mixed.
 The K1/K2 cases past the resident gram, far below capacity and with
 unequal counts check float32 by its decisions: no ``l > fmin`` decision
 differs from the float64 plain one outside a band of 1e-3 times the
-prior std (fmin at two quantiles of l).
+prior std (fmin at two quantiles of l). The K3/K4 cases past the
+resident M2, far below capacity, with several candidate passes and (K3)
+unequal counts in one launch hold the kernel against the float64 plain
+predicate: identical in float64, differing in float32 only where the
+plain one changes within 1e-3 of the threshold.
 """
 
 import numpy as np
@@ -281,6 +285,137 @@ def test_plan_intervals_kernel_active_rows(cuda, name, n_obs, cap, dtype):
     ref = fp.fused_intervals_plan_plain(*[o.double() if o.is_floating_point()
                                           else o for o in ops])
     _check_rows(out, ref, dtype, ops[7][1].item())
+
+
+def _expander_seen(run, plain, dtype, shifts=(0.0, 0.3, 1.0)):
+    """Hold ``run(shift)`` (the kernel's predicate with every fmin raised
+    by ``shift``) against ``plain(shift)`` (the float64 plain one) at each
+    shift: float64 predicates identical, float32 ones differing only where
+    the plain one changes within 1e-3 of the threshold, the last (padding)
+    slot never hit. Returns the plain values seen on valid slots."""
+    seen = set()
+    for shift in shifts:
+        got, want = run(shift), plain(shift)
+        torch.cuda.synchronize()
+        assert not bool(got[..., -1].any())
+        seen.update(want[..., :-1].flatten().tolist())
+        if dtype == torch.float64:
+            assert torch.equal(got, want)
+        else:
+            decided = plain(shift - 1e-3) == plain(shift + 1e-3)
+            assert not bool(((got != want) & decided).any())
+    return seen
+
+
+# K3 past its resident M2 (1000 rows at capacity 1024: streamed in f32
+# past 512 rows, in f64 past 256), at n = 400 of 512, at counts that are
+# no multiple of 32, with several candidate passes' worth of candidates
+# (64, 100) and GPs of counts 20 and 300 in one launch
+# fmin raises at which these states' plain predicates turn mixed
+ACTIVE_SHIFTS = (0.0, 0.3, 1.0, 2.0)
+EXPANDER_ACTIVE_CASES = [((1000,), 1024, 32), ((400, 400), 512, 32),
+                         ((77, 45), 128, 32), ((300,), 512, 64),
+                         ((97,), 100, 100), ((20, 300), 512, 32)]
+
+
+@pytest.mark.parametrize("counts,cap,C", EXPANDER_ACTIVE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_expander_kernel_active_rows(cuda, counts, cap, C, dtype):
+    rng = np.random.default_rng(sum(counts) + cap + C)
+    gps = []
+    for g, n in enumerate(counts):
+        X = rng.uniform(-4.0, 4.0, size=(n, 2))
+        Y = (np.cos(X.sum(axis=1)) + 0.05 * rng.normal(size=n))[:, None]
+        kern = pt.RBF(2, variance=1.0 + 0.5 * g, lengthscale=[0.8 + 0.3 * g,
+                                                              1.3], ARD=True)
+        gps.append(pt.GPRegression(X, Y, kern, noise_var=0.01, capacity=cap,
+                                   device=cuda, dtype=dtype))
+    grid = torch.tensor(rng.uniform(-5.0, 5.0, size=(20000, 2)), dtype=dtype,
+                        device=cuda)
+    kerns, states = [g.kern for g in gps], [g.state for g in gps]
+    beta = 2.0
+    out = fp.fused_intervals_plain(*fp.interval_operands(kerns, states, grid,
+                                                         beta))
+    l, u = out[:, 0], out[:, 1]
+    fmin = torch.quantile(l.double(), 0.5, dim=1).to(dtype)
+    safe = torch.all(l > fmin[:, None], dim=0)
+    safe_idx = torch.nonzero(safe).squeeze(1)
+    cand = safe_idx[torch.linspace(0, safe_idx.numel() - 1, C,
+                                   device=cuda).long()]
+    valid = torch.ones(C, dtype=torch.bool, device=cuda)
+    valid[-1] = False
+    ops = fe.expander_operands(kerns, states, grid, ~safe, (l + u) / 2,
+                               (u - l) / (2 * beta), grid[cand], u[:, cand],
+                               valid, beta, fmin)
+    assert ops[9][:, 1].tolist() == list(counts)
+    ref = [o.double() if torch.is_tensor(o) and o.is_floating_point() else o
+           for o in ops]
+
+    def at(o, shift):        # the operands with every fmin raised by shift
+        scal = o[9].clone()
+        scal[:, 3] += shift
+        return tuple(o[:9]) + (scal, o[10])
+
+    before = fe.fused_expander.launches
+    seen = _expander_seen(lambda s: fe.fused_expander(*at(ops, s)),
+                          lambda s: fe.fused_expander_plain(*at(ref, s)),
+                          dtype, ACTIVE_SHIFTS)
+    assert fe.fused_expander.launches == before + len(ACTIVE_SHIFTS)
+    assert seen == {True, False}
+
+
+PLAN_EXPANDER_ACTIVE_CASES = [("context", 1000, 1024, 32),
+                              ("sum_bias", 400, 512, 32),
+                              ("cosine", 97, 100, 100),
+                              ("context", 77, 128, 64)]
+
+
+@pytest.mark.parametrize("name,n_obs,cap,C", PLAN_EXPANDER_ACTIVE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plan_expander_kernel_active_rows(cuda, name, n_obs, cap, C, dtype):
+    gp, grid = _algebra_gp(name, cap, cuda, dtype, n_obs=n_obs)
+    beta = 2.0
+    out = fp.fused_intervals_plan_plain(*fp.interval_plan_operands(
+        gp.kern, gp.state, grid, beta))
+    l, u = out[0], out[1]
+    fmin = torch.quantile(l.double(), 0.4).to(dtype)
+    safe = l > fmin
+    safe_idx = torch.nonzero(safe).squeeze(1)
+    cand = safe_idx[torch.linspace(0, safe_idx.numel() - 1, C,
+                                   device=cuda).long()]
+    valid = torch.ones(C, dtype=torch.bool, device=cuda)
+    valid[-1] = False
+    ops = fe.expander_plan_operands(gp.kern, gp.state, grid, ~safe,
+                                    (l + u) / 2, (u - l) / (2 * beta),
+                                    grid[cand], u[cand], valid, beta, fmin)
+    assert ops[11][1].item() == n_obs
+    ref = [o.double() if o.is_floating_point() else o for o in ops]
+
+    def at(o, shift):        # the operands with fmin raised by shift
+        scal = o[11].clone()
+        scal[3] += shift
+        return tuple(o[:11]) + (scal,)
+
+    seen = _expander_seen(lambda s: fe.fused_expander_plan(*at(ops, s)),
+                          lambda s: fe.fused_expander_plan_plain(*at(ref, s)),
+                          dtype, ACTIVE_SHIFTS)
+    assert seen == {True, False}
+
+
+def test_expander_rejects_unknown_kind(cuda):
+    # K3's stationary gram has no cosine branch: kinds past the four
+    # stationary families must not reach it
+    gps, grid = _gps("RBF", 1, 32, cuda, torch.float32)
+    kerns, states = [g.kern for g in gps], [g.state for g in gps]
+    out = fp.fused_intervals_plain(*fp.interval_operands(kerns, states, grid,
+                                                         2.0))
+    l, u = out[:, 0], out[:, 1]
+    valid = torch.ones(4, dtype=torch.bool, device=cuda)
+    ops = fe.expander_operands(kerns, states, grid, l[0] < 0.4, (l + u) / 2,
+                               (u - l) / 4, grid[:4], u[:, :4], valid, 2.0,
+                               torch.tensor([0.4], device=cuda))
+    with pytest.raises(ValueError, match="kind"):
+        fe.fused_expander(*ops[:10], fp.LEAF_KINDS[pt.Cosine])
 
 
 def test_models_default_to_the_card(cuda):

@@ -11,7 +11,10 @@ CUDA K1/K2 stop at each GP's count: the operands carry the JAX state's
 count, the factor is exactly zero past it, and interval rows summed in
 index order over the leading block equal those over the capacity
 bitwise (the plain version's BLAS sums only to 1e-12), at capacities
-that are and are not multiples of the kernels' 32-row bands.
+that are and are not multiples of the kernels' 32-row bands. The CUDA
+K3/K4 stop there too: their ``scal`` carries the count, M2 is exactly
+zero past it, and the plain predicate over the leading rows is the one
+over the capacity.
 """
 
 import jax
@@ -299,6 +302,90 @@ def test_plan_intervals_read_only_the_active_rows(name, cap):
     kinds, terms = plan.tolist()
     k = pfp.plan_gram(xs, zt, scales.tolist(), pvar, kinds, terms)
     _check_active_rows(k, lm, w, scal[1], scal[2], n, full, cut)
+
+
+def _candidate_pass(safe, u):
+    """Up to 16 safe points, every third, as one expander chunk with its
+    last slot padding: (candidate indices, valid)."""
+    cand = torch.nonzero(safe).squeeze(1)[::3][:16]
+    valid = torch.ones(cand.numel(), dtype=torch.bool)
+    valid[-1] = False
+    return cand, valid
+
+
+@pytest.mark.parametrize("family,n_gps,cap", [("RBF", 2, 64),
+                                              ("Matern52", 1, 100),
+                                              ("Matern32", 2, 13),
+                                              ("Exponential", 3, 512)])
+def test_expander_reads_only_the_active_rows(family, n_gps, cap):
+    # K3 stops its contraction and its gram at each GP's count, which it
+    # reads from scal[:, 1]: past the count M2 is exactly zero, so the
+    # predicate over the leading n rows is the one over cap
+    jgps, pgps, grid = _models(family, n_gps, cap, seed=11 * cap + n_gps)
+    kerns, states = [g.kern for g in pgps], [g.state for g in pgps]
+    grid = torch.tensor(grid)
+    beta = 2.0
+    iv = pfp.fused_intervals_batched(kerns, states, grid, beta)
+    l, u = iv[:, 0], iv[:, 1]
+    fmin = torch.quantile(l, 0.2, dim=1)
+    safe = torch.all(l > fmin[:, None], dim=0)
+    cand, valid = _candidate_pass(safe, u)
+    zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, kind = (
+        pfe.expander_operands(kerns, states, grid, ~safe, (l + u) / 2,
+                              (u - l) / (2 * beta), grid[cand], u[:, cand],
+                              valid, beta, fmin))
+    seen = set()
+    for g, jgp in enumerate(jgps):
+        n = int(jgp.state.count)
+        assert 0 < n < cap
+        assert scal[g, 1].item() == n
+        assert not m2[g, :, n:].any()
+        one = dict(zt=zt, unsafe=unsafe, mu=mu[g:g + 1], sigma=sigma[g:g + 1],
+                   ils=ils[g:g + 1], xc=xc[g:g + 1], cvec=cvec[g:g + 1],
+                   kind=kind)
+        for shift in (0.0, 0.3, 1.0):
+            s = scal[g:g + 1].clone()
+            s[:, 3] += shift
+            full = pfe.fused_expander_plain(xs=xs[g:g + 1], m2=m2[g:g + 1],
+                                            scal=s, **one)
+            cut = pfe.fused_expander_plain(
+                xs=xs[g:g + 1, :n].contiguous(),
+                m2=m2[g:g + 1, :, :n].contiguous(), scal=s, **one)
+            assert torch.equal(full, cut)
+            seen.update(full[0, :-1].tolist())
+    assert seen == {True, False}
+
+
+@pytest.mark.parametrize("name,cap", ALGEBRAS)
+def test_plan_expander_reads_only_the_active_rows(name, cap):
+    # K4 as K3: scal[1] is the JAX state's count
+    jgp, pgp, grid = _algebra_model(name, cap, seed=cap + 2)
+    grid = torch.tensor(grid)
+    beta = 2.0
+    l, u = pfp.fused_intervals_single(pgp.kern, pgp.state, grid, beta)
+    fmin = torch.quantile(l, 0.4)
+    safe = l > fmin
+    cand, valid = _candidate_pass(safe, u)
+    ops = pfe.expander_plan_operands(pgp.kern, pgp.state, grid, ~safe,
+                                     (l + u) / 2, (u - l) / (2 * beta),
+                                     grid[cand], u[cand], valid, beta, fmin)
+    zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales, pvar, plan, scal = ops
+    n = int(jgp.state.count)
+    assert 0 < n < cap
+    assert scal[1].item() == n
+    assert not m2[:, n:].any()
+    seen = set()
+    for shift in (0.0, 0.2, 0.6):
+        s = scal.clone()
+        s[3] += shift
+        full = pfe.fused_expander_plan_plain(zt, unsafe, mu, sigma, xs, xc,
+                                             m2, cvec, scales, pvar, plan, s)
+        cut = pfe.fused_expander_plan_plain(
+            zt, unsafe, mu, sigma, xs[:n].contiguous(), xc,
+            m2[:, :n].contiguous(), cvec, scales, pvar, plan, s)
+        assert torch.equal(full, cut)
+        seen.update(full[:-1].tolist())
+    assert seen == {True, False}
 
 
 def test_plan_layout_and_limits():

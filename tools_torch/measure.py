@@ -35,7 +35,9 @@ For each it measures:
   least time the card could take for the same work
   (``chip_smoke.interval_bound`` / ``expander_bound``); beside K1, the
   multiply-adds per point and GP that K1 executes against the n(n+1)/2
-  its bound counts (``chip_smoke.band_macs``), and one FP32
+  its bound counts (``chip_smoke.band_macs``), beside K3/K4 the
+  multiply-adds per point and GP they execute against the C n their
+  bound counts (``chip_smoke.expander_macs``), and beside K1 one FP32
   ``torch.matmul`` of an (n, n) by an (n, 65536) matrix with TF32 off:
   the rate the card's FP32 pipe reaches on the product's shapes, a
   ceiling for K1's product share (the port never calls it);
@@ -70,8 +72,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (BETA, CTX_FMIN, FMIN, SCALING,  # noqa: E402
                         band_macs, build_gps, context_gps, context_truth,
-                        cuda_ms, expander_bound, interval_bound, plan_leaves,
-                        plant, timed_ms)
+                        cuda_ms, expander_bound, expander_macs,
+                        interval_bound, plan_leaves, plant, timed_ms)
 
 
 # name -> (capacity, observations, seed, spread of the observations)
@@ -189,6 +191,9 @@ def kernel_times(opt, chunk, reps):
     interval = "K1" if "K1" in out else "K2"
     out[interval]["macs_per_point"] = {"executed": band_macs(n),
                                        "counted": n * (n + 1) // 2}
+    expander = "K3" if "K3" in out else "K4"
+    out[expander]["macs_per_point"] = {"executed": expander_macs(n, C, f32),
+                                       "counted": C * n}
     if interval == "K1":
         out["K1"]["fp32_matmul"] = matmul_ceiling(n, reps)
     return out
