@@ -36,26 +36,48 @@ Phases, each reported on its own line:
 6. K4 (expander predicate of one GP with a kernel algebra) as K3's
    check, on the contextual kernel's two GPs at capacity 256;
 7. K5 (exact top-k) on CUDA tensors with massive ties and all -inf;
-8. the flagship path: two RBF GPs, 1000 x 1000 grid, 50 observations,
+8. the interval-stage experiments B1-B5
+   (``safeopt_torch/ops/interval_experiments.py``) against their plain
+   versions at the cap-512 state (G=2, 400 observations, N=1e6) and the
+   flagship's cap 64, in float64 and float32: B1 (K1 at other launch
+   layouts) bit-identical to K1; B2/B5 (ablations) and B3 (mu from the
+   gram) to 1e-9 in float64 and in float32 within ``float32_bound``, the
+   worst case of their float32 arithmetic, against the plain version in
+   float64 on the same operands; B4 (the split-limb tensor-core product,
+   bf16 and tf32 limbs) within ``float32_bound`` of its plain version,
+   the same bits with Lm's limbs split in the kernel or passed
+   pre-split, and its scaled error against the float64 plain rows
+   printed beside K1's; beside each float32 bound its median and the
+   rows' median |.|, and how far past it the rows of a kernel that drops
+   each GP's first (which must be past the bound) or last 32 active
+   rows land (``drop_band``); then the experiment path,
+   ``tools_torch/bench_interval_experiments.py``'s five harnesses on the
+   cap-512 state in float32, with every count zeroed before it and read
+   after it;
+9. the flagship path: two RBF GPs, 1000 x 1000 grid, 50 observations,
    capacity 64, chunk 32, through ``SafeOpt.optimize`` and
    ``add_new_data_point`` for 10 iterations against a NumPy plant, with
    the first query checked against the float64 plain path on the CPU;
-9. the contextual path: two GPs (objective + constraint) with the
+10. the contextual path: two GPs (objective + constraint) with the
    contextual kernel, 240 observations at context 0, capacity 256, a
    1e6-point parameter grid with one context column, chunk 32, through
    ``optimize(context=...)`` and ``add_new_data_point(..., context=...)``
    for 10 iterations (context 0.0, then 0.1 from iteration 6) and
-   ``get_maximum(context=0.1)``, first query checked as in phase 8.
-   Every kernel's launch count is zeroed just before each path and read
-   just after it;
-10. times of both paths and of each kernel against its plain version
-    (K3 also at capacity 512), beside the least time the card could
-    take (``bound_ms``) and the share of that bound the kernel reaches.
+    ``get_maximum(context=0.1)``, first query checked as in phase 9.
+    Every kernel's launch count is zeroed just before each path and read
+    just after it; neither path launches an experiment kernel;
+11. times of both paths and of each kernel against its plain version
+    (K3 also at capacity 512; B1-B5 from the experiment path), beside the
+    least time the card could take (``bound_ms``: the least work the
+    output needs; for B2's rank-1 solve and B5's epilogue also the work
+    the kernel is told to do, printed apart) and the share of that bound
+    the kernel reaches.
 
 Any failed check exits non-zero. The last lines are one JSON object of
 the kernels, the nvidia-smi line, and the result line.
 """
 
+import functools
 import json
 import math
 import subprocess
@@ -65,10 +87,12 @@ import time
 import numpy as np
 import torch
 
+from tools_torch.states import (BETA, LAYOUTS, build_gps, cap512_operands,
+                                 cuda_ms, first_gp, one_gp)
+
 BAND = 1e-3          # scaled decision band for float32 comparisons
 FMIN = [0.2, 0.5]
 SCALING = [math.sqrt(2.0), 1.0]
-BETA = 2.0
 K3_SHIFTS = (0.0, 0.1, 0.3, 1.0)   # fmin raises, in units of scaling
 # K4's state (250 observations, contexts over [-5, 5]) lifts unsafe
 # points further: its plain predicate holds for every candidate up to a
@@ -81,6 +105,9 @@ CTX_SCALING = [math.sqrt(2.0), 1.0]
 # cores, FP64 likewise, and HBM3 bandwidth.
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
+# dense tensor-core peaks of the same card (B4's limb formats)
+PEAK_TENSOR = {"bf16": 989e12, "tf32": 495e12}
+EXPERIMENT_REPS = 5
 
 
 def fail(msg):
@@ -92,23 +119,6 @@ def check(cond, msg):
     """``fail(msg)`` unless ``cond`` holds."""
     if not cond:
         fail(msg)
-
-
-def build_gps(rng, n_obs, capacity, device, dtype, spread=1.5, d=2):
-    """The bench flagship's two GPs (objective + one constraint)."""
-    from safeopt_torch import RBF, GPRegression
-
-    X = rng.uniform(-spread, spread, size=(n_obs, d))
-    Yf = (2.0 * np.exp(-0.5 * np.sum(X ** 2, axis=1))
-          + 0.05 * rng.normal(size=n_obs))[:, None]
-    Yg = (1.0 - 0.1 * np.sum(X ** 2, axis=1)
-          + 0.05 * rng.normal(size=n_obs))[:, None]
-    return [GPRegression(X, Yf, RBF(d, variance=2.0, lengthscale=1.0),
-                         noise_var=0.05 ** 2, capacity=capacity,
-                         device=device, dtype=dtype),
-            GPRegression(X, Yg, RBF(d, variance=1.0, lengthscale=1.5),
-                         noise_var=0.05 ** 2, capacity=capacity,
-                         device=device, dtype=dtype)]
 
 
 def context_kernel(extra=False):
@@ -155,20 +165,6 @@ def plant(rng, x):
     r2 = float(np.sum(np.asarray(x) ** 2))
     return np.array([[2.0 * math.exp(-0.5 * r2) + 0.05 * rng.normal(),
                       1.0 - 0.1 * r2 + 0.05 * rng.normal()]])
-
-
-def cuda_ms(fn, reps=10, warmup=2):
-    """Mean device milliseconds of ``fn()`` over ``reps`` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def timed_ms(fn):
@@ -219,6 +215,51 @@ def interval_bound(dtype, G, N, d, cap, n, leaves=None):
     size = torch.finfo(dtype).bits // 8
     nbytes = size * (d * N + G * (cap * d + cap * cap + cap + 4 + 2 * N))
     return bound(dtype, flops, nbytes)
+
+
+def ablation_bound(mode, dtype, G, N, d, cap, n, prescribed=False):
+    """Least time of B2/B5's ``mode`` on these inputs: the least work its
+    output needs, the inputs it depends on read once, the (G, 2, N) rows
+    written once. ``gram_sums``: per point and GP the gram of the n
+    active rows, an add and an FMA an entry; ``no_product``: the gram,
+    two FMAs an entry (mu and the sum of squares) and the epilogue. Under
+    ``solve_rank1`` and ``epilogue`` V is one column v times z[0] (v = Lm
+    xs[:, 0], or 0.01 in every row), so mu = z[0] (w . v) and sum V^2 =
+    z[0]^2 (v . v): one pass over Lm a GP (over w for ``epilogue``), then
+    per point three operations and the epilogue on grid column 0 alone.
+    ``prescribed`` counts for these two the work the kernel is told to do
+    instead: every row of V, the rank-1 gram and the triangular product."""
+    size = torch.finfo(dtype).bits // 8
+    if mode == "gram_sums":
+        return bound(dtype, G * N * n * (gram_flops(d) + 3),
+                     size * (d * N + G * (cap * d + d + 4 + 2 * N)))
+    if mode == "no_product":
+        return bound(dtype, G * N * (n * (gram_flops(d) + 4) + 8),
+                     size * (d * N + G * (cap * d + d + cap + 4 + 2 * N)))
+    solve = mode == "solve_rank1"
+    nbytes = size * (N + G * (2 * N + cap + 4
+                              + (cap * cap + cap if solve else 0)))
+    if prescribed:
+        return bound(dtype, G * N * (n * (5 if solve else 4)
+                                     + (n * (n + 1) if solve else 0) + 8),
+                     nbytes)
+    return bound(dtype, G * ((n * (n + 1) + 4 * n if solve else 2 * n)
+                             + 11 * N), nbytes)
+
+
+def split_bound(limb, N, d, cap, n):
+    """Least time of B4 on these inputs: the three limb products' 3 n(n+1)
+    flops a point on the tensor cores at the limb format's peak; on the
+    FP32 pipe the gram, its split (two roundings and a difference an
+    entry) and the epilogue; inputs read once, the (2, N) rows written
+    once. The largest of the three."""
+    t_tc = 3 * N * n * (n + 1) / PEAK_TENSOR[limb]
+    t_fp = (N * (n * (gram_flops(d) + 3) + 4 * n + 8)
+            / PEAK_FLOPS[torch.float32])
+    t_mem = 4 * (d * N + cap * d + cap * cap + cap + 4 + 2 * N) / PEAK_BYTES
+    t, by = max((t_tc, "operations"), (t_fp, "operations"),
+                (t_mem, "bytes"))
+    return t * 1e3, by
 
 
 def band_macs(n):
@@ -493,10 +534,31 @@ def zero_launches():
     """Set every kernel's launch count to 0."""
     from safeopt_torch.ops import fused_expander as fe
     from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.ops import interval_experiments as ie
 
     for fn in (fp.fused_intervals, fe.fused_expander,
-               fp.fused_intervals_plan, fe.fused_expander_plan):
+               fp.fused_intervals_plan, fe.fused_expander_plan,
+               ie.intervals_launch, ie.interval_ablation,
+               ie.intervals_mu_from_gram, ie.intervals_split):
         fn.launches = 0
+    for counts in (ie.interval_ablation.mode_launches,
+                   ie.intervals_split.limb_launches):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def experiment_launches():
+    """Each experiment kernel's launch count, by its kernels-line name."""
+    from safeopt_torch.ops import interval_experiments as ie
+
+    modes = ie.interval_ablation.mode_launches
+    limbs = ie.intervals_split.limb_launches
+    return {"B1": ie.intervals_launch.launches,
+            "B2 gram_sums": modes["gram_sums"],
+            "B2 solve_rank1": modes["solve_rank1"],
+            "B3": ie.intervals_mu_from_gram.launches,
+            "B4 bf16": limbs["bf16"], "B4 tf32": limbs["tf32"],
+            "B5 no_product": modes["no_product"],
+            "B5 epilogue": modes["epilogue"]}
 
 
 def read_launches():
@@ -508,6 +570,117 @@ def read_launches():
             "K3": fe.fused_expander.launches,
             "K2": fp.fused_intervals_plan.launches,
             "K4": fe.fused_expander_plan.launches}
+
+
+def fault_readings(plain, ops, what, bound_):
+    """How far past ``bound_`` a kernel whose rows are ``plain``'s with
+    each GP's first, and then last, 32 active rows dropped lands: max
+    |fault - plain| / bound over the outputs, for each (past 1: the
+    float32 check fails it)."""
+    from safeopt_torch.ops import interval_experiments as ie
+
+    want = plain(*ops).double()
+    return [((plain(*ie.drop_band(ops, what, first)).double() - want).abs()
+             / bound_).max().item() for first in (True, False)]
+
+
+def check_experiments(label, ops64, ops32):
+    """B1-B5 against their plain versions on K1's operands of one state
+    in float64 and float32, and how each float32 bound compares with the
+    rows and with a planted fault. Returns {kernels-line name: max abs
+    error} (float64; B4's float32 against its plain version)."""
+    from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.ops import interval_experiments as ie
+
+    cap = ops64[2].shape[1]
+    for ops in (ops64, ops32):
+        k1 = fp.fused_intervals(*ops)
+        for slices, res, carveout in LAYOUTS[cap][ops[0].dtype]:
+            got = ie.intervals_launch(*ops, slices=slices, res=res,
+                                      carveout=carveout)
+            check(torch.equal(got, k1),
+                  f"B1 {label} {ops[0].dtype} slices={slices} res={res} "
+                  f"carveout={carveout} differs from K1")
+    print(f"B1 {label}: K1's bits at every launch layout, float64 and "
+          f"float32", flush=True)
+    # B5 takes GP 0 alone, as its harness does (GP 1's prior variance, 1,
+    # is all of sum V^2 at the grid's edge under ``epilogue``: sqrt would
+    # magnify a last-bit difference there)
+    both, gp0 = (ops64, ops32), (first_gp(ops64), first_gp(ops32))
+    runs = {"B2 gram_sums": ("gram_sums", both),
+            "B2 solve_rank1": ("solve_rank1", both),
+            "B5 no_product": ("no_product", gp0),
+            "B5 epilogue": ("epilogue", gp0), "B3": ("mu_from_gram", both)}
+    errs = {"B1": 0.0}
+    for name, (what, (o64, o32)) in runs.items():
+        if what == "mu_from_gram":
+            kernel, plain = (ie.intervals_mu_from_gram,
+                             ie.intervals_mu_from_gram_plain)
+        else:
+            kernel = functools.partial(ie.interval_ablation, mode=what)
+            plain = functools.partial(ie.interval_ablation_plain, mode=what)
+        up = tuple(o.double() if torch.is_tensor(o) else o for o in o32)
+        err64 = (kernel(*o64) - plain(*o64)).abs().max().item()
+        want = plain(*up)
+        err32 = (kernel(*o32).double() - want).abs()
+        lim = ie.float32_bound(*o32, what)
+        ratio = (err32 / lim).max().item()
+        first, last = fault_readings(plain, up, what, lim)
+        print(f"{name} {label}: f64 max|kernel-plain|={err64:.3e} (limit "
+              f"1e-9); f32 max abs err={err32.max().item():.3e}, at most "
+              f"{ratio:.3f} of float32_bound (limit 1); the bound's median "
+              f"{lim.median().item():.3e} against the rows' median |.| "
+              f"{want.abs().median().item():.3e}; the first 32-row band "
+              f"dropped reads {first:.3g} x the bound (must be past 1), "
+              f"the last {last:.3g} x", flush=True)
+        check(err64 <= 1e-9, f"{name} {label} f64 error {err64}")
+        check(ratio <= 1.0, f"{name} {label} f32 error past its bound")
+        check(first > 1.0, f"{name} {label}: float32_bound hides a dropped "
+                           "band")
+        errs[name] = err64
+    ref = fp.fused_intervals_plain(*ops64)
+    scale = torch.tensor(SCALING, dtype=torch.float64, device="cuda")
+    k1_dq = ((fp.fused_intervals(*ops32).double() - ref).abs()
+             / scale[:, None, None]).max().item()
+    for limb in ie.LIMBS:
+        err, ratio, dq, lo_fault = 0.0, 0.0, 0.0, 0.0
+        first, last, lims, rows = math.inf, math.inf, [], []
+        for g in range(ops32[2].shape[0]):
+            one = one_gp(ops32, g)
+            got = ie.intervals_split(*one, limb=limb)
+            check(torch.equal(got, ie.intervals_split(
+                *one, limb=limb, limbs=ie.split_factor(one[3], limb))),
+                  f"B4 {limb} {label}: in-kernel and hoisted limbs differ")
+            plain = functools.partial(ie.intervals_split_plain, limb=limb)
+            want = plain(*one)
+            lim = ie.float32_bound(*one, "split", limb=limb)
+            lims.append(lim)
+            rows.append(want.double().abs())
+            diff = (got.double() - want.double()).abs()
+            err = max(err, diff.max().item())
+            ratio = max(ratio, (diff / lim).max().item())
+            dq = max(dq, (got.double() - ref[g]).abs().max().item()
+                     / SCALING[g])
+            readings = fault_readings(plain, one, "split", lim)
+            first, last = min(first, readings[0]), min(last, readings[1])
+            unrounded = plain(*one, round_lo=False)
+            lo_fault = max(lo_fault, ((unrounded.double() - want.double())
+                                      .abs() / lim).max().item())
+        print(f"B4 {limb} {label}: in-kernel == hoisted bitwise; max abs "
+              f"err against its plain version={err:.3e}, at most "
+              f"{ratio:.3f} of float32_bound (limit 1); the bound's median "
+              f"{torch.cat(lims).median().item():.3e} against the rows' "
+              f"median |.| {torch.cat(rows).median().item():.3e}; max "
+              f"scaled |dQ| against float64 {dq:.3e} (K1 float32: "
+              f"{k1_dq:.3e}); per "
+              f"GP the first 32-row band dropped reads at least {first:.3g} "
+              f"x the bound (must be past 1), the last {last:.3g} x, lo "
+              f"left unrounded at most {lo_fault:.3g} x", flush=True)
+        check(ratio <= 1.0, f"B4 {limb} {label} error past its bound")
+        check(first > 1.0, f"B4 {limb} {label}: float32_bound hides a "
+                           "dropped band")
+        errs[f"B4 {limb}"] = err
+    return errs
 
 
 def drive(opt, ref, label, plant_fn, contexts, scaling, get_max):
@@ -634,7 +807,37 @@ def main():
     print("K5 top_k: massive ties (k=32, 4096) and all -inf match a stable "
           "sort", flush=True)
 
-    # 8. the flagship path ----------------------------------------------------
+    # 8. the interval-stage experiments B1-B5 ---------------------------------
+    from safeopt_torch.ops import interval_experiments as ie
+    from tools_torch import bench_interval_experiments as bx
+
+    f32, f64 = torch.float32, torch.float64
+    exp_ops = {dt: cap512_operands(dt, grid_np) for dt in (f64, f32)}
+    exp_errs = check_experiments("G=2 cap=512 (400 obs)", exp_ops[f64],
+                                 exp_ops[f32])
+    flag_ops = [fp.interval_operands(
+        [g.kern for g in gps], [g.state for g in gps], grid64.to(dt), BETA)
+        for dt in (f64, f32)
+        for gps in [build_gps(np.random.default_rng(0), 50, 64, "cuda", dt)]]
+    for name, err in check_experiments("G=2 cap=64", *flag_ops).items():
+        exp_errs[name] = max(exp_errs[name], err)
+    zero_launches()
+    exp_results = bx.run(exp_ops[f32], EXPERIMENT_REPS)
+    torch.cuda.synchronize()
+    exp_launches = experiment_launches()
+    check(all(n > 0 for n in exp_launches.values()),
+          f"an experiment kernel was never launched on its path: "
+          f"{exp_launches}")
+    check(all(v["bitexact"] for v in exp_results["B1"]["variants"])
+          and all(exp_results["B4"][limb]["hoisted_bitexact"]
+                  for limb in ie.LIMBS),
+          "the experiment path lost K1's bits (B1) or B4's limb pair")
+    print(f"experiment path (the five harnesses, cap 512, float32, "
+          f"{EXPERIMENT_REPS} reps): launches {exp_launches}", flush=True)
+    for name, res in exp_results.items():
+        print(f"  {name}: {json.dumps(res)}", flush=True)
+
+    # 9. the flagship path ----------------------------------------------------
     def flagship(device, dtype):
         gps = build_gps(np.random.default_rng(0), 50, 64, device, dtype)
         return SafeOpt(gps, grid_np, fmin=FMIN, beta=BETA, scaling=SCALING,
@@ -650,12 +853,14 @@ def main():
     check(launches["K1"] > 0, "K1 was never launched on the flagship path")
     check(launches["K3"] > 0 or walked == 0,
           "the walk ran but K3 was never launched")
+    check(not any(experiment_launches().values()),
+          "the flagship path launched an experiment kernel")
     print(f"flagship path: 10 iterations, |S| last="
           f"{opt_f.stats.last.safe_count}, walk chunks={walked}, launches "
           f"{launches}, get_maximum x={np.round(maximum[0], 4).tolist()} "
           f"lb={maximum[1]:.4f}", flush=True)
 
-    # 9. the contextual path --------------------------------------------------
+    # 10. the contextual path -------------------------------------------------
     params_np = linearly_spaced_combinations([(-3.0, 3.0)], 1_000_000)
     contexts = [0.0] * 5 + [0.1] * 5
 
@@ -682,13 +887,15 @@ def main():
           "the contextual walk ran but K4 was never launched")
     check(ctx_launches["K1"] == ctx_launches["K3"] == 0,
           "the contextual path launched the stationary kernels")
+    check(not any(experiment_launches().values()),
+          "the contextual path launched an experiment kernel")
     print(f"contextual path: 10 iterations (context 0.0 x5, 0.1 x5), |S| "
           f"last={opt_c.stats.last.safe_count}, walk chunks={ctx_walked}, "
           f"launches {ctx_launches}, get_maximum(context=0.1) x="
           f"{np.round(ctx_max[0], 4).tolist()} lb={ctx_max[1]:.4f}",
           flush=True)
 
-    # 10. times ---------------------------------------------------------------
+    # 11. times ---------------------------------------------------------------
     for label, o_ms, a_ms, n in (("flagship", opt_ms, add_ms,
                                   grid_np.shape[0]),
                                  ("contextual", ctx_opt_ms, ctx_add_ms,
@@ -701,7 +908,6 @@ def main():
     ops32_k1 = fp.interval_operands(
         [g.kern for g in gps32], [g.state for g in gps32],
         grid64.float(), BETA)
-    f32 = torch.float32
     N, d = grid_np.shape
     C = 32
     n_flag = int(gps32[0].state.count)
@@ -760,6 +966,70 @@ def main():
             # no single PyTorch call computes these fused functions
             "library_ms": None})
     kernels[0]["max_abs_err_f32"] = k1_err32
+
+    o32 = exp_ops[f32]
+    n512 = int(o32[5][0, 3])
+    one0, first = one_gp(o32), first_gp(o32)
+    res = exp_results
+
+    def ablation(ops, mode):
+        return (lambda: ie.interval_ablation_plain(*ops, mode),
+                ablation_bound(mode, f32, ops[2].shape[0], N, d, 512, n512))
+
+    def split(limb):
+        return (lambda: ie.intervals_split_plain(*one0, limb=limb),
+                split_bound(limb, N, d, 512, n512))
+
+    b_runs = {
+        "B1": (res["B1"]["variants"][0]["ms"],
+               lambda: fp.fused_intervals_plain(*o32),
+               interval_bound(f32, 2, N, d, 512, n512)),
+        "B2 gram_sums": (res["B2"]["gram_sums_ms"],
+                         *ablation(o32, "gram_sums")),
+        "B2 solve_rank1": (res["B2"]["solve_rank1_ms"],
+                           *ablation(o32, "solve_rank1")),
+        "B3": (res["B3"]["mu_from_gram_ms"],
+               lambda: ie.intervals_mu_from_gram_plain(*o32),
+               interval_bound(f32, 2, N, d, 512, n512)),
+        "B4 bf16": (res["B4"]["bf16"]["inkernel_ms"], *split("bf16")),
+        "B4 tf32": (res["B4"]["tf32"]["inkernel_ms"], *split("tf32")),
+        "B5 no_product": (res["B5"]["no_product_ms"],
+                          *ablation(first, "no_product")),
+        "B5 epilogue": (res["B5"]["epilogue_ms"],
+                        *ablation(first, "epilogue")),
+    }
+    b_meta = {    # the wrapper (and its mode) and the TPU kernel
+        "B1": ("intervals_launch", "bench_interval_mosaic.py:73"),
+        "B2 gram_sums": ("interval_ablation", "bench_interval_mosaic3.py:96"),
+        "B2 solve_rank1": ("interval_ablation",
+                           "bench_interval_mosaic3.py:104"),
+        "B3": ("intervals_mu_from_gram", "bench_interval_mosaic4.py:95"),
+        "B4 bf16": ("intervals_split", "bench_interval_variants.py:92"),
+        "B4 tf32": ("intervals_split", "bench_interval_variants.py:92"),
+        "B5 no_product": ("interval_ablation",
+                          "bench_interval_ablation.py:49"),
+        "B5 epilogue": ("interval_ablation", "bench_interval_ablation.py:49"),
+    }
+    for name, (k_ms, plain, (b_ms, b_by)) in b_runs.items():
+        p_ms = cuda_ms(plain, reps=3, warmup=1)
+        print(f"{name} float32 (experiment path): kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share "
+              f"of the bound {b_ms / k_ms:.1%}", flush=True)
+        wrapper, tpu = b_meta[name]
+        key, _, mode = name.partition(" ")
+        if mode in ("solve_rank1", "epilogue"):
+            ops = o32 if mode == "solve_rank1" else first
+            t_ms, t_by = ablation_bound(mode, f32, ops[2].shape[0], N, d,
+                                        512, n512, prescribed=True)
+            print(f"  {name}: the work the kernel is told to do (every row "
+                  f"of V) bounds at {t_ms:.4f} ms ({t_by}), "
+                  f"{t_ms / k_ms:.1%} of it", flush=True)
+        kernels.append({
+            "name": f"{key} {wrapper} {mode}".strip(), "route": "cuda",
+            "source": "safeopt_torch/ops/csrc/interval_experiments.cu",
+            "replaces": f"benchmarks/{tpu}", "launches": exp_launches[name],
+            "max_abs_err": exp_errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -199,8 +199,11 @@ __device__ __forceinline__ void band_steps(T (&acc)[kBandTM][kBandTN],
 
 // out (2, N) rows of one GP for the block's points; ils scales the
 // points (null for raw points); lmt is Lm transposed with row stride ldl;
-// n the active rows; S and res from interval_layout.
-template <typename T, class Gram>
+// n the active rows; S and res from interval_layout. MuFromGram (the
+// experiment B3, interval_experiments.cu) takes w as u = Lm^T w and mu as
+// sum_c u[c] k[c]: the last band, which reads every gram column, adds it
+// up and no band multiplies w into V.
+template <typename T, class Gram, bool MuFromGram = false>
 __device__ __forceinline__ void interval_rows(
     const T* __restrict__ zt, const T* __restrict__ ils,
     const T* __restrict__ xs, const T* __restrict__ lmt, int ldl,
@@ -264,6 +267,11 @@ __device__ __forceinline__ void interval_rows(
       for (int i = 0; i < kBandTM; ++i)
 #pragma unroll
         for (int j = 0; j < kBandTN; ++j) acc[i][j] = T(0);
+      T mg[kBandTN];  // MuFromGram: this thread's columns c = ty mod 4
+      if constexpr (MuFromGram) {
+#pragma unroll
+        for (int j = 0; j < kBandTN; ++j) mg[j] = T(0);
+      }
       for (int q = 0; q < kStages - 1; ++q) {  // the ring's first pieces
         if (q < pieces)
           stage_band(at0 + q * kKS * kBand, lmt, ldl, q * kKS, cend, r0, lane);
@@ -294,8 +302,24 @@ __device__ __forceinline__ void interval_rows(
         }
         cp_async_wait<kStages - 1>();  // piece q has landed, later in flight
         __syncwarp();
-        band_steps(acc, at0 + (q % kStages) * kKS * kBand, bsrc, ldb,
-                   cend - k0 < kKS ? cend - k0 : kKS, ty, tx);
+        const int steps = cend - k0 < kKS ? cend - k0 : kKS;
+        band_steps(acc, at0 + (q % kStages) * kKS * kBand, bsrc, ldb, steps,
+                   ty, tx);
+        if constexpr (MuFromGram) {
+          if (b == nb - 1) {  // the last band: every column below n
+#pragma unroll
+            for (int k = 0; k < kKS / 4; ++k) {
+              const int c = 4 * k + ty;
+              if (c < steps) {
+                T bv[kBandTN];
+                load_vec(bv, bsrc + (size_t)c * ldb + tx * kBandTN);
+                const T uc = w[k0 + c];
+#pragma unroll
+                for (int j = 0; j < kBandTN; ++j) mg[j] += uc * bv[j];
+              }
+            }
+          }
+        }
         __syncwarp();  // piece q (and the gram piece) is consumed
       }
       // the band's partials; rows past n hold exact zeros
@@ -308,9 +332,13 @@ __device__ __forceinline__ void interval_rows(
         const T wr = r < n ? w[r] : T(0);
 #pragma unroll
         for (int j = 0; j < kBandTN; ++j) {
-          mu[j] += wr * acc[i][j];
+          if constexpr (!MuFromGram) mu[j] += wr * acc[i][j];
           ssq[j] += acc[i][j] * acc[i][j];
         }
+      }
+      if constexpr (MuFromGram) {
+#pragma unroll
+        for (int j = 0; j < kBandTN; ++j) mu[j] = mg[j];
       }
       T* pm = red + (size_t)(b - lo) * P + s * kWP + tx * kBandTN;
       T* ps = pm + (size_t)lay.nred * P;

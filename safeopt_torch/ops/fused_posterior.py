@@ -312,6 +312,25 @@ def transposed_factor(lm: torch.Tensor) -> torch.Tensor:
     return lmt
 
 
+def k1_layout(zt, ils, xs, lm, w, scal, kind, what):
+    """``(G, N, d, cap, dtype)`` of K1's operands (``what`` names the
+    kernel in errors); raises unless they lie on a CUDA device in one
+    float dtype with K1's shapes and a stationary kind."""
+    if zt.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, not "
+                         f"{zt.device}")
+    G, cap, d = xs.shape
+    N = zt.shape[1]
+    dtype = float_dtype(zt, what)
+    if kind not in KINDS.values():
+        raise ValueError(f"unknown kernel kind {kind}")
+    check_operands(
+        dict(zt=zt, ils=ils, xs=xs, lm=lm, w=w, scal=scal), zt.device, dtype,
+        dict(zt=(d, N), ils=(G, d), xs=(G, cap, d), lm=(G, cap, cap),
+             w=(G, cap), scal=(G, 4)))
+    return G, N, d, cap, dtype
+
+
 def fused_intervals(zt, ils, xs, lm, w, scal, kind):
     """(G, 2, N) interval rows: K1 on CUDA, the plain version on CPU.
 
@@ -325,17 +344,7 @@ def fused_intervals(zt, ils, xs, lm, w, scal, kind):
     """
     if zt.device.type == "cpu":
         return fused_intervals_plain(zt, ils, xs, lm, w, scal, kind)
-    if zt.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, not {zt.device}")
-    G, cap, d = xs.shape
-    N = zt.shape[1]
-    dtype = float_dtype(zt, "K1")
-    if kind not in KINDS.values():
-        raise ValueError(f"unknown kernel kind {kind}")
-    check_operands(
-        dict(zt=zt, ils=ils, xs=xs, lm=lm, w=w, scal=scal), zt.device, dtype,
-        dict(zt=(d, N), ils=(G, d), xs=(G, cap, d), lm=(G, cap, cap),
-             w=(G, cap), scal=(G, 4)))
+    G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, "K1")
     lmt = transposed_factor(lm)
     out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
 

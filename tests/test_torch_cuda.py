@@ -455,3 +455,140 @@ def test_step_on_cuda_matches_cpu_float64(cuda):
     for name in ("S", "M", "G"):
         assert torch.equal(getattr(r_c, name).cpu(), getattr(r_h, name))
     assert int(r_c.next_idx) == int(r_h.next_idx)
+
+
+# -- B1-B5: the interval stage's experiment kernels ---------------------------
+#
+# B1 must give K1's bits at every launch layout. B2, B3 and B5 agree with
+# their plain versions to 1e-9 in float64; in float32 they are held
+# against the plain version run in float64 on the same (float32)
+# operands, B4 against its plain version (the limbs bit for bit, the
+# products in float64), within ``float32_bound``, the worst case of their
+# float32 arithmetic. B4 must give the same bits with Lm's limbs split in
+# the kernel and passed pre-split.
+
+def _experiment_ops(counts, cap, device, dtype):
+    """K1's operands of RBF GPs with the given counts, over a 20000-point
+    grid on [-5, 5]^2."""
+    rng = np.random.default_rng(sum(counts) + 7 * cap)
+    gps = []
+    for g, n in enumerate(counts):
+        X = rng.uniform(-4.0, 4.0, size=(n, 2))
+        Y = (np.cos(X.sum(axis=1)) + 0.05 * rng.normal(size=n))[:, None]
+        kern = pt.RBF(2, variance=1.0 + 0.5 * g, lengthscale=[0.8 + 0.3 * g,
+                                                              1.3], ARD=True)
+        gps.append(pt.GPRegression(X, Y, kern, noise_var=0.01, capacity=cap,
+                                   device=device, dtype=dtype))
+    grid = torch.tensor(rng.uniform(-5.0, 5.0, size=(20000, 2)), dtype=dtype,
+                        device=device)
+    return fp.interval_operands([g.kern for g in gps], [g.state for g in gps],
+                                grid, 2.0)
+
+
+def _upcast(ops):
+    return tuple(o.double() if torch.is_tensor(o) else o for o in ops)
+
+
+def _within(got, want, bound):
+    err = (got.double() - want.double()).abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= bound).all()), (err - bound).max().item()
+
+
+EXPERIMENT_CASES = [((45, 50), 64), ((400, 400), 512), ((20, 300), 512),
+                    ((97,), 100)]
+# (slices, resident rows, carveout) that fit the card at these capacities
+LAUNCH_VARIANTS = [(0, 0, -1), (1, 0, -1), (1, 64, 100), (2, 64, -1),
+                   (4, 32, 0), (8, 16, -1), (0, 0, -1)]
+
+
+@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_launch_variants_give_k1_bits(cuda, counts, cap, dtype):
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, dtype)
+    k1 = fp.fused_intervals(*ops)
+    before = ie.intervals_launch.launches
+    for slices, res, carveout in LAUNCH_VARIANTS:
+        got = ie.intervals_launch(*ops, slices=slices, res=res,
+                                  carveout=carveout)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k1), (slices, res, carveout)
+    assert ie.intervals_launch.launches == before + len(LAUNCH_VARIANTS)
+
+
+def test_launch_refuses_a_layout_past_shared_memory(cuda):
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops((400,), 512, cuda, torch.float32)
+    with pytest.raises(RuntimeError, match="B1"):
+        ie.intervals_launch(*ops, slices=8, res=512)
+
+
+@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["gram_sums", "solve_rank1", "no_product",
+                                  "epilogue"])
+def test_ablation_kernel_matches_plain(cuda, counts, cap, dtype, mode):
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, dtype)
+    got = ie.interval_ablation(*ops, mode)
+    want = ie.interval_ablation_plain(*_upcast(ops), mode)
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        assert (got - want).abs().max().item() <= 1e-9
+    else:
+        _within(got, want, ie.float32_bound(*ops, mode))
+
+
+@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_mu_from_gram_kernel_matches_plain(cuda, counts, cap, dtype):
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, dtype)
+    got = ie.intervals_mu_from_gram(*ops)
+    want = ie.intervals_mu_from_gram_plain(*_upcast(ops))
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        assert (got - want).abs().max().item() <= 1e-9
+    else:
+        _within(got, want, ie.float32_bound(*ops, "mu_from_gram"))
+
+
+@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
+@pytest.mark.parametrize("limb", ["bf16", "tf32"])
+def test_split_kernel_matches_plain(cuda, counts, cap, limb):
+    from safeopt_torch.ops import interval_experiments as ie
+    zt, ils, xs, lm, w, scal, kind = _experiment_ops(counts, cap, cuda,
+                                                     torch.float32)
+    for g in range(len(counts)):
+        one = (zt, ils[g], xs[g], lm[g], w[g], scal[g], kind)
+        before = ie.intervals_split.launches
+        inkernel = ie.intervals_split(*one, limb=limb)
+        hoisted = ie.intervals_split(*one, limb=limb,
+                                     limbs=ie.split_factor(lm[g], limb))
+        torch.cuda.synchronize()
+        assert ie.intervals_split.launches == before + 2
+        assert torch.equal(inkernel, hoisted)
+        _within(inkernel, ie.intervals_split_plain(*one, limb=limb),
+                ie.float32_bound(*one, "split", limb=limb))
+
+
+def test_split_kernel_takes_float32_only(cuda):
+    from safeopt_torch.ops import interval_experiments as ie
+    zt, ils, xs, lm, w, scal, kind = _experiment_ops((20,), 64, cuda,
+                                                     torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        ie.intervals_split(zt, ils[0], xs[0], lm[0], w[0], scal[0], kind)
+
+
+def test_split_kernel_refuses_limbs_of_another_format(cuda):
+    from safeopt_torch.ops import interval_experiments as ie
+    zt, ils, xs, lm, w, scal, kind = _experiment_ops((97,), 100, cuda,
+                                                     torch.float32)
+    one = (zt, ils[0], xs[0], lm[0], w[0], scal[0], kind)
+    with pytest.raises(ValueError, match="split_factor"):
+        ie.intervals_split(*one, limb="bf16",
+                           limbs=ie.split_factor(lm[0], "tf32"))
+    with pytest.raises(ValueError, match="split_factor"):
+        ie.intervals_split(*one, limb="tf32",
+                           limbs=(lm[0].contiguous(), lm[0].contiguous()))

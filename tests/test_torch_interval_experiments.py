@@ -1,0 +1,445 @@
+"""The plain versions of the experiment kernels B1-B5 against the JAX side.
+
+Both packages hold one model (``safeopt_torch.convert`` carries the host
+factor across), float64 on the CPU. The JAX kernels run as the JAX
+package's tests run Pallas on the CPU (interpret mode), or, where a
+harness builds its kernel inside ``main()`` or at import time, as a
+transcription of its kernel body with the JAX package's own helpers:
+
+- B1 (K1 at a launch layout) and B3 (K1 with mu from the gram) are K1's
+  function: against ``_fused_intervals_multi_impl``, atol 1e-10 as K1's
+  own test (only summation order differs).
+- B2: ``benchmarks/bench_interval_mosaic3.py:86-120`` (``gram_block``,
+  ``kern_gram_only``, ``kern_solve_only``) transcribed, with
+  ``_tri_matmul`` from ``safeopt_tpu.ops.fused_posterior``.
+- B4: ``benchmarks/bench_interval_variants.py`` imports
+  ``_split_hi_lo``, which the JAX package no longer has, so its kernel
+  (``:92-118``) is transcribed with its product ``_tri3`` taken as
+  ``_tri_matmul(three_pass=True)``, the same three limb products (``hi =
+  bf16(x)``, ``lo = x - hi``). Without rounding ``lo`` the plain version
+  agrees to 1e-10; rounding ``lo`` as a tensor core does moves V by at most
+  2 e |Lm| |k| (e = 2^-16 for bf16, 2^-22 for tf32, the rounding of a lo
+  limb relative to x), and the rows by what that gives through mu and
+  sum V^2.
+- B5: ``benchmarks/bench_interval_ablation.py:49-78`` transcribed (its
+  module builds a capacity-512 GP and a 1e6-point grid when imported).
+
+The port runs B2's sums and B5's ablations over each GP's active rows, as
+K1 does, where the TPU kernels ran over the capacity; the transcriptions
+get the active rows. On CPU tensors every wrapper runs its plain version
+and counts no launch.
+"""
+
+import functools
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import safeopt_tpu as jt
+from safeopt_torch.convert import gp_arrays, gp_from_arrays, kernel_from_params
+from safeopt_torch.convert import kernel_params
+from safeopt_torch.ops import fused_posterior as pfp
+from safeopt_torch.ops import interval_experiments as ie
+from safeopt_tpu.ops.fused_posterior import (_fused_intervals_multi_impl,
+                                             _tri_matmul)
+
+BETA = 2.0
+BLOCK = 256
+
+
+def _models(n_obs, cap, seed, n_gps=2):
+    """JAX and port RBF GPs over [-3, 3]^2 data and a 1024-point grid."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-3.0, 3.0, size=(n_obs, 2))
+    jgps = []
+    for g in range(n_gps):
+        Y = (np.exp(-0.5 * np.sum(X ** 2, axis=1)) * (2.0 - g)
+             + 0.05 * rng.normal(size=n_obs))[:, None]
+        kern = jt.RBF(2, variance=2.0 - 0.5 * g, lengthscale=[1.0, 1.0 + g],
+                      ARD=True)
+        jgps.append(jt.GPRegression(X, Y, kern, noise_var=0.05 ** 2,
+                                    capacity=cap))
+    pgps = [gp_from_arrays(kernel_from_params(**kernel_params(g.kern)),
+                           **gp_arrays(g), device="cpu") for g in jgps]
+    grid = rng.uniform(-5.0, 5.0, size=(4 * BLOCK, 2))
+    return jgps, pgps, grid
+
+
+def _jax_operands(jgps, grid):
+    """K1's operands as the harnesses assemble them (``scal`` = [variance,
+    variance, beta, 0])."""
+    ils, xs, lm, w, scal = [], [], [], [], []
+    cap = jgps[0].state.capacity
+    for g in jgps:
+        ls = np.broadcast_to(np.asarray(g.kern.lengthscale), (2,))
+        ils.append(1.0 / ls)
+        xs.append(np.asarray(g.state.X) / ls)
+        mask = (np.arange(cap) < int(g.state.count)).astype(float)
+        lm.append(np.asarray(g.state.Linv) * mask[None, :])
+        w.append(np.asarray(g.state.w))
+        v = float(g.kern.variance)
+        scal.append([v, v, BETA, 0.0])
+    return tuple(jnp.asarray(np.stack(a)) for a in
+                 (grid.T, ils, xs, lm, w, scal))
+
+
+def _port_operands(pgps, grid):
+    return pfp.interval_operands([g.kern for g in pgps],
+                                 [g.state for g in pgps], torch.tensor(grid),
+                                 BETA)
+
+
+def _k1_jax(jops):
+    out = _fused_intervals_multi_impl(*jops, kind="rbf", block=BLOCK,
+                                      num_gps=jops[2].shape[0])
+    return np.asarray(out)
+
+
+def _close(got, want, atol=1e-10):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
+                               atol=atol)
+
+
+CASES = [(40, 64), (200, 256)]
+
+
+@pytest.mark.parametrize("n_obs,cap", CASES)
+def test_launch_variants_plain_match_pallas(n_obs, cap):
+    jgps, pgps, grid = _models(n_obs, cap, seed=cap)
+    want = _k1_jax(_jax_operands(jgps, grid))
+    ops = _port_operands(pgps, grid)
+    before = ie.intervals_launch.launches
+    for slices, res, carveout in [(0, 0, -1), (1, 0, 100), (8, 64, 0)]:
+        _close(ie.intervals_launch(*ops, slices=slices, res=res,
+                                   carveout=carveout), want)
+    assert ie.intervals_launch.launches == before      # CPU: plain version
+
+
+def test_launch_variants_refuse_bad_layouts():
+    _, pgps, grid = _models(20, 64, seed=1)
+    ops = _port_operands(pgps, grid)
+    for kw in (dict(slices=3), dict(slices=16), dict(res=8), dict(res=-16),
+               dict(carveout=101), dict(carveout=-2)):
+        with pytest.raises(ValueError):
+            ie.intervals_launch(*ops, **kw)
+
+
+@pytest.mark.parametrize("n_obs,cap", CASES)
+def test_mu_from_gram_plain_matches_pallas(n_obs, cap):
+    jgps, pgps, grid = _models(n_obs, cap, seed=cap + 1)
+    want = _k1_jax(_jax_operands(jgps, grid))
+    ops = _port_operands(pgps, grid)
+    u = ie.mu_weights(ops[3], ops[4])
+    # past the count Lm's columns are zero, so u is too
+    for g, jgp in enumerate(jgps):
+        assert not u[g, int(jgp.state.count):].any()
+    before = ie.intervals_mu_from_gram.launches
+    _close(ie.intervals_mu_from_gram(*ops), want)
+    assert ie.intervals_mu_from_gram.launches == before
+
+
+# -- B2: bench_interval_mosaic3.py:86-120, transcribed ------------------------
+
+def _gram_block(g, zt_b, ils, xs, scal):
+    """``gram_block`` (:86-94)."""
+    variance = scal[g, 0]
+    xsg = xs[g]
+    r2 = jnp.zeros((xsg.shape[0], zt_b.shape[1]))
+    for k in range(zt_b.shape[0]):
+        diff = xsg[:, k][:, None] - (zt_b[k, :] * ils[g, k])[None, :]
+        r2 = r2 + diff * diff
+    return variance * jnp.exp(-0.5 * r2)
+
+
+def _gram_only(zt, ils, xs, lm, w, scal):
+    """``kern_gram_only`` (:96-102)."""
+    out = []
+    for g in range(xs.shape[0]):
+        G = _gram_block(g, zt, ils, xs, scal)
+        out.append([jnp.sum(G, axis=0), jnp.sum(G * G, axis=0)])
+    return np.asarray(out)
+
+
+def _solve_only(zt, ils, xs, lm, w, scal, three_pass):
+    """``kern_solve_only`` (:104-120)."""
+    out = []
+    for g in range(xs.shape[0]):
+        G = xs[g][:, 0][:, None] * zt[0][None, :]
+        V = _tri_matmul(lm[g], G, zt.dtype, three_pass=three_pass)
+        mu = jnp.sum(w[g][:, None] * V, axis=0)
+        var = jnp.maximum(scal[g, 1] - jnp.sum(V * V, axis=0), 0.0)
+        spread = scal[g, 2] * jnp.sqrt(var)
+        out.append([mu - spread, mu + spread])
+    return np.asarray(out)
+
+
+def _active(jops, jgps, g):
+    """GP g's operands cut to its active rows."""
+    zt, ils, xs, lm, w, scal = jops
+    n = int(jgps[g].state.count)
+    return (zt, ils[g:g + 1], xs[g:g + 1, :n], lm[g:g + 1, :n, :n],
+            w[g:g + 1, :n], scal[g:g + 1])
+
+
+@pytest.mark.parametrize("n_obs,cap", CASES)
+def test_gram_sums_plain_match_transcription(n_obs, cap):
+    jgps, pgps, grid = _models(n_obs, cap, seed=cap + 2)
+    jops = _jax_operands(jgps, grid)
+    got = ie.interval_ablation(*_port_operands(pgps, grid), "gram_sums")
+    for g in range(len(jgps)):
+        _close(got[g], _gram_only(*_active(jops, jgps, g))[0])
+
+
+@pytest.mark.parametrize("n_obs,cap", CASES)
+def test_rank1_solve_plain_matches_transcription(n_obs, cap):
+    # over the capacity, as the TPU kernel ran: Lm is zero past the count
+    jgps, pgps, grid = _models(n_obs, cap, seed=cap + 3)
+    want = _solve_only(*_jax_operands(jgps, grid), three_pass=False)
+    before = ie.interval_ablation.launches
+    _close(ie.interval_ablation(*_port_operands(pgps, grid), "solve_rank1"),
+           want)
+    assert ie.interval_ablation.launches == before
+
+
+# -- B5: bench_interval_ablation.py:49-78, transcribed ------------------------
+
+def _ablation(zt, xs, lm, w, scal, variant):
+    """``_kernel`` (:49-78) on one GP (``xs`` and ``zt`` already scaled by
+    the lengthscale, as the harness passes them)."""
+    kdiag, beta = scal[0, 1], scal[0, 2]
+    if variant == "epilogue":
+        V = jnp.broadcast_to(zt[0][None, :] * 0.01,
+                             (xs.shape[0], zt.shape[1]))
+    else:
+        r2 = jnp.zeros((xs.shape[0], zt.shape[1]))
+        for k in range(zt.shape[0]):
+            diff = xs[:, k][:, None] - zt[k, :][None, :]
+            r2 = r2 + diff * diff
+        kmat = scal[0, 0] * jnp.exp(-0.5 * r2)
+        V = kmat if variant == "no_mxu" else _tri_matmul(
+            lm, kmat, zt.dtype, three_pass=True)
+    mu = jnp.sum(w[0][:, None] * V, axis=0)
+    var = jnp.maximum(kdiag - jnp.sum(V * V, axis=0), 0.0)
+    spread = beta * jnp.sqrt(var)
+    return np.asarray([mu - spread, mu + spread])
+
+
+@pytest.mark.parametrize("n_obs,cap", CASES)
+@pytest.mark.parametrize("mode,variant", [("no_product", "no_mxu"),
+                                          ("epilogue", "epilogue")])
+def test_ablation_plain_matches_transcription(n_obs, cap, mode, variant):
+    # GP 0 has unit lengthscales, so its scaled grid is the raw grid that
+    # the epilogue reads
+    jgps, pgps, grid = _models(n_obs, cap, seed=cap + 4)
+    zt, ils, xs, lm, w, scal = _active(_jax_operands(jgps, grid), jgps, 0)
+    assert np.all(np.asarray(ils) == 1.0)
+    want = _ablation(zt, xs[0], lm[0], w, scal, variant)
+    got = ie.interval_ablation(*_port_operands(pgps, grid), mode)
+    _close(got[0], want)
+
+
+# -- B4: bench_interval_variants.py:92-118, its product as _tri_matmul --------
+
+def _split_jax(zt, xs, lm, w, scal):
+    """``_kernel`` (:92-118) on one GP, ``_tri3`` as ``_tri_matmul(
+    three_pass=True)``."""
+    r2 = jnp.zeros((xs.shape[0], zt.shape[1]))
+    for k in range(zt.shape[0]):
+        diff = xs[:, k][:, None] - zt[k, :][None, :]
+        r2 = r2 + diff * diff
+    kmat = scal[0, 0] * jnp.exp(-0.5 * r2)
+    V = _tri_matmul(lm, kmat, zt.dtype, three_pass=True)
+    mu = jnp.sum(w[0][:, None] * V, axis=0)
+    var = jnp.maximum(scal[0, 1] - jnp.sum(V * V, axis=0), 0.0)
+    spread = scal[0, 2] * jnp.sqrt(var)
+    return np.asarray([mu - spread, mu + spread])
+
+
+def _one(ops, g):
+    zt, ils, xs, lm, w, scal, kind = ops
+    return zt, ils[g], xs[g], lm[g], w[g], scal[g], kind
+
+
+@pytest.mark.parametrize("n_obs,cap", CASES)
+def test_split_plain_matches_three_pass_product(n_obs, cap):
+    jgps, pgps, grid = _models(n_obs, cap, seed=cap + 5)
+    zt, ils, xs, lm, w, scal = _jax_operands(jgps, grid)
+    ops = _port_operands(pgps, grid)
+    for g in range(len(jgps)):
+        want = _split_jax(zt * ils[g][:, None], xs[g], lm[g], w[g:g + 1],
+                          scal[g:g + 1])
+        _close(ie.intervals_split_plain(*_one(ops, g), limb="bf16",
+                                        round_lo=False), want)
+    before = ie.intervals_split.launches
+    _close(ie.intervals_split(*_one(ops, 0)),
+           ie.intervals_split_plain(*_one(ops, 0), limb="bf16"), atol=0)
+    assert ie.intervals_split.launches == before
+
+
+@pytest.mark.parametrize("limb,e", [("bf16", 2.0 ** -16),
+                                    ("tf32", 2.0 ** -22)])
+def test_rounding_lo_moves_the_rows_within_its_bound(limb, e):
+    _, pgps, grid = _models(200, 256, seed=9)
+    ops = _port_operands(pgps, grid)
+    zt, ils, xs, lm, w, scal, kind = _one(ops, 0)
+    rounded = ie.intervals_split_plain(*_one(ops, 0), limb=limb)
+    exact = ie.intervals_split_plain(*_one(ops, 0), limb=limb,
+                                     round_lo=False)
+    k = pfp.gram(kind, xs, zt * ils[:, None], scal[0])
+    V = lm @ k
+    dV = 2 * e * (lm.abs() @ k.abs()) * (1 + 2.0 ** -8)
+    dmu = (w.abs()[:, None] * dV).sum(dim=0)
+    dq = ((2 * V.abs() + dV) * dV).sum(dim=0)
+    sd = torch.clamp(scal[1] - (V * V).sum(dim=0), min=0.0).sqrt()
+    bound = dmu + BETA * torch.minimum(dq.sqrt(), dq / sd) + 1e-12
+    diff = (rounded - exact).abs()
+    assert bool((diff <= bound).all())
+    assert diff.max() > 0                  # the rounding does move them
+
+
+def test_split_limbs_rejoin():
+    x = torch.tensor(np.random.default_rng(0).normal(size=4096),
+                     dtype=torch.float32)
+    for limb, e in (("bf16", 2.0 ** -16), ("tf32", 2.0 ** -22)):
+        hi, lo = ie.split_limbs(x, limb, round_lo=False)
+        assert torch.equal(hi + lo, x)               # lo = x - hi is exact
+        hi, lo = ie.split_limbs(x, limb)
+        assert torch.equal(ie.round_limb(lo, limb), lo)
+        assert bool(((hi + lo - x).abs() <= e * x.abs()).all())
+
+
+def _f32(bits):
+    return torch.tensor(np.array(bits, dtype=np.uint32).view(np.float32))
+
+
+def _bits(x):
+    return x.numpy().view(np.uint32).tolist()
+
+
+def test_bf16_limb_rounds_to_nearest_even():
+    one = 0x3F800000
+    x = _f32([one + 0x8000,            # 1 + 2^-8: tie, to even (1)
+              one + 0x18000,           # 1 + 3 2^-8: tie, to even (1 + 2^-6)
+              one + 0x8001,            # just past the tie: up
+              0x80000000 | one + 0x8000,   # -(1 + 2^-8): to -1
+              0x00008000,              # subnormal tie at 2^-134: to 0
+              0x00018000,              # subnormal tie: to even (0x20000)
+              0x007FFFFF,              # largest subnormal: to 2^-126
+              0x7F7FFFFF,              # largest finite: overflows to inf
+              0x7F800000, 0xFF800000])     # +-inf stay
+    assert _bits(ie.round_limb(x, "bf16")) == [
+        one, one + 0x20000, one + 0x10000, 0x80000000 | one, 0, 0x20000,
+        0x00800000, 0x7F800000, 0x7F800000, 0xFF800000]
+
+
+def test_tf32_limb_rounds_to_nearest_away():
+    one = 0x3F800000
+    x = _f32([one + 0x1000,            # 1 + 2^-11: tie, away (1 + 2^-10)
+              one + 0x3000,            # tie again: away (1 + 2^-9)
+              one + 0x0FFF,            # just short of the tie: down
+              0x80000000 | one + 0x1000,   # -(1 + 2^-11): away from zero
+              0x00000001,              # smallest subnormal: to 0
+              0x00001000,              # subnormal tie: away (0x2000)
+              0x007FFFFF,              # largest subnormal: to 2^-126
+              0x7F7FFFFF,              # largest finite: overflows to inf
+              0x7F800000, 0xFF800000])     # +-inf stay
+    assert _bits(ie.round_limb(x, "tf32")) == [
+        one + 0x2000, one + 0x4000, one, 0x80000000 | one + 0x2000, 0,
+        0x2000, 0x00800000, 0x7F800000, 0x7F800000, 0xFF800000]
+    assert bool(torch.isnan(ie.round_limb(torch.tensor([math.nan]),
+                                          "tf32")).all())
+
+
+def test_kernel_gram_rounds_once_per_column():
+    # float32: each column's square joins the distance with one rounding
+    # (a fused multiply-add); float64 is the plain gram
+    rng = np.random.default_rng(3)
+    a = torch.tensor(rng.normal(size=(50, 3)), dtype=torch.float32)
+    b = torch.tensor(rng.normal(size=(3, 70)), dtype=torch.float32)
+    r2 = torch.zeros((50, 70), dtype=torch.float32)
+    for k in range(3):
+        diff = (a[:, k, None] - b[k, None, :]).double()
+        r2 = (r2.double() + diff * diff).float()
+    var = torch.tensor(1.5, dtype=torch.float32)
+    assert torch.equal(ie.kernel_gram(0, a, b, var),
+                       var * torch.exp(-0.5 * r2))
+    assert torch.equal(ie.kernel_gram(0, a.double(), b.double(), 1.5),
+                       pfp.gram(0, a.double(), b.double(), 1.5))
+
+
+def test_split_factor_pads_and_casts_the_limbs():
+    lm = torch.tensor(np.random.default_rng(4).normal(size=(40, 40)),
+                      dtype=torch.float32)
+    for limb, dtype in (("bf16", torch.bfloat16), ("tf32", torch.float32)):
+        hi, lo = ie.split_factor(lm, limb)
+        assert hi.shape == lo.shape == (64, 64)
+        assert hi.dtype == lo.dtype == dtype
+        want = ie.split_limbs(ie.padded_factor(lm), limb)
+        assert torch.equal(hi.float(), want[0])
+        assert torch.equal(lo.float(), want[1])
+
+
+# -- float32_bound: holds a float32 run, sees a dropped band -------------------
+
+def _float32_ops(seed):
+    """K1's operands of two GPs (200 observations, capacity 256) in
+    float32, and the same values in float64."""
+    _, pgps, grid = _models(200, 256, seed=seed)
+    ops32 = tuple(o.float() if torch.is_tensor(o) else o
+                  for o in _port_operands(pgps, grid))
+    return ops32, tuple(o.double() if torch.is_tensor(o) else o
+                        for o in ops32)
+
+
+@pytest.mark.parametrize("what", ["gram_sums", "solve_rank1", "no_product",
+                                  "epilogue", "mu_from_gram"])
+def test_float32_bound_holds_a_float32_run_and_sees_a_dropped_band(what):
+    ops32, up = _float32_ops(seed=11)
+    plain = (ie.intervals_mu_from_gram_plain if what == "mu_from_gram"
+             else functools.partial(ie.interval_ablation_plain, mode=what))
+    want = plain(*up)
+    bound = ie.float32_bound(*ops32, what)
+    assert bool(((plain(*ops32).double() - want).abs() <= bound).all())
+    fault = (plain(*ie.drop_band(up, what)) - want).abs()
+    assert (fault / bound).max().item() > 1.0
+
+
+@pytest.mark.parametrize("limb", ie.LIMBS)
+def test_float32_bound_sees_a_dropped_band_of_the_split_product(limb):
+    ops32, _ = _float32_ops(seed=12)
+    for g in range(2):
+        one = _one(ops32, g)
+        want = ie.intervals_split_plain(*one, limb=limb).double()
+        bound = ie.float32_bound(*one, "split", limb=limb)
+        fault = (ie.intervals_split_plain(*ie.drop_band(one, "split"),
+                                          limb=limb).double() - want).abs()
+        assert (fault / bound).max().item() > 1.0
+
+
+def test_padded_factor():
+    lm = torch.arange(40 * 40, dtype=torch.float32).reshape(40, 40)
+    p = ie.padded_factor(lm)
+    assert p.shape == (64, 64) and torch.equal(p[:40, :40], lm)
+    assert not p[40:].any() and not p[:, 40:].any()
+    assert ie.padded_factor(lm[:32, :32]).shape == (32, 32)
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    _, pgps, grid = _models(20, 64, seed=2)
+    ops = _port_operands(pgps, grid)
+    meta = tuple(o.to("meta") if torch.is_tensor(o) else o for o in ops)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ie.intervals_launch(*meta)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ie.interval_ablation(*meta, "gram_sums")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ie.intervals_mu_from_gram(*meta)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ie.intervals_split(*_one(meta, 0))
+    with pytest.raises(ValueError, match="ablation"):
+        ie.interval_ablation(*ops, "no_gram")
+    with pytest.raises(ValueError, match="limb"):
+        ie.intervals_split(*_one(ops, 0), limb="fp16")

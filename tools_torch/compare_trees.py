@@ -20,6 +20,13 @@ writes ``<tree>_<i>.json`` and ``<tree>_<i>.log`` to ``--out-dir``, and
 one summary line per run is printed: per configuration the interval
 and expander kernel ms, the interval stage's ms and its host part, and
 the median ``optimize()`` ms.
+
+    python3 tools_torch/compare_trees.py ptxas
+
+builds the parent's CUDA sources and this tree's, both with this tree's
+nvcc flags, and compares ptxas's line of each kernel instance of the
+parent (registers, barriers, shared memory; spills) with this tree's
+line of the same instance; it exits 1 if any differs or is missing.
 """
 
 import argparse
@@ -30,6 +37,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PARENT = ROOT / "build" / "compare" / "parent"
+sys.path.insert(0, str(ROOT))
 
 
 def unpack(rev):
@@ -87,6 +95,32 @@ def run(out_dir, reps):
     return rc
 
 
+def ptxas():
+    """The parent's ptxas lines against this tree's; returns the exit
+    code."""
+    from safeopt_torch.ops import _build
+    from tools_torch.tune_intervals import ptxas_usage
+
+    csrc = PARENT / "safeopt_torch" / "ops" / "csrc"
+    if not csrc.is_dir():
+        print(f"compare_trees: no parent tree in {PARENT}; run `unpack` "
+              "first", file=sys.stderr)
+        return 1
+    usage = {}
+    for tree, src in (("parent", csrc), ("change", _build._CSRC)):
+        _build.build(src)
+        usage[tree] = ptxas_usage(_build.build_info()["log"])
+    parent, change = usage["parent"], usage["change"]
+    differ = [k for k in parent if change.get(k) != parent[k]]
+    for k in differ:
+        print(f"differs: {k}: parent {parent[k]!r}, change "
+              f"{change.get(k)!r}", flush=True)
+    print(f"ptxas: {len(parent) - len(differ)} of the parent's "
+          f"{len(parent)} lines identical in this tree (which has "
+          f"{len(change)})", flush=True)
+    return 1 if differ else 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = parser.add_subparsers(dest="step", required=True)
@@ -94,9 +128,12 @@ def main():
     p_run = sub.add_parser("run")
     p_run.add_argument("--out-dir", default="chiprun_out/compare")
     p_run.add_argument("--reps", type=int, default=10)
+    sub.add_parser("ptxas")
     args = parser.parse_args()
     if args.step == "unpack":
         return unpack(args.rev)
+    if args.step == "ptxas":
+        return ptxas()
     return run(ROOT / args.out_dir, args.reps)
 
 

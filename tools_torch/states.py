@@ -1,0 +1,87 @@
+"""The problem states that ``chip_smoke.py`` and the tools share.
+
+The flagship's two GPs (``build_gps``), the cap-512 state of the interval
+experiments in K1's operand layout (``cap512_operands``), its one-GP
+slices (``one_gp``, ``first_gp``), B1's launch layouts (``LAYOUTS``) and
+the CUDA-event timer. It imports nothing of ``chip_smoke.py`` or of the
+tools, so each of them imports it and the dependency runs one way.
+"""
+
+import numpy as np
+import torch
+
+BETA = 2.0
+# B1's launch layouts (slices per block, resident gram rows, shared-memory
+# carveout), by capacity and dtype; (0, 0, -1) is K1's own layout at the
+# kernel's own carveout
+LAYOUTS = {
+    512: {torch.float32: [(0, 0, -1), (1, 256, -1), (1, 0, -1),
+                          (2, 512, -1), (2, 256, -1), (4, 128, -1),
+                          (8, 64, -1), (0, 0, 100), (0, 0, 0)],
+          torch.float64: [(0, 0, -1), (1, 0, -1), (1, 512, -1),
+                          (2, 128, -1), (4, 64, -1), (8, 16, -1),
+                          (0, 0, 100)]},
+    64: dict.fromkeys((torch.float32, torch.float64),
+                      [(0, 0, -1), (1, 0, -1), (1, 64, 100), (2, 32, -1),
+                       (4, 0, 0), (8, 64, -1)]),
+}
+
+
+def build_gps(rng, n_obs, capacity, device, dtype, spread=1.5, d=2):
+    """The bench flagship's two GPs (objective + one constraint)."""
+    from safeopt_torch import RBF, GPRegression
+
+    X = rng.uniform(-spread, spread, size=(n_obs, d))
+    Yf = (2.0 * np.exp(-0.5 * np.sum(X ** 2, axis=1))
+          + 0.05 * rng.normal(size=n_obs))[:, None]
+    Yg = (1.0 - 0.1 * np.sum(X ** 2, axis=1)
+          + 0.05 * rng.normal(size=n_obs))[:, None]
+    return [GPRegression(X, Yf, RBF(d, variance=2.0, lengthscale=1.0),
+                         noise_var=0.05 ** 2, capacity=capacity,
+                         device=device, dtype=dtype),
+            GPRegression(X, Yg, RBF(d, variance=1.0, lengthscale=1.5),
+                         noise_var=0.05 ** 2, capacity=capacity,
+                         device=device, dtype=dtype)]
+
+
+def cap512_operands(dtype, grid=None):
+    """K1's operands of the cap-512 state in ``dtype`` on the card: the
+    flagship's GPs with 400 observations from ``default_rng(512)`` in
+    [-4, 4]^2, over ``grid`` (the 1000 x 1000 grid on [-5, 5]^2 when
+    None)."""
+    from safeopt_torch import linearly_spaced_combinations
+    from safeopt_torch.ops import fused_posterior as fp
+
+    if grid is None:
+        grid = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
+    gps = build_gps(np.random.default_rng(512), 400, 512, "cuda", dtype,
+                    spread=4.0)
+    return fp.interval_operands([g.kern for g in gps], [g.state for g in gps],
+                                torch.tensor(grid, dtype=dtype,
+                                             device="cuda"), BETA)
+
+
+def one_gp(ops, g=0):
+    """GP g's operands in B4's single-GP layout."""
+    zt, ils, xs, lm, w, scal, kind = ops
+    return zt, ils[g], xs[g], lm[g], w[g], scal[g], kind
+
+
+def first_gp(ops):
+    """K1's operands of GP 0 alone."""
+    zt, ils, xs, lm, w, scal, kind = ops
+    return zt, ils[:1], xs[:1], lm[:1], w[:1], scal[:1], kind
+
+
+def cuda_ms(fn, reps=10, warmup=2):
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
