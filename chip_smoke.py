@@ -31,10 +31,13 @@ Phases, each reported on its own line:
    version on the bench's contextual kernel, RBF(parameter) x
    RBF(context), over the same grid (column 1 is the context): capacity
    64 with 50 observations, capacity 256 with 250, capacity 1024 with
-   600 (gram not resident), and a Sum with a Bias leaf and a Cosine leaf
-   on one column; tolerances as K1's;
+   600 (gram not resident), a Sum with a Bias leaf and a Cosine leaf
+   on one column, and the contextual kernel written as a product of nine
+   leaves at capacity 256 (one leaf past the plan K2/K4 stage in static
+   shared memory: their wide instances); tolerances as K1's;
 6. K4 (expander predicate of one GP with a kernel algebra) as K3's
-   check, on the contextual kernel's two GPs at capacity 256;
+   check, on the contextual kernel's two GPs at capacity 256, and on the
+   same GPs with the nine-leaf kernel (K4's wide instances);
 7. K5 (exact top-k) on CUDA tensors with massive ties and all -inf;
 8. the interval-stage experiments B1-B5
    (``safeopt_torch/ops/interval_experiments.py``) against their plain
@@ -66,8 +69,41 @@ Phases, each reported on its own line:
     ``get_maximum(context=0.1)``, first query checked as in phase 9.
     Every kernel's launch count is zeroed just before each path and read
     just after it; neither path launches an experiment kernel;
-11. times of both paths and of each kernel against its plain version
-    (K3 also at capacity 512; B1-B5 from the experiment path), beside the
+11. K1-3p and K2-3p (``fused_intervals3`` / ``fused_intervals_plan3``,
+    the three-pass bf16 product of the certified path) against their
+    plain versions: K1-3p at capacity 64 (the flagship's GPs), 512 (400
+    observations), 512 with counts 20 and 300 in one launch and 1024 (600
+    observations, gram not resident); K2-3p on the contextual kernel at
+    capacity 256, on the Sum with Bias and Cosine leaves and on the
+    nine-leaf kernel (the wide instance): float64 to 1e-9, float32
+    within ``float32_bound(..., "split", "bf16")`` (``float32_bound_plan``
+    for K2-3p) of the plain version on the same operands, and that bound
+    below a planted fault (the plain rows with each GP's first, then
+    last, 32 active rows dropped, ``drop_band``, must land past it);
+    beside each the max scaled |dQ| against the float64 plain rows of
+    K1/K2 (which must stay below ``refine_band - boundary_band`` at the
+    defaults) and the decisions outside the 1e-3 band;
+12. the certified paths: the cap-512 state (phase 3's GPs, 400
+    observations), the contextual one (phase 10's) and the contextual
+    one early in its run (20 observations in [-0.5, 0.5], context 0),
+    each with
+    ``exact_boundaries=True, interval_precision='high'`` and the host
+    and the device oracle, 10 iterations of ``optimize`` and
+    ``add_new_data_point`` in float32, in lockstep with a float64 plain
+    ``SafeOpt`` of the same data on the card (and a float32 plain one,
+    for the time): at every step the certified S equals the float64 S
+    at every row whose float64 scaled margin is at least 1e-9 (the rows
+    below it are counted), and the query equals the float64 query or
+    their scaled widths agree within 1e-3. The cap-512 state must refine
+    its band within the budget at every step, the early contextual one
+    on at least half of them; the contextual state's band is past it,
+    and its steps take the full float32 pass. Launch counts are zeroed just before each
+    certified ``optimize()`` and read just after it: K1-3p (K2-3p) once
+    per GP group, K1 (K2) once per group on the refined rows (or the
+    full pass), no experiment kernel;
+13. times of the paths and of each kernel against its plain version
+    (K3 also at capacity 512, K2 also on the nine-leaf kernel; B1-B5
+    from the experiment path), beside the
     least time the card could take (``bound_ms``: the least work the
     output needs; for B2's rank-1 solve and B5's epilogue also the work
     the kernel is told to do, printed apart) and the share of that bound
@@ -121,32 +157,46 @@ def check(cond, msg):
         fail(msg)
 
 
-def context_kernel(extra=False):
+def context_kernel(variant=None):
     """The bench's contextual kernel, RBF on the parameter column times
-    RBF on the context column; with ``extra``, a Sum with a Bias leaf
-    and a Cosine leaf on the context column."""
+    RBF on the context column. ``"extra"``: a Sum with a Bias leaf and a
+    Cosine leaf on the context column; ``"nine"``: the contextual kernel
+    as a product of nine leaves, five RBFs of lengthscale sqrt(5) on the
+    parameter and four of lengthscale 3 on the context (the same
+    function), one leaf past the plan K2/K4 stage in static shared
+    memory, so that they run their wide instances."""
     from safeopt_torch import RBF, Bias, Cosine
 
-    if extra:
+    if variant == "extra":
         return (RBF(1, variance=2.0, lengthscale=1.0, active_dims=[0])
                 * Cosine(1, variance=1.0, lengthscale=3.0, active_dims=[1])
                 + Bias(2, variance=0.5))
+    if variant == "nine":
+        kern = RBF(1, variance=2.0, lengthscale=math.sqrt(5.0),
+                   active_dims=[0])
+        for _ in range(4):
+            kern = kern * RBF(1, lengthscale=math.sqrt(5.0), active_dims=[0])
+        for _ in range(4):
+            kern = kern * RBF(1, lengthscale=3.0, active_dims=[1])
+        return kern
     return (RBF(1, variance=2.0, lengthscale=1.0, active_dims=[0])
             * RBF(1, variance=1.0, lengthscale=1.5, active_dims=[1]))
 
 
-def context_gps(n_gps, n_obs, cap, device, dtype, extra=False):
-    """``n_gps`` contextual GPs with ``n_obs`` shared observations in
-    [-3, 3] at context 0 (``bench.py`` ``_context_config``; with
-    ``extra``, contexts uniform in [-1, 1])."""
+def context_gps(n_gps, n_obs, cap, device, dtype, variant=None,
+                spread=3.0):
+    """``n_gps`` contextual GPs (``context_kernel(variant)``) with
+    ``n_obs`` shared observations in [-spread, spread] at context 0
+    (``bench.py`` ``_context_config``; for ``"extra"``, contexts uniform
+    in [-1, 1])."""
     from safeopt_torch import GPRegression
 
     rng = np.random.default_rng(3)
-    ctx = (rng.uniform(-1.0, 1.0, size=(n_obs, 1)) if extra
+    ctx = (rng.uniform(-1.0, 1.0, size=(n_obs, 1)) if variant == "extra"
            else np.zeros((n_obs, 1)))
-    X = np.hstack([rng.uniform(-3.0, 3.0, size=(n_obs, 1)), ctx])
+    X = np.hstack([rng.uniform(-spread, spread, size=(n_obs, 1)), ctx])
     return [GPRegression(X, context_truth(X)[:, g:g + 1],
-                         context_kernel(extra), noise_var=0.05 ** 2,
+                         context_kernel(variant), noise_var=0.05 ** 2,
                          capacity=cap, device=device, dtype=dtype)
             for g in range(n_gps)]
 
@@ -247,16 +297,18 @@ def ablation_bound(mode, dtype, G, N, d, cap, n, prescribed=False):
                              + 11 * N), nbytes)
 
 
-def split_bound(limb, N, d, cap, n):
-    """Least time of B4 on these inputs: the three limb products' 3 n(n+1)
-    flops a point on the tensor cores at the limb format's peak; on the
-    FP32 pipe the gram, its split (two roundings and a difference an
-    entry) and the epilogue; inputs read once, the (2, N) rows written
-    once. The largest of the three."""
-    t_tc = 3 * N * n * (n + 1) / PEAK_TENSOR[limb]
-    t_fp = (N * (n * (gram_flops(d) + 3) + 4 * n + 8)
+def split_bound(limb, N, d, cap, n, G=1, leaves=None):
+    """Least time of B4, K1-3p and K2-3p on these inputs (G GPs; a plan's
+    ``leaves`` for K2-3p): the three limb products' 3 n(n+1) flops a
+    point on the tensor cores at the limb format's peak; on the FP32
+    pipe the gram, its split (two roundings and a difference an entry)
+    and the epilogue; inputs read once, the (G, 2, N) rows written once.
+    The largest of the three."""
+    t_tc = 3 * G * N * n * (n + 1) / PEAK_TENSOR[limb]
+    t_fp = (G * N * (n * (gram_flops(d, leaves) + 3) + 4 * n + 8)
             / PEAK_FLOPS[torch.float32])
-    t_mem = 4 * (d * N + cap * d + cap * cap + cap + 4 + 2 * N) / PEAK_BYTES
+    t_mem = 4 * (d * N + G * (cap * d + cap * cap + cap + 4 + 2 * N)
+                 ) / PEAK_BYTES
     t, by = max((t_tc, "operations"), (t_fp, "operations"),
                 (t_mem, "bytes"))
     return t * 1e3, by
@@ -336,6 +388,89 @@ def check_k1(label, n_obs, cap, n_gps, grid64, seed, spread=1.5):
     check(err64 <= 1e-9, f"K1 {label} f64 error {err64}")
     check(wrong == 0, f"K1 {label} f32 decisions differ outside the band")
     return err64, err32
+
+
+def k1_operands(n_obs, cap, n_gps, grid64, seed, spread=1.5):
+    """{dtype: K1's operands} of GPs built as ``check_k1`` builds them."""
+    from safeopt_torch.ops import fused_posterior as fp
+
+    counts = n_obs if isinstance(n_obs, tuple) else (n_obs,) * n_gps
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        gps = [build_gps(np.random.default_rng(seed), n, cap, "cuda", dtype,
+                         spread=spread)[g] for g, n in enumerate(counts)]
+        out[dtype] = fp.interval_operands([g.kern for g in gps],
+                                          [g.state for g in gps],
+                                          grid64.to(dtype), BETA)
+    return out
+
+
+def refine_slack():
+    """``refine_band - boundary_band`` at the certified path's defaults
+    (``safe_opt.REFINE_BAND``, ``SafeOpt``'s ``boundary_band``): the slack
+    the three-pass error must stay under."""
+    import inspect
+
+    from safeopt_torch import SafeOpt
+    from safeopt_torch.algorithms.safe_opt import REFINE_BAND
+
+    return REFINE_BAND - inspect.signature(SafeOpt).parameters[
+        "boundary_band"].default
+
+
+def check_three_pass(label, ops, fmin, scale, planned=False):
+    """K1-3p (K2-3p when ``planned``) against its plain version on
+    ``ops`` {dtype: operands}: float64 to 1e-9, float32 within its
+    float32 bound, and a planted fault (the plain rows with each GP's
+    first, then last, 32 active rows of Lm dropped) past that bound;
+    beside them the float32 rows' max scaled |dQ| against the float64
+    K1/K2 plain rows (checked below ``refine_slack()``) and their
+    decisions outside the band. ``fmin`` and ``scale`` per GP. Returns
+    (float64 error, float32 max scaled |dQ|, the fault readings)."""
+    from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.ops import interval_experiments as ie
+
+    slack = refine_slack()
+
+    if planned:
+        kernel = fp.fused_intervals_plan3
+        plain, full = (fp.fused_intervals_plan3_plain,
+                       fp.fused_intervals_plan_plain)
+        name = "K2-3p"
+        bound_ = ie.float32_bound_plan(*ops[torch.float32])
+    else:
+        kernel, plain = fp.fused_intervals3, fp.fused_intervals3_plain
+        full, name = fp.fused_intervals_plain, "K1-3p"
+        bound_ = ie.float32_bound(*ops[torch.float32], "split", limb="bf16")
+    o64, o32 = ops[torch.float64], ops[torch.float32]
+    err64 = (kernel(*o64) - plain(*o64)).abs().max().item()
+    k32 = kernel(*o32)
+    ratio = ((k32.double() - plain(*o32).double()).abs()
+             / bound_).max().item()
+    faults = fault_readings(plain, o32, "split", bound_)
+    N = o64[0].shape[1]
+    ref = full(*o64).view(-1, 2, N)
+    k32 = k32.view(-1, 2, N).double()
+    sc = torch.tensor(scale, dtype=torch.float64, device="cuda")[:, None]
+    dq = ((k32 - ref).abs() / sc[:, None]).max().item()
+    wrong, in_band = decisions_agree(
+        k32[:, 0], ref[:, 0], torch.tensor(fmin, dtype=torch.float64,
+                                           device="cuda")[:, None], sc)
+    torch.cuda.synchronize()
+    print(f"{name} {label}: f64 max|kernel-plain|={err64:.3e} (limit 1e-9); "
+          f"f32 at most {ratio:.3f} of its float32 bound (limit 1), a "
+          f"kernel dropping the first / last 32 active rows "
+          f"{faults[0]:.4g} / {faults[1]:.4g} of it (limit: past 1); f32 "
+          f"max scaled |dQ| against the float64 rows {dq:.3e} (limit "
+          f"{slack:g}); f32 decisions differing outside the {BAND:g} "
+          f"band={wrong} (rows inside the band: {in_band})", flush=True)
+    check(err64 <= 1e-9, f"{name} {label} f64 error {err64}")
+    check(ratio <= 1.0, f"{name} {label} f32 error past its bound")
+    check(min(faults) > 1.0, f"{name} {label}: a kernel dropping a band of "
+                             f"rows stays within the float32 bound {faults}")
+    check(dq < slack, f"{name} {label}: the three-pass error {dq} is past "
+                      "refine_band - boundary_band")
+    return err64, dq, faults
 
 
 def check_k3(label, n_obs, cap, n_gps, grid64, seed, spread=1.5):
@@ -419,14 +554,15 @@ def check_k3(label, n_obs, cap, n_gps, grid64, seed, spread=1.5):
     return err64, ops32
 
 
-def check_k2(label, n_obs, cap, grid64, extra=False):
-    """K2 vs its plain version in f64 and f32 on one contextual GP;
-    returns the f64 error and the float32 operands."""
+def check_k2(label, n_obs, cap, grid64, variant=None):
+    """K2 vs its plain version in f64 and f32 on one contextual GP
+    (``context_kernel(variant)``); returns the f64 error and the float32
+    operands."""
     from safeopt_torch.ops import fused_posterior as fp
 
     out = {}
     for dtype in (torch.float64, torch.float32):
-        gp = context_gps(1, n_obs, cap, "cuda", dtype, extra=extra)[0]
+        gp = context_gps(1, n_obs, cap, "cuda", dtype, variant=variant)[0]
         ops = fp.interval_plan_operands(gp.kern, gp.state, grid64.to(dtype),
                                         BETA)
         out[dtype] = (fp.fused_intervals_plan(*ops), ops)
@@ -450,9 +586,10 @@ def check_k2(label, n_obs, cap, grid64, extra=False):
     return err64, ops32
 
 
-def check_k4(grid64):
+def check_k4(grid64, variant=None):
     """K4 vs its plain version in f64 and f32, as ``check_k3``: the two
-    contextual GPs at capacity 256 with 250 observations, one chunk of
+    contextual GPs (``context_kernel(variant)``) at capacity 256 with 250
+    observations, one chunk of
     32 candidates (16 from the head of the visit order, 16 from its
     middle, the last 4 slots padding) at fmin raised by each of
     ``K4_SHIFTS`` times the scaling. The candidates are safe points in
@@ -466,7 +603,7 @@ def check_k4(grid64):
 
     f64 = torch.tensor(CTX_FMIN, dtype=torch.float64, device="cuda")
     s64 = torch.tensor(CTX_SCALING, dtype=torch.float64, device="cuda")
-    gps = {dt: context_gps(2, 250, 256, "cuda", dt)
+    gps = {dt: context_gps(2, 250, 256, "cuda", dt, variant=variant)
            for dt in (torch.float64, torch.float32)}
     kerns = [g.kern for g in gps[torch.float64]]
     states = [g.state for g in gps[torch.float64]]
@@ -516,8 +653,8 @@ def check_k4(grid64):
             wrong64 += int((k64 != plain).sum())
             wrong32 += int(((k32 != plain) & decided).sum())
             in_band += int((~decided).sum())
-    print(f"K4 2 GPs cap=256 C=32 (16 head + 16 mid-order of {n_cand} safe "
-          f"points, 4 pad slots) at fmin + {list(K4_SHIFTS)} x scaling: "
+    print(f"K4 2 GPs cap=256{' ' + variant if variant else ''} C=32 (16 head "
+          f"+ 16 mid-order of {n_cand} safe points, 4 pad slots) at fmin + {list(K4_SHIFTS)} x scaling: "
           f"plain hits per GP and shift {counts} of {int(valid.sum())} "
           f"valid; f64 predicates differing={wrong64} (limit 0); f32 "
           f"differing outside the band={wrong32}, inside the band="
@@ -538,6 +675,7 @@ def zero_launches():
 
     for fn in (fp.fused_intervals, fe.fused_expander,
                fp.fused_intervals_plan, fe.fused_expander_plan,
+               fp.fused_intervals3, fp.fused_intervals_plan3,
                ie.intervals_launch, ie.interval_ablation,
                ie.intervals_mu_from_gram, ie.intervals_split):
         fn.launches = 0
@@ -569,7 +707,9 @@ def read_launches():
     return {"K1": fp.fused_intervals.launches,
             "K3": fe.fused_expander.launches,
             "K2": fp.fused_intervals_plan.launches,
-            "K4": fe.fused_expander_plan.launches}
+            "K4": fe.fused_expander_plan.launches,
+            "K1-3p": fp.fused_intervals3.launches,
+            "K2-3p": fp.fused_intervals_plan3.launches}
 
 
 def fault_readings(plain, ops, what, bound_):
@@ -718,6 +858,77 @@ def drive(opt, ref, label, plant_fn, contexts, scaling, get_max):
     return launches, opt_ms, add_ms, walked, maximum
 
 
+def drive_certified(label, make, plant_fn, contexts, iters=10,
+                    min_refined=0):
+    """The certified path of ``make(device, dtype, **kw)`` in float32
+    with ``oracle`` host and device, each for ``iters`` iterations in
+    lockstep with float64 and float32 plain twins on the card (the
+    certified query and measurement are added to all three); at least
+    ``min_refined`` of the steps must refine their band within the
+    budget (the others take the full float32 pass). Returns {oracle: (summed launches of the
+    certified optimize() calls, its optimize() ms, the float32 plain
+    twin's ms, rows below the 1e-9 margin, queries that differed)}."""
+    out = {}
+    for oracle in ("host", "device"):
+        cert = make("cuda", torch.float32, exact_boundaries=True,
+                    interval_precision="high", oracle=oracle)
+        f64 = make("cuda", torch.float64)
+        plain = make("cuda", torch.float32)
+        kw = (lambda c: {}) if contexts[0] is None else (
+            lambda c: {"context": c})
+        launches, ms, plain_ms, knife, differ, full = {}, [], [], 0, 0, 0
+        pops = []
+        fmin = np.asarray(cert.fmin, dtype=float)
+        scaling = np.asarray(cert.scaling, dtype=float)
+        for it in range(iters):
+            c = contexts[it]
+            zero_launches()
+            x, t = timed_ms(lambda: cert.optimize(**kw(c)))
+            for k, v in read_launches().items():
+                launches[k] = launches.get(k, 0) + v
+            check(not any(experiment_launches().values()),
+                  f"{label} {oracle}: the certified path launched an "
+                  "experiment kernel")
+            ms.append(t)
+            full += cert.stats.last.refine_full_pass
+            pops.append(cert._refine_band_population)
+            f64.optimize(**kw(c))
+            plain_ms.append(timed_ms(lambda: plain.optimize(**kw(c)))[1])
+            l64 = f64.Q[:, 0::2]
+            margin = np.min(np.abs(l64 - fmin) / scaling, axis=1)
+            far = margin >= 1e-9
+            knife += int((~far).sum())
+            bad = int((cert.S[far] != f64.S[far]).sum())
+            check(bad == 0, f"{label} {oracle} iteration {it}: {bad} "
+                            "certified safe bits differ from float64")
+            i, j = cert.stats.last.next_index, f64.stats.last.next_index
+            w = np.max((f64.Q[:, 1::2] - l64) / scaling, axis=1)
+            check(i == j or abs(w[i] - w[j]) <= BAND,
+                  f"{label} {oracle} iteration {it}: query {i} against "
+                  f"float64 {j}, scaled widths {w[i]} and {w[j]}")
+            differ += i != j
+            y = plant_fn(x, c)
+            for opt in (cert, f64, plain):
+                opt.add_new_data_point(x, y, **kw(c))
+        last = cert.stats.last
+        print(f"{label} certified path, oracle={oracle}: {iters} iterations "
+              f"in lockstep with float64; S equal at every row with scaled "
+              f"margin >= 1e-9 (rows below it over the run: {knife}); "
+              f"queries differing within the width band: {differ}; last "
+              f"step |S|={last.safe_count}, band rows "
+              f"{last.band_population}, corrections "
+              f"{last.certified_corrections}, triage overflow "
+              f"{last.band_overflow}, refine band rows per step {pops} "
+              f"(budget {cert._refine_band_k + cert._refine_k}; steps past "
+              f"it, recomputed at full float32: {full}); launches "
+              f"{launches}", flush=True)
+        check(iters - full >= min_refined,
+              f"{label} {oracle}: {iters - full} steps refined their band "
+              f"within the budget, fewer than {min_refined}")
+        out[oracle] = (launches, ms, plain_ms, knife, differ)
+    return out
+
+
 def main():
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
@@ -788,11 +999,16 @@ def main():
                       1024, grid64)
     k2_err = max(k2_err, err)
     err, _ = check_k2("Sum with Bias and Cosine leaves, cap=64", 50, 64,
-                      grid64, extra=True)
+                      grid64, variant="extra")
+    k2_err = max(k2_err, err)
+    err, k2_nine_ops32 = check_k2("the contextual kernel as nine leaves "
+                                  "(wide plan), cap=256 (250 obs)", n_k2,
+                                  256, grid64, variant="nine")
     k2_err = max(k2_err, err)
 
     # 6. K4 against its plain version on contextual candidates ---------------
     k4_err, k4_ops32 = check_k4(grid64)
+    k4_err = max(k4_err, check_k4(grid64, variant="nine")[0])
 
     # 7. K5: exact top-k on the card ------------------------------------------
     ties = torch.tensor(np.random.default_rng(5).integers(0, 5, 1_000_000),
@@ -895,7 +1111,90 @@ def main():
           f"{np.round(ctx_max[0], 4).tolist()} lb={ctx_max[1]:.4f}",
           flush=True)
 
-    # 11. times ---------------------------------------------------------------
+    # 11. K1-3p and K2-3p against their plain versions ---------------------
+    k1_3p_ops = {}
+    for label, args in (("G=2 cap=64", (50, 64, 2, grid64, 0)),
+                        ("G=2 cap=512", (400, 512, 2, grid64, 512, 4.0)),
+                        ("G=2 cap=512, counts 20 and 300 in one launch",
+                         ((20, 300), 512, 2, grid64, 512, 4.0)),
+                        ("G=1 cap=1024 (600 obs, gram not resident)",
+                         (600, 1024, 1, grid64, 1024, 4.0))):
+        ops = k1_operands(*args)
+        G = ops[f32][2].shape[0]
+        k1_3p_ops[label] = ops
+        err, dq, _ = check_three_pass(label, ops, FMIN[:G], SCALING[:G])
+        if label == "G=2 cap=512":
+            k1_3p_err, k1_3p_dq = err, dq
+    k2_3p_err = 0.0
+    for label, n_obs, cap, variant in (
+            ("1 GP cap=256 (250 obs)", n_k2, 256, None),
+            ("Sum with Bias and Cosine leaves, cap=64", 50, 64, "extra"),
+            ("the contextual kernel as nine leaves (wide plan), cap=256",
+             n_k2, 256, "nine")):
+        ops = {}
+        for dt in (f64, f32):
+            gp = context_gps(1, n_obs, cap, "cuda", dt, variant=variant)[0]
+            ops[dt] = fp.interval_plan_operands(gp.kern, gp.state,
+                                                grid64.to(dt), BETA)
+        err, dq, _ = check_three_pass(
+            label, ops, CTX_FMIN[:1],
+            [math.sqrt(float(ops[f64][7][1]))], planned=True)
+        k2_3p_err = max(k2_3p_err, err)
+        if variant is None:
+            k2_3p_ops, k2_3p_dq = ops[f32], dq
+
+    # 12. the certified paths -------------------------------------------------
+    cert_rng = np.random.default_rng(5)
+
+    def cap512(device, dtype, **kw):
+        gps = build_gps(np.random.default_rng(512), 400, 512, device, dtype,
+                        spread=4.0)
+        return SafeOpt(gps, grid_np, fmin=FMIN, beta=BETA, scaling=SCALING,
+                       expander_chunk=32, **kw)
+
+    def contextual_cert(device, dtype, n_obs=240, spread=3.0, **kw):
+        return SafeOpt(context_gps(2, n_obs, 256, device, dtype,
+                                   spread=spread), params_np,
+                       fmin=CTX_FMIN, beta=BETA, num_contexts=1,
+                       expander_chunk=32, **kw)
+
+    def ctx_plant(x, c):
+        return (context_truth([[float(x[0]), c]])
+                + 0.05 * cert_rng.normal(size=(1, 2)))
+
+    # the contextual state's safe rows have nearly equal widths, so its
+    # refine band (350,000-480,000 rows) is past the budget and each step
+    # takes the full float32 pass; early in a contextual run (20
+    # observations near the seed, context 0) the band fits on most steps,
+    # and K2-3p's rows go through the refinement
+    certified = {
+        "cap 512": drive_certified(
+            "cap 512", cap512, lambda x, c: plant(cert_rng, x), [None] * 10,
+            min_refined=10),
+        "contextual": drive_certified(
+            "contextual", contextual_cert, ctx_plant, contexts),
+        "contextual, 20 obs": drive_certified(
+            "contextual, 20 observations in [-0.5, 0.5]",
+            functools.partial(contextual_cert, n_obs=20, spread=0.5),
+            ctx_plant, [0.0] * 10, min_refined=5)}
+    for name, kern3, kern1, per_step in (
+            ("cap 512", "K1-3p", "K1", 1), ("contextual", "K2-3p", "K2", 2),
+            ("contextual, 20 obs", "K2-3p", "K2", 2)):
+        for oracle, (n, c_ms, p_ms, _, _) in certified[name].items():
+            check(n[kern3] == 10 * per_step and n[kern1] == 10 * per_step,
+                  f"{name} certified ({oracle}): {kern3} launched "
+                  f"{n[kern3]} times and {kern1} {n[kern1]}, not "
+                  f"{10 * per_step} each")
+            other = ("K2", "K2-3p") if kern1 == "K1" else ("K1", "K1-3p")
+            check(n[other[0]] == n[other[1]] == 0,
+                  f"{name} certified ({oracle}) launched {other}")
+            print(f"{name} certified path ({oracle} oracle) times (CUDA "
+                  f"events, iterations 2-10): median optimize() "
+                  f"{float(np.median(c_ms[1:])):.3f} ms against the float32 "
+                  f"plain twin's {float(np.median(p_ms[1:])):.3f} ms",
+                  flush=True)
+
+    # 13. times ---------------------------------------------------------------
     for label, o_ms, a_ms, n in (("flagship", opt_ms, add_ms,
                                   grid_np.shape[0]),
                                  ("contextual", ctx_opt_ms, ctx_add_ms,
@@ -927,10 +1226,29 @@ def main():
         "K2": (lambda: fp.fused_intervals_plan(*k2_ops32),
                lambda: fp.fused_intervals_plan_plain(*k2_ops32),
                interval_bound(f32, 1, N, d, 256, n_k2, leaves)),
+        "K2 nine leaves (wide)": (
+            lambda: fp.fused_intervals_plan(*k2_nine_ops32),
+            lambda: fp.fused_intervals_plan_plain(*k2_nine_ops32),
+            interval_bound(f32, 1, N, d, 256, n_k2,
+                           plan_leaves(k2_nine_ops32[4], k2_nine_ops32[6]))),
         "K4": (lambda: fe.fused_expander_plan(*k4_ops32),
                lambda: fe.fused_expander_plan_plain(*k4_ops32),
                expander_bound(f32, 1, N, int(k4_ops32[1].sum()), d, 256,
                               n_k2, C, leaves)),
+        "K1-3p": (lambda: fp.fused_intervals3(*k1_3p_ops["G=2 cap=512"][f32]),
+                  lambda: fp.fused_intervals3_plain(
+                      *k1_3p_ops["G=2 cap=512"][f32]),
+                  split_bound("bf16", N, d, 512, 400, G=2)),
+        "K1 cap=512": (lambda: fp.fused_intervals(
+                           *k1_3p_ops["G=2 cap=512"][f32]),
+                       lambda: fp.fused_intervals_plain(
+                           *k1_3p_ops["G=2 cap=512"][f32]),
+                       interval_bound(f32, 2, N, d, 512, 400)),
+        "K2-3p": (lambda: fp.fused_intervals_plan3(*k2_3p_ops),
+                  lambda: fp.fused_intervals_plan3_plain(*k2_3p_ops),
+                  split_bound("bf16", N, d, 256, n_k2,
+                              leaves=plan_leaves(k2_3p_ops[4],
+                                                 k2_3p_ops[6]))),
     }
     times = {}
     for name, (kernel, plain, (bound_ms, bound_by)) in timed.items():
@@ -954,8 +1272,18 @@ def main():
                "safeopt_tpu/ops/fused_expander.py:44", ctx_launches["K4"],
                k4_err),
     }
+    meta["K1-3p"] = ("K1-3p fused_intervals3", "fused_intervals.cu",
+                     "safeopt_tpu/ops/fused_posterior.py:513",
+                     sum(r[0]["K1-3p"] for r in certified["cap 512"].values()),
+                     k1_3p_err)
+    meta["K2-3p"] = ("K2-3p fused_intervals_plan3", "fused_intervals_plan.cu",
+                     "safeopt_tpu/ops/fused_posterior.py:313",
+                     sum(r[0]["K2-3p"] for name in ("contextual",
+                                                    "contextual, 20 obs")
+                         for r in certified[name].values()),
+                     k2_3p_err)
     kernels = []
-    for key in ("K1", "K3", "K2", "K4"):
+    for key in ("K1", "K3", "K2", "K4", "K1-3p", "K2-3p"):
         name, src, replaces, n_launch, err = meta[key]
         k_ms, p_ms, b_ms, b_by = times[key]
         kernels.append({
@@ -966,6 +1294,8 @@ def main():
             # no single PyTorch call computes these fused functions
             "library_ms": None})
     kernels[0]["max_abs_err_f32"] = k1_err32
+    kernels[4]["max_scaled_err_f32_vs_f64"] = k1_3p_dq
+    kernels[5]["max_scaled_err_f32_vs_f64"] = k2_3p_dq
 
     o32 = exp_ops[f32]
     n512 = int(o32[5][0, 3])

@@ -1,22 +1,27 @@
 """SafeOpt: exact safe Bayesian optimization on a discretized grid.
 
-Counterpart of ``safeopt_tpu/algorithms/safe_opt.py:248-995`` on the
-plain (uncertified) path. The public surface — constructor,
-``optimize(context, ucb)``, ``get_maximum(context)``, ``compute_sets``,
-``compute_safe_set``, ``get_new_query_point``,
-``update_confidence_intervals``, the ``S``/``M``/``G``/``Q`` attributes
-and the Lipschitz variant — matches the reference; the O(N) grid work
-runs in ``safe_opt_core.safeopt_step`` on the models' device.
+Counterpart of ``safeopt_tpu/algorithms/safe_opt.py:248-995``. The
+public surface — constructor, ``optimize(context, ucb)``,
+``get_maximum(context)``, ``compute_sets``, ``compute_safe_set``,
+``get_new_query_point``, ``update_confidence_intervals``, the
+``S``/``M``/``G``/``Q`` attributes and the Lipschitz variant — matches
+the reference; the O(N) grid work runs in ``safe_opt_core`` on the
+models' device.
 
 The device comes from the GPs: every GP must live on the same device
 with the same dtype, and the grid is shipped there once. The certified
-path (``exact_boundaries``, reduced ``interval_precision``, the device
-oracle) is not ported yet: ``'auto'`` and ``None`` resolve to the plain
-path and an explicit request raises ``NotImplementedError``.
+path (``exact_boundaries``) settles every safe bit near a threshold in
+float64, on the host (``oracle='host'``) or on the device
+(``'device'``); ``interval_precision='high'`` runs its grid pass with
+the three-pass product (K1-3p, K2-3p) and restores full float32 on the
+decision-critical rows. ``interval_precision='auto'`` resolves to the
+plain path: the JAX package's promotion of the certified path at
+capacity 512 rests on a TPU measurement, not one of this card.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 
 import numpy as np
@@ -24,13 +29,32 @@ import torch
 
 from ..utils.observability import IterationStats, StatsRecorder
 from .base import GaussianProcessOptimization
-from .safe_opt_core import full_expander_sets, safe_maximum, safeopt_step
+from .safe_opt_core import (certified_finish, certified_scan, device_oracle,
+                            full_expander_sets, interval_scan, safe_maximum,
+                            safeopt_step, safeopt_step_from_Q)
 
 __all__ = ["SafeOpt"]
 
-_CERTIFIED_TODO = ("the certified path (exact_boundaries, interval_precision"
-                   ", oracle='device') is not ported yet: ROADMAP Queue 1 "
-                   "item 9")
+# Max scaled interval error of each reduced-precision mode, measured on
+# one H100 80GB HBM3 at 700 W by tools_torch/probe_interval_precision.py:
+# the three-pass bf16 product (K1-3p, K2-3p) against the float64 plain
+# path over five states, the largest on the contextual one (1.3348e-2;
+# the cap-512 and cap-1024 states 6.2e-3 to 8.2e-3; PERF.md).
+# Never the TPU's figure. refine_band must exceed boundary_band by at
+# least this much, or a knife-edge row can escape both the refinement
+# and the float64 oracle.
+_REDUCED_PRECISION_NOISE_CEILING = {"high": 1.335e-2}
+# The refinement band's default, re-derived from that measurement: about
+# 1.4 x (boundary_band + ceiling).
+REFINE_BAND = 2e-2
+# The refinement budget's default as a share of the grid's N rows. The
+# refinement recomputes its rows with the full-float32 K1/K2, so B rows
+# cost about B / N of a full float32 pass, and the three-pass grid pass
+# saves about a fifth of one (K1-3p 8.5719 ms against K1's 10.6512 ms at
+# cap 512 on one H100 80GB HBM3 at 700 W, chip_smoke.py, PERF.md): past a
+# fifth of the grid, refining the band costs more than the full pass the
+# step then takes instead.
+REFINE_BAND_SHARE = 0.2
 
 # Sentinel distinguishing "keep the current context" from an explicit
 # ``context=None`` (an error with num_contexts > 0, gp_opt.py:445-447).
@@ -65,14 +89,50 @@ class SafeOpt(GaussianProcessOptimization):
     scaling : 'auto' or list of floats
     expander_chunk : int
         Candidates the expander walk tests per grid pass.
-    exact_boundaries, interval_precision, oracle
-        Certified-path requests. ``None``, ``False`` and ``'auto'`` (and
-        ``oracle='host'``) select the plain path; anything else raises
-        ``NotImplementedError`` until the certified path is ported.
-    boundary_band, boundary_k, refine_k, refine_band, refine_band_k
-        Settings of the certified path, with the JAX package's defaults.
-        Any other value asks for the certified path and raises
-        ``NotImplementedError``.
+    exact_boundaries : bool, optional
+        Certify safe-set decisions in float64: candidates whose scaled
+        safety margin falls inside ``boundary_band`` are recomputed
+        against the host's float64 factor and their safe bits overridden
+        before maximizers, expanders and the query are derived. Default
+        ``None``: implied by ``interval_precision``, else off. Needs
+        models with a float64 oracle (``predict_f64``).
+    boundary_band : float
+        Scaled-margin width of the certification band (default 1e-3).
+    boundary_k : int, optional
+        Triage budget: at most this many near-boundary rows are certified
+        per iteration (an overflow logs a warning). Default 1024.
+    interval_precision : str, optional
+        ``'high'``: the grid pass takes the three-pass bf16 product
+        (K1-3p, K2-3p), then every row within ``refine_band`` of a
+        decision boundary is recomputed at full float32 before anything
+        is classified; requires ``exact_boundaries``. ``None`` or
+        ``'auto'`` (the default): the full-float32 grid pass.
+    refine_k : int, optional
+        Size of the refinement's head over safe rows (width, incumbent
+        and maximizer boundaries); default 2048 under
+        ``interval_precision``, else 0. ``refine_k=0`` keeps safe-set
+        decisions certified but may change near-tie queries (a warning
+        says so).
+    refine_band : float
+        Scaled radius around every decision boundary within which rows
+        are promised full float32 (default 2e-2; the JAX package's 1e-2
+        is sized to the TPU's error); it must be at least
+        ``boundary_band``, and exceed it by the three-pass noise ceiling
+        (``_REDUCED_PRECISION_NOISE_CEILING``) or a warning is logged.
+    refine_band_k : int, optional
+        Budget of near-boundary rows restored to full float32 (default
+        ``None``: a fifth of the grid, ``REFINE_BAND_SHARE``; the JAX
+        package's default is 20480); past it (``refine_band_k +
+        refine_k``) the step recomputes every row at full float32 instead
+        (``safe_opt_core._refine_Q``; the JAX package refines the budget's
+        rows and warns), reported in the stats as ``refine_full_pass``.
+    oracle : str
+        Where the float64 oracle runs: ``'host'`` (``predict_f64`` on the
+        host factor; a flip costs a second classification pass),
+        ``'device'`` (the same float64 factors on the models' device,
+        ``safe_opt_core.device_oracle``, one classification and one host
+        read per step), or ``'auto'`` (default: ``'device'`` on CUDA,
+        ``'host'`` on the CPU).
     """
 
     def __init__(self, gp, parameter_set, fmin, lipschitz=None, beta=2,
@@ -80,17 +140,8 @@ class SafeOpt(GaussianProcessOptimization):
                  expander_chunk: int = 32, exact_boundaries=None,
                  boundary_band: float = 1e-3, boundary_k=None,
                  interval_precision="auto", refine_k=None,
-                 refine_band: float = 1e-2, refine_band_k: int = 20480,
+                 refine_band: float = REFINE_BAND, refine_band_k=None,
                  oracle: str = "auto"):
-        if oracle not in ("auto", "host", "device"):
-            raise ValueError("oracle must be 'auto', 'host' or 'device', "
-                             f"got {oracle!r}")
-        certified_settings = (boundary_band, boundary_k, refine_k,
-                              refine_band, refine_band_k)
-        if (exact_boundaries or interval_precision not in ("auto", None)
-                or oracle == "device"
-                or certified_settings != (1e-3, None, None, 1e-2, 20480)):
-            raise NotImplementedError(_CERTIFIED_TODO)
         super().__init__(gp, fmin=fmin, beta=beta,
                          num_contexts=num_contexts, threshold=threshold,
                          scaling=scaling)
@@ -106,6 +157,20 @@ class SafeOpt(GaussianProcessOptimization):
                     f"parameter_set is on {parameter_set.device}, the GPs "
                     f"on {self.device}")
             parameter_set = parameter_set.detach().cpu().numpy()
+
+        # Certified settings, resolved in the JAX package's order:
+        # explicit values win; 'auto' is the plain path here; a reduced
+        # precision implies the float64 certification it needs.
+        if interval_precision == "auto":
+            interval_precision = None
+        if interval_precision not in (None, "high"):
+            raise ValueError(
+                "interval_precision must be 'auto', None or 'high', got "
+                f"{interval_precision!r} (the JAX package's 1-pass bf16 "
+                "'default' has no kernel in the port)")
+        if interval_precision is not None and exact_boundaries is None:
+            exact_boundaries = True
+        exact_boundaries = bool(exact_boundaries)
 
         parameter_set = np.asarray(parameter_set, dtype=float)
         if self.num_contexts > 0:
@@ -138,7 +203,77 @@ class SafeOpt(GaussianProcessOptimization):
         self._expander_chunk = min(int(expander_chunk), N)
         self._grid_device = None   # device copy of inputs, shipped lazily
         self._grid_dirty = True
+        self._grid64_device = None  # float64 copy for the device oracle
+        self._grid64_dirty = True
         self._consts_key = None
+
+        self._exact_boundaries = exact_boundaries
+        self._boundary_band = float(boundary_band)
+        self._boundary_k = min(int(1024 if boundary_k is None
+                                   else boundary_k), N)
+        if oracle not in ("auto", "host", "device"):
+            raise ValueError("oracle must be 'auto', 'host' or 'device', "
+                             f"got {oracle!r}")
+        has_dev_oracle = all(hasattr(g, "device_oracle_state")
+                             for g in self.gps)
+        if oracle == "auto":
+            oracle = ("device" if self.device.type == "cuda"
+                      and has_dev_oracle else "host")
+        elif oracle == "device" and not has_dev_oracle:
+            raise ValueError(
+                "oracle='device' requires models exposing "
+                "device_oracle_state (GPRegression)")
+        self._oracle = oracle
+        self._interval_precision = interval_precision
+        if refine_k is None:
+            refine_k = 2048 if interval_precision is not None else 0
+        elif refine_k == 0 and interval_precision is not None:
+            logging.warning(
+                "interval_precision with refine_k=0: safe-set decisions "
+                "stay float64-certified, but near-tie query selections may "
+                "differ from the full-precision trajectory")
+        self._refine_k = min(int(refine_k), N)
+        self._refine_band = float(refine_band)
+        if refine_band_k is None:
+            refine_band_k = int(N * REFINE_BAND_SHARE)
+        self._refine_band_k = min(int(refine_band_k), N)
+        if interval_precision is not None and not exact_boundaries:
+            raise ValueError(
+                "interval_precision requires exact_boundaries=True: "
+                "reduced-precision intervals are only safe under float64 "
+                "boundary certification")
+        if (interval_precision is not None
+                and self._refine_band < self._boundary_band):
+            # the float64 triage runs over the refined rows, which the
+            # refine band selects: a narrower one would hide band rows
+            raise ValueError(
+                f"refine_band ({self._refine_band}) must be >= "
+                f"boundary_band ({self._boundary_band}) so the refined "
+                "subset covers every possible float64-band row")
+        if interval_precision is not None:
+            ceiling = _REDUCED_PRECISION_NOISE_CEILING[interval_precision]
+            if self._refine_band - self._boundary_band < ceiling:
+                logging.warning(
+                    "interval_precision=%r: refine_band (%g) minus "
+                    "boundary_band (%g) is below the measured noise "
+                    "ceiling (%g) of the three-pass intervals; a "
+                    "knife-edge row can escape both the refinement and "
+                    "the float64 oracle", interval_precision,
+                    self._refine_band, self._boundary_band, ceiling)
+        if exact_boundaries:
+            for g in self.gps:
+                if not hasattr(g, "predict_f64"):
+                    raise ValueError(
+                        "exact_boundaries requires models with a float64 "
+                        "host oracle (predict_f64): "
+                        f"{type(g).__name__} has none")
+
+        # certified-path telemetry (filled by the certified steps)
+        self._band_overflow = False
+        self._band_population = 0
+        self._certified_corrections = 0
+        self._refine_band_population = 0
+        self._refine_band_overflow = False
         self.stats = StatsRecorder()
 
     # -- properties mirrored from the reference ------------------------------
@@ -179,7 +314,7 @@ class SafeOpt(GaussianProcessOptimization):
             if context is None:
                 raise ValueError("Need to provide value for context.")
             self.inputs[:, -self.num_contexts:] = context
-            self._grid_dirty = True
+            self._grid_dirty = self._grid64_dirty = True
 
     # -- lazy host mirrors of device results ---------------------------------
 
@@ -244,17 +379,161 @@ class SafeOpt(GaussianProcessOptimization):
                 for name, v in values.items()}
         return self._consts
 
+    def _certified_step(self, kernels, states, ucb: bool):
+        """Optimistic certified iteration with the host oracle.
+
+        Pass 1 (``certified_scan``): the complete step plus the triage of
+        the <= k rows whose scaled safety margin lies inside the band,
+        read as one packed buffer. If the band is empty, or the host's
+        float64 oracle confirms every float32 verdict in it, pass 1 is
+        the certified result. Only a flipped verdict costs pass 2
+        (``safeopt_step_from_Q``) with the float64 bits written in.
+        Records the telemetry; when pass 1 stands, its ``diag`` is the
+        host copy already read.
+        """
+        k = self._boundary_k
+        consts = self._step_consts()
+        beta = float(self.beta(self.t))
+        result, packed = certified_scan(
+            kernels, states, self._grid(), consts["fmin"], beta,
+            consts["scaling"], consts["threshold"], self._boundary_band,
+            consts["lipschitz"], refine_band=self._refine_band, k=k,
+            refine_k=self._refine_k,
+            refine_band_k=(self._refine_band_k
+                           if self._interval_precision is not None else 0),
+            ucb=ucb, use_lipschitz=self._use_lipschitz,
+            chunk=self._expander_chunk,
+            interval_precision=self._interval_precision)
+        packed = packed.cpu()                      # the one host read
+        result = result._replace(diag=packed[:5])
+        packed = packed.numpy()
+        idx = packed[7:7 + k]
+        within = packed[7 + k:7 + 2 * k].astype(bool)
+        s_f32 = packed[7 + 2 * k:7 + 3 * k].astype(bool)
+        self._absorb_triage(int(packed[5]), int(packed[6]))
+
+        sel = np.flatnonzero(within)
+        self._band_population = int(sel.size)
+        self._certified_corrections = 0
+        if sel.size == 0:
+            return result
+        pts = self.inputs[idx[sel]]
+        safe64 = np.ones(sel.size, dtype=bool)
+        for i, g in enumerate(self.gps):
+            if self.fmin[i] == -np.inf:
+                continue
+            mu, var = g.predict_f64(pts)
+            safe64 &= mu - beta * np.sqrt(var) > self.fmin[i]
+        flips = int(np.count_nonzero(safe64 != s_f32[sel]))
+        self._certified_corrections = flips
+        if flips == 0:
+            # every float32 verdict confirmed: pass 1 is the step
+            return result
+        fix_idx = np.where(within, idx, -1).astype(np.int32)
+        fix_bits = np.zeros(k, dtype=bool)
+        fix_bits[sel] = safe64
+        corrected = safeopt_step_from_Q(
+            kernels, states, self._grid(), result.Q,
+            torch.tensor(fix_idx, device=self.device),
+            torch.tensor(fix_bits, device=self.device), consts["fmin"],
+            beta, consts["scaling"], consts["threshold"],
+            consts["lipschitz"], ucb=ucb, use_lipschitz=self._use_lipschitz,
+            chunk=self._expander_chunk)
+        return corrected
+
+    def _certified_step_device(self, kernels, states, ucb: bool):
+        """Certified iteration settled on the device: ``interval_scan``
+        (intervals, refinement, triage; no classification),
+        ``device_oracle`` (float64 verdicts of the band rows against each
+        model's ``OracleState``) and ``certified_finish`` (one
+        classification with the settled bits). Besides the expander
+        walk's per-chunk flags and the refinement's band population
+        (``_refine_Q`` reads it to choose between the refined rows and a
+        full float32 pass), the host reads one 9-int buffer, the step's
+        results and telemetry; the telemetry is recorded here and the
+        result's ``diag`` is the host copy of the rest."""
+        k = self._boundary_k
+        consts = self._step_consts()
+        beta = float(self.beta(self.t))
+        grid = self._grid()
+        Q, packed_t = interval_scan(
+            kernels, states, grid, consts["fmin"], beta, consts["scaling"],
+            self._boundary_band, refine_band=self._refine_band, k=k,
+            refine_k=self._refine_k,
+            refine_band_k=(self._refine_band_k
+                           if self._interval_precision is not None else 0),
+            interval_precision=self._interval_precision)
+        ostates = [g.device_oracle_state()[0] for g in self.gps]
+        if self._grid64_device is None or self._grid64_dirty:
+            # the oracle evaluates the user's float64 points: a float32
+            # grid's rounding moves a lower bound by ~1e-8, more than a
+            # knife edge
+            self._grid64_device = torch.tensor(self.inputs,
+                                               dtype=torch.float64,
+                                               device=self.device)
+            self._grid64_dirty = False
+        fmin64 = torch.tensor(np.atleast_1d(np.asarray(self.fmin,
+                                                       dtype=np.float64)),
+                              device=self.device)
+        fix_idx, fix_bits, flips, n_within = device_oracle(
+            kernels, ostates, self._grid64_device, Q, packed_t, fmin64, beta,
+            constrained=tuple(bool(np.isfinite(f))
+                              for f in np.atleast_1d(self.fmin)), k=k)
+        result, diag9 = certified_finish(
+            kernels, states, grid, Q, packed_t, fix_idx, fix_bits, flips,
+            n_within, consts["fmin"], beta, consts["scaling"],
+            consts["threshold"], consts["lipschitz"], ucb=ucb,
+            use_lipschitz=self._use_lipschitz, chunk=self._expander_chunk)
+        diag9 = diag9.cpu()                        # the one buffer read
+        flips, total, refine_pop, n_within = diag9[5:9].tolist()
+        self._absorb_triage(total, refine_pop)
+        self._band_population = n_within
+        self._certified_corrections = flips
+        return result._replace(diag=diag9[:5])
+
+    def _absorb_triage(self, total: int, refine_pop: int) -> None:
+        """Record the triage's and the refinement's populations, warning
+        where a budget overflowed."""
+        k = self._boundary_k
+        if total > k:
+            logging.warning(
+                "exact_boundaries: %d candidates inside the ambiguity band "
+                "exceed the triage budget k=%d; only the k closest to a "
+                "threshold were certified", total, k)
+        self._band_overflow = total > k
+        self._refine_band_population = refine_pop
+        # one selection budget for every boundary's band (_refine_Q);
+        # past it the step took a full-float32 pass instead
+        budget = min(self._refine_band_k + self._refine_k,
+                     self.inputs.shape[0])
+        self._refine_band_overflow = (self._interval_precision is not None
+                                      and refine_pop > budget)
+        if self._refine_band_overflow:
+            logging.info(
+                "interval_precision: %d rows inside the refinement band "
+                "exceed the refine budget %d (refine_band_k + refine_k); "
+                "the intervals were recomputed at full float32",
+                refine_pop, budget)
+
     def _run_step(self, context=_KEEP_CONTEXT, ucb: bool = False):
-        """Execute the device step and point the host mirrors at it."""
+        """Execute the device step and point the host mirrors at it.
+        Returns the ``StepResult``; a certified step has recorded its
+        telemetry, and its ``diag`` may already be on the host."""
         if context is not _KEEP_CONTEXT:
             self.context = context
         kernels, states = self._model_args()
-        consts = self._step_consts()
-        result = safeopt_step(
-            kernels, states, self._grid(), consts["fmin"],
-            float(self.beta(self.t)), consts["scaling"],
-            consts["threshold"], consts["lipschitz"], ucb=ucb,
-            use_lipschitz=self._use_lipschitz, chunk=self._expander_chunk)
+        if self._exact_boundaries:
+            step = (self._certified_step_device if self._oracle == "device"
+                    else self._certified_step)
+            result = step(kernels, states, ucb)
+        else:
+            consts = self._step_consts()
+            result = safeopt_step(
+                kernels, states, self._grid(), consts["fmin"],
+                float(self.beta(self.t)), consts["scaling"],
+                consts["threshold"], consts["lipschitz"], ucb=ucb,
+                use_lipschitz=self._use_lipschitz,
+                chunk=self._expander_chunk)
         if ucb and self._dev is not None:
             # ucb never recomputes M/G (the reference leaves them stale,
             # gp_opt.py:670-675): pin them to the previous result
@@ -330,16 +609,21 @@ class SafeOpt(GaussianProcessOptimization):
 
     def _finish_step(self, result, start) -> np.ndarray:
         """Read the packed diagnostics (the step's one device-to-host
-        copy), record stats, return the query point."""
-        has_safe, idx, safe_count, maximizer_count, expander_found = \
-            result.diag.tolist()
+        copy, unless the step read them already), record stats, return
+        the query point."""
+        (has_safe, idx, safe_count, maximizer_count,
+         expander_found) = result.diag.tolist()
         if not has_safe:
             raise EnvironmentError("There are no safe points to evaluate.")
         self.stats.record(IterationStats(
             t=self.t, duration_s=time.perf_counter() - start,
             safe_count=safe_count, maximizer_count=maximizer_count,
             expander_found=bool(expander_found), next_index=idx,
-            beta=float(self.beta(self.t)), walk_chunks=result.walk_chunks))
+            beta=float(self.beta(self.t)), walk_chunks=result.walk_chunks,
+            band_population=int(self._band_population),
+            certified_corrections=int(self._certified_corrections),
+            band_overflow=bool(self._band_overflow),
+            refine_full_pass=bool(self._refine_band_overflow)))
         x = self.inputs[idx, :]
         if self.num_contexts:
             return x[: -self.num_contexts]

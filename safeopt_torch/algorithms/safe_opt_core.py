@@ -1,6 +1,6 @@
-"""Core of the exact (grid) SafeOpt step, plain path.
+"""Core of the exact (grid) SafeOpt step: the plain and certified paths.
 
-Counterpart of ``safeopt_tpu/algorithms/safe_opt_core.py:68-592``. One
+Counterpart of ``safeopt_tpu/algorithms/safe_opt_core.py``. One
 ``safeopt_step`` runs the reference call stack optimize() ->
 update_confidence_intervals -> compute_sets -> get_new_query_point:
 
@@ -26,6 +26,18 @@ update_confidence_intervals -> compute_sets -> get_new_query_point:
 
 Everything runs eagerly on the device of the grid; the host reads a few
 scalars per step (the walk's syncs and the packed ``diag``).
+
+The certified path (``exact_boundaries``; ``:642-1118`` of the JAX
+module) settles every safe bit within ``band`` of a threshold in
+float64. ``interval_precision='high'`` runs the grid pass with the
+three-pass product (K1-3p, K2-3p) and recomputes, with the full-float32
+K1/K2 on the gathered points, every row within ``refine_band`` of a
+decision boundary (``_refine_Q``). Two protocols: ``certified_scan``
+(the whole step plus the band triage, one packed pull; the host oracle
+then corrects with ``safeopt_step_from_Q`` only when a verdict flips),
+and ``interval_scan`` -> ``device_oracle`` (float64 on the device) ->
+``certified_finish`` (one classification, one pull). The top-k calls are
+K5's, so ties fall as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,7 +53,9 @@ from ..ops.fused_posterior import (check_kernel, fused_intervals_batched,
 from ..ops.topk import top_k
 
 __all__ = ["StepResult", "safeopt_step", "safe_maximum",
-           "full_expander_sets"]
+           "full_expander_sets", "boundary_scan", "safeopt_step_from_Q",
+           "certified_scan", "interval_scan", "device_oracle",
+           "certified_finish"]
 
 _NINF = float("-inf")
 
@@ -104,18 +118,22 @@ def _gp_groups(kernels, states, d: int) -> List[Tuple[List[int], bool]]:
 # confidence intervals
 # ---------------------------------------------------------------------------
 
-def _confidence_intervals(kernels, states, grid, beta):
+def _confidence_intervals(kernels, states, grid, beta, three_pass=False):
     """``Q`` (N, 2G), plus the posterior ``mu`` and ``sigma`` (G, N)
-    recovered from the interval rows for the expander pass."""
+    recovered from the interval rows for the expander pass.
+    ``three_pass`` takes the grid pass's product at the three-pass
+    precision (K1-3p, K2-3p): the certified path's interval pass."""
     N, d = grid.shape
     rows = [None] * len(kernels)
     for idx, planned in _gp_groups(kernels, states, d):
         if planned:
             rows[idx[0]] = fused_intervals_single(
-                kernels[idx[0]], states[idx[0]], grid, beta)
+                kernels[idx[0]], states[idx[0]], grid, beta,
+                three_pass=three_pass)
             continue
         out = fused_intervals_batched([kernels[i] for i in idx],
-                                      [states[i] for i in idx], grid, beta)
+                                      [states[i] for i in idx], grid, beta,
+                                      three_pass=three_pass)
         for j, i in enumerate(idx):
             rows[i] = out[j]
     out = torch.stack(rows)                                  # (G, 2, N)
@@ -126,18 +144,28 @@ def _confidence_intervals(kernels, states, grid, beta):
     return Q, mu, sigma
 
 
+def _moments_from_Q(Q, beta):
+    """Per-GP ``(mu, sigma)`` (G, N) recovered exactly from the interval
+    columns, as ``_confidence_intervals`` derives them."""
+    l, u = Q[:, 0::2].T, Q[:, 1::2].T
+    return (l + u) * 0.5, (u - l) / (2.0 * beta)
+
+
 # ---------------------------------------------------------------------------
 # set classification
 # ---------------------------------------------------------------------------
 
-def _classify(Q, fmin, scaling, threshold, beta):
+def _classify(Q, fmin, scaling, threshold, beta, S=None):
     """S, M, the expander-candidate mask and the unscaled widths that
-    order the walk (reference gp_opt.py:478-552)."""
+    order the walk (reference gp_opt.py:478-552). A precomputed (e.g.
+    boundary-certified) ``S`` may be given in place of the strict
+    interval test."""
     l = Q[:, 0::2]                                   # (N, G)
     u = Q[:, 1::2]
     widths = u - l
 
-    S = torch.all(l > fmin, dim=1)                   # strict, like reference
+    if S is None:
+        S = torch.all(l > fmin, dim=1)               # strict, like reference
     has_safe = torch.any(S)
 
     l0, u0 = l[:, 0], u[:, 0]
@@ -262,17 +290,12 @@ def _select_query(Q, S, M, G, scaling, ucb: bool):
     return torch.argmax(value)
 
 
-def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
-                 threshold, lipschitz=None, *, ucb: bool = False,
-                 use_lipschitz: bool = False, chunk: int = 64) -> StepResult:
-    """One full SafeOpt iteration over the candidate grid.
-
-    ``grid`` (N, d), ``fmin``, ``scaling`` and ``threshold`` (G,) are
-    tensors on one device; ``beta`` is a float.
-    """
-    Q, mu, sigma = _confidence_intervals(kernels, states, grid, beta)
+def _decide(kernels, states, grid, Q, mu, sigma, fmin, beta, scaling,
+            threshold, lipschitz, ucb, use_lipschitz, chunk, S=None):
+    """Classification, expander walk and selection from intervals ``Q``
+    (and their moments), with ``S`` given or from the strict test."""
     S, M, cand, width, has_safe = _classify(Q, fmin, scaling, threshold,
-                                            beta)
+                                            beta, S=S)
     if ucb:
         G = torch.zeros_like(S)
         M = torch.zeros_like(S)   # ucb never populates M/G (gp_opt.py:670)
@@ -284,6 +307,19 @@ def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
                                          width, chunk)
     next_idx = _select_query(Q, S, M, G, scaling, ucb)
     return _pack_result(Q, S, M, G, next_idx, has_safe, chunks)
+
+
+def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
+                 threshold, lipschitz=None, *, ucb: bool = False,
+                 use_lipschitz: bool = False, chunk: int = 64) -> StepResult:
+    """One full SafeOpt iteration over the candidate grid.
+
+    ``grid`` (N, d), ``fmin``, ``scaling`` and ``threshold`` (G,) are
+    tensors on one device; ``beta`` is a float.
+    """
+    Q, mu, sigma = _confidence_intervals(kernels, states, grid, beta)
+    return _decide(kernels, states, grid, Q, mu, sigma, fmin, beta, scaling,
+                   threshold, lipschitz, ucb, use_lipschitz, chunk)
 
 
 def safe_maximum(kernels, states, grid, fmin, beta: float):
@@ -328,3 +364,234 @@ def full_expander_sets(kernels, states, grid, fmin, beta: float, scaling,
     G = G & has_safe
     next_idx = torch.zeros((), dtype=torch.int64, device=grid.device)
     return _pack_result(Q, S, M, G, next_idx, has_safe, chunks)
+
+
+# ---------------------------------------------------------------------------
+# boundary-certified decisions (exact_boundaries)
+# ---------------------------------------------------------------------------
+
+def _safety_margin(Q, fmin, scaling):
+    """(N,) scaled distance of each row's lower bounds to the nearest
+    safety threshold (inf where no GP is constrained)."""
+    margins = (Q[:, 0::2] - fmin).abs() / scaling
+    margins = torch.where(fmin > _NINF, margins, float("inf"))
+    return torch.amin(margins, dim=1)
+
+
+def _int32(*parts):
+    """One int32 vector of scalars and vectors (a packed pull)."""
+    return torch.cat([p.reshape(-1).to(torch.int32) for p in parts])
+
+
+def boundary_scan(kernels, states, grid, fmin, beta: float, scaling, band,
+                  *, k: int = 128):
+    """Intervals plus the boundary triage, without classification:
+    ``(Q, idx (k,), within (k,) bool, total_within ())`` with ``idx``
+    the k rows closest to a safety threshold, ``within`` those inside
+    ``band`` and ``total_within > k`` a triage budget overflow."""
+    Q, _, _ = _confidence_intervals(kernels, states, grid, beta)
+    margin = _safety_margin(Q, fmin, scaling)
+    neg, idx = top_k(-margin, k)
+    return Q, idx, (-neg) < band, torch.sum(margin < band)
+
+
+def _fix_safe_set(Q, fmin, fix_idx, fix_bits):
+    """The strict safe set with the certified bits at ``fix_idx`` (entries
+    < 0 are padding and change nothing) written over it."""
+    S = torch.all(Q[:, 0::2] > fmin, dim=1)
+    N = S.shape[0]
+    ext = torch.cat([S, S.new_zeros(1)])        # padding writes slot N
+    ext[torch.where(fix_idx >= 0, fix_idx.long(), N)] = fix_bits & (
+        fix_idx >= 0)
+    return ext[:N]
+
+
+def safeopt_step_from_Q(kernels, states, grid, Q, fix_idx, fix_bits, fmin,
+                        beta: float, scaling, threshold, lipschitz=None, *,
+                        ucb: bool = False, use_lipschitz: bool = False,
+                        chunk: int = 64) -> StepResult:
+    """Pass 2 of a certified iteration: ``safeopt_step`` on intervals
+    ``Q`` from pass 1, with the safe bits at ``fix_idx`` (entries < 0 are
+    padding) OVERRIDDEN by the float64 verdicts ``fix_bits`` before
+    maximizers, expanders and the query are derived; the moments come
+    from Q exactly (``_moments_from_Q``)."""
+    mu, sigma = _moments_from_Q(Q, beta)
+    S = _fix_safe_set(Q, fmin, fix_idx, fix_bits)
+    return _decide(kernels, states, grid, Q, mu, sigma, fmin, beta, scaling,
+                   threshold, lipschitz, ucb, use_lipschitz, chunk, S=S)
+
+
+def _refine_Q(kernels, states, grid, Q, fmin, beta: float, scaling, rk: int,
+              band_k: int, refine_band):
+    """Recompute the decision-critical rows of a reduced-precision ``Q``
+    at full float32 and write them back: ``(Q, band_pop, idx)``.
+
+    One top-(band_k + rk) (K5) over one boundary-proximity key, the
+    pointwise max of scores each 0 at its boundary and negative away
+    from it, in scaled units (``safe_opt_core.py:754-852`` of the JAX
+    package): ``-margin``, the distance to a safety threshold; with
+    ``rk``, over SAFE rows only, the scaled width against the widest
+    safe row, the objective's lower bound against the incumbent
+    ``best_l0`` and its upper bound's distance to ``best_l0`` (the
+    maximizer boundary). ``band_pop`` counts the rows within
+    ``refine_band`` of any boundary: whenever it fits the budget the
+    selection holds every such row. The rows go through the full-float32
+    K1/K2 (``_confidence_intervals`` on the gathered points).
+
+    The host reads ``band_pop`` once, to choose. Past the budget no
+    selection can hold every such row (a state whose safe rows all have
+    nearly the same width puts most of them within the band of the
+    widest), so the port recomputes every row at full float32 instead
+    and returns ``idx`` None: the step's decisions are then the
+    full-precision step's. The JAX package keeps the partial selection
+    there and warns, leaving band rows at the reduced precision (ROADMAP
+    Queue 3). The default budget (``safe_opt.REFINE_BAND_SHARE``) is
+    where refining the band would cost more than the full pass.
+    """
+    l, u = Q[:, 0::2], Q[:, 1::2]
+    key = -_safety_margin(Q, fmin, scaling)
+    budget = min(band_k + rk, key.shape[0])
+    if rk:
+        S0 = torch.all(l > fmin, dim=1)
+        widths = torch.amax((u - l) / scaling, dim=1)
+        s_w = widths - torch.max(torch.where(S0, widths, _NINF))
+        l0s = l[:, 0] / scaling[0]
+        best_l0 = torch.max(torch.where(S0, l0s, _NINF))
+        s_l = l0s - best_l0
+        s_m = -(u[:, 0] / scaling[0] - best_l0).abs()
+        head = torch.maximum(torch.maximum(s_w, s_l), s_m)
+        key = torch.maximum(key, torch.where(S0, head, _NINF))
+    band_pop = torch.sum(key > -refine_band)
+    if int(band_pop) > budget:
+        return (_confidence_intervals(kernels, states, grid, beta)[0],
+                band_pop, None)
+    _, idx = top_k(key, budget)
+    rows, _, _ = _confidence_intervals(kernels, states, grid[idx], beta)
+    Q = Q.clone()
+    Q[idx] = rows
+    return Q, band_pop, idx
+
+
+def _scan_intervals(kernels, states, grid, fmin, beta: float, scaling, band,
+                    refine_band, refine_k: int, refine_band_k: int,
+                    interval_precision):
+    """Pass 1's intervals on the certified paths: the grid pass (three-pass
+    under ``interval_precision='high'``), then the full-float32
+    refinement (or a full-float32 pass where it cannot cover the band:
+    ``refined_idx`` None). ``(Q, mu, sigma, refine_pop, refined_idx)``."""
+    Q, mu, sigma = _confidence_intervals(
+        kernels, states, grid, beta,
+        three_pass=interval_precision == "high")
+    refine_pop = torch.zeros((), dtype=torch.int64, device=grid.device)
+    refined_idx = None
+    if interval_precision is not None and (refine_k or refine_band_k):
+        Q, refine_pop, refined_idx = _refine_Q(
+            kernels, states, grid, Q, fmin, beta, scaling, refine_k,
+            max(refine_band_k, 1), band if refine_band is None
+            else refine_band)
+        mu, sigma = _moments_from_Q(Q, beta)
+    return Q, mu, sigma, refine_pop, refined_idx
+
+
+def _band_triage(Q, refined_idx, fmin, scaling, band, k: int):
+    """``(idx, within, total_within)``: the k rows closest to a safety
+    threshold, flagged inside the float64 band; over the refined rows
+    when they number at least k (every possible band row was refined)."""
+    if refined_idx is not None and refined_idx.shape[0] >= k:
+        sub = _safety_margin(Q[refined_idx], fmin, scaling)
+        neg, j = top_k(-sub, k)
+        return refined_idx[j], (-neg) < band, torch.sum(sub < band)
+    margin = _safety_margin(Q, fmin, scaling)
+    neg, idx = top_k(-margin, k)
+    return idx, (-neg) < band, torch.sum(margin < band)
+
+
+def certified_scan(kernels, states, grid, fmin, beta: float, scaling,
+                   threshold, band, lipschitz=None, refine_band=None, *,
+                   k: int = 128, refine_k: int = 0, refine_band_k: int = 0,
+                   ucb: bool = False, use_lipschitz: bool = False,
+                   chunk: int = 64, interval_precision=None):
+    """Pass 1 of an optimistic certified iteration: the complete step
+    (``safeopt_step``'s decisions on the pass's intervals) and the
+    float64 band triage. Returns ``(StepResult, packed)`` with
+    ``packed`` one int32 vector ``[diag(5), total_within, refine_pop,
+    idx(k), within(k), S[idx](k)]``: one host pull tells the caller the
+    step, the rows inside the band and their float32 verdicts."""
+    Q, mu, sigma, refine_pop, refined_idx = _scan_intervals(
+        kernels, states, grid, fmin, beta, scaling, band, refine_band,
+        refine_k, refine_band_k, interval_precision)
+    res = _decide(kernels, states, grid, Q, mu, sigma, fmin, beta, scaling,
+                  threshold, lipschitz, ucb, use_lipschitz, chunk)
+    idx, within, total_within = _band_triage(Q, refined_idx, fmin, scaling,
+                                             band, k)
+    return res, _int32(res.diag, total_within, refine_pop, idx, within,
+                       res.S[idx])
+
+
+def interval_scan(kernels, states, grid, fmin, beta: float, scaling, band,
+                  refine_band=None, *, k: int = 128, refine_k: int = 0,
+                  refine_band_k: int = 0, interval_precision=None):
+    """Pass 1 of the device-oracle certified iteration: intervals (and
+    the refinement) and the band triage, no classification. Returns
+    ``(Q, packed_t)``, ``packed_t`` = int32 ``[total_within,
+    refine_pop, idx(k), within(k)]``."""
+    Q, _, _, refine_pop, refined_idx = _scan_intervals(
+        kernels, states, grid, fmin, beta, scaling, band, refine_band,
+        refine_k, refine_band_k, interval_precision)
+    idx, within, total_within = _band_triage(Q, refined_idx, fmin, scaling,
+                                             band, k)
+    return Q, _int32(total_within, refine_pop, idx, within)
+
+
+def device_oracle(kernels, ostates, grid, Q, packed_t, fmin, beta: float, *,
+                  constrained, k: int):
+    """Settle the band's safe verdicts in float64 on the grid's device.
+
+    Recomputes the <= k in-band rows' lower bounds at the points of
+    ``grid`` (the float64 grid: the points the host oracle takes, not
+    their float32 rounding) against each model's ``OracleState`` (the
+    float64 factors the host oracle uses, mu = V^T w) and returns
+    ``(fix_idx, fix_bits, flips, n_within)`` on the device: ``fix_idx``
+    the band rows (-1 elsewhere), ``fix_bits`` their float64
+    verdicts, ``flips`` how many differ from the float32 verdicts of
+    ``Q``. Unconstrained GPs (``constrained[i]`` False) are skipped, as
+    the host oracle skips them."""
+    idx = packed_t[2:2 + k].long()
+    within = packed_t[2 + k:2 + 2 * k] > 0
+    rows = idx.clamp(min=0)
+    pts = grid[rows].to(torch.float64)
+    l_rows = Q[rows][:, 0::2]                           # pass-1 float32 l
+    safe64 = torch.ones((k,), dtype=torch.bool, device=grid.device)
+    s_f32 = torch.ones_like(safe64)
+    for i, (kern, st) in enumerate(zip(kernels, ostates)):
+        if not constrained[i]:
+            continue
+        mask = (torch.arange(st.capacity, device=st.X.device)
+                < st.count).to(torch.float64)
+        kvec = kern.K(st.X, pts) * mask[:, None]            # (cap, k)
+        V = st.F @ kvec
+        mu = V.T @ st.w
+        var = kern.Kdiag(pts) - torch.sum(V * V, dim=0)
+        l64 = mu - beta * torch.sqrt(torch.clamp(var, min=0.0))
+        safe64 &= l64 > fmin[i]
+        s_f32 &= l_rows[:, i] > fmin[i].to(l_rows.dtype)
+    fix_idx = torch.where(within, idx, -1).to(torch.int32)
+    return (fix_idx, within & safe64,
+            torch.sum(within & (safe64 != s_f32)).to(torch.int32),
+            torch.sum(within).to(torch.int32))
+
+
+def certified_finish(kernels, states, grid, Q, packed_t, fix_idx, fix_bits,
+                     flips, n_within, fmin, beta: float, scaling, threshold,
+                     lipschitz=None, *, ucb: bool = False,
+                     use_lipschitz: bool = False, chunk: int = 64):
+    """Pass 3 of the device-oracle certified iteration: classify once
+    with the float64 bits written in (``safeopt_step_from_Q``), then pack
+    the caller's stats into one 9-int buffer ``[has_safe, next_idx,
+    |S|, |M|, anyG, flips, total_within, refine_pop, n_within]``, the
+    path's one host pull."""
+    res = safeopt_step_from_Q(kernels, states, grid, Q, fix_idx, fix_bits,
+                              fmin, beta, scaling, threshold, lipschitz,
+                              ucb=ucb, use_lipschitz=use_lipschitz,
+                              chunk=chunk)
+    return res, _int32(res.diag, flips, packed_t[0:2], n_within)

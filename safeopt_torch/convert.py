@@ -100,5 +100,5 @@ def gp_from_arrays(kernel, X, Y, noise_var: float, capacity: int,
                 raise ValueError(f"{name} has shape {a.shape}, expected "
                                  f"{want[name]}")
         gp._host.L, gp._host.Linv, gp._host.w = L, Linv, w
-        gp._state = gp._device_state()
+        gp._rebuilt()
     return gp

@@ -15,6 +15,10 @@ Counterpart of ``safeopt_tpu/gp/regression.py``: the GPy-compatible
   mirror in place (``_device_row_update``) — bit-identical to a full
   rebuild because the untouched rows were cast from the same host
   values.
+* **Float64 oracle mirror.** ``device_oracle_state`` ships the host
+  oracle's float64 factors to the device once (``OracleState``) for the
+  certified path's on-device oracle; each append or pop then writes its
+  one row there too (``_oracle_row_update``).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from ..config import default_dtype
 from .host_math import HostFactor
 from .kernels import Kernel, RBF
 
-__all__ = ["GPState", "GPRegression", "gp_predict"]
+__all__ = ["GPState", "OracleState", "GPRegression", "gp_predict"]
 
 
 class GPState(NamedTuple):
@@ -52,6 +56,24 @@ class GPState(NamedTuple):
     def input_dim(self) -> int:
         """Input dimensionality d."""
         return self.X.shape[1]
+
+
+class OracleState(NamedTuple):
+    """Float64 device mirror of a model's host oracle (``predict_f64``):
+    exactly the float64 factors the host oracle uses, so that
+    ``safe_opt_core.device_oracle`` settles knife-edge safe bits on the
+    device; only the summation order differs from the host's
+    (``safeopt_tpu/gp/regression.py:75-100``)."""
+
+    X: torch.Tensor          # (cap, d) float64 data rows
+    F: torch.Tensor          # (cap, cap) float64 factor; V = F @ k(X, q)
+    w: torch.Tensor          # (cap,) float64 whitened weights, mu = V^T w
+    count: torch.Tensor      # () int64 active rows
+
+    @property
+    def capacity(self) -> int:
+        """Padded buffer size."""
+        return self.X.shape[0]
 
 
 def row_mask(state: GPState) -> torch.Tensor:
@@ -91,6 +113,19 @@ def _device_row_update(state: GPState, i: int, row: torch.Tensor,
     state.Linv[i] = row[d + 1 + cap:d + 1 + 2 * cap]
     state.w[i] = row[d + 1 + 2 * cap]
     state.count.fill_(new_count)
+
+
+def _oracle_row_update(cache: OracleState, i: int, row: torch.Tensor,
+                       new_count: int) -> None:
+    """Write one bordered-update row into the float64 oracle mirror IN
+    PLACE (``_device_row_update``'s contract): ``row`` packs ``[x (d),
+    Linv row (cap), w]``."""
+    d, cap = cache.X.shape[1], cache.capacity
+    row = row.to(device=cache.X.device, dtype=torch.float64)
+    cache.X[i] = row[:d]
+    cache.F[i] = row[d:d + cap]
+    cache.w[i] = row[d + cap]
+    cache.count.fill_(new_count)
 
 
 def _next_capacity(n: int, minimum: int = 64) -> int:
@@ -139,6 +174,7 @@ class GPRegression:
         self._host = HostFactor(self.kern, cap, d, float(noise_var))
         self._host.set_data(X, Y)
         self._state = self._device_state()
+        self._oracle_cache = None
 
     def _tensor(self, a) -> torch.Tensor:
         # torch.tensor copies: the host factor mutates its arrays in
@@ -156,12 +192,38 @@ class GPRegression:
             w=self._tensor(h.w), noise_var=self._tensor(h.noise_var))
 
     def _sync_row(self, pos: int) -> None:
-        """Propagate the one row a border or truncation changed."""
+        """Propagate the one row a border or truncation changed, to the
+        device mirror and, once shipped, to the float64 oracle mirror."""
         h = self._host
         row = np.concatenate([h.X[pos], h.Y[pos], h.L[pos], h.Linv[pos],
                               h.w[pos:pos + 1]])
         _device_row_update(self._state, pos, torch.tensor(row),
                            int(h.count))
+        if self._oracle_cache is not None:
+            _oracle_row_update(self._oracle_cache, pos, torch.tensor(
+                np.concatenate([h.X[pos], h.Linv[pos], h.w[pos:pos + 1]])),
+                int(h.count))
+
+    def _rebuilt(self) -> None:
+        """A full device rebuild: the oracle mirror is shipped anew when
+        next asked for."""
+        self._state = self._device_state()
+        self._oracle_cache = None
+
+    def device_oracle_state(self):
+        """``(OracleState, 'exact')``: the float64 device mirror of the
+        host oracle (``predict_f64``) for ``SafeOpt(oracle='device')``,
+        shipped on first use and after a rebuild, and updated one row
+        per append or pop (``_sync_row``)."""
+        if self._oracle_cache is None:
+            h = self._host
+            f64 = dict(dtype=torch.float64, device=self.device)
+            self._oracle_cache = OracleState(
+                X=torch.tensor(h.X, **f64), F=torch.tensor(h.Linv, **f64),
+                w=torch.tensor(h.w, **f64),
+                count=torch.tensor(int(h.count), dtype=torch.int64,
+                                   device=self.device))
+        return self._oracle_cache, "exact"
 
     # -- GPy API surface ---------------------------------------------------
     @property
@@ -228,7 +290,7 @@ class GPRegression:
         if self.num_data + 1 > self._host.capacity:
             self._host = self._host.grown(self._host.capacity * 2)
             self._host.append(np.asarray(x, dtype=np.float64), float(y))
-            self._state = self._device_state()   # capacity changed
+            self._rebuilt()                      # capacity changed
             return
         pos = int(self._host.count)
         self._host.append(np.asarray(x, dtype=np.float64), float(y))
@@ -277,7 +339,7 @@ class GPRegression:
             self._host = HostFactor(self.kern, cap, X.shape[1],
                                     self.noise_var)
         self._host.set_data(X, Y)
-        self._state = self._device_state()
+        self._rebuilt()
 
     def __repr__(self):
         return (f"GPRegression(n={self.num_data}, d={self.input_dim}, "

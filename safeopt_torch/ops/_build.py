@@ -39,10 +39,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "safeopt_intervals_f32": [_P] * 7 + [_I] * 5 + [_P],
     "safeopt_intervals_f64": [_P] * 7 + [_I] * 5 + [_P],
+    "safeopt_intervals3_f32": [_P] * 7 + [_I] * 5 + [_P],
+    "safeopt_intervals3_f64": [_P] * 7 + [_I] * 5 + [_P],
     "safeopt_expander_f32": [_P] * 11 + [_I] * 6 + [_P],
     "safeopt_expander_f64": [_P] * 11 + [_I] * 6 + [_P],
     "safeopt_intervals_plan_f32": [_P] * 9 + [_I] * 4 + [_P],
     "safeopt_intervals_plan_f64": [_P] * 9 + [_I] * 4 + [_P],
+    "safeopt_intervals_plan3_f32": [_P] * 9 + [_I] * 4 + [_P],
+    "safeopt_intervals_plan3_f64": [_P] * 9 + [_I] * 4 + [_P],
     "safeopt_expander_plan_f32": [_P] * 13 + [_I] * 5 + [_P],
     "safeopt_expander_plan_f64": [_P] * 13 + [_I] * 5 + [_P],
     "safeopt_intervals_launch_f32": [_P] * 7 + [_I] * 8 + [_P],

@@ -28,8 +28,13 @@ enum Kind {
   kBias = 5
 };
 
-constexpr int kMaxLeaves = 8;  // leaves of a K2/K4 plan (MAX_LEAVES)
+// leaves of a K2/K4 plan staged in static shared memory (PlanSmem,
+// MAX_LEAVES); a longer plan takes the kernels' wide instances
+// (stage_plan)
+constexpr int kMaxLeaves = 8;
 constexpr int kMaxDim = 64;    // grid columns (MAX_DIM)
+// shared memory a block may opt in to on sm_90
+constexpr size_t kSmemPerBlock = 227 * 1024;
 
 constexpr int kThreads = 256;       // threads per block
 
@@ -255,5 +260,43 @@ struct PlanSmem {
     return PlanGram<T>{scales, pvar, kind, last, cols, ncols, P};
   }
 };
+
+// Bytes of a plan of P leaves over d columns staged by stage_plan.
+template <typename T>
+__host__ __device__ inline size_t plan_bytes(int P, int d) {
+  return sizeof(T) * ((size_t)P * d + P) +
+         sizeof(int) * ((size_t)P * d + 3 * (size_t)P);
+}
+
+// A plan of any number of leaves (the wide instances of K2/K4, past
+// kMaxLeaves), staged once per block in dynamic shared memory at smem
+// (16-byte aligned, plan_bytes<T>(P, d) of it): PlanSmem's arrays with P
+// rows, so the gram reads it as broadcasts as it reads PlanSmem. Kept
+// apart from PlanSmem::stage so that the instances of at most kMaxLeaves
+// leaves compile as they did. Ends with a barrier.
+template <typename T>
+__device__ __forceinline__ PlanGram<T> stage_plan(
+    unsigned char* smem, const T* __restrict__ g_scales,
+    const T* __restrict__ g_pvar, const int* __restrict__ plan, int P,
+    int d) {
+  T* scales = reinterpret_cast<T*>(smem);
+  T* pvar = scales + (size_t)P * d;
+  int* kind = reinterpret_cast<int*>(pvar + P);
+  int* last = kind + P;
+  int* ncols = last + P;
+  int* cols = ncols + P;
+  for (int t = threadIdx.x; t < P * d; t += kThreads) scales[t] = g_scales[t];
+  for (int q = threadIdx.x; q < P; q += kThreads) {
+    pvar[q] = g_pvar[q];
+    kind[q] = plan[q];
+    last[q] = q == P - 1 || plan[P + q + 1] != plan[P + q];
+    int m = 0;
+    for (int k = 0; k < d; ++k)
+      if (g_scales[q * d + k] != T(0)) cols[q * d + m++] = k;
+    ncols[q] = m;
+  }
+  __syncthreads();
+  return PlanGram<T>{scales, pvar, kind, last, cols, ncols, P};
+}
 
 }  // namespace safeopt

@@ -20,7 +20,10 @@
 // atomicOr of per-block hits into an output the wrapper zeroes, since
 // CUDA blocks run in no order, and tiles with no unsafe point skipped),
 // with raw points and the PlanGram policy, the plan staged in shared
-// memory once per block; the count comes from scal[1].
+// memory once per block; the count comes from scal[1]. A plan of more
+// than kMaxLeaves leaves runs the wide instances
+// (expander_plan_wide_kernel), the plan staged in dynamic shared memory
+// after the body's own (stage_plan), up to the block's 227 KB.
 
 #include "expander.cuh"
 
@@ -44,6 +47,29 @@ __global__ void __launch_bounds__(kThreads, kExBlocks<T, CW>)
                         cvec, scal[2], scal[3], out, N, d, cap, C, n, 0, gram);
 }
 
+// K4 for a plan of more than kMaxLeaves leaves: the plan in dynamic shared
+// memory after the layout's bytes (a multiple of 16).
+template <typename T, int CW>
+__global__ void __launch_bounds__(kThreads, kExBlocks<T, CW>)
+    expander_plan_wide_kernel(
+    const T* __restrict__ zt, const unsigned char* __restrict__ unsafe,
+    const T* __restrict__ mu, const T* __restrict__ sigma,
+    const T* __restrict__ xs, const T* __restrict__ xc,
+    const T* __restrict__ m2, const T* __restrict__ cvec,
+    const T* __restrict__ scales, const T* __restrict__ pvar,
+    const int* __restrict__ plan, const T* __restrict__ scal,
+    int* __restrict__ out, int N, int d, int cap, int C, int P) {
+  extern __shared__ __align__(16) unsigned char smem_wide[];
+  const ExLayout<T, CW> lay(cap, d);
+  const PlanGram<T> gram =
+      stage_plan<T>(smem_wide + lay.bytes, scales, pvar, plan, P, d);
+  const int count = (int)scal[1];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  candidate_hits<T, CW>(zt, (const T*)nullptr, unsafe, mu, sigma, xs, xc, m2,
+                        cvec, scal[2], scal[3], out, N, d, cap, C, n, 0, gram);
+}
+
+// K4; past kMaxLeaves leaves, its wide instances
 template <typename T>
 int launch_expander_plan(const T* zt, const unsigned char* unsafe,
                          const T* mu, const T* sigma, const T* xs,
@@ -51,17 +77,20 @@ int launch_expander_plan(const T* zt, const unsigned char* unsafe,
                          const T* scales, const T* pvar, const int* plan,
                          const T* scal, int* out, int N, int d, int cap,
                          int C, int P, cudaStream_t stream) {
-  if (P < 1 || P > kMaxLeaves || d < 1 || d > kMaxDim)
-    return (int)cudaErrorInvalidValue;
+  if (P < 1 || d < 1 || d > kMaxDim) return (int)cudaErrorInvalidValue;
   if (N < 1 || C < 1) return 0;  // nothing to test
   return with_pass_width(C, [&](auto cw) {
     constexpr int CW = decltype(cw)::value;
     const ExLayout<T, CW> lay(cap, d);
+    const bool wide = P > kMaxLeaves;
+    const size_t bytes = wide ? lay.bytes + plan_bytes<T>(P, d) : lay.bytes;
+    if (bytes > kSmemPerBlock) return (int)cudaErrorInvalidValue;
+    auto kernel = wide ? expander_plan_wide_kernel<T, CW>
+                       : expander_plan_kernel<T, CW>;
     dim3 grid;
-    const int err = expander_grid(expander_plan_kernel<T, CW>, lay.bytes,
-                                  lay.TP, 1, N, grid);
+    const int err = expander_grid(kernel, bytes, lay.TP, 1, N, grid);
     if (err) return err;
-    expander_plan_kernel<T, CW><<<grid, kThreads, lay.bytes, stream>>>(
+    kernel<<<grid, kThreads, bytes, stream>>>(
         zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales, pvar, plan, scal,
         out, N, d, cap, C, P);
     return (int)cudaGetLastError();

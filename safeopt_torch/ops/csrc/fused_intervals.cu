@@ -17,6 +17,22 @@
 // memory, the factor staged with cp.async), with the points scaled by
 // the GP's inverse lengthscales and the StationaryGram policy; the GP is
 // the grid's y axis, and each GP's count comes from its scal row.
+//
+// K1-3p (safeopt_intervals3_*) is K1 with the three-pass product
+// (intervals.cuh ThreePassProduct): the same TPU kernel at
+// three_pass=True (_interval_kernel_multi's product at
+// fused_posterior.py:513-528, through _tri_matmul(three_pass=True)), the
+// certified path's interval pass (interval_precision='high'). What
+// bounds it on Hopper: the operations, 3 n(n+1) flops a point and GP of
+// the three limb products on the bf16 tensor cores (989 TFLOP/s), the
+// gram and the epilogue on the FP32 pipe beside them; not device memory.
+// Design: K1's blocks, bands, active rows, resident gram and staged
+// factor unchanged, each band's pieces through mma.sync (band_mma3). What
+// it leaves above the bound: every band cuts the limbs of its gram and
+// factor pieces again (FP32 work of the order of the product's bound),
+// mma.sync with no pipeline, shared-memory fragment loads with 4-way bank
+// conflicts. Float64 runs the limbs as FP64 FMAs, one block an SM (its
+// register tile and limbs need more than 128 registers).
 
 #include "intervals.cuh"
 
@@ -40,17 +56,35 @@ __global__ void __launch_bounds__(kThreads, kIvMinBlocks)
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
+    intervals3_kernel(const T* __restrict__ zt, const T* __restrict__ ils,
+                      const T* __restrict__ xs, const T* __restrict__ lmt,
+                      const T* __restrict__ w, const T* __restrict__ scal,
+                      T* __restrict__ out, int N, int d, int cap, int ldl,
+                      int kind, int S, int res) {
+  const int g = blockIdx.y;
+  const int count = (int)scal[g * 4 + 3];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  interval_rows<T, StationaryGram<T>, false, ThreePassProduct>(
+      zt, ils + g * d, xs + (size_t)g * cap * d, lmt + (size_t)g * cap * ldl,
+      ldl, w + (size_t)g * cap, scal[g * 4 + 1], scal[g * 4 + 2],
+      out + (size_t)g * 2 * N, N, d, cap, n, S, res,
+      StationaryGram<T>{kind, scal[g * 4 + 0]});
+}
+
+// K1 (three_pass 0) or K1-3p (1)
+template <typename T>
 int launch_intervals(const T* zt, const T* ils, const T* xs, const T* lmt,
                      const T* w, const T* scal, T* out, int G, int N, int d,
-                     int cap, int kind, cudaStream_t stream) {
+                     int cap, int kind, int three_pass, cudaStream_t stream) {
   const IvLayout<T> lay = interval_layout<T>(cap, d);
+  auto kernel = three_pass ? intervals3_kernel<T> : intervals_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      intervals_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lay.bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
   if (err != cudaSuccess) return (int)err;
   const int ldl = (cap + kBand - 1) / kBand * kBand;  // Lm^T row stride
   const dim3 grid((N + lay.P - 1) / lay.P, G);
-  intervals_kernel<T><<<grid, kThreads, lay.bytes, stream>>>(
+  kernel<<<grid, kThreads, lay.bytes, stream>>>(
       zt, ils, xs, lmt, w, scal, out, N, d, cap, ldl, kind, lay.S, lay.res);
   return (int)cudaGetLastError();
 }
@@ -72,7 +106,7 @@ int safeopt_intervals_f32(const void* zt, const void* ils, const void* xs,
   return safeopt::launch_intervals<float>(
       (const float*)zt, (const float*)ils, (const float*)xs,
       (const float*)lmt, (const float*)w, (const float*)scal, (float*)out, G,
-      N, d, cap, kind, (cudaStream_t)stream);
+      N, d, cap, kind, 0, (cudaStream_t)stream);
 }
 
 int safeopt_intervals_f64(const void* zt, const void* ils, const void* xs,
@@ -82,7 +116,28 @@ int safeopt_intervals_f64(const void* zt, const void* ils, const void* xs,
   return safeopt::launch_intervals<double>(
       (const double*)zt, (const double*)ils, (const double*)xs,
       (const double*)lmt, (const double*)w, (const double*)scal,
-      (double*)out, G, N, d, cap, kind, (cudaStream_t)stream);
+      (double*)out, G, N, d, cap, kind, 0, (cudaStream_t)stream);
+}
+
+// K1-3p: K1's operands and layout, the three-pass product.
+int safeopt_intervals3_f32(const void* zt, const void* ils, const void* xs,
+                           const void* lmt, const void* w, const void* scal,
+                           void* out, int G, int N, int d, int cap, int kind,
+                           void* stream) {
+  return safeopt::launch_intervals<float>(
+      (const float*)zt, (const float*)ils, (const float*)xs,
+      (const float*)lmt, (const float*)w, (const float*)scal, (float*)out, G,
+      N, d, cap, kind, 1, (cudaStream_t)stream);
+}
+
+int safeopt_intervals3_f64(const void* zt, const void* ils, const void* xs,
+                           const void* lmt, const void* w, const void* scal,
+                           void* out, int G, int N, int d, int cap, int kind,
+                           void* stream) {
+  return safeopt::launch_intervals<double>(
+      (const double*)zt, (const double*)ils, (const double*)xs,
+      (const double*)lmt, (const double*)w, (const double*)scal,
+      (double*)out, G, N, d, cap, kind, 1, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -20,6 +20,21 @@
 // the body evaluates each plan entry once per block while the gram is
 // resident. A Bias leaf skips the distance loop, and a leaf reads only
 // its active columns (nonzero scale). No TF32, no tensor cores.
+//
+// K2-3p (safeopt_intervals_plan3_*) is K2 with the three-pass product
+// (intervals.cuh ThreePassProduct): _interval_kernel at three_pass=True
+// (its product at fused_posterior.py:313, through
+// _tri_matmul(three_pass=True)), the contextual certified path's
+// interval pass. Bound and design as K1-3p (fused_intervals.cu): the
+// limb products on the bf16 tensor cores, the plan's gram, the limb cuts
+// and the epilogue on the FP32 pipe; float64 runs the limbs as FP64
+// FMAs, one block an SM.
+//
+// A plan of more than kMaxLeaves leaves (any Sum/Product tree the JAX
+// kernel takes) runs the wide instances (intervals_plan_wide_kernel):
+// the same body with the whole plan staged once per block in dynamic
+// shared memory after the body's own (stage_plan), up to the block's
+// 227 KB; a plan past that makes the launch fail.
 
 #include "intervals.cuh"
 
@@ -43,20 +58,76 @@ __global__ void __launch_bounds__(kThreads, kIvMinBlocks)
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
+    intervals_plan3_kernel(
+    const T* __restrict__ zt, const T* __restrict__ xs,
+    const T* __restrict__ lmt, const T* __restrict__ w,
+    const T* __restrict__ scales, const T* __restrict__ pvar,
+    const int* __restrict__ plan, const T* __restrict__ scal,
+    T* __restrict__ out, int N, int d, int cap, int ldl, int P, int S,
+    int res) {
+  __shared__ PlanSmem<T> smem_plan;
+  const PlanGram<T> gram = smem_plan.stage(scales, pvar, plan, P, d);
+  const int count = (int)scal[3];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  interval_rows<T, PlanGram<T>, false, ThreePassProduct>(
+      zt, (const T*)nullptr, xs, lmt, ldl, w, scal[1], scal[2], out, N, d,
+      cap, n, S, res, gram);
+}
+
+// offset of a wide plan in the dynamic shared memory of a launch whose
+// body takes body bytes
+__host__ __device__ inline size_t wide_plan_at(size_t body) {
+  return (body + 15) / 16 * 16;
+}
+
+// K2 and K2-3p for a plan of more than kMaxLeaves leaves: the plan in
+// dynamic shared memory at wide_plan_at(the layout's bytes).
+template <typename T, class Product>
+__global__ void __launch_bounds__(
+    kThreads, Product::kThreePass && sizeof(T) == 8 ? 1 : kIvMinBlocks)
+    intervals_plan_wide_kernel(
+    const T* __restrict__ zt, const T* __restrict__ xs,
+    const T* __restrict__ lmt, const T* __restrict__ w,
+    const T* __restrict__ scales, const T* __restrict__ pvar,
+    const int* __restrict__ plan, const T* __restrict__ scal,
+    T* __restrict__ out, int N, int d, int cap, int ldl, int P, int S,
+    int res) {
+  extern __shared__ __align__(16) unsigned char smem_wide[];
+  const IvLayout<T> lay(cap, d, S, res);
+  const PlanGram<T> gram = stage_plan<T>(smem_wide + wide_plan_at(lay.bytes),
+                                         scales, pvar, plan, P, d);
+  const int count = (int)scal[3];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  interval_rows<T, PlanGram<T>, false, Product>(
+      zt, (const T*)nullptr, xs, lmt, ldl, w, scal[1], scal[2], out, N, d,
+      cap, n, S, res, gram);
+}
+
+// K2 (three_pass 0) or K2-3p (1); past kMaxLeaves leaves, their wide
+// instances
+template <typename T>
 int launch_intervals_plan(const T* zt, const T* xs, const T* lmt, const T* w,
                           const T* scales, const T* pvar, const int* plan,
                           const T* scal, T* out, int N, int d, int cap, int P,
-                          cudaStream_t stream) {
-  if (P < 1 || P > kMaxLeaves || d < 1 || d > kMaxDim)
-    return (int)cudaErrorInvalidValue;
+                          int three_pass, cudaStream_t stream) {
+  if (P < 1 || d < 1 || d > kMaxDim) return (int)cudaErrorInvalidValue;
   const IvLayout<T> lay = interval_layout<T>(cap, d);
+  const bool wide = P > kMaxLeaves;
+  const size_t bytes =
+      wide ? wide_plan_at(lay.bytes) + plan_bytes<T>(P, d) : lay.bytes;
+  if (bytes > kSmemPerBlock) return (int)cudaErrorInvalidValue;
+  auto kernel =
+      wide ? (three_pass ? intervals_plan_wide_kernel<T, ThreePassProduct>
+                         : intervals_plan_wide_kernel<T, Fp32Product>)
+           : (three_pass ? intervals_plan3_kernel<T>
+                         : intervals_plan_kernel<T>);
   cudaError_t err = cudaFuncSetAttribute(
-      intervals_plan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lay.bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int ldl = (cap + kBand - 1) / kBand * kBand;  // Lm^T row stride
   const dim3 grid((N + lay.P - 1) / lay.P);
-  intervals_plan_kernel<T><<<grid, kThreads, lay.bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       zt, xs, lmt, w, scales, pvar, plan, scal, out, N, d, cap, ldl, P, lay.S,
       lay.res);
   return (int)cudaGetLastError();
@@ -77,7 +148,7 @@ int safeopt_intervals_plan_f32(const void* zt, const void* xs,
   return safeopt::launch_intervals_plan<float>(
       (const float*)zt, (const float*)xs, (const float*)lmt, (const float*)w,
       (const float*)scales, (const float*)pvar, (const int*)plan,
-      (const float*)scal, (float*)out, N, d, cap, P, (cudaStream_t)stream);
+      (const float*)scal, (float*)out, N, d, cap, P, 0, (cudaStream_t)stream);
 }
 
 int safeopt_intervals_plan_f64(const void* zt, const void* xs,
@@ -88,7 +159,31 @@ int safeopt_intervals_plan_f64(const void* zt, const void* xs,
   return safeopt::launch_intervals_plan<double>(
       (const double*)zt, (const double*)xs, (const double*)lmt,
       (const double*)w, (const double*)scales, (const double*)pvar,
-      (const int*)plan, (const double*)scal, (double*)out, N, d, cap, P,
+      (const int*)plan, (const double*)scal, (double*)out, N, d, cap, P, 0,
+      (cudaStream_t)stream);
+}
+
+// K2-3p: K2's operands and layout, the three-pass product.
+int safeopt_intervals_plan3_f32(const void* zt, const void* xs,
+                                const void* lmt, const void* w,
+                                const void* scales, const void* pvar,
+                                const void* plan, const void* scal, void* out,
+                                int N, int d, int cap, int P, void* stream) {
+  return safeopt::launch_intervals_plan<float>(
+      (const float*)zt, (const float*)xs, (const float*)lmt, (const float*)w,
+      (const float*)scales, (const float*)pvar, (const int*)plan,
+      (const float*)scal, (float*)out, N, d, cap, P, 1, (cudaStream_t)stream);
+}
+
+int safeopt_intervals_plan3_f64(const void* zt, const void* xs,
+                                const void* lmt, const void* w,
+                                const void* scales, const void* pvar,
+                                const void* plan, const void* scal, void* out,
+                                int N, int d, int cap, int P, void* stream) {
+  return safeopt::launch_intervals_plan<double>(
+      (const double*)zt, (const double*)xs, (const double*)lmt,
+      (const double*)w, (const double*)scales, (const double*)pvar,
+      (const int*)plan, (const double*)scal, (double*)out, N, d, cap, P, 1,
       (cudaStream_t)stream);
 }
 

@@ -37,11 +37,8 @@
 // still the FP32 pipe at n = 400; B4 the tensor cores (3 n(n+1) flop a
 // point, 495 TFLOP/s tf32, 989 bf16), with its factor fragments read from
 // L2 by every block of 32 points.
-#include <cuda_bf16.h>
-
-#include <cstdint>
-
 #include "intervals.cuh"
+#include "limbs.cuh"
 
 namespace safeopt {
 
@@ -305,147 +302,6 @@ int launch_mu_from_gram(const T* zt, const T* ils, const T* xs, const T* lmt,
 // Each band's per-point sums of w V and V^2 are reduced over the lanes
 // that share a column and stored to the band's slot; the block adds the
 // bands in order.
-
-constexpr int kSP = 32;        // points of a block (four n8 tiles)
-constexpr int kSK = 16;        // columns of a contraction step (k16)
-
-struct Bf16Limb {
-  using Stored = __nv_bfloat16;
-  static constexpr int kLdcPad = 8;  // elements: 4 words
-  __device__ static __forceinline__ Stored round(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  __device__ static __forceinline__ float value(Stored x) {
-    return __bfloat162float(x);
-  }
-};
-
-struct Tf32Limb {
-  using Stored = float;
-  static constexpr int kLdcPad = 4;
-  __device__ static __forceinline__ Stored round(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-    return __uint_as_float(r);
-  }
-  __device__ static __forceinline__ float value(Stored x) { return x; }
-};
-
-// hi and lo limbs of x
-template <class Limb>
-__device__ __forceinline__ void split(float x, typename Limb::Stored& hi,
-                                      typename Limb::Stored& lo) {
-  hi = Limb::round(x);
-  lo = Limb::round(x - Limb::value(hi));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo_col,
-                                              __nv_bfloat16 hi_col) {
-  return (uint32_t)__bfloat16_as_ushort(lo_col) |
-         ((uint32_t)__bfloat16_as_ushort(hi_col) << 16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One k16 step of a band for m tile mt: V[mt][nt] += Lm_hi k_hi + Lm_hi
-// k_lo + Lm_lo k_hi over columns [c0, c0 + 16). Fragment layouts (PTX ISA,
-// mma.m16n8k16 .bf16 and mma.m16n8k8 .tf32), lane = 4 gid + tig:
-//   bf16 A: regs {row gid, gid + 8} x {cols 2 tig, 2 tig + 8}, two
-//           consecutive columns a register (the lower in the low half);
-//        B: regs {k = 2 tig, 2 tig + 8} (two consecutive k), n = gid;
-//   tf32 A: a0 (gid, tig), a1 (gid + 8, tig), a2 (gid, tig + 4),
-//           a3 (gid + 8, tig + 4);  B: b0 (k = tig, gid), b1 (tig + 4, gid);
-//   D: d0, d1 (row gid, cols 2 tig, 2 tig + 1), d2, d3 (row gid + 8).
-template <class Limb, bool Hoisted>
-__device__ __forceinline__ void split_step(
-    float (&acc)[4][4], const float* __restrict__ lm,
-    const typename Limb::Stored* __restrict__ lm_hi,
-    const typename Limb::Stored* __restrict__ lm_lo, int ldl, int r,
-    const typename Limb::Stored* ghi, const typename Limb::Stored* glo,
-    int ldc, int c0, int gid, int tig) {
-  const int ra = r + gid, rb = ra + 8;
-  if constexpr (std::is_same<Limb, Bf16Limb>::value) {
-    uint32_t ahi[4], alo[4];
-    const int ca = c0 + 2 * tig;
-    const size_t off[4] = {(size_t)ra * ldl + ca, (size_t)rb * ldl + ca,
-                           (size_t)ra * ldl + ca + 8, (size_t)rb * ldl + ca + 8};
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if constexpr (Hoisted) {
-        ahi[q] = *reinterpret_cast<const uint32_t*>(lm_hi + off[q]);
-        alo[q] = *reinterpret_cast<const uint32_t*>(lm_lo + off[q]);
-      } else {
-        const float2 x = *reinterpret_cast<const float2*>(lm + off[q]);
-        __nv_bfloat16 h0, l0, h1, l1;
-        split<Limb>(x.x, h0, l0);
-        split<Limb>(x.y, h1, l1);
-        ahi[q] = pack_bf16(h0, h1);
-        alo[q] = pack_bf16(l0, l1);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kSP / 8; ++nt) {
-      const size_t pb = (size_t)(8 * nt + gid) * ldc + ca;
-      const uint32_t bhi[2] = {*reinterpret_cast<const uint32_t*>(ghi + pb),
-                               *reinterpret_cast<const uint32_t*>(ghi + pb + 8)};
-      const uint32_t blo[2] = {*reinterpret_cast<const uint32_t*>(glo + pb),
-                               *reinterpret_cast<const uint32_t*>(glo + pb + 8)};
-      mma_bf16(acc[nt], ahi, bhi);
-      mma_bf16(acc[nt], ahi, blo);
-      mma_bf16(acc[nt], alo, bhi);
-    }
-  } else {
-#pragma unroll
-    for (int h = 0; h < kSK; h += 8) {  // two k8 steps
-      uint32_t ahi[4], alo[4];
-      const int ca = c0 + h + tig;
-      const size_t off[4] = {(size_t)ra * ldl + ca, (size_t)rb * ldl + ca,
-                             (size_t)ra * ldl + ca + 4,
-                             (size_t)rb * ldl + ca + 4};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float hi, lo;
-        if constexpr (Hoisted) {
-          hi = lm_hi[off[q]];
-          lo = lm_lo[off[q]];
-        } else {
-          split<Limb>(lm[off[q]], hi, lo);
-        }
-        ahi[q] = __float_as_uint(hi);
-        alo[q] = __float_as_uint(lo);
-      }
-#pragma unroll
-      for (int nt = 0; nt < kSP / 8; ++nt) {
-        const size_t pb = (size_t)(8 * nt + gid) * ldc + ca;
-        const uint32_t bhi[2] = {__float_as_uint(ghi[pb]),
-                                 __float_as_uint(ghi[pb + 4])};
-        const uint32_t blo[2] = {__float_as_uint(glo[pb]),
-                                 __float_as_uint(glo[pb + 4])};
-        mma_tf32(acc[nt], ahi, bhi);
-        mma_tf32(acc[nt], ahi, blo);
-        mma_tf32(acc[nt], alo, bhi);
-      }
-    }
-  }
-}
 
 // Shared memory of a block: both gram limbs (kSP x ldc each), the bands'
 // partials (2 x nbmax x kSP floats), the points (d x kSP) and the counter.

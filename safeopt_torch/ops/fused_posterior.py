@@ -29,8 +29,28 @@ the hand-written kernels ``csrc/fused_intervals.cu`` /
 ``csrc/fused_intervals_plan.cu``; on a CPU tensor they run
 ``fused_intervals_plain`` / ``fused_intervals_plan_plain``, the same
 functions in plain PyTorch. The TPU-only machinery (VMEM gates, block
-picking, block-diagonal MXU stacking, 3-pass limbs, the TPU's
-products-fused-or-not policy) has no counterpart here.
+picking, block-diagonal MXU stacking, the TPU's products-fused-or-not
+policy) has no counterpart here.
+
+K1-3p and K2-3p (``fused_intervals3`` / ``fused_intervals_plan3``, the
+same sources' ``ThreePassProduct`` instances) are K1 and K2 with the
+TPU kernels' ``three_pass=True`` product (``_tri_matmul``): ``V = Lm_hi
+k_hi + Lm_hi k_lo + Lm_lo k_hi`` over bf16 limbs (``split_limbs``), the
+certified path's interval pass. Their plain versions
+(``fused_intervals3_plain``, ``fused_intervals_plan3_plain``) cut the
+limbs as the kernels do: from float32 operands with ``lo`` rounded to
+bf16 (a tensor-core operand) and the gram computed bit for bit as the
+kernel computes it (``kernel_gram``, ``kernel_plan_gram``: a gram one
+ulp off can round a limb the other way), the products and the epilogue
+in float64 and the rows returned in float32; from float64 operands with
+``lo`` unrounded, all in float64, as the JAX package's float64 3-pass
+product.
+
+K2 and K4 take a plan of any number of leaves: up to ``MAX_LEAVES`` it
+is staged in static shared memory, past it the same sources' wide
+instances stage it in dynamic shared memory. The kernels take at most
+``MAX_DIM`` grid columns and refuse wider grids; the plain versions, on
+CPU tensors, take any.
 
 Distances use the difference form: the ``|x|^2 + |z|^2 - 2 x.z`` form
 loses digits that the ill-conditioned factor then amplifies.
@@ -49,11 +69,14 @@ from ..gp.kernels import (Bias, Cosine, Exponential, Matern32, Matern52,
 from ..gp.regression import row_mask
 
 __all__ = ["KINDS", "LEAF_KINDS", "kind_of", "supports_kernel",
-           "supports_plan", "check_kernel", "terms_of", "part_plan",
-           "interval_operands", "fused_intervals", "fused_intervals_plain",
-           "fused_intervals_batched", "interval_plan_operands",
-           "fused_intervals_plan", "fused_intervals_plan_plain",
-           "fused_intervals_single"]
+           "supports_plan", "check_kernel", "terms_of",
+           "part_plan", "round_limb", "split_limbs", "kernel_gram",
+           "kernel_plan_gram", "interval_operands", "fused_intervals",
+           "fused_intervals_plain", "fused_intervals3",
+           "fused_intervals3_plain", "fused_intervals_batched",
+           "interval_plan_operands", "fused_intervals_plan",
+           "fused_intervals_plan_plain", "fused_intervals_plan3",
+           "fused_intervals_plan3_plain", "fused_intervals_single"]
 
 # kernel family -> kind code of the CUDA kernels (csrc/common.cuh); K1/K3
 # take the first four, K2/K4 every leaf kind
@@ -64,8 +87,9 @@ BIAS = LEAF_KINDS[Bias]
 # Widest grid the CUDA kernels take: their shared memory grows with d
 # (the block's scaled points), and stays independent of the capacity.
 MAX_DIM = 64
-# Most leaves of a K2/K4 plan (csrc/common.cuh kMaxLeaves); a plan has at
-# most as many terms as leaves.
+# Leaves of a K2/K4 plan staged in static shared memory (csrc/common.cuh
+# kMaxLeaves); a longer plan runs the kernels' wide instances, which stage
+# it in dynamic shared memory.
 MAX_LEAVES = 8
 # grid columns per step of the plain versions (bounds their memory)
 PLAIN_COLS = 1 << 16
@@ -170,6 +194,95 @@ def gram(kind: int, a: torch.Tensor, b_t: torch.Tensor,
     return plan_gram(a, b_t, [[1.0] * a.shape[1]], [variance], [kind], [0])
 
 
+def round_limb(x: torch.Tensor, limb: str) -> torch.Tensor:
+    """float32 ``x`` rounded to the limb format, as float32: bf16 to
+    nearest even, tf32 (10 stored mantissa bits) to nearest with ties away
+    from zero; infinities and NaN pass through."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"limbs are cut from float32, not {x.dtype}")
+    if limb == "bf16":
+        return x.to(torch.bfloat16).float()
+    if limb != "tf32":
+        raise ValueError(f"unknown limb format {limb!r}")
+    bits = x.view(torch.int32)
+    special = (bits & 0x7F800000) == 0x7F800000
+    rounded = (bits + 0x1000) & -0x2000      # add half an ulp, cut 13 bits
+    return torch.where(special, bits, rounded).view(torch.float32)
+
+
+def split_limbs(x: torch.Tensor, limb: str, round_lo: bool = True):
+    """``(hi, lo)`` in ``x``'s dtype: ``hi = round(x)`` (through float32
+    for a float64 ``x``), ``lo = x - hi``, rounded to the limb format
+    too when ``round_lo``."""
+    hi = round_limb(x.float(), limb).to(x.dtype)
+    lo = x - hi
+    if round_lo:
+        lo = round_limb(lo.float(), limb).to(x.dtype)
+    return hi, lo
+
+
+def kernel_gram(kind, a, b_t, variance):
+    """(rows, B) gram of one stationary family; in float32 bit for bit as
+    the CUDA kernels compute an RBF gram (each column's square added to
+    the distance with one rounding, a fused multiply-add), in float64 as
+    ``gram``."""
+    if a.dtype != torch.float32:
+        return gram(kind, a, b_t, variance)
+    r2 = a.new_zeros((a.shape[0], b_t.shape[1]))
+    for k in range(a.shape[1]):
+        diff = a[:, k, None] - b_t[k, None, :]
+        r2 = _fma32(diff, diff, r2.double())
+    return _kfun32(kind, r2, variance)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as the kernels' fused
+    multiply-add: the product of two float32 values is exact in float64
+    (and the sum rounded twice, to float64 and to float32, differs from
+    one rounding only where the first lands on a float32 tie)."""
+    return (a.double() * b.double() + c).float()
+
+
+def _kfun32(kind: int, r2: torch.Tensor, variance) -> torch.Tensor:
+    """float32 leaf value from ``r2`` as the kernels' ``kfun`` computes
+    it: the JAX package's expressions with the Matern-5/2 polynomial's
+    ``(5/3) r2`` added by a fused multiply-add, as nvcc contracts it."""
+    if kind != LEAF_KINDS[Matern52]:
+        return kfun(kind, r2, variance)
+    r = torch.sqrt(r2 + 1e-36)
+    s5r = math.sqrt(5.0) * r
+    poly = _fma32(r2, torch.tensor(5.0 / 3.0, dtype=torch.float32),
+                  (1.0 + s5r).double())
+    return variance * poly * torch.exp(-s5r)
+
+
+def kernel_plan_gram(a: torch.Tensor, b_t: torch.Tensor, scales, pvar, kinds,
+                     terms) -> torch.Tensor:
+    """(rows, B) gram of a plan; in float32 bit for bit as K2 computes it
+    (each leaf's scaled difference rounded, its square added to the
+    distance by a fused multiply-add; RBF, Exponential, Cosine and Bias
+    leaves; the Matern polynomials as ``_kfun32`` assumes nvcc contracts
+    them), in float64 as ``plan_gram``. Arguments as ``plan_gram``."""
+    if a.dtype != torch.float32:
+        return plan_gram(a, b_t, scales, pvar, kinds, terms)
+    out = prod = None
+    for q, kind in enumerate(kinds):
+        if kind == BIAS:
+            kp = pvar[q] * a.new_ones((a.shape[0], b_t.shape[1]))
+        else:
+            r2 = a.new_zeros((a.shape[0], b_t.shape[1]))
+            for k, scale in enumerate(scales[q]):
+                if scale == 0.0:
+                    continue
+                diff = (a[:, k, None] - b_t[k, None, :]) * scale
+                r2 = _fma32(diff, diff, r2.double())
+            kp = _kfun32(kind, r2, pvar[q])
+        prod = kp if q == 0 or terms[q] != terms[q - 1] else prod * kp
+        if q == len(kinds) - 1 or terms[q + 1] != terms[q]:
+            out = prod if out is None else out + prod
+    return out
+
+
 def part_plan(kernel, d: int, like: torch.Tensor):
     """K2/K4's plan of ``kernel`` over a d-column grid, in the dtype and
     on the device of ``like``: ``(scales, pvar, plan, kdiag)`` with
@@ -177,13 +290,9 @@ def part_plan(kernel, d: int, like: torch.Tensor):
     elsewhere, ``pvar`` (P,) the leaf variances, ``plan`` (2, P) int32
     rows of leaf kind codes and term indices, and ``kdiag`` the prior
     variance (a float: the sum over terms of the product of their leaf
-    variances). Raises ``NotImplementedError`` past ``MAX_LEAVES``."""
+    variances). Any number of leaves."""
     terms = terms_of(kernel)
     leaves = [p for term in terms for p in term]
-    if len(leaves) > MAX_LEAVES:
-        raise NotImplementedError(
-            f"{kernel!r} expands to {len(leaves)} leaves; K2/K4 take at "
-            f"most {MAX_LEAVES}")
     scales = np.zeros((len(leaves), d))
     for q, p in enumerate(leaves):
         if not isinstance(p, Bias):      # constant: distances don't enter
@@ -252,18 +361,50 @@ def fused_intervals_plain(zt, ils, xs, lm, w, scal, kind):
         for g in range(xs.shape[0])])
 
 
+def three_pass_rows(gram_at, lm, w, kdiag, beta, N: int) -> torch.Tensor:
+    """(2, N) rows ``mu -+ beta sigma`` of one GP with the three-pass
+    product ``V = Lm_hi k_hi + Lm_hi k_lo + Lm_lo k_hi`` over bf16 limbs,
+    in ``lm``'s dtype: from float32 operands ``lo`` is rounded to bf16, as
+    a tensor core reads it, and the products and the epilogue run in
+    float64; from float64 operands ``lo`` stays unrounded. ``gram_at(s,
+    e)`` is the (cap, e - s) gram against grid columns s:e."""
+    round_lo = lm.dtype == torch.float32
+    hi, lo = (t.double() for t in split_limbs(lm, "bf16", round_lo))
+    w64 = w.double()
+    out = torch.empty((2, N), dtype=torch.float64, device=lm.device)
+    for s in range(0, N, PLAIN_COLS):
+        e = min(s + PLAIN_COLS, N)
+        k_hi, k_lo = (t.double() for t in split_limbs(gram_at(s, e), "bf16",
+                                                       round_lo))
+        V = hi @ k_hi + hi @ k_lo + lo @ k_hi
+        mu = torch.sum(w64[:, None] * V, dim=0)
+        var = torch.clamp(float(kdiag) - torch.sum(V * V, dim=0), min=0.0)
+        spread = float(beta) * torch.sqrt(var)
+        out[0, s:e] = mu - spread
+        out[1, s:e] = mu + spread
+    return out.to(lm.dtype)
+
+
+def fused_intervals3_plain(zt, ils, xs, lm, w, scal, kind):
+    """Plain PyTorch version of K1-3p: K1's operands, the three-pass
+    product (``three_pass_rows``) on the kernel's gram (``kernel_gram``)."""
+    return torch.stack([
+        three_pass_rows(lambda s, e, g=g: kernel_gram(
+            kind, xs[g], zt[:, s:e] * ils[g][:, None], scal[g, 0]),
+            lm[g], w[g], scal[g, 1], scal[g, 2], zt.shape[1])
+        for g in range(xs.shape[0])])
+
+
 def check_operands(named, device, dtype, shapes) -> None:
     """Raise unless every tensor is on ``device``, of ``dtype`` (bool for
     ``unsafe``, int32 for ``plan``), contiguous and of its expected
-    shape, the grid is at most ``MAX_DIM`` wide and a plan has at most
-    ``MAX_LEAVES`` leaves."""
+    shape, the grid is at most ``MAX_DIM`` wide and a plan has a leaf."""
     d = shapes["zt"][0]
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"the CUDA kernels take 1 to {MAX_DIM} grid "
                          f"columns, got {d}")
-    if "plan" in shapes and not 1 <= shapes["plan"][1] <= MAX_LEAVES:
-        raise NotImplementedError(
-            f"K2/K4 take 1 to {MAX_LEAVES} leaves, got {shapes['plan'][1]}")
+    if "plan" in shapes and shapes["plan"][1] < 1:
+        raise ValueError("a K2/K4 plan needs at least one leaf")
     for name, t in named.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -331,6 +472,24 @@ def k1_layout(zt, ils, xs, lm, w, scal, kind, what):
     return G, N, d, cap, dtype
 
 
+def _launch_k1(symbol, what, zt, ils, xs, lm, w, scal, kind):
+    """(G, 2, N) rows from the K1-layout kernel ``symbol`` (with an
+    ``_f32`` / ``_f64`` suffix in the library) on CUDA operands."""
+    G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, what)
+    lmt = transposed_factor(lm)
+    out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
+
+    from ._build import library
+    fn = getattr(library(), symbol + ("_f32" if dtype == torch.float32
+                                      else "_f64"))
+    with torch.cuda.device(zt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(lmt), ptr(w), ptr(scal),
+                 ptr(out), G, N, d, cap, kind, ctypes.c_void_p(stream))
+    raise_on_error(err, what)
+    return out
+
+
 def fused_intervals(zt, ils, xs, lm, w, scal, kind):
     """(G, 2, N) interval rows: K1 on CUDA, the plain version on CPU.
 
@@ -344,19 +503,8 @@ def fused_intervals(zt, ils, xs, lm, w, scal, kind):
     """
     if zt.device.type == "cpu":
         return fused_intervals_plain(zt, ils, xs, lm, w, scal, kind)
-    G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, "K1")
-    lmt = transposed_factor(lm)
-    out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
-
-    from ._build import library
-    lib = library()
-    fn = (lib.safeopt_intervals_f32 if dtype == torch.float32
-          else lib.safeopt_intervals_f64)
-    with torch.cuda.device(zt.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(lmt), ptr(w), ptr(scal),
-                 ptr(out), G, N, d, cap, kind, ctypes.c_void_p(stream))
-    raise_on_error(err, "K1 (fused_intervals)")
+    out = _launch_k1("safeopt_intervals", "K1 (fused_intervals)", zt, ils,
+                     xs, lm, w, scal, kind)
     fused_intervals.launches += 1
     return out
 
@@ -364,10 +512,28 @@ def fused_intervals(zt, ils, xs, lm, w, scal, kind):
 fused_intervals.launches = 0
 
 
-def fused_intervals_batched(kernels, states, grid: torch.Tensor, beta):
+def fused_intervals3(zt, ils, xs, lm, w, scal, kind):
+    """(G, 2, N) interval rows with the three-pass product: K1-3p on CUDA,
+    ``fused_intervals3_plain`` on CPU. K1's operands and contract. Adds
+    one to ``fused_intervals3.launches`` per kernel launch."""
+    if zt.device.type == "cpu":
+        return fused_intervals3_plain(zt, ils, xs, lm, w, scal, kind)
+    out = _launch_k1("safeopt_intervals3", "K1-3p (fused_intervals3)", zt,
+                     ils, xs, lm, w, scal, kind)
+    fused_intervals3.launches += 1
+    return out
+
+
+fused_intervals3.launches = 0
+
+
+def fused_intervals_batched(kernels, states, grid: torch.Tensor, beta,
+                            three_pass: bool = False):
     """(G, 2, N) interval rows of GPs of one family and capacity, one
-    pass over the grid for all of them."""
-    return fused_intervals(*interval_operands(kernels, states, grid, beta))
+    pass over the grid for all of them: K1, or K1-3p with
+    ``three_pass``."""
+    ops = interval_operands(kernels, states, grid, beta)
+    return (fused_intervals3 if three_pass else fused_intervals)(*ops)
 
 
 def interval_plan_operands(kernel, state, grid: torch.Tensor, beta):
@@ -391,6 +557,48 @@ def fused_intervals_plan_plain(zt, xs, lm, w, scales, pvar, plan, scal):
         lm, w, scal[1], scal[2], zt.shape[1])
 
 
+def fused_intervals_plan3_plain(zt, xs, lm, w, scales, pvar, plan, scal):
+    """Plain PyTorch version of K2-3p: K2's operands, the three-pass
+    product (``three_pass_rows``) on the kernel's gram
+    (``kernel_plan_gram``)."""
+    kinds, terms = plan.tolist()
+    rows = scales.tolist()
+    return three_pass_rows(
+        lambda s, e: kernel_plan_gram(xs, zt[:, s:e], rows, pvar, kinds,
+                                      terms),
+        lm, w, scal[1], scal[2], zt.shape[1])
+
+
+def _launch_k2(symbol, what, zt, xs, lm, w, scales, pvar, plan, scal):
+    """(2, N) rows from the K2-layout kernel ``symbol`` (with an ``_f32``
+    / ``_f64`` suffix in the library) on CUDA operands."""
+    if zt.device.type != "cuda":
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, not "
+                         f"{zt.device}")
+    cap, d = xs.shape
+    N = zt.shape[1]
+    P = pvar.shape[0]
+    dtype = float_dtype(zt, what)
+    check_operands(
+        dict(zt=zt, xs=xs, lm=lm, w=w, scales=scales, pvar=pvar, plan=plan,
+             scal=scal), zt.device, dtype,
+        dict(zt=(d, N), xs=(cap, d), lm=(cap, cap), w=(cap,),
+             scales=(P, d), pvar=(P,), plan=(2, P), scal=(4,)))
+    lmt = transposed_factor(lm[None])[0]
+    out = torch.empty((2, N), dtype=dtype, device=zt.device)
+
+    from ._build import library
+    fn = getattr(library(), symbol + ("_f32" if dtype == torch.float32
+                                      else "_f64"))
+    with torch.cuda.device(zt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(ptr(zt), ptr(xs), ptr(lmt), ptr(w), ptr(scales), ptr(pvar),
+                 ptr(plan), ptr(scal), ptr(out), N, d, cap, P,
+                 ctypes.c_void_p(stream))
+    raise_on_error(err, what)
+    return out
+
+
 def fused_intervals_plan(zt, xs, lm, w, scales, pvar, plan, scal):
     """(2, N) interval rows of one GP with a kernel plan: K2 on CUDA, the
     plain version on CPU.
@@ -405,30 +613,8 @@ def fused_intervals_plan(zt, xs, lm, w, scales, pvar, plan, scal):
     if zt.device.type == "cpu":
         return fused_intervals_plan_plain(zt, xs, lm, w, scales, pvar, plan,
                                           scal)
-    if zt.device.type != "cuda":
-        raise ValueError(f"K2 runs on CUDA or CPU tensors, not {zt.device}")
-    cap, d = xs.shape
-    N = zt.shape[1]
-    P = pvar.shape[0]
-    dtype = float_dtype(zt, "K2")
-    check_operands(
-        dict(zt=zt, xs=xs, lm=lm, w=w, scales=scales, pvar=pvar, plan=plan,
-             scal=scal), zt.device, dtype,
-        dict(zt=(d, N), xs=(cap, d), lm=(cap, cap), w=(cap,),
-             scales=(P, d), pvar=(P,), plan=(2, P), scal=(4,)))
-    lmt = transposed_factor(lm[None])[0]
-    out = torch.empty((2, N), dtype=dtype, device=zt.device)
-
-    from ._build import library
-    lib = library()
-    fn = (lib.safeopt_intervals_plan_f32 if dtype == torch.float32
-          else lib.safeopt_intervals_plan_f64)
-    with torch.cuda.device(zt.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ptr(zt), ptr(xs), ptr(lmt), ptr(w), ptr(scales), ptr(pvar),
-                 ptr(plan), ptr(scal), ptr(out), N, d, cap, P,
-                 ctypes.c_void_p(stream))
-    raise_on_error(err, "K2 (fused_intervals_plan)")
+    out = _launch_k2("safeopt_intervals_plan", "K2 (fused_intervals_plan)",
+                     zt, xs, lm, w, scales, pvar, plan, scal)
     fused_intervals_plan.launches += 1
     return out
 
@@ -436,7 +622,28 @@ def fused_intervals_plan(zt, xs, lm, w, scales, pvar, plan, scal):
 fused_intervals_plan.launches = 0
 
 
-def fused_intervals_single(kernel, state, grid: torch.Tensor, beta):
-    """(2, N) interval rows of one GP whose kernel K2 takes."""
-    return fused_intervals_plan(*interval_plan_operands(kernel, state, grid,
-                                                        beta))
+def fused_intervals_plan3(zt, xs, lm, w, scales, pvar, plan, scal):
+    """(2, N) interval rows of one GP with a kernel plan and the
+    three-pass product: K2-3p on CUDA, ``fused_intervals_plan3_plain`` on
+    CPU. K2's operands and contract. Adds one to
+    ``fused_intervals_plan3.launches`` per kernel launch."""
+    if zt.device.type == "cpu":
+        return fused_intervals_plan3_plain(zt, xs, lm, w, scales, pvar, plan,
+                                           scal)
+    out = _launch_k2("safeopt_intervals_plan3",
+                     "K2-3p (fused_intervals_plan3)", zt, xs, lm, w, scales,
+                     pvar, plan, scal)
+    fused_intervals_plan3.launches += 1
+    return out
+
+
+fused_intervals_plan3.launches = 0
+
+
+def fused_intervals_single(kernel, state, grid: torch.Tensor, beta,
+                           three_pass: bool = False):
+    """(2, N) interval rows of one GP whose kernel K2 takes: K2, or K2-3p
+    with ``three_pass``."""
+    ops = interval_plan_operands(kernel, state, grid, beta)
+    return (fused_intervals_plan3 if three_pass
+            else fused_intervals_plan)(*ops)

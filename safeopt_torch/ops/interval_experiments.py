@@ -56,7 +56,8 @@ import torch
 from ..gp.kernels import RBF
 from .fused_posterior import (KINDS, PLAIN_COLS, check_operands,
                               fused_intervals_plain, gram, interval_rows,
-                              k1_layout, kfun, ptr, raise_on_error,
+                              k1_layout, kernel_gram, plan_gram, ptr,
+                              raise_on_error, round_limb, split_limbs,
                               transposed_factor)
 
 __all__ = ["ABLATIONS", "LIMBS", "intervals_launch", "interval_ablation",
@@ -64,7 +65,7 @@ __all__ = ["ABLATIONS", "LIMBS", "intervals_launch", "interval_ablation",
            "intervals_mu_from_gram_plain", "round_limb", "split_limbs",
            "kernel_gram", "padded_factor", "split_factor",
            "intervals_split", "intervals_split_plain", "float32_bound",
-           "drop_band"]
+           "float32_bound_plan", "drop_band"]
 
 ABLATIONS = {"gram_sums": 0, "solve_rank1": 1, "no_product": 2,
              "epilogue": 3}
@@ -239,48 +240,6 @@ intervals_mu_from_gram.launches = 0
 
 
 # -- B4 -----------------------------------------------------------------------
-
-def round_limb(x: torch.Tensor, limb: str) -> torch.Tensor:
-    """float32 ``x`` rounded to the limb format, as float32: bf16 to
-    nearest even, tf32 (10 stored mantissa bits) to nearest with ties away
-    from zero; infinities and NaN pass through."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"limbs are cut from float32, not {x.dtype}")
-    if limb == "bf16":
-        return x.to(torch.bfloat16).float()
-    if limb != "tf32":
-        raise ValueError(f"unknown limb format {limb!r}")
-    bits = x.view(torch.int32)
-    special = (bits & 0x7F800000) == 0x7F800000
-    rounded = (bits + 0x1000) & -0x2000      # add half an ulp, cut 13 bits
-    return torch.where(special, bits, rounded).view(torch.float32)
-
-
-def split_limbs(x: torch.Tensor, limb: str, round_lo: bool = True):
-    """``(hi, lo)`` in ``x``'s dtype: ``hi = round(x)`` (through float32
-    for a float64 ``x``), ``lo = x - hi``, rounded to the limb format
-    too when ``round_lo``."""
-    hi = round_limb(x.float(), limb).to(x.dtype)
-    lo = x - hi
-    if round_lo:
-        lo = round_limb(lo.float(), limb).to(x.dtype)
-    return hi, lo
-
-
-def kernel_gram(kind, a, b_t, variance):
-    """(rows, B) gram of one stationary family; in float32 bit for bit as
-    the CUDA kernels compute an RBF gram (each column's square added to
-    the distance with one rounding, a fused multiply-add: exact in
-    float64, then rounded), in float64 as ``fused_posterior.gram``."""
-    if a.dtype != torch.float32:
-        return gram(kind, a, b_t, variance)
-    r2 = torch.zeros((a.shape[0], b_t.shape[1]), dtype=torch.float64,
-                     device=a.device)
-    for k in range(a.shape[1]):
-        diff = (a[:, k, None] - b_t[k, None, :]).double()
-        r2 = (r2 + diff * diff).float().double()
-    return kfun(kind, r2.float(), variance)
-
 
 def padded_factor(lm: torch.Tensor) -> torch.Tensor:
     """(ldl, ldl) ``lm`` with zeros past ``cap``, ldl the capacity rounded
@@ -464,36 +423,79 @@ def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None):
                     dV = n * u * A + eG * La.sum(dim=1)[:, None]
                 else:
                     raise ValueError(f"unknown kernel {what!r}")
-            wv = w[g, :n, None] * V
+            dmu = None
             if what == "mu_from_gram":
                 uk = (uvec[:, None] * k).abs().sum(dim=0)
                 dmu = n * u * uk + eG * uvec.abs().sum() + u * uk
-            else:
-                dmu = (w[g, :n, None].abs() * dV).sum(dim=0) + (
-                    n * u * wv.abs().sum(dim=0))
-            ssq = (V * V).sum(dim=0)
-            dq = ((2 * V.abs() + dV) * dV).sum(dim=0) + n * u * ssq + (
-                u * kdiag)
-            sd = torch.clamp(kdiag - ssq, min=0.0).sqrt()
-            # past kdiag by more than dq, both sides clamp var to 0
-            dsd = torch.where(ssq - dq > kdiag, 0.0,
-                              torch.minimum(dq.sqrt(), dq / sd))
-            mu = wv.sum(dim=0)
-            tol = dmu + beta * dsd + 4 * u * (mu.abs() + beta * sd)
+            tol = _rows_tolerance(V, dV, w[g, :n], n, kdiag, beta, dmu)
             out[g, 0, s:e] = tol
             out[g, 1, s:e] = tol
     return out[0] if single else out
 
 
+def _rows_tolerance(V, dV, w, n, kdiag, beta, dmu=None):
+    """``float32_bound``'s distance of the rows mu -+ beta sigma from V
+    (n, B) off by at most dV per entry: |dmu| (unless given) + beta
+    |dsigma| + the rows' own roundings."""
+    u = U32
+    wv = w[:, None] * V
+    if dmu is None:
+        dmu = (w[:, None].abs() * dV).sum(dim=0) + n * u * wv.abs().sum(dim=0)
+    ssq = (V * V).sum(dim=0)
+    dq = ((2 * V.abs() + dV) * dV).sum(dim=0) + n * u * ssq + u * kdiag
+    sd = torch.clamp(kdiag - ssq, min=0.0).sqrt()
+    # past kdiag by more than dq, both sides clamp var to 0
+    dsd = torch.where(ssq - dq > kdiag, 0.0,
+                      torch.minimum(dq.sqrt(), dq / sd))
+    return dmu + beta * dsd + 4 * u * (wv.sum(dim=0).abs() + beta * sd)
+
+
+def float32_bound_plan(zt, xs, lm, w, scales, pvar, plan, scal,
+                       limb="bf16"):
+    """``float32_bound(..., "split", limb)`` for K2's operands (one GP
+    with a plan gram, K2-3p against ``fused_intervals_plan3_plain``):
+    (2, N), from the plan's float64 gram; any leaf kinds (the plain
+    version computes the kernel's gram bit for bit, so the gram's own
+    error does not enter)."""
+    f64 = dict(dtype=torch.float64, device=zt.device)
+    zt, xs, lm, w, pvar, scal = (t.to(**f64) for t in (zt, xs, lm, w, pvar,
+                                                        scal))
+    cap, N = xs.shape[0], zt.shape[1]
+    n = _counts(scal[None], cap)[0]
+    kdiag, beta = float(scal[1]), float(scal[2])
+    kinds, terms = plan.tolist()
+    rows = scales.tolist()
+    L = lm[:n, :n]
+    m = 2 * 3 * -(-n // MMA_K[limb])
+    out = torch.empty((2, N), **f64)
+    for s in range(0, N, PLAIN_COLS):
+        e = min(s + PLAIN_COLS, N)
+        k = plan_gram(xs[:n], zt[:, s:e], rows, pvar, kinds, terms)
+        tol = _rows_tolerance(L @ k, (m + 2) * U32 * (L.abs() @ k.abs()),
+                              w[:n], n, kdiag, beta)
+        out[0, s:e] = tol
+        out[1, s:e] = tol
+    return out
+
+
 def drop_band(ops, what, first=True):
-    """``ops`` (K1's operands, or one GP's in B4's layout) as a kernel
-    that drops each GP's first (or last) 32 active rows would see them:
-    where V is Lm times a gram (``what`` in ``"solve_rank1"``,
-    ``"mu_from_gram"``, ``"split"``) those rows of Lm zeroed; elsewhere
-    the count cut by 32, after the operand rows moved up by 32 for the
-    first band. The rows' distance from the sound ones past
-    ``float32_bound`` shows that the float32 check would fail such a
-    kernel."""
+    """``ops`` (K1's operands, one GP's in B4's layout, or K2's) as a
+    kernel that drops each GP's first (or last) 32 active rows would see
+    them: where V is Lm times a gram (``what`` in ``"solve_rank1"``,
+    ``"mu_from_gram"``, ``"split"``; K2's operands take ``"split"``
+    only) those rows of Lm zeroed; elsewhere the count cut by 32, after
+    the operand rows moved up by 32 for the first band. The rows'
+    distance from the sound ones past ``float32_bound`` shows that the
+    float32 check would fail such a kernel."""
+    if len(ops) == 8:                   # K2's: one GP with a plan
+        if what != "split":
+            raise ValueError(f"K2's operands take 'split', not {what!r}")
+        zt, xs, lm, w, scales, pvar, plan, scal = ops
+        n = _counts(scal[None], lm.shape[-1])[0]
+        lo = 0 if first else max(n - 32, 0)
+        lm = lm.clone()
+        lm[lo:min(lo + 32, n)] = 0
+        return zt, xs, lm, w, scales, pvar, plan, scal
     zt, ils, xs, lm, w, scal, kind = ops
     lm, scal = lm.clone(), scal.clone()
     if what in ("solve_rank1", "mu_from_gram", "split"):

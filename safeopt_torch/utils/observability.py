@@ -2,8 +2,7 @@
 
 Counterpart of ``safeopt_tpu/utils/observability.py:24-78``: every
 ``SafeOpt.optimize()`` records one ``IterationStats`` from scalars the
-host already pulled. The certified-path telemetry fields of the JAX
-package are absent, because the port has no certified path yet.
+host already pulled, the certified path's telemetry among them.
 """
 
 from __future__ import annotations
@@ -29,6 +28,16 @@ class IterationStats:
     next_index: Optional[int]   # chosen grid index
     beta: float
     walk_chunks: int = 0        # candidate chunks the expander walk tested
+    # certified-path telemetry (exact_boundaries runs only; zeros
+    # otherwise): rows inside the float64 band, float32 verdicts the
+    # oracle overturned, whether the band overflowed the triage budget
+    # (the rows past it are decided by their float32 intervals), and
+    # whether the refinement band overflowed its budget, so that the
+    # step recomputed every row at full float32
+    band_population: int = 0
+    certified_corrections: int = 0
+    band_overflow: bool = False
+    refine_full_pass: bool = False
 
     def as_dict(self):
         """Plain-dict view (for logging/JSON sinks)."""

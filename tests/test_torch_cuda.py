@@ -20,7 +20,10 @@ prior std (fmin at two quantiles of l). The K3/K4 cases past the
 resident M2, far below capacity, with several candidate passes and (K3)
 unequal counts in one launch hold the kernel against the float64 plain
 predicate: identical in float64, differing in float32 only where the
-plain one changes within 1e-3 of the threshold.
+plain one changes within 1e-3 of the threshold. K1-3p and K2-3p agree
+with their plain versions to 1e-9 in float64 and, in float32, within the
+worst-case bound of their arithmetic (``float32_bound(..., "split")``,
+``float32_bound_plan``) on the same operands.
 """
 
 import numpy as np
@@ -128,6 +131,13 @@ def test_expander_kernel_matches_plain(cuda, family, n_gps, cap, dtype):
     assert seen == {True, False}
 
 
+def _product_of(n_leaves, d=2):
+    kern = pt.RBF(d, lengthscale=3.0)
+    for _ in range(n_leaves - 1):
+        kern = kern * pt.RBF(d, lengthscale=3.0)
+    return kern
+
+
 def _algebra_gp(name, cap, device, dtype, n_obs=40, seed=1):
     """One GP with a kernel algebra over 2 columns (K2/K4)."""
     kern = {
@@ -138,6 +148,9 @@ def _algebra_gp(name, cap, device, dtype, n_obs=40, seed=1):
                                     ARD=True) + pt.Bias(2, variance=0.5)),
         "cosine": lambda: (pt.Cosine(1, lengthscale=2.0, active_dims=[1])
                            * pt.Matern52(1, variance=1.5, active_dims=[0])),
+        # one leaf past the plan K2/K4 stage in static shared memory: their
+        # wide instances
+        "nine": lambda: _product_of(fp.MAX_LEAVES + 1),
     }[name]()
     rng = np.random.default_rng(seed)
     X = rng.uniform(-2.0, 2.0, size=(n_obs, 2))
@@ -149,7 +162,8 @@ def _algebra_gp(name, cap, device, dtype, n_obs=40, seed=1):
     return gp, grid
 
 
-PLAN_CASES = [("context", 64), ("sum_bias", 100), ("cosine", 256)]
+PLAN_CASES = [("context", 64), ("sum_bias", 100), ("cosine", 256),
+              ("nine", 64)]
 
 
 @pytest.mark.parametrize("name,cap", PLAN_CASES)
@@ -592,3 +606,129 @@ def test_split_kernel_refuses_limbs_of_another_format(cuda):
     with pytest.raises(ValueError, match="split_factor"):
         ie.intervals_split(*one, limb="tf32",
                            limbs=(lm[0].contiguous(), lm[0].contiguous()))
+
+
+# -- K1-3p and K2-3p: the three-pass product ---------------------------------
+
+THREE_PASS_CASES = EXPERIMENT_CASES + [((600,), 1024)]
+
+
+@pytest.mark.parametrize("counts,cap", THREE_PASS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_three_pass_kernel_matches_plain(cuda, counts, cap, dtype):
+    """K1-3p against its plain version: float64 (lo unrounded, FP64 FMAs)
+    to 1e-9; float32 (bf16 tensor cores) within ``float32_bound``'s
+    split bound of the plain version on the same operands."""
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, dtype)
+    before = fp.fused_intervals3.launches
+    got = fp.fused_intervals3(*ops)
+    torch.cuda.synchronize()
+    assert fp.fused_intervals3.launches == before + 1
+    want = fp.fused_intervals3_plain(*ops)
+    if dtype == torch.float64:
+        assert (got - want).abs().max().item() <= 1e-9
+    else:
+        _within(got, want, ie.float32_bound(*ops, "split", limb="bf16"))
+
+
+PLAN_THREE_PASS_CASES = PLAN_CASES + [("context", 1024)]
+
+
+@pytest.mark.parametrize("name,cap", PLAN_THREE_PASS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_plan_three_pass_kernel_matches_plain(cuda, name, cap, dtype):
+    from safeopt_torch.ops import interval_experiments as ie
+    gp, grid = _algebra_gp(name, cap, cuda, dtype,
+                           n_obs=600 if cap == 1024 else 40)
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid, 2.0)
+    before = fp.fused_intervals_plan3.launches
+    got = fp.fused_intervals_plan3(*ops)
+    torch.cuda.synchronize()
+    assert fp.fused_intervals_plan3.launches == before + 1
+    want = fp.fused_intervals_plan3_plain(*ops)
+    if dtype == torch.float64:
+        assert (got - want).abs().max().item() <= 1e-9
+    else:
+        _within(got, want, ie.float32_bound_plan(*ops))
+
+
+# -- past the static plan's leaves and the kernels' columns; the certified
+# path ----------------------------------------------------------------------
+
+def test_plan_past_the_static_leaf_count_runs_the_wide_kernels(cuda):
+    """A 9-leaf product (one leaf past the plan K2/K4 stage in static
+    shared memory; ``PLAN_CASES``' "nine" holds their wide instances
+    against the plain versions): the step launches K2 and K4 on it and
+    decides like the float64 plain step on the CPU."""
+    X = np.array([[0.0, 0.0], [0.5, -0.5], [-0.4, 0.3]])
+    Y = np.array([[1.5], [1.4], [1.45]])
+    grid = pt.linearly_spaced_combinations([(-2.0, 2.0)] * 2, 40)
+    opts = [pt.SafeOpt(pt.GPRegression(X, Y, _product_of(fp.MAX_LEAVES + 1),
+                                       noise_var=1e-3, device=dev,
+                                       dtype=dt), grid, fmin=[1.0])
+            for dev, dt in ((cuda, torch.float32), ("cpu", torch.float64))]
+    before = (fp.fused_intervals_plan.launches,
+              fe.fused_expander_plan.launches)
+    opts[0].optimize()
+    torch.cuda.synchronize()
+    assert fp.fused_intervals_plan.launches == before[0] + 1
+    assert (fe.fused_expander_plan.launches > before[1]
+            or opts[0].stats.last.walk_chunks == 0)
+    opts[1].optimize()
+    l64 = opts[1].Q[:, 0]
+    far = np.abs(l64 - 1.0) / opts[0].scaling[0] >= 1e-3
+    np.testing.assert_array_equal(opts[0].S[far], opts[1].S[far])
+
+
+def test_grid_past_the_column_limit_raises_on_cuda(cuda):
+    """MAX_DIM: the CUDA kernels refuse a grid one column wider, and
+    so does a step on the card (CPU tensors take the plain versions,
+    tests/test_torch_ops.py)."""
+    d = fp.MAX_DIM + 1
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-0.2, 0.2, size=(3, d))
+    gp = pt.GPRegression(X, np.full((3, 1), 1.5), pt.RBF(d, lengthscale=3.0),
+                         noise_var=1e-3)
+    grid = rng.uniform(-0.5, 0.5, size=(500, d))
+    ops = fp.interval_operands([gp.kern], [gp.state],
+                               torch.tensor(grid, device=cuda,
+                                            dtype=torch.float32), 2.0)
+    with pytest.raises(ValueError, match="grid columns"):
+        fp.fused_intervals(*ops)
+    with pytest.raises(ValueError, match="grid columns"):
+        pt.SafeOpt(gp, grid, fmin=[0.0]).optimize()
+
+
+@pytest.mark.parametrize("oracle", ["host", "device"])
+@pytest.mark.parametrize("planned", [False, True])
+def test_certified_step_launches_three_pass_then_full(cuda, oracle, planned):
+    """A certified step at interval_precision='high' runs the grid pass
+    on K1-3p (K2-3p for a plan GP) and the refined rows on K1 (K2), and
+    decides like the float64 plain step on the CPU."""
+    if planned:
+        gp, _ = _algebra_gp("context", 64, cuda, torch.float32)
+        gp64, _ = _algebra_gp("context", 64, "cpu", torch.float64)
+    else:
+        gp, gp64 = (_gps("RBF", 1, 64, dev, dt)[0][0]
+                    for dev, dt in ((cuda, torch.float32),
+                                    ("cpu", torch.float64)))
+    grid = pt.linearly_spaced_combinations([(-3.0, 3.0)] * 2, 200)
+    fmin = [0.8]
+    counts = (fp.fused_intervals3, fp.fused_intervals,
+              fp.fused_intervals_plan3, fp.fused_intervals_plan)
+    before = [f.launches for f in counts]
+    opt = pt.SafeOpt(gp, grid, fmin=fmin, exact_boundaries=True,
+                     interval_precision="high", oracle=oracle)
+    x = opt.optimize()
+    torch.cuda.synchronize()
+    launched = [f.launches - b for f, b in zip(counts, before)]
+    assert launched == ([0, 0, 1, 1] if planned else [1, 1, 0, 0])
+    ref = pt.SafeOpt(gp64, grid, fmin=fmin)
+    xr = ref.optimize()
+    l64 = ref.Q[:, 0]
+    far = np.abs(l64 - fmin[0]) / opt.scaling[0] >= 1e-9
+    np.testing.assert_array_equal(opt.S[far], ref.S[far])
+    w = (ref.Q[:, 1] - ref.Q[:, 0]) / opt.scaling[0]
+    i, j = opt.stats.last.next_index, ref.stats.last.next_index
+    assert i == j or abs(w[i] - w[j]) <= 1e-3, (x, xr)

@@ -419,6 +419,33 @@ def test_float32_bound_sees_a_dropped_band_of_the_split_product(limb):
         assert (fault / bound).max().item() > 1.0
 
 
+@pytest.mark.parametrize("first", [True, False])
+def test_float32_bound_plan_sees_a_dropped_band(first):
+    """K2-3p's float32 bound against a plain version that drops the GP's
+    first (last) 32 active rows of Lm (``drop_band`` on K2's operands):
+    past the bound somewhere, and only those rows of Lm zeroed."""
+    import safeopt_torch as pt
+    rng = np.random.default_rng(13)
+    X = np.hstack([rng.uniform(-3.0, 3.0, size=(60, 1)), np.zeros((60, 1))])
+    Y = np.exp(-0.5 * X[:, :1] ** 2)
+    kern = (pt.RBF(1, variance=2.0, active_dims=[0])
+            * pt.RBF(1, lengthscale=1.5, active_dims=[1]))
+    gp = pt.GPRegression(X, Y, kern, noise_var=0.05 ** 2, capacity=64,
+                         device="cpu", dtype=torch.float32)
+    grid = torch.tensor(rng.uniform(-3.0, 3.0, size=(500, 2)),
+                        dtype=torch.float32)
+    ops = pfp.interval_plan_operands(gp.kern, gp.state, grid, 2.0)
+    faulty = ie.drop_band(ops, "split", first)
+    rows = slice(0, 32) if first else slice(28, 60)
+    kept = torch.ones(64, dtype=torch.bool)
+    kept[rows] = False
+    assert not faulty[2][rows].any()
+    assert torch.equal(faulty[2][kept], ops[2][kept])
+    want = pfp.fused_intervals_plan3_plain(*ops).double()
+    fault = (pfp.fused_intervals_plan3_plain(*faulty).double() - want).abs()
+    assert (fault / ie.float32_bound_plan(*ops)).max().item() > 1.0
+
+
 def test_padded_factor():
     lm = torch.arange(40 * 40, dtype=torch.float32).reshape(40, 40)
     p = ie.padded_factor(lm)

@@ -14,7 +14,10 @@ bitwise (the plain version's BLAS sums only to 1e-12), at capacities
 that are and are not multiples of the kernels' 32-row bands. The CUDA
 K3/K4 stop there too: their ``scal`` carries the count, M2 is exactly
 zero past it, and the plain predicate over the leading rows is the one
-over the capacity.
+over the capacity. The three-pass plain versions of K1-3p/K2-3p agree
+with the JAX kernels at ``three_pass=True`` to atol 1e-10 in float64,
+and in float32 cut the limbs of the kernel's own gram; a 9-leaf plan and
+a 65-column grid decide on the CPU as the JAX package.
 """
 
 import jax
@@ -398,15 +401,206 @@ def test_plan_layout_and_limits():
                                [[0.0, 0.5], [1.0, 0.0], [0.5, 0.5]])
     np.testing.assert_array_equal(pvar.numpy(), [1.0, 1.5, 0.3])
     assert kdiag == 1.0 * 1.5 + 0.3
+    # past the leaves staged in static shared memory the plan is built
+    # all the same and the CUDA wrappers' checks pass it (the kernels'
+    # wide instances stage it in dynamic shared memory); a grid past
+    # MAX_DIM columns fails them
     big = jt.RBF(2)
     for _ in range(pfp.MAX_LEAVES):
         big = big * jt.RBF(2)
-    with pytest.raises(NotImplementedError, match="leaves"):
-        pfp.part_plan(kernel_from_params(**kernel_params(big)), 2, f64)
+    big = kernel_from_params(**kernel_params(big))
+    scales, pvar, plan, kdiag = pfp.part_plan(big, 2, f64)
+    assert plan.shape == (2, pfp.MAX_LEAVES + 1)
+    np.testing.assert_array_equal(plan[1].numpy(), 0)     # one term
+    P = pfp.MAX_LEAVES + 1
+    named = dict(zt=torch.zeros((2, 5), dtype=torch.float64), scales=scales,
+                 pvar=pvar, plan=plan)
+    shapes = dict(zt=(2, 5), scales=(P, 2), pvar=(P,), plan=(2, P))
+    pfp.check_operands(named, f64.device, torch.float64, shapes)
+    wide = dict(named, zt=torch.zeros((pfp.MAX_DIM + 1, 5),
+                                      dtype=torch.float64))
+    with pytest.raises(ValueError, match="grid columns"):
+        pfp.check_operands(wide, f64.device, torch.float64,
+                           dict(shapes, zt=(pfp.MAX_DIM + 1, 5)))
     assert not pfp.supports_plan(kernel_from_params(**kernel_params(
         jt.RBF(1) + jt.White(1))), 1)
     assert not pfp.supports_plan(kernel_from_params(**kernel_params(
         jt.RBF(1, active_dims=[2]))), 2)
+
+
+# -- past the static plan's leaves and the kernels' columns -------------------
+
+def _nine_leaves(pkg, d=2):
+    kern = pkg.RBF(d, variance=2.0, lengthscale=3.0)
+    for _ in range(pfp.MAX_LEAVES):
+        kern = kern * pkg.RBF(d, lengthscale=3.0)
+    return kern
+
+
+def test_plan_past_the_leaf_limit_matches_pallas():
+    """A 9-leaf product (one leaf past K2's static plan) on the CPU: the
+    plain version takes it and agrees with the JAX package's Pallas
+    kernel, which takes any tree of stationary leaves."""
+    rng = np.random.default_rng(9)
+    X = rng.uniform(-2.0, 2.0, size=(15, 2))
+    Y = (1.0 + np.cos(X.sum(axis=1)))[:, None]
+    jgp = jt.GPRegression(X, Y, _nine_leaves(jt), noise_var=0.01,
+                          capacity=32)
+    pgp = gp_from_arrays(kernel_from_params(**kernel_params(jgp.kern)),
+                         **gp_arrays(jgp), device="cpu")
+    grid = rng.uniform(-3.0, 3.0, size=(700, 2))
+    l, u = jfp.fused_intervals(jgp.kern, jgp.state, jnp.asarray(grid), 2.0,
+                               block=256)
+    out = pfp.fused_intervals_single(pgp.kern, pgp.state, torch.tensor(grid),
+                                     2.0)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(l), rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(u), rtol=0,
+                               atol=1e-10)
+
+
+def test_grid_past_the_column_limit_decides_on_the_cpu():
+    """MAX_DIM: a grid one column wider than the CUDA kernels take
+    (they refuse it, tests/test_torch_cuda.py) decides on CPU tensors,
+    through the plain versions, as the JAX step does."""
+    from safeopt_torch.algorithms import safe_opt_core as pcore
+    from safeopt_tpu.algorithms import safe_opt_core as jcore
+
+    # a product over 64 + 1 columns: the JAX package's native host gram
+    # refuses one stationary leaf wider than 64 (ROADMAP Queue 3)
+    d = pfp.MAX_DIM + 1
+    rng = np.random.default_rng(65)
+    X = rng.uniform(-0.3, 0.3, size=(6, d))
+    Y = (1.2 - 0.2 * np.sum(X ** 2, axis=1))[:, None]
+    kern = (jt.RBF(d - 1, variance=1.5, lengthscale=3.0,
+                   active_dims=list(range(d - 1)))
+            * jt.RBF(1, lengthscale=2.0, active_dims=[d - 1]))
+    jgp = jt.GPRegression(X, Y, kern, noise_var=0.01)
+    pgp = gp_from_arrays(kernel_from_params(**kernel_params(jgp.kern)),
+                         **gp_arrays(jgp), device="cpu")
+    grid = rng.uniform(-1.0, 1.0, size=(400, d))
+    assert pcore._gp_groups((pgp.kern,), (pgp.state,), d) == [([0], True)]
+    rj = jcore.safeopt_step((jgp.kern,), (jgp.state,), jnp.asarray(grid),
+                            jnp.asarray([0.5]), jnp.asarray(2.0),
+                            jnp.asarray([1.0]), jnp.asarray([0.0]), chunk=8)
+    t = lambda a: torch.tensor(a, dtype=torch.float64)  # noqa: E731
+    rp = pcore.safeopt_step((pgp.kern,), (pgp.state,), t(grid), t([0.5]),
+                            2.0, t([1.0]), t([0.0]), chunk=8)
+    np.testing.assert_allclose(rp.Q.numpy(), np.asarray(rj.Q), rtol=0,
+                               atol=1e-10)
+    for name in ("S", "M", "G"):
+        np.testing.assert_array_equal(getattr(rp, name).numpy(),
+                                      np.asarray(getattr(rj, name)))
+    assert int(rp.next_idx) == int(rj.next_idx)
+
+
+# -- K1-3p / K2-3p: the three-pass plain versions -----------------------------
+
+@pytest.mark.parametrize("family,n_gps,cap", CASES)
+def test_three_pass_plain_matches_pallas(family, n_gps, cap):
+    """float64, lo unrounded: the three-pass plain version is the JAX
+    package's ``_fused_intervals_multi_impl(three_pass=True)`` (interpret
+    mode) up to summation order."""
+    jgps, pgps, grid = _models(family, n_gps, cap, seed=3 * cap + n_gps)
+    jout = jfp.fused_intervals_batched(
+        tuple(g.kern for g in jgps), tuple(g.state for g in jgps),
+        jnp.asarray(grid), 2.0, block=256, three_pass=True)
+    before = pfp.fused_intervals3.launches
+    pout = pfp.fused_intervals_batched(
+        [g.kern for g in pgps], [g.state for g in pgps], torch.tensor(grid),
+        2.0, three_pass=True)
+    assert pfp.fused_intervals3.launches == before   # CPU: no kernel launch
+    full = pfp.fused_intervals_batched(
+        [g.kern for g in pgps], [g.state for g in pgps], torch.tensor(grid),
+        2.0)
+    assert (pout - full).abs().max().item() > 1e-9   # the limbs dropped lo lo
+    for g, (l, u) in enumerate(jout):
+        np.testing.assert_allclose(pout[g, 0].numpy(), np.asarray(l),
+                                   rtol=0, atol=1e-10)
+        np.testing.assert_allclose(pout[g, 1].numpy(), np.asarray(u),
+                                   rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("name,cap", ALGEBRAS)
+def test_plan_three_pass_plain_matches_pallas(name, cap):
+    """As above for K2-3p: ``_fused_intervals_impl(three_pass=True)``."""
+    jgp, pgp, grid = _algebra_model(name, cap, seed=2 * cap)
+    l, u = jfp.fused_intervals(jgp.kern, jgp.state, jnp.asarray(grid), 2.0,
+                               block=256, three_pass=True)
+    before = pfp.fused_intervals_plan3.launches
+    out = pfp.fused_intervals_single(pgp.kern, pgp.state, torch.tensor(grid),
+                                     2.0, three_pass=True)
+    assert pfp.fused_intervals_plan3.launches == before
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(l), rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(u), rtol=0,
+                               atol=1e-10)
+
+
+def _reconstruct_three_pass(gram32, lm, w, kdiag, beta):
+    """The rows from an independent cut: bf16 hi of float32 values, lo
+    rounded to bf16, three float64 products."""
+    def cut(x):
+        hi = x.to(torch.bfloat16).float()
+        return hi.double(), (x - hi).to(torch.bfloat16).double()
+
+    hi, lo = cut(lm)
+    k_hi, k_lo = cut(gram32)
+    V = hi @ k_hi + hi @ k_lo + lo @ k_hi
+    mu = (w.double()[:, None] * V).sum(dim=0)
+    sd = float(beta) * torch.sqrt(torch.clamp(float(kdiag)
+                                              - (V * V).sum(dim=0), min=0))
+    return torch.stack([mu - sd, mu + sd]).float()
+
+
+def test_three_pass_float32_plain_cuts_the_kernels_limbs():
+    """float32: K1-3p's and K2-3p's plain versions are, bit for bit, the
+    limbs of the kernel's gram (``kernel_gram`` / ``kernel_plan_gram``)
+    and of Lm cut with lo rounded to bf16, the three products in float64."""
+    jgps, pgps, grid = _models("RBF", 2, 64, seed=5)
+    ops = pfp.interval_operands([g.kern for g in pgps],
+                                [g.state for g in pgps],
+                                torch.tensor(grid, dtype=torch.float32), 2.0)
+    ops = tuple(o.float() if torch.is_tensor(o) else o for o in ops)
+    zt, ils, xs, lm, w, scal, kind = ops
+    out = pfp.fused_intervals3_plain(*ops)
+    assert out.dtype == torch.float32
+    for g in range(2):
+        k = pfp.kernel_gram(kind, xs[g], zt * ils[g][:, None], scal[g, 0])
+        assert torch.equal(out[g], _reconstruct_three_pass(
+            k, lm[g], w[g], scal[g, 1], scal[g, 2]))
+    _, pgp, grid = _algebra_model("context", 64, seed=11)
+    pops = pfp.interval_plan_operands(pgp.kern, pgp.state,
+                                      torch.tensor(grid), 2.0)
+    pops = tuple(o.float() if o.is_floating_point() else o for o in pops)
+    zt, xs, lm, w, scales, pvar, plan, scal = pops
+    kinds, terms = plan.tolist()
+    k = pfp.kernel_plan_gram(xs, zt, scales.tolist(), pvar, kinds, terms)
+    assert torch.equal(pfp.fused_intervals_plan3_plain(*pops),
+                       _reconstruct_three_pass(k, lm, w, scal[1], scal[2]))
+
+
+def test_kernel_plan_gram_rounds_as_the_kernel():
+    """The float32 plan gram adds each square with one rounding (a fused
+    multiply-add) and otherwise takes the plain float32 gram's steps; in
+    float64 it is ``plan_gram``."""
+    a = torch.tensor([1.0 + 2.0 ** -12], dtype=torch.float32)
+    c = torch.tensor([-(1.0 + 2.0 ** -11)], dtype=torch.float32)
+    assert pfp._fma32(a, a, c.double()).item() == 2.0 ** -24
+    assert (a * a + c).item() == 0.0           # two roundings lose it
+    _, pgp, grid = _algebra_model("sum_bias", 32, seed=4)
+    pops = pfp.interval_plan_operands(pgp.kern, pgp.state,
+                                      torch.tensor(grid), 2.0)
+    zt, xs, lm, w, scales, pvar, plan, scal = pops
+    kinds, terms = plan.tolist()
+    rows = scales.tolist()
+    want = pfp.plan_gram(xs, zt, rows, pvar, kinds, terms)
+    assert torch.equal(pfp.kernel_plan_gram(xs, zt, rows, pvar, kinds,
+                                            terms), want)
+    got32 = pfp.kernel_plan_gram(xs.float(), zt.float(), rows, pvar.float(),
+                                 kinds, terms)
+    assert got32.dtype == torch.float32
+    assert (got32.double() - want).abs().max().item() <= 1e-5
 
 
 # -- K5: exact top-k ----------------------------------------------------------

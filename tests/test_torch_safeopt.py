@@ -21,6 +21,7 @@ from numpy.testing import assert_allclose
 
 import safeopt_torch as pt
 import safeopt_tpu as jt
+from safeopt_torch.algorithms import safe_opt as psafe
 from safeopt_torch.algorithms import safe_opt_core as pcore
 from safeopt_torch.convert import (gp_arrays, gp_from_arrays,
                                    kernel_from_params, kernel_params)
@@ -136,6 +137,39 @@ def _golden_long_trajectory():
                    capacity=16, fmin=[0.0], threshold=0.05), [f], 30
 
 
+def _golden_nine_leaves():
+    """Test2D's problem with its kernel written as a product of nine
+    RBF(2) leaves of lengthscale 3 (one leaf past K2's static plan: the
+    wide kernel instances on the card), the same function as one RBF of
+    lengthscale 1: the port and safeopt_tpu take the product, the
+    reference the single RBF."""
+    kw = dict(variance=2.0, lengthscale=1.0, ARD=True)
+    f = rkhs_fn(RefRBF(2, **kw).K,
+                [[0.0, 0.0], [2.0, 1.0], [-2.0, -1.5], [1.0, -2.0]],
+                [2.0, 1.2, -1.0, -1.5])
+    grid = pt.linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 25)
+    # off the grid's symmetry axes: from (0, 0) the second query is an
+    # exact tie of mirrored widths, which the product's rounding breaks
+    # one way and the single RBF's the other
+    x0 = np.array([[0.3, -0.1]])
+
+    def product(pkg):
+        kern = pkg.RBF(2, variance=2.0, lengthscale=3.0)
+        for _ in range(pfp.MAX_LEAVES):
+            kern = kern * pkg.RBF(2, lengthscale=3.0)
+        return kern
+
+    opt_kw = dict(fmin=[0.0], threshold=0.2)
+    port = pt.SafeOpt(pt.GPRegression(x0, f(x0)[:, None], product(pt),
+                                      noise_var=0.05 ** 2, device="cpu"),
+                      grid, **opt_kw)
+    jax_opt = jt.SafeOpt(jt.GPRegression(x0, f(x0)[:, None], product(jt),
+                                         noise_var=0.05 ** 2), grid, **opt_kw)
+    ref = RefSafeOpt(RefGP(x0, f(x0)[:, None], RefRBF(2, **kw),
+                           noise_var=0.05 ** 2), grid, **opt_kw)
+    return (port, jax_opt, ref), [f], 8
+
+
 GOLDEN = {
     "Test1D": _golden_1d,
     "Test1D_lipschitz": _golden_lipschitz,
@@ -144,6 +178,7 @@ GOLDEN = {
     "TestMaternObjective": _golden_matern_objective,
     "TestThreeGPs": _golden_three_gps,
     "TestLongTrajectory": _golden_long_trajectory,
+    "TestNineLeafProduct": _golden_nine_leaves,
 }
 
 
@@ -402,8 +437,35 @@ def test_add_then_remove_gives_same_query():
                                 dict(refine_band=0.1),
                                 dict(refine_band_k=1024)])
 def test_certified_requests_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port_opt(**kw)
+    """Each request that raised NotImplementedError before the certified
+    path was ported now resolves as safeopt_tpu resolves it and steps;
+    only its invalid combinations raise (``tests/test_torch_certified.py``
+    holds the decisions against safeopt_tpu)."""
+    opt = _port_opt(**kw)
+    jopt = jt.SafeOpt(jt.GPRegression(np.array([[0.0]]), np.array([[1.5]]),
+                                      jt.RBF(1, variance=2.0),
+                                      noise_var=1e-3),
+                      pt.linearly_spaced_combinations([(-4.0, 4.0)], 100),
+                      fmin=[0.0], use_pallas=False, **kw)
+    # the refine band's and budget's defaults are the port's own
+    # (safe_opt.REFINE_BAND, re-derived from the card's three-pass error;
+    # REFINE_BAND_SHARE of the grid), the rest as safeopt_tpu
+    names = ["_exact_boundaries", "_boundary_band", "_boundary_k",
+             "_interval_precision", "_refine_k", "_oracle"]
+    if "refine_band" in kw:
+        names.append("_refine_band")
+    else:
+        assert opt._refine_band == psafe.REFINE_BAND
+    if "refine_band_k" in kw:
+        names.append("_refine_band_k")
+    else:
+        assert opt._refine_band_k == int(100 * psafe.REFINE_BAND_SHARE)
+    for name in names:
+        assert getattr(opt, name) == getattr(jopt, name), name
+    assert opt.optimize().shape == (1,)
+    with pytest.raises(ValueError, match="exact_boundaries"):
+        _port_opt(**{**kw, "interval_precision": "high",
+                     "exact_boundaries": False})
 
 
 def test_plain_path_defaults_accepted():
