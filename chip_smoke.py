@@ -53,10 +53,18 @@ Phases, each reported on its own line:
    printed beside K1's; beside each float32 bound its median and the
    rows' median |.|, and how far past it the rows of a kernel that drops
    each GP's first (which must be past the bound) or last 32 active
-   rows land (``drop_band``); then the experiment path,
+   rows land (``drop_band``); the harnesses' three-pass columns, B1-3p
+   bit-identical to K1-3p (``fused_intervals3``) at every launch layout
+   in float64 and float32, B2-3p (the rank-1 solve) and B3-3p (mu from
+   the gram) to 1e-9 in float64 and in float32 within their float32
+   bound of the plain version on the same operands, both planted faults
+   past it, and the max scaled |dQ| against the float64 rows (B3-3p's
+   below ``refine_band - boundary_band``; B2-3p's rank-1 rows are no
+   SafeOpt intervals, and theirs is printed beside the plain version's
+   own); then the experiment path,
    ``tools_torch/bench_interval_experiments.py``'s five harnesses on the
-   cap-512 state in float32, with every count zeroed before it and read
-   after it;
+   cap-512 state in float32 (B1-B3 with their ``3pass`` columns), with
+   every count zeroed before it and read after it;
 9. the flagship path: two RBF GPs, 1000 x 1000 grid, 50 observations,
    capacity 64, chunk 32, through ``SafeOpt.optimize`` and
    ``add_new_data_point`` for 10 iterations against a NumPy plant, with
@@ -103,7 +111,7 @@ Phases, each reported on its own line:
     full pass), no experiment kernel;
 13. times of the paths and of each kernel against its plain version
     (K3 also at capacity 512, K2 also on the nine-leaf kernel; B1-B5
-    from the experiment path), beside the
+    and B1-3p-B3-3p from the experiment path), beside the
     least time the card could take (``bound_ms``: the least work the
     output needs; for B2's rank-1 solve and B5's epilogue also the work
     the kernel is told to do, printed apart) and the share of that bound
@@ -297,17 +305,20 @@ def ablation_bound(mode, dtype, G, N, d, cap, n, prescribed=False):
                              + 11 * N), nbytes)
 
 
-def split_bound(limb, N, d, cap, n, G=1, leaves=None):
-    """Least time of B4, K1-3p and K2-3p on these inputs (G GPs; a plan's
-    ``leaves`` for K2-3p): the three limb products' 3 n(n+1) flops a
-    point on the tensor cores at the limb format's peak; on the FP32
-    pipe the gram, its split (two roundings and a difference an entry)
-    and the epilogue; inputs read once, the (G, 2, N) rows written once.
-    The largest of the three."""
+def split_bound(limb, N, d, cap, n, G=1, leaves=None, gram=True):
+    """Least time of B4, K1-3p, K2-3p, B1-3p and B3-3p on these inputs (G
+    GPs; a plan's ``leaves`` for K2-3p): the three limb products' 3
+    n(n+1) flops a point on the tensor cores at the limb format's peak;
+    on the FP32 pipe the gram, its split (two roundings and a difference
+    an entry) and the epilogue; inputs read once, the (G, 2, N) rows
+    written once. The largest of the three. ``gram`` False (B2-3p): no
+    gram term, and grid and inputs read in column 0 only (the rank-1
+    gram; its limbs are no rank-1 product, so the product stays)."""
+    dg = d if gram else 1
     t_tc = 3 * G * N * n * (n + 1) / PEAK_TENSOR[limb]
-    t_fp = (G * N * (n * (gram_flops(d, leaves) + 3) + 4 * n + 8)
-            / PEAK_FLOPS[torch.float32])
-    t_mem = 4 * (d * N + G * (cap * d + cap * cap + cap + 4 + 2 * N)
+    t_fp = (G * N * (n * ((gram_flops(d, leaves) if gram else 0) + 3)
+                     + 4 * n + 8) / PEAK_FLOPS[torch.float32])
+    t_mem = 4 * (dg * N + G * (cap * dg + cap * cap + cap + 4 + 2 * N)
                  ) / PEAK_BYTES
     t, by = max((t_tc, "operations"), (t_fp, "operations"),
                 (t_mem, "bytes"))
@@ -418,58 +429,81 @@ def refine_slack():
         "boundary_band"].default
 
 
-def check_three_pass(label, ops, fmin, scale, planned=False):
-    """K1-3p (K2-3p when ``planned``) against its plain version on
-    ``ops`` {dtype: operands}: float64 to 1e-9, float32 within its
-    float32 bound, and a planted fault (the plain rows with each GP's
-    first, then last, 32 active rows of Lm dropped) past that bound;
-    beside them the float32 rows' max scaled |dQ| against the float64
-    K1/K2 plain rows (checked below ``refine_slack()``) and their
-    decisions outside the band. ``fmin`` and ``scale`` per GP. Returns
-    (float64 error, float32 max scaled |dQ|, the fault readings)."""
+def check_three_pass(label, ops, fmin, scale, what="split"):
+    """A three-pass kernel against its plain version on ``ops`` {dtype:
+    operands}: float64 to 1e-9, float32 within its float32 bound, and a
+    planted fault (the plain rows with each GP's first, then last, 32
+    active rows of Lm dropped) past that bound; beside them the float32
+    rows' max scaled |dQ| against the float64 rows of the full-precision
+    function (and the plain version's own), checked below
+    ``refine_slack()``, and their decisions outside the band. ``what``:
+    ``"split"`` K1-3p, ``"plan"`` K2-3p, ``"solve_rank1"`` B2-3p (its
+    |dQ| printed, not held: the rank-1 stand-in gram reaches |k| = 20,
+    and its rows are no SafeOpt intervals), ``"mu_from_gram"`` B3-3p
+    (against K1's rows, its function). ``fmin`` and ``scale`` per GP.
+    Returns (float64 error, float32 max scaled |dQ|, the fault
+    readings)."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
     slack = refine_slack()
-
-    if planned:
+    o64, o32 = ops[torch.float64], ops[torch.float32]
+    if what == "plan":
         kernel = fp.fused_intervals_plan3
         plain, full = (fp.fused_intervals_plan3_plain,
                        fp.fused_intervals_plan_plain)
-        name = "K2-3p"
-        bound_ = ie.float32_bound_plan(*ops[torch.float32])
-    else:
+        name, fault = "K2-3p", "split"
+        bound_ = ie.float32_bound_plan(*o32)
+    elif what == "split":
         kernel, plain = fp.fused_intervals3, fp.fused_intervals3_plain
-        full, name = fp.fused_intervals_plain, "K1-3p"
-        bound_ = ie.float32_bound(*ops[torch.float32], "split", limb="bf16")
-    o64, o32 = ops[torch.float64], ops[torch.float32]
+        full, name, fault = fp.fused_intervals_plain, "K1-3p", "split"
+        bound_ = ie.float32_bound(*o32, "split", limb="bf16")
+    else:
+        if what == "mu_from_gram":
+            name, kernel = "B3-3p", ie.intervals_mu_from_gram
+            plain = ie.intervals_mu_from_gram_plain
+            full = fp.fused_intervals_plain
+        else:
+            name = f"B2-3p {what}"
+            kernel = functools.partial(ie.interval_ablation, mode=what)
+            plain = functools.partial(ie.interval_ablation_plain, mode=what)
+            full = plain
+        kernel, plain = (functools.partial(f, three_pass=True)
+                         for f in (kernel, plain))
+        fault = what
+        bound_ = ie.float32_bound(*o32, what, three_pass=True)
     err64 = (kernel(*o64) - plain(*o64)).abs().max().item()
     k32 = kernel(*o32)
-    ratio = ((k32.double() - plain(*o32).double()).abs()
-             / bound_).max().item()
-    faults = fault_readings(plain, o32, "split", bound_)
+    p32 = plain(*o32)
+    ratio = ((k32.double() - p32.double()).abs() / bound_).max().item()
+    faults = fault_readings(plain, o32, fault, bound_)
     N = o64[0].shape[1]
     ref = full(*o64).view(-1, 2, N)
     k32 = k32.view(-1, 2, N).double()
     sc = torch.tensor(scale, dtype=torch.float64, device="cuda")[:, None]
     dq = ((k32 - ref).abs() / sc[:, None]).max().item()
+    dq_plain = ((p32.view(-1, 2, N).double() - ref).abs()
+                / sc[:, None]).max().item()
     wrong, in_band = decisions_agree(
         k32[:, 0], ref[:, 0], torch.tensor(fmin, dtype=torch.float64,
                                            device="cuda")[:, None], sc)
+    held = what != "solve_rank1"
     torch.cuda.synchronize()
     print(f"{name} {label}: f64 max|kernel-plain|={err64:.3e} (limit 1e-9); "
           f"f32 at most {ratio:.3f} of its float32 bound (limit 1), a "
           f"kernel dropping the first / last 32 active rows "
           f"{faults[0]:.4g} / {faults[1]:.4g} of it (limit: past 1); f32 "
-          f"max scaled |dQ| against the float64 rows {dq:.3e} (limit "
-          f"{slack:g}); f32 decisions differing outside the {BAND:g} "
-          f"band={wrong} (rows inside the band: {in_band})", flush=True)
+          f"max scaled |dQ| against the float64 rows {dq:.3e} (the plain "
+          f"version's own {dq_plain:.3e}; "
+          + (f"limit {slack:g}" if held else "not held") +
+          f"); f32 decisions differing outside the {BAND:g} band={wrong} "
+          f"(rows inside the band: {in_band})", flush=True)
     check(err64 <= 1e-9, f"{name} {label} f64 error {err64}")
     check(ratio <= 1.0, f"{name} {label} f32 error past its bound")
     check(min(faults) > 1.0, f"{name} {label}: a kernel dropping a band of "
                              f"rows stays within the float32 bound {faults}")
-    check(dq < slack, f"{name} {label}: the three-pass error {dq} is past "
-                      "refine_band - boundary_band")
+    check(not held or dq < slack, f"{name} {label}: the three-pass error "
+                                  f"{dq} is past refine_band - boundary_band")
     return err64, dq, faults
 
 
@@ -679,6 +713,9 @@ def zero_launches():
                ie.intervals_launch, ie.interval_ablation,
                ie.intervals_mu_from_gram, ie.intervals_split):
         fn.launches = 0
+    for fn in (ie.intervals_launch, ie.interval_ablation,
+               ie.intervals_mu_from_gram):
+        fn.three_pass_launches = 0
     for counts in (ie.interval_ablation.mode_launches,
                    ie.intervals_split.limb_launches):
         counts.update(dict.fromkeys(counts, 0))
@@ -696,7 +733,10 @@ def experiment_launches():
             "B3": ie.intervals_mu_from_gram.launches,
             "B4 bf16": limbs["bf16"], "B4 tf32": limbs["tf32"],
             "B5 no_product": modes["no_product"],
-            "B5 epilogue": modes["epilogue"]}
+            "B5 epilogue": modes["epilogue"],
+            "B1-3p": ie.intervals_launch.three_pass_launches,
+            "B2-3p solve_rank1": ie.interval_ablation.three_pass_launches,
+            "B3-3p": ie.intervals_mu_from_gram.three_pass_launches}
 
 
 def read_launches():
@@ -725,13 +765,15 @@ def fault_readings(plain, ops, what, bound_):
 
 
 def check_experiments(label, ops64, ops32):
-    """B1-B5 against their plain versions on K1's operands of one state
-    in float64 and float32, and how each float32 bound compares with the
-    rows and with a planted fault. Returns {kernels-line name: max abs
-    error} (float64; B4's float32 against its plain version)."""
+    """B1-B5 and B1-3p-B3-3p against their plain versions on K1's
+    operands of one state in float64 and float32, and how each float32
+    bound compares with the rows and with a planted fault. Returns
+    {kernels-line name: max abs error} (float64; B4's float32 against its
+    plain version)."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
+    f32, f64 = torch.float32, torch.float64
     cap = ops64[2].shape[1]
     for ops in (ops64, ops32):
         k1 = fp.fused_intervals(*ops)
@@ -743,6 +785,22 @@ def check_experiments(label, ops64, ops32):
                   f"carveout={carveout} differs from K1")
     print(f"B1 {label}: K1's bits at every launch layout, float64 and "
           f"float32", flush=True)
+    # every layout of LAYOUTS fits the card (B1 ran them all, with the
+    # same shared memory): a raise here is B1-3p's own and fails
+    for ops in (ops64, ops32):
+        k1_3p = fp.fused_intervals3(*ops)
+        for slices, res, carveout in LAYOUTS[cap][ops[0].dtype]:
+            where = (f"B1-3p {label} {ops[0].dtype} slices={slices} "
+                     f"res={res} carveout={carveout}")
+            try:
+                got = ie.intervals_launch(*ops, slices=slices, res=res,
+                                          carveout=carveout, three_pass=True)
+            except RuntimeError as err:
+                fail(f"{where} raised: {err}")
+            check(torch.equal(got, k1_3p), f"{where} differs from K1-3p")
+    print(f"B1-3p {label}: K1-3p's bits at every launch layout "
+          f"({len(LAYOUTS[cap][f32])} float32, {len(LAYOUTS[cap][f64])} "
+          f"float64)", flush=True)
     # B5 takes GP 0 alone, as its harness does (GP 1's prior variance, 1,
     # is all of sum V^2 at the grid's edge under ``epilogue``: sqrt would
     # magnify a last-bit difference there)
@@ -751,7 +809,7 @@ def check_experiments(label, ops64, ops32):
             "B2 solve_rank1": ("solve_rank1", both),
             "B5 no_product": ("no_product", gp0),
             "B5 epilogue": ("epilogue", gp0), "B3": ("mu_from_gram", both)}
-    errs = {"B1": 0.0}
+    errs = {"B1": 0.0, "B1-3p": 0.0}   # K1's (K1-3p's) bits
     for name, (what, (o64, o32)) in runs.items():
         if what == "mu_from_gram":
             kernel, plain = (ie.intervals_mu_from_gram,
@@ -820,6 +878,10 @@ def check_experiments(label, ops64, ops32):
         check(first > 1.0, f"B4 {limb} {label}: float32_bound hides a "
                            "dropped band")
         errs[f"B4 {limb}"] = err
+    for name, what in (("B2-3p solve_rank1", "solve_rank1"),
+                       ("B3-3p", "mu_from_gram")):
+        errs[name] = check_three_pass(label, {f64: ops64, f32: ops32}, FMIN,
+                                      SCALING, what=what)[0]
     return errs
 
 
@@ -1045,9 +1107,12 @@ def main():
           f"an experiment kernel was never launched on its path: "
           f"{exp_launches}")
     check(all(v["bitexact"] for v in exp_results["B1"]["variants"])
+          and all(v for k, v in exp_results["B1"].items()
+                  if k.endswith("_bitexact"))
           and all(exp_results["B4"][limb]["hoisted_bitexact"]
                   for limb in ie.LIMBS),
-          "the experiment path lost K1's bits (B1) or B4's limb pair")
+          "the experiment path lost K1's bits (B1), K1-3p's (B1-3p) or "
+          "B4's limb pair")
     print(f"experiment path (the five harnesses, cap 512, float32, "
           f"{EXPERIMENT_REPS} reps): launches {exp_launches}", flush=True)
     for name, res in exp_results.items():
@@ -1138,7 +1203,7 @@ def main():
                                                 grid64.to(dt), BETA)
         err, dq, _ = check_three_pass(
             label, ops, CTX_FMIN[:1],
-            [math.sqrt(float(ops[f64][7][1]))], planned=True)
+            [math.sqrt(float(ops[f64][7][1]))], what="plan")
         k2_3p_err = max(k2_3p_err, err)
         if variant is None:
             k2_3p_ops, k2_3p_dq = ops[f32], dq
@@ -1327,6 +1392,18 @@ def main():
                           *ablation(first, "no_product")),
         "B5 epilogue": (res["B5"]["epilogue_ms"],
                         *ablation(first, "epilogue")),
+        "B1-3p": (res["B1"][f"3pass_{bx.layout_tag(0, 0, -1)}_ms"],
+                  lambda: fp.fused_intervals3_plain(*o32),
+                  split_bound("bf16", N, d, 512, n512, G=2)),
+        "B2-3p solve_rank1": (res["B2"]["3pass_solve_only_ms"],
+                              lambda: ie.interval_ablation_plain(
+                                  *o32, "solve_rank1", three_pass=True),
+                              split_bound("bf16", N, d, 512, n512, G=2,
+                                          gram=False)),
+        "B3-3p": (res["B3"]["3pass_mxu_emit_ms"],
+                  lambda: ie.intervals_mu_from_gram_plain(*o32,
+                                                          three_pass=True),
+                  split_bound("bf16", N, d, 512, n512, G=2)),
     }
     b_meta = {    # the wrapper (and its mode) and the TPU kernel
         "B1": ("intervals_launch", "bench_interval_mosaic.py:73"),
@@ -1339,6 +1416,10 @@ def main():
         "B5 no_product": ("interval_ablation",
                           "bench_interval_ablation.py:49"),
         "B5 epilogue": ("interval_ablation", "bench_interval_ablation.py:49"),
+        "B1-3p": ("intervals_launch", "bench_interval_mosaic.py:76"),
+        "B2-3p solve_rank1": ("interval_ablation",
+                              "bench_interval_mosaic3.py:114"),
+        "B3-3p": ("intervals_mu_from_gram", "bench_interval_mosaic4.py:107"),
     }
     for name, (k_ms, plain, (b_ms, b_by)) in b_runs.items():
         p_ms = cuda_ms(plain, reps=3, warmup=1)
@@ -1347,7 +1428,7 @@ def main():
               f"of the bound {b_ms / k_ms:.1%}", flush=True)
         wrapper, tpu = b_meta[name]
         key, _, mode = name.partition(" ")
-        if mode in ("solve_rank1", "epilogue"):
+        if key in ("B2", "B5") and mode in ("solve_rank1", "epilogue"):
             ops = o32 if mode == "solve_rank1" else first
             t_ms, t_by = ablation_bound(mode, f32, ops[2].shape[0], N, d,
                                         512, n512, prescribed=True)

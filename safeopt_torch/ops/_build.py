@@ -49,12 +49,12 @@ _SIGNATURES = {
     "safeopt_intervals_plan3_f64": [_P] * 9 + [_I] * 4 + [_P],
     "safeopt_expander_plan_f32": [_P] * 13 + [_I] * 5 + [_P],
     "safeopt_expander_plan_f64": [_P] * 13 + [_I] * 5 + [_P],
-    "safeopt_intervals_launch_f32": [_P] * 7 + [_I] * 8 + [_P],
-    "safeopt_intervals_launch_f64": [_P] * 7 + [_I] * 8 + [_P],
-    "safeopt_interval_ablation_f32": [_P] * 7 + [_I] * 6 + [_P],
-    "safeopt_interval_ablation_f64": [_P] * 7 + [_I] * 6 + [_P],
-    "safeopt_intervals_mu_from_gram_f32": [_P] * 7 + [_I] * 5 + [_P],
-    "safeopt_intervals_mu_from_gram_f64": [_P] * 7 + [_I] * 5 + [_P],
+    "safeopt_intervals_launch_f32": [_P] * 7 + [_I] * 9 + [_P],
+    "safeopt_intervals_launch_f64": [_P] * 7 + [_I] * 9 + [_P],
+    "safeopt_interval_ablation_f32": [_P] * 7 + [_I] * 7 + [_P],
+    "safeopt_interval_ablation_f64": [_P] * 7 + [_I] * 7 + [_P],
+    "safeopt_intervals_mu_from_gram_f32": [_P] * 7 + [_I] * 6 + [_P],
+    "safeopt_intervals_mu_from_gram_f64": [_P] * 7 + [_I] * 6 + [_P],
     "safeopt_intervals_split_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "safeopt_intervals_split_tf32": [_P] * 8 + [_I] * 5 + [_P],
 }

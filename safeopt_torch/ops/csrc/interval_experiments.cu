@@ -21,6 +21,15 @@
 // B3 (bench_interval_mosaic4.py::kern_mxu_emit): K1 with mu = sum_c u[c]
 //    k[c], u = Lm^T w precomputed by the wrapper (interval_rows
 //    MuFromGram): no band multiplies w into V.
+// B1-3p, B2-3p, B3-3p: B1, B2's rank-1 solve and B3 at the harnesses'
+//    three_pass=True (bench_interval_mosaic.py:76, mosaic3.py:114,
+//    mosaic4.py:107): the same bodies with K1-3p's product (intervals.cuh
+//    ThreePassProduct, V = Lm_hi k_hi + Lm_hi k_lo + Lm_lo k_hi over bf16
+//    limbs, mma.sync in float32, FP64 FMAs of the limbs in float64) and
+//    K1-3p's launch bounds (float64 at one block an SM: its limbs and
+//    register tile take 254 registers). B1-3p gives K1-3p's bits at every
+//    layout; B3-3p reads mu from the gram rows by lane = point, each band
+//    over its own 32 columns.
 // B4 (bench_interval_variants.py::_kernel, the TPU's _dot3 3-pass
 //    product): one GP's intervals with V = Lm k as Lm_hi k_hi + Lm_hi k_lo
 //    + Lm_lo k_hi on tensor cores (mma.sync m16n8k16 bf16 or m16n8k8 tf32,
@@ -32,7 +41,9 @@
 //    (inkernel) or read pre-split (hoisted): the same bits.
 //
 // What bounds them: B1-B3 and B2/B5's rank-1 solve as K1 (the FP32/FP64
-// pipe: n(n+1)/2 FMAs a point); B2's sums and B5's no-product and
+// pipe: n(n+1)/2 FMAs a point); their three-pass forms as K1-3p (the
+// bf16 tensor cores, 3 n(n+1) flops a point, beside the gram, the limb
+// cuts and the epilogue on the FP32 pipe); B2's sums and B5's no-product and
 // epilogue modes n gram entries (or none) a point against 8 d bytes read,
 // still the FP32 pipe at n = 400; B4 the tensor cores (3 n(n+1) flop a
 // point, 495 TFLOP/s tf32, 989 bf16), with its factor fragments read from
@@ -60,6 +71,27 @@ __global__ void __launch_bounds__(kThreads, kIvMinBlocks)
                    N, d, cap, n, S, res, StationaryGram<T>{kind, scal[g * 4]});
 }
 
+// B1-3p: K1-3p's body at the caller's layout
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
+    intervals3_launch_kernel(const T* __restrict__ zt,
+                             const T* __restrict__ ils,
+                             const T* __restrict__ xs,
+                             const T* __restrict__ lmt,
+                             const T* __restrict__ w,
+                             const T* __restrict__ scal, T* __restrict__ out,
+                             int N, int d, int cap, int ldl, int kind, int S,
+                             int res) {
+  const int g = blockIdx.y;
+  const int count = (int)scal[g * 4 + 3];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  interval_rows<T, StationaryGram<T>, false, ThreePassProduct>(
+      zt, ils + g * d, xs + (size_t)g * cap * d, lmt + (size_t)g * cap * ldl,
+      ldl, w + (size_t)g * cap, scal[g * 4 + 1], scal[g * 4 + 2],
+      out + (size_t)g * 2 * N, N, d, cap, n, S, res,
+      StationaryGram<T>{kind, scal[g * 4]});
+}
+
 // A layout the caller chose, or an error: S a power of two up to
 // kMaxSlices, res a multiple of kKS up to cap rounded to kKS, and the
 // block's shared memory within the card's.
@@ -74,7 +106,8 @@ inline cudaError_t caller_layout(int cap, int d, int S, int res,
   return lay->bytes <= kMaxDynSmem ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T>
+// B1 (ThreePass false) or B1-3p (true)
+template <typename T, bool ThreePass>
 int launch_intervals_at(const T* zt, const T* ils, const T* xs, const T* lmt,
                         const T* w, const T* scal, T* out, int G, int N, int d,
                         int cap, int kind, int S, int res, int carveout,
@@ -84,27 +117,28 @@ int launch_intervals_at(const T* zt, const T* ils, const T* xs, const T* lmt,
     const cudaError_t err = caller_layout<T>(cap, d, S, res, &lay);
     if (err != cudaSuccess) return (int)err;
   }
+  auto kernel =
+      ThreePass ? intervals3_launch_kernel<T> : intervals_launch_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      intervals_launch_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lay.bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
   if (err != cudaSuccess) return (int)err;
   // the attribute outlives the launch, so it is set on every call: -1
-  // restores the value the kernel had before any call set it
+  // restores the value the kernel had before any call set it (one value
+  // per kernel: this launcher has an instance per kernel)
   static int initial_carveout = -2;
   if (initial_carveout == -2) {
     cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, intervals_launch_kernel<T>);
+    err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return (int)err;
     initial_carveout = attr.preferredShmemCarveout;
   }
-  err = cudaFuncSetAttribute(
-      intervals_launch_kernel<T>,
-      cudaFuncAttributePreferredSharedMemoryCarveout,
-      carveout < 0 ? initial_carveout : carveout);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             carveout < 0 ? initial_carveout : carveout);
   if (err != cudaSuccess) return (int)err;
   const int ldl = (cap + kBand - 1) / kBand * kBand;
   const dim3 grid((N + lay.P - 1) / lay.P, G);
-  intervals_launch_kernel<T><<<grid, kThreads, lay.bytes, stream>>>(
+  kernel<<<grid, kThreads, lay.bytes, stream>>>(
       zt, ils, xs, lmt, w, scal, out, N, d, cap, ldl, kind, lay.S, lay.res);
   return (int)cudaGetLastError();
 }
@@ -145,6 +179,22 @@ __global__ void __launch_bounds__(kThreads, kIvMinBlocks)
                    lmt + (size_t)g * cap * ldl, ldl, w + (size_t)g * cap,
                    scal[g * 4 + 1], scal[g * 4 + 2], out + (size_t)g * 2 * N,
                    N, d, cap, n, S, res, RankOneGram<T>{});
+}
+
+// B2-3p: the rank-1 solve with K1-3p's product
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
+    rank1_solve3_kernel(const T* __restrict__ zt, const T* __restrict__ xs,
+                        const T* __restrict__ lmt, const T* __restrict__ w,
+                        const T* __restrict__ scal, T* __restrict__ out,
+                        int N, int d, int cap, int ldl, int S, int res) {
+  const int g = blockIdx.y;
+  const int count = (int)scal[g * 4 + 3];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  interval_rows<T, RankOneGram<T>, false, ThreePassProduct>(
+      zt, nullptr, xs + (size_t)g * cap * d, lmt + (size_t)g * cap * ldl, ldl,
+      w + (size_t)g * cap, scal[g * 4 + 1], scal[g * 4 + 2],
+      out + (size_t)g * 2 * N, N, d, cap, n, S, res, RankOneGram<T>{});
 }
 
 // One thread per point, the rows in order: the gram's sums (kGramSums), or
@@ -218,10 +268,14 @@ int launch_rowwise(const T* zt, const T* ils, const T* xs, const T* w,
   return (int)cudaGetLastError();
 }
 
+// three_pass: the rank-1 solve's three-pass form (B2-3p); the other
+// modes have no product and refuse it
 template <typename T>
 int launch_ablation(const T* zt, const T* ils, const T* xs, const T* lmt,
                     const T* w, const T* scal, T* out, int G, int N, int d,
-                    int cap, int kind, int mode, cudaStream_t stream) {
+                    int cap, int kind, int mode, int three_pass,
+                    cudaStream_t stream) {
+  if (three_pass && mode != kSolveRank1) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case kGramSums:
       return launch_rowwise<T, kGramSums>(zt, ils, xs, w, scal, out, G, N, d,
@@ -234,13 +288,13 @@ int launch_ablation(const T* zt, const T* ils, const T* xs, const T* lmt,
                                           cap, kind, stream);
     case kSolveRank1: {
       const IvLayout<T> lay = interval_layout<T>(cap, d);
+      auto kernel = three_pass ? rank1_solve3_kernel<T> : rank1_solve_kernel<T>;
       const cudaError_t err = cudaFuncSetAttribute(
-          rank1_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)lay.bytes);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
       if (err != cudaSuccess) return (int)err;
       const int ldl = (cap + kBand - 1) / kBand * kBand;
       const dim3 grid((N + lay.P - 1) / lay.P, G);
-      rank1_solve_kernel<T><<<grid, kThreads, lay.bytes, stream>>>(
+      kernel<<<grid, kThreads, lay.bytes, stream>>>(
           zt, xs, lmt, w, scal, out, N, d, cap, ldl, lay.S, lay.res);
       return (int)cudaGetLastError();
     }
@@ -271,18 +325,39 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
       StationaryGram<T>{kind, scal[g * 4]});
 }
 
+// B3-3p: mu from the gram beside K1-3p's product
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
+    mu_from_gram3_kernel(const T* __restrict__ zt, const T* __restrict__ ils,
+                         const T* __restrict__ xs, const T* __restrict__ lmt,
+                         const T* __restrict__ u, const T* __restrict__ scal,
+                         T* __restrict__ out, int N, int d, int cap, int ldl,
+                         int kind, int S, int res) {
+  const int g = blockIdx.y;
+  const int count = (int)scal[g * 4 + 3];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  interval_rows<T, StationaryGram<T>, true, ThreePassProduct>(
+      zt, ils + g * d, xs + (size_t)g * cap * d, lmt + (size_t)g * cap * ldl,
+      ldl, u + (size_t)g * cap, scal[g * 4 + 1], scal[g * 4 + 2],
+      out + (size_t)g * 2 * N, N, d, cap, n, S, res,
+      StationaryGram<T>{kind, scal[g * 4]});
+}
+
+// B3 (three_pass 0) or B3-3p (1)
 template <typename T>
 int launch_mu_from_gram(const T* zt, const T* ils, const T* xs, const T* lmt,
                         const T* u, const T* scal, T* out, int G, int N, int d,
-                        int cap, int kind, cudaStream_t stream) {
+                        int cap, int kind, int three_pass,
+                        cudaStream_t stream) {
   const IvLayout<T> lay = interval_layout<T>(cap, d);
+  auto kernel =
+      three_pass ? mu_from_gram3_kernel<T> : mu_from_gram_kernel<T>;
   const cudaError_t err = cudaFuncSetAttribute(
-      mu_from_gram_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lay.bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
   if (err != cudaSuccess) return (int)err;
   const int ldl = (cap + kBand - 1) / kBand * kBand;
   const dim3 grid((N + lay.P - 1) / lay.P, G);
-  mu_from_gram_kernel<T><<<grid, kThreads, lay.bytes, stream>>>(
+  kernel<<<grid, kThreads, lay.bytes, stream>>>(
       zt, ils, xs, lmt, u, scal, out, N, d, cap, ldl, kind, lay.S, lay.res);
   return (int)cudaGetLastError();
 }
@@ -472,75 +547,84 @@ extern "C" {
 
 // B1: K1 (safeopt_intervals_*) at slices per block S and resident gram
 // rows res (S = 0: K1's own layout) and a shared-memory carveout (-1:
-// CUDA's default; else a percentage).
+// CUDA's default; else a percentage); three_pass 1: K1-3p (B1-3p).
 int safeopt_intervals_launch_f32(const void* zt, const void* ils,
                                  const void* xs, const void* lmt,
                                  const void* w, const void* scal, void* out,
                                  int G, int N, int d, int cap, int kind,
-                                 int S, int res, int carveout, void* stream) {
-  return safeopt::launch_intervals_at<float>(
-      (const float*)zt, (const float*)ils, (const float*)xs,
-      (const float*)lmt, (const float*)w, (const float*)scal, (float*)out, G,
-      N, d, cap, kind, S, res, carveout, (cudaStream_t)stream);
+                                 int S, int res, int carveout, int three_pass,
+                                 void* stream) {
+  auto launch = three_pass ? safeopt::launch_intervals_at<float, true>
+                           : safeopt::launch_intervals_at<float, false>;
+  return launch((const float*)zt, (const float*)ils, (const float*)xs,
+                (const float*)lmt, (const float*)w, (const float*)scal,
+                (float*)out, G, N, d, cap, kind, S, res, carveout,
+                (cudaStream_t)stream);
 }
 
 int safeopt_intervals_launch_f64(const void* zt, const void* ils,
                                  const void* xs, const void* lmt,
                                  const void* w, const void* scal, void* out,
                                  int G, int N, int d, int cap, int kind,
-                                 int S, int res, int carveout, void* stream) {
-  return safeopt::launch_intervals_at<double>(
-      (const double*)zt, (const double*)ils, (const double*)xs,
-      (const double*)lmt, (const double*)w, (const double*)scal,
-      (double*)out, G, N, d, cap, kind, S, res, carveout,
-      (cudaStream_t)stream);
+                                 int S, int res, int carveout, int three_pass,
+                                 void* stream) {
+  auto launch = three_pass ? safeopt::launch_intervals_at<double, true>
+                           : safeopt::launch_intervals_at<double, false>;
+  return launch((const double*)zt, (const double*)ils, (const double*)xs,
+                (const double*)lmt, (const double*)w, (const double*)scal,
+                (double*)out, G, N, d, cap, kind, S, res, carveout,
+                (cudaStream_t)stream);
 }
 
 // B2/B5: K1's operands, mode 0 gram sums, 1 rank-1 solve, 2 no product,
-// 3 epilogue only; out (G, 2, N).
+// 3 epilogue only; three_pass 1: the rank-1 solve's three-pass form
+// (B2-3p; any other mode refuses it); out (G, 2, N).
 int safeopt_interval_ablation_f32(const void* zt, const void* ils,
                                   const void* xs, const void* lmt,
                                   const void* w, const void* scal, void* out,
                                   int G, int N, int d, int cap, int kind,
-                                  int mode, void* stream) {
+                                  int mode, int three_pass, void* stream) {
   return safeopt::launch_ablation<float>(
       (const float*)zt, (const float*)ils, (const float*)xs,
       (const float*)lmt, (const float*)w, (const float*)scal, (float*)out, G,
-      N, d, cap, kind, mode, (cudaStream_t)stream);
+      N, d, cap, kind, mode, three_pass, (cudaStream_t)stream);
 }
 
 int safeopt_interval_ablation_f64(const void* zt, const void* ils,
                                   const void* xs, const void* lmt,
                                   const void* w, const void* scal, void* out,
                                   int G, int N, int d, int cap, int kind,
-                                  int mode, void* stream) {
+                                  int mode, int three_pass, void* stream) {
   return safeopt::launch_ablation<double>(
       (const double*)zt, (const double*)ils, (const double*)xs,
       (const double*)lmt, (const double*)w, (const double*)scal,
-      (double*)out, G, N, d, cap, kind, mode, (cudaStream_t)stream);
+      (double*)out, G, N, d, cap, kind, mode, three_pass,
+      (cudaStream_t)stream);
 }
 
-// B3: K1's operands with u = Lm^T w in place of w.
+// B3: K1's operands with u = Lm^T w in place of w; three_pass 1: B3-3p.
 int safeopt_intervals_mu_from_gram_f32(const void* zt, const void* ils,
                                        const void* xs, const void* lmt,
                                        const void* u, const void* scal,
                                        void* out, int G, int N, int d,
-                                       int cap, int kind, void* stream) {
+                                       int cap, int kind, int three_pass,
+                                       void* stream) {
   return safeopt::launch_mu_from_gram<float>(
       (const float*)zt, (const float*)ils, (const float*)xs,
       (const float*)lmt, (const float*)u, (const float*)scal, (float*)out, G,
-      N, d, cap, kind, (cudaStream_t)stream);
+      N, d, cap, kind, three_pass, (cudaStream_t)stream);
 }
 
 int safeopt_intervals_mu_from_gram_f64(const void* zt, const void* ils,
                                        const void* xs, const void* lmt,
                                        const void* u, const void* scal,
                                        void* out, int G, int N, int d,
-                                       int cap, int kind, void* stream) {
+                                       int cap, int kind, int three_pass,
+                                       void* stream) {
   return safeopt::launch_mu_from_gram<double>(
       (const double*)zt, (const double*)ils, (const double*)xs,
       (const double*)lmt, (const double*)u, (const double*)scal,
-      (double*)out, G, N, d, cap, kind, (cudaStream_t)stream);
+      (double*)out, G, N, d, cap, kind, three_pass, (cudaStream_t)stream);
 }
 
 // B4: one GP, float32. a is Lm (ldl x ldl, ldl = cap rounded up to 32,

@@ -294,8 +294,17 @@ __device__ __forceinline__ void band_mma3(float (&acc)[kBandTM][kBandTN],
 // n the active rows; S and res from interval_layout. MuFromGram (the
 // experiment B3, interval_experiments.cu) takes w as u = Lm^T w and mu as
 // sum_c u[c] k[c]: the last band, which reads every gram column, adds it
-// up and no band multiplies w into V. Product is the contraction's policy
-// (Fp32Product, ThreePassProduct).
+// up and no band multiplies w into V. With the FP32 product each thread
+// adds its tile's columns c = ty mod 4 and the band adds the row groups
+// in order. With ThreePassProduct each band adds u[c] k[c] over its own
+// columns [r0, cend), the last pieces it stages, so that the bands
+// share mu's work (the longest band sets a block's time, and the last
+// band, which reads every column, is the longest; PERF.md); each
+// lane adds its point from the gram rows in shared memory, in
+// column order (the mma D fragment holds other rows and points than the
+// FP32 tile, and one sum a lane leaves the float64 bands' registers to
+// the limbs), and the bands' partials are added in band order. Product
+// is the contraction's policy (Fp32Product, ThreePassProduct).
 template <typename T, class Gram, bool MuFromGram = false,
           class Product = Fp32Product>
 __device__ __forceinline__ void interval_rows(
@@ -306,8 +315,8 @@ __device__ __forceinline__ void interval_rows(
   // float32 three-pass bands run on the tensor cores (band_mma3)
   constexpr bool kMma =
       Product::kThreePass && std::is_same<T, float>::value;
-  static_assert(!(MuFromGram && Product::kThreePass),
-                "mu from the gram has no three-pass form");
+  // mu from the gram by lane = point (the three-pass bands)
+  constexpr bool kMuLane = MuFromGram && Product::kThreePass;
   const IvLayout<T> lay(cap, d, S, res);
   const int P = lay.P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -366,7 +375,9 @@ __device__ __forceinline__ void interval_rows(
       for (int i = 0; i < kBandTM; ++i)
 #pragma unroll
         for (int j = 0; j < kBandTN; ++j) acc[i][j] = T(0);
-      T mg[kBandTN];  // MuFromGram: this thread's columns c = ty mod 4
+      // MuFromGram: this thread's columns c = ty mod 4 (kMuLane: mg[0],
+      // point lane over the band's columns [r0, cend))
+      T mg[kBandTN];
       if constexpr (MuFromGram) {
 #pragma unroll
         for (int j = 0; j < kBandTN; ++j) mg[j] = T(0);
@@ -409,7 +420,12 @@ __device__ __forceinline__ void interval_rows(
           band_steps<Product::kThreePass>(acc, at0 + (q % kStages) * kKS * kBand,
                                           bsrc, ldb, steps, ty, tx);
         }
-        if constexpr (MuFromGram) {
+        if constexpr (kMuLane) {
+          if (k0 >= r0) {  // the band's own columns: the bands cover [0, n)
+            for (int c = 0; c < steps; ++c)
+              mg[0] += w[k0 + c] * bsrc[(size_t)c * ldb + lane];
+          }
+        } else if constexpr (MuFromGram) {
           if (b == nb - 1) {  // the last band: every column below n
 #pragma unroll
             for (int k = 0; k < kKS / 4; ++k) {
@@ -440,21 +456,25 @@ __device__ __forceinline__ void interval_rows(
             for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
-                const int r = r0 + 16 * mt + gid + 8 * h;
                 const T v = acc[4 * mt + nt][2 * h + j];
-                m += (r < n ? w[r] : T(0)) * v;
+                if constexpr (!MuFromGram) {
+                  const int r = r0 + 16 * mt + gid + 8 * h;
+                  m += (r < n ? w[r] : T(0)) * v;
+                }
                 q2 += v * v;
               }
 #pragma unroll
             for (int o = 4; o < 32; o <<= 1) {
-              m += __shfl_xor_sync(0xffffffffu, m, o);
+              if constexpr (!MuFromGram)
+                m += __shfl_xor_sync(0xffffffffu, m, o);
               q2 += __shfl_xor_sync(0xffffffffu, q2, o);
             }
             if (gid == 0) {
-              pm[8 * nt + 2 * tig + j] = m;
+              if constexpr (!MuFromGram) pm[8 * nt + 2 * tig + j] = m;
               ps[8 * nt + 2 * tig + j] = q2;
             }
           }
+        if constexpr (kMuLane) pm[lane] = mg[0];
         __syncwarp();
       } else {
         // the band's partials; rows past n hold exact zeros
@@ -471,7 +491,7 @@ __device__ __forceinline__ void interval_rows(
             ssq[j] += acc[i][j] * acc[i][j];
           }
         }
-        if constexpr (MuFromGram) {
+        if constexpr (MuFromGram && !kMuLane) {
 #pragma unroll
           for (int j = 0; j < kBandTN; ++j) mu[j] = mg[j];
         }
@@ -481,12 +501,14 @@ __device__ __forceinline__ void interval_rows(
           if (ty == g) {
 #pragma unroll
             for (int j = 0; j < kBandTN; ++j) {
-              pm[j] = g ? pm[j] + mu[j] : mu[j];
+              if constexpr (!kMuLane) pm[j] = g ? pm[j] + mu[j] : mu[j];
               ps[j] = g ? ps[j] + ssq[j] : ssq[j];
             }
           }
           __syncwarp();
         }
+        if constexpr (kMuLane)
+          red[(size_t)(b - lo) * P + s * kWP + lane] = mg[0];
       }
     }
     __syncthreads();

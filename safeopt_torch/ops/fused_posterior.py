@@ -361,23 +361,26 @@ def fused_intervals_plain(zt, ils, xs, lm, w, scal, kind):
         for g in range(xs.shape[0])])
 
 
-def three_pass_rows(gram_at, lm, w, kdiag, beta, N: int) -> torch.Tensor:
+def three_pass_rows(gram_at, lm, w, kdiag, beta, N: int,
+                    u=None) -> torch.Tensor:
     """(2, N) rows ``mu -+ beta sigma`` of one GP with the three-pass
     product ``V = Lm_hi k_hi + Lm_hi k_lo + Lm_lo k_hi`` over bf16 limbs,
     in ``lm``'s dtype: from float32 operands ``lo`` is rounded to bf16, as
     a tensor core reads it, and the products and the epilogue run in
     float64; from float64 operands ``lo`` stays unrounded. ``gram_at(s,
-    e)`` is the (cap, e - s) gram against grid columns s:e."""
+    e)`` is the (cap, e - s) gram against grid columns s:e. With ``u``
+    (cap,), mu is ``u . k`` from the gram itself, not ``w . V``."""
     round_lo = lm.dtype == torch.float32
     hi, lo = (t.double() for t in split_limbs(lm, "bf16", round_lo))
     w64 = w.double()
     out = torch.empty((2, N), dtype=torch.float64, device=lm.device)
     for s in range(0, N, PLAIN_COLS):
         e = min(s + PLAIN_COLS, N)
-        k_hi, k_lo = (t.double() for t in split_limbs(gram_at(s, e), "bf16",
-                                                       round_lo))
+        k = gram_at(s, e)
+        k_hi, k_lo = (t.double() for t in split_limbs(k, "bf16", round_lo))
         V = hi @ k_hi + hi @ k_lo + lo @ k_hi
-        mu = torch.sum(w64[:, None] * V, dim=0)
+        mu = (torch.sum(w64[:, None] * V, dim=0) if u is None
+              else u.double() @ k.double())
         var = torch.clamp(float(kdiag) - torch.sum(V * V, dim=0), min=0.0)
         spread = float(beta) * torch.sqrt(var)
         out[0, s:e] = mu - spread

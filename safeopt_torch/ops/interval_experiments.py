@@ -22,6 +22,15 @@ PyTorch versions. No SafeOpt path calls them: they are driven by
 - B3 ``intervals_mu_from_gram`` (``bench_interval_mosaic4.py``
   ``kern_mxu_emit``): K1 with ``mu = sum_c u[c] k[c]``, ``u = Lm^T w``
   computed here in float64 once per call.
+- B1-3p, B2-3p, B3-3p: ``three_pass=True`` of ``intervals_launch``,
+  ``interval_ablation(mode="solve_rank1")`` and
+  ``intervals_mu_from_gram``, the harnesses' ``3pass`` columns: the same
+  functions with K1-3p's product ``V = Lm_hi k_hi + Lm_hi k_lo + Lm_lo
+  k_hi`` over bf16 limbs (``fused_intervals3``). B1-3p gives K1-3p's bits
+  at every layout; their plain versions are ``three_pass_rows`` on the
+  kernel's gram (``kernel_gram``; the rank-1 gram of B2 is one float32
+  multiply an entry), B3-3p's with mu ``u . k``. The other ablation modes
+  have no product and refuse ``three_pass``.
 - B4 ``intervals_split`` (``bench_interval_variants.py`` ``_kernel``, the
   TPU's 3-pass ``_dot3``): one GP's intervals with ``V = Lm_hi k_hi +
   Lm_hi k_lo + Lm_lo k_hi`` on tensor cores in ``bf16`` or ``tf32`` limbs,
@@ -30,8 +39,9 @@ PyTorch versions. No SafeOpt path calls them: they are driven by
 
 CUDA tensors launch the kernels, CPU tensors run the plain versions;
 nothing else chooses. Each wrapper adds one to its ``launches`` per
-launch (``interval_ablation`` also to ``mode_launches[mode]``,
-``intervals_split`` to ``limb_launches[limb]``).
+launch of its FP32-product kernel (``interval_ablation`` also to
+``mode_launches[mode]``, ``intervals_split`` to ``limb_launches[limb]``)
+and to its ``three_pass_launches`` per launch of its three-pass kernel.
 
 Limbs (``split_limbs``): ``hi = round(x)`` to the limb format and ``lo =
 x - hi``, rounded again as a tensor core operand is (``round_lo``).
@@ -55,9 +65,10 @@ import torch
 
 from ..gp.kernels import RBF
 from .fused_posterior import (KINDS, PLAIN_COLS, check_operands,
-                              fused_intervals_plain, gram, interval_rows,
-                              k1_layout, kernel_gram, plan_gram, ptr,
-                              raise_on_error, round_limb, split_limbs,
+                              fused_intervals3_plain, fused_intervals_plain,
+                              gram, interval_rows, k1_layout, kernel_gram,
+                              plan_gram, ptr, raise_on_error, round_limb,
+                              split_limbs, three_pass_rows,
                               transposed_factor)
 
 __all__ = ["ABLATIONS", "LIMBS", "intervals_launch", "interval_ablation",
@@ -101,48 +112,66 @@ def _epilogue(V, w, kdiag, beta):
 # -- B1 -----------------------------------------------------------------------
 
 def intervals_launch(zt, ils, xs, lm, w, scal, kind, slices=0, res=0,
-                     carveout=-1):
+                     carveout=-1, three_pass=False):
     """(G, 2, N) interval rows, K1's operands and function: B1 on CUDA
     (K1's body with ``slices`` slices of 32 points per block, a power of
     two up to 8 or 0 for K1's own layout, ``res`` resident gram rows, a
     multiple of 16, and a shared-memory ``carveout`` in percent, -1 for
     CUDA's default), K1's plain version on CPU. A layout whose
-    shared memory does not fit the card raises."""
+    shared memory does not fit the card raises. ``three_pass``: K1-3p's
+    function and body (B1-3p; ``fused_intervals3_plain`` on CPU)."""
     if slices not in (0, 1, 2, 4, 8) or res < 0 or res % 16:
         raise ValueError(f"B1 takes slices in (0, 1, 2, 4, 8) and res a "
                          f"multiple of 16, got {slices}, {res}")
     if not (carveout == -1 or 0 <= carveout <= 100):
         raise ValueError(f"carveout is -1 or a percentage, got {carveout}")
+    what = "B1-3p" if three_pass else "B1"
     if zt.device.type == "cpu":
-        return fused_intervals_plain(zt, ils, xs, lm, w, scal, kind)
-    G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, "B1")
+        plain = fused_intervals3_plain if three_pass else fused_intervals_plain
+        return plain(zt, ils, xs, lm, w, scal, kind)
+    G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, what)
     lmt = transposed_factor(lm)
     out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
     lib = _library()
     fn = (lib.safeopt_intervals_launch_f32 if dtype == torch.float32
           else lib.safeopt_intervals_launch_f64)
     err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(lmt), ptr(w), ptr(scal),
-             ptr(out), G, N, d, cap, kind, slices, res, carveout, _stream(zt))
-    raise_on_error(err, "B1 (intervals_launch)")
-    intervals_launch.launches += 1
+             ptr(out), G, N, d, cap, kind, slices, res, carveout,
+             int(three_pass), _stream(zt))
+    raise_on_error(err, f"{what} (intervals_launch slices={slices} "
+                        f"res={res} carveout={carveout})")
+    if three_pass:
+        intervals_launch.three_pass_launches += 1
+    else:
+        intervals_launch.launches += 1
     return out
 
 
 intervals_launch.launches = 0
+intervals_launch.three_pass_launches = 0
 
 
 # -- B2 / B5 ------------------------------------------------------------------
 
-def interval_ablation_plain(zt, ils, xs, lm, w, scal, kind, mode):
-    """Plain PyTorch version of ``interval_ablation``."""
+def _check_ablation(mode, three_pass):
     if mode not in ABLATIONS:
         raise ValueError(f"unknown ablation {mode!r}")
+    if three_pass and mode != "solve_rank1":
+        raise ValueError(f"the ablation {mode!r} has no product, so no "
+                         "three-pass form (only 'solve_rank1' has one)")
+
+
+def interval_ablation_plain(zt, ils, xs, lm, w, scal, kind, mode,
+                            three_pass=False):
+    """Plain PyTorch version of ``interval_ablation``."""
+    _check_ablation(mode, three_pass)
     G, cap, _ = xs.shape
     N = zt.shape[1]
     if mode == "solve_rank1":      # K1's function on the rank-1 gram
+        rows = three_pass_rows if three_pass else interval_rows
         return torch.stack([
-            interval_rows(lambda s, e, g=g: xs[g, :, 0, None] * zt[0, s:e],
-                          lm[g], w[g], scal[g, 1], scal[g, 2], N)
+            rows(lambda s, e, g=g: xs[g, :, 0, None] * zt[0, s:e],
+                 lm[g], w[g], scal[g, 1], scal[g, 2], N)
             for g in range(G)])
     out = zt.new_empty((G, 2, N))
     for g, n in enumerate(_counts(scal, cap)):
@@ -162,16 +191,19 @@ def interval_ablation_plain(zt, ils, xs, lm, w, scal, kind, mode):
     return out
 
 
-def interval_ablation(zt, ils, xs, lm, w, scal, kind, mode):
+def interval_ablation(zt, ils, xs, lm, w, scal, kind, mode,
+                      three_pass=False):
     """(G, 2, N) rows of the ablation ``mode`` on K1's operands: B2/B5 on
     CUDA, the plain version on CPU. ``gram_sums``: sums of k and k^2 over
     each GP's active rows; ``solve_rank1``: K1's function on the gram
     ``xs[:, 0] z[0]``; ``no_product``: K1's epilogue on V := k;
-    ``epilogue``: K1's epilogue on V := 0.01 z[0] (raw grid column 0)."""
-    if mode not in ABLATIONS:
-        raise ValueError(f"unknown ablation {mode!r}")
+    ``epilogue``: K1's epilogue on V := 0.01 z[0] (raw grid column 0).
+    ``three_pass``: ``solve_rank1`` with K1-3p's product (B2-3p); the
+    other modes raise."""
+    _check_ablation(mode, three_pass)
     if zt.device.type == "cpu":
-        return interval_ablation_plain(zt, ils, xs, lm, w, scal, kind, mode)
+        return interval_ablation_plain(zt, ils, xs, lm, w, scal, kind, mode,
+                                       three_pass)
     G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind,
                                      "B2/B5")
     lmt = transposed_factor(lm) if mode == "solve_rank1" else lm
@@ -180,15 +212,21 @@ def interval_ablation(zt, ils, xs, lm, w, scal, kind, mode):
     fn = (lib.safeopt_interval_ablation_f32 if dtype == torch.float32
           else lib.safeopt_interval_ablation_f64)
     err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(lmt), ptr(w), ptr(scal),
-             ptr(out), G, N, d, cap, kind, ABLATIONS[mode], _stream(zt))
-    raise_on_error(err, f"B2/B5 (interval_ablation {mode})")
-    interval_ablation.launches += 1
-    interval_ablation.mode_launches[mode] += 1
+             ptr(out), G, N, d, cap, kind, ABLATIONS[mode], int(three_pass),
+             _stream(zt))
+    raise_on_error(err, f"{'B2-3p' if three_pass else 'B2/B5'} "
+                        f"(interval_ablation {mode})")
+    if three_pass:
+        interval_ablation.three_pass_launches += 1
+    else:
+        interval_ablation.launches += 1
+        interval_ablation.mode_launches[mode] += 1
     return out
 
 
 interval_ablation.launches = 0
 interval_ablation.mode_launches = dict.fromkeys(ABLATIONS, 0)
+interval_ablation.three_pass_launches = 0
 
 
 # -- B3 -----------------------------------------------------------------------
@@ -199,10 +237,19 @@ def mu_weights(lm, w):
     return torch.einsum("grc,gr->gc", lm.double(), w.double()).to(lm.dtype)
 
 
-def intervals_mu_from_gram_plain(zt, ils, xs, lm, w, scal, kind):
-    """Plain PyTorch version of ``intervals_mu_from_gram``."""
+def intervals_mu_from_gram_plain(zt, ils, xs, lm, w, scal, kind,
+                                 three_pass=False):
+    """Plain PyTorch version of ``intervals_mu_from_gram``; with
+    ``three_pass`` V through ``three_pass_rows`` on the kernel's gram and
+    mu ``u . k`` in float64."""
     u = mu_weights(lm, w)
     G, N = xs.shape[0], zt.shape[1]
+    if three_pass:
+        return torch.stack([
+            three_pass_rows(lambda s, e, g=g: kernel_gram(
+                kind, xs[g], zt[:, s:e] * ils[g][:, None], scal[g, 0]),
+                lm[g], w[g], scal[g, 1], scal[g, 2], N, u=u[g])
+            for g in range(G)])
     out = zt.new_empty((G, 2, N))
     for g in range(G):
         for s in range(0, N, PLAIN_COLS):
@@ -217,12 +264,16 @@ def intervals_mu_from_gram_plain(zt, ils, xs, lm, w, scal, kind):
     return out
 
 
-def intervals_mu_from_gram(zt, ils, xs, lm, w, scal, kind):
+def intervals_mu_from_gram(zt, ils, xs, lm, w, scal, kind,
+                           three_pass=False):
     """(G, 2, N) interval rows, K1's operands and function with mu taken
-    from the gram: B3 on CUDA, the plain version on CPU."""
+    from the gram: B3 on CUDA, the plain version on CPU. ``three_pass``:
+    V through K1-3p's product (B3-3p)."""
+    what = "B3-3p" if three_pass else "B3"
     if zt.device.type == "cpu":
-        return intervals_mu_from_gram_plain(zt, ils, xs, lm, w, scal, kind)
-    G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, "B3")
+        return intervals_mu_from_gram_plain(zt, ils, xs, lm, w, scal, kind,
+                                            three_pass)
+    G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, what)
     lmt = transposed_factor(lm)
     u = mu_weights(lm, w).contiguous()
     out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
@@ -230,13 +281,17 @@ def intervals_mu_from_gram(zt, ils, xs, lm, w, scal, kind):
     fn = (lib.safeopt_intervals_mu_from_gram_f32 if dtype == torch.float32
           else lib.safeopt_intervals_mu_from_gram_f64)
     err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(lmt), ptr(u), ptr(scal),
-             ptr(out), G, N, d, cap, kind, _stream(zt))
-    raise_on_error(err, "B3 (intervals_mu_from_gram)")
-    intervals_mu_from_gram.launches += 1
+             ptr(out), G, N, d, cap, kind, int(three_pass), _stream(zt))
+    raise_on_error(err, f"{what} (intervals_mu_from_gram)")
+    if three_pass:
+        intervals_mu_from_gram.three_pass_launches += 1
+    else:
+        intervals_mu_from_gram.launches += 1
     return out
 
 
 intervals_mu_from_gram.launches = 0
+intervals_mu_from_gram.three_pass_launches = 0
 
 
 # -- B4 -----------------------------------------------------------------------
@@ -341,14 +396,19 @@ intervals_split.limb_launches = dict.fromkeys(LIMBS, 0)
 
 # -- error bounds -------------------------------------------------------------
 
-def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None):
+def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None,
+                  three_pass=False):
     """Bound on |float32 kernel - plain version| per output, shaped like
     the kernel's output, for ``what`` in ``"mu_from_gram"`` (B3),
     ``"gram_sums"``, ``"solve_rank1"``, ``"no_product"``, ``"epilogue"``
-    (B2/B5) and ``"split"`` (B4, with ``limb``). The operands are the
-    kernel's float32 ones, upcast to float64 (the plain version B2/B3/B5
-    are held against runs on them); B4's plain version runs on the
-    float32 operands themselves. RBF grams only.
+    (B2/B5) and ``"split"`` (B4, with ``limb``; K1-3p in bf16). The
+    operands are the kernel's float32 ones, upcast to float64 (the plain
+    version B2/B3/B5 are held against runs on them); B4's and K1-3p's
+    plain versions run on the float32 operands themselves, and so do
+    those of ``three_pass`` ``"solve_rank1"`` and ``"mu_from_gram"``
+    (B2-3p, B3-3p): their V is held as ``"split"``'s in bf16 limbs, and
+    their gram, computed bit for bit as the kernel's, adds no error. RBF
+    grams only.
 
     With u = 2^-24 and, per point, A = |Lm| |k| over the active rows:
 
@@ -374,6 +434,10 @@ def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None):
     that drops or misplaces terms is off by a share of A itself."""
     if kind != KINDS[RBF]:
         raise NotImplementedError("bounds derived for RBF grams only")
+    if three_pass:
+        if what not in ("solve_rank1", "mu_from_gram"):
+            raise ValueError(f"{what!r} has no three-pass form here")
+        limb = "bf16"
     u = U32
     f64 = dict(dtype=torch.float64, device=zt.device)
     single = xs.dim() == 2
@@ -414,7 +478,7 @@ def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None):
             else:
                 V = L @ k
                 A = La @ ka
-                if what == "split":
+                if what == "split" or three_pass:
                     m = 2 * 3 * -(-n // MMA_K[limb])
                     dV = (m + 2) * u * A
                 elif what == "solve_rank1":
@@ -426,7 +490,9 @@ def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None):
             dmu = None
             if what == "mu_from_gram":
                 uk = (uvec[:, None] * k).abs().sum(dim=0)
-                dmu = n * u * uk + eG * uvec.abs().sum() + u * uk
+                dmu = n * u * uk + u * uk
+                if not three_pass:
+                    dmu = dmu + eG * uvec.abs().sum()
             tol = _rows_tolerance(V, dV, w[g, :n], n, kdiag, beta, dmu)
             out[g, 0, s:e] = tol
             out[g, 1, s:e] = tol

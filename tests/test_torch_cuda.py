@@ -23,7 +23,9 @@ predicate: identical in float64, differing in float32 only where the
 plain one changes within 1e-3 of the threshold. K1-3p and K2-3p agree
 with their plain versions to 1e-9 in float64 and, in float32, within the
 worst-case bound of their arithmetic (``float32_bound(..., "split")``,
-``float32_bound_plan``) on the same operands.
+``float32_bound_plan``) on the same operands. So do the experiment
+kernels' three-pass forms B2-3p and B3-3p (``float32_bound(...,
+three_pass=True)``); B1-3p gives K1-3p's bits at every launch layout.
 """
 
 import numpy as np
@@ -518,17 +520,21 @@ LAUNCH_VARIANTS = [(0, 0, -1), (1, 0, -1), (1, 64, 100), (2, 64, -1),
 
 @pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_launch_variants_give_k1_bits(cuda, counts, cap, dtype):
+@pytest.mark.parametrize("three_pass", [False, True])
+def test_launch_variants_give_k1_bits(cuda, counts, cap, dtype, three_pass):
+    """B1 gives K1's bits at every layout, B1-3p K1-3p's."""
     from safeopt_torch.ops import interval_experiments as ie
     ops = _experiment_ops(counts, cap, cuda, dtype)
-    k1 = fp.fused_intervals(*ops)
-    before = ie.intervals_launch.launches
+    k1 = (fp.fused_intervals3 if three_pass else fp.fused_intervals)(*ops)
+    count = "three_pass_launches" if three_pass else "launches"
+    before = getattr(ie.intervals_launch, count)
     for slices, res, carveout in LAUNCH_VARIANTS:
         got = ie.intervals_launch(*ops, slices=slices, res=res,
-                                  carveout=carveout)
+                                  carveout=carveout, three_pass=three_pass)
         torch.cuda.synchronize()
         assert torch.equal(got, k1), (slices, res, carveout)
-    assert ie.intervals_launch.launches == before + len(LAUNCH_VARIANTS)
+    assert (getattr(ie.intervals_launch, count)
+            == before + len(LAUNCH_VARIANTS))
 
 
 def test_launch_refuses_a_layout_past_shared_memory(cuda):
@@ -556,16 +562,44 @@ def test_ablation_kernel_matches_plain(cuda, counts, cap, dtype, mode):
 
 @pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_mu_from_gram_kernel_matches_plain(cuda, counts, cap, dtype):
+@pytest.mark.parametrize("three_pass", [False, True])
+def test_mu_from_gram_kernel_matches_plain(cuda, counts, cap, dtype,
+                                           three_pass):
+    """B3 and B3-3p; B3-3p's plain version runs on the float32 operands
+    themselves (it cuts the kernel's limbs)."""
     from safeopt_torch.ops import interval_experiments as ie
     ops = _experiment_ops(counts, cap, cuda, dtype)
-    got = ie.intervals_mu_from_gram(*ops)
-    want = ie.intervals_mu_from_gram_plain(*_upcast(ops))
+    before = ie.intervals_mu_from_gram.three_pass_launches
+    got = ie.intervals_mu_from_gram(*ops, three_pass=three_pass)
+    want = ie.intervals_mu_from_gram_plain(
+        *(ops if three_pass else _upcast(ops)), three_pass=three_pass)
     torch.cuda.synchronize()
+    assert (ie.intervals_mu_from_gram.three_pass_launches
+            == before + three_pass)
     if dtype == torch.float64:
         assert (got - want).abs().max().item() <= 1e-9
     else:
-        _within(got, want, ie.float32_bound(*ops, "mu_from_gram"))
+        _within(got, want, ie.float32_bound(*ops, "mu_from_gram",
+                                            three_pass=three_pass))
+
+
+@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rank1_solve_three_pass_kernel_matches_plain(cuda, counts, cap,
+                                                     dtype):
+    """B2-3p against its plain version on the same operands."""
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, dtype)
+    before = ie.interval_ablation.three_pass_launches
+    got = ie.interval_ablation(*ops, "solve_rank1", three_pass=True)
+    want = ie.interval_ablation_plain(*ops, "solve_rank1", three_pass=True)
+    torch.cuda.synchronize()
+    assert ie.interval_ablation.three_pass_launches == before + 1
+    if dtype == torch.float64:
+        assert (got - want).abs().max().item() <= 1e-9
+    else:
+        _within(got, want, ie.float32_bound(*ops, "solve_rank1",
+                                            three_pass=True))
 
 
 @pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)

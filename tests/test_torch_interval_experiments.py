@@ -8,10 +8,17 @@ transcription of its kernel body with the JAX package's own helpers:
 
 - B1 (K1 at a launch layout) and B3 (K1 with mu from the gram) are K1's
   function: against ``_fused_intervals_multi_impl``, atol 1e-10 as K1's
-  own test (only summation order differs).
+  own test (only summation order differs); B1-3p against it at
+  ``three_pass=True``.
+- B3-3p: ``benchmarks/bench_interval_mosaic4.py:80-82, 95-113``
+  (``kern_mxu_emit`` and its prologue) transcribed: V from
+  ``_tri_matmul(three_pass=True)``, ``u . G`` and ``sum V^2`` from
+  HIGHEST products; atol 1e-10 in float64, ``lo`` unrounded as the JAX
+  package's float64 3-pass product leaves it.
 - B2: ``benchmarks/bench_interval_mosaic3.py:86-120`` (``gram_block``,
   ``kern_gram_only``, ``kern_solve_only``) transcribed, with
-  ``_tri_matmul`` from ``safeopt_tpu.ops.fused_posterior``.
+  ``_tri_matmul`` from ``safeopt_tpu.ops.fused_posterior``; B2-3p is
+  ``kern_solve_only`` at ``three_pass=True``.
 - B4: ``benchmarks/bench_interval_variants.py`` imports
   ``_split_hi_lo``, which the JAX package no longer has, so its kernel
   (``:92-118``) is transcribed with its product ``_tri3`` taken as
@@ -27,12 +34,15 @@ transcription of its kernel body with the JAX package's own helpers:
 The port runs B2's sums and B5's ablations over each GP's active rows, as
 K1 does, where the TPU kernels ran over the capacity; the transcriptions
 get the active rows. On CPU tensors every wrapper runs its plain version
-and counts no launch.
+and counts no launch (neither ``launches`` nor ``three_pass_launches``).
+Only ``solve_rank1`` of the ablations has a product, so only it takes
+``three_pass``.
 """
 
 import functools
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,10 +102,16 @@ def _port_operands(pgps, grid):
                                  BETA)
 
 
-def _k1_jax(jops):
+def _k1_jax(jops, three_pass=False):
     out = _fused_intervals_multi_impl(*jops, kind="rbf", block=BLOCK,
-                                      num_gps=jops[2].shape[0])
+                                      num_gps=jops[2].shape[0],
+                                      three_pass=three_pass)
     return np.asarray(out)
+
+
+def _launches(fn):
+    """A wrapper's launch counts: its FP32-product and three-pass kernels."""
+    return fn.launches, fn.three_pass_launches
 
 
 def _close(got, want, atol=1e-10):
@@ -106,39 +122,82 @@ def _close(got, want, atol=1e-10):
 CASES = [(40, 64), (200, 256)]
 
 
+@pytest.mark.parametrize("three_pass", [False, True])
 @pytest.mark.parametrize("n_obs,cap", CASES)
-def test_launch_variants_plain_match_pallas(n_obs, cap):
+def test_launch_variants_plain_match_pallas(n_obs, cap, three_pass):
     jgps, pgps, grid = _models(n_obs, cap, seed=cap)
-    want = _k1_jax(_jax_operands(jgps, grid))
+    want = _k1_jax(_jax_operands(jgps, grid), three_pass)
     ops = _port_operands(pgps, grid)
-    before = ie.intervals_launch.launches
+    before = _launches(ie.intervals_launch)
     for slices, res, carveout in [(0, 0, -1), (1, 0, 100), (8, 64, 0)]:
         _close(ie.intervals_launch(*ops, slices=slices, res=res,
-                                   carveout=carveout), want)
-    assert ie.intervals_launch.launches == before      # CPU: plain version
+                                   carveout=carveout, three_pass=three_pass),
+               want)
+    assert _launches(ie.intervals_launch) == before   # CPU: plain version
 
 
-def test_launch_variants_refuse_bad_layouts():
+@pytest.mark.parametrize("three_pass", [False, True])
+def test_launch_variants_refuse_bad_layouts(three_pass):
     _, pgps, grid = _models(20, 64, seed=1)
     ops = _port_operands(pgps, grid)
     for kw in (dict(slices=3), dict(slices=16), dict(res=8), dict(res=-16),
                dict(carveout=101), dict(carveout=-2)):
         with pytest.raises(ValueError):
-            ie.intervals_launch(*ops, **kw)
+            ie.intervals_launch(*ops, three_pass=three_pass, **kw)
 
 
+# -- B3-3p: bench_interval_mosaic4.py:80-82, 95-113, transcribed --------------
+
+def _hdot(a, b):
+    """``hdot`` (:85-90): a product at HIGHEST."""
+    return jax.lax.dot_general(a, b, (((1,), (0,)), ((), ())),
+                               precision=jax.lax.Precision.HIGHEST,
+                               preferred_element_type=b.dtype)
+
+
+def _mxu_emit(zt, ils, xs, lm, w, scal, three_pass):
+    """``kern_mxu_emit`` (:95-113) on every GP, with the harness's
+    prologue (:80-82): ``u`` at HIGHEST, padded to 8 rows, and a row of
+    ones."""
+    G, cap, d = xs.shape
+    u = jnp.einsum("gij,gi->gj", lm, w, precision=jax.lax.Precision.HIGHEST)
+    u8 = jnp.zeros((G, 8, cap), zt.dtype).at[:, 0, :].set(u)
+    ones8 = jnp.zeros((8, cap), zt.dtype).at[0, :].set(1.0)
+    out = []
+    for g in range(G):
+        r2 = jnp.zeros((cap, zt.shape[1]), zt.dtype)
+        for k in range(d):
+            diff = xs[g][:, k][:, None] - (zt[k, :] * ils[g, k])[None, :]
+            r2 = r2 + diff * diff
+        Gm = scal[g, 0] * jnp.exp(-0.5 * r2)
+        V = _tri_matmul(lm[g], Gm, zt.dtype, three_pass=three_pass)
+        mu = _hdot(u8[g], Gm)[0]
+        v2 = _hdot(ones8, V * V)[0]
+        var = jnp.maximum(scal[g, 1] - v2, 0.0)
+        spread = scal[g, 2] * jnp.sqrt(var)
+        out.append([mu - spread, mu + spread])
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("three_pass", [False, True])
 @pytest.mark.parametrize("n_obs,cap", CASES)
-def test_mu_from_gram_plain_matches_pallas(n_obs, cap):
+def test_mu_from_gram_plain_matches_pallas(n_obs, cap, three_pass):
+    # B3 against K1 (its function), B3-3p against kern_mxu_emit's 3pass
+    # column (its own: mu from the gram, V from the 3-pass product)
     jgps, pgps, grid = _models(n_obs, cap, seed=cap + 1)
-    want = _k1_jax(_jax_operands(jgps, grid))
+    jops = _jax_operands(jgps, grid)
+    want = _mxu_emit(*jops, three_pass=True) if three_pass else _k1_jax(jops)
     ops = _port_operands(pgps, grid)
     u = ie.mu_weights(ops[3], ops[4])
     # past the count Lm's columns are zero, so u is too
     for g, jgp in enumerate(jgps):
         assert not u[g, int(jgp.state.count):].any()
-    before = ie.intervals_mu_from_gram.launches
-    _close(ie.intervals_mu_from_gram(*ops), want)
-    assert ie.intervals_mu_from_gram.launches == before
+    before = _launches(ie.intervals_mu_from_gram)
+    _close(ie.intervals_mu_from_gram(*ops, three_pass=three_pass), want)
+    assert _launches(ie.intervals_mu_from_gram) == before
+    if three_pass:       # the limbs moved the rows: not B3's function
+        assert (ie.intervals_mu_from_gram(*ops) - torch.tensor(want)
+                ).abs().max().item() > 1e-9
 
 
 # -- B2: bench_interval_mosaic3.py:86-120, transcribed ------------------------
@@ -193,15 +252,28 @@ def test_gram_sums_plain_match_transcription(n_obs, cap):
         _close(got[g], _gram_only(*_active(jops, jgps, g))[0])
 
 
+@pytest.mark.parametrize("three_pass", [False, True])
 @pytest.mark.parametrize("n_obs,cap", CASES)
-def test_rank1_solve_plain_matches_transcription(n_obs, cap):
+def test_rank1_solve_plain_matches_transcription(n_obs, cap, three_pass):
     # over the capacity, as the TPU kernel ran: Lm is zero past the count
     jgps, pgps, grid = _models(n_obs, cap, seed=cap + 3)
-    want = _solve_only(*_jax_operands(jgps, grid), three_pass=False)
-    before = ie.interval_ablation.launches
-    _close(ie.interval_ablation(*_port_operands(pgps, grid), "solve_rank1"),
-           want)
-    assert ie.interval_ablation.launches == before
+    want = _solve_only(*_jax_operands(jgps, grid), three_pass=three_pass)
+    before = _launches(ie.interval_ablation)
+    _close(ie.interval_ablation(*_port_operands(pgps, grid), "solve_rank1",
+                                three_pass=three_pass), want)
+    assert _launches(ie.interval_ablation) == before
+
+
+@pytest.mark.parametrize("mode", ["gram_sums", "no_product", "epilogue"])
+def test_ablation_without_a_product_refuses_three_pass(mode):
+    _, pgps, grid = _models(20, 64, seed=2)
+    ops = _port_operands(pgps, grid)
+    meta = tuple(o.to("meta") if torch.is_tensor(o) else o for o in ops)
+    for args in (ops, meta):           # before any device is looked at
+        with pytest.raises(ValueError, match="three-pass"):
+            ie.interval_ablation(*args, mode, three_pass=True)
+    with pytest.raises(ValueError, match="three-pass"):
+        ie.interval_ablation_plain(*ops, mode, three_pass=True)
 
 
 # -- B5: bench_interval_ablation.py:49-78, transcribed ------------------------
@@ -419,6 +491,26 @@ def test_float32_bound_sees_a_dropped_band_of_the_split_product(limb):
         assert (fault / bound).max().item() > 1.0
 
 
+@pytest.mark.parametrize("what", ["solve_rank1", "mu_from_gram"])
+def test_three_pass_float32_bound_sees_a_dropped_band(what):
+    """B2-3p's and B3-3p's float32 bound: a plain version that drops each
+    GP's first or last 32 active rows of Lm lands past it."""
+    ops32, _ = _float32_ops(seed=14)
+    plain = (functools.partial(ie.intervals_mu_from_gram_plain,
+                               three_pass=True) if what == "mu_from_gram"
+             else functools.partial(ie.interval_ablation_plain,
+                                    mode=what, three_pass=True))
+    want = plain(*ops32).double()
+    bound = ie.float32_bound(*ops32, what, three_pass=True)
+    assert bound.shape == want.shape
+    for first in (True, False):
+        fault = (plain(*ie.drop_band(ops32, what, first)).double()
+                 - want).abs()
+        assert (fault / bound).max().item() > 1.0, first
+    with pytest.raises(ValueError, match="three-pass"):
+        ie.float32_bound(*ops32, "gram_sums", three_pass=True)
+
+
 @pytest.mark.parametrize("first", [True, False])
 def test_float32_bound_plan_sees_a_dropped_band(first):
     """K2-3p's float32 bound against a plain version that drops the GP's
@@ -464,6 +556,13 @@ def test_wrappers_raise_off_cpu_and_cuda():
         ie.interval_ablation(*meta, "gram_sums")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         ie.intervals_mu_from_gram(*meta)
+    for three_pass in (False, True):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            ie.intervals_launch(*meta, three_pass=three_pass)
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            ie.interval_ablation(*meta, "solve_rank1", three_pass=three_pass)
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            ie.intervals_mu_from_gram(*meta, three_pass=three_pass)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         ie.intervals_split(*_one(meta, 0))
     with pytest.raises(ValueError, match="ablation"):

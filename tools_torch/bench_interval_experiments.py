@@ -13,14 +13,22 @@ The counterpart of the JAX package's five TPU harnesses
 float32: two RBF GPs, 400 observations from ``default_rng(512)`` in
 [-4, 4]^2, capacity 512, the 1000 x 1000 grid on [-5, 5]^2 (N = 1e6).
 B4 and B5 take GP 0 alone. Times are CUDA-event ms per call over
-``--reps`` calls after two warm-ups. One JSON object per harness:
+``--reps`` calls after two warm-ups. One JSON object per harness; B1-B3
+also carry their ``3pass`` columns, as the TPU harnesses printed them
+(the same kernels with K1-3p's three-pass bf16 product, against K1-3p,
+``fused_intervals3``):
 
 - ``B1``: K1 (``fused_intervals``) and each launch layout (slices per
   block, resident gram rows, shared-memory carveout) of
-  ``intervals_launch``: ms and whether its rows are K1's bits;
+  ``intervals_launch``: ms and whether its rows are K1's bits; K1-3p's
+  ms and, per layout ``s<slices>_r<res>_c<carveout>``,
+  ``3pass_<layout>_ms`` and ``3pass_<layout>_bitexact`` (K1-3p's bits);
 - ``B2``: ``gram_sums``, ``solve_rank1`` and K1 (total) ms and
-  ``(gram + solve) / total``;
+  ``(gram + solve) / total``; ``3pass_solve_only_ms`` (B2-3p),
+  ``3pass_total_ms`` (K1-3p) and ``3pass_sum_vs_total``;
 - ``B3``: ``intervals_mu_from_gram`` and K1 ms, max |dQ| against K1;
+  ``3pass_mxu_emit_ms`` (B3-3p), ``3pass_base_ms`` (K1-3p) and
+  ``3pass_max_dq`` against K1-3p;
 - ``B4``: ``intervals_split`` ms for each limb format, in-kernel and
   hoisted (Lm's limbs from ``split_factor``, split once outside the
   timed calls, as the TPU harness splits them outside its loop), whether
@@ -54,13 +62,20 @@ def max_dq(a, b):
     return (a.double() - b.double()).abs().max().item()
 
 
+def layout_tag(slices, res, carveout):
+    """B1's name of a launch layout in its ``3pass_<layout>_*`` keys."""
+    return f"s{slices}_r{res}_c{carveout}"
+
+
 def b1(ops, reps):
-    """K1 at each launch layout: ms and bit-exactness against K1."""
+    """K1 and K1-3p at each launch layout: ms and bit-exactness against
+    K1 (K1-3p)."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
-    k1 = fp.fused_intervals(*ops)
+    k1, k1_3p = fp.fused_intervals(*ops), fp.fused_intervals3(*ops)
     out = {"K1_ms": cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps),
+           "K1-3p_ms": cuda_ms(lambda: fp.fused_intervals3(*ops), reps=reps),
            "variants": []}
     for slices, res, carveout in LAYOUTS[512][ops[0].dtype]:
         run = functools.partial(ie.intervals_launch, *ops, slices=slices,
@@ -69,11 +84,16 @@ def b1(ops, reps):
             "slices": slices, "res": res, "carveout": carveout,
             "bitexact": bool(torch.equal(run(), k1)),
             "ms": cuda_ms(run, reps=reps)})
+        run3 = functools.partial(run, three_pass=True)
+        tag = layout_tag(slices, res, carveout)
+        out[f"3pass_{tag}_bitexact"] = bool(torch.equal(run3(), k1_3p))
+        out[f"3pass_{tag}_ms"] = cuda_ms(run3, reps=reps)
     return out
 
 
 def b2(ops, reps):
-    """The gram alone, the rank-1 solve alone and K1."""
+    """The gram alone, the rank-1 solve alone and K1; the solve and K1
+    with the three-pass product."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
@@ -83,11 +103,19 @@ def b2(ops, reps):
     out["total_ms"] = cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps)
     out["sum_vs_total"] = ((out["gram_sums_ms"] + out["solve_rank1_ms"])
                            / out["total_ms"])
+    out["3pass_solve_only_ms"] = cuda_ms(lambda: ie.interval_ablation(
+        *ops, "solve_rank1", three_pass=True), reps=reps)
+    out["3pass_total_ms"] = cuda_ms(lambda: fp.fused_intervals3(*ops),
+                                    reps=reps)
+    out["3pass_sum_vs_total"] = ((out["gram_sums_ms"]
+                                  + out["3pass_solve_only_ms"])
+                                 / out["3pass_total_ms"])
     return out
 
 
 def b3(ops, reps):
-    """mu from the gram against K1."""
+    """mu from the gram against K1, and with the three-pass product
+    against K1-3p."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
@@ -95,7 +123,13 @@ def b3(ops, reps):
                 lambda: ie.intervals_mu_from_gram(*ops), reps=reps),
             "K1_ms": cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps),
             "max_dq": max_dq(ie.intervals_mu_from_gram(*ops),
-                             fp.fused_intervals(*ops))}
+                             fp.fused_intervals(*ops)),
+            "3pass_mxu_emit_ms": cuda_ms(lambda: ie.intervals_mu_from_gram(
+                *ops, three_pass=True), reps=reps),
+            "3pass_base_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
+                                     reps=reps),
+            "3pass_max_dq": max_dq(ie.intervals_mu_from_gram(
+                *ops, three_pass=True), fp.fused_intervals3(*ops))}
 
 
 def b4(ops, reps):

@@ -28,12 +28,13 @@ For each it measures:
 - ``optimize_ms`` / ``add_ms``: 10 iterations of ``optimize()`` and
   ``add_new_data_point()`` against chip_smoke's plant, CUDA-event ms per
   call, median of iterations 2-10;
-- ``kernels``: its interval and expander kernels against their plain
-  versions, CUDA-event ms per call over ``--reps`` calls after 2
-  warm-ups, on the starting state (the expander kernel on the first
-  chunk of the walk, for the contextual GP 0), beside ``bound_ms``, the
-  least time the card could take for the same work
-  (``chip_smoke.interval_bound`` / ``expander_bound``); beside K1, the
+- ``kernels``: its interval and expander kernels and the interval
+  kernel's three-pass form (K1-3p, K2-3p) against their plain versions,
+  CUDA-event ms per call over ``--reps`` calls after 2 warm-ups, on the
+  starting state (the expander kernel on the first chunk of the walk,
+  for the contextual GP 0), beside ``bound_ms``, the least time the card
+  could take for the same work (``chip_smoke.interval_bound`` /
+  ``expander_bound`` / ``split_bound``); beside K1, the
   multiply-adds per point and GP that K1 executes against the n(n+1)/2
   its bound counts (``chip_smoke.band_macs``), beside K3/K4 the
   multiply-adds per point and GP they execute against the C n their
@@ -73,7 +74,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (BETA, CTX_FMIN, FMIN, SCALING,  # noqa: E402
                         band_macs, build_gps, context_gps, context_truth,
                         cuda_ms, expander_bound, expander_macs,
-                        interval_bound, plan_leaves, plant, timed_ms)
+                        interval_bound, plan_leaves, plant, split_bound,
+                        timed_ms)
 
 
 # name -> (capacity, observations, seed, spread of the observations)
@@ -173,7 +175,9 @@ def kernel_times(opt, chunk, reps):
         runs = {"K1": (fp.fused_intervals, fp.fused_intervals_plain, iv,
                        interval_bound(f32, G, N, d, cap, n)),
                 "K3": (fe.fused_expander, fe.fused_expander_plain, ex,
-                       expander_bound(f32, G, N, U, d, cap, n, C))}
+                       expander_bound(f32, G, N, U, d, cap, n, C)),
+                "K1-3p": (fp.fused_intervals3, fp.fused_intervals3_plain, iv,
+                          split_bound("bf16", N, d, cap, n, G=G))}
     else:
         iv = fp.interval_plan_operands(kernels[0], states[0], grid, BETA)
         ex = fe.expander_plan_operands(kernels[0], states[0], grid, ~S,
@@ -183,7 +187,10 @@ def kernel_times(opt, chunk, reps):
         runs = {"K2": (fp.fused_intervals_plan, fp.fused_intervals_plan_plain,
                        iv, interval_bound(f32, 1, N, d, cap, n, leaves)),
                 "K4": (fe.fused_expander_plan, fe.fused_expander_plan_plain,
-                       ex, expander_bound(f32, 1, N, U, d, cap, n, C, leaves))}
+                       ex, expander_bound(f32, 1, N, U, d, cap, n, C, leaves)),
+                "K2-3p": (fp.fused_intervals_plan3,
+                          fp.fused_intervals_plan3_plain, iv,
+                          split_bound("bf16", N, d, cap, n, leaves=leaves))}
     out = {key: {"kernel_ms": cuda_ms(lambda: kern(*ops), reps=reps),
                  "plain_ms": cuda_ms(lambda: plain(*ops), reps=reps),
                  "bound_ms": b[0], "bound_by": b[1]}

@@ -25,9 +25,10 @@ The oracle is the float64 plain path (``fused_intervals_plain`` or
 ``fused_intervals_plan_plain`` on the state built in float64). For each
 float32 route, K1 or K2 (``fused_intervals``, ``fused_intervals_plan``)
 and K1-3p or K2-3p (the three-pass bf16 product, the certified path's
-interval pass), and on ``cap512`` also B3 (``intervals_mu_from_gram``)
-and B4 (``intervals_split``, one launch per GP) in bf16 and tf32 limbs,
-it reports:
+interval pass), and on ``cap512`` also B3 (``intervals_mu_from_gram``),
+B3-3p (the same with K1-3p's product: beside K1-3p's, how much of the
+three-pass error comes through mu) and B4 (``intervals_split``, one
+launch per GP) in bf16 and tf32 limbs, it reports:
 
 - the max scaled |dQ| over the columns (l_g, u_g), each GP's scaled by
   its scaling ([sqrt 2, 1] on the flagship's GPs, the prior std sqrt 2
@@ -36,8 +37,9 @@ it reports:
   float64 margin, scaled, is past 1e-3, and the rows inside that band
   (fmin 0.2 and 0.5 on the flagship's GPs, 0.2 and 0.3 contextual).
 
-``three_pass_ceiling`` is the largest max scaled |dQ| of the three-pass
-routes over the states: the noise ceiling of
+``three_pass_ceiling`` is the largest max scaled |dQ| of the certified
+path's three-pass routes (K1-3p, K2-3p) over the states: the noise
+ceiling of
 ``interval_precision='high'``. It gates nothing: it records what the card
 gives. Prints the card's ``nvidia-smi`` name and power limit and one JSON
 object, and writes it to ``--out``.
@@ -85,6 +87,7 @@ def k1_routes(ops, experiments):
            "K1-3p_bf16": fp.fused_intervals3(*ops)}
     if experiments:
         out["B3_f32"] = ie.intervals_mu_from_gram(*ops)
+        out["B3-3p_f32"] = ie.intervals_mu_from_gram(*ops, three_pass=True)
         for limb in ie.LIMBS:
             out[f"B4_{limb}"] = torch.stack([
                 ie.intervals_split(*one_gp(ops, g), limb=limb)
@@ -167,7 +170,7 @@ def main():
         routes, rows = probe_state(name, grid)
         states[name] = {"rows": rows, "routes": routes}
         for route, r in routes.items():
-            if "-3p" in route:
+            if route.startswith(("K1-3p", "K2-3p")):
                 ceiling = max(ceiling, r["max_scaled_dq"])
         print(f"{name}: " + "; ".join(
             f"{route} {r['max_scaled_dq']:.3e} (outside the band "
