@@ -9,7 +9,11 @@ Phases, each reported on its own line:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compiles the CUDA kernels from ``safeopt_torch/ops/csrc``
-   (one nvcc per source, in parallel);
+   (one nvcc per source, in parallel), prints ptxas's line of each
+   kernel and checks that the SASS of the float32 K1-3p and K2-3p
+   (``csrc/fused_intervals3.cu``: K1-3p and K2-3p's static and wide
+   plans, each with three consumer warpgroups a block and with one)
+   holds HGMMA, Hopper's warpgroup tensor-core product;
 3. K1 (fused intervals) against its plain PyTorch version at G=2, d=2,
    N=1e6, capacity 64 (the flagship) and 512 (400 observations), one
    launch of two GPs at capacity 512 whose counts differ (20 and 300),
@@ -53,15 +57,17 @@ Phases, each reported on its own line:
    printed beside K1's; beside each float32 bound its median and the
    rows' median |.|, and how far past it the rows of a kernel that drops
    each GP's first (which must be past the bound) or last 32 active
-   rows land (``drop_band``); the harnesses' three-pass columns, B1-3p
-   bit-identical to K1-3p (``fused_intervals3``) at every launch layout
-   in float64 and float32, B2-3p (the rank-1 solve) and B3-3p (mu from
-   the gram) to 1e-9 in float64 and in float32 within their float32
-   bound of the plain version on the same operands, both planted faults
-   past it, and the max scaled |dQ| against the float64 rows (B3-3p's
-   below ``refine_band - boundary_band``; B2-3p's rank-1 rows are no
-   SafeOpt intervals, and theirs is printed beside the plain version's
-   own); then the experiment path,
+   rows land (``drop_band``); the harnesses' three-pass columns, which
+   keep the mma.sync body K1-3p ran before its wgmma kernel: B1-3p
+   bit-identical at every launch layout to itself at its automatic
+   layout (0, 0, -1) in float64 and float32, and B1-3p (K1-3p's plain
+   version), B2-3p (the rank-1 solve) and B3-3p (mu from the gram) to
+   1e-9 in float64 and in float32 within their float32 bound of the
+   plain version on the same operands, both planted faults past it,
+   and the max scaled |dQ| against the float64 rows (B1-3p's and
+   B3-3p's below ``refine_band - boundary_band``; B2-3p's rank-1 rows
+   are no SafeOpt intervals, and theirs is printed beside the plain
+   version's own); then the experiment path,
    ``tools_torch/bench_interval_experiments.py``'s five harnesses on the
    cap-512 state in float32 (B1-B3 with their ``3pass`` columns), with
    every count zeroed before it and read after it;
@@ -78,10 +84,11 @@ Phases, each reported on its own line:
     Every kernel's launch count is zeroed just before each path and read
     just after it; neither path launches an experiment kernel;
 11. K1-3p and K2-3p (``fused_intervals3`` / ``fused_intervals_plan3``,
-    the three-pass bf16 product of the certified path) against their
+    the three-pass bf16 product of the certified path; in float32 the
+    wgmma kernels of ``csrc/fused_intervals3.cu``) against their
     plain versions: K1-3p at capacity 64 (the flagship's GPs), 512 (400
     observations), 512 with counts 20 and 300 in one launch and 1024 (600
-    observations, gram not resident); K2-3p on the contextual kernel at
+    observations); K2-3p on the contextual kernel at
     capacity 256, on the Sum with Bias and Cosine leaves and on the
     nine-leaf kernel (the wide instance): float64 to 1e-9, float32
     within ``float32_bound(..., "split", "bf16")`` (``float32_bound_plan``
@@ -102,10 +109,12 @@ Phases, each reported on its own line:
     for the time): at every step the certified S equals the float64 S
     at every row whose float64 scaled margin is at least 1e-9 (the rows
     below it are counted), and the query equals the float64 query or
-    their scaled widths agree within 1e-3. The cap-512 state must refine
-    its band within the budget at every step, the early contextual one
-    on at least half of them; the contextual state's band is past it,
-    and its steps take the full float32 pass. Launch counts are zeroed just before each
+    their scaled widths agree within 1e-3. The cap-512 state and the
+    early contextual one must refine their band within the budget
+    (``REFINE_BAND_SHARE`` of the grid) at every step; the contextual
+    state's band is past it at context 0 (those steps take the full
+    float32 pass) and within it on at least two steps at context 0.1.
+    Launch counts are zeroed just before each
     certified ``optimize()`` and read just after it: K1-3p (K2-3p) once
     per GP group, K1 (K2) once per group on the refined rows (or the
     full pass), no experiment kernel;
@@ -437,7 +446,8 @@ def check_three_pass(label, ops, fmin, scale, what="split"):
     rows' max scaled |dQ| against the float64 rows of the full-precision
     function (and the plain version's own), checked below
     ``refine_slack()``, and their decisions outside the band. ``what``:
-    ``"split"`` K1-3p, ``"plan"`` K2-3p, ``"solve_rank1"`` B2-3p (its
+    ``"split"`` K1-3p, ``"launch"`` B1-3p at its automatic layout (K1-3p's
+    plain version), ``"plan"`` K2-3p, ``"solve_rank1"`` B2-3p (its
     |dQ| printed, not held: the rank-1 stand-in gram reaches |k| = 20,
     and its rows are no SafeOpt intervals), ``"mu_from_gram"`` B3-3p
     (against K1's rows, its function). ``fmin`` and ``scale`` per GP.
@@ -454,9 +464,12 @@ def check_three_pass(label, ops, fmin, scale, what="split"):
                        fp.fused_intervals_plan_plain)
         name, fault = "K2-3p", "split"
         bound_ = ie.float32_bound_plan(*o32)
-    elif what == "split":
+    elif what in ("split", "launch"):
         kernel, plain = fp.fused_intervals3, fp.fused_intervals3_plain
         full, name, fault = fp.fused_intervals_plain, "K1-3p", "split"
+        if what == "launch":
+            kernel = functools.partial(ie.intervals_launch, three_pass=True)
+            name = "B1-3p"
         bound_ = ie.float32_bound(*o32, "split", limb="bf16")
     else:
         if what == "mu_from_gram":
@@ -786,9 +799,13 @@ def check_experiments(label, ops64, ops32):
     print(f"B1 {label}: K1's bits at every launch layout, float64 and "
           f"float32", flush=True)
     # every layout of LAYOUTS fits the card (B1 ran them all, with the
-    # same shared memory): a raise here is B1-3p's own and fails
+    # same shared memory): a raise here is B1-3p's own and fails. B1-3p
+    # keeps the mma.sync body that K1-3p ran before its wgmma redesign,
+    # whose sums run in another order: its bits at every layout are its
+    # own at the automatic layout, and its rows are held against the
+    # plain version below
     for ops in (ops64, ops32):
-        k1_3p = fp.fused_intervals3(*ops)
+        auto = ie.intervals_launch(*ops, three_pass=True)
         for slices, res, carveout in LAYOUTS[cap][ops[0].dtype]:
             where = (f"B1-3p {label} {ops[0].dtype} slices={slices} "
                      f"res={res} carveout={carveout}")
@@ -797,10 +814,11 @@ def check_experiments(label, ops64, ops32):
                                           carveout=carveout, three_pass=True)
             except RuntimeError as err:
                 fail(f"{where} raised: {err}")
-            check(torch.equal(got, k1_3p), f"{where} differs from K1-3p")
-    print(f"B1-3p {label}: K1-3p's bits at every launch layout "
-          f"({len(LAYOUTS[cap][f32])} float32, {len(LAYOUTS[cap][f64])} "
-          f"float64)", flush=True)
+            check(torch.equal(got, auto),
+                  f"{where} differs from B1-3p at the automatic layout")
+    print(f"B1-3p {label}: its automatic layout's bits at every launch "
+          f"layout ({len(LAYOUTS[cap][f32])} float32, "
+          f"{len(LAYOUTS[cap][f64])} float64)", flush=True)
     # B5 takes GP 0 alone, as its harness does (GP 1's prior variance, 1,
     # is all of sum V^2 at the grid's edge under ``epilogue``: sqrt would
     # magnify a last-bit difference there)
@@ -809,7 +827,7 @@ def check_experiments(label, ops64, ops32):
             "B2 solve_rank1": ("solve_rank1", both),
             "B5 no_product": ("no_product", gp0),
             "B5 epilogue": ("epilogue", gp0), "B3": ("mu_from_gram", both)}
-    errs = {"B1": 0.0, "B1-3p": 0.0}   # K1's (K1-3p's) bits
+    errs = {"B1": 0.0}   # K1's bits
     for name, (what, (o64, o32)) in runs.items():
         if what == "mu_from_gram":
             kernel, plain = (ie.intervals_mu_from_gram,
@@ -878,7 +896,8 @@ def check_experiments(label, ops64, ops32):
         check(first > 1.0, f"B4 {limb} {label}: float32_bound hides a "
                            "dropped band")
         errs[f"B4 {limb}"] = err
-    for name, what in (("B2-3p solve_rank1", "solve_rank1"),
+    for name, what in (("B1-3p", "launch"),
+                       ("B2-3p solve_rank1", "solve_rank1"),
                        ("B3-3p", "mu_from_gram")):
         errs[name] = check_three_pass(label, {f64: ops64, f32: ops32}, FMIN,
                                       SCALING, what=what)[0]
@@ -1002,7 +1021,7 @@ def main():
     from safeopt_torch import SafeOpt, linearly_spaced_combinations
     from safeopt_torch.ops import fused_expander as fe
     from safeopt_torch.ops import fused_posterior as fp
-    from safeopt_torch.ops._build import build_info, library
+    from safeopt_torch.ops._build import build_info, library, sass_opcodes
     from safeopt_torch.ops.topk import top_k
 
     # 1. device ---------------------------------------------------------------
@@ -1024,6 +1043,16 @@ def main():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip().replace("ptxas info    : ", ""))
+    # the float32 K1-3p and K2-3p (csrc/fused_intervals3.cu: static and
+    # wide plans for K2-3p, three consumer warpgroups a block and one)
+    # run on Hopper's warpgroup product: their SASS holds HGMMA
+    hgmma = {k: v for k, v in sass_opcodes("HGMMA").items()
+             if "intervals3_wg_kernel" in k
+             or "intervals_plan3_wg_kernel" in k}
+    for name, count in sorted(hgmma.items()):
+        print(f"  sass: {name}: {count} HGMMA", flush=True)
+    check(len(hgmma) == 6 and min(hgmma.values()) > 0,
+          f"the wgmma instances of K1-3p/K2-3p hold no HGMMA: {hgmma}")
 
     grid_np = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
     grid64 = torch.tensor(grid_np, dtype=torch.float64, device="cuda")
@@ -1227,21 +1256,25 @@ def main():
         return (context_truth([[float(x[0]), c]])
                 + 0.05 * cert_rng.normal(size=(1, 2)))
 
-    # the contextual state's safe rows have nearly equal widths, so its
-    # refine band (350,000-480,000 rows) is past the budget and each step
-    # takes the full float32 pass; early in a contextual run (20
-    # observations near the seed, context 0) the band fits on most steps,
-    # and K2-3p's rows go through the refinement
+    # the budget is 0.55 of the grid (REFINE_BAND_SHARE, the wgmma
+    # K1-3p's break-even against K1). The contextual state's safe rows
+    # have nearly equal widths: its refine band holds 640,000 rows of the
+    # 1e6 at context 0, past the budget (those steps take the full float32
+    # pass), and 220,000-550,000 at context 0.1, mostly within it; early
+    # in a contextual run (20 observations near the seed, context 0) the
+    # band (110,000-310,000 rows) fits on every step, and K2-3p's rows go
+    # through the refinement
     certified = {
         "cap 512": drive_certified(
             "cap 512", cap512, lambda x, c: plant(cert_rng, x), [None] * 10,
             min_refined=10),
         "contextual": drive_certified(
-            "contextual", contextual_cert, ctx_plant, contexts),
+            "contextual", contextual_cert, ctx_plant, contexts,
+            min_refined=2),
         "contextual, 20 obs": drive_certified(
             "contextual, 20 observations in [-0.5, 0.5]",
             functools.partial(contextual_cert, n_obs=20, spread=0.5),
-            ctx_plant, [0.0] * 10, min_refined=5)}
+            ctx_plant, [0.0] * 10, min_refined=10)}
     for name, kern3, kern1, per_step in (
             ("cap 512", "K1-3p", "K1", 1), ("contextual", "K2-3p", "K2", 2),
             ("contextual, 20 obs", "K2-3p", "K2", 2)):
@@ -1337,11 +1370,11 @@ def main():
                "safeopt_tpu/ops/fused_expander.py:44", ctx_launches["K4"],
                k4_err),
     }
-    meta["K1-3p"] = ("K1-3p fused_intervals3", "fused_intervals.cu",
+    meta["K1-3p"] = ("K1-3p fused_intervals3", "fused_intervals3.cu",
                      "safeopt_tpu/ops/fused_posterior.py:513",
                      sum(r[0]["K1-3p"] for r in certified["cap 512"].values()),
                      k1_3p_err)
-    meta["K2-3p"] = ("K2-3p fused_intervals_plan3", "fused_intervals_plan.cu",
+    meta["K2-3p"] = ("K2-3p fused_intervals_plan3", "fused_intervals3.cu",
                      "safeopt_tpu/ops/fused_posterior.py:313",
                      sum(r[0]["K2-3p"] for name in ("contextual",
                                                     "contextual, 20 obs")
@@ -1392,7 +1425,8 @@ def main():
                           *ablation(first, "no_product")),
         "B5 epilogue": (res["B5"]["epilogue_ms"],
                         *ablation(first, "epilogue")),
-        "B1-3p": (res["B1"][f"3pass_{bx.layout_tag(0, 0, -1)}_ms"],
+        "B1-3p": (res["B1"][
+                      f"3pass_mma_sync_{bx.layout_tag(0, 0, -1)}_ms"],
                   lambda: fp.fused_intervals3_plain(*o32),
                   split_bound("bf16", N, d, 512, n512, G=2)),
         "B2-3p solve_rank1": (res["B2"]["3pass_solve_only_ms"],

@@ -50,11 +50,12 @@ REFINE_BAND = 2e-2
 # The refinement budget's default as a share of the grid's N rows. The
 # refinement recomputes its rows with the full-float32 K1/K2, so B rows
 # cost about B / N of a full float32 pass, and the three-pass grid pass
-# saves about a fifth of one (K1-3p 8.5719 ms against K1's 10.6512 ms at
-# cap 512 on one H100 80GB HBM3 at 700 W, chip_smoke.py, PERF.md): past a
-# fifth of the grid, refining the band costs more than the full pass the
-# step then takes instead.
-REFINE_BAND_SHARE = 0.2
+# saves (K1 - K1-3p) / K1 of one: 0.548 at cap 512 (K1-3p 4.8175 ms
+# against K1's 10.6518 ms in one run of tools_torch/measure.py on one
+# H100 80GB HBM3 at 700 W, PERF.md; K2-3p's saving on the contextual GP
+# is 0.349 of K2). Past that share of the grid, refining the band costs
+# more than the full pass the step then takes instead.
+REFINE_BAND_SHARE = 0.55
 
 # Sentinel distinguishing "keep the current context" from an explicit
 # ``context=None`` (an error with num_contexts > 0, gp_opt.py:445-447).
@@ -121,7 +122,7 @@ class SafeOpt(GaussianProcessOptimization):
         (``_REDUCED_PRECISION_NOISE_CEILING``) or a warning is logged.
     refine_band_k : int, optional
         Budget of near-boundary rows restored to full float32 (default
-        ``None``: a fifth of the grid, ``REFINE_BAND_SHARE``; the JAX
+        ``None``: 0.55 of the grid, ``REFINE_BAND_SHARE``; the JAX
         package's default is 20480); past it (``refine_band_k +
         refine_k``) the step recomputes every row at full float32 instead
         (``safe_opt_core._refine_Q``; the JAX package refines the budget's

@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["library", "build_info", "build", "load"]
+__all__ = ["library", "build_info", "build", "load", "sass_opcodes"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "safeopt_torch"
@@ -150,6 +150,29 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         _lib = load(build())
     return _lib
+
+
+def sass_opcodes(opcode: str, path: Optional[Path] = None) -> dict:
+    """``{kernel: count}`` of the SASS instructions whose opcode begins
+    with ``opcode`` (``"HGMMA"``: Hopper's warpgroup tensor-core
+    product) in each kernel of the library at ``path`` (default: the
+    built one), from ``cuobjdump -sass``."""
+    path = path or build()
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split(":", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and "*/" in line:
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):     # a predicate
+                words = words[1:]
+            if words and words[0].startswith(opcode):
+                counts[name] += 1
+    return counts
 
 
 def build_info() -> dict:

@@ -18,21 +18,14 @@
 // the GP's inverse lengthscales and the StationaryGram policy; the GP is
 // the grid's y axis, and each GP's count comes from its scal row.
 //
-// K1-3p (safeopt_intervals3_*) is K1 with the three-pass product
-// (intervals.cuh ThreePassProduct): the same TPU kernel at
+// K1-3p in float64 (safeopt_intervals3_f64) is K1 with the three-pass
+// product (intervals.cuh ThreePassProduct): the same TPU kernel at
 // three_pass=True (_interval_kernel_multi's product at
-// fused_posterior.py:513-528, through _tri_matmul(three_pass=True)), the
-// certified path's interval pass (interval_precision='high'). What
-// bounds it on Hopper: the operations, 3 n(n+1) flops a point and GP of
-// the three limb products on the bf16 tensor cores (989 TFLOP/s), the
-// gram and the epilogue on the FP32 pipe beside them; not device memory.
-// Design: K1's blocks, bands, active rows, resident gram and staged
-// factor unchanged, each band's pieces through mma.sync (band_mma3). What
-// it leaves above the bound: every band cuts the limbs of its gram and
-// factor pieces again (FP32 work of the order of the product's bound),
-// mma.sync with no pipeline, shared-memory fragment loads with 4-way bank
-// conflicts. Float64 runs the limbs as FP64 FMAs, one block an SM (its
-// register tile and limbs need more than 128 registers).
+// fused_posterior.py:513-528, through _tri_matmul(three_pass=True)), with
+// the limbs as FP64 FMAs (lo unrounded), one block an SM: a check of the
+// bands, the gram and the limb cut against the plain version to 1e-9, not
+// a route the card's float32 path takes. The float32 K1-3p, the certified
+// path's interval pass, runs on wgmma: fused_intervals3.cu.
 
 #include "intervals.cuh"
 
@@ -72,13 +65,19 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
       StationaryGram<T>{kind, scal[g * 4 + 0]});
 }
 
-// K1 (three_pass 0) or K1-3p (1)
+// K1 (three_pass 0) or, in float64, K1-3p (1); the float32 K1-3p is
+// launch_intervals3 (fused_intervals3.cu)
 template <typename T>
 int launch_intervals(const T* zt, const T* ils, const T* xs, const T* lmt,
                      const T* w, const T* scal, T* out, int G, int N, int d,
                      int cap, int kind, int three_pass, cudaStream_t stream) {
   const IvLayout<T> lay = interval_layout<T>(cap, d);
-  auto kernel = three_pass ? intervals3_kernel<T> : intervals_kernel<T>;
+  auto kernel = intervals_kernel<T>;
+  if constexpr (std::is_same<T, double>::value) {
+    if (three_pass) kernel = intervals3_kernel<T>;
+  } else if (three_pass) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
   if (err != cudaSuccess) return (int)err;
@@ -119,17 +118,7 @@ int safeopt_intervals_f64(const void* zt, const void* ils, const void* xs,
       (double*)out, G, N, d, cap, kind, 0, (cudaStream_t)stream);
 }
 
-// K1-3p: K1's operands and layout, the three-pass product.
-int safeopt_intervals3_f32(const void* zt, const void* ils, const void* xs,
-                           const void* lmt, const void* w, const void* scal,
-                           void* out, int G, int N, int d, int cap, int kind,
-                           void* stream) {
-  return safeopt::launch_intervals<float>(
-      (const float*)zt, (const float*)ils, (const float*)xs,
-      (const float*)lmt, (const float*)w, (const float*)scal, (float*)out, G,
-      N, d, cap, kind, 1, (cudaStream_t)stream);
-}
-
+// K1-3p in float64: K1's operands and layout, the three-pass product.
 int safeopt_intervals3_f64(const void* zt, const void* ils, const void* xs,
                            const void* lmt, const void* w, const void* scal,
                            void* out, int G, int N, int d, int cap, int kind,

@@ -21,14 +21,13 @@
 // resident. A Bias leaf skips the distance loop, and a leaf reads only
 // its active columns (nonzero scale). No TF32, no tensor cores.
 //
-// K2-3p (safeopt_intervals_plan3_*) is K2 with the three-pass product
-// (intervals.cuh ThreePassProduct): _interval_kernel at three_pass=True
-// (its product at fused_posterior.py:313, through
-// _tri_matmul(three_pass=True)), the contextual certified path's
-// interval pass. Bound and design as K1-3p (fused_intervals.cu): the
-// limb products on the bf16 tensor cores, the plan's gram, the limb cuts
-// and the epilogue on the FP32 pipe; float64 runs the limbs as FP64
-// FMAs, one block an SM.
+// K2-3p in float64 (safeopt_intervals_plan3_f64) is K2 with the
+// three-pass product (intervals.cuh ThreePassProduct): _interval_kernel at
+// three_pass=True (its product at fused_posterior.py:313, through
+// _tri_matmul(three_pass=True)), the limbs as FP64 FMAs, one block an SM:
+// a check, as K1-3p's float64 instance is (fused_intervals.cu). The
+// float32 K2-3p, the contextual certified path's interval pass, runs on
+// wgmma: fused_intervals3.cu.
 //
 // A plan of more than kMaxLeaves leaves (any Sum/Product tree the JAX
 // kernel takes) runs the wide instances (intervals_plan_wide_kernel):
@@ -104,8 +103,9 @@ __global__ void __launch_bounds__(
       cap, n, S, res, gram);
 }
 
-// K2 (three_pass 0) or K2-3p (1); past kMaxLeaves leaves, their wide
-// instances
+// K2 (three_pass 0) or, in float64, K2-3p (1); past kMaxLeaves leaves,
+// their wide instances. The float32 K2-3p is launch_intervals_plan3
+// (fused_intervals3.cu).
 template <typename T>
 int launch_intervals_plan(const T* zt, const T* xs, const T* lmt, const T* w,
                           const T* scales, const T* pvar, const int* plan,
@@ -117,11 +117,15 @@ int launch_intervals_plan(const T* zt, const T* xs, const T* lmt, const T* w,
   const size_t bytes =
       wide ? wide_plan_at(lay.bytes) + plan_bytes<T>(P, d) : lay.bytes;
   if (bytes > kSmemPerBlock) return (int)cudaErrorInvalidValue;
-  auto kernel =
-      wide ? (three_pass ? intervals_plan_wide_kernel<T, ThreePassProduct>
-                         : intervals_plan_wide_kernel<T, Fp32Product>)
-           : (three_pass ? intervals_plan3_kernel<T>
-                         : intervals_plan_kernel<T>);
+  auto kernel = wide ? intervals_plan_wide_kernel<T, Fp32Product>
+                     : intervals_plan_kernel<T>;
+  if constexpr (std::is_same<T, double>::value) {
+    if (three_pass)
+      kernel = wide ? intervals_plan_wide_kernel<T, ThreePassProduct>
+                    : intervals_plan3_kernel<T>;
+  } else if (three_pass) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -163,18 +167,7 @@ int safeopt_intervals_plan_f64(const void* zt, const void* xs,
       (cudaStream_t)stream);
 }
 
-// K2-3p: K2's operands and layout, the three-pass product.
-int safeopt_intervals_plan3_f32(const void* zt, const void* xs,
-                                const void* lmt, const void* w,
-                                const void* scales, const void* pvar,
-                                const void* plan, const void* scal, void* out,
-                                int N, int d, int cap, int P, void* stream) {
-  return safeopt::launch_intervals_plan<float>(
-      (const float*)zt, (const float*)xs, (const float*)lmt, (const float*)w,
-      (const float*)scales, (const float*)pvar, (const int*)plan,
-      (const float*)scal, (float*)out, N, d, cap, P, 1, (cudaStream_t)stream);
-}
-
+// K2-3p in float64: K2's operands and layout, the three-pass product.
 int safeopt_intervals_plan3_f64(const void* zt, const void* xs,
                                 const void* lmt, const void* w,
                                 const void* scales, const void* pvar,

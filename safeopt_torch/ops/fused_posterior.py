@@ -32,11 +32,15 @@ functions in plain PyTorch. The TPU-only machinery (VMEM gates, block
 picking, block-diagonal MXU stacking, the TPU's products-fused-or-not
 policy) has no counterpart here.
 
-K1-3p and K2-3p (``fused_intervals3`` / ``fused_intervals_plan3``, the
-same sources' ``ThreePassProduct`` instances) are K1 and K2 with the
-TPU kernels' ``three_pass=True`` product (``_tri_matmul``): ``V = Lm_hi
-k_hi + Lm_hi k_lo + Lm_lo k_hi`` over bf16 limbs (``split_limbs``), the
-certified path's interval pass. Their plain versions
+K1-3p and K2-3p (``fused_intervals3`` / ``fused_intervals_plan3``) are
+K1 and K2 with the TPU kernels' ``three_pass=True`` product
+(``_tri_matmul``): ``V = Lm_hi k_hi + Lm_hi k_lo + Lm_lo k_hi`` over bf16
+limbs (``split_limbs``), the certified path's interval pass. In float32
+they run on Hopper's warpgroup tensor-core product
+(``csrc/fused_intervals3.cu``, ``intervals3.cuh``), the factor's limbs cut
+once per call here and laid out in the order the kernel reads them
+(``factor_chunks``); in float64 they are the ``ThreePassProduct``
+instances of K1's and K2's sources, a check. Their plain versions
 (``fused_intervals3_plain``, ``fused_intervals_plan3_plain``) cut the
 limbs as the kernels do: from float32 operands with ``lo`` rounded to
 bf16 (a tensor-core operand) and the gram computed bit for bit as the
@@ -71,7 +75,8 @@ from ..gp.regression import row_mask
 __all__ = ["KINDS", "LEAF_KINDS", "kind_of", "supports_kernel",
            "supports_plan", "check_kernel", "terms_of",
            "part_plan", "round_limb", "split_limbs", "kernel_gram",
-           "kernel_plan_gram", "interval_operands", "fused_intervals",
+           "kernel_plan_gram", "interval_operands", "factor_chunks",
+           "fused_intervals",
            "fused_intervals_plain", "fused_intervals3",
            "fused_intervals3_plain", "fused_intervals_batched",
            "interval_plan_operands", "fused_intervals_plan",
@@ -93,6 +98,10 @@ MAX_DIM = 64
 MAX_LEAVES = 8
 # grid columns per step of the plain versions (bounds their memory)
 PLAIN_COLS = 1 << 16
+# The float32 K1-3p/K2-3p factor chunks (csrc/intervals3.cuh kTM3,
+# kKC3): row tiles of 64, chunks of 32 columns.
+TILE_ROWS = 64
+CHUNK_COLS = 32
 
 
 def supports_kernel(kernel, d: int) -> bool:
@@ -456,6 +465,29 @@ def transposed_factor(lm: torch.Tensor) -> torch.Tensor:
     return lmt
 
 
+def factor_chunks(lm: torch.Tensor) -> torch.Tensor:
+    """The float32 factor ``lm`` (G, cap, cap) as the float32 K1-3p/K2-3p
+    read it: its bf16 limbs (``split_limbs``, the plain version's bits),
+    zero-padded to ``cap_pad``, the capacity rounded up to ``TILE_ROWS``,
+    in chunks of ``TILE_ROWS`` rows by ``CHUNK_COLS`` columns, row tile
+    major: (G, cap_pad / 64, cap_pad / 32, 2, 4, 8, 8, 8), the chunk's hi
+    then lo limb, each in wgmma's no-swizzle core-matrix order (column
+    group of 8, row group of 8, row, column), so that one contiguous
+    8 KB copy lands a chunk ready for the tensor cores."""
+    G, cap, _ = lm.shape
+    pad = -(-cap // TILE_ROWS) * TILE_ROWS
+    if pad != cap:
+        lm = torch.nn.functional.pad(lm, (0, pad - cap, 0, pad - cap))
+    mt, qt = pad // TILE_ROWS, pad // CHUNK_COLS
+
+    def chunks(limb):
+        t = limb.to(torch.bfloat16).view(G, mt, 8, 8, qt, CHUNK_COLS // 8, 8)
+        return t.permute(0, 1, 4, 5, 2, 3, 6)
+
+    return torch.stack([chunks(t) for t in split_limbs(lm, "bf16")],
+                       dim=3).contiguous()
+
+
 def k1_layout(zt, ils, xs, lm, w, scal, kind, what):
     """``(G, N, d, cap, dtype)`` of K1's operands (``what`` names the
     kernel in errors); raises unless they lie on a CUDA device in one
@@ -475,11 +507,14 @@ def k1_layout(zt, ils, xs, lm, w, scal, kind, what):
     return G, N, d, cap, dtype
 
 
-def _launch_k1(symbol, what, zt, ils, xs, lm, w, scal, kind):
+def _launch_k1(symbol, what, zt, ils, xs, lm, w, scal, kind, chunks=False):
     """(G, 2, N) rows from the K1-layout kernel ``symbol`` (with an
-    ``_f32`` / ``_f64`` suffix in the library) on CUDA operands."""
+    ``_f32`` / ``_f64`` suffix in the library) on CUDA operands; with
+    ``chunks`` the float32 kernel takes the factor as ``factor_chunks``,
+    else (and the float64 one) as ``transposed_factor``."""
     G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, what)
-    lmt = transposed_factor(lm)
+    lmt = (factor_chunks if chunks and dtype == torch.float32
+           else transposed_factor)(lm)
     out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
 
     from ._build import library
@@ -522,7 +557,7 @@ def fused_intervals3(zt, ils, xs, lm, w, scal, kind):
     if zt.device.type == "cpu":
         return fused_intervals3_plain(zt, ils, xs, lm, w, scal, kind)
     out = _launch_k1("safeopt_intervals3", "K1-3p (fused_intervals3)", zt,
-                     ils, xs, lm, w, scal, kind)
+                     ils, xs, lm, w, scal, kind, chunks=True)
     fused_intervals3.launches += 1
     return out
 
@@ -572,9 +607,11 @@ def fused_intervals_plan3_plain(zt, xs, lm, w, scales, pvar, plan, scal):
         lm, w, scal[1], scal[2], zt.shape[1])
 
 
-def _launch_k2(symbol, what, zt, xs, lm, w, scales, pvar, plan, scal):
+def _launch_k2(symbol, what, zt, xs, lm, w, scales, pvar, plan, scal,
+               chunks=False):
     """(2, N) rows from the K2-layout kernel ``symbol`` (with an ``_f32``
-    / ``_f64`` suffix in the library) on CUDA operands."""
+    / ``_f64`` suffix in the library) on CUDA operands; ``chunks`` as
+    ``_launch_k1``'s."""
     if zt.device.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or CPU tensors, not "
                          f"{zt.device}")
@@ -587,7 +624,8 @@ def _launch_k2(symbol, what, zt, xs, lm, w, scales, pvar, plan, scal):
              scal=scal), zt.device, dtype,
         dict(zt=(d, N), xs=(cap, d), lm=(cap, cap), w=(cap,),
              scales=(P, d), pvar=(P,), plan=(2, P), scal=(4,)))
-    lmt = transposed_factor(lm[None])[0]
+    lmt = (factor_chunks if chunks and dtype == torch.float32
+           else transposed_factor)(lm[None])[0]
     out = torch.empty((2, N), dtype=dtype, device=zt.device)
 
     from ._build import library
@@ -635,7 +673,7 @@ def fused_intervals_plan3(zt, xs, lm, w, scales, pvar, plan, scal):
                                            scal)
     out = _launch_k2("safeopt_intervals_plan3",
                      "K2-3p (fused_intervals_plan3)", zt, xs, lm, w, scales,
-                     pvar, plan, scal)
+                     pvar, plan, scal, chunks=True)
     fused_intervals_plan3.launches += 1
     return out
 

@@ -25,7 +25,12 @@ with their plain versions to 1e-9 in float64 and, in float32, within the
 worst-case bound of their arithmetic (``float32_bound(..., "split")``,
 ``float32_bound_plan``) on the same operands. So do the experiment
 kernels' three-pass forms B2-3p and B3-3p (``float32_bound(...,
-three_pass=True)``); B1-3p gives K1-3p's bits at every launch layout.
+three_pass=True)``); B1-3p keeps the mma.sync body that K1-3p ran before
+its wgmma kernel: it gives its own automatic layout's bits at every
+launch layout and lies within the split bound of K1-3p's plain version.
+The float32 K1-3p and K2-3p (``csrc/fused_intervals3.cu``) give the same
+bits on every launch, take grids of any length and capacities past the
+resident gram, and their SASS holds HGMMA.
 """
 
 import numpy as np
@@ -522,10 +527,13 @@ LAUNCH_VARIANTS = [(0, 0, -1), (1, 0, -1), (1, 64, 100), (2, 64, -1),
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("three_pass", [False, True])
 def test_launch_variants_give_k1_bits(cuda, counts, cap, dtype, three_pass):
-    """B1 gives K1's bits at every layout, B1-3p K1-3p's."""
+    """B1 gives K1's bits at every layout; B1-3p, whose mma.sync body is
+    no longer K1-3p's, gives its automatic layout's (0, 0, -1) at every
+    layout."""
     from safeopt_torch.ops import interval_experiments as ie
     ops = _experiment_ops(counts, cap, cuda, dtype)
-    k1 = (fp.fused_intervals3 if three_pass else fp.fused_intervals)(*ops)
+    k1 = (ie.intervals_launch(*ops, three_pass=True) if three_pass
+          else fp.fused_intervals(*ops))
     count = "three_pass_launches" if three_pass else "launches"
     before = getattr(ie.intervals_launch, count)
     for slices, res, carveout in LAUNCH_VARIANTS:
@@ -535,6 +543,33 @@ def test_launch_variants_give_k1_bits(cuda, counts, cap, dtype, three_pass):
         assert torch.equal(got, k1), (slices, res, carveout)
     assert (getattr(ie.intervals_launch, count)
             == before + len(LAUNCH_VARIANTS))
+
+
+def _faults_past(plain, ops, bound):
+    """The plain rows with each GP's first, then last, 32 active rows
+    dropped (``drop_band``) land past ``bound``."""
+    from safeopt_torch.ops import interval_experiments as ie
+    want = plain(*ops).double()
+    for first in (True, False):
+        fault = plain(*ie.drop_band(ops, "split", first)).double()
+        assert ((fault - want).abs() / bound).max().item() > 1.0, first
+
+
+@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_launch_three_pass_matches_plain(cuda, counts, cap, dtype):
+    """B1-3p against K1-3p's plain version: float64 to 1e-9, float32
+    within the split bound, which both planted faults pass."""
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, dtype)
+    got = ie.intervals_launch(*ops, three_pass=True)
+    want = fp.fused_intervals3_plain(*ops)
+    if dtype == torch.float64:
+        assert (got - want).abs().max().item() <= 1e-9
+    else:
+        bound = ie.float32_bound(*ops, "split", limb="bf16")
+        _within(got, want, bound)
+        _faults_past(fp.fused_intervals3_plain, ops, bound)
 
 
 def test_launch_refuses_a_layout_past_shared_memory(cuda):
@@ -685,6 +720,60 @@ def test_plan_three_pass_kernel_matches_plain(cuda, name, cap, dtype):
         assert (got - want).abs().max().item() <= 1e-9
     else:
         _within(got, want, ie.float32_bound_plan(*ops))
+
+
+def test_three_pass_kernels_give_the_same_bits_twice(cuda):
+    """The float32 K1-3p and K2-3p add their partial sums in a fixed
+    order: two launches give the same bits (the certified path compares
+    runs)."""
+    ops = _experiment_ops((400, 400), 512, cuda, torch.float32)
+    assert torch.equal(fp.fused_intervals3(*ops), fp.fused_intervals3(*ops))
+    gp, grid = _algebra_gp("context", 256, cuda, torch.float32, n_obs=240)
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid, 2.0)
+    assert torch.equal(fp.fused_intervals_plan3(*ops),
+                       fp.fused_intervals_plan3(*ops))
+
+
+@pytest.mark.parametrize("N", [5, 64 * 37 + 13])
+def test_three_pass_kernels_take_a_grid_of_any_length(cuda, N):
+    """Grids shorter than, and not a multiple of, a work item's 64
+    points: every row is written and within the split bound."""
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops((400, 300), 512, cuda, torch.float32)
+    ops = (ops[0][:, :N].contiguous(),) + ops[1:]
+    got = fp.fused_intervals3(*ops)
+    _within(got, fp.fused_intervals3_plain(*ops),
+            ie.float32_bound(*ops, "split", limb="bf16"))
+    gp, grid = _algebra_gp("cosine", 256, cuda, torch.float32, n_obs=200)
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid[:N], 2.0)
+    _within(fp.fused_intervals_plan3(*ops),
+            fp.fused_intervals_plan3_plain(*ops), ie.float32_bound_plan(*ops))
+
+
+@pytest.mark.parametrize("counts,cap", [((1200,), 2048), ((3000,), 4096)])
+def test_three_pass_kernel_past_the_resident_gram(cuda, counts, cap):
+    """Capacities whose gram is not all resident at 64 points a block:
+    the warpgroups compute the chunks past the resident rows as they
+    come to them; float32 within the split bound."""
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, torch.float32)
+    before = fp.fused_intervals3.launches
+    got = fp.fused_intervals3(*ops)
+    torch.cuda.synchronize()
+    assert fp.fused_intervals3.launches == before + 1
+    _within(got, fp.fused_intervals3_plain(*ops),
+            ie.float32_bound(*ops, "split", limb="bf16"))
+
+
+def test_three_pass_kernels_run_on_wgmma(cuda):
+    """The float32 K1-3p and K2-3p instances (K2-3p's static and wide
+    plans, each with three consumer warpgroups a block and with one, for
+    capacities up to 128) hold Hopper's warpgroup product in their
+    SASS."""
+    from safeopt_torch.ops._build import sass_opcodes
+    counts = {k: v for k, v in sass_opcodes("HGMMA").items()
+              if "wg_kernel" in k}
+    assert len(counts) == 6 and min(counts.values()) > 0, counts
 
 
 # -- past the static plan's leaves and the kernels' columns; the certified

@@ -14,21 +14,29 @@ float32: two RBF GPs, 400 observations from ``default_rng(512)`` in
 [-4, 4]^2, capacity 512, the 1000 x 1000 grid on [-5, 5]^2 (N = 1e6).
 B4 and B5 take GP 0 alone. Times are CUDA-event ms per call over
 ``--reps`` calls after two warm-ups. One JSON object per harness; B1-B3
-also carry their ``3pass`` columns, as the TPU harnesses printed them
-(the same kernels with K1-3p's three-pass bf16 product, against K1-3p,
-``fused_intervals3``):
+also carry their ``3pass`` columns, as the TPU harnesses printed them.
+Their kernels keep K1-3p's mma.sync body as it stood before K1-3p's
+``wgmma`` redesign (``csrc/intervals.cuh`` ``ThreePassProduct``): the
+``3pass_mma_sync_*`` keys time that body, and ``K1-3p_wgmma_ms`` times
+K1-3p as the certified path runs it (``fused_intervals3``,
+``csrc/fused_intervals3.cu``), beside them in the same run:
 
 - ``B1``: K1 (``fused_intervals``) and each launch layout (slices per
   block, resident gram rows, shared-memory carveout) of
-  ``intervals_launch``: ms and whether its rows are K1's bits; K1-3p's
-  ms and, per layout ``s<slices>_r<res>_c<carveout>``,
-  ``3pass_<layout>_ms`` and ``3pass_<layout>_bitexact`` (K1-3p's bits);
+  ``intervals_launch``: ms and whether its rows are K1's bits;
+  ``K1-3p_wgmma_ms`` and, per layout ``s<slices>_r<res>_c<carveout>``,
+  ``3pass_mma_sync_<layout>_ms`` and
+  ``3pass_mma_sync_<layout>_bits_of_auto`` (the bits of B1-3p at its
+  automatic layout ``s0_r0_c-1``), and ``3pass_mma_sync_vs_wgmma``, the
+  mma.sync body at its automatic layout over the wgmma K1-3p;
 - ``B2``: ``gram_sums``, ``solve_rank1`` and K1 (total) ms and
   ``(gram + solve) / total``; ``3pass_solve_only_ms`` (B2-3p),
-  ``3pass_total_ms`` (K1-3p) and ``3pass_sum_vs_total``;
+  ``3pass_mma_sync_total_ms`` (B1-3p at its automatic layout, the body
+  B2-3p splits), ``3pass_sum_vs_mma_sync_total`` and ``K1-3p_wgmma_ms``;
 - ``B3``: ``intervals_mu_from_gram`` and K1 ms, max |dQ| against K1;
-  ``3pass_mxu_emit_ms`` (B3-3p), ``3pass_base_ms`` (K1-3p) and
-  ``3pass_max_dq`` against K1-3p;
+  ``3pass_mxu_emit_ms`` (B3-3p), ``3pass_mma_sync_base_ms`` (B1-3p at
+  its automatic layout), ``3pass_max_dq`` against it and
+  ``K1-3p_wgmma_ms``;
 - ``B4``: ``intervals_split`` ms for each limb format, in-kernel and
   hoisted (Lm's limbs from ``split_factor``, split once outside the
   timed calls, as the TPU harness splits them outside its loop), whether
@@ -68,14 +76,17 @@ def layout_tag(slices, res, carveout):
 
 
 def b1(ops, reps):
-    """K1 and K1-3p at each launch layout: ms and bit-exactness against
-    K1 (K1-3p)."""
+    """K1 and each launch layout, with the FP32 and the three-pass
+    mma.sync product: ms and bits against K1 (against B1-3p at its
+    automatic layout); the wgmma K1-3p's ms."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
-    k1, k1_3p = fp.fused_intervals(*ops), fp.fused_intervals3(*ops)
+    k1 = fp.fused_intervals(*ops)
+    auto3 = ie.intervals_launch(*ops, three_pass=True)
     out = {"K1_ms": cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps),
-           "K1-3p_ms": cuda_ms(lambda: fp.fused_intervals3(*ops), reps=reps),
+           "K1-3p_wgmma_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
+                                     reps=reps),
            "variants": []}
     for slices, res, carveout in LAYOUTS[512][ops[0].dtype]:
         run = functools.partial(ie.intervals_launch, *ops, slices=slices,
@@ -86,14 +97,19 @@ def b1(ops, reps):
             "ms": cuda_ms(run, reps=reps)})
         run3 = functools.partial(run, three_pass=True)
         tag = layout_tag(slices, res, carveout)
-        out[f"3pass_{tag}_bitexact"] = bool(torch.equal(run3(), k1_3p))
-        out[f"3pass_{tag}_ms"] = cuda_ms(run3, reps=reps)
+        out[f"3pass_mma_sync_{tag}_bits_of_auto"] = bool(
+            torch.equal(run3(), auto3))
+        out[f"3pass_mma_sync_{tag}_ms"] = cuda_ms(run3, reps=reps)
+    out["3pass_mma_sync_vs_wgmma"] = (
+        out[f"3pass_mma_sync_{layout_tag(0, 0, -1)}_ms"]
+        / out["K1-3p_wgmma_ms"])
     return out
 
 
 def b2(ops, reps):
-    """The gram alone, the rank-1 solve alone and K1; the solve and K1
-    with the three-pass product."""
+    """The gram alone, the rank-1 solve alone and K1; the solve and the
+    mma.sync body's full intervals with the three-pass product, and the
+    wgmma K1-3p."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
@@ -105,20 +121,24 @@ def b2(ops, reps):
                            / out["total_ms"])
     out["3pass_solve_only_ms"] = cuda_ms(lambda: ie.interval_ablation(
         *ops, "solve_rank1", three_pass=True), reps=reps)
-    out["3pass_total_ms"] = cuda_ms(lambda: fp.fused_intervals3(*ops),
+    out["3pass_mma_sync_total_ms"] = cuda_ms(
+        lambda: ie.intervals_launch(*ops, three_pass=True), reps=reps)
+    out["3pass_sum_vs_mma_sync_total"] = (
+        (out["gram_sums_ms"] + out["3pass_solve_only_ms"])
+        / out["3pass_mma_sync_total_ms"])
+    out["K1-3p_wgmma_ms"] = cuda_ms(lambda: fp.fused_intervals3(*ops),
                                     reps=reps)
-    out["3pass_sum_vs_total"] = ((out["gram_sums_ms"]
-                                  + out["3pass_solve_only_ms"])
-                                 / out["3pass_total_ms"])
     return out
 
 
 def b3(ops, reps):
     """mu from the gram against K1, and with the three-pass product
-    against K1-3p."""
+    against the mma.sync body it shares (B1-3p at its automatic layout);
+    the wgmma K1-3p."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
+    base3 = functools.partial(ie.intervals_launch, *ops, three_pass=True)
     return {"mu_from_gram_ms": cuda_ms(
                 lambda: ie.intervals_mu_from_gram(*ops), reps=reps),
             "K1_ms": cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps),
@@ -126,10 +146,11 @@ def b3(ops, reps):
                              fp.fused_intervals(*ops)),
             "3pass_mxu_emit_ms": cuda_ms(lambda: ie.intervals_mu_from_gram(
                 *ops, three_pass=True), reps=reps),
-            "3pass_base_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
-                                     reps=reps),
+            "3pass_mma_sync_base_ms": cuda_ms(base3, reps=reps),
             "3pass_max_dq": max_dq(ie.intervals_mu_from_gram(
-                *ops, three_pass=True), fp.fused_intervals3(*ops))}
+                *ops, three_pass=True), base3()),
+            "K1-3p_wgmma_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
+                                      reps=reps)}
 
 
 def b4(ops, reps):

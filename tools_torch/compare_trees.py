@@ -26,7 +26,11 @@ the median ``optimize()`` ms.
 builds the parent's CUDA sources and this tree's, both with this tree's
 nvcc flags, and compares ptxas's line of each kernel instance of the
 parent (registers, barriers, shared memory; spills) with this tree's
-line of the same instance; it exits 1 if any differs or is missing.
+line of the same instance; it exits 1 if any differs or is missing. The
+parent's float32 K1-3p and K2-3p instances (``REDESIGNED``: the
+mma.sync body, which their ``wgmma`` kernels of ``fused_intervals3.cu``
+replace) are printed beside the new instances' lines instead, and a new
+instance that spills exits 1 too.
 """
 
 import argparse
@@ -37,6 +41,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PARENT = ROOT / "build" / "compare" / "parent"
+# The float32 three-pass instances of intervals.cuh's body that the wgmma
+# kernels replace (parent names), and those kernels' names in this tree.
+REDESIGNED = ("intervals3_kernelIfE", "intervals_plan3_kernelIfE",
+              "intervals_plan_wide_kernelIfNS_16ThreePassProduct")
+WGMMA = ("intervals3_wg_kernel", "intervals_plan3_wg_kernel")
 sys.path.insert(0, str(ROOT))
 
 
@@ -111,14 +120,25 @@ def ptxas():
         _build.build(src)
         usage[tree] = ptxas_usage(_build.build_info()["log"])
     parent, change = usage["parent"], usage["change"]
-    differ = [k for k in parent if change.get(k) != parent[k]]
+    replaced = [k for k in parent if any(r in k for r in REDESIGNED)]
+    kept = [k for k in parent if k not in replaced]
+    differ = [k for k in kept if change.get(k) != parent[k]]
     for k in differ:
         print(f"differs: {k}: parent {parent[k]!r}, change "
               f"{change.get(k)!r}", flush=True)
-    print(f"ptxas: {len(parent) - len(differ)} of the parent's "
-          f"{len(parent)} lines identical in this tree (which has "
-          f"{len(change)})", flush=True)
-    return 1 if differ else 0
+    for k in replaced:
+        print(f"replaced: {k}: parent {parent[k]!r}", flush=True)
+    new = [k for k in change if any(r in k for r in WGMMA)]
+    spills = [k for k in new if k.endswith(" spills")
+              and "0 bytes spill stores, 0 bytes spill loads" not in change[k]]
+    for k in new:
+        print(f"wgmma: {k}: {change[k]!r}", flush=True)
+    print(f"ptxas: {len(kept) - len(differ)} of the parent's {len(kept)} "
+          f"lines identical in this tree (which has {len(change)}); "
+          f"{len(replaced)} lines of the redesigned float32 three-pass "
+          f"instances replaced by {len(new)} of the wgmma kernels, "
+          f"{len(spills)} of them spilling", flush=True)
+    return 1 if differ or spills or not new else 0
 
 
 def main():
