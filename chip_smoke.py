@@ -118,7 +118,31 @@ Phases, each reported on its own line:
     certified ``optimize()`` and read just after it: K1-3p (K2-3p) once
     per GP group, K1 (K2) once per group on the refined rows (or the
     full pass), no experiment kernel;
-13. times of the paths and of each kernel against its plain version
+13. mixed routes at the flagship's width: GP 0 RBF(variance 2,
+    lengthscale 1) on K1/K3, GP 1 RBF(variance 1, lengthscale 1.5) +
+    White(1e-2) on the eager route (no kernel takes White), the
+    flagship's grid and data; 10 iterations of ``optimize`` and
+    ``add_new_data_point`` in float32 in lockstep with a float64
+    ``SafeOpt`` of the same data on the card: S equal outside the 1e-3
+    band, the query the float64 query or their scaled widths within 1e-3;
+    K1 once a step and K3 once a walk chunk (GP 0's group), nothing of
+    K2/K4 or the three-pass kernels; on the first step the float64
+    run's rows of GP 1 within 1e-9 of ``mu -+ beta sigma`` from the
+    host factor (``HostFactor.predict``) on 1e4 grid rows; the eager
+    route's share of a step;
+14. ``run_safeopt_loop`` on the flagship (10 iterations, noise 0) and
+    on the contextual state (10 iterations, context 0.0 then 0.1 from
+    iteration 6, through ``contexts``), each against the blocking
+    ``SafeOpt`` loop on the same plant on the card: queries identical up
+    to a first divergence, allowed only where the two queries' scaled
+    widths agree within 1e-3; ``has_safe`` all true, counts grown by 10;
+    ms per iteration of each, host syncs per iteration, launch counts
+    zeroed before each loop and read after it;
+15. ``run_lagged_campaign`` on the flagship, ``pipelined=True`` against
+    ``False``, 8 iterations each, plain and certified
+    (``interval_precision='high'``, device oracle): queries and
+    observations bitwise equal; ms per iteration of each;
+16. times of the paths and of each kernel against its plain version
     (K3 also at capacity 512, K2 also on the nine-leaf kernel; B1-B5
     and B1-3p-B3-3p from the experiment path), beside the
     least time the card could take (``bound_ms``: the least work the
@@ -1010,6 +1034,264 @@ def drive_certified(label, make, plant_fn, contexts, iters=10,
     return out
 
 
+def mixed_gps(device, dtype):
+    """The flagship's GPs and data with GP 1's kernel RBF(variance 1,
+    lengthscale 1.5) + White(1e-2): GP 0 takes K1/K3, GP 1 the eager
+    route."""
+    from safeopt_torch import RBF, GPRegression, White
+
+    gps = build_gps(np.random.default_rng(0), 50, 64, device, dtype)
+    kern = RBF(2, variance=1.0, lengthscale=1.5) + White(2, variance=1e-2)
+    return [gps[0], GPRegression(gps[1].X_host, gps[1].Y_host, kern,
+                                 noise_var=0.05 ** 2, capacity=64,
+                                 device=device, dtype=dtype)]
+
+
+def widths_agree(opt64, i, j, scaling):
+    """Whether grid rows i and j have scaled widths within the band in
+    ``opt64``'s current intervals."""
+    w = np.max((opt64.Q[:, 1::2] - opt64.Q[:, 0::2]) / np.asarray(scaling),
+               axis=1)
+    return i == j or abs(w[i] - w[j]) <= BAND
+
+
+def drive_mixed(grid_np):
+    """Phase 13: the flagship with GP 1 on the eager route, float32 in
+    lockstep with float64 on the card. Returns (the float32 optimize()
+    ms, the eager route's ms per step)."""
+    from safeopt_torch import SafeOpt
+    from safeopt_torch.algorithms import safe_opt_core as core
+
+    def make(dtype):
+        return SafeOpt(mixed_gps("cuda", dtype), grid_np, fmin=FMIN,
+                       beta=BETA, scaling=SCALING, expander_chunk=32)
+
+    f32, f64 = make(torch.float32), make(torch.float64)
+    routes = [r for _, r in core._gp_groups(
+        [g.kern for g in f32.gps], [g.state for g in f32.gps], 2)]
+    check(routes == ["batched", "eager"], f"mixed routes {routes}")
+    rng = np.random.default_rng(7)
+    fmin, scaling = np.asarray(FMIN), np.asarray(SCALING)
+    launches, ms, walked, differ, knife, syncs = {}, [], 0, 0, 0, []
+    for it in range(10):
+        zero_launches()
+        x, t = timed_ms(f32.optimize)
+        for k, v in read_launches().items():
+            launches[k] = launches.get(k, 0) + v
+        check(not any(experiment_launches().values()),
+              "the mixed path launched an experiment kernel")
+        ms.append(t)
+        last = f32.stats.last
+        check(last.eager_gps == 1, f"mixed step {it}: eager_gps "
+                                   f"{last.eager_gps}")
+        walked += last.walk_chunks
+        syncs.append(last.host_syncs)
+        f64.optimize()
+        if it == 0:
+            rows = 10_000
+            mu, var = f64.gps[1]._host.predict(grid_np[:rows])
+            want = np.stack([mu - BETA * np.sqrt(var),
+                             mu + BETA * np.sqrt(var)], axis=1)
+            err = float(np.abs(f64.Q[:rows, 2:4] - want).max())
+            print(f"mixed routes, first step: float64 eager rows of GP 1 "
+                  f"against the host factor's predict on {rows} rows: max "
+                  f"|dQ| {err:.3e} (limit 1e-9)", flush=True)
+            check(err <= 1e-9, f"eager rows off the host factor by {err}")
+        l64 = f64.Q[:, 0::2]
+        far = np.min(np.abs(l64 - fmin) / scaling, axis=1) >= BAND
+        knife += int((~far).sum())
+        bad = int((f32.S[far] != f64.S[far]).sum())
+        check(bad == 0, f"mixed step {it}: {bad} safe bits differ from "
+                        "float64 outside the band")
+        i, j = last.next_index, f64.stats.last.next_index
+        check(widths_agree(f64, i, j, SCALING),
+              f"mixed step {it}: query {i} against float64 {j}")
+        differ += i != j
+        y = plant(rng, x)
+        f32.add_new_data_point(x, y)
+        f64.add_new_data_point(x, y)
+    check(launches["K1"] == 10 and launches["K3"] == walked,
+          f"mixed path: K1 {launches['K1']} (want 10), K3 {launches['K3']} "
+          f"(want one a walk chunk, {walked})")
+    check(all(launches[k] == 0 for k in ("K2", "K4", "K1-3p", "K2-3p")),
+          f"mixed path launched a kernel off GP 0's route: {launches}")
+    # the eager route's work in a step: GP 1's posterior and its
+    # predicate on one chunk of 32 candidates, timed alone
+    kernels = tuple(g.kern for g in f32.gps)
+    states = tuple(g.state for g in f32.gps)
+    grid = f32._grid()
+    mu, var, V = core._eager_posterior(kernels[1], states[1], grid)
+    eager_ms = cuda_ms(lambda: core._eager_posterior(kernels[1], states[1],
+                                                     grid), reps=5)
+    Xc = grid[:32]
+    pred_ms = cuda_ms(lambda: core._eager_predicate(
+        kernels[1], states[1], grid, ~f32._dev.S, mu, torch.sqrt(var), V,
+        Xc, mu[:32] + 1.0, FMIN[1], BETA), reps=5)
+    step_eager = eager_ms + pred_ms * walked / 10
+    med = float(np.median(ms[1:]))
+    print(f"mixed routes: 10 float32 iterations in lockstep with float64 "
+          f"on the card; S equal outside the band (rows inside it over the "
+          f"run: {knife}); queries differing within the width band: "
+          f"{differ}; launches {launches}; walk chunks {walked}; host syncs "
+          f"per step {syncs}", flush=True)
+    print(f"mixed routes times (CUDA events, iterations 2-10): median "
+          f"optimize() {med:.3f} ms; GP 1's eager posterior "
+          f"{eager_ms:.4f} ms and eager predicate {pred_ms:.4f} ms a chunk, "
+          f"{step_eager:.3f} ms a step: {step_eager / med:.1%} of it",
+          flush=True)
+    return ms, step_eager
+
+
+def flag_objectives():
+    """The flagship plant's two functions as torch objectives."""
+    return (lambda x: 2.0 * torch.exp(-0.5 * torch.sum(x * x)),
+            lambda x: 1.0 - 0.1 * torch.sum(x * x))
+
+
+def ctx_objectives():
+    """The contextual plant's two functions (``context_truth``) as torch
+    objectives of (parameter, context)."""
+    def base(x):
+        return torch.exp(-0.5 * x[0] ** 2) * torch.exp(
+            -0.5 * (x[1] / 1.5) ** 2)
+
+    return (lambda x: 2.0 * base(x), lambda x: 1.5 * base(x))
+
+
+def compare_loops(label, blocking, xs_block, loop, scaling):
+    """How many leading queries of the device loop equal the blocking
+    loop's; at a first divergence the two queries' scaled widths in the
+    blocking loop's intervals at that step (``blocking[t]``, its Q at
+    step t) must agree within the band."""
+    mine = loop.next_idx.tolist()
+    theirs = [s.next_index for s in blocking]
+    agree = 0
+    while agree < len(mine) and mine[agree] == theirs[agree]:
+        agree += 1
+    if agree < len(mine):
+        Q = xs_block[agree]
+        w = np.max((Q[:, 1::2] - Q[:, 0::2]) / np.asarray(scaling), axis=1)
+        i, j = mine[agree], theirs[agree]
+        check(abs(w[i] - w[j]) <= BAND,
+              f"{label}: the loop's query {i} at step {agree} against the "
+              f"blocking loop's {j}, scaled widths {w[i]} and {w[j]}")
+    return agree
+
+
+def drive_runner(label, make_opt, objectives, grid_np, contexts):
+    """Phase 14: ``run_safeopt_loop`` against the blocking SafeOpt loop
+    of ``make_opt()`` on the same plant (noise 0). Returns (agreeing
+    steps, loop ms per iteration, blocking ms per iteration, loop host
+    syncs per iteration, blocking host syncs per iteration, launches of
+    the loop, launches of the blocking loop)."""
+    from safeopt_torch.algorithms.runner import run_safeopt_loop
+
+    n_iter = len(contexts)
+    blocking = make_opt()
+    kw = (lambda c: {}) if contexts[0] is None else (
+        lambda c: {"context": c})
+    zero_launches()
+    qs, stats, block_ms = [], [], []
+    for c in contexts:
+        def one():
+            x = blocking.optimize(**kw(c))
+            full = x if c is None else np.concatenate([x, [c]])
+            xt = torch.tensor(full, dtype=torch.float64, device="cuda")
+            blocking.add_new_data_point(
+                x, np.array([[float(f(xt)) for f in objectives]]), **kw(c))
+        block_ms.append(timed_ms(one)[1])
+        stats.append(blocking.stats.last)
+        qs.append(blocking.Q.copy())    # the step's intervals, untimed
+    block_launches = read_launches()
+
+    opt = make_opt()
+    dev = torch.device("cuda")
+    t = lambda a: torch.tensor(np.asarray(a, dtype=float),  # noqa: E731
+                               dtype=torch.float32, device=dev)
+    grid = torch.tensor(opt.inputs, dtype=torch.float64, device=dev)
+    ctx = None if contexts[0] is None else np.asarray(contexts)[:, None]
+    args = (tuple(g.kern for g in opt.gps), None, grid, t(opt.fmin), BETA,
+            t(opt.scaling), t([0.0] * len(opt.gps)))
+    loop_kw = dict(objectives=objectives, dtype=torch.float32, chunk=32)
+    # one iteration first, on its own states: the loop's one-time costs
+    # (the first launch of each PyTorch kernel it adds) stay out of the
+    # timed run, as iteration 1 stays out of the blocking loop's median
+    run_safeopt_loop(args[0], tuple(g.factor_state() for g in opt.gps),
+                     *args[2:], n_iter=1, contexts=ctx if ctx is None
+                     else ctx[:1], **loop_kw)
+    states = tuple(g.factor_state() for g in opt.gps)
+    counts = [int(s.count) for s in states]
+    zero_launches()
+    res, total = timed_ms(lambda: run_safeopt_loop(
+        args[0], states, *args[2:], n_iter=n_iter, contexts=ctx, **loop_kw))
+    loop_ms = total / n_iter
+    block_ms = float(np.median(block_ms[1:]))
+    loop_launches = read_launches()
+    check(bool(res.has_safe.all()), f"{label} loop lost certification: "
+                                    f"{res.has_safe.tolist()}")
+    grown = [int(s.count) for s in res.states]
+    check(grown == [c + n_iter for c in counts],
+          f"{label} loop counts {counts} -> {grown}")
+    check(bool(torch.isfinite(res.ys).all()), f"{label} loop: ys not finite")
+    agree = compare_loops(label, stats, qs, res, opt.scaling)
+    syncs = res.host_syncs.tolist()
+    print(f"{label} run_safeopt_loop: {n_iter} iterations, queries equal to "
+          f"the blocking loop's for {agree} of {n_iter} steps; loop "
+          f"{loop_ms:.3f} ms per iteration (CUDA events around the call, "
+          f"over {n_iter}) against the blocking loop's {block_ms:.3f} ms "
+          f"(optimize + add_new_data_point, median of iterations 2-"
+          f"{n_iter}); host syncs per iteration {syncs} (blocking "
+          f"{[s.host_syncs for s in stats]}); walk chunks "
+          f"{res.walk_chunks.tolist()}; launches loop {loop_launches}, "
+          f"blocking {block_launches}", flush=True)
+    return (agree, loop_ms, block_ms, syncs, [s.host_syncs for s in stats],
+            loop_launches, block_launches)
+
+
+def drive_lagged(grid_np):
+    """Phase 15: ``run_lagged_campaign`` on the flagship, pipelined
+    against serial, plain and certified (device oracle). Returns {mode:
+    {pipelined: ms per iteration}}."""
+    from safeopt_torch import SafeOpt, run_lagged_campaign
+
+    def plant_fn(x):
+        r2 = float(np.sum(np.asarray(x) ** 2))
+        return np.array([2.0 * math.exp(-0.5 * r2), 1.0 - 0.1 * r2])
+
+    out = {}
+    for mode, kw in (("plain", {}),
+                     ("certified", dict(exact_boundaries=True,
+                                        interval_precision="high",
+                                        oracle="device"))):
+        runs, times = {}, {True: [], False: []}
+        for pipelined in (True, False, False, True):
+            opt = SafeOpt(build_gps(np.random.default_rng(0), 50, 64,
+                                    "cuda", torch.float32), grid_np,
+                          fmin=FMIN, beta=BETA, scaling=SCALING,
+                          expander_chunk=32, **kw)
+            opt.optimize()          # the first step's one-time costs
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            xs_ys = run_lagged_campaign(opt, plant_fn, 8,
+                                        pipelined=pipelined)
+            torch.cuda.synchronize()
+            times[pipelined].append((time.perf_counter() - start) * 1e3 / 8)
+            runs.setdefault(pipelined, xs_ys)
+            check(all(np.array_equal(a, b) for a, b in zip(xs_ys,
+                                                           runs[pipelined])),
+                  f"lagged campaign ({mode}): two runs differ")
+        (xs_s, ys_s), (xs_p, ys_p) = runs[False], runs[True]
+        check(np.array_equal(xs_s, xs_p) and np.array_equal(ys_s, ys_p),
+              f"lagged campaign ({mode}): pipelined and serial differ")
+        out[mode] = {p: float(np.mean(v)) for p, v in times.items()}
+        print(f"run_lagged_campaign flagship ({mode}): 8 iterations, xs and "
+              f"ys bitwise equal pipelined and serial (runs in the order "
+              f"P S S P); ms per iteration (host clock) pipelined "
+              f"{times[True][0]:.3f} / {times[True][1]:.3f}, serial "
+              f"{times[False][0]:.3f} / {times[False][1]:.3f}", flush=True)
+    return out
+
+
 def main():
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
@@ -1292,7 +1574,25 @@ def main():
                   f"plain twin's {float(np.median(p_ms[1:])):.3f} ms",
                   flush=True)
 
-    # 13. times ---------------------------------------------------------------
+    # 13. mixed routes: GP 1 on the eager route ------------------------------
+    mixed_ms, mixed_eager_ms = drive_mixed(grid_np)
+
+    # 14. run_safeopt_loop against the blocking loop --------------------------
+    runner = {
+        "flagship": drive_runner("flagship", lambda: flagship("cuda", None),
+                                 flag_objectives(), grid_np, [None] * 10),
+        "contextual": drive_runner("contextual",
+                                   lambda: contextual("cuda", None),
+                                   ctx_objectives(), params_np, contexts)}
+    check(runner["flagship"][5]["K1"] == 10
+          and runner["contextual"][5]["K2"] == 20,
+          "run_safeopt_loop did not launch K1 (flagship) or K2 "
+          "(contextual) once a step per group")
+
+    # 15. run_lagged_campaign, pipelined against serial -----------------------
+    lagged = drive_lagged(grid_np)
+
+    # 16. times ---------------------------------------------------------------
     for label, o_ms, a_ms, n in (("flagship", opt_ms, add_ms,
                                   grid_np.shape[0]),
                                  ("contextual", ctx_opt_ms, ctx_add_ms,
@@ -1475,6 +1775,17 @@ def main():
             "replaces": f"benchmarks/{tpu}", "launches": exp_launches[name],
             "max_abs_err": exp_errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    print(f"new paths on {smi} (CUDA events unless noted): mixed-route "
+          f"optimize() median {float(np.median(mixed_ms[1:])):.3f} ms, "
+          f"eager share {mixed_eager_ms / float(np.median(mixed_ms[1:])):.1%}"
+          f"; run_safeopt_loop flagship {runner['flagship'][1]:.3f} ms/it "
+          f"against blocking {runner['flagship'][2]:.3f}, contextual "
+          f"{runner['contextual'][1]:.3f} against "
+          f"{runner['contextual'][2]:.3f}; lagged campaign (host clock) "
+          f"plain {lagged['plain'][True]:.3f} pipelined / "
+          f"{lagged['plain'][False]:.3f} serial, certified "
+          f"{lagged['certified'][True]:.3f} / "
+          f"{lagged['certified'][False]:.3f} ms/it", flush=True)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

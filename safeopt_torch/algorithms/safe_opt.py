@@ -17,6 +17,15 @@ the three-pass product (K1-3p, K2-3p) and restores full float32 on the
 decision-critical rows. ``interval_precision='auto'`` resolves to the
 plain path: the JAX package's promotion of the certified path at
 capacity 512 rests on a TPU measurement, not one of this card.
+
+``optimize_async`` dispatches a step and returns a
+``PendingSafeOptStep`` whose ``result()`` reads the step's packed
+diagnostics; ``optimize()`` is ``optimize_async().result()``. What the
+dispatch leaves in flight is the selection's tail and the copy of the
+diagnostics into a pinned host buffer (an event marks its end); the
+expander walk still reads its candidate count and each chunk's flag on
+the host, the refinement its band population, and the host-oracle
+certified step its packed band, so the dispatch returns after them.
 """
 
 from __future__ import annotations
@@ -27,13 +36,13 @@ import time
 import numpy as np
 import torch
 
-from ..utils.observability import IterationStats, StatsRecorder
+from ..utils.observability import IterationStats, StatsRecorder, host_syncs
 from .base import GaussianProcessOptimization
 from .safe_opt_core import (certified_finish, certified_scan, device_oracle,
-                            full_expander_sets, interval_scan, safe_maximum,
-                            safeopt_step, safeopt_step_from_Q)
+                            eager_gps, full_expander_sets, interval_scan,
+                            safe_maximum, safeopt_step, safeopt_step_from_Q)
 
-__all__ = ["SafeOpt"]
+__all__ = ["SafeOpt", "PendingSafeOptStep"]
 
 # Max scaled interval error of each reduced-precision mode, measured on
 # one H100 80GB HBM3 at 700 W by tools_torch/probe_interval_precision.py:
@@ -60,6 +69,49 @@ REFINE_BAND_SHARE = 0.55
 # Sentinel distinguishing "keep the current context" from an explicit
 # ``context=None`` (an error with num_contexts > 0, gp_opt.py:445-447).
 _KEEP_CONTEXT = object()
+
+
+class PendingSafeOptStep:
+    """Handle of a dispatched SafeOpt iteration (``optimize_async``).
+
+    The step's packed diagnostics are copied into a pinned host buffer
+    without blocking, and a CUDA event is recorded after the copy;
+    ``result()`` waits on that event, records the iteration's stats and
+    returns the next query point, raising ``EnvironmentError`` on an
+    empty safe set. It is idempotent. Finish pending steps in dispatch
+    order: the stats commit at ``result()``.
+    """
+
+    def __init__(self, opt, result, diag, start, syncs):
+        self._opt, self._res, self._start = opt, result, start
+        self._syncs = syncs
+        self._x = None
+        self._done = False
+        # the host-oracle step's pass 1 hands over the copy it read
+        self._read = diag is not None and diag is result.diag
+        buf = result.diag if diag is None else diag
+        self._event = None
+        if buf.device.type == "cuda":
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(buf.device))
+            buf = host
+        self._diag = buf
+
+    def result(self) -> np.ndarray:
+        """Wait for the diagnostics, record the stats and return the next
+        query point (idempotent)."""
+        if not self._done:
+            if self._event is not None:
+                self._event.synchronize()
+            if not self._read:
+                host_syncs.add()
+            self._x = self._opt._finish_step(
+                self._res, self._diag, self._start,
+                self._syncs + (not self._read))
+            self._done = True
+        return self._x
 
 
 class SafeOpt(GaussianProcessOptimization):
@@ -275,6 +327,7 @@ class SafeOpt(GaussianProcessOptimization):
         self._certified_corrections = 0
         self._refine_band_population = 0
         self._refine_band_overflow = False
+        self._eager_gps = 0
         self.stats = StatsRecorder()
 
     # -- properties mirrored from the reference ------------------------------
@@ -389,8 +442,9 @@ class SafeOpt(GaussianProcessOptimization):
         float64 oracle confirms every float32 verdict in it, pass 1 is
         the certified result. Only a flipped verdict costs pass 2
         (``safeopt_step_from_Q``) with the float64 bits written in.
-        Records the telemetry; when pass 1 stands, its ``diag`` is the
-        host copy already read.
+        Records the telemetry. Returns ``(result, diag)``: when pass 1
+        stands, ``diag`` is the host copy already read, else None (pass
+        2's ``result.diag`` is read at ``result()``).
         """
         k = self._boundary_k
         consts = self._step_consts()
@@ -406,6 +460,7 @@ class SafeOpt(GaussianProcessOptimization):
             chunk=self._expander_chunk,
             interval_precision=self._interval_precision)
         packed = packed.cpu()                      # the one host read
+        host_syncs.add()
         result = result._replace(diag=packed[:5])
         packed = packed.numpy()
         idx = packed[7:7 + k]
@@ -417,7 +472,7 @@ class SafeOpt(GaussianProcessOptimization):
         self._band_population = int(sel.size)
         self._certified_corrections = 0
         if sel.size == 0:
-            return result
+            return result, result.diag
         pts = self.inputs[idx[sel]]
         safe64 = np.ones(sel.size, dtype=bool)
         for i, g in enumerate(self.gps):
@@ -429,7 +484,7 @@ class SafeOpt(GaussianProcessOptimization):
         self._certified_corrections = flips
         if flips == 0:
             # every float32 verdict confirmed: pass 1 is the step
-            return result
+            return result, result.diag
         fix_idx = np.where(within, idx, -1).astype(np.int32)
         fix_bits = np.zeros(k, dtype=bool)
         fix_bits[sel] = safe64
@@ -440,7 +495,7 @@ class SafeOpt(GaussianProcessOptimization):
             beta, consts["scaling"], consts["threshold"],
             consts["lipschitz"], ucb=ucb, use_lipschitz=self._use_lipschitz,
             chunk=self._expander_chunk)
-        return corrected
+        return corrected, None
 
     def _certified_step_device(self, kernels, states, ucb: bool):
         """Certified iteration settled on the device: ``interval_scan``
@@ -451,8 +506,9 @@ class SafeOpt(GaussianProcessOptimization):
         walk's per-chunk flags and the refinement's band population
         (``_refine_Q`` reads it to choose between the refined rows and a
         full float32 pass), the host reads one 9-int buffer, the step's
-        results and telemetry; the telemetry is recorded here and the
-        result's ``diag`` is the host copy of the rest."""
+        results and telemetry. Returns ``(result, diag9)`` with ``diag9``
+        on the device: its read and the telemetry wait for ``result()``
+        (``_absorb_diag9``)."""
         k = self._boundary_k
         consts = self._step_consts()
         beta = float(self.beta(self.t))
@@ -485,12 +541,15 @@ class SafeOpt(GaussianProcessOptimization):
             n_within, consts["fmin"], beta, consts["scaling"],
             consts["threshold"], consts["lipschitz"], ucb=ucb,
             use_lipschitz=self._use_lipschitz, chunk=self._expander_chunk)
-        diag9 = diag9.cpu()                        # the one buffer read
+        return result, diag9
+
+    def _absorb_diag9(self, diag9) -> None:
+        """Record the device-oracle step's telemetry from the host copy of
+        its 9-int buffer."""
         flips, total, refine_pop, n_within = diag9[5:9].tolist()
         self._absorb_triage(total, refine_pop)
         self._band_population = n_within
         self._certified_corrections = flips
-        return result._replace(diag=diag9[:5])
 
     def _absorb_triage(self, total: int, refine_pop: int) -> None:
         """Record the triage's and the refinement's populations, warning
@@ -518,15 +577,18 @@ class SafeOpt(GaussianProcessOptimization):
 
     def _run_step(self, context=_KEEP_CONTEXT, ucb: bool = False):
         """Execute the device step and point the host mirrors at it.
-        Returns the ``StepResult``; a certified step has recorded its
-        telemetry, and its ``diag`` may already be on the host."""
+        Returns ``(StepResult, diag)``: ``diag`` None where the result's
+        own ``diag`` is to be read, the host copy the host-oracle step
+        read already, or the device-oracle step's 9-int buffer."""
         if context is not _KEEP_CONTEXT:
             self.context = context
         kernels, states = self._model_args()
+        self._eager_gps = eager_gps(kernels, states, self.inputs.shape[1])
+        diag = None
         if self._exact_boundaries:
             step = (self._certified_step_device if self._oracle == "device"
                     else self._certified_step)
-            result = step(kernels, states, ucb)
+            result, diag = step(kernels, states, ucb)
         else:
             consts = self._step_consts()
             result = safeopt_step(
@@ -546,7 +608,7 @@ class SafeOpt(GaussianProcessOptimization):
         if not ucb:
             self._host_cache["M"] = None
             self._host_cache["G"] = None
-        return result
+        return result, diag
 
     # -- reference API -------------------------------------------------------
 
@@ -580,7 +642,7 @@ class SafeOpt(GaussianProcessOptimization):
                 consts["lipschitz"], use_lipschitz=self._use_lipschitz,
                 chunk=self._expander_chunk)
         else:
-            result = self._run_step(ucb=False)
+            result, _ = self._run_step(ucb=False)
         self._dev = result
         for name in ("Q", "S", "M", "G"):
             self._host_cache[name] = None
@@ -604,16 +666,38 @@ class SafeOpt(GaussianProcessOptimization):
 
     def optimize(self, context=None, ucb: bool = False) -> np.ndarray:
         """Run one SafeOpt iteration and return the next query point."""
-        start = time.perf_counter()
-        result = self._run_step(context=context, ucb=ucb)
-        return self._finish_step(result, start)
+        return self.optimize_async(context=context, ucb=ucb).result()
 
-    def _finish_step(self, result, start) -> np.ndarray:
-        """Read the packed diagnostics (the step's one device-to-host
-        copy, unless the step read them already), record stats, return
-        the query point."""
+    def optimize_async(self, context=None, ucb: bool = False, after=None):
+        """Dispatch one SafeOpt iteration and return a
+        :class:`PendingSafeOptStep` without waiting for its diagnostics.
+
+        The grid step's only dependence on the previous iteration is the
+        GP data, which enters through ``add_new_data_point`` (its rows
+        are written into the device mirrors in stream order, after the
+        dispatched step's reads), so consecutive dispatches need no chain
+        and ``after`` is accepted and ignored, as in the JAX package.
+        What stays asynchronous is the step's tail after the expander
+        walk and the diagnostics' copy to the host; the walk's per-chunk
+        reads, the refinement's band population and the host oracle's
+        packed band are read before this returns (module docstring). The
+        device oracle's 9-int buffer is read at ``result()``.
+        """
+        del after
+        start = time.perf_counter()
+        before = host_syncs.count
+        result, diag = self._run_step(context=context, ucb=ucb)
+        return PendingSafeOptStep(self, result, diag, start,
+                                  host_syncs.count - before)
+
+    def _finish_step(self, result, diag, start, syncs: int) -> np.ndarray:
+        """Record stats from the host copy of the packed diagnostics and
+        return the query point (the tail of ``PendingSafeOptStep.result``);
+        a 9-int buffer carries the device-oracle step's telemetry."""
+        if diag.shape[0] >= 9:
+            self._absorb_diag9(diag)
         (has_safe, idx, safe_count, maximizer_count,
-         expander_found) = result.diag.tolist()
+         expander_found) = diag[:5].tolist()
         if not has_safe:
             raise EnvironmentError("There are no safe points to evaluate.")
         self.stats.record(IterationStats(
@@ -624,7 +708,8 @@ class SafeOpt(GaussianProcessOptimization):
             band_population=int(self._band_population),
             certified_corrections=int(self._certified_corrections),
             band_overflow=bool(self._band_overflow),
-            refine_full_pass=bool(self._refine_band_overflow)))
+            refine_full_pass=bool(self._refine_band_overflow),
+            eager_gps=self._eager_gps, host_syncs=syncs))
         x = self.inputs[idx, :]
         if self.num_contexts:
             return x[: -self.num_contexts]

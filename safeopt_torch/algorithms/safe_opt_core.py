@@ -7,16 +7,25 @@ update_confidence_intervals -> compute_sets -> get_new_query_point:
 1. **Intervals** (``ops/fused_posterior.py``): every GP's posterior
    over the grid and ``Q = mu -+ beta sigma``. GPs of one stationary
    family over every grid column share one K1 pass per capacity; every
-   other GP (a Sum/Product algebra, Cosine or Bias leaves, an
-   ``active_dims`` subset, as contextual SafeOpt uses) gets a K2 pass of
-   its own, as the JAX package routes them (``safe_opt_core.py:189-198``).
+   other GP whose kernel K2 takes (a Sum/Product algebra of those
+   families, Cosine and Bias leaves, an ``active_dims`` subset, as
+   contextual SafeOpt uses) gets a K2 pass of its own. A GP with a
+   kernel neither takes (White, RatQuad, StdPeriodic, Linear, Poly or
+   MLP anywhere in its tree) takes the eager route, the counterpart of
+   the JAX package's XLA branch (``safe_opt_core.py:109-151``): its
+   gram, ``V = Linv k``, ``mu`` and ``sigma`` in plain PyTorch, V kept
+   for the expander or, past ``_V_BYTES_LIMIT``, the grid in chunks.
+   The route comes from the kernel's type (``_gp_groups``), never from a
+   failed launch, and one step mixes routes freely.
 2. **Classification**: safe set S (strict ``l > fmin`` over every GP),
    maximizers M and the expander candidates.
 3. **Expander walk**: candidates are visited in the reference order —
    width descending, the larger grid index first on exact ties — a
    chunk at a time; K3 (``ops/fused_expander.py``) tests a whole chunk
    by rank-1 conditioning on a virtual observation, and the walk stops
-   at the first chunk with a success (K4 for the GPs on K2). The order
+   at the first chunk with a success (K4 for the GPs on K2; on the eager
+   route the same rank-1 update in plain PyTorch, with the kept V or
+   ``M2 @ k(X, grid)``, ``:288-352`` of the JAX module). The order
    comes from the exact top-k (K5, ``ops/topk.py``) on a flipped key:
    the first chunk from a top-k of ``chunk``, and, only if the walk goes
    on, the whole order once. The JAX package's ``lax.while_loop``
@@ -32,9 +41,12 @@ module) settles every safe bit within ``band`` of a threshold in
 float64. ``interval_precision='high'`` runs the grid pass with the
 three-pass product (K1-3p, K2-3p) and recomputes, with the full-float32
 K1/K2 on the gathered points, every row within ``refine_band`` of a
-decision boundary (``_refine_Q``). Two protocols: ``certified_scan``
-(the whole step plus the band triage, one packed pull; the host oracle
-then corrects with ``safeopt_step_from_Q`` only when a verdict flips),
+decision boundary (``_refine_Q``). Eager GPs have one precision: their
+rows pass through the certified path as they are, as the JAX package's
+XLA branch ignores ``three_pass``, and both oracles take them. Two
+protocols: ``certified_scan`` (the whole step plus the band triage, one
+packed pull; the host oracle then corrects with ``safeopt_step_from_Q``
+only when a verdict flips),
 and ``interval_scan`` -> ``device_oracle`` (float64 on the device) ->
 ``certified_finish`` (one classification, one pull). The top-k calls are
 K5's, so ties fall as in the JAX package.
@@ -46,11 +58,15 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
+from ..gp.kernels import Product, Sum, _Constant, _Stationary
+from ..gp.regression import row_mask
 from ..ops.fused_expander import (fused_expander_predicate_batched,
                                   fused_expander_predicate_single)
-from ..ops.fused_posterior import (check_kernel, fused_intervals_batched,
-                                   fused_intervals_single, supports_kernel)
+from ..ops.fused_posterior import (fused_intervals_batched,
+                                   fused_intervals_single, supports_kernel,
+                                   supports_plan)
 from ..ops.topk import top_k
+from ..utils.observability import host_syncs
 
 __all__ = ["StepResult", "safeopt_step", "safe_maximum",
            "full_expander_sets", "boundary_scan", "safeopt_step_from_Q",
@@ -58,6 +74,13 @@ __all__ = ["StepResult", "safeopt_step", "safe_maximum",
            "certified_finish"]
 
 _NINF = float("-inf")
+# The eager route keeps V (cap, N) per GP for the expander while it is at
+# most this many bytes, and above it runs the grid in chunks of
+# _CHUNK_ROWS rows without keeping V (``safe_opt_core.py:118-151`` of the
+# JAX package, whose limit this is; it counts 4 bytes an entry, the port
+# the state's own entry size).
+_V_BYTES_LIMIT = 3 << 30
+_CHUNK_ROWS = 1 << 16
 
 
 class StepResult(NamedTuple):
@@ -95,23 +118,102 @@ def _pack_result(Q, S, M, G, next_idx, has_safe, walk_chunks) -> StepResult:
                       walk_chunks=walk_chunks)
 
 
-def _gp_groups(kernels, states, d: int) -> List[Tuple[List[int], bool]]:
-    """``(indices, planned)`` per grid launch: the GPs K1/K3 take, one
-    group per family and capacity, then every other GP alone on K2/K4
-    (``planned``). Raises ``NotImplementedError`` for a kernel neither
-    takes."""
+def _gp_groups(kernels, states, d: int) -> List[Tuple[List[int], str]]:
+    """``(indices, route)`` per grid pass, from the kernels' types alone:
+    ``'batched'``, the GPs K1/K3 take, one group per family and
+    capacity; ``'plan'``, a GP alone on K2/K4; ``'eager'``, a GP alone
+    whose kernel neither takes, in plain PyTorch."""
     groups, batched = [], {}
     for i, (kern, st) in enumerate(zip(kernels, states)):
-        check_kernel(kern, d)
         if supports_kernel(kern, d):
             key = (type(kern), st.capacity)
             if key not in batched:
                 batched[key] = []
-                groups.append((batched[key], False))
+                groups.append((batched[key], "batched"))
             batched[key].append(i)
         else:
-            groups.append(([i], True))
+            groups.append(([i], "plan" if supports_plan(kern, d)
+                           else "eager"))
     return groups
+
+
+def eager_gps(kernels, states, d: int) -> int:
+    """How many GPs take the eager route over a d-column grid."""
+    return sum(len(idx) for idx, route in _gp_groups(kernels, states, d)
+               if route == "eager")
+
+
+# ---------------------------------------------------------------------------
+# the eager route
+# ---------------------------------------------------------------------------
+
+def _grid_gram(kernel, X, Z):
+    """``kernel.K(X, Z)`` for a grid-sized ``Z``, with each stationary
+    leaf's distance summed in the difference form ``sum_k ((x_k - z_k) /
+    l_k)^2``, as the grid kernels sum it (the ``|x|^2 + |z|^2 - 2 x.z``
+    form of ``Kernel.K`` loses digits that the factor amplifies)."""
+    if isinstance(kernel, Product):
+        return _grid_gram(kernel.k1, X, Z) * _grid_gram(kernel.k2, X, Z)
+    if isinstance(kernel, Sum):
+        return _grid_gram(kernel.k1, X, Z) + _grid_gram(kernel.k2, X, Z)
+    if not isinstance(kernel, _Stationary) or isinstance(kernel, _Constant):
+        return kernel.K(X, Z)
+    Xs, Zs = kernel._scaled(X), kernel._scaled(Z)
+    r2 = Xs.new_zeros((Xs.shape[0], Zs.shape[0]))
+    for k in range(Xs.shape[1]):
+        diff = Xs[:, k, None] - Zs[None, :, k]
+        r2 = r2 + diff * diff
+    return kernel._K_of_r2(r2)
+
+
+def _eager_posterior(kernel, state, grid):
+    """``(mu, var, V)`` of one GP over the grid in plain PyTorch: ``V =
+    Linv @ (k(X, grid) * mask)``, ``mu = V^T w``, ``var = kdiag -
+    colsum(V^2)`` (``_posterior_with_V`` of the JAX package); past the
+    byte limit one grid chunk at a time with V not kept (``V`` None,
+    ``_posterior_chunked``)."""
+    N = grid.shape[0]
+    mask = row_mask(state)[:, None]
+    if state.X.element_size() * state.capacity * N <= _V_BYTES_LIMIT:
+        V = state.Linv @ (_grid_gram(kernel, state.X, grid) * mask)
+        var = kernel.Kdiag(grid) - torch.sum(V * V, dim=0)
+        return V.T @ state.w, torch.clamp(var, min=0.0), V
+    lm = state.Linv * mask.T
+    mu, var = grid.new_empty(N), grid.new_empty(N)
+    for s in range(0, N, _CHUNK_ROWS):
+        gb = grid[s:s + _CHUNK_ROWS]
+        Vb = lm @ (_grid_gram(kernel, state.X, gb) * mask)
+        mu[s:s + _CHUNK_ROWS] = Vb.T @ state.w
+        var[s:s + _CHUNK_ROWS] = torch.clamp(
+            kernel.Kdiag(gb) - torch.sum(Vb * Vb, dim=0), min=0.0)
+    return mu, var, None
+
+
+def _eager_predicate(kernel, state, grid, unsafe, mu, sigma, V, Xc, uc,
+                     fmin, beta):
+    """(C,) expander predicate of one GP on the eager route: the rank-1
+    conditioning on the virtual observation (x_cand, u) — ``Cm = Linv
+    k(X, Xc)``, ``dd``, ``gain`` — with the cross term ``Cm^T V`` from the
+    kept ``V`` or, without it, ``M2 @ k(X, grid)`` one grid chunk at a
+    time (``M2 = Cm^T Lm``), as the JAX package's XLA branch."""
+    mask = row_mask(state)[:, None]
+    Cm = state.Linv @ (kernel.K(state.X, Xc) * mask)            # (cap, C)
+    dd2 = kernel.Kdiag(Xc) + state.noise_var - torch.sum(Cm * Cm, dim=0)
+    dd = torch.sqrt(torch.clamp(dd2, min=1e-30))
+    gain = (uc - Cm.T @ state.w) / dd
+    if V is not None:
+        cross = Cm.T @ V                                         # (C, N)
+    else:
+        M2 = Cm.T @ (state.Linv * mask.T)                        # (C, cap)
+        cross = torch.cat([M2 @ (_grid_gram(kernel, state.X,
+                                            grid[s:s + _CHUNK_ROWS]) * mask)
+                           for s in range(0, grid.shape[0], _CHUNK_ROWS)],
+                          dim=1)
+    E = (_grid_gram(kernel, Xc, grid) - cross) / dd[:, None]
+    l2 = (mu[None, :] + E * gain[:, None]
+          - beta * torch.sqrt(torch.clamp(sigma[None, :] ** 2 - E * E,
+                                          min=0.0)))
+    return torch.any(unsafe[None, :] & (l2 >= fmin), dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -119,29 +221,47 @@ def _gp_groups(kernels, states, d: int) -> List[Tuple[List[int], bool]]:
 # ---------------------------------------------------------------------------
 
 def _confidence_intervals(kernels, states, grid, beta, three_pass=False):
-    """``Q`` (N, 2G), plus the posterior ``mu`` and ``sigma`` (G, N)
-    recovered from the interval rows for the expander pass.
-    ``three_pass`` takes the grid pass's product at the three-pass
-    precision (K1-3p, K2-3p): the certified path's interval pass."""
+    """``(Q, mu, sigma)`` of ``_grid_posterior``."""
+    return _grid_posterior(kernels, states, grid, beta, three_pass)[:3]
+
+
+def _grid_posterior(kernels, states, grid, beta, three_pass=False):
+    """``Q`` (N, 2G), the posterior ``mu`` and ``sigma`` (G, N) for the
+    expander pass, and per GP the eager route's kept ``V`` (None on the
+    kernels' routes or past the byte limit). On the kernels' routes mu
+    and sigma are recovered from the interval rows; the eager route gives
+    them directly, as the JAX package's XLA branch does. ``three_pass``
+    takes the kernels' product at the three-pass precision (K1-3p,
+    K2-3p): the certified path's interval pass; eager GPs ignore it."""
     N, d = grid.shape
-    rows = [None] * len(kernels)
-    for idx, planned in _gp_groups(kernels, states, d):
-        if planned:
+    G = len(kernels)
+    rows, Vs, direct = [None] * G, [None] * G, {}
+    for idx, route in _gp_groups(kernels, states, d):
+        if route == "eager":
+            i = idx[0]
+            mu_i, var_i, Vs[i] = _eager_posterior(kernels[i], states[i], grid)
+            sigma_i = torch.sqrt(var_i)
+            rows[i] = torch.stack([mu_i - beta * sigma_i,
+                                   mu_i + beta * sigma_i])
+            direct[i] = (mu_i, sigma_i)
+        elif route == "plan":
             rows[idx[0]] = fused_intervals_single(
                 kernels[idx[0]], states[idx[0]], grid, beta,
                 three_pass=three_pass)
-            continue
-        out = fused_intervals_batched([kernels[i] for i in idx],
-                                      [states[i] for i in idx], grid, beta,
-                                      three_pass=three_pass)
-        for j, i in enumerate(idx):
-            rows[i] = out[j]
+        else:
+            out = fused_intervals_batched([kernels[i] for i in idx],
+                                          [states[i] for i in idx], grid,
+                                          beta, three_pass=three_pass)
+            for j, i in enumerate(idx):
+                rows[i] = out[j]
     out = torch.stack(rows)                                  # (G, 2, N)
     l, u = out[:, 0], out[:, 1]
     Q = out.permute(2, 0, 1).reshape(N, -1)                  # [l0,u0,l1,..]
     mu = (l + u) * 0.5
     sigma = (u - l) / (2.0 * beta)
-    return Q, mu, sigma
+    for i, (mu_i, sigma_i) in direct.items():
+        mu[i], sigma[i] = mu_i, sigma_i
+    return Q, mu, sigma, Vs
 
 
 def _moments_from_Q(Q, beta):
@@ -190,13 +310,15 @@ def _classify(Q, fmin, scaling, threshold, beta, S=None):
 # ---------------------------------------------------------------------------
 
 def _chunk_expander_predicate(kernels, states, grid, Q, unsafe, mu, sigma,
-                              fmin, beta, lipschitz, grid_idx):
+                              fmin, beta, lipschitz, grid_idx, Vs=None):
     """(C,) expander predicate for candidate grid indices ``grid_idx``.
 
     GP variant (``lipschitz`` None): rank-1 conditioning on the virtual
     observation (x_cand, u_i) per constraint GP, checked against every
-    unsafe grid point (gp_opt.py:577-606) — K3. Lipschitz variant:
-    ``u_i - L_i * mindist(x_cand, unsafe) >= fmin_i`` (gp_opt.py:558-576).
+    unsafe grid point (gp_opt.py:577-606) — K3 (K4 on the plan route, the
+    eager route's plain PyTorch with the kept ``Vs[i]``, if any). Lipschitz
+    variant: ``u_i - L_i * mindist(x_cand, unsafe) >= fmin_i``
+    (gp_opt.py:558-576).
     """
     C = grid_idx.shape[0]
     Xc = grid[grid_idx]                                     # (C, d)
@@ -205,8 +327,14 @@ def _chunk_expander_predicate(kernels, states, grid, Q, unsafe, mu, sigma,
     if lipschitz is None:
         valid = torch.ones_like(pred)
         ucs = Q[grid_idx][:, 1::2].T                             # (G, C)
-        for idx, planned in _gp_groups(kernels, states, grid.shape[1]):
-            if planned:
+        for idx, route in _gp_groups(kernels, states, grid.shape[1]):
+            if route == "eager":
+                i = idx[0]
+                preds = _eager_predicate(
+                    kernels[i], states[i], grid, unsafe, mu[i], sigma[i],
+                    None if Vs is None else Vs[i], Xc, ucs[i], fmin[i],
+                    beta)[None]
+            elif route == "plan":
                 i = idx[0]
                 preds = fused_expander_predicate_single(
                     kernels[i], states[i], grid, unsafe, mu[i], sigma[i],
@@ -246,13 +374,16 @@ def _visit_order(key, count: int):
 
 
 def _find_first_expander(kernels, states, grid, Q, unsafe, mu, sigma, fmin,
-                         beta, lipschitz, cand, width, chunk):
+                         beta, lipschitz, cand, width, chunk, Vs=None):
     """``(G, chunks)``: G marks the first candidate in visit order whose
-    predicate holds (gp_opt.py:557-612), found chunk by chunk."""
+    predicate holds (gp_opt.py:557-612), found chunk by chunk. The host
+    reads the candidate count once and each chunk's flag (counted in
+    ``host_syncs``)."""
     N = grid.shape[0]
     G = torch.zeros((N,), dtype=torch.bool, device=grid.device)
     n_cand, any_unsafe = torch.stack(
         [torch.sum(cand), torch.any(unsafe).long()]).tolist()
+    host_syncs.add()
     # With no unsafe point the predicate is false for every candidate
     # (both variants need an unsafe point to lift), so the walk is void.
     if n_cand == 0 or not any_unsafe:
@@ -266,8 +397,9 @@ def _find_first_expander(kernels, states, grid, Q, unsafe, mu, sigma, fmin,
         gidx = order[pos:pos + chunk]
         pred = _chunk_expander_predicate(kernels, states, grid, Q, unsafe,
                                          mu, sigma, fmin, beta, lipschitz,
-                                         gidx)
+                                         gidx, Vs)
         chunks += 1
+        host_syncs.add()
         if bool(torch.any(pred)):                  # one host sync per chunk
             # argmax returns the first maximum: the first True in order
             G[gidx[torch.argmax(pred.to(torch.int32))]] = True
@@ -290,10 +422,11 @@ def _select_query(Q, S, M, G, scaling, ucb: bool):
     return torch.argmax(value)
 
 
-def _decide(kernels, states, grid, Q, mu, sigma, fmin, beta, scaling,
+def _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta, scaling,
             threshold, lipschitz, ucb, use_lipschitz, chunk, S=None):
     """Classification, expander walk and selection from intervals ``Q``
-    (and their moments), with ``S`` given or from the strict test."""
+    (their moments and the eager route's kept ``Vs``), with ``S`` given
+    or from the strict test."""
     S, M, cand, width, has_safe = _classify(Q, fmin, scaling, threshold,
                                             beta, S=S)
     if ucb:
@@ -304,7 +437,7 @@ def _decide(kernels, states, grid, Q, mu, sigma, fmin, beta, scaling,
         lip = lipschitz if use_lipschitz else None
         G, chunks = _find_first_expander(kernels, states, grid, Q, ~S, mu,
                                          sigma, fmin, beta, lip, cand,
-                                         width, chunk)
+                                         width, chunk, Vs)
     next_idx = _select_query(Q, S, M, G, scaling, ucb)
     return _pack_result(Q, S, M, G, next_idx, has_safe, chunks)
 
@@ -317,9 +450,9 @@ def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
     ``grid`` (N, d), ``fmin``, ``scaling`` and ``threshold`` (G,) are
     tensors on one device; ``beta`` is a float.
     """
-    Q, mu, sigma = _confidence_intervals(kernels, states, grid, beta)
-    return _decide(kernels, states, grid, Q, mu, sigma, fmin, beta, scaling,
-                   threshold, lipschitz, ucb, use_lipschitz, chunk)
+    Q, mu, sigma, Vs = _grid_posterior(kernels, states, grid, beta)
+    return _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta,
+                   scaling, threshold, lipschitz, ucb, use_lipschitz, chunk)
 
 
 def safe_maximum(kernels, states, grid, fmin, beta: float):
@@ -328,7 +461,7 @@ def safe_maximum(kernels, states, grid, fmin, beta: float):
     Returns ``(idx, lower_bound, has_safe, Q, S, diag)`` with ``diag``
     packing [idx, lower_bound, has_safe] for one host read.
     """
-    Q, _, _ = _confidence_intervals(kernels, states, grid, beta)
+    Q = _confidence_intervals(kernels, states, grid, beta)[0]
     S = torch.all(Q[:, 0::2] > fmin, dim=1)
     value = torch.where(S, Q[:, 0], _NINF)
     idx = torch.argmax(value)
@@ -344,7 +477,7 @@ def full_expander_sets(kernels, states, grid, fmin, beta: float, scaling,
     """Plotting variant: the expander predicate for EVERY safe point,
     with no early exit (reference ``compute_sets(full_sets=True)``,
     gp_opt.py:527-555)."""
-    Q, mu, sigma = _confidence_intervals(kernels, states, grid, beta)
+    Q, mu, sigma, Vs = _grid_posterior(kernels, states, grid, beta)
     l, u = Q[:, 0::2], Q[:, 1::2]
     S = torch.all(l > fmin, dim=1)
     has_safe = torch.any(S)
@@ -354,12 +487,13 @@ def full_expander_sets(kernels, states, grid, fmin, beta: float, scaling,
     lip = lipschitz if use_lipschitz else None
     G = torch.zeros_like(S)
     safe_idx = torch.nonzero(S).squeeze(1)
+    host_syncs.add()
     chunks = 0
     for s in range(0, safe_idx.shape[0], chunk):
         gidx = safe_idx[s:s + chunk]
         G[gidx] = _chunk_expander_predicate(kernels, states, grid, Q, ~S,
                                             mu, sigma, fmin, beta, lip,
-                                            gidx)
+                                            gidx, Vs)
         chunks += 1
     G = G & has_safe
     next_idx = torch.zeros((), dtype=torch.int64, device=grid.device)
@@ -389,7 +523,7 @@ def boundary_scan(kernels, states, grid, fmin, beta: float, scaling, band,
     ``(Q, idx (k,), within (k,) bool, total_within ())`` with ``idx``
     the k rows closest to a safety threshold, ``within`` those inside
     ``band`` and ``total_within > k`` a triage budget overflow."""
-    Q, _, _ = _confidence_intervals(kernels, states, grid, beta)
+    Q = _confidence_intervals(kernels, states, grid, beta)[0]
     margin = _safety_margin(Q, fmin, scaling)
     neg, idx = top_k(-margin, k)
     return Q, idx, (-neg) < band, torch.sum(margin < band)
@@ -417,8 +551,9 @@ def safeopt_step_from_Q(kernels, states, grid, Q, fix_idx, fix_bits, fmin,
     from Q exactly (``_moments_from_Q``)."""
     mu, sigma = _moments_from_Q(Q, beta)
     S = _fix_safe_set(Q, fmin, fix_idx, fix_bits)
-    return _decide(kernels, states, grid, Q, mu, sigma, fmin, beta, scaling,
-                   threshold, lipschitz, ucb, use_lipschitz, chunk, S=S)
+    return _decide(kernels, states, grid, Q, mu, sigma, [None] * len(kernels),
+                   fmin, beta, scaling, threshold, lipschitz, ucb,
+                   use_lipschitz, chunk, S=S)
 
 
 def _refine_Q(kernels, states, grid, Q, fmin, beta: float, scaling, rk: int,
@@ -462,11 +597,12 @@ def _refine_Q(kernels, states, grid, Q, fmin, beta: float, scaling, rk: int,
         head = torch.maximum(torch.maximum(s_w, s_l), s_m)
         key = torch.maximum(key, torch.where(S0, head, _NINF))
     band_pop = torch.sum(key > -refine_band)
+    host_syncs.add()
     if int(band_pop) > budget:
         return (_confidence_intervals(kernels, states, grid, beta)[0],
                 band_pop, None)
     _, idx = top_k(key, budget)
-    rows, _, _ = _confidence_intervals(kernels, states, grid[idx], beta)
+    rows = _confidence_intervals(kernels, states, grid[idx], beta)[0]
     Q = Q.clone()
     Q[idx] = rows
     return Q, band_pop, idx
@@ -478,8 +614,9 @@ def _scan_intervals(kernels, states, grid, fmin, beta: float, scaling, band,
     """Pass 1's intervals on the certified paths: the grid pass (three-pass
     under ``interval_precision='high'``), then the full-float32
     refinement (or a full-float32 pass where it cannot cover the band:
-    ``refined_idx`` None). ``(Q, mu, sigma, refine_pop, refined_idx)``."""
-    Q, mu, sigma = _confidence_intervals(
+    ``refined_idx`` None). ``(Q, mu, sigma, Vs, refine_pop,
+    refined_idx)``."""
+    Q, mu, sigma, Vs = _grid_posterior(
         kernels, states, grid, beta,
         three_pass=interval_precision == "high")
     refine_pop = torch.zeros((), dtype=torch.int64, device=grid.device)
@@ -490,7 +627,8 @@ def _scan_intervals(kernels, states, grid, fmin, beta: float, scaling, band,
             max(refine_band_k, 1), band if refine_band is None
             else refine_band)
         mu, sigma = _moments_from_Q(Q, beta)
-    return Q, mu, sigma, refine_pop, refined_idx
+        Vs = [None] * len(kernels)
+    return Q, mu, sigma, Vs, refine_pop, refined_idx
 
 
 def _band_triage(Q, refined_idx, fmin, scaling, band, k: int):
@@ -517,11 +655,11 @@ def certified_scan(kernels, states, grid, fmin, beta: float, scaling,
     ``packed`` one int32 vector ``[diag(5), total_within, refine_pop,
     idx(k), within(k), S[idx](k)]``: one host pull tells the caller the
     step, the rows inside the band and their float32 verdicts."""
-    Q, mu, sigma, refine_pop, refined_idx = _scan_intervals(
+    Q, mu, sigma, Vs, refine_pop, refined_idx = _scan_intervals(
         kernels, states, grid, fmin, beta, scaling, band, refine_band,
         refine_k, refine_band_k, interval_precision)
-    res = _decide(kernels, states, grid, Q, mu, sigma, fmin, beta, scaling,
-                  threshold, lipschitz, ucb, use_lipschitz, chunk)
+    res = _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta,
+                  scaling, threshold, lipschitz, ucb, use_lipschitz, chunk)
     idx, within, total_within = _band_triage(Q, refined_idx, fmin, scaling,
                                              band, k)
     return res, _int32(res.diag, total_within, refine_pop, idx, within,
@@ -535,7 +673,7 @@ def interval_scan(kernels, states, grid, fmin, beta: float, scaling, band,
     the refinement) and the band triage, no classification. Returns
     ``(Q, packed_t)``, ``packed_t`` = int32 ``[total_within,
     refine_pop, idx(k), within(k)]``."""
-    Q, _, _, refine_pop, refined_idx = _scan_intervals(
+    Q, _, _, _, refine_pop, refined_idx = _scan_intervals(
         kernels, states, grid, fmin, beta, scaling, band, refine_band,
         refine_k, refine_band_k, interval_precision)
     idx, within, total_within = _band_triage(Q, refined_idx, fmin, scaling,

@@ -2,8 +2,11 @@
 
 ``kernel_params`` and ``gp_arrays`` read any kernel or ``GPRegression``
 with the attribute layout this package shares with ``safeopt_tpu``
-(``variance``, ``lengthscale``, ``ARD``, ``active_dims``; ``k1`` and
-``k2`` of a ``Product`` or ``Sum``; the host factor ``gp._host`` with
+(``variance``, ``lengthscale``, ``ARD``, ``active_dims``; each family's
+own parameters: RatQuad's ``power``, StdPeriodic's ``period`` with
+``ARD1``/``ARD2``, Linear's ``variances``, Poly's ``scale``, ``bias``
+and ``order``, MLP's ``weight_variance`` and ``bias_variance``; ``k1``
+and ``k2`` of a ``Product`` or ``Sum``; the host factor ``gp._host`` with
 ``X``, ``Y``, ``L``, ``Linv``, ``w``), through ``numpy.asarray`` only. A
 kernel tree becomes nested plain dicts. ``kernel_from_params`` and
 ``gp_from_arrays`` build this package's objects from those values.
@@ -19,18 +22,31 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .gp.kernels import (Bias, Cosine, Exponential, Matern32, Matern52,
-                         Product, RBF, Sum, White)
+from .gp.kernels import (Bias, Cosine, Exponential, Linear, Matern32,
+                         Matern52, MLP, Poly, Product, RatQuad, RBF,
+                         StdPeriodic, Sum, White)
 from .gp.regression import GPRegression
 
 __all__ = ["kernel_params", "kernel_from_params", "gp_arrays",
            "gp_from_arrays"]
 
 _LEAVES = {"rbf": RBF, "matern32": Matern32, "matern52": Matern52,
-           "exponential": Exponential, "cosine": Cosine, "bias": Bias,
-           "white": White}
-_CONSTANT = ("bias", "white")          # leaves without a lengthscale
+           "exponential": Exponential, "ratquad": RatQuad, "cosine": Cosine,
+           "bias": Bias, "white": White, "stdperiodic": StdPeriodic,
+           "linear": Linear, "poly": Poly, "mlp": MLP}
 _COMPOSITES = {"product": Product, "sum": Sum}
+# each leaf kind's parameters besides input_dim and active_dims: arrays
+# (float64, any shape), floats and flags
+_ARRAYS = {"rbf": ("lengthscale",), "matern32": ("lengthscale",),
+           "matern52": ("lengthscale",), "exponential": ("lengthscale",),
+           "ratquad": ("lengthscale",), "cosine": ("lengthscale",),
+           "stdperiodic": ("period", "lengthscale"),
+           "linear": ("variances",), "mlp": ("weight_variance",)}
+_FLOATS = {"ratquad": ("variance", "power"),
+           "poly": ("variance", "scale", "bias", "order"),
+           "mlp": ("variance", "bias_variance"), "linear": ()}
+_FLAGS = {"stdperiodic": ("ARD1", "ARD2"), "bias": (), "white": (),
+          "poly": ()}
 
 
 def kernel_params(kernel) -> dict:
@@ -45,11 +61,13 @@ def kernel_params(kernel) -> dict:
     if kind not in _LEAVES:
         raise NotImplementedError(f"no conversion for {type(kernel).__name__}")
     out = dict(kind=kind, input_dim=int(kernel.input_dim),
-               variance=float(np.asarray(kernel.variance)),
                active_dims=tuple(int(a) for a in kernel.active_dims))
-    if kind not in _CONSTANT:
-        out.update(lengthscale=np.array(kernel.lengthscale, dtype=np.float64),
-                   ARD=bool(kernel.ARD))
+    for name in _FLOATS.get(kind, ("variance",)):
+        out[name] = float(np.asarray(getattr(kernel, name)))
+    for name in _ARRAYS.get(kind, ()):
+        out[name] = np.array(getattr(kernel, name), dtype=np.float64)
+    for name in _FLAGS.get(kind, ("ARD",)):
+        out[name] = bool(getattr(kernel, name))
     return out
 
 
@@ -62,8 +80,8 @@ def kernel_from_params(kind: str, **params):
         raise NotImplementedError(
             f"kernel kind {kind!r}; the port has "
             f"{sorted(_LEAVES) + sorted(_COMPOSITES)}")
-    if "lengthscale" in params:
-        params["lengthscale"] = np.asarray(params["lengthscale"], np.float64)
+    for name in _ARRAYS.get(kind, ()):
+        params[name] = np.asarray(params[name], np.float64)
     return _LEAVES[kind](**params)
 
 

@@ -7,7 +7,7 @@ silently emptying the safe set. So the factor is computed and updated
 on the host in NumPy/SciPy float64, and the device holds a cast copy
 for the O(N) grid work (``regression.GPRegression``).
 
-This module covers the stationary families, Bias, White and their
+This module covers every kernel family of ``kernels.py`` and their
 Product/Sum algebras on the SciPy path. The JAX package's native C++
 engine (``csrc/host_factor.cpp``) is not bound here yet.
 """
@@ -17,8 +17,9 @@ from __future__ import annotations
 import numpy as np
 import scipy.linalg
 
-from .kernels import (Bias, Cosine, Exponential, Kernel, Matern32, Matern52,
-                      Product, RBF, Sum, White)
+from .kernels import (Bias, Cosine, Exponential, Kernel, Linear, Matern32,
+                      Matern52, MLP, Poly, Product, RatQuad, RBF,
+                      StdPeriodic, Sum, White)
 
 __all__ = ["np_kernel", "np_kdiag", "HostFactor"]
 
@@ -39,8 +40,10 @@ def np_kernel(kernel: Kernel, X: np.ndarray, X2=None) -> np.ndarray:
         n = np.atleast_2d(X).shape[0]
         m = n if X2 is None else np.atleast_2d(X2).shape[0]
         return float(kernel.variance) * np.ones((n, m))
+    if isinstance(kernel, (StdPeriodic, Linear, Poly, MLP)):
+        return _np_dot_family(kernel, X, X2)
     if not isinstance(kernel, (RBF, Matern32, Matern52, Exponential,
-                               Cosine)):
+                               RatQuad, Cosine)):
         raise TypeError(f"no host implementation for {type(kernel).__name__}")
 
     ls = kernel.lengthscale.numpy()
@@ -55,6 +58,8 @@ def np_kernel(kernel: Kernel, X: np.ndarray, X2=None) -> np.ndarray:
 
     if isinstance(kernel, RBF):
         return var * np.exp(-0.5 * r2)
+    if isinstance(kernel, RatQuad):
+        return var * (1.0 + 0.5 * r2) ** (-float(kernel.power))
     r = np.sqrt(r2)
     if isinstance(kernel, Cosine):
         return var * np.cos(r)
@@ -67,12 +72,63 @@ def np_kernel(kernel: Kernel, X: np.ndarray, X2=None) -> np.ndarray:
     return var * (1.0 + s3r) * np.exp(-s3r)
 
 
+def _active(kernel, X, X2=None):
+    """Float64 active columns of ``X`` and of ``X2`` (``X``'s when
+    None)."""
+    dims = list(kernel.active_dims)
+    Xa = np.atleast_2d(np.asarray(X, dtype=np.float64))[:, dims]
+    if X2 is None:
+        return Xa, Xa
+    return Xa, np.atleast_2d(np.asarray(X2, dtype=np.float64))[:, dims]
+
+
+def _np_dot_family(kernel, X, X2):
+    """Gram of a StdPeriodic, Linear, Poly or MLP leaf in float64."""
+    Xa, Za = _active(kernel, X, X2)
+    if isinstance(kernel, StdPeriodic):
+        period = np.broadcast_to(kernel.period.numpy(), (kernel.input_dim,))
+        ls = np.broadcast_to(kernel.lengthscale.numpy(), (kernel.input_dim,))
+        s2 = np.zeros((Xa.shape[0], Za.shape[0]))
+        for j in range(kernel.input_dim):
+            base = np.pi * (Xa[:, j][:, None] - Za[:, j][None, :]) \
+                / period[j]
+            s2 += (np.sin(base) / ls[j]) ** 2
+        return float(kernel.variance) * np.exp(-0.5 * s2)
+    if isinstance(kernel, Linear):
+        return (Xa * kernel.variances.numpy()) @ Za.T
+    if isinstance(kernel, Poly):
+        return float(kernel.variance) * (
+            float(kernel.scale) * (Xa @ Za.T)
+            + float(kernel.bias)) ** kernel.order
+    w = kernel.weight_variance.numpy()
+    b = float(kernel.bias_variance)
+    xd = np.sqrt(np.sum(Xa * Xa * w, axis=1) + b + 1.0)
+    zd = np.sqrt(np.sum(Za * Za * w, axis=1) + b + 1.0)
+    cos = np.clip(((Xa * w) @ Za.T + b) / xd[:, None] / zd[None, :],
+                  -1.0, 1.0)
+    return float(kernel.variance) * (2.0 / np.pi) * np.arcsin(cos)
+
+
 def np_kdiag(kernel: Kernel, X: np.ndarray) -> np.ndarray:
     """Prior variance diagonal in float64."""
     if isinstance(kernel, Product):
         return np_kdiag(kernel.k1, X) * np_kdiag(kernel.k2, X)
     if isinstance(kernel, Sum):
         return np_kdiag(kernel.k1, X) + np_kdiag(kernel.k2, X)
+    if isinstance(kernel, Linear):
+        Xa, _ = _active(kernel, X)
+        return np.sum(Xa * Xa * kernel.variances.numpy(), axis=1)
+    if isinstance(kernel, Poly):
+        Xa, _ = _active(kernel, X)
+        return float(kernel.variance) * (
+            float(kernel.scale) * np.sum(Xa * Xa, axis=1)
+            + float(kernel.bias)) ** kernel.order
+    if isinstance(kernel, MLP):
+        Xa, _ = _active(kernel, X)
+        p = (np.sum(Xa * Xa * kernel.weight_variance.numpy(), axis=1)
+             + float(kernel.bias_variance))
+        return (float(kernel.variance) * (2.0 / np.pi)
+                * np.arcsin(p / (p + 1.0)))
     return float(kernel.variance) * np.ones(np.atleast_2d(X).shape[0])
 
 
@@ -173,6 +229,18 @@ class HostFactor:
         mu = V.T @ self.w[:n]
         var = kdiag - np.sum(V * V, axis=0)
         return mu, np.maximum(var, 0.0)
+
+    def posterior_cov(self, Xq: np.ndarray) -> np.ndarray:
+        """Float64 full latent posterior covariance at query rows,
+        ``K(Xq, Xq) - V^T V`` with ``V = Linv K(X, Xq)`` (for
+        ``GPRegression.posterior_samples_f``)."""
+        n = self.count
+        Xq = np.atleast_2d(np.asarray(Xq, dtype=np.float64))
+        Kqq = np_kernel(self.kernel, Xq)
+        if n == 0:
+            return Kqq
+        V = self.Linv[:n, :n] @ np_kernel(self.kernel, self.X[:n], Xq)
+        return Kqq - V.T @ V
 
     def grown(self, new_capacity: int) -> "HostFactor":
         """Copy into a larger buffer (refactorizes for exactness)."""

@@ -3,9 +3,14 @@
 Counterpart of ``safeopt_tpu/gp/kernels.py``: ``Kernel`` (with ``*``
 and ``+`` building ``Product`` and ``Sum``), ``_Stationary`` (scalar or
 ARD lengthscales, ``active_dims``, ``copy``), the stationary families
-RBF, Matern-3/2, Matern-5/2, Exponential and Cosine, the constant
-``Bias`` and ``White`` noise. Hyperparameters are float64 CPU tensors;
-``K`` and ``Kdiag`` cast them to the dtype and device of their inputs.
+RBF, Matern-3/2, Matern-5/2, Exponential, RatQuad and Cosine, the
+constant ``Bias`` and ``White`` noise, the periodic ``StdPeriodic`` and
+the dot-product families ``Linear``, ``Poly`` and ``MLP``.
+Hyperparameters are float64 CPU tensors; ``K`` and ``Kdiag`` cast them
+to the dtype and device of their inputs. The grid kernels (``ops/``)
+take the first four families, Cosine and Bias; SafeOpt runs every other
+GP on its eager route (``algorithms/safe_opt_core.py``), as the JAX
+package runs them on XLA.
 
 ``K`` keeps the JAX package's gram form, ``|x|^2 + |z|^2 - 2 x.z^T``
 with the cross term as one matrix product, so that it agrees with the
@@ -20,7 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["Kernel", "RBF", "Matern32", "Matern52", "Exponential", "Cosine",
+__all__ = ["Kernel", "RBF", "Matern32", "Matern52", "Exponential",
+           "RatQuad", "Cosine", "StdPeriodic", "Linear", "Poly", "MLP",
            "Bias", "White", "Product", "Sum"]
 
 
@@ -42,6 +48,26 @@ def _slice_active(X: torch.Tensor, active_dims: Tuple[int, ...]):
             range(len(active_dims))):
         return X
     return X[:, list(active_dims)]
+
+
+def _f64(value) -> torch.Tensor:
+    """A hyperparameter as a float64 CPU tensor (a copy)."""
+    return torch.as_tensor(value, dtype=torch.float64).clone()
+
+
+def _per_dim(value, ard: bool, input_dim: int) -> torch.Tensor:
+    """A hyperparameter that is one value per input dimension under
+    ``ard`` and a scalar otherwise, as a float64 CPU tensor."""
+    value = _f64(value)
+    if ard:
+        return torch.broadcast_to(value.reshape(-1), (input_dim,)).clone()
+    return value.reshape(())
+
+
+def _pair(kernel, X, X2):
+    """The active columns of ``X`` and of ``X2`` (``X``'s when None)."""
+    Xa = _slice_active(X, kernel.active_dims)
+    return Xa, (Xa if X2 is None else _slice_active(X2, kernel.active_dims))
 
 
 class Kernel:
@@ -165,6 +191,29 @@ class Exponential(_Stationary):
         return self.variance.to(r2) * torch.exp(-r)
 
 
+class RatQuad(_Stationary):
+    """Rational quadratic: k(r) = variance * (1 + r^2 / 2)^(-power)
+    (GPy.kern.RatQuad)."""
+
+    def __init__(self, input_dim, variance=1.0, lengthscale=None,
+                 power=2.0, ARD=False, active_dims=None,
+                 name: Optional[str] = None):
+        super().__init__(input_dim, variance=variance,
+                         lengthscale=lengthscale, ARD=ARD,
+                         active_dims=active_dims, name=name or "ratquad")
+        self.power = _f64(power).reshape(())
+
+    def copy(self) -> "RatQuad":
+        return RatQuad(self.input_dim, variance=self.variance.clone(),
+                       lengthscale=self.lengthscale.clone(),
+                       power=self.power.clone(), ARD=self.ARD,
+                       active_dims=self.active_dims, name=self.name)
+
+    def _K_of_r2(self, r2):
+        return self.variance.to(r2) * (1.0 + 0.5 * r2) ** (
+            -self.power.to(r2))
+
+
 class Cosine(_Stationary):
     """Cosine kernel: k(r) = variance * cos(r) (GPy.kern.Cosine).
 
@@ -222,6 +271,187 @@ class White(_Constant):
             return self.variance.to(X) * torch.eye(
                 X.shape[0], dtype=X.dtype, device=X.device)
         return X.new_zeros((X.shape[0], torch.atleast_2d(X2).shape[0]))
+
+
+class StdPeriodic(Kernel):
+    """Standard periodic kernel (GPy.kern.StdPeriodic):
+    ``variance * exp(-0.5 * sum_j (sin(pi (x_j - z_j) / period_j) /
+    lengthscale_j)^2)``; ``ARD1`` makes ``period`` one value per input
+    dimension, ``ARD2`` the ``lengthscale``."""
+
+    def __init__(self, input_dim, variance=1.0, period=None,
+                 lengthscale=None, ARD1=False, ARD2=False,
+                 active_dims=None, name: Optional[str] = None):
+        self.input_dim = int(input_dim)
+        self.ARD1 = bool(ARD1)
+        self.ARD2 = bool(ARD2)
+        self.active_dims = _as_active_dims(active_dims, self.input_dim)
+        self.name = name if name is not None else "std_periodic"
+        self.variance = _f64(variance).reshape(())
+        if period is None:
+            period = torch.ones(self.input_dim) if self.ARD1 else 2 * math.pi
+        self.period = _per_dim(period, self.ARD1, self.input_dim)
+        if lengthscale is None:
+            lengthscale = torch.ones(self.input_dim) if self.ARD2 else 1.0
+        self.lengthscale = _per_dim(lengthscale, self.ARD2, self.input_dim)
+
+    def copy(self) -> "StdPeriodic":
+        return StdPeriodic(self.input_dim, variance=self.variance.clone(),
+                           period=self.period.clone(),
+                           lengthscale=self.lengthscale.clone(),
+                           ARD1=self.ARD1, ARD2=self.ARD2,
+                           active_dims=self.active_dims, name=self.name)
+
+    def K(self, X, X2=None) -> torch.Tensor:
+        Xa, Za = _pair(self, X, X2)
+        period = torch.broadcast_to(self.period.to(Xa), (self.input_dim,))
+        ls = torch.broadcast_to(self.lengthscale.to(Xa), (self.input_dim,))
+        s2 = Xa.new_zeros((Xa.shape[0], Za.shape[0]))
+        for j in range(self.input_dim):
+            base = math.pi * (Xa[:, j, None] - Za[None, :, j]) / period[j]
+            s2 = s2 + (torch.sin(base) / ls[j]) ** 2
+        return self.variance.to(Xa) * torch.exp(-0.5 * s2)
+
+    def Kdiag(self, X) -> torch.Tensor:
+        X = torch.atleast_2d(X)
+        return self.variance.to(X).expand(X.shape[0]).clone()
+
+    def __repr__(self):
+        return (f"StdPeriodic(input_dim={self.input_dim}, "
+                f"variance={self.variance}, period={self.period}, "
+                f"lengthscale={self.lengthscale}, ARD1={self.ARD1}, "
+                f"ARD2={self.ARD2}, active_dims={self.active_dims})")
+
+
+class Linear(Kernel):
+    """Linear kernel (GPy.kern.Linear): ``sum_j variances_j x_j z_j``;
+    ``ARD`` makes ``variances`` one value per input dimension. Its prior
+    variance vanishes at the origin, so ``scaling='auto'`` refuses a GP
+    whose kernel is Linear alone."""
+
+    def __init__(self, input_dim, variances=1.0, ARD=False,
+                 active_dims=None, name: Optional[str] = None):
+        self.input_dim = int(input_dim)
+        self.ARD = bool(ARD)
+        self.active_dims = _as_active_dims(active_dims, self.input_dim)
+        self.name = name if name is not None else "linear"
+        self.variances = _per_dim(variances, self.ARD, self.input_dim)
+
+    def copy(self) -> "Linear":
+        return Linear(self.input_dim, variances=self.variances.clone(),
+                      ARD=self.ARD, active_dims=self.active_dims,
+                      name=self.name)
+
+    def K(self, X, X2=None) -> torch.Tensor:
+        Xa, Za = _pair(self, X, X2)
+        return (Xa * self.variances.to(Xa)) @ Za.T
+
+    def Kdiag(self, X) -> torch.Tensor:
+        Xa = _slice_active(X, self.active_dims)
+        return torch.sum(Xa * Xa * self.variances.to(Xa), dim=1)
+
+    def __repr__(self):
+        return (f"Linear(input_dim={self.input_dim}, "
+                f"variances={self.variances}, ARD={self.ARD}, "
+                f"active_dims={self.active_dims})")
+
+
+class Poly(Kernel):
+    """Polynomial kernel (GPy.kern.Poly):
+    ``variance * (scale * x.z + bias)^order``. ``order`` must be a
+    positive integer: a fractional power of a negative dot product is
+    NaN, and NaN rows would classify unsafe without a word."""
+
+    def __init__(self, input_dim, variance=1.0, scale=1.0, bias=1.0,
+                 order=3.0, active_dims=None, name: Optional[str] = None):
+        self.input_dim = int(input_dim)
+        self.order = float(order)
+        if self.order < 1 or self.order != round(self.order):
+            raise ValueError(
+                f"Poly order must be a positive integer (got {order}): "
+                "fractional powers of a negative dot-product are NaN")
+        self.active_dims = _as_active_dims(active_dims, self.input_dim)
+        self.name = name if name is not None else "poly"
+        self.variance = _f64(variance).reshape(())
+        self.scale = _f64(scale).reshape(())
+        self.bias = _f64(bias).reshape(())
+
+    def copy(self) -> "Poly":
+        return Poly(self.input_dim, variance=self.variance.clone(),
+                    scale=self.scale.clone(), bias=self.bias.clone(),
+                    order=self.order, active_dims=self.active_dims,
+                    name=self.name)
+
+    def _of_dot(self, dot):
+        base = self.scale.to(dot) * dot + self.bias.to(dot)
+        return self.variance.to(dot) * base ** int(self.order)
+
+    def K(self, X, X2=None) -> torch.Tensor:
+        Xa, Za = _pair(self, X, X2)
+        return self._of_dot(Xa @ Za.T)
+
+    def Kdiag(self, X) -> torch.Tensor:
+        Xa = _slice_active(X, self.active_dims)
+        return self._of_dot(torch.sum(Xa * Xa, dim=1))
+
+    def __repr__(self):
+        return (f"Poly(input_dim={self.input_dim}, "
+                f"variance={self.variance}, scale={self.scale}, "
+                f"bias={self.bias}, order={self.order}, "
+                f"active_dims={self.active_dims})")
+
+
+class MLP(Kernel):
+    """MLP (arcsine) kernel (GPy.kern.MLP):
+    ``variance (2/pi) asin((w x.z + b) / sqrt((w |x|^2 + b + 1)
+    (w |z|^2 + b + 1)))`` with ``w = weight_variance`` (one value per
+    input dimension under ``ARD``) and ``b = bias_variance``."""
+
+    def __init__(self, input_dim, variance=1.0, weight_variance=1.0,
+                 bias_variance=1.0, ARD=False, active_dims=None,
+                 name: Optional[str] = None):
+        self.input_dim = int(input_dim)
+        self.ARD = bool(ARD)
+        self.active_dims = _as_active_dims(active_dims, self.input_dim)
+        self.name = name if name is not None else "mlp"
+        self.variance = _f64(variance).reshape(())
+        self.weight_variance = _per_dim(weight_variance, self.ARD,
+                                        self.input_dim)
+        self.bias_variance = _f64(bias_variance).reshape(())
+
+    def copy(self) -> "MLP":
+        return MLP(self.input_dim, variance=self.variance.clone(),
+                   weight_variance=self.weight_variance.clone(),
+                   bias_variance=self.bias_variance.clone(), ARD=self.ARD,
+                   active_dims=self.active_dims, name=self.name)
+
+    def _wprod(self, X, X2=None) -> torch.Tensor:
+        w, b = self.weight_variance.to(X), self.bias_variance.to(X)
+        if X2 is None:
+            return torch.sum(X * X * w, dim=1) + b
+        return (X * w) @ X2.T + b
+
+    def K(self, X, X2=None) -> torch.Tensor:
+        Xa, Za = _pair(self, X, X2)
+        xd = torch.sqrt(self._wprod(Xa) + 1.0)
+        zd = xd if X2 is None else torch.sqrt(self._wprod(Za) + 1.0)
+        cos = self._wprod(Xa, Za) / xd[:, None] / zd[None, :]
+        # round-off can push coincident points past +-1
+        cos = torch.clamp(cos, -1.0, 1.0)
+        return self.variance.to(Xa) * (2.0 / math.pi) * torch.asin(cos)
+
+    def Kdiag(self, X) -> torch.Tensor:
+        Xa = _slice_active(X, self.active_dims)
+        p = self._wprod(Xa)
+        return self.variance.to(Xa) * (2.0 / math.pi) * torch.asin(
+            p / (p + 1.0))
+
+    def __repr__(self):
+        return (f"MLP(input_dim={self.input_dim}, "
+                f"variance={self.variance}, "
+                f"weight_variance={self.weight_variance}, "
+                f"bias_variance={self.bias_variance}, ARD={self.ARD}, "
+                f"active_dims={self.active_dims})")
 
 
 class _Composite(Kernel):

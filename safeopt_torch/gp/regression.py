@@ -15,6 +15,12 @@ Counterpart of ``safeopt_tpu/gp/regression.py``: the GPy-compatible
   mirror in place (``_device_row_update``) — bit-identical to a full
   rebuild because the untouched rows were cast from the same host
   values.
+* **Functional engine.** ``gp_fit``, ``gp_append``, ``gp_pop``,
+  ``gp_predict`` and ``predict_from_factors`` work on a padded
+  ``GPState`` of any dtype on any device with the JAX package's masking
+  conventions (identity rows past ``count``) and return new states;
+  ``algorithms/runner.py`` keeps float64 states on the device with them
+  (``GPRegression.factor_state``), as the factor math stays in float64.
 * **Float64 oracle mirror.** ``device_oracle_state`` ships the host
   oracle's float64 factors to the device once (``OracleState``) for the
   certified path's on-device oracle; each append or pop then writes its
@@ -27,13 +33,15 @@ import logging
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import scipy.linalg
 import torch
 
 from ..config import default_dtype
-from .host_math import HostFactor
+from .host_math import HostFactor, np_kernel
 from .kernels import Kernel, RBF
 
-__all__ = ["GPState", "OracleState", "GPRegression", "gp_predict"]
+__all__ = ["GPState", "OracleState", "GPRegression", "gp_fit", "gp_append",
+           "gp_pop", "gp_predict", "predict_from_factors"]
 
 
 class GPState(NamedTuple):
@@ -83,17 +91,96 @@ def row_mask(state: GPState) -> torch.Tensor:
             < state.count).to(state.X.dtype)
 
 
+def predict_from_factors(kernel: Kernel, X: torch.Tensor, mask: torch.Tensor,
+                         Linv: torch.Tensor, w: torch.Tensor,
+                         Xq: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Latent posterior (mu, var) at ``Xq`` from whitened factors:
+    ``V = Linv @ (k(X, Xq) * mask)``, ``mu = V^T w``, ``var = kdiag(Xq) -
+    colsum(V^2)`` clamped at 0 (no likelihood noise, GPy's
+    ``predict_noiseless``)."""
+    V = Linv @ (kernel.K(X, Xq) * mask[:, None])
+    var = kernel.Kdiag(Xq) - torch.sum(V * V, dim=0)
+    return V.T @ w, torch.clamp(var, min=0.0)
+
+
 def gp_predict(kernel: Kernel, state: GPState,
                Xq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Latent (noiseless) posterior mean/variance at query rows ``Xq``:
-    ``V = Linv @ (k(X, Xq) * mask)``, ``mu = V^T w``,
-    ``var = kdiag - colsum(V^2)``."""
-    Xq = torch.atleast_2d(Xq)
-    kvec = kernel.K(state.X, Xq) * row_mask(state)[:, None]
-    V = state.Linv @ kvec
-    mu = V.T @ state.w
-    var = kernel.Kdiag(Xq) - torch.sum(V * V, dim=0)
-    return mu, torch.clamp(var, min=0.0)
+    """Latent (noiseless) posterior mean/variance at query rows ``Xq``
+    (``predict_from_factors`` on the state's factors; ``Xq`` is taken in
+    the state's dtype, on its device)."""
+    Xq = torch.as_tensor(Xq, dtype=state.X.dtype, device=state.X.device)
+    return predict_from_factors(kernel, state.X, row_mask(state), state.Linv,
+                                state.w, torch.atleast_2d(Xq))
+
+
+def gp_fit(kernel: Kernel, X: torch.Tensor, Y: torch.Tensor, count,
+           noise_var) -> GPState:
+    """Factorize from scratch over padded buffers ``X`` (cap, d) and ``Y``
+    (cap, 1): rows at index >= ``count`` are ignored, the factored
+    matrix being ``K + noise I`` on the active block and the identity on
+    the padding, so that ``L = blockdiag(chol(K_n + noise I), I)``."""
+    cap = X.shape[0]
+    count = torch.as_tensor(count, dtype=torch.int64, device=X.device)
+    noise_var = torch.as_tensor(noise_var, dtype=X.dtype, device=X.device)
+    active = torch.arange(cap, device=X.device) < count
+    mask = active.to(X.dtype)
+    eye = torch.eye(cap, dtype=X.dtype, device=X.device)
+    K = (kernel.K(X) * (mask[:, None] * mask[None, :])
+         + eye * torch.where(active, noise_var, 1.0))
+    L = torch.linalg.cholesky(K)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return GPState(X=X, Y=Y, count=count.clone(), L=L, Linv=Linv,
+                   w=Linv @ (Y[:, 0] * mask), noise_var=noise_var)
+
+
+def _onehot(state: GPState, pos) -> torch.Tensor:
+    """(cap,) bool, True at row ``pos`` (a device scalar: no host read)."""
+    return torch.arange(state.capacity, device=state.X.device) == pos
+
+
+def gp_append(kernel: Kernel, state: GPState, x, y) -> GPState:
+    """Exact O(n^2) Cholesky bordering append of one observation at row
+    ``count``: ``c = Linv k(X, x)``, ``dd = sqrt(k(x, x) + noise -
+    c.c)``, the new rows ``[c, dd]`` of L and ``[-(c^T Linv) / dd,
+    1/dd]`` of Linv, and ``w[count] = (y - c.w) / dd``. Everything stays
+    on the state's device (the row is chosen by a mask, not a host
+    index); the caller keeps ``count`` below the capacity."""
+    pos = state.count
+    dtype, dev = state.X.dtype, state.X.device
+    x = torch.as_tensor(x, dtype=dtype, device=dev).reshape(1, -1)
+    y = torch.as_tensor(y, dtype=dtype, device=dev).reshape(())
+    kvec = kernel.K(state.X, x)[:, 0] * row_mask(state)
+    c = state.Linv @ kvec                      # zero at and after pos
+    dd = torch.sqrt(torch.clamp(kernel.Kdiag(x)[0] + state.noise_var
+                                - torch.dot(c, c), min=1e-30))
+    hot = _onehot(state, pos)
+    onehot = hot.to(dtype)
+    row = hot[:, None]
+    return GPState(
+        X=torch.where(row, x, state.X),
+        Y=torch.where(row, y, state.Y),
+        count=pos + 1,
+        L=torch.where(row, (c + dd * onehot)[None, :], state.L),
+        Linv=torch.where(row, (-(state.Linv.T @ c) / dd
+                               + onehot / dd)[None, :], state.Linv),
+        w=state.w + ((y - torch.dot(c, state.w)) / dd) * onehot,
+        noise_var=state.noise_var)
+
+
+def gp_pop(state: GPState) -> GPState:
+    """Remove the last observation (exact: the leading block of a
+    Cholesky factor is the factor of the leading block). Row ``count -
+    1`` of L and Linv returns to the identity and its ``w`` to 0; X and Y
+    keep the row, as the JAX package's ``gp_pop`` does."""
+    pos = state.count - 1
+    hot = _onehot(state, pos)
+    onehot = hot.to(state.X.dtype)
+    row = hot[:, None]
+    return GPState(X=state.X, Y=state.Y, count=pos,
+                   L=torch.where(row, onehot[None, :], state.L),
+                   Linv=torch.where(row, onehot[None, :], state.Linv),
+                   w=state.w * (1.0 - onehot), noise_var=state.noise_var)
 
 
 def _device_row_update(state: GPState, i: int, row: torch.Tensor,
@@ -210,6 +297,21 @@ class GPRegression:
         self._state = self._device_state()
         self._oracle_cache = None
 
+    def factor_state(self) -> GPState:
+        """The host factor as a float64 ``GPState`` on the model's device
+        (a copy): the operand of the functional engine and of
+        ``algorithms/runner.run_safeopt_loop``, whose appends then write
+        rows that cast to the float32 mirror's bits."""
+        h = self._host
+        f64 = dict(dtype=torch.float64, device=self.device)
+        return GPState(
+            X=torch.tensor(h.X, **f64), Y=torch.tensor(h.Y, **f64),
+            count=torch.tensor(int(h.count), dtype=torch.int64,
+                               device=self.device),
+            L=torch.tensor(h.L, **f64), Linv=torch.tensor(h.Linv, **f64),
+            w=torch.tensor(h.w, **f64),
+            noise_var=torch.tensor(h.noise_var, **f64))
+
     def device_oracle_state(self):
         """``(OracleState, 'exact')``: the float64 device mirror of the
         host oracle (``predict_f64``) for ``SafeOpt(oracle='device')``,
@@ -283,6 +385,54 @@ class GPRegression:
     def predict_f64(self, Xq) -> Tuple[np.ndarray, np.ndarray]:
         """Float64 latent posterior (mu, var) from the host factor."""
         return self._host.predict(Xq)
+
+    def log_likelihood(self) -> float:
+        """Exact log marginal likelihood at the current hyperparameters
+        (GPy ``gp.log_likelihood()``), in float64 on the host:
+        ``-y^T K^-1 y / 2 - sum(log diag L) - n log(2 pi) / 2`` with ``K =
+        k(X, X) + noise I``."""
+        n = self.num_data
+        X, Y = self._host.X[:n], self._host.Y[:n, 0]
+        K = np_kernel(self.kern, X) + self.noise_var * np.eye(n)
+        L = scipy.linalg.cholesky(K, lower=True)
+        alpha = scipy.linalg.cho_solve((L, True), Y)
+        return float(-0.5 * Y @ alpha - np.sum(np.log(np.diag(L)))
+                     - 0.5 * n * np.log(2.0 * np.pi))
+
+    def posterior_samples_f(self, Xq, size: int = 1, generator=None,
+                            normals=None) -> np.ndarray:
+        """Joint samples of the LATENT function at ``Xq`` (GPy
+        ``gp.posterior_samples_f``), shape (m, 1, size).
+
+        The posterior covariance is assembled and factored on the host in
+        float64 (``HostFactor.posterior_cov``; an eigendecomposition,
+        since a near-singular posterior covariance defeats Cholesky).
+        The standard normals come from ``normals`` (m, size) when given,
+        else from ``torch.randn`` with ``generator`` (a fixed seed when
+        None): torch cannot reproduce the JAX package's threefry draws,
+        so a caller who needs its samples passes its normals.
+        """
+        Xq = np.atleast_2d(np.asarray(Xq, dtype=np.float64))
+        mu, _ = self._host.predict(Xq)
+        cov = self._host.posterior_cov(Xq)
+        cov = 0.5 * (cov + cov.T) + 1e-10 * np.eye(cov.shape[0])
+        evals, evecs = np.linalg.eigh(cov)
+        root = evecs * np.sqrt(np.maximum(evals, 0.0))
+        if normals is None:
+            if generator is None:
+                generator = torch.Generator().manual_seed(0)
+            normals = torch.randn((cov.shape[0], int(size)),
+                                  generator=generator, dtype=torch.float64)
+        eps = np.asarray(normals, dtype=np.float64).reshape(cov.shape[0],
+                                                            int(size))
+        return (mu[:, None] + root @ eps)[:, None, :]
+
+    def refit(self) -> None:
+        """Refactorize from scratch (numerical hygiene): the host factor
+        anew from its data, and the device mirrors rebuilt."""
+        n = self.num_data
+        self._host.set_data(self._host.X[:n].copy(), self._host.Y[:n].copy())
+        self._rebuilt()
 
     def append_data(self, x, y) -> None:
         """Append one observation (O(n^2) exact update; the device

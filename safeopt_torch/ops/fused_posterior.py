@@ -50,6 +50,12 @@ in float64 and the rows returned in float32; from float64 operands with
 ``lo`` unrounded, all in float64, as the JAX package's float64 3-pass
 product.
 
+A GP whose kernel neither takes (White, RatQuad, StdPeriodic, Linear,
+Poly or MLP anywhere in its tree) runs on SafeOpt's eager route
+(``algorithms/safe_opt_core.py``), as the JAX package runs it on XLA;
+``supports_kernel`` and ``supports_plan`` decide it from the kernel's
+type alone.
+
 K2 and K4 take a plan of any number of leaves: up to ``MAX_LEAVES`` it
 is staged in static shared memory, past it the same sources' wide
 instances stage it in dynamic shared memory. The kernels take at most
@@ -73,7 +79,7 @@ from ..gp.kernels import (Bias, Cosine, Exponential, Matern32, Matern52,
 from ..gp.regression import row_mask
 
 __all__ = ["KINDS", "LEAF_KINDS", "kind_of", "supports_kernel",
-           "supports_plan", "check_kernel", "terms_of",
+           "supports_plan", "terms_of",
            "part_plan", "round_limb", "split_limbs", "kernel_gram",
            "kernel_plan_gram", "interval_operands", "factor_chunks",
            "fused_intervals",
@@ -128,17 +134,6 @@ def supports_plan(kernel, d: int) -> bool:
     Exponential, Cosine or Bias, each reading grid columns only."""
     return all(type(p) in LEAF_KINDS and max(p.active_dims) < d
                for term in terms_of(kernel) for p in term)
-
-
-def check_kernel(kernel, d: int) -> None:
-    """Raise ``NotImplementedError`` for a kernel no grid kernel takes."""
-    if not (supports_kernel(kernel, d) or supports_plan(kernel, d)):
-        raise NotImplementedError(
-            f"{kernel!r} over a {d}-column grid: the port's grid kernels "
-            "take Sum/Product algebras of RBF, Matern32, Matern52, "
-            "Exponential, Cosine and Bias on grid columns. White needs an "
-            "eager grid path and the other families are still to port "
-            "(ROADMAP Queue 1 items 2 and 12).")
 
 
 def kind_of(kernels) -> int:

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.observability import host_syncs
+
 __all__ = ["top_k"]
 
 
@@ -31,6 +33,7 @@ def top_k(key: torch.Tensor, k: int):
     kth = torch.topk(key, k).values[-1]
     above = torch.nonzero(key > kth).squeeze(1)
     ties = torch.nonzero(key == kth).squeeze(1)[: k - above.shape[0]]
+    host_syncs.add(2)                        # the two nonzero sizes
     chosen = torch.sort(torch.cat([above, ties])).values  # index ascending
     values, order = torch.sort(key[chosen], descending=True, stable=True)
     return values, chosen[order]

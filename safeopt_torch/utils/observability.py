@@ -3,6 +3,9 @@
 Counterpart of ``safeopt_tpu/utils/observability.py:24-78``: every
 ``SafeOpt.optimize()`` records one ``IterationStats`` from scalars the
 host already pulled, the certified path's telemetry among them.
+``host_syncs`` counts the host's reads of device values (each waits for
+the device), so that a step's or a loop iteration's syncs can be read
+as the difference of two counts.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ import dataclasses
 import logging
 from typing import List, Optional
 
-__all__ = ["IterationStats", "StatsRecorder"]
+__all__ = ["IterationStats", "StatsRecorder", "SyncCounter", "host_syncs"]
 
 logger = logging.getLogger("safeopt_torch")
 
@@ -38,10 +41,31 @@ class IterationStats:
     certified_corrections: int = 0
     band_overflow: bool = False
     refine_full_pass: bool = False
+    # GPs whose kernel no grid kernel takes (the eager route), and the
+    # host's reads of device values from dispatch to result()
+    eager_gps: int = 0
+    host_syncs: int = 0
 
     def as_dict(self):
         """Plain-dict view (for logging/JSON sinks)."""
         return dataclasses.asdict(self)
+
+
+class SyncCounter:
+    """A running count of host reads of device values: the expander
+    walk's candidate count and per-chunk flags, the exact top-k's
+    data-dependent sizes, the refinement's band population and the
+    steps' packed pulls."""
+
+    def __init__(self):
+        self.count = 0
+
+    def add(self, n: int = 1) -> None:
+        """Count ``n`` more reads."""
+        self.count += n
+
+
+host_syncs = SyncCounter()
 
 
 class StatsRecorder:

@@ -855,3 +855,138 @@ def test_certified_step_launches_three_pass_then_full(cuda, oracle, planned):
     w = (ref.Q[:, 1] - ref.Q[:, 0]) / opt.scaling[0]
     i, j = opt.stats.last.next_index, ref.stats.last.next_index
     assert i == j or abs(w[i] - w[j]) <= 1e-3, (x, xr)
+
+
+# -- the eager route, asynchronous steps, the device loop ---------------------
+
+def _mixed_gps(device, dtype):
+    """The flagship's GPs at a small size: GP 0 RBF (K1/K3), GP 1 RBF +
+    White (the eager route)."""
+    rng = np.random.default_rng(11)
+    X = rng.uniform(-1.5, 1.5, size=(30, 2))
+    Yf = 2.0 * np.exp(-0.5 * np.sum(X ** 2, axis=1))[:, None]
+    Yg = (1.0 - 0.1 * np.sum(X ** 2, axis=1))[:, None]
+    kerns = (pt.RBF(2, variance=2.0),
+             pt.RBF(2, variance=1.0, lengthscale=1.5)
+             + pt.White(2, variance=1e-2))
+    return [pt.GPRegression(X, Y, k, noise_var=0.05 ** 2, capacity=64,
+                            device=device, dtype=dtype)
+            for Y, k in zip((Yf, Yg), kerns)]
+
+
+def _launch_counts():
+    return [f.launches for f in (fp.fused_intervals, fe.fused_expander,
+                                 fp.fused_intervals_plan,
+                                 fe.fused_expander_plan)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_mixed_routes_on_cuda(cuda, dtype):
+    """GP 0 launches K1 (and K3 per walk chunk) alone, GP 1 takes the
+    eager route and launches nothing; the decisions are the float64 CPU
+    step's (outside the 1e-3 band in float32)."""
+    grid = pt.linearly_spaced_combinations([(-5.0, 5.0)] * 2, 150)
+    kw = dict(fmin=[0.2, 0.5], scaling=[np.sqrt(2.0), 1.0],
+              expander_chunk=32)
+    opt = pt.SafeOpt(_mixed_gps(cuda, dtype), grid, **kw)
+    ref = pt.SafeOpt(_mixed_gps("cpu", torch.float64), grid, **kw)
+    groups = core._gp_groups([g.kern for g in opt.gps],
+                             [g.state for g in opt.gps], 2)
+    assert [r for _, r in groups] == ["batched", "eager"]
+    before = _launch_counts()
+    opt.optimize()
+    torch.cuda.synchronize()
+    k1, k3, k2, k4 = (a - b for a, b in zip(_launch_counts(), before))
+    assert (k1, k2, k4) == (1, 0, 0)
+    assert k3 == opt.stats.last.walk_chunks
+    assert opt.stats.last.eager_gps == 1
+    ref.optimize()
+    if dtype == torch.float64:
+        for name in ("S", "M", "G"):
+            np.testing.assert_array_equal(getattr(opt, name),
+                                          getattr(ref, name))
+        assert opt.stats.last.next_index == ref.stats.last.next_index
+        np.testing.assert_allclose(opt.Q, ref.Q, rtol=0, atol=1e-9)
+    else:
+        l64 = ref.Q[:, 0::2]
+        margin = np.min(np.abs(l64 - np.array(kw["fmin"]))
+                        / np.array(kw["scaling"]), axis=1)
+        far = margin >= 1e-3
+        np.testing.assert_array_equal(opt.S[far], ref.S[far])
+
+
+def test_async_step_on_cuda_reads_a_pinned_copy(cuda):
+    grid = pt.linearly_spaced_combinations([(-5.0, 5.0)] * 2, 150)
+    kw = dict(fmin=[0.2, 0.5], scaling=[np.sqrt(2.0), 1.0])
+    a = pt.SafeOpt(_mixed_gps(cuda, torch.float32), grid, **kw)
+    b = pt.SafeOpt(_mixed_gps(cuda, torch.float32), grid, **kw)
+    pending = b.optimize_async()
+    assert pending._diag.is_pinned() and pending._event is not None
+    np.testing.assert_array_equal(pending.result(), a.optimize())
+    assert b.stats.last.host_syncs == a.stats.last.host_syncs >= 1
+    for oracle in ("host", "device"):
+        xs = [pt.run_lagged_campaign(
+            pt.SafeOpt(_mixed_gps(cuda, torch.float32), grid,
+                       exact_boundaries=True, oracle=oracle, **kw),
+            lambda x: np.array([2.0 * np.exp(-0.5 * np.sum(x ** 2)),
+                                1.0 - 0.1 * np.sum(x ** 2)]),
+            n_iter=4, pipelined=p)[0] for p in (False, True)]
+        np.testing.assert_array_equal(xs[0], xs[1])
+
+
+def test_functional_append_on_cuda_matches_the_host(cuda):
+    gp = _mixed_gps(cuda, torch.float32)[1]
+    st = gp.factor_state()
+    assert st.L.device.type == "cuda" and st.L.dtype == torch.float64
+    x = np.array([0.3, -0.7])
+    grown = pt.gp.gp_append(gp.kern, st, torch.tensor(x, device=cuda), 0.4)
+    gp.append_data(x, 0.4)
+    for name in ("L", "Linv", "w"):
+        np.testing.assert_allclose(getattr(grown, name).cpu().numpy(),
+                                   getattr(gp._host, name), rtol=0,
+                                   atol=1e-12)
+
+
+def test_device_loop_on_cuda_matches_the_cpu_loop(cuda):
+    """run_safeopt_loop on the card (float32 step, float64 factors) and on
+    the CPU (float64): the same queries up to a first divergence, allowed
+    only where the two queries' scaled widths agree within 1e-3."""
+    from safeopt_torch.algorithms.runner import run_safeopt_loop
+
+    grid = pt.linearly_spaced_combinations([(-5.0, 5.0)] * 2, 120)
+
+    def f(x):
+        return 2.0 * torch.exp(-0.5 * torch.sum(x * x))
+
+    def g(x):
+        return 1.0 - 0.1 * torch.sum(x * x)
+
+    def run(device, dtype):
+        gps = _mixed_gps(device, torch.float64)
+        t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa
+        return run_safeopt_loop(
+            tuple(p.kern for p in gps), tuple(p.factor_state() for p in gps),
+            torch.tensor(grid, device=device), t([0.2, 0.5]), 2.0,
+            t([np.sqrt(2.0), 1.0]), t([0.0, 0.0]), objectives=(f, g),
+            n_iter=6, chunk=32, dtype=dtype)
+
+    on_card, on_cpu = run(cuda, torch.float32), run("cpu", torch.float64)
+    assert bool(on_card.has_safe.all())
+    assert [int(s.count) for s in on_card.states] == [36, 36]
+    agree = (on_card.next_idx.cpu() == on_cpu.next_idx).long().cumprod(0)
+    n = int(agree.sum())
+    assert n >= 1
+    if n < 6:
+        # the first divergence is a near-tie of the float64 step's widths
+        opt = pt.SafeOpt(_mixed_gps("cpu", torch.float64), grid,
+                         fmin=[0.2, 0.5], scaling=[np.sqrt(2.0), 1.0],
+                         expander_chunk=32)
+        for x in on_cpu.xs[:n].numpy():
+            opt.optimize()
+            opt.add_new_data_point(x, np.array([[float(f(torch.tensor(x))),
+                                                 float(g(torch.tensor(x)))]]))
+        opt.optimize()
+        w = np.max((opt.Q[:, 1::2] - opt.Q[:, 0::2])
+                   / np.array([np.sqrt(2.0), 1.0]), axis=1)
+        i, j = int(on_card.next_idx[n]), int(on_cpu.next_idx[n])
+        assert abs(w[i] - w[j]) <= 1e-3

@@ -160,9 +160,9 @@ def test_convert_rejects_partial_or_misshapen_factors():
     with pytest.raises(ValueError, match="shape"):
         gp_from_arrays(pgp.kern, **dict(arrays, w=arrays["w"][:3]),
                        device="cpu")
+    # a kind neither package has
     with pytest.raises(NotImplementedError):
-        kernel_from_params("ratquad", input_dim=1, variance=1.0,
-                           lengthscale=1.0)
+        kernel_from_params("brownian", input_dim=1, variance=1.0)
 
 
 def test_convert_carries_a_jax_kernel_tree():

@@ -479,7 +479,7 @@ def test_grid_past_the_column_limit_decides_on_the_cpu():
     pgp = gp_from_arrays(kernel_from_params(**kernel_params(jgp.kern)),
                          **gp_arrays(jgp), device="cpu")
     grid = rng.uniform(-1.0, 1.0, size=(400, d))
-    assert pcore._gp_groups((pgp.kern,), (pgp.state,), d) == [([0], True)]
+    assert pcore._gp_groups((pgp.kern,), (pgp.state,), d) == [([0], "plan")]
     rj = jcore.safeopt_step((jgp.kern,), (jgp.state,), jnp.asarray(grid),
                             jnp.asarray([0.5]), jnp.asarray(2.0),
                             jnp.asarray([1.0]), jnp.asarray([0.0]), chunk=8)

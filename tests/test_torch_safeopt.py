@@ -476,20 +476,49 @@ def test_plain_path_defaults_accepted():
 
 
 def test_unsupported_kernel_raises():
+    """White anywhere in a kernel tree, which no grid kernel takes, runs
+    on the eager route and decides in lockstep with safeopt_tpu (it
+    raised ``NotImplementedError`` before that route existed)."""
     grid = pt.linearly_spaced_combinations([(-1.0, 1.0)] * 2, 5)
+    x0, y0 = np.array([[0.0, 0.0]]), np.array([[1.0]])
 
-    def opt(kern):
-        gp = pt.GPRegression(np.array([[0.0, 0.0]]), np.array([[1.0]]),
-                             kern, noise_var=1e-3, device="cpu")
-        return pt.SafeOpt(gp, grid, fmin=[0.0])
+    def f(x):
+        return float(1.0 - 0.2 * np.sum(np.square(x)))
 
-    # White anywhere in the tree has no grid kernel yet
-    for kern in (pt.White(2), pt.RBF(2) + pt.White(2, variance=0.1),
-                 pt.RBF(1, active_dims=[0]) * pt.White(1, active_dims=[1])):
-        with pytest.raises(NotImplementedError, match="item"):
-            opt(kern).optimize()
-    # an active_dims subset now runs (K2/K4)
-    assert opt(pt.RBF(1, active_dims=[0])).optimize().shape == (2,)
+    def opts(make):
+        port = pt.SafeOpt(pt.GPRegression(x0, y0, make(pt), noise_var=1e-3,
+                                          device="cpu"),
+                          grid, fmin=[-2.5], threshold=0.05)
+        jax_opt = jt.SafeOpt(jt.GPRegression(x0, y0, make(jt),
+                                             noise_var=1e-3),
+                             grid, fmin=[-2.5], threshold=0.05,
+                             use_pallas=False)
+        return port, jax_opt
+
+    for make in (lambda p: p.White(2),
+                 lambda p: p.RBF(2) + p.White(2, variance=0.1),
+                 lambda p: (p.RBF(1, active_dims=[0])
+                            * p.White(1, active_dims=[1]))):
+        port, jax_opt = opts(make)
+        for it in range(3):
+            x = np.asarray(port.optimize())
+            assert_allclose(x, np.asarray(jax_opt.optimize()), atol=1e-12,
+                            err_msg=f"query at {it}")
+            assert port.stats.last.eager_gps == 1
+            for name in ("S", "M", "G"):
+                np.testing.assert_array_equal(
+                    getattr(port, name), np.asarray(getattr(jax_opt, name)),
+                    err_msg=f"{name} at {it}")
+            assert_allclose(port.Q, np.asarray(jax_opt.Q), rtol=0,
+                            atol=1e-12)
+            for opt in (port, jax_opt):
+                opt.add_new_data_point(x, f(x))
+    # an active_dims subset runs K2/K4 (their plain versions here)
+    port = pt.SafeOpt(pt.GPRegression(x0, y0, pt.RBF(1, active_dims=[0]),
+                                      noise_var=1e-3, device="cpu"),
+                      grid, fmin=[0.0])
+    assert port.optimize().shape == (2,)
+    assert port.stats.last.eager_gps == 0
 
 
 def test_device_mismatch_raises():
