@@ -5,11 +5,17 @@ This package holds the exact-grid surface: ``SafeOpt`` over a finite
 candidate grid, with or without context columns, blocking, asynchronous
 (``optimize_async``) or as a lag-1 campaign (``run_lagged_campaign``),
 and the device-side loop ``algorithms.runner.run_safeopt_loop``; its
-``GPRegression`` models take every kernel family of the JAX package and
-their Product/Sum algebras, and ``gp`` holds the functional engine
-(``gp_fit``, ``gp_append``, ``gp_pop``). Its grid kernels are written by
-hand in CUDA C++ for Hopper (``ops/csrc``), beside an exact top-k; the
-GPs they do not take run on an eager route in plain PyTorch. It imports
+models, exact (``GPRegression``) or sparse (``SparseGPRegression``, the
+DTC approximation through m inducing points, whose pseudo-factor state
+runs the same grid kernels), take every kernel family of the JAX
+package and their Product/Sum algebras; ``gp`` also holds the
+functional engine (``gp_fit``, ``gp_append``, ``gp_pop``) and
+hyperparameter fitting (``fit_hyperparameters``: autograd and
+``torch.optim.Adam`` in float64 on the card, restarts in one batch,
+behind each model's ``optimize``/``optimize_restarts``). Its grid
+kernels are written by hand in CUDA C++ for Hopper (``ops/csrc``),
+beside an exact top-k; the GPs they do not take run on an eager route
+in plain PyTorch. It imports
 ``torch`` and never ``jax``. Models live on the card by default
 (``GPRegression(X, Y)`` is on ``'cuda'``); ``device='cpu'`` runs the
 kernels' plain PyTorch versions instead.
@@ -21,14 +27,16 @@ from .algorithms import (GaussianProcessOptimization, PendingSafeOptStep,
                          SafeOpt, run_lagged_campaign)
 from .config import JITTER, default_dtype  # also sets the precision policy
 from .gp import (Bias, Cosine, Exponential, GPRegression, Linear, Matern32,
-                 Matern52, MLP, Poly, Product, RatQuad, RBF, StdPeriodic,
-                 Sum, White)
+                 Matern52, MLP, Poly, Product, RatQuad, RBF,
+                 SparseGPRegression, StdPeriodic, Sum, White,
+                 fit_hyperparameters)
 from .utils import linearly_spaced_combinations
 
 __version__ = "0.1.0"
 
 __all__ = ["SafeOpt", "PendingSafeOptStep", "GaussianProcessOptimization",
-           "run_lagged_campaign", "GPRegression", "RBF", "Matern32",
+           "run_lagged_campaign", "GPRegression", "SparseGPRegression",
+           "fit_hyperparameters", "RBF", "Matern32",
            "Matern52", "Exponential", "RatQuad", "Cosine", "StdPeriodic",
            "Linear", "Poly", "MLP", "Bias", "White", "Product", "Sum",
            "linearly_spaced_combinations", "default_dtype", "JITTER"]

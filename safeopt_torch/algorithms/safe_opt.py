@@ -275,7 +275,7 @@ class SafeOpt(GaussianProcessOptimization):
         elif oracle == "device" and not has_dev_oracle:
             raise ValueError(
                 "oracle='device' requires models exposing "
-                "device_oracle_state (GPRegression)")
+                "device_oracle_state (GPRegression, SparseGPRegression)")
         self._oracle = oracle
         self._interval_precision = interval_precision
         if refine_k is None:
@@ -318,7 +318,8 @@ class SafeOpt(GaussianProcessOptimization):
                 if not hasattr(g, "predict_f64"):
                     raise ValueError(
                         "exact_boundaries requires models with a float64 "
-                        "host oracle (predict_f64): "
+                        "host oracle (predict_f64: GPRegression, "
+                        "SparseGPRegression): "
                         f"{type(g).__name__} has none")
 
         # certified-path telemetry (filled by the certified steps)
@@ -520,7 +521,7 @@ class SafeOpt(GaussianProcessOptimization):
             refine_band_k=(self._refine_band_k
                            if self._interval_precision is not None else 0),
             interval_precision=self._interval_precision)
-        ostates = [g.device_oracle_state()[0] for g in self.gps]
+        ostates, kinds = zip(*(g.device_oracle_state() for g in self.gps))
         if self._grid64_device is None or self._grid64_dirty:
             # the oracle evaluates the user's float64 points: a float32
             # grid's rounding moves a lower bound by ~1e-8, more than a
@@ -534,7 +535,7 @@ class SafeOpt(GaussianProcessOptimization):
                               device=self.device)
         fix_idx, fix_bits, flips, n_within = device_oracle(
             kernels, ostates, self._grid64_device, Q, packed_t, fmin64, beta,
-            constrained=tuple(bool(np.isfinite(f))
+            kinds=kinds, constrained=tuple(bool(np.isfinite(f))
                               for f in np.atleast_1d(self.fmin)), k=k)
         result, diag9 = certified_finish(
             kernels, states, grid, Q, packed_t, fix_idx, fix_bits, flips,

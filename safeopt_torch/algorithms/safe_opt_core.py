@@ -682,13 +682,16 @@ def interval_scan(kernels, states, grid, fmin, beta: float, scaling, band,
 
 
 def device_oracle(kernels, ostates, grid, Q, packed_t, fmin, beta: float, *,
-                  constrained, k: int):
+                  constrained, k: int, kinds=None):
     """Settle the band's safe verdicts in float64 on the grid's device.
 
     Recomputes the <= k in-band rows' lower bounds at the points of
     ``grid`` (the float64 grid: the points the host oracle takes, not
     their float32 rounding) against each model's ``OracleState`` (the
-    float64 factors the host oracle uses, mu = V^T w) and returns
+    float64 factors the host oracle uses; ``kinds[i]``, the kind
+    ``device_oracle_state`` returns, picks the mean as that model's
+    ``predict_f64`` forms it: ``'exact'`` mu = V^T w, ``'sparse'`` mu =
+    k^T alpha; None means every model is exact) and returns
     ``(fix_idx, fix_bits, flips, n_within)`` on the device: ``fix_idx``
     the band rows (-1 elsewhere), ``fix_bits`` their float64
     verdicts, ``flips`` how many differ from the float32 verdicts of
@@ -701,14 +704,16 @@ def device_oracle(kernels, ostates, grid, Q, packed_t, fmin, beta: float, *,
     l_rows = Q[rows][:, 0::2]                           # pass-1 float32 l
     safe64 = torch.ones((k,), dtype=torch.bool, device=grid.device)
     s_f32 = torch.ones_like(safe64)
-    for i, (kern, st) in enumerate(zip(kernels, ostates)):
+    if kinds is None:
+        kinds = ("exact",) * len(ostates)
+    for i, (kern, st, kind) in enumerate(zip(kernels, ostates, kinds)):
         if not constrained[i]:
             continue
         mask = (torch.arange(st.capacity, device=st.X.device)
                 < st.count).to(torch.float64)
         kvec = kern.K(st.X, pts) * mask[:, None]            # (cap, k)
         V = st.F @ kvec
-        mu = V.T @ st.w
+        mu = kvec.T @ st.alpha if kind == "sparse" else V.T @ st.w
         var = kern.Kdiag(pts) - torch.sum(V * V, dim=0)
         l64 = mu - beta * torch.sqrt(torch.clamp(var, min=0.0))
         safe64 &= l64 > fmin[i]

@@ -12,7 +12,10 @@ kernel tree becomes nested plain dicts. ``kernel_from_params`` and
 ``gp_from_arrays`` build this package's objects from those values.
 Given the float64 factor arrays, the new ``GPRegression`` holds that
 very factor instead of refactorizing, so both packages compute from
-identical operands.
+identical operands. ``sparse_arrays`` and ``sparse_from_arrays`` do the
+same for a ``SparseGPRegression``: its inducing points, data,
+information state (``A``, ``b``), ``K_ZZ``, pseudo-factor ``R``,
+``alpha``, ``w`` and floor.
 """
 
 from __future__ import annotations
@@ -20,15 +23,17 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import scipy.linalg
 import torch
 
 from .gp.kernels import (Bias, Cosine, Exponential, Linear, Matern32,
                          Matern52, MLP, Poly, Product, RatQuad, RBF,
                          StdPeriodic, Sum, White)
 from .gp.regression import GPRegression
+from .gp.sparse import SparseGPRegression
 
 __all__ = ["kernel_params", "kernel_from_params", "gp_arrays",
-           "gp_from_arrays"]
+           "gp_from_arrays", "sparse_arrays", "sparse_from_arrays"]
 
 _LEAVES = {"rbf": RBF, "matern32": Matern32, "matern52": Matern52,
            "exponential": Exponential, "ratquad": RatQuad, "cosine": Cosine,
@@ -119,4 +124,55 @@ def gp_from_arrays(kernel, X, Y, noise_var: float, capacity: int,
                                  f"{want[name]}")
         gp._host.L, gp._host.Linv, gp._host.w = L, Linv, w
         gp._rebuilt()
+    return gp
+
+
+def sparse_arrays(gp) -> dict:
+    """Float64 copies of a ``SparseGPRegression``'s (either package's)
+    data, host state and settings, as keyword arguments of
+    ``sparse_from_arrays`` (kernel excluded: ``kernel_params(gp.kern_base)``
+    carries it)."""
+    f64 = lambda a: np.array(a, dtype=np.float64)  # noqa: E731
+    w = getattr(gp, "_w", None)
+    if w is None:      # the JAX model keeps w only in its device state
+        w = np.linalg.pinv(gp._R.T, rcond=1e-12) @ gp._alpha
+    return dict(Z=f64(gp.Z), X=f64(gp.X), Y=f64(gp.Y),
+                noise_var=float(gp.noise_var), A=f64(gp._A), b=f64(gp._b),
+                Kzz=f64(gp._Kzz), R=f64(gp._R), alpha=f64(gp._alpha),
+                w=f64(w), floor=float(gp._floor),
+                conservative=float(gp.conservative),
+                calibration=gp.calibration, jitter=float(gp._jitter),
+                refit_every=int(gp._refit_every))
+
+
+def sparse_from_arrays(kernel, Z, X, Y, noise_var: float, A, b, Kzz, R,
+                       alpha, w, floor: float = 0.0,
+                       conservative: float = 0.0, calibration="max",
+                       jitter: float = 1e-8, refit_every: int = 512,
+                       device="cuda", dtype: Optional[torch.dtype] = None
+                       ) -> SparseGPRegression:
+    """A ``SparseGPRegression`` that holds the given float64 host state
+    as it is (``kernel`` the data-model kernel): after its own build,
+    its ``A``, ``b``, ``K_ZZ`` (and factor), ``R``, ``alpha``, ``w`` and
+    floor are replaced by these, and its device state is uploaded from
+    them."""
+    gp = SparseGPRegression(X, Y, kernel, noise_var=noise_var, inducing=Z,
+                            refit_every=refit_every, jitter=jitter,
+                            conservative=conservative,
+                            calibration=calibration, device=device,
+                            dtype=dtype)
+    m = gp.num_inducing
+    want = {"A": (m, m), "b": (m,), "Kzz": (m, m), "R": (m, m),
+            "alpha": (m,), "w": (m,)}
+    arrays = {}
+    for name, a in zip(want, (A, b, Kzz, R, alpha, w)):
+        arrays[name] = np.array(a, dtype=np.float64)
+        if arrays[name].shape != want[name]:
+            raise ValueError(f"{name} has shape {arrays[name].shape}, "
+                             f"expected {want[name]}")
+    gp._A, gp._b, gp._Kzz = arrays["A"], arrays["b"], arrays["Kzz"]
+    gp._Kzz_cho = scipy.linalg.cho_factor(gp._Kzz, lower=True)
+    gp._floor = float(floor)
+    gp.kern = kernel                       # the floored view, if any
+    gp._set_posterior(arrays["R"], arrays["alpha"], arrays["w"])
     return gp

@@ -7,7 +7,10 @@ RBF, Matern-3/2, Matern-5/2, Exponential, RatQuad and Cosine, the
 constant ``Bias`` and ``White`` noise, the periodic ``StdPeriodic`` and
 the dot-product families ``Linear``, ``Poly`` and ``MLP``.
 Hyperparameters are float64 CPU tensors; ``K`` and ``Kdiag`` cast them
-to the dtype and device of their inputs. The grid kernels (``ops/``)
+to the dtype and device of their inputs; that cast is differentiable, so
+``kernel_leaves`` / ``with_leaves`` (the JAX pytree's flatten order)
+carry tensors that require grad through ``K`` and ``Kdiag`` for
+``hyperopt.py``. The grid kernels (``ops/``)
 take the first four families, Cosine and Bias; SafeOpt runs every other
 GP on its eager route (``algorithms/safe_opt_core.py``), as the JAX
 package runs them on XLA.
@@ -20,14 +23,15 @@ the difference form instead (see ``ops/fused_posterior.py``).
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["Kernel", "RBF", "Matern32", "Matern52", "Exponential",
            "RatQuad", "Cosine", "StdPeriodic", "Linear", "Poly", "MLP",
-           "Bias", "White", "Product", "Sum"]
+           "Bias", "White", "Product", "Sum", "kernel_leaves", "with_leaves"]
 
 
 def _as_active_dims(active_dims, input_dim: int) -> Tuple[int, ...]:
@@ -77,6 +81,8 @@ class Kernel:
     input_dim: int
     #: columns of the full input this kernel reads
     active_dims: Tuple[int, ...]
+    #: hyperparameter attributes in the JAX pytree's flatten order
+    _leaves: Tuple[str, ...] = ()
 
     def K(self, X, X2=None) -> torch.Tensor:
         """Cross-covariance matrix k(X, X2); X2=None means k(X, X)."""
@@ -99,6 +105,8 @@ class _Stationary(Kernel):
     ``r^2`` is the lengthscale-scaled squared Euclidean distance over
     the kernel's active dims.
     """
+
+    _leaves = ("variance", "lengthscale")
 
     def __init__(self, input_dim, variance=1.0, lengthscale=None, ARD=False,
                  active_dims=None, name: Optional[str] = None):
@@ -136,7 +144,9 @@ class _Stationary(Kernel):
         xn = torch.sum(Xs * Xs, dim=1, keepdim=True)
         zn = torch.sum(Zs * Zs, dim=1, keepdim=True)
         r2 = xn + zn.T - 2.0 * (Xs @ Zs.T)
-        return torch.clamp(r2, min=0.0)
+        # jnp.maximum's gradient at a tie (r2 == 0, the diagonal) is one
+        # half, as torch.maximum's is; torch.clamp's would be one
+        return torch.maximum(r2, r2.new_zeros(()))
 
     def _K_of_r2(self, r2: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -194,6 +204,8 @@ class Exponential(_Stationary):
 class RatQuad(_Stationary):
     """Rational quadratic: k(r) = variance * (1 + r^2 / 2)^(-power)
     (GPy.kern.RatQuad)."""
+
+    _leaves = ("variance", "lengthscale", "power")
 
     def __init__(self, input_dim, variance=1.0, lengthscale=None,
                  power=2.0, ARD=False, active_dims=None,
@@ -279,6 +291,8 @@ class StdPeriodic(Kernel):
     lengthscale_j)^2)``; ``ARD1`` makes ``period`` one value per input
     dimension, ``ARD2`` the ``lengthscale``."""
 
+    _leaves = ("variance", "period", "lengthscale")
+
     def __init__(self, input_dim, variance=1.0, period=None,
                  lengthscale=None, ARD1=False, ARD2=False,
                  active_dims=None, name: Optional[str] = None):
@@ -329,6 +343,8 @@ class Linear(Kernel):
     variance vanishes at the origin, so ``scaling='auto'`` refuses a GP
     whose kernel is Linear alone."""
 
+    _leaves = ("variances",)
+
     def __init__(self, input_dim, variances=1.0, ARD=False,
                  active_dims=None, name: Optional[str] = None):
         self.input_dim = int(input_dim)
@@ -361,6 +377,8 @@ class Poly(Kernel):
     ``variance * (scale * x.z + bias)^order``. ``order`` must be a
     positive integer: a fractional power of a negative dot product is
     NaN, and NaN rows would classify unsafe without a word."""
+
+    _leaves = ("variance", "scale", "bias")      # order stays static
 
     def __init__(self, input_dim, variance=1.0, scale=1.0, bias=1.0,
                  order=3.0, active_dims=None, name: Optional[str] = None):
@@ -406,6 +424,8 @@ class MLP(Kernel):
     ``variance (2/pi) asin((w x.z + b) / sqrt((w |x|^2 + b + 1)
     (w |z|^2 + b + 1)))`` with ``w = weight_variance`` (one value per
     input dimension under ``ARD``) and ``b = bias_variance``."""
+
+    _leaves = ("variance", "weight_variance", "bias_variance")
 
     def __init__(self, input_dim, variance=1.0, weight_variance=1.0,
                  bias_variance=1.0, ARD=False, active_dims=None,
@@ -462,6 +482,11 @@ class _Composite(Kernel):
         self.k2 = k2
 
     @property
+    def parts(self) -> Tuple[Kernel, Kernel]:
+        """The two part kernels (GPy ``kern.parts``)."""
+        return (self.k1, self.k2)
+
+    @property
     def input_dim(self) -> int:
         # one past the largest active dim of either part
         return max(max(self.k1.active_dims), max(self.k2.active_dims)) + 1
@@ -498,3 +523,33 @@ class Sum(_Composite):
 
     def Kdiag(self, X) -> torch.Tensor:
         return self.k1.Kdiag(X) + self.k2.Kdiag(X)
+
+
+def kernel_leaves(kernel: Kernel) -> List[torch.Tensor]:
+    """A kernel tree's hyperparameter tensors in the order of the JAX
+    package's ``tree_flatten`` (a leaf's ``_leaves``; a Product or Sum
+    its ``k1``'s, then its ``k2``'s). Static fields (``input_dim``,
+    ``ARD``, ``active_dims``, Poly's ``order``) are not leaves."""
+    if isinstance(kernel, _Composite):
+        return kernel_leaves(kernel.k1) + kernel_leaves(kernel.k2)
+    return [getattr(kernel, name) for name in kernel._leaves]
+
+
+def with_leaves(kernel: Kernel, leaves: Sequence[torch.Tensor]) -> Kernel:
+    """A copy of ``kernel`` holding ``leaves`` (``kernel_leaves``'s order)
+    as they are: no cast and no detach, so tensors that require grad, on
+    any device, carry their graph through ``K`` and ``Kdiag``."""
+    leaves = list(leaves)
+    if len(leaves) != len(kernel_leaves(kernel)):
+        raise ValueError(f"{len(leaves)} leaves for a kernel of "
+                         f"{len(kernel_leaves(kernel))}")
+
+    def rebuild(k, it):
+        if isinstance(k, _Composite):
+            return type(k)(rebuild(k.k1, it), rebuild(k.k2, it))
+        out = copy.copy(k)
+        for name in k._leaves:
+            setattr(out, name, next(it))
+        return out
+
+    return rebuild(kernel, iter(leaves))

@@ -76,6 +76,8 @@ class OracleState(NamedTuple):
     X: torch.Tensor          # (cap, d) float64 data rows
     F: torch.Tensor          # (cap, cap) float64 factor; V = F @ k(X, q)
     w: torch.Tensor          # (cap,) float64 whitened weights, mu = V^T w
+    alpha: torch.Tensor      # (cap,) float64 direct weights (sparse:
+    #                          mu = k^T alpha; zeros for an exact model)
     count: torch.Tensor      # () int64 active rows
 
     @property
@@ -215,6 +217,26 @@ def _oracle_row_update(cache: OracleState, i: int, row: torch.Tensor,
     cache.count.fill_(new_count)
 
 
+def sample_latent(mu: np.ndarray, cov: np.ndarray, size: int,
+                  generator=None, normals=None) -> np.ndarray:
+    """(q, 1, size) joint draws of N(mu, cov) in host float64, through an
+    eigendecomposition of the symmetrized, jittered ``cov`` (a
+    near-singular posterior covariance defeats Cholesky). The standard
+    normals are ``normals`` (q, size) when given, else ``torch.randn``
+    with ``generator`` (a fixed seed when None)."""
+    cov = 0.5 * (cov + cov.T) + 1e-10 * np.eye(cov.shape[0])
+    evals, evecs = np.linalg.eigh(cov)
+    root = evecs * np.sqrt(np.maximum(evals, 0.0))
+    if normals is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        normals = torch.randn((cov.shape[0], int(size)),
+                              generator=generator, dtype=torch.float64)
+    eps = np.asarray(normals, dtype=np.float64).reshape(cov.shape[0],
+                                                        int(size))
+    return (mu[:, None] + root @ eps)[:, None, :]
+
+
 def _next_capacity(n: int, minimum: int = 64) -> int:
     cap = minimum
     while cap < n:
@@ -323,6 +345,7 @@ class GPRegression:
             self._oracle_cache = OracleState(
                 X=torch.tensor(h.X, **f64), F=torch.tensor(h.Linv, **f64),
                 w=torch.tensor(h.w, **f64),
+                alpha=torch.zeros(h.capacity, **f64),
                 count=torch.tensor(int(h.count), dtype=torch.int64,
                                    device=self.device))
         return self._oracle_cache, "exact"
@@ -414,18 +437,52 @@ class GPRegression:
         """
         Xq = np.atleast_2d(np.asarray(Xq, dtype=np.float64))
         mu, _ = self._host.predict(Xq)
-        cov = self._host.posterior_cov(Xq)
-        cov = 0.5 * (cov + cov.T) + 1e-10 * np.eye(cov.shape[0])
-        evals, evecs = np.linalg.eigh(cov)
-        root = evecs * np.sqrt(np.maximum(evals, 0.0))
-        if normals is None:
-            if generator is None:
-                generator = torch.Generator().manual_seed(0)
-            normals = torch.randn((cov.shape[0], int(size)),
-                                  generator=generator, dtype=torch.float64)
-        eps = np.asarray(normals, dtype=np.float64).reshape(cov.shape[0],
-                                                            int(size))
-        return (mu[:, None] + root @ eps)[:, None, :]
+        return sample_latent(mu, self._host.posterior_cov(Xq), size,
+                             generator, normals)
+
+    def optimize_hyperparameters(self, steps: int = 200,
+                                 learning_rate: float = 0.05,
+                                 optimize_noise: bool = True,
+                                 restarts: int = 0, seed: int = 0,
+                                 device=None) -> float:
+        """Fit the kernel's hyperparameters (and the noise) by maximizing
+        the exact log marginal likelihood (``hyperopt.
+        fit_hyperparameters``: Adam in log space, ``restarts`` perturbed
+        starts in one batch, best finite run, BFGS polish), then set them
+        on the model and the host factor and ``refit()``. ``device``:
+        ``'cpu'``, ``'accel'`` (the card) or ``'auto'``; None fits where
+        the model lives. Returns the best LML."""
+        from .hyperopt import fit_hyperparameters
+
+        if device is None:
+            device = "cpu" if self.device.type == "cpu" else "accel"
+        kern, noise, lml = fit_hyperparameters(
+            self.kern, self.X_host, self.Y_host, self.noise_var,
+            steps=steps, learning_rate=learning_rate,
+            optimize_noise=optimize_noise, restarts=restarts, seed=seed,
+            device=device)
+        self.kern = kern
+        self._host.kernel = kern
+        self._host.noise_var = float(noise)
+        self.refit()
+        return lml
+
+    def optimize(self, max_iters: int = 200, device=None,
+                 **_gpy_compat) -> float:
+        """GPy's spelling of hyperparameter fitting (GPy-only keywords
+        such as ``optimizer=`` or ``messages=`` are accepted and
+        ignored). Returns the LML."""
+        return self.optimize_hyperparameters(steps=max_iters, device=device)
+
+    def optimize_restarts(self, num_restarts: int = 5,
+                          max_iters: int = 200, seed: int = 0, device=None,
+                          **_gpy_compat) -> float:
+        """GPy's multi-start fitting: one run from the current
+        hyperparameters and ``num_restarts`` perturbed ones, the best
+        finite LML wins. Returns that LML."""
+        return self.optimize_hyperparameters(
+            steps=max_iters, restarts=num_restarts, seed=seed,
+            device=device)
 
     def refit(self) -> None:
         """Refactorize from scratch (numerical hygiene): the host factor

@@ -399,7 +399,8 @@ intervals_split.limb_launches = dict.fromkeys(LIMBS, 0)
 def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None,
                   three_pass=False):
     """Bound on |float32 kernel - plain version| per output, shaped like
-    the kernel's output, for ``what`` in ``"mu_from_gram"`` (B3),
+    the kernel's output, for ``what`` in ``"intervals"`` (K1 and B1:
+    V in FMA chains, mu = w . V), ``"mu_from_gram"`` (B3),
     ``"gram_sums"``, ``"solve_rank1"``, ``"no_product"``, ``"epilogue"``
     (B2/B5) and ``"split"`` (B4, with ``limb``; K1-3p in bf16). The
     operands are the kernel's float32 ones, upcast to float64 (the plain
@@ -483,7 +484,7 @@ def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None,
                     dV = (m + 2) * u * A
                 elif what == "solve_rank1":
                     dV = (n + 1) * u * A
-                elif what == "mu_from_gram":
+                elif what in ("intervals", "mu_from_gram"):
                     dV = n * u * A + eG * La.sum(dim=1)[:, None]
                 else:
                     raise ValueError(f"unknown kernel {what!r}")
@@ -548,8 +549,9 @@ def drop_band(ops, what, first=True):
     """``ops`` (K1's operands, one GP's in B4's layout, or K2's) as a
     kernel that drops each GP's first (or last) 32 active rows would see
     them: where V is Lm times a gram (``what`` in ``"solve_rank1"``,
-    ``"mu_from_gram"``, ``"split"``; K2's operands take ``"split"``
-    only) those rows of Lm zeroed; elsewhere the count cut by 32, after
+    ``"mu_from_gram"``, ``"split"``, ``"intervals"``; K2's operands
+    take ``"split"`` only) those rows of Lm zeroed; elsewhere the count
+    cut by 32, after
     the operand rows moved up by 32 for the first band. The rows'
     distance from the sound ones past ``float32_bound`` shows that the
     float32 check would fail such a kernel."""
@@ -564,7 +566,7 @@ def drop_band(ops, what, first=True):
         return zt, xs, lm, w, scales, pvar, plan, scal
     zt, ils, xs, lm, w, scal, kind = ops
     lm, scal = lm.clone(), scal.clone()
-    if what in ("solve_rank1", "mu_from_gram", "split"):
+    if what in ("solve_rank1", "mu_from_gram", "split", "intervals"):
         rows = lm.view(-1, *lm.shape[-2:])
         for g, n in enumerate(_counts(scal.view(-1, 4), lm.shape[-1])):
             lo = 0 if first else max(n - 32, 0)

@@ -990,3 +990,127 @@ def test_device_loop_on_cuda_matches_the_cpu_loop(cuda):
                    / np.array([np.sqrt(2.0), 1.0]), axis=1)
         i, j = int(on_card.next_idx[n]), int(on_cpu.next_idx[n])
         assert abs(w[i] - w[j]) <= 1e-3
+
+
+# -- the sparse model and hyperparameter fits on the card ------------------
+
+def _sparse_gps(m, device, dtype, n=600, seed=11):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-4.0, 4.0, size=(n, 2))
+    Y = (2.0 * np.exp(-0.5 * np.sum(X ** 2, axis=1))
+         + 0.05 * rng.normal(size=n))[:, None]
+    return pt.SparseGPRegression(X, Y, pt.RBF(2, variance=2.0),
+                                 noise_var=0.05 ** 2, inducing=m,
+                                 device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("m", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sparse_full_capacity_state_on_k1_k3(cuda, m, dtype):
+    """The sparse pseudo-factor fills its buffer (count == capacity, which
+    no exact state does): K1 against its plain version (float64 to 1e-9,
+    float32 decisions outside a band of 1e-3 of the prior std) and K3
+    against its plain predicate (float64 identical, float32 outside the
+    band) at raised thresholds that leave it mixed."""
+    gp = _sparse_gps(m, cuda, dtype)
+    st = gp.state
+    assert int(st.count) == st.capacity == m
+    assert not bool(torch.triu(st.Linv, 1).any())
+    grid = torch.tensor(np.random.default_rng(2).uniform(
+        -5.0, 5.0, size=(20000, 2)), dtype=dtype, device=cuda)
+    ops = fp.interval_operands([gp.kern], [st], grid, 2.0)
+    out = fp.fused_intervals(*ops)
+    ops64 = [o.double() if torch.is_tensor(o) and o.is_floating_point()
+             else o for o in ops]
+    ref = fp.fused_intervals_plain(*ops64)
+    torch.cuda.synchronize()
+    l, l64 = out[0, 0].double(), ref[0, 0]
+    if dtype == torch.float64:
+        assert (out - ref).abs().max().item() <= 1e-9
+    band = 1e-3 * np.sqrt(2.0)
+    for fmin in torch.quantile(l64, torch.tensor([0.5, 0.9], device=cuda,
+                                                 dtype=torch.float64)):
+        outside = (l64 - fmin).abs() > band
+        assert torch.equal((l > fmin)[outside], (l64 > fmin)[outside])
+    # K3 on 32 safe candidates, 4 padding slots
+    fmin = torch.tensor([0.2], dtype=dtype, device=cuda)
+    lq, uq = ref[:, 0].to(dtype), ref[:, 1].to(dtype)
+    safe = lq[0] > fmin[0]
+    safe_idx = torch.nonzero(safe).squeeze(1)
+    cand = safe_idx[torch.linspace(0, safe_idx.numel() - 1, 32,
+                                   device=cuda).long()]
+    valid = torch.ones(32, dtype=torch.bool, device=cuda)
+    valid[-4:] = False
+    eops = fe.expander_operands([gp.kern], [st], grid, ~safe, (lq + uq) / 2,
+                                (uq - lq) / 4, grid[cand], uq[:, cand],
+                                valid, 2.0, fmin)
+    mixed = False
+    for shift in (0.0, 0.003, 0.01, 0.03, 0.1, 0.3):
+        scal = eops[9].clone()
+        scal[:, 3] += shift
+        at = eops[:9] + (scal, eops[10])
+        got, want = fe.fused_expander(*at), fe.fused_expander_plain(*at)
+        torch.cuda.synchronize()
+        assert not bool(got[:, -4:].any())
+        hits = want[:, :-4]
+        mixed |= bool(hits.any()) and not bool(hits.all())
+        if dtype == torch.float64:
+            assert torch.equal(got, want)
+        else:
+            lo, hi = scal.clone(), scal.clone()
+            lo[:, 3] -= 1e-3 * np.sqrt(2.0)
+            hi[:, 3] += 1e-3 * np.sqrt(2.0)
+            decided = (fe.fused_expander_plain(*eops[:9], lo, eops[10])
+                       == fe.fused_expander_plain(*eops[:9], hi, eops[10]))
+            assert torch.equal(got[decided], want[decided])
+    assert mixed
+
+
+def test_sparse_certified_device_oracle_on_cuda(cuda):
+    """The certified path with the device oracle's 'sparse' kind, float64
+    on the card against float64 on the CPU: the same S and queries."""
+    grid = pt.linearly_spaced_combinations([(-5.0, 5.0)] * 2, 100)
+
+    def run(device):
+        opt = pt.SafeOpt(_sparse_gps(64, device, torch.float64), grid,
+                         fmin=[0.2], scaling=[np.sqrt(2.0)],
+                         exact_boundaries=True, oracle="device")
+        out = []
+        for _ in range(3):
+            x = opt.optimize()
+            out.append((x, opt.S.copy()))
+            opt.add_new_data_point(x, 2.0 * np.exp(-0.5 * np.sum(x ** 2)))
+        return out
+
+    for (x_c, s_c), (x_h, s_h) in zip(run(cuda), run("cpu")):
+        np.testing.assert_array_equal(s_c, s_h)
+        np.testing.assert_array_equal(x_c, x_h)
+
+
+def test_fit_with_restarts_on_the_card(cuda):
+    """device='accel' with restarts runs on the card (the JAX package
+    refuses it: a TPU runtime fault), and its Adam steps equal the CPU
+    fit's to 1e-8 relative from the same draws."""
+    rng = np.random.default_rng(7)
+    X = rng.uniform(-3.0, 3.0, size=(60, 2))
+    Y = (1.5 * np.exp(-0.5 * np.sum((X / [1.0, 1.8]) ** 2, axis=1))
+         + 0.05 * rng.normal(size=60))[:, None]
+
+    def fit(device):
+        return pt.gp.fit_hyperparameters(
+            pt.RBF(2, variance=0.6, lengthscale=[0.4, 0.4], ARD=True), X, Y,
+            0.02, steps=50, restarts=4, seed=3, polish=False, device=device)
+
+    k_c, nv_c, lml_c = fit("accel")
+    k_h, nv_h, lml_h = fit("cpu")
+    assert k_c.lengthscale.device.type == "cpu"
+    np.testing.assert_allclose(lml_c, lml_h, rtol=1e-8)
+    np.testing.assert_allclose(k_c.lengthscale.numpy(),
+                               k_h.lengthscale.numpy(), rtol=1e-8)
+    np.testing.assert_allclose(nv_c, nv_h, rtol=1e-8)
+    gp = pt.GPRegression(X, Y, pt.RBF(2, ARD=True), noise_var=0.02)
+    lml0 = gp.log_likelihood()
+    assert gp.optimize_restarts(num_restarts=2, max_iters=30) > lml0
+    sp = pt.SparseGPRegression(X, Y, pt.RBF(2), noise_var=0.02, inducing=16)
+    lml0 = sp.log_likelihood()
+    assert sp.optimize(max_iters=30) > lml0

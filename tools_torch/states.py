@@ -2,7 +2,9 @@
 
 The flagship's two GPs (``build_gps``), the cap-512 state of the interval
 experiments in K1's operand layout (``cap512_operands``), its one-GP
-slices (``one_gp``, ``first_gp``), B1's launch layouts (``LAYOUTS``) and
+slices (``one_gp``, ``first_gp``), B1's launch layouts (``LAYOUTS``),
+the long-campaign sparse model (``sparse_data``, ``sparse_gp``), the
+hyperparameter fits' data and kernel (``fit_data``, ``fit_kernel``) and
 the CUDA-event timer. It imports nothing of ``chip_smoke.py`` or of the
 tools, so each of them imports it and the dependency runs one way.
 """
@@ -42,6 +44,52 @@ def build_gps(rng, n_obs, capacity, device, dtype, spread=1.5, d=2):
             GPRegression(X, Yg, RBF(d, variance=1.0, lengthscale=1.5),
                          noise_var=0.05 ** 2, capacity=capacity,
                          device=device, dtype=dtype)]
+
+
+def sparse_data(n=2000, seed=11):
+    """The JAX bench's long-campaign data (``bench.py:969-980``): n
+    observations of the flagship's objective, 2 exp(-|x|^2 / 2) plus noise
+    of std 0.05, uniform in [-4, 4]^2."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-4.0, 4.0, size=(n, 2))
+    Y = (2.0 * np.exp(-0.5 * np.sum(X ** 2, axis=1))
+         + 0.05 * rng.normal(size=n))[:, None]
+    return X, Y
+
+
+def sparse_gp(m, device, dtype, data=None, **kw):
+    """A ``SparseGPRegression`` with m inducing points over ``data``
+    (``sparse_data()`` when None): RBF(2, variance 2, lengthscale 1), noise
+    0.05^2, the bench's model; ``kw`` are the floor's settings."""
+    from safeopt_torch import RBF, SparseGPRegression
+
+    X, Y = sparse_data() if data is None else data
+    return SparseGPRegression(X, Y, RBF(2, variance=2.0, lengthscale=1.0),
+                              noise_var=0.05 ** 2, inducing=m,
+                              device=device, dtype=dtype, **kw)
+
+
+def fit_data(seed=7, n=512, n_sparse=2000):
+    """The JAX bench's hyperparameter data (``bench.py:1675-1686`` and
+    ``:1701-1703``): n points of 1.5 exp(-|x / (1, 1.8)|^2 / 2) plus noise
+    of std 0.05, uniform in [-3, 3]^2, then ``n_sparse`` more from the same
+    generator for the sparse fit. Returns ((X, Y), (Xs, Ys))."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for size in (n, n_sparse):
+        X = rng.uniform(-3.0, 3.0, size=(size, 2))
+        Y = (1.5 * np.exp(-0.5 * np.sum((X / [1.0, 1.8]) ** 2, axis=1))
+             + 0.05 * rng.normal(size=size))[:, None]
+        out.append((X, Y))
+    return tuple(out)
+
+
+def fit_kernel():
+    """The fits' starting kernel: RBF-ARD(2, variance 0.6, lengthscales
+    0.4, 0.4), as the JAX bench starts them."""
+    from safeopt_torch import RBF
+
+    return RBF(2, variance=0.6, lengthscale=[0.4, 0.4], ARD=True)
 
 
 def cap512_operands(dtype, grid=None):
