@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port of SafeOpt once on an NVIDIA GPU and check it.
+"""Drive the PyTorch port of SafeOpt and SafeOptSwarm once on an NVIDIA GPU
+and check it.
 
 Run from the repository root on a machine with one CUDA card:
 
@@ -173,7 +174,34 @@ Phases, each reported on its own line:
     least time the card could take (``bound_ms``: the least work the
     output needs; for B2's rank-1 solve and B5's epilogue also the work
     the kernel is told to do, printed apart) and the share of that bound
-    the kernel reaches.
+    the kernel reaches; K1 also at phase 16's exact GP (G=1, 2000
+    observations, capacity 2048, past the resident gram), timed after
+    the others;
+19. SafeOptSwarm at the JAX bench's widths (``bench.py:1333-1353``,
+    ``tools_torch/states.py`` ``swarm_*``: d=10, 20 particles, 100 PSO
+    iterations, bounds [-3, 3]^10): (a) G=1 and G=2 from the bench's 5
+    observations (GP capacity 8, grown at the fourth append), (b) G=2 at
+    250 observations (capacity 256, grown to 512) and (c) the sparse m=64
+    model of phase 16, 10 float32 steps of ``optimize()`` and
+    ``add_new_data_point()`` each against a NumPy plant. On (a) and (b) a
+    graph-replaying optimizer and an eager twin fed the same uniforms:
+    queries identical and the packed diagnostics bitwise equal at every
+    step (or the differing outputs printed and held within 1e-6
+    relative). Each dispatch, captures included, runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` and makes exactly one
+    pull. Every query and every row a step adds to the safe set is safe
+    by float64 (``predict_f64``) within 1e-3 of the scaling, or the query
+    is a safe-set row held from before the step (the reference's rule,
+    ROADMAP Queue 3 entry 13), and every row of the device safe set
+    passed when it joined. (a) in float64 on the card against the CPU:
+    queries within 1e-9 at each step (a flipped final choice is allowed
+    past step 3 with a margin below 1e-12, and printed).
+    ``run_swarmopt_loop`` on (a) G=2 under the same sync mode against
+    the blocking loop on the same uniforms; ``run_lagged_campaign`` on
+    (a) G=2, pipelined and serial bitwise equal. K1-K4 and K1-3p/K2-3p
+    launch 0 times over the phase. It prints the eager and replayed ms
+    per ``optimize()``, the captures' ms, kernels per step and the busy
+    share (torch.profiler), and the loops' ms per iteration.
 
 Any failed check exits non-zero. The last lines are one JSON object of
 the kernels, the nvidia-smi line, and the result line.
@@ -191,7 +219,9 @@ import torch
 
 from tools_torch.states import (BETA, LAYOUTS, build_gps, cap512_operands,
                                  cuda_ms, first_gp, fit_data, fit_kernel,
-                                 one_gp, sparse_data, sparse_gp)
+                                 one_gp, sparse_data, sparse_exact_gp,
+                                 sparse_gp, swarm_data, swarm_gps,
+                                 swarm_plant, swarm_problem)
 
 BAND = 1e-3          # scaled decision band for float32 comparisons
 FMIN = [0.2, 0.5]
@@ -1340,7 +1370,7 @@ def drive_sparse(grid_np, grid64):
     the drift against the exact GP on the same data, and the times.
     Returns {path: (launches, optimize ms, add ms)} and the certified
     runs."""
-    from safeopt_torch import GPRegression, RBF, SafeOpt
+    from safeopt_torch import SafeOpt
     from safeopt_torch.algorithms import safe_opt_core as core
 
     data = sparse_data()
@@ -1429,9 +1459,7 @@ def drive_sparse(grid_np, grid64):
 
     # 16.5: drift against the exact GP on the same data, and its times
     X, Y = data
-    exact = {dt: GPRegression(X, Y, RBF(2, variance=2.0, lengthscale=1.0),
-                              noise_var=0.05 ** 2, capacity=2048,
-                              device="cuda", dtype=dt)
+    exact = {dt: sparse_exact_gp("cuda", dt, data)
              for dt in (torch.float32, torch.float64)}
     route = [r for _, r in core._gp_groups(
         [exact[torch.float32].kern], [exact[torch.float32].state], 2)]
@@ -1697,6 +1725,523 @@ def drive_lagged(grid_np):
               f"{times[True][0]:.3f} / {times[True][1]:.3f}, serial "
               f"{times[False][0]:.3f} / {times[False][1]:.3f}", flush=True)
     return out
+
+
+# -- phase 19: the swarm ------------------------------------------------------
+
+SWARM_STEPS = 10
+SWARM_F64_TOL = 1e-9     # float64 card queries against the CPU's
+SWARM_TIE = 1e-12        # a flipped comparison's largest relative margin
+
+
+def swarm_classes():
+    """``SafeOptSwarm`` subclasses fed injected uniforms: ``Seeded`` from a
+    NumPy generator (``feed(seed)``), ``Rows`` one row of a flat
+    per-iteration array per ``optimize()`` (``feed(rows)``, the layout
+    ``run_swarmopt_loop`` takes)."""
+    from safeopt_torch import SafeOptSwarm
+    from safeopt_torch.algorithms.swarm_opt_fused import (split_streams,
+                                                          stream_layout)
+
+    class Seeded(SafeOptSwarm):
+        def feed(self, seed):
+            self._rng = np.random.default_rng(seed)
+            return self
+
+        def _fused_streams(self, ucb=False):
+            return {name: self._rng.uniform(size=shape) for name, shape in
+                    stream_layout(self.swarm_size, self.max_iters,
+                                  self.gp.input_dim, ucb)}
+
+    class Rows(SafeOptSwarm):
+        def feed(self, rows):
+            self._rows = iter(rows)
+            return self
+
+        def _fused_streams(self, ucb=False):
+            return split_streams(next(self._rows), stream_layout(
+                self.swarm_size, self.max_iters, self.gp.input_dim, ucb))
+
+    return Seeded, Rows
+
+
+def swarm_diag_fields(d):
+    """(name, start, stop) of each output in ``SwarmIterOut.diag``."""
+    spans = [("x_next", d), ("x_maxi", d), ("x_exp", d), ("x_greedy", d),
+             ("greedy_point", d), ("best_lower_bound", 1), ("std_maxi", 1),
+             ("std_exp", 1), ("num_safe", 3), ("num_pruned", 3),
+             ("num_added", 2), ("count", 1)]
+    out, at = [], 0
+    for name, n in spans:
+        out.append((name, at, at + n))
+        at += n
+    return out
+
+
+def swarm_margin(opt, X):
+    """The least scaled float64 margin ``(mu - beta sigma - fmin) /
+    scaling`` over the rows of X and the constrained GPs
+    (``predict_f64``; +inf when no GP is constrained)."""
+    worst = math.inf
+    for gp, fmin, scale in zip(opt.gps, opt.fmin, opt.scaling):
+        if fmin == -np.inf:
+            continue
+        mu, var = gp.predict_f64(np.atleast_2d(X))
+        lower = np.ravel(mu) - opt.beta(opt.t) * np.sqrt(np.ravel(var))
+        worst = min(worst, float(np.min((lower - fmin) / scale)))
+    return worst
+
+
+def swarm_safety(opt, x, before, certified):
+    """Float64 safety of one step of ``opt``, read before its observation
+    is added: every row the step added to the safe set has a scaled
+    float64 margin (``swarm_margin``) of at least -BAND, and so does the
+    query unless it is a safe-set row held from before the step. The
+    reference keeps a safe set of fewer than ``swarm_size`` safe rows
+    unpruned and seeds each particle's best from its first position
+    whatever its safety (gp_opt.py:1051-1062, swarm.py:78-84), so such a
+    row, safe when it joined, can be the query though the current model
+    calls it unsafe (ROADMAP Queue 3 entry 13). ``before`` is the set of
+    the safe set's rows before the step; ``certified`` collects every row
+    that passed when it joined. Returns (the query's margin, whether it
+    is a held row)."""
+    new = np.array([r for r in opt.S if tuple(r) not in before])
+    if len(new):
+        margin = swarm_margin(opt, new)
+        check(margin >= -BAND, f"a row added to the safe set has the "
+                               f"float64 margin {margin:.3e}")
+        certified.update(map(tuple, new))
+    margin = swarm_margin(opt, x)
+    held = tuple(x) in before
+    check(margin >= -BAND or held,
+          f"the query {x} has the float64 margin {margin:.3e} and is no "
+          "held safe-set row")
+    return margin, held
+
+
+def swarm_run_safety(label, opt, step, plant_fn, steps=SWARM_STEPS):
+    """``steps`` calls of ``step()`` (one ``optimize()`` of ``opt``, its
+    query returned) with ``swarm_safety`` after each and the measurement
+    added to ``opt`` (and to whatever ``plant_fn`` feeds); every row of
+    the device safe set at the end is one that passed when it joined (or
+    a seed observation). Returns (each step's result, the least query
+    margin, the queries that were held rows below the band)."""
+    certified = set(map(tuple, opt.S))
+    results, worst, held_unsafe = [], math.inf, 0
+    for _ in range(steps):
+        before = set(map(tuple, opt.S))
+        res = step()
+        x = res[0]
+        margin, held = swarm_safety(opt, x, before, certified)
+        worst = min(worst, margin)
+        held_unsafe += held and margin < -BAND
+        results.append(res)
+        plant_fn(x)
+    rows = set(map(tuple, opt.S))
+    check(rows <= certified, f"{label}: {len(rows - certified)} rows of the "
+                             "device safe set never passed the float64 test")
+    unsafe_now = int(np.sum([swarm_margin(opt, np.array(r)[None]) < -BAND
+                             for r in rows])) if len(rows) < 600 else None
+    print(f"{label}: every query safe by float64 within the band or a held "
+          f"safe-set row ({held_unsafe} such held rows queried below it); "
+          f"least query margin {worst:.4g}; every one of the {len(rows)} "
+          f"safe-set rows passed when it joined"
+          + ("" if unsafe_now is None else
+             f" ({unsafe_now} below the band under the final model)"),
+          flush=True)
+    return results, worst, held_unsafe
+
+
+def swarm_step(opt, sync_free=True):
+    """One ``optimize()`` of ``opt``, its dispatch under
+    ``set_sync_debug_mode('error')`` (any host sync raises). Returns (x,
+    host ms, the host copy of the diagnostics)."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    if sync_free:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = opt.optimize_async()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    x = pending.result()
+    ms = (time.perf_counter() - start) * 1e3
+    check(opt.stats.last.host_syncs == 1,
+          f"a swarm step made {opt.stats.last.host_syncs} host reads, not "
+          "the one pull")
+    return x, ms, pending._diag.clone()
+
+
+def swarm_twins(label, make, plant_fn):
+    """Phase 19.1/19.3: a graph-replaying ``SafeOptSwarm`` and an eager
+    twin fed the same uniforms, ``SWARM_STEPS`` float32 steps on the card
+    (the graph's query and its measurement added to both): queries
+    identical and diag bitwise equal at every step (or, should cuBLAS
+    pick another algorithm under capture, the differing outputs printed
+    and held within 1e-6 relative); the graph twin's steps safe as
+    ``swarm_run_safety`` holds them. Returns (eager ms, graph ms, the
+    graph's captures after each step, the twins, bitwise)."""
+    Seeded, _ = swarm_classes()
+    twins = {"eager": make(Seeded, False).feed(19),
+             "graph": make(Seeded, True).feed(19)}
+    d = twins["graph"].gp.input_dim
+    state = {"bitwise": True, "t": 0}
+
+    def step():
+        xs, diags, ms = {}, {}, {}
+        for name, opt in twins.items():
+            xs[name], ms[name], diags[name] = swarm_step(opt)
+        t = state["t"]
+        state["t"] += 1
+        check(np.array_equal(xs["eager"], xs["graph"]),
+              f"{label} step {t}: graph query {xs['graph']} against eager "
+              f"{xs['eager']}")
+        if not torch.equal(diags["eager"], diags["graph"]):
+            state["bitwise"] = False
+            e, g = diags["eager"].double(), diags["graph"].double()
+            rel = float(((g - e).abs() / e.abs().clamp(min=1e-30)).max())
+            differ = [name for name, a, b in swarm_diag_fields(d)
+                      if not torch.equal(e[a:b], g[a:b])]
+            print(f"{label} step {t}: the graph's diag differs from eager "
+                  f"in {differ}, max relative {rel:.3e}", flush=True)
+            check(rel <= 1e-6, f"{label} step {t}: graph diag off by "
+                               f"{rel:.3e} relative")
+        return xs["graph"], ms, twins["graph"].graph_captures
+
+    def observe(x):
+        y = plant_fn(x)
+        for opt in twins.values():
+            opt.add_new_data_point(x, y)
+
+    results, _, _ = swarm_run_safety(label, twins["graph"], step, observe)
+    check(np.array_equal(twins["eager"].S, twins["graph"].S),
+          f"{label}: the twins' safe sets differ")
+    captures = [r[2] for r in results]
+    print(f"{label}: {SWARM_STEPS} float32 steps, graph and eager queries "
+          f"identical, diag "
+          f"{'bitwise equal' if state['bitwise'] else 'within 1e-6'}; graph "
+          f"captures after each step {captures}; |S| "
+          f"{twins['graph']._count}", flush=True)
+    return ([r[1]["eager"] for r in results],
+            [r[1]["graph"] for r in results], captures, twins,
+            state["bitwise"])
+
+
+def swarm_float64(label, num_gps):
+    """Phase 19.2: the (a) problem in float64 on the card (graph) and on
+    the CPU (eager) with the same uniforms: queries within 1e-9 at every
+    step, unless a near-tie flipped the final maximizer-vs-expander
+    choice (printed with its margin, below 1e-12 relative, after the
+    first 3 steps). Returns the steps that agreed."""
+    Seeded, _ = swarm_classes()
+    opts = {dev: Seeded(swarm_gps(num_gps, dev, torch.float64, capacity=8),
+                        **swarm_problem(num_gps)).feed(64)
+            for dev in ("cuda", "cpu")}
+    d = opts["cuda"].gp.input_dim
+    fields = {name: (a, b) for name, a, b in swarm_diag_fields(d)}
+    for t in range(SWARM_STEPS):
+        xs, diags = {}, {}
+        for dev, opt in opts.items():
+            pending = opt.optimize_async()
+            xs[dev] = pending.result()
+            diags[dev] = pending._diag.numpy()
+        err = float(np.max(np.abs(xs["cuda"] - xs["cpu"])))
+        if err > SWARM_F64_TOL:
+            a, _ = fields["std_maxi"]
+            s_maxi, s_exp = diags["cuda"][a], diags["cuda"][a + 1]
+            margin = abs(s_maxi - s_exp) / max(abs(s_maxi), abs(s_exp))
+            print(f"{label}: the float64 card and CPU queries part at step "
+                  f"{t} by {err:.3e}; the final choice's margin is "
+                  f"{margin:.3e} relative", flush=True)
+            check(t >= 3 and margin < SWARM_TIE,
+                  f"{label}: float64 card and CPU queries differ at step {t}"
+                  f" by {err:.3e} without a near-tie")
+            return t
+        for dev, opt in opts.items():
+            opt.add_new_data_point(xs[dev], swarm_plant(xs[dev], num_gps))
+    print(f"{label}: float64 on the card (graph) and on the CPU agree within "
+          f"{SWARM_F64_TOL:g} at all {SWARM_STEPS} steps", flush=True)
+    return SWARM_STEPS
+
+
+def profile_device(fn):
+    """(device events, kernels, device ms, host ms) of one ``fn()`` under
+    ``torch.profiler`` (the host clock around it, the stream drained), or
+    None where the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - start) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return None
+    kernels = [e for e in events
+               if not e.name.lower().startswith(("memcpy", "memset"))]
+    return (len(events), len(kernels),
+            sum(e.time_range.elapsed_us() for e in events) / 1e3, host_ms)
+
+
+def swarm_profile(opt):
+    """``profile_device`` of one ``optimize()`` of ``opt`` (one before it
+    takes any capture out of the window)."""
+    opt.optimize()
+    return profile_device(opt.optimize)
+
+
+def device_line(label, prof, steps, smi):
+    """Print a profiled window's device time per step and busy share."""
+    if prof is None:
+        print(f"{label}: the profiler saw no device activity; device time "
+              "not measured", flush=True)
+        return
+    _, kernels, dev_ms, host_ms = prof
+    print(f"{label} on {smi}: {kernels / steps:.0f} kernels and "
+          f"{dev_ms / steps:.3f} device ms per iteration against "
+          f"{host_ms / steps:.3f} ms on the host clock (torch.profiler, "
+          f"{steps} iterations): busy {dev_ms / host_ms:.1%}", flush=True)
+
+
+def swarm_loop(smi):
+    """Phase 19.6: ``run_swarmopt_loop`` on (a) G=2, 10 iterations, the
+    whole call under ``set_sync_debug_mode('error')``, against the
+    blocking ``SafeOptSwarm`` loop fed the same uniforms (queries equal up
+    to round-off at least for the first 3 steps, and safe where they
+    part); counts grown by 10. Returns (ms of a one-iteration loop that
+    captures its graph, ms per iteration of the 10-iteration loop that
+    replays it, agreeing steps)."""
+    from safeopt_torch import SafeOptSwarm
+    from safeopt_torch.algorithms.runner import run_swarmopt_loop
+    from safeopt_torch.algorithms.swarm_opt_fused import stream_layout
+    _, Rows = swarm_classes()
+    n = SWARM_STEPS
+    problem = swarm_problem(2)
+    n_u = sum(int(np.prod(s)) for _, s in stream_layout(
+        problem["swarm_size"], 100, 10))
+    flat = torch.tensor(np.random.default_rng(6).uniform(size=(n, n_u)),
+                        dtype=torch.float32, device="cuda")
+    blocking = Rows(swarm_gps(2, "cuda", torch.float32, capacity=16),
+                    **problem).feed(flat)
+    blocking.reserve(n)
+    xs = []
+    for _ in range(n):
+        x = blocking.optimize()
+        xs.append(x)
+        blocking.add_new_data_point(x, swarm_plant(x, 2))
+
+    def objectives():
+        return (lambda x: 2.0 * torch.exp(-0.5 * torch.sum(x * x)),
+                lambda x: 1.0 - 0.05 * torch.sum(x * x))
+
+    graphs = {}
+
+    def run(n_iter):
+        opt = SafeOptSwarm(swarm_gps(2, "cuda", torch.float32, capacity=16),
+                           **problem)
+        opt.reserve(n)
+        states = tuple(g.factor_state() for g in opt.gps)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = run_swarmopt_loop(
+                tuple(g.kern for g in opt.gps), states, opt._S_dev,
+                opt.optimal_velocities, opt._bounds_arr, opt.fmin,
+                opt.scaling, [0.0, 0.0], [BETA] * n_iter, opt.greedy_point,
+                -np.inf, flat[:n_iter], objectives=objectives(),
+                n_iter=n_iter, swarm_size=opt.swarm_size,
+                max_iters=opt.max_iters, graph_cache=graphs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - start) * 1e3
+
+    _, first = run(1)                # the capture, kept in ``graphs``
+    res, total = run(n)
+    device_line("run_swarmopt_loop (a) G=2", profile_device(lambda: run(3)),
+                3, smi)
+    check(len(graphs) == 1, f"run_swarmopt_loop captured {len(graphs)} "
+                            "graphs")
+    check([int(s.count) for s in res.states] == [5 + n, 5 + n],
+          f"run_swarmopt_loop counts {[int(s.count) for s in res.states]}")
+    check(bool((res.num_safe_min > 0).all()) and res.host_syncs.sum() == 0,
+          f"run_swarmopt_loop: safe counts {res.num_safe_min.tolist()}, "
+          f"host syncs {res.host_syncs.tolist()}")
+    loop_xs = res.xs.cpu().numpy()
+    agree = 0
+    while agree < n and np.allclose(loop_xs[agree], xs[agree], rtol=0,
+                                    atol=1e-5):
+        agree += 1
+    bitwise = sum(np.array_equal(loop_xs[t].astype(np.float32),
+                                 xs[t].astype(np.float32)) for t in range(n))
+    check(agree >= 3, f"run_swarmopt_loop parts from the blocking loop at "
+                      f"step {agree}")
+    print(f"run_swarmopt_loop (a) G=2 on {smi}: {n} iterations under "
+          f"set_sync_debug_mode('error'), queries equal to the blocking "
+          f"loop's for {agree} of {n} steps ({bitwise} bitwise), counts "
+          f"+{n}; {total / n:.3f} ms per iteration replaying the graph "
+          f"that a one-iteration loop captured in {first:.3f} ms (host "
+          f"clock)", flush=True)
+    return first, total / n, agree
+
+
+def swarm_lagged(smi):
+    """Phase 19.7: ``run_lagged_campaign`` on (a) G=2, 8 iterations,
+    pipelined against serial (order P S S P): queries and observations
+    bitwise equal. Returns {pipelined: mean ms per iteration}."""
+    from safeopt_torch import SafeOptSwarm, run_lagged_campaign
+    runs, times = {}, {True: [], False: []}
+    for pipelined in (True, False, False, True):
+        opt = SafeOptSwarm(swarm_gps(2, "cuda", torch.float32, capacity=16),
+                           **swarm_problem(2), seed=11)
+        opt.reserve(8)
+        opt.optimize()              # the capture, outside the timing
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        xs_ys = run_lagged_campaign(opt, lambda x: swarm_plant(x, 2)[0], 8,
+                                    pipelined=pipelined)
+        torch.cuda.synchronize()
+        times[pipelined].append((time.perf_counter() - start) * 1e3 / 8)
+        check(opt.graph_captures == 1, f"the lagged campaign recaptured: "
+                                       f"{opt.graph_captures} captures")
+        runs.setdefault(pipelined, xs_ys)
+        check(all(np.array_equal(a, b) for a, b in zip(xs_ys,
+                                                       runs[pipelined])),
+              "swarm lagged campaign: two runs differ")
+    (xs_s, ys_s), (xs_p, ys_p) = runs[False], runs[True]
+    check(np.array_equal(xs_s, xs_p) and np.array_equal(ys_s, ys_p),
+          "swarm lagged campaign: pipelined and serial differ")
+    for pipelined in (True, False):
+        opt = SafeOptSwarm(swarm_gps(2, "cuda", torch.float32, capacity=16),
+                           **swarm_problem(2), seed=11)
+        opt.reserve(3)
+        opt.optimize()
+        device_line(f"run_lagged_campaign swarm (a) G=2 "
+                    f"{'pipelined' if pipelined else 'serial'}",
+                    profile_device(lambda: run_lagged_campaign(
+                        opt, lambda x: swarm_plant(x, 2)[0], 3,
+                        pipelined=pipelined)), 3, smi)
+    print(f"run_lagged_campaign swarm (a) G=2 on {smi}: 8 iterations, xs "
+          f"and ys bitwise equal pipelined and serial (P S S P); ms per "
+          f"iteration (host clock) pipelined {times[True][0]:.3f} / "
+          f"{times[True][1]:.3f}, serial {times[False][0]:.3f} / "
+          f"{times[False][1]:.3f}", flush=True)
+    return {p: float(np.mean(v)) for p, v in times.items()}
+
+
+def drive_swarm(smi):
+    """Phase 19: SafeOptSwarm on the card at the JAX bench's widths. Every
+    grid kernel's launch count is zeroed before it and must read 0 after
+    it. Returns the numbers phase 19 prints at the end."""
+    from safeopt_torch import SafeOptSwarm
+    zero_launches()
+    out = {}
+    # 19.1 (a): G=1 and G=2 from the bench's 5 observations, GP capacity
+    # 8, so that the fourth append grows it (a rebuilt model state)
+    for G in (1, 2):
+        def make(cls, graph, G=G):
+            return cls(swarm_gps(G, "cuda", torch.float32, capacity=8),
+                       **swarm_problem(G), graph=graph)
+
+        out[f"a G={G}"] = swarm_twins(
+            f"swarm (a) G={G}, d=10, 5 observations",
+            make, lambda x, G=G: swarm_plant(x, G))
+    # 19.2: float64 on the card against float64 on the CPU
+    out["f64"] = {G: swarm_float64(f"swarm (a) G={G} float64", G)
+                  for G in (1, 2)}
+
+    # 19.3 (b): the G=2 problem deep in a campaign, 250 observations in
+    # [-1.5, 1.5]^10 at capacity 256 (grown to 512 at the sixth append),
+    # the safe set those 250 points
+    data_b = swarm_data(250, seed=250, spread=1.5)
+
+    def make_b(cls, graph):
+        return cls(swarm_gps(2, "cuda", torch.float32, data=data_b,
+                             capacity=256), **swarm_problem(2), graph=graph)
+
+    out["b"] = swarm_twins("swarm (b) G=2, d=10, 250 observations", make_b,
+                           lambda x: swarm_plant(x, 2))
+
+    # 19.4 (c): the sparse m=64 model of phase 16 (2000 observations, the
+    # safe set those 2000 points)
+    rng = np.random.default_rng(19)
+    opt_c = SafeOptSwarm(sparse_gp(64, "cuda", torch.float32),
+                         fmin=SPARSE_FMIN, bounds=[(-4.0, 4.0)] * 2,
+                         scaling=SPARSE_SCALING)
+    results, _, _ = swarm_run_safety(
+        "swarm (c) sparse m=64 (2000 observations)", opt_c,
+        lambda: swarm_step(opt_c),
+        lambda x: opt_c.add_new_data_point(x, plant(rng, x)[:, :1]))
+    out["c"] = [r[1] for r in results]
+    print(f"swarm (c): graph captures {opt_c.graph_captures}, |S| "
+          f"{opt_c._count}", flush=True)
+
+    # 19.5: kernels per optimize() and the device's busy share, (a) G=2
+    twins = out["a G=2"][3]
+    out["profile"] = {}
+    for name, opt in twins.items():
+        opt.reserve(2)
+        out["profile"][name] = swarm_profile(opt)
+    out["loop"] = swarm_loop(smi)
+    out["lagged"] = swarm_lagged(smi)
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the swarm phase launched grid kernels: {launches}")
+    print(f"swarm phase: grid-kernel launches {launches}", flush=True)
+    return out
+
+
+def print_swarm(out, smi):
+    """Phase 19's numbers, each beside the card's nvidia-smi line."""
+    def med(v):
+        return float(np.median(v[1:]))
+
+    def replays(key):
+        """The graph's ms at iterations 2-10 that captured nothing."""
+        _, g_ms, captures, _, _ = out[key]
+        return [ms for t, ms in enumerate(g_ms)
+                if t >= 1 and captures[t] == captures[t - 1]]
+
+    for key in ("a G=1", "a G=2", "b"):
+        e_ms, g_ms, captures, _, bitwise = out[key]
+        replay = replays(key)
+        capture = [ms for t, ms in enumerate(g_ms)
+                   if captures[t] > (captures[t - 1] if t else 0)]
+        print(f"swarm {key} on {smi}: optimize() eager {med(e_ms):.3f} ms, "
+              f"graph {float(np.median(replay)):.3f} ms (median of "
+              f"iterations 2-10, host clock; the graph's over the "
+              f"{len(replay)} steps that replayed without a capture); steps "
+              f"with a capture {[round(v, 3) for v in capture]} ms; "
+              f"speed-up {med(e_ms) / float(np.median(replay)):.2f}x",
+              flush=True)
+    print(f"swarm (c) sparse m=64 on {smi}: optimize() graph "
+          f"{med(out['c']):.3f} ms (median of iterations 2-10, host clock)",
+          flush=True)
+    for name, prof in out["profile"].items():
+        if prof is None:
+            print(f"swarm (a) G=2 {name}: the profiler saw no device "
+                  f"activity; kernels per optimize() not measured",
+                  flush=True)
+            continue
+        events, kernels, dev_ms, _ = prof
+        step = (med(out["a G=2"][0]) if name == "eager"
+                else float(np.median(replays("a G=2"))))
+        print(f"swarm (a) G=2 {name} on {smi}: {kernels} kernels ({events} "
+              f"device events) per optimize() (torch.profiler), device "
+              f"{dev_ms:.3f} ms, busy share {dev_ms / step:.1%} of the "
+              f"{step:.3f} ms step", flush=True)
+    first, loop_ms, _ = out["loop"]
+    print(f"swarm loops on {smi}: run_swarmopt_loop {loop_ms:.3f} ms per "
+          f"iteration (the capturing one-iteration loop {first:.3f} ms); "
+          f"lagged campaign "
+          f"pipelined {out['lagged'][True]:.3f}, serial "
+          f"{out['lagged'][False]:.3f} ms per iteration (host clock)",
+          flush=True)
 
 
 def main():
@@ -2063,12 +2608,27 @@ def main():
                                                  k2_3p_ops[6]))),
     }
     times = {}
-    for name, (kernel, plain, (bound_ms, bound_by)) in timed.items():
-        times[name] = (cuda_ms(kernel), cuda_ms(plain), bound_ms, bound_by)
+
+    def time_kernel(name, kernel, plain, bound_ms, bound_by, reps=10):
+        times[name] = (cuda_ms(kernel, reps), cuda_ms(plain, reps), bound_ms,
+                       bound_by)
         print(f"{name} float32: kernel {times[name][0]:.4f} ms, plain "
               f"{times[name][1]:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), share of the bound "
               f"{bound_ms / times[name][0]:.1%}", flush=True)
+
+    for name, (kernel, plain, (bound_ms, bound_by)) in timed.items():
+        time_kernel(name, kernel, plain, bound_ms, bound_by)
+    # K1 at phase 16's exact GP: G=1, 2000 observations, capacity 2048
+    # (past the resident gram); its host factorization runs after the
+    # other kernels' timings, which a busy host would lengthen
+    exact = sparse_exact_gp("cuda", f32)
+    ops2048 = fp.interval_operands([exact.kern], [exact.state],
+                                   grid64.float(), BETA)
+    time_kernel("K1 cap=2048 (exact GP, 2000 observations)",
+                lambda: fp.fused_intervals(*ops2048),
+                lambda: fp.fused_intervals_plain(*ops2048),
+                *interval_bound(f32, 1, N, d, 2048, 2000), reps=3)
 
     # K1, K3 and K1-3p count their main paths' launches: the flagship's
     # (K1-3p: the cap-512 certified runs') and the sparse path's
@@ -2117,6 +2677,10 @@ def main():
             # no single PyTorch call computes these fused functions
             "library_ms": None})
     kernels[0]["max_abs_err_f32"] = k1_err32
+    # K1 past the resident gram: the exact GP at capacity 2048
+    kernels[0]["cap2048_ms"], kernels[0]["cap2048_plain_ms"], \
+        kernels[0]["cap2048_bound_ms"], _ = times[
+            "K1 cap=2048 (exact GP, 2000 observations)"]
     kernels[4]["max_scaled_err_f32_vs_f64"] = k1_3p_dq
     kernels[5]["max_scaled_err_f32_vs_f64"] = k2_3p_dq
 
@@ -2220,6 +2784,9 @@ def main():
           + f"; fits (host clock): card {fit_s['accel']:.3f} s, CPU "
           f"{fit_s['cpu']:.3f} s, sparse with moving inducing points "
           f"{fit_s['sparse']:.3f} s", flush=True)
+    # 19. the swarm ---------------------------------------------------------
+    swarm = drive_swarm(smi)
+    print_swarm(swarm, smi)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

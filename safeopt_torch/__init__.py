@@ -1,10 +1,14 @@
 """safeopt_torch — safe Bayesian optimization in PyTorch for NVIDIA GPUs.
 
 The PyTorch port of ``safeopt_tpu``, beside it in the same repository.
-This package holds the exact-grid surface: ``SafeOpt`` over a finite
-candidate grid, with or without context columns, blocking, asynchronous
+This package holds both algorithms: ``SafeOpt`` over a finite candidate
+grid, with or without context columns, and ``SafeOptSwarm``, whose
+three constrained particle swarms (``SwarmOptimization``) search a
+continuous box around an explicit safe set, each iteration one replay
+of a CUDA graph on the card; each blocking, asynchronous
 (``optimize_async``) or as a lag-1 campaign (``run_lagged_campaign``),
-and the device-side loop ``algorithms.runner.run_safeopt_loop``; its
+and the device-side loops ``algorithms.runner.run_safeopt_loop`` and
+``run_swarmopt_loop``; its
 models, exact (``GPRegression``) or sparse (``SparseGPRegression``, the
 DTC approximation through m inducing points, whose pseudo-factor state
 runs the same grid kernels), take every kernel family of the JAX
@@ -24,7 +28,8 @@ Public API mirrors the JAX package for the names this slice covers.
 """
 
 from .algorithms import (GaussianProcessOptimization, PendingSafeOptStep,
-                         SafeOpt, run_lagged_campaign)
+                         PendingSwarmIteration, SafeOpt, SafeOptSwarm,
+                         SwarmOptimization, run_lagged_campaign)
 from .config import JITTER, default_dtype  # also sets the precision policy
 from .gp import (Bias, Cosine, Exponential, GPRegression, Linear, Matern32,
                  Matern52, MLP, Poly, Product, RatQuad, RBF,
@@ -35,6 +40,7 @@ from .utils import linearly_spaced_combinations
 __version__ = "0.1.0"
 
 __all__ = ["SafeOpt", "PendingSafeOptStep", "GaussianProcessOptimization",
+           "SafeOptSwarm", "PendingSwarmIteration", "SwarmOptimization",
            "run_lagged_campaign", "GPRegression", "SparseGPRegression",
            "fit_hyperparameters", "RBF", "Matern32",
            "Matern52", "Exponential", "RatQuad", "Cosine", "StdPeriodic",

@@ -4,20 +4,25 @@ Counterpart of ``safeopt_tpu/algorithms/pipeline.py``. Where the plant
 allows pipelined queries — query t is evaluated while the optimizer
 already computes query t+1 — the loop becomes the lag-1 variant in which
 x[t+1] is chosen from the observations up to t-1. ``run_lagged_campaign``
-runs it either
+runs it, for ``SafeOptSwarm`` and the grid ``SafeOpt``, either
 
 * ``pipelined=False``: every ``optimize()`` finishes before the next
   dispatch (the semantic reference); or
 * ``pipelined=True``: ``optimize_async`` dispatches iteration t+1 before
   iteration t's result is read, so that the diagnostics' copy to the host
-  and the plant's evaluation overlap the next step.
+  and the plant's evaluation overlap the next step. The swarm chains
+  iteration t+1 on iteration t's in-flight device state
+  (``SafeOptSwarm._fused_args_after``: its safe-set buffer, best lower
+  bound and greedy point); the grid algorithm needs no chain (its only
+  inter-iteration dependence is the GP data, entering on the host).
 
 Both make the same calls in the same order and return bitwise-identical
-queries and observations. The plain zero-lag loop cannot be pipelined
-without changing the algorithm (x[t+1] depends on y[t]), so the lag is
-explicit here. The ``reserve`` chain is the swarm's
-(``SafeOptSwarm.reserve``); the grid ``SafeOpt`` has none and needs
-none.
+queries and observations. The swarm's safe-set buffer is reserved for
+the whole campaign in both modes (``SafeOptSwarm.reserve``), so that
+both run the fused iteration, and its CUDA graph, at the same shapes;
+the JAX package reserves it in the pipelined mode only. The plain
+zero-lag loop cannot be pipelined without changing the algorithm
+(x[t+1] depends on y[t]), so the lag is explicit here.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ def run_lagged_campaign(opt, objective: Callable[[np.ndarray], float],
 
     Parameters
     ----------
-    opt : SafeOpt
+    opt : SafeOptSwarm or SafeOpt
         The optimizer (its GPs accumulate the data).
     objective : callable
         The plant: ``y = objective(x)``, a scalar for one GP or a
@@ -54,9 +59,9 @@ def run_lagged_campaign(opt, objective: Callable[[np.ndarray], float],
     if n_iter <= 0:
         return np.asarray(xs), np.asarray(ys)
 
+    if hasattr(opt, "reserve"):          # the swarm's device buffer
+        opt.reserve(n_iter)
     if pipelined:
-        if hasattr(opt, "reserve"):      # the swarm's device chain
-            opt.reserve(n_iter)
         pending = opt.optimize_async(ucb=ucb)
         for t in range(n_iter):
             nxt = (opt.optimize_async(ucb=ucb, after=pending)

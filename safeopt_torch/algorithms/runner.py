@@ -1,11 +1,12 @@
-"""SafeOpt loops whose objective runs on the device.
+"""SafeOpt and SafeOptSwarm loops whose objective runs on the device.
 
-Counterpart of ``safeopt_tpu/algorithms/runner.py:43-136``
-(``run_safeopt_loop``). Where the objective can be computed on the card
-(a simulation, a surrogate, a benchmark function), the whole loop stays
-there: every iteration writes the context columns into the grid, runs
-``safeopt_step``, gathers the query, evaluates the objectives, adds the
-noise and appends the observation to each GP's float64 factor with
+Counterpart of ``safeopt_tpu/algorithms/runner.py:43-242``
+(``run_safeopt_loop``, ``run_swarmopt_loop``). Where the objective can be
+computed on the card (a simulation, a surrogate, a benchmark function),
+the whole loop stays there: every SafeOpt iteration writes the context
+columns into the grid, runs ``safeopt_step``, gathers the query,
+evaluates the objectives, adds the noise and appends the observation to
+each GP's float64 factor with
 ``gp_append``, writing the one changed row into the step's mirror — no
 NumPy and no host factor between iterations.
 
@@ -18,19 +19,27 @@ iteration. Torch cannot reproduce threefry, so the noise is an explicit
 loop from a ``torch.Generator``: a prefix of the stream resumes a run
 exactly, as the JAX package's ``it_keys`` do. The device decides the
 kernels (there is no ``use_pallas``).
+
+``run_swarmopt_loop`` has no such walk: each iteration is the fused swarm
+iteration (on the card one replay of its CUDA graph), the objectives,
+the noise and ``gp_append``, and no iteration reads the device from the
+host. Its uniforms come as a per-iteration tensor or a generator, as the
+SafeOpt loop's noise does.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..gp.regression import GPState, gp_append
 from ..utils.observability import host_syncs
 from .safe_opt_core import safeopt_step
 
-__all__ = ["BOLoopResult", "run_safeopt_loop"]
+__all__ = ["BOLoopResult", "run_safeopt_loop", "SwarmLoopResult",
+           "run_swarmopt_loop"]
 
 
 class BOLoopResult(NamedTuple):
@@ -49,9 +58,10 @@ class BOLoopResult(NamedTuple):
 
 def _mirror(state: GPState, dtype) -> GPState:
     """The step's copy of a float64 state in ``dtype`` (a cast, as
-    ``GPRegression`` casts its host factor)."""
-    return GPState(*(t.to(dtype) if t.is_floating_point() else t.clone()
-                     for t in state))
+    ``GPRegression`` casts its host factor). It never aliases ``state``:
+    the loop writes each appended row into it in place."""
+    return GPState(*(t.to(dtype, copy=True) if t.is_floating_point()
+                     else t.clone() for t in state))
 
 
 def _write_row(mirror: GPState, state: GPState, pos: torch.Tensor) -> None:
@@ -176,3 +186,184 @@ def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
         next_idx=torch.stack(idxs), safe_counts=torch.stack(safe),
         has_safe=torch.stack(has), host_syncs=torch.tensor(syncs),
         walk_chunks=torch.tensor(chunks))
+
+
+class SwarmLoopResult(NamedTuple):
+    """Trajectory of a device-side SafeOptSwarm run (tensors on the
+    device, ``host_syncs`` on the host)."""
+
+    states: Tuple            # final per-GP float64 states (count grown)
+    iter_state: object       # final SwarmIterState (device safe set)
+    xs: torch.Tensor         # (T, d) queried points, float64
+    ys: torch.Tensor         # (T, G) observations fed to the GPs, float64
+    best_lower_bounds: torch.Tensor  # (T,)
+    safe_counts: torch.Tensor  # (T,) |S| after each iteration
+    num_safe_min: torch.Tensor  # (T,) min per-phase safe count (0 = lost)
+    host_syncs: torch.Tensor   # (T,) host reads of device values per step
+
+
+def _per_iteration(source, shape, dtype, device, what):
+    """A (n_iter, ...) tensor of ``what`` from a tensor or, drawn once,
+    from a ``torch.Generator`` (uniform for the streams, normal for the
+    noise), on ``device`` without a blocking copy."""
+    from .swarm_opt import _ship
+
+    if isinstance(source, torch.Generator):
+        draw = torch.rand if what == "streams" else torch.randn
+        source = draw(shape, generator=source, dtype=dtype,
+                      device=source.device)
+    source = _ship(source, dtype, device)
+    if tuple(source.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(source.shape)}, want "
+                         f"{tuple(shape)}")
+    return source
+
+
+def run_swarmopt_loop(kernels, states, iter_state, velocity_scale, bounds,
+                      fmin, scaling, threshold, betas, greedy0, blb0,
+                      streams, noise=None, *,
+                      objectives: Tuple[Callable, ...], n_iter: int,
+                      swarm_size: int, max_iters: int,
+                      noise_std: float = 0.0, ucb: bool = False,
+                      objective_args=None, graph: Optional[bool] = None,
+                      graph_cache: Optional[dict] = None) -> SwarmLoopResult:
+    """Run ``n_iter`` complete SafeOptSwarm iterations on the device.
+
+    The swarm analog of ``run_safeopt_loop``: every iteration runs the
+    fused swarm iteration (``swarm_opt_fused``; on the card one replay of
+    its CUDA graph, captured at the first iteration unless
+    ``graph_cache`` holds it), evaluates the
+    objectives at its query, adds the noise and appends the observation
+    to each GP's float64 factor with ``gp_append``, writing the one
+    changed row into the step's mirror. No iteration reads the device
+    from the host (``host_syncs`` records 0 for each).
+
+    Parameters
+    ----------
+    kernels : tuple of Kernel
+    states : tuple of GPState
+        Float64 factor states on the device
+        (``GPRegression.factor_state()``), with room for ``n_iter`` more
+        rows. They are not modified: the loop returns the grown states.
+    iter_state : SwarmIterState
+        The device safe-set buffer, in the step's dtype; size it for the
+        whole run (``count + 2 * swarm_size * n_iter`` rows is always
+        enough: growth stops silently at the buffer's capacity).
+    velocity_scale, bounds, fmin, scaling, threshold :
+        The fused iteration's constants (``SafeOptSwarm``'s
+        ``optimal_velocities``, its bounds, thresholds, scalings).
+    betas : (n_iter,) array
+        Per-iteration confidence scale (``beta(t)`` computed by the
+        caller; t advances by one observation per iteration).
+    greedy0, blb0 : (d,) array, scalar
+        The initial greedy estimate and best lower bound.
+    streams : tensor (n_iter, U) or torch.Generator
+        Each iteration's uniforms, flat in ``stream_layout``'s order (U
+        its total size); with a generator they are drawn once, before
+        the loop.
+    noise : tensor (n_iter, G) or torch.Generator, optional
+        Standard normals scaled by ``noise_std`` and added to the
+        measurements; None draws none (``noise_std`` must then be 0).
+    objectives : tuple of callables, one per GP
+        ``f_i(x)`` (or ``f_i(x, objective_args)``) of a float64 (d,)
+        tensor on the device, returning a scalar tensor.
+    graph : bool, optional
+        Replay the fused iteration as a CUDA graph (the default on the
+        card; the CPU runs it eagerly).
+    graph_cache : dict, optional
+        Keeps the captured graphs across calls (by ``graph_key``), so that
+        a resumed or repeated loop replays its graph instead of capturing
+        it again.
+
+    Exact GPs only: the greedy swarm's special particles (the most
+    recent and the best observation) are read from the float64 states'
+    padded X/Y rows, which hold inducing points for sparse models. As in
+    the JAX package an emptied safe set does not stop the loop:
+    ``num_safe_min`` records any certification loss, and the caller must
+    check it.
+    """
+    from .swarm_opt import _ship, device_kernel
+    from .swarm_opt_fused import (FusedSwarmGraph, SwarmIterState,
+                                  fused_swarm_optimize, graph_key,
+                                  split_streams, stream_layout)
+
+    n_iter = int(n_iter)
+    G = len(kernels)
+    dev = iter_state.S.device
+    dtype = iter_state.S.dtype
+    d = iter_state.S.shape[1]
+    if any(st.X.dtype != torch.float64 for st in states):
+        raise TypeError("run_swarmopt_loop takes float64 factor states "
+                        "(GPRegression.factor_state()): the factor math "
+                        "stays in float64")
+    if graph is None:
+        graph = dev.type == "cuda"
+    layout = stream_layout(swarm_size, max_iters, d, ucb)
+    n_u = sum(int(np.prod(shape)) for _, shape in layout)
+    streams = _per_iteration(streams, (n_iter, n_u), dtype, dev, "streams")
+    if noise is None:
+        if noise_std:
+            raise ValueError("noise_std needs a noise tensor or generator")
+        noise = torch.zeros((n_iter, G), dtype=torch.float64, device=dev)
+    else:
+        noise = _per_iteration(noise, (n_iter, G), torch.float64, dev,
+                               "noise")
+    betas = _ship(np.asarray(betas, dtype=float).reshape(n_iter), dtype,
+                  dev)
+    consts = [_ship(a, dtype, dev) for a in (velocity_scale, bounds, fmin,
+                                              scaling, threshold)]
+    step_kernels = tuple(device_kernel(k, dtype, dev) for k in kernels)
+    kernels64 = tuple(device_kernel(k, torch.float64, dev) for k in kernels)
+    states = tuple(states)
+    mirrors = tuple(_mirror(st, dtype) for st in states)
+    sstate = SwarmIterState(*iter_state)
+    greedy = _ship(greedy0, dtype, dev)
+    blb = _ship(blb0, dtype, dev)
+    kw = dict(swarm_size=swarm_size, max_iters=max_iters, ucb=ucb)
+    graphs = {} if graph_cache is None else graph_cache
+    xs, ys, blbs, counts, ns_min, syncs = ([] for _ in range(6))
+    for t in range(n_iter):
+        before = host_syncs.count
+        # the greedy specials from the device-resident observation rows
+        st0 = states[0]
+        cnt = st0.count
+        last_x = st0.X.index_select(0, (cnt - 1).reshape(1))[0]
+        y_col = torch.where(torch.arange(st0.capacity, device=dev) < cnt,
+                            st0.Y[:, 0], float("-inf"))
+        best_x = st0.X.index_select(0, torch.argmax(y_col).reshape(1))[0]
+        pack = torch.cat([torch.stack([betas[t], blb]), last_x.to(dtype),
+                          best_x.to(dtype), greedy])
+        args = (step_kernels, mirrors, sstate,
+                split_streams(streams[t], layout), *consts, pack)
+        if not graph:
+            out = fused_swarm_optimize(*args, **kw)
+        else:
+            key = graph_key(*args[:3], **kw)
+            if key not in graphs:
+                graphs[key] = FusedSwarmGraph(*args, **kw)
+            out = graphs[key].replay(*args)
+
+        x = out.x_next.to(torch.float64)
+        y = torch.stack([(f(x) if objective_args is None
+                          else f(x, objective_args)).to(torch.float64)
+                         .reshape(()) for f in objectives])
+        y = y + noise_std * noise[t]
+        new = []
+        for i, (kern, st) in enumerate(zip(kernels64, states)):
+            grown = gp_append(kern, st, x, y[i])
+            _write_row(mirrors[i], grown, st.count)
+            new.append(grown)
+        states = tuple(new)
+        sstate, greedy, blb = out.state, out.state.greedy, \
+            out.best_lower_bound
+        xs.append(x)
+        ys.append(y)
+        blbs.append(out.best_lower_bound)
+        counts.append(out.state.count)
+        ns_min.append(torch.min(out.num_safe))
+        syncs.append(host_syncs.count - before)
+    return SwarmLoopResult(
+        states=states, iter_state=sstate, xs=torch.stack(xs),
+        ys=torch.stack(ys), best_lower_bounds=torch.stack(blbs),
+        safe_counts=torch.stack(counts), num_safe_min=torch.stack(ns_min),
+        host_syncs=torch.tensor(syncs))

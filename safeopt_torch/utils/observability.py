@@ -2,7 +2,9 @@
 
 Counterpart of ``safeopt_tpu/utils/observability.py:24-78``: every
 ``SafeOpt.optimize()`` records one ``IterationStats`` from scalars the
-host already pulled, the certified path's telemetry among them.
+host already pulled, the certified path's telemetry among them, and
+every fused ``SafeOptSwarm.optimize()`` one ``SwarmIterationStats``
+(with its CUDA graph's captures and replays).
 ``host_syncs`` counts the host's reads of device values (each waits for
 the device), so that a step's or a loop iteration's syncs can be read
 as the difference of two counts.
@@ -14,7 +16,8 @@ import dataclasses
 import logging
 from typing import List, Optional
 
-__all__ = ["IterationStats", "StatsRecorder", "SyncCounter", "host_syncs"]
+__all__ = ["IterationStats", "SwarmIterationStats", "StatsRecorder",
+           "SyncCounter", "host_syncs"]
 
 logger = logging.getLogger("safeopt_torch")
 
@@ -45,6 +48,27 @@ class IterationStats:
     # host's reads of device values from dispatch to result()
     eager_gps: int = 0
     host_syncs: int = 0
+
+    def as_dict(self):
+        """Plain-dict view (for logging/JSON sinks)."""
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class SwarmIterationStats:
+    """One fused ``SafeOptSwarm.optimize()`` iteration's diagnostics."""
+
+    t: int                      # time step (observation count)
+    duration_s: float           # dispatch to result(), the pull included
+    safe_count: int             # |S| after the iteration
+    num_added: int              # safe-set growth (maximizers + expanders)
+    num_pruned: int             # safe points pruned (all three swarms)
+    beta: float
+    graph: bool                 # the iteration replayed a CUDA graph
+    graph_captures: int         # the optimizer's graph captures so far
+    graph_replays: int          # its graph replays so far
+    host_syncs: int             # host reads of device values, dispatch
+    #                             to result()
 
     def as_dict(self):
         """Plain-dict view (for logging/JSON sinks)."""

@@ -1114,3 +1114,160 @@ def test_fit_with_restarts_on_the_card(cuda):
     sp = pt.SparseGPRegression(X, Y, pt.RBF(2), noise_var=0.02, inducing=16)
     lml0 = sp.log_likelihood()
     assert sp.optimize(max_iters=30) > lml0
+
+
+# -- SafeOptSwarm: the fused iteration as a CUDA graph ------------------------
+
+def _swarm_streams(opt, rng):
+    from safeopt_torch.algorithms.swarm_opt_fused import stream_layout
+
+    return {name: rng.uniform(size=shape) for name, shape in stream_layout(
+        opt.swarm_size, opt.max_iters, opt.gp.input_dim)}
+
+
+class _SeededSwarm(pt.SafeOptSwarm):
+    def feed(self, seed):
+        self._rng = np.random.default_rng(seed)
+        return self
+
+    def _fused_streams(self, ucb=False):
+        return _swarm_streams(self, self._rng)
+
+
+def _swarm_gps(sparse=False, capacity=4, dtype=torch.float32):
+    rng = np.random.default_rng(2)
+    X = rng.uniform(-0.5, 0.5, size=(3, 3))
+    Yf = (2.0 * np.exp(-0.5 * np.sum(X ** 2, axis=1)))[:, None]
+    Yg = (1.0 - 0.05 * np.sum(X ** 2, axis=1))[:, None]
+    if sparse:
+        return [pt.SparseGPRegression(X, Yf, pt.RBF(3, variance=2.0),
+                                      noise_var=0.01, inducing=3,
+                                      dtype=dtype)]
+    return [pt.GPRegression(X, Yf, pt.RBF(3, variance=2.0, lengthscale=2.0),
+                            noise_var=0.01, capacity=capacity, dtype=dtype),
+            pt.GPRegression(X, Yg, pt.Matern32(3, lengthscale=3.0),
+                            noise_var=0.01, capacity=capacity, dtype=dtype)]
+
+
+def _swarm_plant(x, n_gps):
+    r2 = float(np.sum(x ** 2))
+    return np.array([[2.0 * np.exp(-0.5 * r2), 1.0 - 0.05 * r2][:n_gps]])
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["exact", "sparse"])
+def test_swarm_graph_equals_eager_across_appends_and_growth(cuda, sparse):
+    """The replayed graph and the eager fused iteration, fed the same
+    uniforms, give the same query and the same diagnostics at every step:
+    after each append (written in place into the exact model's state, or
+    a sparse model's whole new state) and after the exact models'
+    capacity grows (4 -> 8 -> 16, each a new graph). Every
+    dispatch runs under set_sync_debug_mode('error')."""
+    kw = dict(fmin=[0.0] if sparse else [-np.inf, 0.0],
+              bounds=[(-2.0, 2.0)] * 3, swarm_size=10, max_iters=20)
+    twins = [_SeededSwarm(_swarm_gps(sparse), graph=graph, **kw).feed(5)
+             for graph in (True, False)]
+    for step in range(6):
+        outs = []
+        for opt in twins:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pending = opt.optimize_async()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            outs.append((pending.result(), pending._diag.clone()))
+        (x_g, d_g), (x_e, d_e) = outs
+        np.testing.assert_array_equal(x_g, x_e, err_msg=f"step {step}")
+        torch.testing.assert_close(d_g, d_e, rtol=1e-6, atol=0)
+        for opt in twins:
+            opt.add_new_data_point(x_g, _swarm_plant(x_g, len(opt.gps)))
+    graph = twins[0]
+    assert graph.graph_replays == 6 and graph.graph_captures >= 1
+    assert all(s.host_syncs == 1 and s.graph for s in graph.stats.history)
+    if not sparse:
+        assert graph.gps[0].state.capacity > 4 and graph.graph_captures >= 2
+    np.testing.assert_array_equal(twins[0].S, twins[1].S)
+
+
+def test_swarm_graph_reads_the_models_current_factor(cuda):
+    """A graph replayed on a model that changed since its capture gives the
+    eager iteration's output on the new model, not the old one's: a graph
+    that read a stale factor would give the old output."""
+    from safeopt_torch.algorithms.swarm_opt_fused import (
+        FusedSwarmGraph, fused_swarm_optimize)
+
+    opt = _SeededSwarm(_swarm_gps(capacity=16), fmin=[-np.inf, 0.0],
+                       bounds=[(-2.0, 2.0)] * 3, swarm_size=10,
+                       max_iters=20).feed(3)
+    args, kw = opt._fused_args()
+    graph = FusedSwarmGraph(*args, **kw)
+    old = fused_swarm_optimize(*args, **kw).diag.clone()
+    torch.testing.assert_close(graph.replay(*args).diag, old, rtol=1e-6,
+                               atol=0)
+    x = old[:3].cpu().numpy().astype(float)
+    opt.add_new_data_point(x, _swarm_plant(x, 2))      # rows in place
+    kernels, states = opt._model_args()
+    args = (kernels, states) + args[2:]
+    new = fused_swarm_optimize(*args, **kw).diag
+    assert not torch.equal(new, old)
+    torch.testing.assert_close(graph.replay(*args).diag, new, rtol=1e-6,
+                               atol=0)
+
+
+def test_swarm_float64_card_matches_cpu(cuda):
+    """The same uniforms in float64: the card's replayed graph and the
+    CPU's eager iteration give the same queries to 1e-9."""
+    kw = dict(fmin=[-np.inf, 0.0], bounds=[(-2.0, 2.0)] * 3, swarm_size=10,
+              max_iters=20)
+    runs = {}
+    for device in (cuda, "cpu"):
+        gps = _swarm_gps(dtype=torch.float64)
+        if device == "cpu":
+            gps = [pt.GPRegression(g.X_host, g.Y_host, g.kern, noise_var=0.01,
+                                   capacity=4, device="cpu") for g in gps]
+        opt = _SeededSwarm(gps, **kw).feed(8)
+        xs = []
+        for _ in range(4):
+            x = opt.optimize()
+            xs.append(x)
+            opt.add_new_data_point(x, _swarm_plant(x, 2))
+        runs[str(device)] = np.array(xs)
+    np.testing.assert_allclose(runs[str(cuda)], runs["cpu"], atol=1e-9)
+
+
+def test_swarm_loop_runs_sync_free_and_matches_eager(cuda):
+    """run_swarmopt_loop with its graph under set_sync_debug_mode('error')
+    gives the eager loop's queries on the same uniforms and normals."""
+    from safeopt_torch.algorithms.runner import run_swarmopt_loop
+    from safeopt_torch.algorithms.swarm_opt_fused import stream_layout
+
+    gps = _swarm_gps(capacity=16)
+    opt = pt.SafeOptSwarm(gps, fmin=[-np.inf, 0.0], bounds=[(-2.0, 2.0)] * 3,
+                          swarm_size=10, max_iters=20)
+    opt.reserve(5)
+    n_u = sum(int(np.prod(s)) for _, s in stream_layout(10, 20, 3))
+    flat = torch.rand((5, n_u), generator=torch.Generator(cuda).manual_seed(1),
+                      device=cuda)
+    objectives = (lambda x: 2.0 * torch.exp(-0.5 * torch.sum(x * x)),
+                  lambda x: 1.0 - 0.05 * torch.sum(x * x))
+
+    states = {graph: tuple(g.factor_state() for g in gps)
+              for graph in (True, False)}
+
+    def run(graph):
+        return run_swarmopt_loop(
+            tuple(g.kern for g in gps), states[graph], opt._S_dev,
+            opt.optimal_velocities, opt._bounds_arr, opt.fmin, opt.scaling,
+            [0.0, 0.0], [2.0] * 5, opt.greedy_point, -np.inf, flat,
+            torch.Generator(cuda).manual_seed(2),
+            objectives=objectives, n_iter=5, swarm_size=10, max_iters=20,
+            noise_std=0.01, graph=graph)
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with_graph = run(True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager = run(False)
+    torch.testing.assert_close(with_graph.xs, eager.xs, rtol=0, atol=1e-6)
+    assert with_graph.host_syncs.tolist() == [0] * 5
+    assert [int(s.count) for s in with_graph.states] == [8, 8]

@@ -3,8 +3,10 @@
 The flagship's two GPs (``build_gps``), the cap-512 state of the interval
 experiments in K1's operand layout (``cap512_operands``), its one-GP
 slices (``one_gp``, ``first_gp``), B1's launch layouts (``LAYOUTS``),
-the long-campaign sparse model (``sparse_data``, ``sparse_gp``), the
-hyperparameter fits' data and kernel (``fit_data``, ``fit_kernel``) and
+the long-campaign sparse model (``sparse_data``, ``sparse_gp``) and the
+exact GP on its data (``sparse_exact_gp``), the hyperparameter fits'
+data and kernel (``fit_data``, ``fit_kernel``), the 10-d swarm problem
+(``swarm_data``, ``swarm_gps``, ``swarm_problem``, ``swarm_plant``) and
 the CUDA-event timer. It imports nothing of ``chip_smoke.py`` or of the
 tools, so each of them imports it and the dependency runs one way.
 """
@@ -67,6 +69,63 @@ def sparse_gp(m, device, dtype, data=None, **kw):
     return SparseGPRegression(X, Y, RBF(2, variance=2.0, lengthscale=1.0),
                               noise_var=0.05 ** 2, inducing=m,
                               device=device, dtype=dtype, **kw)
+
+
+def sparse_exact_gp(device, dtype, data=None, capacity=2048):
+    """The exact GP on ``sparse_data()`` (the sparse model's kernel and
+    noise) at ``capacity``."""
+    from safeopt_torch import RBF, GPRegression
+
+    X, Y = sparse_data() if data is None else data
+    return GPRegression(X, Y, RBF(2, variance=2.0, lengthscale=1.0),
+                        noise_var=0.05 ** 2, capacity=capacity,
+                        device=device, dtype=dtype)
+
+
+# the JAX bench's swarm problem (bench.py:1333-1353 ``_swarm_config``)
+SWARM_D = 10
+SWARM_SIZE = 20
+
+
+def swarm_data(n=5, seed=0, spread=0.5):
+    """n points uniform in [-spread, spread]^10 from ``default_rng(seed)``
+    and their two measurements: the objective 2 exp(-|x|^2 / 2) and the
+    constraint 1 - 0.05 |x|^2 (the bench's 5 points at the defaults)."""
+    X = np.random.default_rng(seed).uniform(-spread, spread,
+                                            size=(n, SWARM_D))
+    r2 = np.sum(X ** 2, axis=1)
+    return X, (2.0 * np.exp(-0.5 * r2))[:, None], (1.0 - 0.05 * r2)[:, None]
+
+
+def swarm_gps(num_gps, device, dtype, data=None, capacity=None):
+    """The bench's swarm GPs over ``data`` (``swarm_data()`` when None):
+    RBF(10, variance 2, lengthscale 2) on the objective and, for two GPs,
+    Matern32(10, variance 1, lengthscale 3) on the constraint, noise
+    variance 0.01."""
+    from safeopt_torch import GPRegression, Matern32, RBF
+
+    X, Yf, Yg = swarm_data() if data is None else data
+    kw = dict(noise_var=0.01, capacity=capacity, device=device, dtype=dtype)
+    gps = [GPRegression(X, Yf, RBF(SWARM_D, variance=2.0, lengthscale=2.0),
+                        **kw)]
+    if num_gps == 2:
+        gps.append(GPRegression(
+            X, Yg, Matern32(SWARM_D, variance=1.0, lengthscale=3.0), **kw))
+    return gps
+
+
+def swarm_problem(num_gps):
+    """``SafeOptSwarm``'s arguments besides the GPs: fmin [0] for the
+    objective alone, [-inf, 0] with the constraint; bounds [-3, 3]^10;
+    20 particles (100 PSO iterations a swarm, the default)."""
+    return dict(fmin=[0.0] if num_gps == 1 else [-np.inf, 0.0],
+                bounds=[(-3.0, 3.0)] * SWARM_D, swarm_size=SWARM_SIZE)
+
+
+def swarm_plant(x, num_gps):
+    """The swarm problem's measurements at x, in NumPy float64: (1, G)."""
+    r2 = float(np.sum(np.asarray(x, dtype=float) ** 2))
+    return np.array([[2.0 * np.exp(-0.5 * r2), 1.0 - 0.05 * r2][:num_gps]])
 
 
 def fit_data(seed=7, n=512, n_sparse=2000):
