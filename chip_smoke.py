@@ -201,7 +201,38 @@ Phases, each reported on its own line:
     (a) G=2, pipelined and serial bitwise equal. K1-K4 and K1-3p/K2-3p
     launch 0 times over the phase. It prints the eager and replayed ms
     per ``optimize()``, the captures' ms, kernels per step and the busy
-    share (torch.profiler), and the loops' ms per iteration.
+    share (torch.profiler), and the loops' ms per iteration;
+20. campaign fleets (``safeopt_torch.parallel``): (a) 8 campaigns of the
+    flagship, campaign k from its own 50 observations (``build_gps``
+    seeded 200 + k), and (b) the JAX bench's fleet (``bench.py:1510-1560``:
+    8 campaigns of one RBF(2, variance 2, lengthscale 1.2) GP from one
+    observation each, a 100 x 100 grid on [-2, 2]^2, capacity 16, chunk
+    16), 8 iterations of ``run_safeopt_campaigns`` in float32 and in
+    float64 against 8 solo ``run_safeopt_loop`` calls on the same states
+    and normals: ``next_idx`` trajectories equal (float64 queries within
+    1e-9), K1 once a fleet step for every campaign's GPs and K3 once a
+    walk round (the counts zeroed before each fleet run and read after
+    it), host syncs per fleet step against the solo loops' sum, ms per
+    fleet iteration and per campaign-iteration against the solo loops'
+    summed, (a)'s busy share; (c) one K3 launch for (a)'s 8 campaigns,
+    each with its own mask (its ~S) and 32-slot chunk (phase 4's rule)
+    and campaign 3's mask all False, at raised thresholds: float64 equal
+    to its plain version, float32 outside the band, bitwise equal to 8
+    single-mask launches in both dtypes, the planted campaign's rows all
+    False while its neighbours hit; K1's launch over (a)'s 16 GPs held to
+    its plain version (float64 within 1e-9, float32 decisions outside the
+    band), then timed against its plain version and its bound, and so the
+    K3 launch on the same chunks with the masks unplanted (each ~S, as
+    the walk passes them); (d) 4 campaigns
+    of phase 19's (a) G=2 state, each from its own 5 observations, 8
+    iterations of ``run_swarmopt_campaigns`` replaying one CUDA graph a
+    fleet step, every call under ``set_sync_debug_mode("error")``: step
+    by step with each campaign's query and added rows held to phase 19's
+    float64 safety rule, then at once against the batched eager run
+    (bitwise) and each campaign's solo ``run_swarmopt_loop`` (float64
+    queries within 1e-9), no grid kernel launched; replayed ms per fleet
+    iteration against the solo loops' summed, kernels per fleet step and
+    the capture's ms.
 
 Any failed check exits non-zero. The last lines are one JSON object of
 the kernels, the nvidia-smi line, and the result line.
@@ -447,16 +478,17 @@ def expander_macs(n, C, dtype):
     return -(-C // cw) * cw * (-(-n // v) * v)
 
 
-def expander_bound(dtype, G, N, U, d, cap, n, C, leaves=None):
+def expander_bound(dtype, G, N, U, d, cap, n, C, leaves=None, masks=1):
     """Least time of K3/K4 on these inputs: at each of the U unsafe
-    points and per GP the gram of the n active rows and of the C
-    candidates, the C n FMAs of the cross term and the epilogue; inputs
-    read once, the (G, C) predicate written once."""
+    points (a GP's mean, with ``masks`` masks of N bytes: one per
+    campaign of a fleet launch) and per GP the gram of the n active rows
+    and of the C candidates, the C n FMAs of the cross term and the
+    epilogue; inputs read once, the (G, C) predicate written once."""
     g = gram_flops(d, leaves)
     flops = G * U * (n * g + C * g + 2 * C * n + 12 * C)
     size = torch.finfo(dtype).bits // 8
     nbytes = (size * (d * N + G * (2 * N + cap * d + C * d + C * cap
-                                   + 3 * C + 4)) + N + 4 * G * C)
+                                   + 3 * C + 4)) + masks * N + 4 * G * C)
     return bound(dtype, flops, nbytes)
 
 
@@ -2244,6 +2276,579 @@ def print_swarm(out, smi):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: campaign fleets
+# ---------------------------------------------------------------------------
+
+FLEET_K = 8           # campaigns of the grid fleets
+FLEET_ITERS = 8
+FLEET_NOISE = 0.05    # the flagship plant's noise std
+SWARM_FLEET_K = 4
+SWARM_FLEET_NOISE = 0.01
+
+
+def fleet_walk_rounds(res):
+    """K3 rounds of each fleet step: the longest walk of the step (the
+    campaigns walk in lock step)."""
+    return res.walk_chunks.amax(dim=0)
+
+
+def run_fleet_case(label, kernels, per, grid64, fmin, scaling, objectives,
+                   chunk, noise_std, smi, profile=False):
+    """Phase 20 (a)/(b): ``run_safeopt_campaigns`` over the K campaigns
+    ``per`` (float64 factor states) against K solo ``run_safeopt_loop``
+    calls on the same states and normals: float32 ``next_idx``
+    trajectories equal, float64 ones equal with queries within 1e-9; K1
+    once a fleet step, K3 once a walk round, no other kernel. Returns the
+    numbers the phase prints and the fleet's launches."""
+    from safeopt_torch.algorithms.runner import run_safeopt_loop
+    from safeopt_torch.parallel import (run_safeopt_campaigns,
+                                        stack_campaign_states)
+
+    K, G, n = len(per), len(kernels), FLEET_ITERS
+    dev = grid64.device
+    noise = torch.tensor(np.random.default_rng(20).normal(size=(K, n, G)),
+                         dtype=torch.float64, device=dev)
+    t = functools.partial(torch.tensor, dtype=torch.float64, device=dev)
+    args = (t(fmin), BETA, t(scaling), t([0.0] * G))
+    batched = stack_campaign_states(per)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        kw = dict(objectives=objectives, dtype=dtype, chunk=chunk,
+                  noise_std=noise_std)
+        # one iteration of each first: the first launch of every PyTorch
+        # kernel stays out of the timed runs
+        run_safeopt_campaigns(kernels, batched, grid64, *args, noise[:, :1],
+                              n_iter=1, **kw)
+        run_safeopt_loop(kernels, per[0], grid64, *args, noise[0, :1],
+                         n_iter=1, **kw)
+        zero_launches()
+        fleet, fleet_ms = timed_ms(lambda: run_safeopt_campaigns(
+            kernels, batched, grid64, *args, noise, n_iter=n, **kw))
+        launches = read_launches()
+        solos, solo_ms, solo_syncs = [], 0.0, np.zeros(n, dtype=int)
+        for k in range(K):
+            res, ms = timed_ms(lambda k=k: run_safeopt_loop(
+                kernels, per[k], grid64, *args, noise[k], n_iter=n, **kw))
+            solos.append(res)
+            solo_ms += ms
+            solo_syncs += res.host_syncs.numpy()
+        name = "float32" if dtype == torch.float32 else "float64"
+        check(bool(fleet.has_safe.all()), f"fleet {label} {name} lost "
+                                          "certification")
+        check([c.tolist() for c in (s.count for s in fleet.states)]
+              == [[int(st.count) + n for st in (p[i] for p in per)]
+                  for i in range(G)],
+              f"fleet {label} {name}: counts not grown by {n}")
+        for k, solo in enumerate(solos):
+            check(torch.equal(fleet.next_idx[k].cpu(), solo.next_idx.cpu()),
+                  f"fleet {label} {name}: campaign {k} queried "
+                  f"{fleet.next_idx[k].tolist()}, its solo loop "
+                  f"{solo.next_idx.tolist()}")
+            if dtype == torch.float64:
+                err = float((fleet.xs[k] - solo.xs).abs().max())
+                check(err <= 1e-9, f"fleet {label} float64: campaign {k}'s "
+                                   f"queries {err:.3e} from its solo loop's")
+        rounds = int(fleet_walk_rounds(fleet).sum())
+        check(launches["K1"] == n and launches["K3"] == rounds
+              and not any(v for key, v in launches.items()
+                          if key not in ("K1", "K3")),
+              f"fleet {label} {name}: launches {launches}, want K1 {n} and "
+              f"K3 {rounds} (the walk rounds)")
+        walked = int(fleet.walk_chunks.sum())
+        print(f"fleet {label} {name}: {K} campaigns x {n} iterations, "
+              f"next_idx equal to the {K} solo loops'; launches {launches} "
+              f"(K1 one a fleet step for all {K * G} GPs, K3 one a walk "
+              f"round: {rounds} rounds for {walked} campaign chunks); "
+              f"host syncs per fleet step {fleet.host_syncs.tolist()} "
+              f"against the solo loops' {solo_syncs.tolist()}; on {smi}: "
+              f"{fleet_ms / n:.3f} ms per fleet iteration, "
+              f"{fleet_ms / (n * K):.3f} ms per campaign-iteration, against "
+              f"the solo loops' {solo_ms / n:.3f} ms per iteration summed "
+              f"over the {K} campaigns (CUDA events around each call)",
+              flush=True)
+        out[name] = dict(fleet_ms=fleet_ms / n, solo_ms=solo_ms / n,
+                         syncs=fleet.host_syncs.tolist(),
+                         solo_syncs=solo_syncs.tolist(), launches=launches,
+                         rounds=rounds, chunks=walked)
+        if dtype == torch.float32:
+            out["launches"] = launches
+    if profile:
+        m = min(3, n)
+        prof = profile_device(lambda: run_safeopt_campaigns(
+            kernels, batched, grid64, *args, noise[:, :m], n_iter=m,
+            objectives=objectives, dtype=torch.float32, chunk=chunk,
+            noise_std=noise_std))
+        device_line(f"fleet {label} float32", prof, m, smi)
+        out["profile"] = prof
+    return out
+
+
+def fleet_flagship_states(device=None):
+    """Phase 20 (a): FLEET_K campaigns of the flagship, campaign k from
+    its own 50 observations (``build_gps`` seeded 200 + k), float64 factor
+    states, and the shared kernels."""
+    per, kernels = [], None
+    for k in range(FLEET_K):
+        gps = build_gps(np.random.default_rng(200 + k), 50, 64,
+                        device or "cuda", torch.float64)
+        per.append(tuple(g.factor_state() for g in gps))
+        kernels = tuple(g.kern for g in gps)
+    return kernels, per
+
+
+def fleet_bench_states(device=None):
+    """Phase 20 (b): the JAX bench's fleet (``bench.py:1510-1560``): 8
+    campaigns of one RBF(2, variance 2, lengthscale 1.2) GP, each from
+    one observation in [-0.4, 0.4]^2 (``default_rng(5)``), capacity 16."""
+    from safeopt_torch import RBF, GPRegression
+
+    rng = np.random.default_rng(5)
+    kern = RBF(2, variance=2.0, lengthscale=1.2)
+    per = []
+    for _ in range(FLEET_K):
+        x0 = rng.uniform(-0.4, 0.4, size=(1, 2))
+        y0 = 2.0 * np.exp(-0.5 * np.sum(x0 ** 2))
+        per.append((GPRegression(x0, np.array([[y0]]), kern, noise_var=1e-4,
+                                 capacity=16, device=device or "cuda",
+                                 dtype=torch.float64).factor_state(),))
+    return (kern,), per
+
+
+def check_k3_fleet(kernels, per, grid64):
+    """Phase 20 (c): one K3 launch for FLEET_K campaigns of two GPs, each
+    campaign's own mask (its ~S) and its own chunk (``check_k3_gps``'s
+    rule: 16 candidates from the head of its visit order, 16 from the
+    middle, the last 4 slots padding), campaign 3's mask planted all
+    False. At fmin raised by each of ``K3_SHIFTS``: float64 kernel equal
+    to its plain version, float32 kernel equal to the float64 plain one
+    outside the band, the fleet launch equal to FLEET_K single-mask
+    launches bitwise in both dtypes, the planted campaign's rows all
+    False while others hit. Returns (the float64 error, the float32
+    operands of the launch ``fleet_kernel_times`` times: the same chunks
+    with the masks as the walk passes them, ~S, none planted; the unsafe
+    points per GP of those masks)."""
+    from safeopt_torch.algorithms import fleet_core as fc
+    from safeopt_torch.algorithms import safe_opt_core as core
+    from safeopt_torch.ops import fused_expander as fe
+    from safeopt_torch.parallel import stack_campaign_states
+
+    K, G = len(per), len(kernels)
+    f64 = torch.tensor(FMIN, dtype=torch.float64, device="cuda")
+    s64 = torch.tensor(SCALING, dtype=torch.float64, device="cuda")
+    batched = stack_campaign_states(per)
+    Q, mu, sigma, _ = fc._fleet_posterior(kernels, batched, grid64, BETA)
+    S, _, cand, width, _ = torch.func.vmap(
+        core._classify, in_dims=(0, None, None, None, None))(
+            Q, f64, s64, torch.zeros_like(f64), BETA)
+    masks = ~S
+    masks[3] = False                                   # the planted one
+    gidx = []
+    for k in range(K):
+        pool = cand[k] if int(cand[k].sum()) >= 64 else S[k]
+        n_cand = int(pool.sum())
+        check(n_cand >= 64, f"K3 fleet: campaign {k} has {n_cand} safe "
+                            "points")
+        order = core._visit_order(torch.where(pool, width[k],
+                                              float("-inf")), n_cand)
+        gidx.append(torch.cat([order[:16],
+                               order[n_cand // 2:n_cand // 2 + 16]]))
+    gidx = torch.stack(gidx)                            # (K, 32)
+    valid = torch.ones((K, 32), dtype=torch.bool, device="cuda")
+    valid[:, -4:] = False
+    ucs = torch.stack([Q[k, gidx[k]][:, 1::2].T for k in range(K)])
+    ops, solo = {}, {}
+    for dt in (torch.float64, torch.float32):
+        st = stack_campaign_states([tuple(core_state(s, dt) for s in p)
+                                    for p in per])
+        cast = (lambda a: a.to(dt))
+        ops[dt] = fe.fleet_expander_operands(
+            kernels, st, cast(grid64), masks, cast(mu), cast(sigma),
+            cast(grid64)[gidx], cast(ucs), valid, BETA, cast(f64))
+        solo[dt] = [fe.expander_operands(
+            kernels, [core_state(s, dt) for s in per[k]], cast(grid64),
+            masks[k], cast(mu[k]), cast(sigma[k]), cast(grid64)[gidx[k]],
+            cast(ucs[k]), valid[k], BETA, cast(f64)) for k in range(K)]
+
+    def at(o, delta):
+        scal = o[9].clone()
+        scal[:, 3] += delta * s64.to(scal.dtype).repeat(
+            scal.shape[0] // G)
+        return o[:9] + (scal, o[10])
+
+    err64, wrong32, in_band, mixed, planted, unequal = 0.0, 0, 0, 0, 0, 0
+    counts, neighbours = [], 0
+    for delta in K3_SHIFTS:
+        plain = fe.fused_expander_plain(*at(ops[torch.float64], delta))
+        got = {dt: fe.fused_expander(*at(ops[dt], delta)) for dt in ops}
+        each = {dt: torch.cat([fe.fused_expander(*at(o, delta))
+                               for o in solo[dt]]) for dt in ops}
+        decided = (fe.fused_expander_plain(*at(ops[torch.float64],
+                                               delta + BAND))
+                   == fe.fused_expander_plain(*at(ops[torch.float64],
+                                                  delta - BAND)))
+        torch.cuda.synchronize()
+        vmask = valid.repeat_interleave(G, dim=0)
+        hits = int(plain[vmask].sum())
+        counts.append(hits)
+        mixed += 0 < hits < int(vmask.sum())
+        unequal += sum(int((got[dt] != each[dt]).sum()) for dt in ops)
+        planted += sum(int(got[dt][3 * G:4 * G].sum()) for dt in ops)
+        neighbours += int(got[torch.float64][2 * G:3 * G].sum()
+                          + got[torch.float64][4 * G:5 * G].sum())
+        err64 = max(err64, float((got[torch.float64] != plain).float().max()))
+        wrong32 += int(((got[torch.float32] != plain) & decided).sum())
+        in_band += int((~decided).sum())
+    print(f"K3 fleet launch ({K} campaigns x {G} GPs, each campaign's own "
+          f"mask and 32-slot chunk, campaign 3's mask all False) at fmin + "
+          f"{list(K3_SHIFTS)} x scaling: plain hits per shift {counts}; "
+          f"f64 predicates differing from the plain version {err64:g} "
+          f"(limit 0); f32 differing outside the band {wrong32}, inside "
+          f"{in_band}; fleet against {K} single-mask launches, predicates "
+          f"differing {unequal} (limit 0); hits of the planted campaign "
+          f"{planted} (limit 0), of its neighbours {neighbours}",
+          flush=True)
+    check(mixed > 0, "no K3 fleet launch had a plain predicate holding both "
+                     "values")
+    check(err64 == 0 and wrong32 == 0 and unequal == 0 and planted == 0,
+          "the K3 fleet launch disagrees with its plain version, its "
+          "single-mask launches or the planted campaign")
+    check(neighbours > 0, "the planted campaign's neighbours never hit")
+    st = stack_campaign_states([tuple(core_state(s, torch.float32) for s in p)
+                                for p in per])
+    timed = fe.fleet_expander_operands(
+        kernels, st, grid64.float(), ~S, mu.float(), sigma.float(),
+        grid64.float()[gidx], ucs.float(), valid, BETA, f64.float())
+    return err64, timed, float((~S).sum()) / K
+
+
+def core_state(state, dtype):
+    """A float64 factor state cast to ``dtype`` (the loops' mirror)."""
+    from safeopt_torch.gp.regression import GPState
+
+    return GPState(*(t.to(dtype) if t.is_floating_point() else t
+                     for t in state))
+
+
+def swarm_fleet_inputs(dtype, K=None):
+    """Phase 20 (d): K campaigns of phase 19's (a) G=2 state, campaign k
+    from its own 5 observations (``swarm_data(5, seed=300 + k)``), GP
+    capacity 16; per campaign (float64 factor states, its safe-set buffer
+    in ``dtype`` reserved for FLEET_ITERS steps, its greedy point), and
+    the optimizer of campaign 0 for the shared constants."""
+    from safeopt_torch import SafeOptSwarm
+
+    per, iters, greedy, opt = [], [], [], None
+    for k in range(SWARM_FLEET_K if K is None else K):
+        gps = swarm_gps(2, "cuda", dtype, data=swarm_data(5, seed=300 + k),
+                        capacity=16)
+        opt = SafeOptSwarm(gps, **swarm_problem(2))
+        opt.reserve(FLEET_ITERS)
+        per.append(tuple(g.factor_state() for g in gps))
+        iters.append(opt._S_dev)
+        greedy.append(torch.as_tensor(opt.greedy_point, dtype=dtype,
+                                      device="cuda"))
+    return per, iters, torch.stack(greedy), opt
+
+
+def swarm_fleet_margin(kernels64, states, X, fmin, scaling):
+    """The least scaled float64 margin ``(mu - beta sigma - fmin) /
+    scaling`` of the rows X (float64, (r, d)) under one campaign's float64
+    states (``swarm_margin``'s rule on the fleet's own factors)."""
+    from safeopt_torch.gp.regression import gp_predict
+
+    worst = math.inf
+    for kern, st, fm, sc in zip(kernels64, states, fmin, scaling):
+        if fm == -np.inf:
+            continue
+        mu, var = gp_predict(kern, st, X)
+        lower = mu - BETA * torch.sqrt(var)
+        worst = min(worst, float(((lower - fm) / sc).min()))
+    return worst
+
+
+def drive_swarm_fleet(smi):
+    """Phase 20 (d): ``run_swarmopt_campaigns`` on SWARM_FLEET_K campaigns
+    of phase 19's (a) G=2 state, FLEET_ITERS iterations replaying one CUDA
+    graph a fleet step, every call under ``set_sync_debug_mode('error')``:
+    step by step with each campaign's float64 safety checked (phase 19's
+    rule), then at once (timed), against the batched eager run (bitwise),
+    against each campaign's solo ``run_swarmopt_loop`` (float32 timed;
+    float64 queries within 1e-9), no grid kernel launched. Returns the
+    numbers the phase prints."""
+    from safeopt_torch.algorithms.runner import run_swarmopt_loop
+    from safeopt_torch.algorithms.swarm_opt import device_kernel
+    from safeopt_torch.algorithms.swarm_opt_fused import stream_layout
+    from safeopt_torch.parallel import (run_swarmopt_campaigns,
+                                        stack_campaign_states)
+
+    K, n = SWARM_FLEET_K, FLEET_ITERS
+    zero_launches()
+
+    def objectives():
+        return (lambda x: 2.0 * torch.exp(-0.5 * torch.sum(x * x)),
+                lambda x: 1.0 - 0.05 * torch.sum(x * x))
+
+    def fleet(dtype, states, iters, greedy, blb, t0, steps, graphs,
+              graph=True):
+        opt = consts[dtype]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error" if graph else 0)
+        try:
+            res = run_swarmopt_campaigns(
+                tuple(g.kern for g in opt.gps), states, iters,
+                opt.optimal_velocities, opt._bounds_arr, opt.fmin,
+                opt.scaling, [0.0, 0.0], [BETA] * steps, greedy, blb,
+                streams[dtype][:, t0:t0 + steps], normals[:, t0:t0 + steps],
+                objectives=objectives(), n_iter=steps,
+                swarm_size=opt.swarm_size, max_iters=opt.max_iters,
+                noise_std=SWARM_FLEET_NOISE, graph=graph, graph_cache=graphs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - start) * 1e3
+
+    inputs, consts, streams = {}, {}, {}
+    for dtype in (torch.float32, torch.float64):
+        inputs[dtype] = swarm_fleet_inputs(dtype)[:3]
+        consts[dtype] = opt = swarm_fleet_inputs(dtype, K=1)[3]
+    n_u = sum(int(np.prod(s)) for _, s in stream_layout(
+        opt.swarm_size, opt.max_iters, opt.gp.input_dim))
+    rng = np.random.default_rng(21)
+    uniforms = rng.uniform(size=(K, n, n_u))
+    normals = torch.tensor(rng.normal(size=(K, n, 2)), dtype=torch.float64,
+                           device="cuda")
+    for dtype in consts:
+        streams[dtype] = torch.tensor(uniforms, dtype=dtype, device="cuda")
+    f32, f64 = torch.float32, torch.float64
+    per, iters, greedy = inputs[f32]
+    kernels64 = tuple(device_kernel(g.kern, f64, "cuda")
+                      for g in consts[f32].gps)
+    fmin, scaling = consts[f32].fmin, consts[f32].scaling
+    ninf = torch.full((K,), -np.inf, dtype=f32, device="cuda")
+
+    # step by step: one replay a call, each campaign's float64 safety
+    graphs = {}
+    states = stack_campaign_states(per)
+    sstate = stack_campaign_states(iters)
+    g_pt, blb = greedy, ninf
+    certified = [set(map(tuple, it.S[:int(it.count)].double().cpu()
+                         .numpy())) for it in iters]
+    step_xs, step_ms, worst, held_below = [], [], math.inf, 0
+    for t in range(n):
+        res, ms = fleet(f32, states, sstate, g_pt, blb, t, 1, graphs)
+        step_ms.append(ms)
+        S_new = res.iter_state.S.double().cpu().numpy()
+        c_new = res.iter_state.count.cpu().numpy()
+        x = res.xs[:, 0]
+        for k in range(K):
+            before = set(map(tuple, sstate.S[k, :int(sstate.count[k])]
+                             .double().cpu().numpy()))
+            camp = tuple(type(st)(*(f[k] for f in st)) for st in states)
+            new = np.array([r for r in S_new[k, :c_new[k]]
+                            if tuple(r) not in before])
+            if len(new):
+                m = swarm_fleet_margin(kernels64, camp, torch.tensor(
+                    new, dtype=f64, device="cuda"), fmin, scaling)
+                check(m >= -BAND, f"swarm fleet campaign {k} step {t}: a "
+                                  f"row added to the safe set has the "
+                                  f"float64 margin {m:.3e}")
+                certified[k].update(map(tuple, new))
+            m = swarm_fleet_margin(kernels64, camp, x[k:k + 1], fmin,
+                                   scaling)
+            held = tuple(x[k].to(f32).double().cpu().numpy()) in before
+            check(m >= -BAND or held, f"swarm fleet campaign {k} step {t}: "
+                                      f"the query has the float64 margin "
+                                      f"{m:.3e} and is no held row")
+            worst = min(worst, m)
+            held_below += held and m < -BAND
+        step_xs.append(x)
+        states, sstate = res.states, res.iter_state
+        g_pt, blb = res.iter_state.greedy, res.best_lower_bounds[:, -1]
+    for k in range(K):
+        rows = set(map(tuple, sstate.S[k, :int(sstate.count[k])].double()
+                       .cpu().numpy()))
+        check(rows <= certified[k], f"swarm fleet campaign {k}: "
+                                    f"{len(rows - certified[k])} safe-set "
+                                    "rows never passed the float64 test")
+    check(len(graphs) == 1, f"the swarm fleet captured {len(graphs)} graphs")
+    stepwise = torch.stack(step_xs, dim=1)
+
+    # at once, replaying the cached graph; then the batched eager run
+    whole, whole_ms = fleet(f32, stack_campaign_states(per),
+                            stack_campaign_states(iters), greedy, ninf, 0, n,
+                            graphs)
+    eager, eager_ms = fleet(f32, stack_campaign_states(per),
+                            stack_campaign_states(iters), greedy, ninf, 0, n,
+                            None, graph=False)
+    check(torch.equal(whole.xs, stepwise), "the swarm fleet at once differs "
+                                           "from its step-by-step run")
+    bitwise = (torch.equal(whole.xs, eager.xs)
+               and torch.equal(whole.iter_state.S, eager.iter_state.S)
+               and torch.equal(whole.best_lower_bounds,
+                               eager.best_lower_bounds))
+    check(bitwise, f"the swarm fleet's graph and eager runs differ: queries "
+                   f"{float((whole.xs - eager.xs).abs().max()):.3e} apart")
+    check(whole.host_syncs.sum() == 0 and bool((whole.num_safe_min > 0)
+                                               .all()),
+          f"swarm fleet: host syncs {whole.host_syncs.tolist()}, safe "
+          f"counts {whole.num_safe_min.tolist()}")
+    prof = profile_device(lambda: fleet(f32, stack_campaign_states(per),
+                                        stack_campaign_states(iters), greedy,
+                                        ninf, 0, 2, graphs))
+
+    # each campaign alone: float32 (timed) and float64 (queries)
+    solo_graphs = {f32: {}, f64: {}}
+
+    def solo(dtype, k, steps):
+        opt = consts[dtype]
+        p, it, gr = inputs[dtype]
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = run_swarmopt_loop(
+                tuple(g.kern for g in opt.gps), p[k], it[k],
+                opt.optimal_velocities, opt._bounds_arr, opt.fmin,
+                opt.scaling, [0.0, 0.0], [BETA] * steps, gr[k], -np.inf,
+                streams[dtype][k, :steps], normals[k, :steps],
+                objectives=objectives(), n_iter=steps,
+                swarm_size=opt.swarm_size, max_iters=opt.max_iters,
+                noise_std=SWARM_FLEET_NOISE, graph_cache=solo_graphs[dtype])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - start) * 1e3
+
+    solo(f32, 0, 1)                         # the solo graph's capture
+    solo_ms = 0.0
+    for k in range(K):
+        res, ms = solo(f32, k, n)
+        solo_ms += ms
+    p64, it64, gr64 = inputs[f64]
+    fleet64, _ = fleet(f64, stack_campaign_states(p64),
+                       stack_campaign_states(it64), gr64,
+                       torch.full((K,), -np.inf, dtype=f64, device="cuda"),
+                       0, n, {})
+    err64 = 0.0
+    for k in range(K):
+        res, _ = solo(f64, k, n)
+        err64 = max(err64, float((fleet64.xs[k] - res.xs).abs().max()))
+    check(err64 <= SWARM_F64_TOL, f"swarm fleet float64: queries {err64:.3e}"
+                                  " from the solo loops'")
+    launches = read_launches()
+    check(not any(launches.values()),
+          f"the swarm fleet launched grid kernels: {launches}")
+    replay = float(np.median(step_ms[1:]))
+    print(f"swarm fleet ({K} campaigns of (a) G=2, d=10, {n} iterations): "
+          f"every call under set_sync_debug_mode('error'), one graph "
+          f"captured; each campaign's queries and added rows safe by "
+          f"float64 within the band or held rows ({held_below} held rows "
+          f"below it; least query margin {worst:.4g}); graph and batched "
+          f"eager bitwise equal; float64 queries within {err64:.3e} of the "
+          f"solo loops' (limit {SWARM_F64_TOL:g}); grid-kernel launches "
+          f"{launches}", flush=True)
+    print(f"swarm fleet on {smi}: {whole_ms / n:.3f} ms per fleet iteration "
+          f"replayed ({whole_ms / (n * K):.3f} per campaign-iteration; "
+          f"step by step median {replay:.3f}) against the {K} solo loops' "
+          f"{solo_ms / n:.3f} ms per iteration summed; batched eager "
+          f"{eager_ms / n:.3f} ms per iteration; the capturing first step "
+          f"{step_ms[0]:.3f} ms (host clock)", flush=True)
+    device_line("swarm fleet replayed", prof, 2, smi)
+    return dict(fleet_ms=whole_ms / n, solo_ms=solo_ms / n,
+                eager_ms=eager_ms / n, capture_ms=step_ms[0],
+                replay_ms=replay, profile=prof, err64=err64)
+
+
+def check_k1_fleet(kernels, per, grid64):
+    """Phase 20: K1's fleet launch (FLEET_K campaigns x 2 GPs, one launch)
+    against its plain version, as ``check_k1_gps`` holds one campaign's:
+    the float64 kernel within 1e-9 of the float64 plain version, the
+    float32 decisions ``l > fmin`` equal outside the band. Returns (the
+    float64 error, the float32 operands)."""
+    from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.parallel import stack_campaign_states
+
+    K = len(per)
+    ops, got = {}, {}
+    for dt in (torch.float64, torch.float32):
+        st = stack_campaign_states([tuple(core_state(s, dt) for s in p)
+                                    for p in per])
+        ops[dt] = fp.fleet_interval_operands(kernels, st, grid64.to(dt),
+                                             BETA)
+        got[dt] = fp.fused_intervals(*ops[dt])
+    p64 = fp.fused_intervals_plain(*ops[torch.float64])
+    torch.cuda.synchronize()
+    err64 = (got[torch.float64] - p64).abs().max().item()
+    t = functools.partial(torch.tensor, dtype=torch.float64, device="cuda")
+    fmin, scale = t(FMIN * K)[:, None], t(SCALING * K)[:, None]
+    wrong, in_band = decisions_agree(got[torch.float32][:, 0].double(),
+                                     p64[:, 0], fmin, scale)
+    print(f"K1 fleet launch ({K} campaigns x {len(kernels)} GPs): f64 "
+          f"max|kernel-plain|={err64:.3e} (limit 1e-9); f32 decisions "
+          f"differing outside the {BAND:g} band={wrong} (limit 0; rows "
+          f"inside the band: {in_band})", flush=True)
+    check(err64 <= 1e-9, f"K1 fleet launch f64 error {err64}")
+    check(wrong == 0, "K1 fleet launch f32 decisions differ outside the "
+                      "band")
+    return err64, ops[torch.float32]
+
+
+def fleet_kernel_times(kernels, per, grid64, k1_ops, k3_ops32, U, smi):
+    """Phase 20's kernel times: K1 over the fleet's 16 GPs and the K3 fleet
+    launch (the float32 operands that ``check_k1_fleet`` and
+    ``check_k3_fleet`` return), each against its plain version and its
+    bound at the fleet's shape."""
+    from safeopt_torch.ops import fused_expander as fe
+    from safeopt_torch.ops import fused_posterior as fp
+
+    K, G = len(per), len(kernels)
+    N, d = grid64.shape
+    n_obs = int(per[0][0].count)
+    C = k3_ops32[6].shape[1]
+    out = {}
+    for name, kern, plain, (b_ms, b_by) in (
+            ("K1 fleet", lambda: fp.fused_intervals(*k1_ops),
+             lambda: fp.fused_intervals_plain(*k1_ops),
+             interval_bound(torch.float32, K * G, N, d, 64, n_obs)),
+            ("K3 fleet", lambda: fe.fused_expander(*k3_ops32),
+             lambda: fe.fused_expander_plain(*k3_ops32),
+             expander_bound(torch.float32, K * G, N, U, d, 64, n_obs, C,
+                            masks=K))):
+        out[name] = (cuda_ms(kern), cuda_ms(plain, reps=3, warmup=1), b_ms,
+                     b_by)
+        print(f"{name} float32 ({K} campaigns x {G} GPs) on {smi}: kernel "
+              f"{out[name][0]:.4f} ms, plain {out[name][1]:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), share of the bound "
+              f"{b_ms / out[name][0]:.1%}", flush=True)
+    return out
+
+
+def drive_fleets(grid_np, smi):
+    """Phase 20: the campaign fleets. Returns the numbers the kernels
+    line takes."""
+    from safeopt_torch import linearly_spaced_combinations
+
+    grid64 = torch.tensor(grid_np, dtype=torch.float64, device="cuda")
+    kernels, per = fleet_flagship_states()
+    out = {"a": run_fleet_case(
+        "(a) flagship", kernels, per, grid64, FMIN, SCALING,
+        flag_objectives(), 32, FLEET_NOISE, smi, profile=True)}
+    bench_grid = torch.tensor(linearly_spaced_combinations(
+        [(-2.0, 2.0), (-2.0, 2.0)], 100), dtype=torch.float64, device="cuda")
+    b_kernels, b_per = fleet_bench_states()
+    out["b"] = run_fleet_case(
+        "(b) the JAX bench's fleet", b_kernels, b_per, bench_grid, [0.5],
+        [math.sqrt(2.0)], flag_objectives()[:1], 16, 0.0, smi)
+    out["k1_err64"], k1_ops32 = check_k1_fleet(kernels, per, grid64)
+    out["k3_err64"], k3_ops32, U = check_k3_fleet(kernels, per, grid64)
+    out["times"] = fleet_kernel_times(kernels, per, grid64, k1_ops32,
+                                      k3_ops32, U, smi)
+    out["d"] = drive_swarm_fleet(smi)
+    return out
+
+
 def main():
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
@@ -2787,6 +3392,17 @@ def main():
     # 19. the swarm ---------------------------------------------------------
     swarm = drive_swarm(smi)
     print_swarm(swarm, smi)
+    # 20. campaign fleets -----------------------------------------------------
+    fleet = drive_fleets(grid_np, smi)
+    for entry, key in ((kernels[0], "K1"), (kernels[1], "K3")):
+        entry["launches"] += sum(fleet[case][dt]["launches"][key]
+                                 for case in ("a", "b")
+                                 for dt in ("float32", "float64"))
+        k_ms, p_ms, b_ms, b_by = fleet["times"][f"{key} fleet"]
+        entry.update(fleet_ms=k_ms, fleet_plain_ms=p_ms, fleet_bound_ms=b_ms,
+                     fleet_bound_by=b_by)
+    for entry, key in ((kernels[0], "k1_err64"), (kernels[1], "k3_err64")):
+        entry["max_abs_err"] = max(entry["max_abs_err"], fleet[key])
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,7 @@ continuous box around an explicit safe set, each iteration one replay
 of a CUDA graph on the card; each blocking, asynchronous
 (``optimize_async``) or as a lag-1 campaign (``run_lagged_campaign``),
 and the device-side loops ``algorithms.runner.run_safeopt_loop`` and
-``run_swarmopt_loop``; its
+``run_swarmopt_loop``, with their campaign fleets in ``parallel``; its
 models, exact (``GPRegression``) or sparse (``SparseGPRegression``, the
 DTC approximation through m inducing points, whose pseudo-factor state
 runs the same grid kernels), take every kernel family of the JAX

@@ -25,6 +25,15 @@ iteration (on the card one replay of its CUDA graph), the objectives,
 the noise and ``gp_append``, and no iteration reads the device from the
 host. Its uniforms come as a per-iteration tensor or a generator, as the
 SafeOpt loop's noise does.
+
+Both loops also run K independent campaigns at once
+(``parallel/campaigns.py``, the JAX package's ``jax.vmap`` of these
+loops): states with a leading campaign axis make the iteration one fleet
+step (``fleet_core.fleet_step``: one K1 launch per group for every
+campaign, one K3 launch per walk round; for the swarm the fused iteration
+under ``torch.func.vmap``, on the card one replay of one CUDA graph), the
+objectives evaluated per campaign and ``gp_append`` under
+``torch.func.vmap`` over the campaigns.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 
 from ..gp.regression import GPState, gp_append
 from ..utils.observability import host_syncs
+from .fleet_core import fleet_step
 from .safe_opt_core import safeopt_step
 
 __all__ = ["BOLoopResult", "run_safeopt_loop", "SwarmLoopResult",
@@ -76,6 +86,76 @@ def _write_row(mirror: GPState, state: GPState, pos: torch.Tensor) -> None:
     mirror.count.copy_(state.count)
 
 
+def _write_rows(mirror: GPState, state: GPState, pos: torch.Tensor) -> None:
+    """``_write_row`` for batched states: row ``pos[k]`` (a device index
+    per campaign) of campaign k of ``state`` into ``mirror``, in place."""
+    at = (torch.arange(pos.shape[0], device=pos.device), pos)
+    for name in ("X", "Y", "L", "Linv", "w"):
+        dst = getattr(mirror, name)
+        dst[at] = getattr(state, name)[at].to(dst.dtype)
+    mirror.count.copy_(state.count)
+
+
+def _append(kernels, states, mirrors, x, y):
+    """Append the observation ``(x, y[i])`` to GP i with ``gp_append`` and
+    write the new row into its mirror; returns the grown states. For a
+    fleet (x (K, d), y (K, G)) campaign k's ``(x[k], y[k, i])``, with
+    ``gp_append`` under ``torch.func.vmap`` over the campaigns."""
+    fleet = x.dim() == 2
+    append = (torch.func.vmap(gp_append, in_dims=(None, 0, 0, 0)) if fleet
+              else gp_append)
+    write = _write_rows if fleet else _write_row
+    new = []
+    for i, (kern, st) in enumerate(zip(kernels, states)):
+        grown = append(kern, st, x, y[..., i])
+        write(mirrors[i], grown, st.count)
+        new.append(grown)
+    return tuple(new)
+
+
+def _campaign_args(args, k: int):
+    """Campaign k's slice of a fleet's ``objective_args`` (a tensor or
+    array with a leading campaign axis, or a tuple, list or dict of
+    them)."""
+    if isinstance(args, dict):
+        return {name: _campaign_args(a, k) for name, a in args.items()}
+    if isinstance(args, (tuple, list)):
+        return type(args)(_campaign_args(a, k) for a in args)
+    return args[k]
+
+
+def _evaluate(objectives, x, args):
+    """(G,) float64 measurements ``f_i(x)`` (or ``f_i(x, args)``); for a
+    fleet's x (K, d) the (K, G) ``f_i(x[k], args_k)``, ``args_k`` campaign
+    k's slice of ``args``."""
+    if x.dim() == 2:
+        return torch.stack([_evaluate(objectives, x[k], None if args is None
+                                      else _campaign_args(args, k))
+                            for k in range(x.shape[0])])
+    extra = () if args is None else (args,)
+    return torch.stack([f(x, *extra).to(torch.float64).reshape(())
+                        for f in objectives])
+
+
+def _check_float64(states, what: str):
+    """Raise unless the states are float64 factor states."""
+    if any(st.X.dtype != torch.float64 for st in states):
+        raise TypeError(f"{what} takes float64 factor states "
+                        "(GPRegression.factor_state()): the factor math "
+                        "stays in float64")
+
+
+def _noise(noise, shape, noise_std: float, device) -> torch.Tensor:
+    """The measurement noise's standard normals of ``shape``, from a tensor
+    or a generator (drawn once, before the loop); zeros for None, when
+    ``noise_std`` must be 0."""
+    if noise is None:
+        if noise_std:
+            raise ValueError("noise_std needs a noise tensor or generator")
+        return torch.zeros(shape, dtype=torch.float64, device=device)
+    return _per_iteration(noise, shape, torch.float64, device, "noise")
+
+
 def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
                      noise=None, *, objectives: Tuple[Callable, ...],
                      n_iter: int, dtype: Optional[torch.dtype] = None,
@@ -92,7 +172,8 @@ def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
         Float64 factor states on the grid's device
         (``GPRegression.factor_state()``); their capacity must admit
         ``n_iter`` more rows. They are not modified: the loop returns
-        the grown states.
+        the grown states. With a leading campaign axis K
+        (``parallel.stack_campaign_states``) they are a fleet: see below.
     grid : tensor (N, d)
         Candidate inputs, context columns last. Queries and objectives
         take its values in float64.
@@ -103,7 +184,8 @@ def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
     noise : tensor (n_iter, G) or torch.Generator, optional
         Standard normals scaled by ``noise_std`` and added to the
         measurements; with a generator they are drawn once, before the
-        loop; None draws none (``noise_std`` must then be 0).
+        loop; None draws none (``noise_std`` must then be 0). A fleet's
+        is (K, n_iter, G).
     objectives : tuple of callables, one per GP
         ``f_i(x)`` (or ``f_i(x, objective_args)``) of a float64 (d,)
         tensor on the device, returning a scalar tensor; the first is
@@ -120,28 +202,31 @@ def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
     Every other argument is ``safeopt_step``'s. As in the JAX package, an
     emptied safe set does not stop the loop: ``has_safe`` records where
     certification was lost, and the caller must check it.
+
+    A fleet's iteration is one ``fleet_step`` (campaign k's decisions are
+    ``safeopt_step``'s on its own states; grid, kernels, thresholds,
+    betas and contexts are shared, as the JAX package's vmapped loop
+    shares them), the K queries gathered, the objectives evaluated per
+    campaign (with a leading axis K, ``objective_args`` makes the fleet
+    heterogeneous: campaign k's are ``f_i(x, args_k)``) and the
+    observations appended with ``gp_append`` under ``torch.func.vmap``.
+    Its result's tensors have the leading campaign axis, except
+    ``host_syncs`` (T,), the host reads of each fleet step.
     """
     n_iter = int(n_iter)
     G = len(kernels)
     dev = grid.device
     dtype = grid.dtype if dtype is None else dtype
-    if any(st.X.dtype != torch.float64 for st in states):
-        raise TypeError("run_safeopt_loop takes float64 factor states "
-                        "(GPRegression.factor_state()): the factor math "
-                        "stays in float64")
-    counts = torch.stack([st.count for st in states]).tolist()  # once
-    if any(c + n_iter > st.capacity for c, st in zip(counts, states)):
-        raise ValueError(f"capacities {[st.capacity for st in states]} do "
-                         f"not admit {n_iter} more rows past {counts}")
-    if isinstance(noise, torch.Generator):
-        noise = torch.randn((n_iter, G), generator=noise,
-                            dtype=torch.float64).to(dev)
-    elif noise is None:
-        if noise_std:
-            raise ValueError("noise_std needs a noise tensor or generator")
-        noise = torch.zeros((n_iter, G), dtype=torch.float64, device=dev)
-    else:
-        noise = torch.as_tensor(noise, dtype=torch.float64, device=dev)
+    _check_float64(states, "run_safeopt_loop")
+    lead = tuple(states[0].X.shape[:-2])        # (K,) for a fleet, else ()
+    step = fleet_step if lead else safeopt_step
+    counts = torch.stack([st.count.reshape(-1).amax()
+                          for st in states]).tolist()          # once
+    caps = [st.X.shape[-2] for st in states]
+    if any(c + n_iter > cap for c, cap in zip(counts, caps)):
+        raise ValueError(f"capacities {caps} do not admit {n_iter} more "
+                         f"rows past {counts}")
+    noise = _noise(noise, lead + (n_iter, G), noise_std, dev)
     beta_stream = ([float(beta)] * n_iter if betas is None
                    else [float(b) for b in betas])
     nc = 0 if contexts is None else int(
@@ -160,20 +245,14 @@ def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
         if nc:
             grid64[:, -nc:] = contexts[t]
             step_grid[:, -nc:] = contexts[t].to(dtype)
-        res = safeopt_step(kernels, mirrors, step_grid, fmin,
-                           beta_stream[t], scaling, threshold, lipschitz,
-                           ucb=ucb, use_lipschitz=use_lipschitz, chunk=chunk)
-        x = grid64.index_select(0, res.next_idx.reshape(1))[0]    # (d,)
-        y = torch.stack([(f(x) if objective_args is None
-                          else f(x, objective_args)).to(torch.float64)
-                         .reshape(()) for f in objectives])
-        y = y + noise_std * noise[t]
-        new = []
-        for i, (kern, st) in enumerate(zip(kernels, states)):
-            grown = gp_append(kern, st, x, y[i])
-            _write_row(mirrors[i], grown, st.count)
-            new.append(grown)
-        states = tuple(new)
+        res = step(kernels, mirrors, step_grid, fmin, beta_stream[t],
+                   scaling, threshold, lipschitz, ucb=ucb,
+                   use_lipschitz=use_lipschitz, chunk=chunk)
+        x = grid64.index_select(0, res.next_idx.reshape(-1))   # (K, d)
+        x = x if lead else x[0]
+        y = _evaluate(objectives, x, objective_args)
+        y = y + noise_std * noise[..., t, :]
+        states = _append(kernels, states, mirrors, x, y)
         xs.append(x)
         ys.append(y)
         idxs.append(res.next_idx)
@@ -181,11 +260,13 @@ def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
         has.append(res.has_safe)
         syncs.append(host_syncs.count - before)
         chunks.append(res.walk_chunks)
+    at = len(lead)
     return BOLoopResult(
-        states=states, xs=torch.stack(xs), ys=torch.stack(ys),
-        next_idx=torch.stack(idxs), safe_counts=torch.stack(safe),
-        has_safe=torch.stack(has), host_syncs=torch.tensor(syncs),
-        walk_chunks=torch.tensor(chunks))
+        states=states, xs=torch.stack(xs, dim=at),
+        ys=torch.stack(ys, dim=at), next_idx=torch.stack(idxs, dim=at),
+        safe_counts=torch.stack(safe, dim=at),
+        has_safe=torch.stack(has, dim=at), host_syncs=torch.tensor(syncs),
+        walk_chunks=torch.tensor(chunks).movedim(0, -1))
 
 
 class SwarmLoopResult(NamedTuple):
@@ -217,6 +298,27 @@ def _per_iteration(source, shape, dtype, device, what):
         raise ValueError(f"{what}: shape {tuple(source.shape)}, want "
                          f"{tuple(shape)}")
     return source
+
+
+def _swarm_pack(st0: GPState, beta, blb, greedy, dtype) -> torch.Tensor:
+    """The fused iteration's scalar pack: beta, the best lower bound, the
+    greedy swarm's special particles (the most recent and the best
+    observation, read from the first GP's float64 rows on the device) and
+    the greedy point; (K, P) for batched states, else (P,)."""
+    lead = st0.X.shape[:-2]
+    X = st0.X.reshape(-1, *st0.X.shape[-2:])
+    Y = st0.Y.reshape(-1, *st0.Y.shape[-2:])
+    cnt = st0.count.reshape(-1)
+    K, cap = X.shape[:2]
+    ar = torch.arange(K, device=X.device)
+    last_x = X[ar, cnt - 1]
+    y_col = torch.where(torch.arange(cap, device=X.device) < cnt[:, None],
+                        Y[:, :, 0], float("-inf"))
+    best_x = X[ar, torch.argmax(y_col, dim=1)]
+    head = torch.stack([beta.expand(K), blb.reshape(K)], dim=1)
+    pack = torch.cat([head, last_x.to(dtype), best_x.to(dtype),
+                      greedy.reshape(K, -1)], dim=1)
+    return pack.reshape(*lead, -1)
 
 
 def run_swarmopt_loop(kernels, states, iter_state, velocity_scale, bounds,
@@ -275,6 +377,16 @@ def run_swarmopt_loop(kernels, states, iter_state, velocity_scale, bounds,
         a resumed or repeated loop replays its graph instead of capturing
         it again.
 
+    A fleet of K campaigns: ``states`` (each GP's fields), ``iter_state``,
+    ``greedy0`` (K, d) and ``blb0`` (K,) with a leading campaign axis,
+    ``streams`` (K, n_iter, U) and ``noise`` (K, n_iter, G) (or
+    generators drawn once in those shapes), ``objective_args`` per
+    campaign as in ``run_safeopt_loop``; ``betas`` and the constants are
+    shared. Each iteration then runs ``fleet_swarm_optimize`` (on the card
+    one replay of one CUDA graph for the whole fleet; a capture that fails
+    raises), and the result's tensors have the leading campaign axis,
+    except ``host_syncs`` (T,).
+
     Exact GPs only: the greedy swarm's special particles (the most
     recent and the best observation) are read from the float64 states'
     padded X/Y rows, which hold inducing points for sparse models. As in
@@ -284,30 +396,28 @@ def run_swarmopt_loop(kernels, states, iter_state, velocity_scale, bounds,
     """
     from .swarm_opt import _ship, device_kernel
     from .swarm_opt_fused import (FusedSwarmGraph, SwarmIterState,
-                                  fused_swarm_optimize, graph_key,
-                                  split_streams, stream_layout)
+                                  fleet_swarm_optimize, fused_swarm_optimize,
+                                  graph_key, split_streams, stream_layout)
 
     n_iter = int(n_iter)
     G = len(kernels)
     dev = iter_state.S.device
     dtype = iter_state.S.dtype
-    d = iter_state.S.shape[1]
-    if any(st.X.dtype != torch.float64 for st in states):
-        raise TypeError("run_swarmopt_loop takes float64 factor states "
-                        "(GPRegression.factor_state()): the factor math "
-                        "stays in float64")
+    lead = tuple(iter_state.S.shape[:-2])       # (K,) for a fleet, else ()
+    d = iter_state.S.shape[-1]
+    _check_float64(states, "run_swarmopt_loop")
+    if tuple(states[0].X.shape[:-2]) != lead:
+        raise ValueError(f"GP states of campaign axes "
+                         f"{tuple(states[0].X.shape[:-2])}, safe-set buffers "
+                         f"of {lead}")
+    step = fleet_swarm_optimize if lead else fused_swarm_optimize
     if graph is None:
         graph = dev.type == "cuda"
     layout = stream_layout(swarm_size, max_iters, d, ucb)
     n_u = sum(int(np.prod(shape)) for _, shape in layout)
-    streams = _per_iteration(streams, (n_iter, n_u), dtype, dev, "streams")
-    if noise is None:
-        if noise_std:
-            raise ValueError("noise_std needs a noise tensor or generator")
-        noise = torch.zeros((n_iter, G), dtype=torch.float64, device=dev)
-    else:
-        noise = _per_iteration(noise, (n_iter, G), torch.float64, dev,
-                               "noise")
+    streams = _per_iteration(streams, lead + (n_iter, n_u), dtype, dev,
+                             "streams")
+    noise = _noise(noise, lead + (n_iter, G), noise_std, dev)
     betas = _ship(np.asarray(betas, dtype=float).reshape(n_iter), dtype,
                   dev)
     consts = [_ship(a, dtype, dev) for a in (velocity_scale, bounds, fmin,
@@ -317,53 +427,41 @@ def run_swarmopt_loop(kernels, states, iter_state, velocity_scale, bounds,
     states = tuple(states)
     mirrors = tuple(_mirror(st, dtype) for st in states)
     sstate = SwarmIterState(*iter_state)
-    greedy = _ship(greedy0, dtype, dev)
-    blb = _ship(blb0, dtype, dev)
+    greedy = _ship(greedy0, dtype, dev).reshape(*lead, d)
+    blb = _ship(blb0, dtype, dev).reshape(lead)
     kw = dict(swarm_size=swarm_size, max_iters=max_iters, ucb=ucb)
     graphs = {} if graph_cache is None else graph_cache
     xs, ys, blbs, counts, ns_min, syncs = ([] for _ in range(6))
     for t in range(n_iter):
         before = host_syncs.count
-        # the greedy specials from the device-resident observation rows
-        st0 = states[0]
-        cnt = st0.count
-        last_x = st0.X.index_select(0, (cnt - 1).reshape(1))[0]
-        y_col = torch.where(torch.arange(st0.capacity, device=dev) < cnt,
-                            st0.Y[:, 0], float("-inf"))
-        best_x = st0.X.index_select(0, torch.argmax(y_col).reshape(1))[0]
-        pack = torch.cat([torch.stack([betas[t], blb]), last_x.to(dtype),
-                          best_x.to(dtype), greedy])
+        pack = _swarm_pack(states[0], betas[t], blb, greedy, dtype)
         args = (step_kernels, mirrors, sstate,
-                split_streams(streams[t], layout), *consts, pack)
+                split_streams(streams[..., t, :], layout), *consts, pack)
         if not graph:
-            out = fused_swarm_optimize(*args, **kw)
+            out = step(*args, **kw)
         else:
             key = graph_key(*args[:3], **kw)
             if key not in graphs:
                 graphs[key] = FusedSwarmGraph(*args, **kw)
             out = graphs[key].replay(*args)
 
-        x = out.x_next.to(torch.float64)
-        y = torch.stack([(f(x) if objective_args is None
-                          else f(x, objective_args)).to(torch.float64)
-                         .reshape(()) for f in objectives])
-        y = y + noise_std * noise[t]
-        new = []
-        for i, (kern, st) in enumerate(zip(kernels64, states)):
-            grown = gp_append(kern, st, x, y[i])
-            _write_row(mirrors[i], grown, st.count)
-            new.append(grown)
-        states = tuple(new)
+        x = out.x_next.to(torch.float64)                   # (K, d) or (d,)
+        y = _evaluate(objectives, x, objective_args)
+        y = y + noise_std * noise[..., t, :]
+        states = _append(kernels64, states, mirrors, x, y)
         sstate, greedy, blb = out.state, out.state.greedy, \
             out.best_lower_bound
         xs.append(x)
         ys.append(y)
         blbs.append(out.best_lower_bound)
         counts.append(out.state.count)
-        ns_min.append(torch.min(out.num_safe))
+        ns_min.append(torch.amin(out.num_safe, dim=-1))
         syncs.append(host_syncs.count - before)
+    at = len(lead)
     return SwarmLoopResult(
-        states=states, iter_state=sstate, xs=torch.stack(xs),
-        ys=torch.stack(ys), best_lower_bounds=torch.stack(blbs),
-        safe_counts=torch.stack(counts), num_safe_min=torch.stack(ns_min),
+        states=states, iter_state=sstate, xs=torch.stack(xs, dim=at),
+        ys=torch.stack(ys, dim=at),
+        best_lower_bounds=torch.stack(blbs, dim=at),
+        safe_counts=torch.stack(counts, dim=at),
+        num_safe_min=torch.stack(ns_min, dim=at),
         host_syncs=torch.tensor(syncs))

@@ -45,6 +45,7 @@ raises the reference's RuntimeError after the single pull.
 
 from __future__ import annotations
 
+import warnings
 from functools import partial
 from typing import Dict, NamedTuple, Sequence, Tuple
 
@@ -56,7 +57,8 @@ from .swarm_core import swarm_scan
 from .swarm_opt import _SWARM_TYPES, _particle_fitness
 
 __all__ = ["SwarmIterState", "SwarmIterOut", "fused_swarm_optimize",
-           "FusedSwarmGraph", "graph_key", "stream_layout", "split_streams"]
+           "fleet_swarm_optimize", "FusedSwarmGraph", "graph_key",
+           "stream_layout", "split_streams"]
 
 
 class SwarmIterState(NamedTuple):
@@ -112,13 +114,14 @@ def stream_layout(swarm_size: int, max_iters: int, d: int,
 
 
 def split_streams(flat: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
-    """Views of a flat uniform tensor, one per entry of ``layout``."""
+    """Views of a flat uniform tensor, one per entry of ``layout``; a
+    leading campaign axis (K, U) gives (K, *shape) views."""
     out, at = {}, 0
     for name, shape in layout:
         n = 1
         for s in shape:
             n *= s
-        out[name] = flat[at:at + n].view(shape)
+        out[name] = flat[..., at:at + n].view(flat.shape[:-1] + shape)
         at += n
     return out
 
@@ -196,7 +199,7 @@ def _grow_safe_set(kernel0, scaling0, S, count, best_positions):
     active = torch.arange(cap, device=S.device) < count
     free = ~(near[:, :cap] & active).any(dim=1)
     near_c = near[:, cap:]
-    accepted = torch.zeros(swarm, dtype=torch.bool, device=S.device)
+    accepted = torch.zeros_like(free)     # batched with ``free`` under vmap
     for j in range(swarm):
         accepted[j] = free[j] & ~(near_c[j] & accepted).any()
     rank = torch.cumsum(accepted, 0)
@@ -315,6 +318,36 @@ def fused_swarm_optimize(kernels, states, state: SwarmIterState, streams,
                         ns, npr, na, count))
 
 
+def fleet_swarm_optimize(kernels, states, state: SwarmIterState, streams,
+                         velocity_scale, bounds, fmin, scaling, threshold,
+                         scalar_pack, *, swarm_size: int, max_iters: int,
+                         ucb: bool = False) -> SwarmIterOut:
+    """``fused_swarm_optimize`` of K independent campaigns, as one batched
+    program: ``torch.func.vmap`` over the leading campaign axis of
+    ``states`` (each GP's fields), ``state``, ``streams`` (each (K,
+    *shape)) and ``scalar_pack`` (K, P), the counterpart of the JAX
+    package's ``jax.vmap`` (``parallel/campaigns.py:157-162``); the kernels
+    and the constants are shared. Every kernel of the iteration runs once
+    for all K campaigns, K times wider; the outputs have the leading axis.
+    (The order-preserving scatters, ``index_copy_``, run per campaign under
+    vmap's fallback.)"""
+    def one(sts, st, sm, pack):
+        return fused_swarm_optimize(kernels, sts, st, sm, velocity_scale,
+                                    bounds, fmin, scaling, threshold, pack,
+                                    swarm_size=swarm_size,
+                                    max_iters=max_iters, ucb=ucb)
+
+    states = tuple(states)
+    # the fields a caller leaves None (the graph's static copies hold only
+    # those gp_predict reads) are not batched
+    dims = tuple(type(st)(*(None if f is None else 0 for f in st))
+                 for st in states)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*performance drop.*")
+        return torch.func.vmap(one, in_dims=(dims, 0, 0, 0))(
+            states, state, streams, scalar_pack)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA graph
 # ---------------------------------------------------------------------------
@@ -339,9 +372,10 @@ def _kernel_key(kernel: Kernel):
 
 def graph_key(kernels, states, state: SwarmIterState, *, swarm_size: int,
               max_iters: int, ucb: bool = False):
-    """The key of ``FusedSwarmGraph``: everything a capture bakes in."""
+    """The key of ``FusedSwarmGraph``: everything a capture bakes in (a
+    fleet's K stands in the safe set's shape, (K, cap, d))."""
     return (bool(ucb), len(kernels),
-            tuple((st.capacity, _kernel_key(k))
+            tuple((st.X.shape[-2], _kernel_key(k))
                   for k, st in zip(kernels, states)),
             tuple(state.S.shape), int(swarm_size), int(max_iters),
             state.S.dtype, state.S.device)
@@ -353,7 +387,10 @@ def _copy_into(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]):
 
 
 class FusedSwarmGraph:
-    """``fused_swarm_optimize`` captured as one CUDA graph.
+    """``fused_swarm_optimize`` captured as one CUDA graph (for a safe set
+    with a leading campaign axis, ``fleet_swarm_optimize``: the K
+    campaigns' batched iteration as one graph, replayed once per fleet
+    step).
 
     The constructor allocates static copies of every operand, runs the
     iteration once eagerly on a side stream (the lazy initialisations,
@@ -389,7 +426,9 @@ class FusedSwarmGraph:
         self._consts = [t.clone() for t in (velocity_scale, bounds, fmin,
                                              scaling, threshold,
                                              scalar_pack)]
-        run = partial(fused_swarm_optimize, kernels_s, tuple(self._states),
+        run = partial(fleet_swarm_optimize if state.S.dim() == 3
+                      else fused_swarm_optimize, kernels_s,
+                      tuple(self._states),
                       self._state, self._streams, *self._consts,
                       swarm_size=swarm_size, max_iters=max_iters, ucb=ucb)
 

@@ -41,8 +41,8 @@ _SIGNATURES = {
     "safeopt_intervals_f64": [_P] * 7 + [_I] * 5 + [_P],
     "safeopt_intervals3_f32": [_P] * 7 + [_I] * 5 + [_P],
     "safeopt_intervals3_f64": [_P] * 7 + [_I] * 5 + [_P],
-    "safeopt_expander_f32": [_P] * 11 + [_I] * 6 + [_P],
-    "safeopt_expander_f64": [_P] * 11 + [_I] * 6 + [_P],
+    "safeopt_expander_f32": [_P] * 11 + [_I] * 7 + [_P],
+    "safeopt_expander_f64": [_P] * 11 + [_I] * 7 + [_P],
     "safeopt_intervals_plan_f32": [_P] * 9 + [_I] * 4 + [_P],
     "safeopt_intervals_plan_f64": [_P] * 9 + [_I] * 4 + [_P],
     "safeopt_intervals_plan3_f32": [_P] * 9 + [_I] * 4 + [_P],

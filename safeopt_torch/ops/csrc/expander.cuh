@@ -259,6 +259,19 @@ __device__ __forceinline__ void piece_steps(T (&acc)[kExTM][kExTN],
   }
 }
 
+// The unsafe flag of point i for GP g: one mask (N,) for every GP, or
+// (kRows) a mask per GP (G, N), whose row is indexed as mu's and sigma's
+// are (a row index or pointer held across the loops made the float32
+// CW=32 instance spill).
+template <bool kRows>
+__device__ __forceinline__ bool unsafe_at(
+    const unsigned char* __restrict__ unsafe, int g, int N, int i) {
+  if constexpr (kRows)
+    return unsafe[(size_t)g * N + i] != 0;
+  else
+    return unsafe[i] != 0;
+}
+
 // Hit flags out[g] (C,) of GP g of the launch's operands (as K3 lays them
 // out: GP g's rows of mu, sigma (G, N), ils (G, d), xs (G, cap, d), xc (G,
 // C, d), M2 (G, C, cap), cv (G, 3, C) with rows [inv_dd, gain, valid]); ils
@@ -266,7 +279,7 @@ __device__ __forceinline__ void piece_steps(T (&acc)[kExTM][kExTN],
 // of CW candidates. The GP's rows are indexed where they are read, not
 // held as pointers: eight 64-bit pointers live across the loops made the
 // float32 instance spill.
-template <typename T, int CW, class Gram>
+template <typename T, int CW, bool kRows = false, class Gram>
 __device__ __forceinline__ void candidate_hits(
     const T* __restrict__ zt, const T* __restrict__ ils,
     const unsigned char* __restrict__ unsafe, const T* __restrict__ mu,
@@ -320,7 +333,7 @@ __device__ __forceinline__ void candidate_hits(
 #pragma unroll
       for (int jj = 0; jj < kExTN; ++jj) {
         const int i = i0 + pg + PG * jj;
-        any = any || (i < N && unsafe[i] != 0);
+        any = any || (i < N && unsafe_at<kRows>(unsafe, g, N, i));
       }
       const bool work = __any_sync(0xffffffffu, any);
       // no unsafe point in the warp's slice: while M2 is all resident the
@@ -402,7 +415,7 @@ __device__ __forceinline__ void candidate_hits(
         for (int jj = 0; jj < kExTN; ++jj) {
           const int p = pg + PG * jj;
           const int i = i0 + p;
-          if (i >= N || unsafe[i] == 0) continue;
+          if (i >= N || !unsafe_at<kRows>(unsafe, g, N, i)) continue;
           const T mu_p = mu[(size_t)g * N + i], sg = sigma[(size_t)g * N + i];
           const T s2 = sg * sg;
 #pragma unroll

@@ -24,14 +24,20 @@
 // output the wrapper zeroes, tiles with no unsafe point skipped), with
 // the points scaled by the GP's inverse lengthscales and the
 // StationaryGram policy; the GP is the grid's y axis, and each GP's count
-// comes from its scal row.
+// comes from its scal row. One mask for every GP (a SafeOpt step's safe
+// set) runs expander_kernel; a mask per GP (unsafe (G, N): a fleet's walk
+// round, each campaign's mask repeated for its GPs, as the TPU kernel
+// reads each campaign's mask under jax.vmap) runs expander_rows_kernel,
+// the same body reading GP g's row.
 
 #include "expander.cuh"
 
 namespace safeopt {
 
-template <typename T, int CW>
-__global__ void __launch_bounds__(kThreads, kExBlocks<T, CW>) expander_kernel(
+// The body of one block: GP g = blockIdx.y against one mask `unsafe` (N,)
+// or (kRows) its own row of `unsafe` (G, N).
+template <typename T, int CW, bool kRows>
+__device__ __forceinline__ void expander_block(
     const T* __restrict__ zt, const unsigned char* __restrict__ unsafe,
     const T* __restrict__ mu, const T* __restrict__ sigma,
     const T* __restrict__ ils, const T* __restrict__ xs,
@@ -41,28 +47,66 @@ __global__ void __launch_bounds__(kThreads, kExBlocks<T, CW>) expander_kernel(
   const int g = blockIdx.y;
   const int count = (int)scal[g * 4 + 1];
   const int n = count < 0 ? 0 : (count < cap ? count : cap);
-  candidate_hits<T, CW>(zt, ils, unsafe, mu, sigma, xs, xc, m2, cvec,
-                        scal[g * 4 + 2], scal[g * 4 + 3], out, N, d, cap, C,
-                        n, g, StationaryGram<T>{kind, scal[g * 4 + 0]});
+  candidate_hits<T, CW, kRows>(zt, ils, unsafe, mu, sigma, xs, xc, m2, cvec,
+                               scal[g * 4 + 2], scal[g * 4 + 3], out, N, d,
+                               cap, C, n, g,
+                               StationaryGram<T>{kind, scal[g * 4 + 0]});
 }
 
+// One mask (N,) for every GP of the launch: one SafeOpt step's safe set.
+template <typename T, int CW>
+__global__ void __launch_bounds__(kThreads, kExBlocks<T, CW>) expander_kernel(
+    const T* __restrict__ zt, const unsigned char* __restrict__ unsafe,
+    const T* __restrict__ mu, const T* __restrict__ sigma,
+    const T* __restrict__ ils, const T* __restrict__ xs,
+    const T* __restrict__ xc, const T* __restrict__ m2,
+    const T* __restrict__ cvec, const T* __restrict__ scal,
+    int* __restrict__ out, int N, int d, int cap, int C, int kind) {
+  expander_block<T, CW, false>(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec,
+                               scal, out, N, d, cap, C, kind);
+}
+
+// A mask per GP, `unsafe` (G, N): a fleet's walk round, each campaign's
+// GPs reading its own safe set.
+template <typename T, int CW>
+__global__ void __launch_bounds__(kThreads, kExBlocks<T, CW>)
+    expander_rows_kernel(
+        const T* __restrict__ zt, const unsigned char* __restrict__ unsafe,
+        const T* __restrict__ mu, const T* __restrict__ sigma,
+        const T* __restrict__ ils, const T* __restrict__ xs,
+        const T* __restrict__ xc, const T* __restrict__ m2,
+        const T* __restrict__ cvec, const T* __restrict__ scal,
+        int* __restrict__ out, int N, int d, int cap, int C, int kind) {
+  expander_block<T, CW, true>(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec,
+                              scal, out, N, d, cap, C, kind);
+}
+
+// rows: 0 for one mask (N,), 1 for a mask per GP (G, N).
 template <typename T>
 int launch_expander(const T* zt, const unsigned char* unsafe, const T* mu,
                     const T* sigma, const T* ils, const T* xs, const T* xc,
                     const T* m2, const T* cvec, const T* scal, int* out,
-                    int G, int N, int d, int cap, int C, int kind,
+                    int G, int N, int d, int cap, int C, int kind, int rows,
                     cudaStream_t stream) {
   if (G < 1 || N < 1 || C < 1) return 0;  // nothing to test
   return with_pass_width(C, [&](auto cw) {
     constexpr int CW = decltype(cw)::value;
     const ExLayout<T, CW> lay(cap, d);
     dim3 grid;
-    const int err = expander_grid(expander_kernel<T, CW>, lay.bytes,
-                                  lay.TP, G, N, grid);
+    const int err =
+        rows ? expander_grid(expander_rows_kernel<T, CW>, lay.bytes, lay.TP,
+                             G, N, grid)
+             : expander_grid(expander_kernel<T, CW>, lay.bytes, lay.TP, G,
+                             N, grid);
     if (err) return err;
-    expander_kernel<T, CW><<<grid, kThreads, lay.bytes, stream>>>(
-        zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, out, N, d, cap,
-        C, kind);
+    if (rows)
+      expander_rows_kernel<T, CW><<<grid, kThreads, lay.bytes, stream>>>(
+          zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, out, N, d, cap,
+          C, kind);
+    else
+      expander_kernel<T, CW><<<grid, kThreads, lay.bytes, stream>>>(
+          zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, out, N, d, cap,
+          C, kind);
     return (int)cudaGetLastError();
   });
 }
@@ -71,17 +115,18 @@ int launch_expander(const T* zt, const unsigned char* unsafe, const T* mu,
 
 extern "C" {
 
-// m2 is M2 row-major (G, C, cap); scal[g, 1] is GP g's count.
+// m2 is M2 row-major (G, C, cap); scal[g, 1] is GP g's count; unsafe is
+// (N,) with rows == 0, (G, N) with rows == 1.
 int safeopt_expander_f32(const void* zt, const void* unsafe, const void* mu,
                          const void* sigma, const void* ils, const void* xs,
                          const void* xc, const void* m2, const void* cvec,
                          const void* scal, void* out, int G, int N, int d,
-                         int cap, int C, int kind, void* stream) {
+                         int cap, int C, int kind, int rows, void* stream) {
   return safeopt::launch_expander<float>(
       (const float*)zt, (const unsigned char*)unsafe, (const float*)mu,
       (const float*)sigma, (const float*)ils, (const float*)xs,
       (const float*)xc, (const float*)m2, (const float*)cvec,
-      (const float*)scal, (int*)out, G, N, d, cap, C, kind,
+      (const float*)scal, (int*)out, G, N, d, cap, C, kind, rows,
       (cudaStream_t)stream);
 }
 
@@ -89,12 +134,12 @@ int safeopt_expander_f64(const void* zt, const void* unsafe, const void* mu,
                          const void* sigma, const void* ils, const void* xs,
                          const void* xc, const void* m2, const void* cvec,
                          const void* scal, void* out, int G, int N, int d,
-                         int cap, int C, int kind, void* stream) {
+                         int cap, int C, int kind, int rows, void* stream) {
   return safeopt::launch_expander<double>(
       (const double*)zt, (const unsigned char*)unsafe, (const double*)mu,
       (const double*)sigma, (const double*)ils, (const double*)xs,
       (const double*)xc, (const double*)m2, (const double*)cvec,
-      (const double*)scal, (int*)out, G, N, d, cap, C, kind,
+      (const double*)scal, (int*)out, G, N, d, cap, C, kind, rows,
       (cudaStream_t)stream);
 }
 

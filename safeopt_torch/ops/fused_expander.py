@@ -12,6 +12,13 @@ has a lower bound at or above ``fmin_g``:
     l2     = mu + E * gain - beta * sqrt(max(sigma^2 - E^2, 0))
     out    = any over z of (unsafe & l2 >= fmin & valid)     -> (G, C)
 
+One launch takes one ``unsafe`` mask (N,) for all G GPs (a SafeOpt
+step), or one per campaign, (R, N) with GP g reading row g // (G / R): a
+fleet's walk round (``algorithms/fleet_core.py``), as the TPU kernel
+reads each campaign's mask under ``jax.vmap``. The CUDA kernel reads the
+latter as a row per GP (``expander_rows_kernel``; the wrapper repeats
+each campaign's row for its GPs).
+
 K4 is the counterpart of ``:44-226`` (``_expander_kernel`` /
 ``fused_expander_predicate``): the same (C,) predicate for ONE GP whose
 kernel K2 takes, with both grams from its plan
@@ -37,6 +44,7 @@ from .fused_posterior import (KINDS, PLAIN_COLS, check_operands, float_dtype,
                               plan_gram, ptr, raise_on_error)
 
 __all__ = ["expander_operands", "fused_expander", "fused_expander_plain",
+           "mask_rows", "candidate_terms", "fleet_expander_operands",
            "fused_expander_predicate_batched", "expander_plan_operands",
            "fused_expander_plan", "fused_expander_plan_plain",
            "fused_expander_predicate_single"]
@@ -85,6 +93,42 @@ def expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc, ucs,
             torch.stack(cvec).contiguous(), scal, kind)
 
 
+def fleet_expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc,
+                            ucs, valid, beta, fmin):
+    """K3's operands for the same g GPs in each of R campaigns, every
+    campaign with its own candidates and mask: ``states`` holds each GP's
+    fields with a leading campaign axis R; ``unsafe`` (R, N); ``mus`` /
+    ``sigmas`` (R, g, N); ``Xc`` (R, C, d); ``ucs`` (R, g, C); ``valid``
+    (R, C); ``fmin`` (g,). GP j of campaign r is the launch's GP ``r g +
+    j`` and reads mask row r. The candidate terms are
+    ``candidate_terms``'s, batched over the campaigns (``torch.func.vmap``:
+    batched products)."""
+    N, d = grid.shape
+    R, C, _ = Xc.shape
+    g = len(kernels)
+    cap = states[0].X.shape[1]
+    kind = kind_of(kernels)
+    ls = lengthscales(kernels, d, grid)                     # (g, d)
+    terms = [torch.func.vmap(candidate_terms, in_dims=(None, 0, 0, 0, 0))(
+        kern, st, Xc, ucs[:, j], valid)
+        for j, (kern, st) in enumerate(zip(kernels, states))]
+    m2 = torch.stack([m for m, _ in terms], dim=1)          # (R, g, C, cap)
+    cvec = torch.stack([c for _, c in terms], dim=1)        # (R, g, 3, C)
+    scal = torch.tensor([[float(k.variance), float(k.variance),
+                          float(beta), 0.0] for k in kernels] * R,
+                        dtype=grid.dtype, device=grid.device)
+    scal[:, 1] = torch.stack([st.count for st in states], dim=1).reshape(-1)
+    scal[:, 3] = fmin.repeat(R)
+    xs = torch.stack([st.X for st in states], dim=1) / ls[None, :, None, :]
+    xc = Xc[:, None, :, :] / ls[None, :, None, :]
+    return (grid.T.contiguous(), unsafe.contiguous(),
+            mus.reshape(R * g, N).contiguous(),
+            sigmas.reshape(R * g, N).contiguous(), (1.0 / ls).repeat(R, 1),
+            xs.reshape(R * g, cap, d), xc.reshape(R * g, C, d),
+            m2.reshape(R * g, C, cap).contiguous(),
+            cvec.reshape(R * g, 3, C).contiguous(), scal, kind)
+
+
 def candidate_hits(gram_at, xs, xc, unsafe, mu, sigma, m2, cvec, beta,
                    fmin) -> torch.Tensor:
     """(C,) plain expander predicate of one GP; ``gram_at(a, s, e)`` is
@@ -104,26 +148,41 @@ def candidate_hits(gram_at, xs, xc, unsafe, mu, sigma, m2, cvec, beta,
     return out
 
 
+def mask_rows(unsafe, G: int) -> int:
+    """GPs per row of ``unsafe``: (N,) is one mask for all G GPs, (R, N)
+    one mask per campaign of G / R GPs each (campaign-major: GP g reads
+    row g // (G / R))."""
+    R = 1 if unsafe.dim() == 1 else unsafe.shape[0]
+    if unsafe.dim() not in (1, 2) or R < 1 or G % R:
+        raise ValueError(f"unsafe of shape {tuple(unsafe.shape)} does not "
+                         f"split {G} GPs into equal campaigns")
+    return G // R
+
+
 def fused_expander_plain(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal,
                          kind):
     """Plain PyTorch version of K3: same operands, same function."""
+    G = xs.shape[0]
+    gpr = mask_rows(unsafe, G)
+    rows = unsafe.reshape(-1, zt.shape[1])
     return torch.stack([
         candidate_hits(lambda a, s, e, g=g: gram(kind, a,
                                                  zt[:, s:e] * ils[g][:, None],
                                                  scal[g, 0]),
-                       xs[g], xc[g], unsafe, mu[g], sigma[g], m2[g], cvec[g],
-                       scal[g, 2], scal[g, 3])
-        for g in range(xs.shape[0])])
+                       xs[g], xc[g], rows[g // gpr], mu[g], sigma[g], m2[g],
+                       cvec[g], scal[g, 2], scal[g, 3])
+        for g in range(G)])
 
 
 def fused_expander(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, kind):
     """(G, C) bool expander predicates: K3 on CUDA, the plain version on
     CPU. Operands as built by ``expander_operands``; ``m2`` (G, C, cap)
     is read in its own layout; ``scal`` (G, 4) = [variance, count, beta,
-    fmin]. The kernel reads training rows and columns of ``m2`` below
-    each GP's count only: past it ``m2`` must be zero, as it is for the
-    masked factor. Adds one to ``fused_expander.launches`` per kernel
-    launch."""
+    fmin]; ``unsafe`` (N,) one mask for every GP, or (R, N) one per
+    campaign of G / R GPs (``mask_rows``). The kernel reads training rows
+    and columns of ``m2`` below each GP's count only: past it ``m2`` must
+    be zero, as it is for the masked factor. Adds one to
+    ``fused_expander.launches`` per kernel launch."""
     if zt.device.type == "cpu":
         return fused_expander_plain(zt, unsafe, mu, sigma, ils, xs, xc, m2,
                                     cvec, scal, kind)
@@ -135,12 +194,21 @@ def fused_expander(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, kind):
     dtype = float_dtype(zt, "K3")
     if kind not in KINDS.values():
         raise ValueError(f"unknown kernel kind {kind}")
+    gpr = mask_rows(unsafe, G)
     check_operands(
         dict(zt=zt, unsafe=unsafe, mu=mu, sigma=sigma, ils=ils, xs=xs,
              xc=xc, m2=m2, cvec=cvec, scal=scal), zt.device, dtype,
-        dict(zt=(d, N), unsafe=(N,), mu=(G, N), sigma=(G, N), ils=(G, d),
-             xs=(G, cap, d), xc=(G, C, d), m2=(G, C, cap), cvec=(G, 3, C),
-             scal=(G, 4)))
+        dict(zt=(d, N), unsafe=(N,) if unsafe.dim() == 1 else (G // gpr, N),
+             mu=(G, N), sigma=(G, N), ils=(G, d), xs=(G, cap, d),
+             xc=(G, C, d), m2=(G, C, cap), cvec=(G, 3, C), scal=(G, 4)))
+    # the kernel reads one mask, or a row per GP: a campaign's mask is
+    # repeated for its GPs (a row index held in the kernel made its float32
+    # instance spill)
+    rows = int(unsafe.dim() == 2 and gpr < G)
+    if rows:
+        unsafe = unsafe.repeat_interleave(gpr, dim=0)
+    elif unsafe.dim() == 2:
+        unsafe = unsafe[0]
     out = torch.zeros((G, C), dtype=torch.int32, device=zt.device)
 
     from ._build import library
@@ -151,7 +219,7 @@ def fused_expander(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec, scal, kind):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(ptr(zt), ptr(unsafe), ptr(mu), ptr(sigma), ptr(ils),
                  ptr(xs), ptr(xc), ptr(m2), ptr(cvec), ptr(scal), ptr(out),
-                 G, N, d, cap, C, kind, ctypes.c_void_p(stream))
+                 G, N, d, cap, C, kind, rows, ctypes.c_void_p(stream))
     raise_on_error(err, "K3 (fused_expander)")
     fused_expander.launches += 1
     return out != 0

@@ -81,7 +81,8 @@ from ..gp.regression import row_mask
 __all__ = ["KINDS", "LEAF_KINDS", "kind_of", "supports_kernel",
            "supports_plan", "terms_of",
            "part_plan", "round_limb", "split_limbs", "kernel_gram",
-           "kernel_plan_gram", "interval_operands", "factor_chunks",
+           "kernel_plan_gram", "interval_operands",
+           "fleet_interval_operands", "factor_chunks",
            "fused_intervals",
            "fused_intervals_plain", "fused_intervals3",
            "fused_intervals3_plain", "fused_intervals_batched",
@@ -337,6 +338,31 @@ def interval_operands(kernels, states, grid: torch.Tensor, beta):
     w = torch.stack([st.w for st in states])
     return (grid.T.contiguous(), (1.0 / ls).contiguous(), xs.contiguous(),
             lm.contiguous(), w.contiguous(), scal, kind)
+
+
+def fleet_interval_operands(kernels, states, grid: torch.Tensor, beta):
+    """K1's operands for the same g GPs in each of K campaigns: ``states``
+    holds each GP's fields with a leading campaign axis K, and GP j of
+    campaign k is the launch's GP ``k g + j``. Every operand of a GP is
+    ``interval_operands``'s, built with one stack per field."""
+    n, d = grid.shape
+    K, g = states[0].X.shape[0], len(kernels)
+    cap = states[0].X.shape[1]
+    kind = kind_of(kernels)
+    ls = lengthscales(kernels, d, grid)                     # (g, d)
+    scal = torch.tensor([[float(k.variance), float(k.variance),
+                          float(beta), 0.0] for k in kernels] * K,
+                        dtype=grid.dtype, device=grid.device)
+    counts = torch.stack([st.count for st in states], dim=1)  # (K, g)
+    scal[:, 3] = counts.reshape(-1)
+    mask = (torch.arange(cap, device=grid.device)
+            < counts[..., None]).to(grid.dtype)              # (K, g, cap)
+    xs = torch.stack([st.X for st in states], dim=1) / ls[None, :, None, :]
+    lm = torch.stack([st.Linv for st in states], dim=1) * mask[:, :, None, :]
+    w = torch.stack([st.w for st in states], dim=1)
+    return (grid.T.contiguous(), (1.0 / ls).repeat(K, 1),
+            xs.reshape(K * g, cap, d), lm.reshape(K * g, cap, cap),
+            w.reshape(K * g, cap), scal, kind)
 
 
 def interval_rows(gram_at, lm, w, kdiag, beta, N: int) -> torch.Tensor:

@@ -1271,3 +1271,109 @@ def test_swarm_loop_runs_sync_free_and_matches_eager(cuda):
     torch.testing.assert_close(with_graph.xs, eager.xs, rtol=0, atol=1e-6)
     assert with_graph.host_syncs.tolist() == [0] * 5
     assert [int(s.count) for s in with_graph.states] == [8, 8]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_expander_fleet_launch_matches_plain_and_solo_launches(cuda, dtype):
+    """K3 with a mask per campaign: three campaigns of two RBF GPs, the
+    second campaign's mask a random half of the first's and the third's
+    all False. The fleet launch equals the three single-mask launches
+    bitwise, its plain version in float64 (in float32 outside the 1e-3
+    band), and the all-False campaign's rows are all False."""
+    gps, grid = _gps("RBF", 2, 64, cuda, dtype)
+    kerns, states = [g.kern for g in gps], [g.state for g in gps]
+    fmin = torch.tensor([0.4, 0.6], dtype=dtype, device=cuda)
+    beta = 2.0
+    out = fp.fused_intervals_plain(*fp.interval_operands(kerns, states, grid,
+                                                         beta))
+    l, u = out[:, 0], out[:, 1]
+    mu, sigma = (l + u) / 2, (u - l) / (2 * beta)
+    safe = torch.all(l > fmin[:, None], dim=0)
+    half = torch.rand(safe.shape, generator=torch.Generator(cuda)
+                      .manual_seed(0), device=cuda) < 0.5
+    masks = torch.stack([~safe, ~safe & half, torch.zeros_like(safe)])
+    safe_idx = torch.nonzero(safe).squeeze(1)
+    cand = safe_idx[torch.linspace(0, safe_idx.numel() - 1, 37,
+                                   device=cuda).long()]
+    valid = torch.ones(cand.numel(), dtype=torch.bool, device=cuda)
+    valid[-1] = False
+    solo = [fe.expander_operands(kerns, states, grid, m, mu, sigma,
+                                 grid[cand], u[:, cand], valid, beta, fmin)
+            for m in masks]
+    fleet = tuple(torch.cat([o[i] for o in solo]) if 2 <= i <= 9
+                  else solo[0][i] for i in range(11))
+    fleet = fleet[:1] + (masks,) + fleet[2:]
+
+    def at(ops, shift):
+        scal = ops[9].clone()
+        scal[:, 3] += shift
+        return ops[:9] + (scal, ops[10])
+
+    seen = set()
+    for shift in (0.0, 0.3, 1.0):
+        got = fe.fused_expander(*at(fleet, shift))
+        each = torch.cat([fe.fused_expander(*at(o, shift)) for o in solo])
+        want = fe.fused_expander_plain(*at(fleet, shift))
+        torch.cuda.synchronize()
+        assert torch.equal(got, each)
+        assert not bool(got[4:].any()) and not bool(got[:, -1].any())
+        seen.update(want[:4, :-1].flatten().tolist())
+        if dtype == torch.float64:
+            assert torch.equal(got, want)
+        else:
+            decided = (fe.fused_expander_plain(*at(fleet, shift - 1e-3))
+                       == fe.fused_expander_plain(*at(fleet, shift + 1e-3)))
+            assert not bool(((got != want) & decided).any())
+    assert seen == {True, False}
+
+
+def test_swarm_fleet_graph_equals_eager_sync_free(cuda):
+    """run_swarmopt_campaigns replaying one CUDA graph per fleet step, under
+    set_sync_debug_mode('error'), gives its batched eager run's queries
+    and safe sets bitwise, captures one graph and launches no grid
+    kernel."""
+    from safeopt_torch.algorithms.swarm_opt_fused import stream_layout
+    from safeopt_torch.parallel import (run_swarmopt_campaigns,
+                                        stack_campaign_states)
+
+    K, n_iter = 3, 4
+    per, iters, greedy = [], [], []
+    for k in range(K):
+        gps = _swarm_gps(capacity=16)
+        opt = pt.SafeOptSwarm(gps, fmin=[-np.inf, 0.0],
+                              bounds=[(-2.0, 2.0)] * 3, swarm_size=10,
+                              max_iters=20)
+        opt.reserve(n_iter)
+        per.append(tuple(g.factor_state() for g in gps))
+        iters.append(opt._S_dev)
+        greedy.append(torch.as_tensor(opt.greedy_point, dtype=torch.float32))
+    n_u = sum(int(np.prod(s)) for _, s in stream_layout(10, 20, 3))
+    flat = torch.rand((K, n_iter, n_u),
+                      generator=torch.Generator(cuda).manual_seed(4),
+                      device=cuda)
+    objectives = (lambda x: 2.0 * torch.exp(-0.5 * torch.sum(x * x)),
+                  lambda x: 1.0 - 0.05 * torch.sum(x * x))
+    graphs = {}
+
+    def run(graph):
+        return run_swarmopt_campaigns(
+            tuple(g.kern for g in gps), stack_campaign_states(per),
+            stack_campaign_states(iters), opt.optimal_velocities,
+            opt._bounds_arr, opt.fmin, opt.scaling, [0.0, 0.0],
+            [2.0] * n_iter, torch.stack(greedy), torch.full((K,), -np.inf),
+            flat, objectives=objectives, n_iter=n_iter, swarm_size=10,
+            max_iters=20, graph=graph, graph_cache=graphs)
+
+    before = (fp.fused_intervals.launches, fe.fused_expander.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with_graph = run(True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager = run(False)
+    assert torch.equal(with_graph.xs, eager.xs)
+    assert torch.equal(with_graph.iter_state.S, eager.iter_state.S)
+    assert len(graphs) == 1 and with_graph.host_syncs.tolist() == [0] * n_iter
+    assert (fp.fused_intervals.launches, fe.fused_expander.launches) == before
+    assert [c.tolist() for c in (s.count for s in with_graph.states)] == \
+        [[3 + n_iter] * K] * 2
