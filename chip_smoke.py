@@ -232,7 +232,40 @@ Phases, each reported on its own line:
     (bitwise) and each campaign's solo ``run_swarmopt_loop`` (float64
     queries within 1e-9), no grid kernel launched; replayed ms per fleet
     iteration against the solo loops' summed, kernels per fleet step and
-    the capture's ms.
+    the capture's ms;
+21. the utilities (``safeopt_torch.utils``), in float32 unless noted:
+    (a) resume: the flagship, the certified flagship
+    (``interval_precision='high'``: K1-3p runs after the load), the
+    sparse m=64 model of phase 16 and phase 19's (a) G=2 swarm, each 4
+    iterations, ``checkpoint.save``, ``checkpoint.load`` into a fresh
+    object and 4 more, the queries (and SafeOpt's intervals) bitwise
+    equal to 8 unbroken iterations; phase 20 (a)'s flagship fleet through
+    ``save_state`` / ``load_state`` after 4 of 8 fleet iterations,
+    bitwise equal to the unbroken fleet; save and load ms and bytes;
+    (b) deployment: ``export_step`` of the flagship step and of the
+    contextual one (phase 10's state at context 0), saved to a file,
+    ``load_step`` and a call: S, M, G, next_idx and Q equal to the live
+    ``safeopt_step``'s, K1 once and K3 once a walk round (K2 per GP and
+    K4 per GP a round) through the ``torch.library`` operators, counted
+    from zero around the call; its host syncs, counted under
+    ``set_sync_debug_mode('warn')``, are its walk's ``while_loop``
+    condition reads, two more than its rounds (PyTorch reads an exported
+    loop's condition on the host before the loop, before each round and
+    after the last); its median ms against the live
+    ``optimize()``'s and both syncs; ``export_campaign`` of the flagship,
+    8 iterations in float32 and float64, queries equal to
+    ``run_safeopt_loop``'s on the same noise, ms per iteration of each;
+    ``export_swarm_campaign`` of phase 19's (a) G=2 swarm, 4 iterations,
+    queries bitwise equal to the eager ``run_swarmopt_loop``'s on the same
+    streams; export seconds and artifact bytes of each (the five exports
+    run in a child process, ``chip_smoke.py --export-to DIR``, started
+    with the run, so that their tracing overlaps the build and phases
+    3-20 on the host's other cores); (c) an RBF prior
+    path drawn on ``examples/example_2d.py``'s grid (30 points a
+    dimension), evaluated at the flagship's 1e6 points on the card in
+    float64 within 1e-9 of the CPU; the draw's host ms and the
+    evaluation's device ms; (d) ``profile_trace`` around one flagship
+    ``optimize()``: the trace names K1's and K3's CUDA kernels.
 
 Any failed check exits non-zero. The last lines are one JSON object of
 the kernels, the nvidia-smi line, and the result line.
@@ -2849,6 +2882,536 @@ def drive_fleets(grid_np, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the utilities (checkpoint and resume, deployment, sampling,
+# profile_trace)
+# ---------------------------------------------------------------------------
+
+RESUME_ITERS = 4      # iterations before and after a checkpoint
+
+
+def count_syncs(fn):
+    """``(fn(), host syncs, their sites)``: ``fn()`` under
+    ``torch.cuda.set_sync_debug_mode('warn')``, each synchronizing call's
+    warning counted, its sites as ``{"file:line": count}``."""
+    import collections
+    import os
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sites = collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message))
+    return out, sum(sites.values()), dict(sites)
+
+
+def median_ms(fn, reps=10):
+    """Median CUDA-event milliseconds of ``fn()`` over ``reps`` calls,
+    after one untimed call."""
+    fn()
+    return float(np.median([timed_ms(fn)[1] for _ in range(reps)]))
+
+
+def resume_case(label, make, plant_fn, tmp, smi):
+    """Phase 21 (a): 2 x RESUME_ITERS iterations of ``make()`` unbroken,
+    against RESUME_ITERS, ``checkpoint.save``, ``checkpoint.load`` into a
+    fresh object, RESUME_ITERS more: every query (and SafeOpt's
+    intervals) bitwise equal. Returns the launches after the load."""
+    import os
+
+    from safeopt_torch import SafeOpt
+    from safeopt_torch.utils import checkpoint
+
+    def run(opt, steps, out):
+        for t in steps:
+            x = opt.optimize()
+            out.append((np.asarray(x), opt.Q.copy()
+                        if isinstance(opt, SafeOpt) else None))
+            opt.add_new_data_point(x, plant_fn(t, x))
+
+    n = RESUME_ITERS
+    unbroken, resumed = [], []
+    run(make(), range(2 * n), unbroken)
+    opt = make()
+    run(opt, range(n), resumed)
+    path = os.path.join(tmp, label.replace(" ", "_") + ".npz")
+    _, save_ms = timed_ms(lambda: checkpoint.save(opt, path))
+    loaded, load_ms = timed_ms(lambda: checkpoint.load(path, device="cuda"))
+    zero_launches()
+    run(loaded, range(n, 2 * n), resumed)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for t, ((x1, q1), (x2, q2)) in enumerate(zip(unbroken, resumed)):
+        check(np.array_equal(x1, x2) and (q1 is None or np.array_equal(
+            q1, q2)), f"resumed {label}: step {t} differs from the unbroken "
+                      "run")
+    print(f"resume {label} on {smi}: {n} + {n} iterations bitwise equal to "
+          f"{2 * n} unbroken (queries"
+          f"{' and intervals' if unbroken[0][1] is not None else ''}); save "
+          f"{save_ms:.3f} ms, load {load_ms:.3f} ms (host, CUDA events), "
+          f"{os.path.getsize(path)} bytes; launches after the load "
+          f"{launches}", flush=True)
+    return launches
+
+
+def resume_fleet(tmp, smi):
+    """Phase 21 (a): phase 20 (a)'s flagship fleet, 8 iterations of
+    ``run_safeopt_campaigns`` in float32 against 4, ``save_state`` (the
+    states and the noise's tail), ``load_state`` and 4 more: queries
+    bitwise equal."""
+    import os
+
+    from safeopt_torch.parallel import (run_safeopt_campaigns,
+                                        stack_campaign_states)
+    from safeopt_torch.utils.checkpoint import load_state, save_state
+
+    kernels, per = fleet_flagship_states()
+    K, G, n = len(per), len(kernels), 2 * RESUME_ITERS
+    t = functools.partial(torch.tensor, dtype=torch.float32, device="cuda")
+    grid = t(np.asarray(fleet_grid(), dtype=float))
+    noise = torch.tensor(np.random.default_rng(21).normal(size=(K, n, G)),
+                         dtype=torch.float64, device="cuda")
+    kw = dict(objectives=flag_objectives(), chunk=32, noise_std=0.05)
+
+    def run(states, noise, n_iter):
+        return run_safeopt_campaigns(kernels, states, grid, t(FMIN), BETA,
+                                     t(SCALING), t([0.0] * G), noise,
+                                     n_iter=n_iter, **kw)
+
+    full = run(stack_campaign_states(per), noise, n)
+    head = run(stack_campaign_states(per), noise[:, :n // 2], n // 2)
+    path = os.path.join(tmp, "fleet.npz")
+    _, save_ms = timed_ms(lambda: save_state(
+        path, {"states": head.states, "noise": noise[:, n // 2:],
+               "t": n // 2}))
+    ck, load_ms = timed_ms(lambda: load_state(path, device="cuda"))
+    tail = run(tuple(ck["states"]), ck["noise"], n // 2)
+    check(torch.equal(torch.cat([head.xs, tail.xs], dim=1), full.xs),
+          "the resumed fleet differs from the unbroken one")
+    print(f"resume flagship fleet (K={K}) on {smi}: {n // 2} + {n // 2} "
+          f"fleet iterations bitwise equal to {n} unbroken; save_state "
+          f"{save_ms:.3f} ms, load_state {load_ms:.3f} ms, "
+          f"{os.path.getsize(path)} bytes", flush=True)
+
+
+def fleet_grid():
+    """The flagship's grid."""
+    from safeopt_torch import linearly_spaced_combinations
+
+    return linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
+
+
+def flagship_opt(grid_np, **kw):
+    """Phase 9's flagship ``SafeOpt`` on the card (float32)."""
+    from safeopt_torch import SafeOpt
+
+    gps = build_gps(np.random.default_rng(0), 50, 64, "cuda", None)
+    return SafeOpt(gps, grid_np, fmin=FMIN, beta=BETA, scaling=SCALING,
+                   expander_chunk=32, **kw)
+
+
+def contextual_opt(params_np):
+    """Phase 10's contextual ``SafeOpt`` on the card at context 0."""
+    from safeopt_torch import SafeOpt
+
+    opt = SafeOpt(context_gps(2, 240, 256, "cuda", None), params_np,
+                  fmin=CTX_FMIN, beta=BETA, num_contexts=1,
+                  expander_chunk=32)
+    opt.context = 0.0
+    return opt
+
+
+def step_args(opt):
+    """``export_step``'s arguments for ``opt``'s step: its kernels with
+    their hyperparameters on the card, its states, grid and constants,
+    beta a 0-d tensor."""
+    from safeopt_torch.utils.deployment import device_kernels
+
+    grid = opt._grid()
+    c = opt._step_consts()
+    return (device_kernels(tuple(g.kern for g in opt.gps), "cuda"),
+            tuple(g.state for g in opt.gps), grid, c["fmin"],
+            torch.tensor(BETA, dtype=grid.dtype, device="cuda"),
+            c["scaling"], c["threshold"])
+
+
+def campaign_args(grid_np, dtype):
+    """``export_campaign``'s arguments and keywords for the flagship, 8
+    iterations (float64 factor states, the float64 grid, the noise), and
+    the kernels as the live loop takes them (hyperparameters on the
+    host)."""
+    from safeopt_torch.utils.deployment import device_kernels
+
+    n = 2 * RESUME_ITERS
+    gps = build_gps(np.random.default_rng(0), 50, 64, "cuda", torch.float64)
+    t = functools.partial(torch.tensor, dtype=dtype, device="cuda")
+    noise = torch.tensor(np.random.default_rng(22).normal(size=(n, 2)),
+                         dtype=torch.float64, device="cuda")
+    kernels = tuple(g.kern for g in gps)
+    args = (device_kernels(kernels, "cuda"),
+            tuple(g.factor_state() for g in gps),
+            torch.tensor(grid_np, dtype=torch.float64, device="cuda"),
+            t(FMIN), t(BETA), t(SCALING), t([0.0, 0.0]), noise)
+    return args, dict(objectives=flag_objectives(), n_iter=n, dtype=dtype,
+                      chunk=32, noise_std=0.05), kernels
+
+
+def swarm_campaign_args():
+    """``export_swarm_campaign``'s arguments and keywords for phase 19's
+    (a) G=2 swarm, 4 iterations, float32, on the uniforms of
+    ``default_rng(23)``."""
+    from safeopt_torch import SafeOptSwarm
+    from safeopt_torch.algorithms.swarm_opt_fused import stream_layout
+    from safeopt_torch.utils.deployment import device_kernels
+
+    n = RESUME_ITERS
+    opt = SafeOptSwarm(swarm_gps(2, "cuda", torch.float32, capacity=16),
+                       **swarm_problem(2))
+    opt.reserve(n)
+    n_u = sum(int(np.prod(s)) for _, s in stream_layout(
+        opt.swarm_size, opt.max_iters, 10))
+    t = functools.partial(torch.tensor, dtype=torch.float32, device="cuda")
+    args = (device_kernels(tuple(g.kern for g in opt.gps), "cuda"),
+            tuple(g.factor_state() for g in opt.gps), opt._S_dev,
+            t(opt.optimal_velocities), t(opt._bounds_arr), t(opt.fmin),
+            t(opt.scaling), t([0.0, 0.0]), t([BETA] * n),
+            t(opt.greedy_point), t(-np.inf),
+            t(np.random.default_rng(23).uniform(size=(n, n_u))))
+    return args, dict(
+        objectives=(lambda x: 2.0 * torch.exp(-0.5 * torch.sum(x * x)),
+                    lambda x: 1.0 - 0.05 * torch.sum(x * x)),
+        n_iter=n, swarm_size=opt.swarm_size, max_iters=opt.max_iters)
+
+
+def export_artifacts(out_dir, grid_np, params_np):
+    """Phase 21 (b)'s five exports, each written to ``out_dir`` as
+    ``<name>.pt2``: ``{name: (export seconds, bytes)}``. ``chip_smoke.py
+    --export-to DIR`` runs this in a process of its own, started with the
+    run, so that the exports' tracing overlaps the build and phases 3-20
+    on the host's other cores."""
+    import os
+
+    from safeopt_torch.utils.deployment import (export_campaign, export_step,
+                                                export_swarm_campaign)
+
+    jobs = {
+        "flagship step": lambda: export_step(
+            *step_args(flagship_opt(grid_np)), chunk=32),
+        "contextual step": lambda: export_step(
+            *step_args(contextual_opt(params_np)), chunk=32)}
+    for dtype in (torch.float32, torch.float64):
+        jobs[f"campaign {str(dtype)[6:]}"] = functools.partial(
+            lambda dt: (lambda a, kw, _: export_campaign(*a, **kw))(
+                *campaign_args(grid_np, dt)), dtype)
+    jobs["swarm campaign"] = lambda: (
+        lambda a, kw: export_swarm_campaign(*a, **kw))(*swarm_campaign_args())
+    out = {}
+    for name, job in jobs.items():
+        start = time.perf_counter()
+        blob = job()
+        out[name] = (time.perf_counter() - start, len(blob))
+        with open(os.path.join(out_dir, name.replace(" ", "_") + ".pt2"),
+                  "wb") as fh:
+            fh.write(blob)
+    return out
+
+
+def export_main(out_dir):
+    """``chip_smoke.py --export-to DIR``: phase 21 (b)'s exports, their
+    seconds and bytes printed as the last line (JSON)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke exports: no CUDA device", file=sys.stderr)
+        return 1
+    from safeopt_torch import linearly_spaced_combinations
+
+    grid_np = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
+    params_np = linearly_spaced_combinations([(-3.0, 3.0)], 1_000_000)
+    print(json.dumps(export_artifacts(out_dir, grid_np, params_np)))
+    return 0
+
+
+def start_exports():
+    """Start ``export_main`` in a child process writing to a fresh
+    directory under the git-ignored ``build/``; both are removed when this
+    process exits. Returns (child, directory)."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_exports_", dir=root)
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--export-to", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def stop():
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    atexit.register(stop)
+    return child, out_dir
+
+
+def finish_exports(exports, smi):
+    """Wait for the exports' child: ``{name: (seconds, bytes)}``."""
+    child, _ = exports
+    out, _ = child.communicate(timeout=900)
+    check(child.returncode == 0, f"the exports' process failed "
+                                 f"({child.returncode}):\n{out[-4000:]}")
+    times = json.loads(out.strip().splitlines()[-1])
+    for name, (secs, size) in times.items():
+        print(f"export {name} on {smi} (its own process, beside phases "
+              f"3-20): {secs:.3f} s, {size} bytes", flush=True)
+    return times
+
+
+def loaded_step_case(label, opt, path, smi, context=None):
+    """Phase 21 (b): the exported step at ``path`` through ``load_step``
+    and a call on the card: S, M, G, next_idx and Q equal to the live
+    ``safeopt_step``'s; its host syncs are the walk's ``while_loop``
+    condition reads (two more than its rounds); launch counts through the
+    operators; the loaded step's ms against the live ``optimize()``'s.
+    Returns (launches, rounds)."""
+    from safeopt_torch.algorithms.safe_opt_core import safeopt_step
+    from safeopt_torch.utils.deployment import load_step
+
+    args = step_args(opt)
+    kernels = tuple(g.kern for g in opt.gps)
+    c = opt._step_consts()
+    served = load_step(path)
+    served(*args)                       # the first launch of each kernel
+    zero_launches()
+    out, syncs, sites = count_syncs(lambda: served(*args))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    live, live_syncs, live_sites = count_syncs(lambda: safeopt_step(
+        kernels, args[1], args[2], c["fmin"], BETA, c["scaling"],
+        c["threshold"], chunk=opt._expander_chunk))
+    for name in ("Q", "S", "M", "G", "next_idx"):
+        check(torch.equal(getattr(out, name), getattr(live, name)),
+              f"the loaded {label} step's {name} differs from the live one")
+    rounds = int(out.walk_chunks)
+    # every host read of the loaded step is its while_loop's condition:
+    # PyTorch's eager while_loop reads it before the loop, before each
+    # round and after the last
+    check(rounds == live.walk_chunks and syncs == rounds + 2 and all(
+        site.startswith("while_loop.py:") for site in sites),
+          f"the loaded {label} step walked {rounds} rounds (live "
+          f"{live.walk_chunks}) with host syncs at {sites}")
+    kw = {} if context is None else {"context": context}
+    loaded_ms = median_ms(lambda: served(*args))
+    live_ms = median_ms(lambda: opt.optimize(**kw))
+    _, opt_syncs, _ = count_syncs(lambda: opt.optimize(**kw))
+    print(f"loaded {label} step on {smi}: equal to the live step (S, M, G, "
+          f"next_idx, Q bitwise), {rounds} walk rounds, launches "
+          f"{launches}; host syncs: loaded {syncs} (all the while_loop's "
+          f"condition reads: {sites}), live safeopt_step {live_syncs} "
+          f"({live_sites}), live optimize() {opt_syncs}; median ms (CUDA "
+          f"events, 10 calls): loaded {loaded_ms:.3f}, live optimize() "
+          f"{live_ms:.3f}", flush=True)
+    return launches, rounds
+
+
+def loaded_campaign_case(grid_np, path, dtype, smi):
+    """Phase 21 (b): the exported flagship campaign at ``path`` against
+    ``run_safeopt_loop`` on the same noise: next_idx and queries equal; ms
+    per iteration of each. Returns its launches."""
+    from safeopt_torch.algorithms.runner import run_safeopt_loop
+    from safeopt_torch.utils.deployment import load_step
+
+    args, kw, kernels = campaign_args(grid_np, dtype)
+    served = load_step(path)
+    served(*args)
+    zero_launches()
+    out, ms = timed_ms(lambda: served(*args))
+    launches = read_launches()
+    loop_args = (kernels, *args[1:4], BETA, *args[5:])
+    run_safeopt_loop(*loop_args, **kw)
+    ref, ref_ms = timed_ms(lambda: run_safeopt_loop(*loop_args, **kw))
+    check(torch.equal(out.next_idx, ref.next_idx)
+          and torch.equal(out.xs, ref.xs),
+          f"the exported {dtype} campaign's queries differ from "
+          "run_safeopt_loop's")
+    n = kw["n_iter"]
+    print(f"loaded campaign {str(dtype)[6:]} (flagship, {n} iterations) on "
+          f"{smi}: queries equal to run_safeopt_loop's; ms per iteration "
+          f"(CUDA events) exported {ms / n:.3f} against run_safeopt_loop's "
+          f"{ref_ms / n:.3f}; walk rounds {out.walk_chunks.tolist()}, "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def loaded_swarm_case(path, smi):
+    """Phase 21 (b): the exported (a) G=2 swarm campaign at ``path``
+    against the eager ``run_swarmopt_loop`` on the same streams: queries
+    bitwise equal."""
+    from safeopt_torch.algorithms.runner import run_swarmopt_loop
+    from safeopt_torch.utils.deployment import load_step
+
+    args, kw = swarm_campaign_args()
+    start = time.perf_counter()
+    served = load_step(path)
+    load_s = time.perf_counter() - start
+    zero_launches()
+    out, ms = timed_ms(lambda: served(*args))
+    check(not any(read_launches().values()),
+          "the exported swarm campaign launched a grid kernel")
+    ref, ref_ms = timed_ms(lambda: run_swarmopt_loop(*args, graph=False,
+                                                     **kw))
+    check(torch.equal(out.xs, ref.xs),
+          "the exported swarm campaign's queries differ from the eager "
+          "loop's")
+    n = kw["n_iter"]
+    print(f"loaded swarm campaign ((a) G=2, {n} iterations) on {smi}: load "
+          f"{load_s:.3f} s; queries bitwise equal to eager "
+          f"run_swarmopt_loop's; ms per iteration (CUDA events) exported "
+          f"{ms / n:.3f} against eager {ref_ms / n:.3f}", flush=True)
+
+
+def sampling_case(grid_np, smi):
+    """Phase 21 (c): an RBF prior path drawn on ``examples/example_2d.py``'s
+    grid (30 points per dimension on [-5, 5]^2), evaluated at the
+    flagship's 1e6 points on the card in float64 and on the CPU (in
+    chunks): within 1e-9. The draw's host ms and the evaluation's device
+    ms."""
+    from safeopt_torch import RBF, sample_gp_function
+
+    kern = RBF(2, variance=2.0, lengthscale=1.0, ARD=True)
+    bounds = [(-5.0, 5.0), (-5.0, 5.0)]
+    start = time.perf_counter()
+    f = sample_gp_function(kern, bounds, 0.05 ** 2, 30, seed=0,
+                           device="cuda", dtype=torch.float64)
+    draw_ms = (time.perf_counter() - start) * 1e3
+    x = torch.tensor(grid_np, dtype=torch.float64, device="cuda")
+    f(x[:10], noise=False)
+    y, eval_ms = timed_ms(lambda: f(x, noise=False))
+    fc = sample_gp_function(kern, bounds, 0.05 ** 2, 30, seed=0,
+                            device="cpu")
+    yc = torch.cat([fc(grid_np[s:s + 100_000], noise=False)
+                    for s in range(0, grid_np.shape[0], 100_000)])
+    err = float((y.cpu() - yc).abs().max())
+    check(y.shape == (grid_np.shape[0], 1) and err <= 1e-9,
+          f"the sampled path on the card differs from the CPU's by {err}")
+    print(f"sample_gp_function on {smi}: 900-point RBF draw {draw_ms:.3f} "
+          f"ms (host), evaluation at 1e6 points {eval_ms:.3f} ms (CUDA "
+          f"events), float64 card against CPU max |dy| {err:.3e}",
+          flush=True)
+
+
+def profile_case(opt, tmp, smi):
+    """Phase 21 (d): ``profile_trace`` around one flagship ``optimize()``:
+    the trace file exists and names K1's CUDA kernel, and K3's when the
+    step walked."""
+    import os
+
+    from safeopt_torch.utils.observability import profile_trace
+
+    log_dir = os.path.join(tmp, "trace")
+    with profile_trace(log_dir):
+        opt.optimize()
+    path = os.path.join(log_dir, "trace.json")
+    check(os.path.exists(path), "profile_trace wrote no trace")
+    with open(path) as fh:
+        kernels = sorted({e["name"] for e in json.load(fh)["traceEvents"]
+                          if e.get("cat") == "kernel"})
+    walked = opt.stats.last.walk_chunks
+    k1 = any("intervals_kernel" in k for k in kernels)
+    k3 = any("expander_kernel" in k for k in kernels)
+    check(k1 and (k3 or walked == 0),
+          f"the trace names K1's kernel: {k1}, K3's: {k3} (walk chunks "
+          f"{walked}); its {len(kernels)} kernels: {kernels}")
+    print(f"profile_trace on {smi}: {os.path.getsize(path)} bytes, "
+          f"{len(kernels)} kernel names, intervals_kernel (K1) and "
+          f"expander_kernel (K3; {walked} walk chunks) among them",
+          flush=True)
+
+
+def drive_utilities(grid_np, params_np, smi, exports):
+    """Phase 21; ``exports`` is ``start_exports()``'s (child, directory).
+    Returns the launches through K1-K4's operators over the loaded steps
+    and the exported campaigns."""
+    import os
+    import shutil
+    import tempfile
+
+    from safeopt_torch import SafeOpt, SafeOptSwarm
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_utilities_", dir=root)
+    try:
+        def flag_plant(t, x):
+            return plant(np.random.default_rng(1000 + t), x)
+
+        def sparse_plant(t, x):
+            return flag_plant(t, x)[:, :1]
+
+        # (a) resume -------------------------------------------------------
+        flagship = functools.partial(flagship_opt, grid_np)
+        resume_case("flagship", flagship, flag_plant, tmp, smi)
+        cert = resume_case("certified flagship", functools.partial(
+            flagship, interval_precision="high"), flag_plant, tmp, smi)
+        check(cert["K1-3p"] > 0, "the resumed certified run launched no "
+                                 "K1-3p")
+        resume_case("sparse m=64", lambda: SafeOpt(
+            sparse_gp(64, "cuda", None), grid_np, fmin=SPARSE_FMIN,
+            beta=BETA, scaling=SPARSE_SCALING, expander_chunk=32),
+            sparse_plant, tmp, smi)
+        resume_case("swarm (a) G=2", lambda: SafeOptSwarm(
+            swarm_gps(2, "cuda", torch.float32, capacity=16),
+            **swarm_problem(2)), lambda t, x: swarm_plant(x, 2), tmp, smi)
+        resume_fleet(tmp, smi)
+
+        # (b) deployment: the artifacts of the exports' process ------------
+        finish_exports(exports, smi)
+        path = functools.partial(os.path.join, exports[1])
+        total = dict.fromkeys(read_launches(), 0)
+        flag = flagship()
+        launches, rounds = loaded_step_case(
+            "flagship", flag, path("flagship_step.pt2"), smi)
+        check(launches["K1"] == 1 and launches["K3"] == rounds
+              and launches["K2"] == launches["K4"] == 0,
+              f"the loaded flagship step launched {launches}, not K1 once "
+              f"and K3 once a round ({rounds})")
+        for key in total:
+            total[key] += launches[key]
+        launches, rounds = loaded_step_case(
+            "contextual", contextual_opt(params_np),
+            path("contextual_step.pt2"), smi, context=0.0)
+        check(launches["K2"] == 2 and launches["K4"] == 2 * rounds
+              and launches["K1"] == launches["K3"] == 0,
+              f"the loaded contextual step launched {launches}, not K2 per "
+              f"GP and K4 per GP a round ({rounds})")
+        for key in total:
+            total[key] += launches[key]
+        for dtype in (torch.float32, torch.float64):
+            launches = loaded_campaign_case(
+                grid_np, path(f"campaign_{str(dtype)[6:]}.pt2"), dtype, smi)
+            for key in total:
+                total[key] += launches[key]
+        loaded_swarm_case(path("swarm_campaign.pt2"), smi)
+
+        # (c) sampling, (d) profile_trace ----------------------------------
+        sampling_case(grid_np, smi)
+        profile_case(flag, tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"utilities: launches through K1-K4's operators (loaded steps "
+          f"and exported campaigns) {total}", flush=True)
+    return total
+
+
 def main():
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
@@ -2871,6 +3434,8 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
+    # phase 21's exports trace on the host beside the build and phases 3-20
+    exports = start_exports()
 
     # 2. build ----------------------------------------------------------------
     start = time.perf_counter()
@@ -3403,6 +3968,11 @@ def main():
                      fleet_bound_by=b_by)
     for entry, key in ((kernels[0], "k1_err64"), (kernels[1], "k3_err64")):
         entry["max_abs_err"] = max(entry["max_abs_err"], fleet[key])
+    # 21. the utilities -------------------------------------------------------
+    via_ops = drive_utilities(grid_np, params_np, smi, exports)
+    for entry, key in zip(kernels[:4], ("K1", "K3", "K2", "K4")):
+        entry["launches"] += via_ops[key]
+        entry["op_launches"] = via_ops[key]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -3414,4 +3984,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--export-to":
+        sys.exit(export_main(sys.argv[2]))
     sys.exit(main())

@@ -18,8 +18,12 @@ hyperparameter fitting (``fit_hyperparameters``: autograd and
 ``torch.optim.Adam`` in float64 on the card, restarts in one batch,
 behind each model's ``optimize``/``optimize_restarts``). Its grid
 kernels are written by hand in CUDA C++ for Hopper (``ops/csrc``),
-beside an exact top-k; the GPs they do not take run on an eager route
-in plain PyTorch. It imports
+beside an exact top-k, and registered as ``torch.library`` operators;
+the GPs they do not take run on an eager route in plain PyTorch.
+``utils`` samples GP-prior test functions, plots, checkpoints runs in
+the JAX package's format (``utils.checkpoint``) and exports the step or
+a whole campaign with ``torch.export`` (``export_step``, ``load_step``).
+It imports
 ``torch`` and never ``jax``. Models live on the card by default
 (``GPRegression(X, Y)`` is on ``'cuda'``); ``device='cpu'`` runs the
 kernels' plain PyTorch versions instead.
@@ -35,7 +39,8 @@ from .gp import (Bias, Cosine, Exponential, GPRegression, Linear, Matern32,
                  Matern52, MLP, Poly, Product, RatQuad, RBF,
                  SparseGPRegression, StdPeriodic, Sum, White,
                  fit_hyperparameters)
-from .utils import linearly_spaced_combinations
+from .utils import (linearly_spaced_combinations, plot_2d_gp, plot_3d_gp,
+                    plot_contour_gp, sample_gp_function)
 
 __version__ = "0.1.0"
 
@@ -45,4 +50,6 @@ __all__ = ["SafeOpt", "PendingSafeOptStep", "GaussianProcessOptimization",
            "fit_hyperparameters", "RBF", "Matern32",
            "Matern52", "Exponential", "RatQuad", "Cosine", "StdPeriodic",
            "Linear", "Poly", "MLP", "Bias", "White", "Product", "Sum",
-           "linearly_spaced_combinations", "default_dtype", "JITTER"]
+           "linearly_spaced_combinations", "sample_gp_function",
+           "plot_2d_gp", "plot_3d_gp", "plot_contour_gp", "default_dtype",
+           "JITTER"]

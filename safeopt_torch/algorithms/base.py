@@ -14,12 +14,13 @@ reference semantics (gp_opt.py:30-279):
 - context columns are stacked onto x.
 
 The global store is small host NumPy; each GP's posterior state lives
-on its device inside its ``GPRegression``. Plotting is not carried.
+on its device inside its ``GPRegression``. ``plot`` draws the state with
+``utils/plotting.py`` (matplotlib, imported when called).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,6 +61,7 @@ class GaussianProcessOptimization:
         fmin = fmin if isinstance(fmin, list) else [fmin] * len(self.gps)
         self.fmin = np.atleast_1d(np.asarray(fmin, dtype=float).squeeze())
 
+        self._beta_is_callable = callable(beta)
         if callable(beta):
             self.beta = beta
         else:
@@ -152,6 +154,52 @@ class GaussianProcessOptimization:
 
         self._x = np.concatenate((self._x, x), axis=0)
         self._y = np.concatenate((self._y, y), axis=0)
+
+    def plot(self, n_samples, axis=None, figure=None, plot_3d=False,
+             **kwargs):
+        """Plot the current optimization state (host-side matplotlib),
+        dispatching on dimensionality as the reference (gp_opt.py:132-185):
+        1-D, a band plot per GP; 2-D, a contour or a 3-D surface."""
+        from ..utils.grids import linearly_spaced_combinations
+        from ..utils.plotting import plot_2d_gp, plot_3d_gp, plot_contour_gp
+
+        if self.num_contexts > 0 and "fixed_inputs" not in kwargs:
+            kwargs.update(fixed_inputs=self.context_fixed_inputs)
+
+        true_input_dim = self.gp.kern.input_dim - self.num_contexts
+        inputs = None
+        if true_input_dim == 1 or plot_3d:
+            inputs = np.zeros((n_samples ** true_input_dim,
+                               self.gp.input_dim))
+            inputs[:, :true_input_dim] = linearly_spaced_combinations(
+                self.bounds[:true_input_dim], n_samples)
+
+        if not isinstance(n_samples, Sequence):
+            n_samples = [n_samples] * len(self.bounds)
+
+        axes = []
+        if true_input_dim == 1:
+            for gp, fmin in zip(self.gps, self.fmin):
+                fmin_arg = None if fmin == -np.inf else fmin
+                axes.append(plot_2d_gp(gp, inputs, figure=figure, axis=axis,
+                                       fmin=fmin_arg, **kwargs))
+            return axes
+        if plot_3d:
+            for gp in self.gps:
+                plot_3d_gp(gp, inputs, figure=figure, axis=axis, **kwargs)
+        else:
+            for gp in self.gps:
+                plot_contour_gp(
+                    gp,
+                    [np.linspace(self.bounds[0][0], self.bounds[0][1],
+                                 n_samples[0]),
+                     np.linspace(self.bounds[1][0], self.bounds[1][1],
+                                 n_samples[1])],
+                    figure=figure, axis=axis)
+
+    # SafeOpt pins its context columns; defined here so that ``plot`` can
+    # read it on every algorithm
+    context_fixed_inputs = None
 
     def remove_last_data_point(self) -> None:
         """Undo the most recent ``add_new_data_point``."""

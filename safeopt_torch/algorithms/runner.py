@@ -46,7 +46,7 @@ import torch
 from ..gp.regression import GPState, gp_append
 from ..utils.observability import host_syncs
 from .fleet_core import fleet_step
-from .safe_opt_core import safeopt_step
+from .safe_opt_core import safeopt_step, traced_safeopt_step
 
 __all__ = ["BOLoopResult", "run_safeopt_loop", "SwarmLoopResult",
            "run_swarmopt_loop"]
@@ -214,21 +214,48 @@ def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
     ``host_syncs`` (T,), the host reads of each fleet step.
     """
     n_iter = int(n_iter)
-    G = len(kernels)
-    dev = grid.device
-    dtype = grid.dtype if dtype is None else dtype
     _check_float64(states, "run_safeopt_loop")
+    check_capacity(states, n_iter)
     lead = tuple(states[0].X.shape[:-2])        # (K,) for a fleet, else ()
-    step = fleet_step if lead else safeopt_step
+    beta_stream = ([float(beta)] * n_iter if betas is None
+                   else [float(b) for b in betas])
+    return safeopt_loop(
+        fleet_step if lead else safeopt_step, kernels, states, grid, fmin,
+        beta_stream, scaling, threshold, noise, objectives=objectives,
+        n_iter=n_iter, dtype=dtype, lipschitz=lipschitz, noise_std=noise_std,
+        ucb=ucb, use_lipschitz=use_lipschitz, chunk=chunk,
+        objective_args=objective_args, contexts=contexts)
+
+
+def check_capacity(states, n_iter: int) -> None:
+    """Raise unless every state's capacity admits ``n_iter`` more rows
+    (one host read of the counts)."""
     counts = torch.stack([st.count.reshape(-1).amax()
-                          for st in states]).tolist()          # once
+                          for st in states]).tolist()
     caps = [st.X.shape[-2] for st in states]
     if any(c + n_iter > cap for c, cap in zip(counts, caps)):
         raise ValueError(f"capacities {caps} do not admit {n_iter} more "
                          f"rows past {counts}")
+
+
+def safeopt_loop(step, kernels, states, grid, fmin, beta_stream, scaling,
+                 threshold, noise, *, objectives, n_iter: int, dtype=None,
+                 lipschitz=None, noise_std: float = 0.0, ucb: bool = False,
+                 use_lipschitz: bool = False, chunk: int = 64,
+                 objective_args=None, contexts=None) -> BOLoopResult:
+    """The body of ``run_safeopt_loop`` with its ``step`` and its list of
+    per-iteration betas given: ``safeopt_step`` (``fleet_step`` for a
+    fleet) and floats there; ``safe_opt_core.traced_safeopt_step`` and
+    0-d tensors in the campaign that ``utils/deployment.export_campaign``
+    traces, whose ``host_syncs`` are the walk's ``while_loop`` reads, as
+    0-d tensors: PyTorch's eager ``while_loop`` reads its condition once
+    before the loop, once before each round and once after the last."""
+    G = len(kernels)
+    dev = grid.device
+    dtype = grid.dtype if dtype is None else dtype
+    lead = tuple(states[0].X.shape[:-2])        # (K,) for a fleet, else ()
+    traced = step is traced_safeopt_step
     noise = _noise(noise, lead + (n_iter, G), noise_std, dev)
-    beta_stream = ([float(beta)] * n_iter if betas is None
-                   else [float(b) for b in betas])
     nc = 0 if contexts is None else int(
         torch.as_tensor(contexts).reshape(n_iter, -1).shape[1])
 
@@ -258,15 +285,17 @@ def run_safeopt_loop(kernels, states, grid, fmin, beta, scaling, threshold,
         idxs.append(res.next_idx)
         safe.append(res.safe_count)
         has.append(res.has_safe)
-        syncs.append(host_syncs.count - before)
+        syncs.append(res.walk_chunks + (0 if ucb else 2) if traced
+                     else host_syncs.count - before)
         chunks.append(res.walk_chunks)
     at = len(lead)
+    stack = torch.stack if traced else torch.tensor
     return BOLoopResult(
         states=states, xs=torch.stack(xs, dim=at),
         ys=torch.stack(ys, dim=at), next_idx=torch.stack(idxs, dim=at),
         safe_counts=torch.stack(safe, dim=at),
-        has_safe=torch.stack(has, dim=at), host_syncs=torch.tensor(syncs),
-        walk_chunks=torch.tensor(chunks).movedim(0, -1))
+        has_safe=torch.stack(has, dim=at), host_syncs=stack(syncs),
+        walk_chunks=stack(chunks).movedim(0, -1))
 
 
 class SwarmLoopResult(NamedTuple):
@@ -418,8 +447,9 @@ def run_swarmopt_loop(kernels, states, iter_state, velocity_scale, bounds,
     streams = _per_iteration(streams, lead + (n_iter, n_u), dtype, dev,
                              "streams")
     noise = _noise(noise, lead + (n_iter, G), noise_std, dev)
-    betas = _ship(np.asarray(betas, dtype=float).reshape(n_iter), dtype,
-                  dev)
+    betas = _ship(betas if torch.is_tensor(betas)
+                  else np.asarray(betas, dtype=float), dtype,
+                  dev).reshape(n_iter)
     consts = [_ship(a, dtype, dev) for a in (velocity_scale, bounds, fmin,
                                               scaling, threshold)]
     step_kernels = tuple(device_kernel(k, dtype, dev) for k in kernels)

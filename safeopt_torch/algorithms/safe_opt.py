@@ -358,6 +358,15 @@ class SafeOpt(GaussianProcessOptimization):
                             for i in range(parameter_set.shape[1])]
 
     @property
+    def context_fixed_inputs(self):
+        """Fixed-input pairs pinning the current context (for plotting)."""
+        n = self.gp.input_dim - 1
+        nc = self.num_contexts
+        if nc > 0:
+            contexts = self.inputs[0, -nc:]
+            return list(zip(range(n, n - nc, -1), contexts))
+
+    @property
     def context(self):
         """Current context columns of the candidate grid."""
         if self.num_contexts:

@@ -35,6 +35,10 @@ update_confidence_intervals -> compute_sets -> get_new_query_point:
 
 Everything runs eagerly on the device of the grid; the host reads a few
 scalars per step (the walk's syncs and the packed ``diag``).
+``traced_safeopt_step`` is the same step with nothing chosen on the host,
+the one ``torch.export`` traces (``utils/deployment.py``): K1-K4 through
+their ``torch.library`` operators, the walk in one ``while_loop`` over a
+visit order from one stable sort, its operands built once a walk.
 
 The certified path (``exact_boundaries``; ``:642-1118`` of the JAX
 module) settles every safe bit within ``band`` of a threshold in
@@ -60,15 +64,17 @@ import torch
 
 from ..gp.kernels import Product, Sum, _Constant, _Stationary
 from ..gp.regression import row_mask
-from ..ops.fused_expander import (fused_expander_predicate_batched,
+from ..ops.fused_expander import (expander_fixed, expander_plan_fixed,
+                                  fused_expander_predicate_batched,
                                   fused_expander_predicate_single)
 from ..ops.fused_posterior import (fused_intervals_batched,
-                                   fused_intervals_single, supports_kernel,
-                                   supports_plan)
+                                   fused_intervals_single, scalar,
+                                   supports_kernel, supports_plan)
 from ..ops.topk import top_k
 from ..utils.observability import host_syncs
 
-__all__ = ["StepResult", "safeopt_step", "safe_maximum",
+__all__ = ["StepResult", "safeopt_step", "traced_safeopt_step",
+           "safe_maximum",
            "full_expander_sets", "boundary_scan", "safeopt_step_from_Q",
            "certified_scan", "interval_scan", "device_oracle",
            "certified_finish"]
@@ -225,14 +231,17 @@ def _confidence_intervals(kernels, states, grid, beta, three_pass=False):
     return _grid_posterior(kernels, states, grid, beta, three_pass)[:3]
 
 
-def _grid_posterior(kernels, states, grid, beta, three_pass=False):
+def _grid_posterior(kernels, states, grid, beta, three_pass=False,
+                    traced=False):
     """``Q`` (N, 2G), the posterior ``mu`` and ``sigma`` (G, N) for the
     expander pass, and per GP the eager route's kept ``V`` (None on the
     kernels' routes or past the byte limit). On the kernels' routes mu
     and sigma are recovered from the interval rows; the eager route gives
     them directly, as the JAX package's XLA branch does. ``three_pass``
     takes the kernels' product at the three-pass precision (K1-3p,
-    K2-3p): the certified path's interval pass; eager GPs ignore it."""
+    K2-3p): the certified path's interval pass; eager GPs ignore it.
+    ``traced`` calls K1 and K2 through their ``torch.library``
+    operators."""
     N, d = grid.shape
     G = len(kernels)
     rows, Vs, direct = [None] * G, [None] * G, {}
@@ -247,11 +256,12 @@ def _grid_posterior(kernels, states, grid, beta, three_pass=False):
         elif route == "plan":
             rows[idx[0]] = fused_intervals_single(
                 kernels[idx[0]], states[idx[0]], grid, beta,
-                three_pass=three_pass)
+                three_pass=three_pass, traced=traced)
         else:
             out = fused_intervals_batched([kernels[i] for i in idx],
                                           [states[i] for i in idx], grid,
-                                          beta, three_pass=three_pass)
+                                          beta, three_pass=three_pass,
+                                          traced=traced)
             for j, i in enumerate(idx):
                 rows[i] = out[j]
     out = torch.stack(rows)                                  # (G, 2, N)
@@ -309,8 +319,42 @@ def _classify(Q, fmin, scaling, threshold, beta, S=None):
 # expander predicate and walk
 # ---------------------------------------------------------------------------
 
+def _pick(t, idx):
+    """Rows ``idx`` (a list) of ``t``, gathered one by one: a list index
+    would be a tensor constant, which a traced loop's body cannot hold."""
+    return torch.stack([t[i] for i in idx])
+
+
+def _walk_fixed(kernels, states, grid, unsafe, mu, sigma, fmin, beta,
+                lipschitz):
+    """The expander predicate's operands that no candidate changes, built
+    once per walk: per group of ``_gp_groups`` K3's ``expander_fixed``,
+    K4's ``expander_plan_fixed`` or None (the eager route); for the
+    Lipschitz variant the transposed grid and its rows' squared norms."""
+    if lipschitz is not None:
+        return grid.T.contiguous(), torch.sum(grid * grid, dim=1)
+    out = []
+    for idx, route in _gp_groups(kernels, states, grid.shape[1]):
+        i = idx[0]
+        if route == "batched":
+            out.append(expander_fixed(
+                [kernels[j] for j in idx], [states[j] for j in idx], grid,
+                unsafe, _pick(mu, idx), _pick(sigma, idx), beta,
+                _pick(fmin, idx)))
+        elif route == "plan":
+            # copies, not views of mu and sigma: a traced loop's inputs
+            # may not alias one another
+            out.append(expander_plan_fixed(kernels[i], states[i], grid,
+                                           unsafe, mu[i].clone(),
+                                           sigma[i].clone(), beta, fmin[i]))
+        else:
+            out.append(None)
+    return out
+
+
 def _chunk_expander_predicate(kernels, states, grid, Q, unsafe, mu, sigma,
-                              fmin, beta, lipschitz, grid_idx, Vs=None):
+                              fmin, beta, lipschitz, grid_idx, Vs=None,
+                              valid=None, traced=False, fixed=None):
     """(C,) expander predicate for candidate grid indices ``grid_idx``.
 
     GP variant (``lipschitz`` None): rank-1 conditioning on the virtual
@@ -318,16 +362,22 @@ def _chunk_expander_predicate(kernels, states, grid, Q, unsafe, mu, sigma,
     unsafe grid point (gp_opt.py:577-606) — K3 (K4 on the plan route, the
     eager route's plain PyTorch with the kept ``Vs[i]``, if any). Lipschitz
     variant: ``u_i - L_i * mindist(x_cand, unsafe) >= fmin_i``
-    (gp_opt.py:558-576).
+    (gp_opt.py:558-576). ``valid`` (C,) marks the slots that hold a
+    candidate (the kernels skip the others; default all); ``traced``
+    calls K3 and K4 through their ``torch.library`` operators; ``fixed``
+    is the walk's ``_walk_fixed`` (built per chunk when None).
     """
     C = grid_idx.shape[0]
     Xc = grid[grid_idx]                                     # (C, d)
     pred = torch.ones((C,), dtype=torch.bool, device=grid.device)
 
     if lipschitz is None:
-        valid = torch.ones_like(pred)
+        if valid is None:
+            valid = torch.ones_like(pred)
         ucs = Q[grid_idx][:, 1::2].T                             # (G, C)
-        for idx, route in _gp_groups(kernels, states, grid.shape[1]):
+        groups = _gp_groups(kernels, states, grid.shape[1])
+        for g, (idx, route) in enumerate(groups):
+            fix = None if fixed is None else fixed[g]
             if route == "eager":
                 i = idx[0]
                 preds = _eager_predicate(
@@ -338,18 +388,22 @@ def _chunk_expander_predicate(kernels, states, grid, Q, unsafe, mu, sigma,
                 i = idx[0]
                 preds = fused_expander_predicate_single(
                     kernels[i], states[i], grid, unsafe, mu[i], sigma[i],
-                    Xc, ucs[i], valid, beta, fmin[i])[None]
+                    Xc, ucs[i], valid, beta, fmin[i], traced=traced,
+                    fixed=fix)[None]
             else:
+                pick = _pick if traced else (lambda t, rows: t[rows])
                 preds = fused_expander_predicate_batched(
                     [kernels[i] for i in idx], [states[i] for i in idx],
-                    grid, unsafe, mu[idx], sigma[idx], Xc, ucs[idx], valid,
-                    beta, fmin[idx])
+                    grid, unsafe, pick(mu, idx), pick(sigma, idx), Xc,
+                    pick(ucs, idx), valid, beta, pick(fmin, idx),
+                    traced=traced, fixed=fix)
             for j, i in enumerate(idx):
                 pred &= preds[j] | (fmin[i] == _NINF)
     else:
-        d2 = (torch.sum(Xc * Xc, dim=1)[:, None]
-              + torch.sum(grid * grid, dim=1)[None, :]
-              - 2.0 * (Xc @ grid.T))
+        zt, norms = (grid.T, torch.sum(grid * grid, dim=1)) if fixed is None \
+            else fixed
+        d2 = (torch.sum(Xc * Xc, dim=1)[:, None] + norms[None, :]
+              - 2.0 * (Xc @ zt))
         dist = torch.sqrt(torch.clamp(d2, min=0.0))
         mindist = torch.amin(torch.where(unsafe[None, :], dist,
                                          float("inf")), dim=1)
@@ -408,6 +462,60 @@ def _find_first_expander(kernels, states, grid, Q, unsafe, mu, sigma, fmin,
     return G, chunks
 
 
+def _find_first_expander_traced(kernels, states, grid, Q, unsafe, mu, sigma,
+                                fmin, beta, lipschitz, cand, width, chunk,
+                                Vs=None):
+    """``(G, rounds)`` of ``_find_first_expander`` with nothing chosen on
+    the host, so that the walk traces (``torch.export``), the counterpart
+    of the JAX ``lax.while_loop`` (``safe_opt_core.py:393-492``): the
+    visit order from one stable sort of the flipped key (K5's tie rule),
+    one ``while_loop`` over chunks carrying (position, found, winner,
+    rounds), each chunk gathered from the order and masked past the
+    candidate count, the predicate through the K3/K4 operators (or the
+    eager predicate), the winner the first hit in visit order. With no
+    unsafe point the walk is void, as on the host. The chunk's predicate
+    of each candidate is the host walk's, so G and the query are too.
+
+    PyTorch runs a ``while_loop`` eagerly by reading its condition on the
+    host: once before the loop, once before each round and once after the
+    last."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    N = grid.shape[0]
+    C = min(chunk, N)
+    dev = grid.device
+    n_cand = torch.where(torch.any(unsafe), torch.sum(cand), 0)
+    key = torch.where(cand, width, _NINF)
+    _, ridx = torch.sort(torch.flip(key, (0,)), descending=True, stable=True)
+    order = N - 1 - ridx
+    slots = torch.arange(C, device=dev)
+    fixed = _walk_fixed(kernels, states, grid, unsafe, mu, sigma, fmin, beta,
+                        lipschitz)
+
+    def zero(dtype=torch.int64):
+        return torch.zeros((), dtype=dtype, device=dev)
+
+    def cond(pos, found, win, rounds):
+        return ~found & (pos < n_cand)
+
+    def body(pos, found, win, rounds):
+        at = pos + slots
+        valid = at < n_cand
+        gidx = torch.gather(order, 0, torch.clamp(at, max=N - 1))
+        pred = _chunk_expander_predicate(
+            kernels, states, grid, Q, unsafe, mu, sigma, fmin, beta,
+            lipschitz, gidx, Vs, valid=valid, traced=True,
+            fixed=fixed) & valid
+        hit = torch.any(pred)
+        first = torch.argmax(pred.to(torch.int32)).reshape(1)
+        return (pos + C, hit, torch.where(hit, torch.gather(gidx, 0, first)
+                                          .reshape(()), win), rounds + 1)
+
+    _, found, win, rounds = while_loop(
+        cond, body, (zero(), zero(torch.bool), zero() - 1, zero()))
+    return (torch.arange(N, device=dev) == win) & found, rounds
+
+
 # ---------------------------------------------------------------------------
 # query selection and public steps
 # ---------------------------------------------------------------------------
@@ -423,21 +531,25 @@ def _select_query(Q, S, M, G, scaling, ucb: bool):
 
 
 def _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta, scaling,
-            threshold, lipschitz, ucb, use_lipschitz, chunk, S=None):
+            threshold, lipschitz, ucb, use_lipschitz, chunk, S=None,
+            traced=False):
     """Classification, expander walk and selection from intervals ``Q``
     (their moments and the eager route's kept ``Vs``), with ``S`` given
-    or from the strict test."""
+    or from the strict test; ``traced`` walks with
+    ``_find_first_expander_traced``."""
     S, M, cand, width, has_safe = _classify(Q, fmin, scaling, threshold,
                                             beta, S=S)
     if ucb:
         G = torch.zeros_like(S)
         M = torch.zeros_like(S)   # ucb never populates M/G (gp_opt.py:670)
-        chunks = 0
+        chunks = torch.zeros((), dtype=torch.int64, device=grid.device) \
+            if traced else 0
     else:
         lip = lipschitz if use_lipschitz else None
-        G, chunks = _find_first_expander(kernels, states, grid, Q, ~S, mu,
-                                         sigma, fmin, beta, lip, cand,
-                                         width, chunk, Vs)
+        walk = _find_first_expander_traced if traced \
+            else _find_first_expander
+        G, chunks = walk(kernels, states, grid, Q, ~S, mu, sigma, fmin, beta,
+                         lip, cand, width, chunk, Vs)
     next_idx = _select_query(Q, S, M, G, scaling, ucb)
     return _pack_result(Q, S, M, G, next_idx, has_safe, chunks)
 
@@ -453,6 +565,27 @@ def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
     Q, mu, sigma, Vs = _grid_posterior(kernels, states, grid, beta)
     return _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta,
                    scaling, threshold, lipschitz, ucb, use_lipschitz, chunk)
+
+
+def traced_safeopt_step(kernels, states, grid, fmin, beta, scaling,
+                        threshold, lipschitz=None, *, ucb: bool = False,
+                        use_lipschitz: bool = False,
+                        chunk: int = 64) -> StepResult:
+    """``safeopt_step`` with nothing chosen on the host, the step that
+    ``torch.export`` traces (``utils/deployment.py``): K1-K4 through their
+    ``torch.library`` operators (``ops/library.py``), the operands built
+    on the device from hyperparameters that live there
+    (``fused_posterior.on_device``), and the expander walk in one
+    ``while_loop`` (``_find_first_expander_traced``). ``beta`` may be a
+    0-d tensor (cast to the grid's dtype, as the live step's float is);
+    ``walk_chunks`` is a 0-d tensor. Its decisions are the live step's.
+    """
+    beta = scalar(beta, grid)
+    Q, mu, sigma, Vs = _grid_posterior(kernels, states, grid, beta,
+                                       traced=True)
+    return _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta,
+                   scaling, threshold, lipschitz, ucb, use_lipschitz, chunk,
+                   traced=True)
 
 
 def safe_maximum(kernels, states, grid, fmin, beta: float):

@@ -5,7 +5,9 @@ package runs a swarm as one ``lax.scan``; here ``swarm_scan`` is a Python
 loop over the ``(max_iter, 2, swarm_size, d)`` stream of fixed-shape
 tensor operations with no host read, so that the fused SafeOptSwarm
 iteration around it can be captured as one CUDA graph
-(``swarm_opt_fused.FusedSwarmGraph``).
+(``swarm_opt_fused.FusedSwarmGraph``). Traced (``torch.export``, an
+exported swarm campaign), the same iteration runs under one ``scan``,
+so that the program holds it once, not ``max_iter`` times.
 
 The reference's order is kept exactly (reference swarm.py:61-143):
 
@@ -82,17 +84,16 @@ def swarm_scan(fitness: Callable, positions: torch.Tensor,
     max_iter = r_stream.shape[0]
     max_velocity = 10.0 * velocity_scale
     inertia_step = (final_inertia - initial_inertia) / max_iter
-
-    values0, _ = fitness(positions)
-    x, v = positions, velocities
-    bp, bv = positions, values0
-    gb = _row(positions, torch.argmax(values0))
-    inertia = initial_inertia
-    for it in range(max_iter):
-        r1, r2 = r_stream[it, 0], r_stream[it, 1]
-        v = inertia * v + (c1 * r1 * (bp - x) + c2 * r2 * (gb - x)) \
-            / velocity_scale
+    inertias, inertia = [], initial_inertia
+    for _ in range(max_iter):
+        inertias.append(inertia)
         inertia = inertia + inertia_step
+
+    def one(carry, step):
+        x, v, bp, bv, gb = carry
+        r, inertia = step
+        v = inertia * v + (c1 * r[0] * (bp - x) + c2 * r[1] * (gb - x)) \
+            / velocity_scale
         v = torch.clamp(v, -max_velocity, max_velocity)
 
         x = x + v
@@ -103,6 +104,22 @@ def swarm_scan(fitness: Callable, positions: torch.Tensor,
         improved = (values > bv) & safe
         bv = torch.where(improved, values, bv)
         bp = torch.where(improved[:, None], x, bp)
-        gb = _row(bp, torch.argmax(bv))
+        return (x, v, bp, bv, _row(bp, torch.argmax(bv))), ()
+
+    values0, _ = fitness(positions)
+    carry = (positions, velocities, positions.clone(), values0,
+             _row(positions, torch.argmax(values0)))
+    if torch.compiler.is_compiling():
+        # traced (an exported swarm campaign): one scan, not max_iter
+        # copies of the iteration; the same arithmetic, the inertia a
+        # tensor of the values the loop below multiplies by
+        from torch._higher_order_ops.scan import scan
+
+        carry, _ = scan(one, carry, (r_stream, torch.tensor(
+            inertias, dtype=r_stream.dtype, device=r_stream.device)))
+    else:
+        for it in range(max_iter):
+            carry, _ = one(carry, (r_stream[it], inertias[it]))
+    x, v, bp, bv, gb = carry
     return SwarmRunResult(positions=x, velocities=v, best_positions=bp,
                           best_values=bv, global_best=gb)

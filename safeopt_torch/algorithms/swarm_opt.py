@@ -42,6 +42,7 @@ the same uniforms into every implementation.
 from __future__ import annotations
 
 import logging
+import math
 import time
 from functools import partial
 from typing import Optional
@@ -157,7 +158,9 @@ def _penalty(slack: torch.Tensor) -> torch.Tensor:
 
 
 def _norm_pdf(x: torch.Tensor, scale: float) -> torch.Tensor:
-    inv = 1.0 / (scale * np.sqrt(2.0 * np.pi))
+    # a Python float: a traced program would hold a NumPy scalar as a
+    # tensor constant
+    inv = 1.0 / (scale * math.sqrt(2.0 * math.pi))
     return inv * torch.exp(-0.5 * (x / scale) ** 2)
 
 

@@ -47,11 +47,17 @@ def _as_active_dims(active_dims, input_dim: int) -> Tuple[int, ...]:
 
 
 def _slice_active(X: torch.Tensor, active_dims: Tuple[int, ...]):
+    """The columns ``active_dims`` of ``X``: ``X`` itself, a slice, or the
+    columns stacked (a list index would be a tensor constant, which the
+    body of a traced loop cannot hold)."""
     X = torch.atleast_2d(X)
     if X.shape[1] == len(active_dims) and active_dims == tuple(
             range(len(active_dims))):
         return X
-    return X[:, list(active_dims)]
+    lo, n = active_dims[0], len(active_dims)
+    if active_dims == tuple(range(lo, lo + n)):
+        return X[:, lo:lo + n]
+    return torch.stack([X[:, c] for c in active_dims], dim=1)
 
 
 def _f64(value) -> torch.Tensor:

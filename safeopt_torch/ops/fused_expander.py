@@ -26,7 +26,9 @@ kernel K2 takes, with both grams from its plan
 
 The candidate-side terms (``Cm``, ``dd``, ``gain``, ``M2``; O(C cap^2))
 are plain PyTorch at full precision through ``Kernel.K`` / ``Kdiag``,
-as the JAX package leaves them to XLA. The grid passes are the
+as the JAX package leaves them to XLA; the operands no candidate changes
+(``expander_fixed``, ``expander_plan_fixed``) are built per chunk by the
+live walk and once a walk by the traced one. The grid passes are the
 hand-written kernels ``csrc/fused_expander.cu`` (K3) and
 ``csrc/fused_expander_plan.cu`` (K4) on CUDA tensors, and
 ``fused_expander_plain`` / ``fused_expander_plan_plain`` on CPU tensors.
@@ -40,10 +42,12 @@ import torch
 
 from ..gp.regression import row_mask
 from .fused_posterior import (KINDS, PLAIN_COLS, check_operands, float_dtype,
-                              gram, kind_of, lengthscales, part_plan,
-                              plan_gram, ptr, raise_on_error)
+                              gram, kind_of, lengthscales, on_device,
+                              part_plan, plan_gram, ptr, raise_on_error,
+                              scalar, scalar_rows)
 
-__all__ = ["expander_operands", "fused_expander", "fused_expander_plain",
+__all__ = ["expander_fixed", "expander_operands", "expander_plan_fixed",
+           "fused_expander", "fused_expander_plain",
            "mask_rows", "candidate_terms", "fleet_expander_operands",
            "fused_expander_predicate_batched", "expander_plan_operands",
            "fused_expander_plan", "fused_expander_plan_plain",
@@ -64,33 +68,44 @@ def candidate_terms(kernel, state, Xc, uc, valid):
     return m2, torch.stack([1.0 / dd, gain, valid.to(Xc.dtype)])
 
 
+def expander_fixed(kernels, states, grid, unsafe, mus, sigmas, beta, fmin):
+    """K3's operands that no candidate changes, ``((zt, unsafe, mu, sigma,
+    ils, xs, scal, kind), ls)``: built once per walk by the traced step
+    (``safe_opt_core._find_first_expander_traced``), per chunk by the
+    live one. ``scal[:, 1]`` holds each GP's count, copied on the device
+    (no host sync)."""
+    n, d = grid.shape
+    kind = kind_of(kernels)
+    ls = lengthscales(kernels, d, grid)
+    scal = scalar_rows(kernels, grid, beta,
+                       {1: torch.stack([st.count for st in states]), 3: fmin})
+    xs = torch.stack([st.X for st in states]) / ls[:, None, :]
+    return (grid.T.contiguous(), unsafe.contiguous(), mus.contiguous(),
+            sigmas.contiguous(), (1.0 / ls).contiguous(), xs.contiguous(),
+            scal, kind), ls
+
+
 def expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc, ucs,
-                      valid, beta, fmin):
+                      valid, beta, fmin, fixed=None):
     """K3's operands ``(zt, unsafe, mu, sigma, ils, xs, xc, m2, cvec,
     scal, kind)``.
 
     ``unsafe`` (N,) bool; ``mus`` / ``sigmas`` (G, N) grid posteriors
     from the interval pass; ``Xc`` (C, d) candidate rows; ``ucs`` (G, C)
     the candidates' upper bounds per GP; ``valid`` (C,) bool;
-    ``fmin`` (G,) thresholds. ``scal[:, 1]`` holds each GP's count,
-    copied on the device (no host sync).
+    ``fmin`` (G,) thresholds; ``fixed`` the walk's ``expander_fixed``
+    (built here when None).
     """
-    n, d = grid.shape
-    kind = kind_of(kernels)
-    ls = lengthscales(kernels, d, grid)
+    if fixed is None:
+        fixed = expander_fixed(kernels, states, grid, unsafe, mus, sigmas,
+                               beta, fmin)
+    (zt, unsafe, mu, sigma, ils, xs, scal, kind), ls = fixed
     m2, cvec = zip(*[candidate_terms(kern, st, Xc, ucs[g], valid)
                      for g, (kern, st) in enumerate(zip(kernels, states))])
-    scal = torch.tensor([[float(k.variance), float(k.variance),
-                          float(beta), 0.0] for k in kernels],
-                        dtype=grid.dtype, device=grid.device)
-    scal[:, 1] = torch.stack([st.count for st in states])
-    scal[:, 3] = fmin
-    xs = torch.stack([st.X for st in states]) / ls[:, None, :]
     xc = Xc[None, :, :] / ls[:, None, :]
-    return (grid.T.contiguous(), unsafe.contiguous(), mus.contiguous(),
-            sigmas.contiguous(), (1.0 / ls).contiguous(), xs.contiguous(),
-            xc.contiguous(), torch.stack(m2).contiguous(),
-            torch.stack(cvec).contiguous(), scal, kind)
+    return (zt, unsafe, mu, sigma, ils, xs, xc.contiguous(),
+            torch.stack(m2).contiguous(), torch.stack(cvec).contiguous(),
+            scal, kind)
 
 
 def fleet_expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc,
@@ -229,31 +244,53 @@ fused_expander.launches = 0
 
 
 def fused_expander_predicate_batched(kernels, states, grid, unsafe, mus,
-                                     sigmas, Xc, ucs, valid, beta, fmin):
+                                     sigmas, Xc, ucs, valid, beta, fmin,
+                                     traced: bool = False, fixed=None):
     """(G, C) expander predicates of GPs of one family and capacity, one
-    grid pass per chunk for all of them. A GP with ``fmin = -inf`` still
-    gets a row (the caller masks it out)."""
-    return fused_expander(*expander_operands(
-        kernels, states, grid, unsafe, mus, sigmas, Xc, ucs, valid, beta,
-        fmin))
+    grid pass per chunk for all of them (with ``traced`` K3 through its
+    ``torch.library`` operator; ``fixed`` the walk's ``expander_fixed``).
+    A GP with ``fmin = -inf`` still gets a row (the caller masks it
+    out)."""
+    ops = expander_operands(kernels, states, grid, unsafe, mus, sigmas, Xc,
+                            ucs, valid, beta, fmin, fixed)
+    if traced:
+        from .library import fused_expander as op
+        return op(*ops)
+    return fused_expander(*ops)
+
+
+def expander_plan_fixed(kernel, state, grid, unsafe, mu, sigma, beta, fmin):
+    """K4's operands that no candidate changes, ``(zt, unsafe, mu, sigma,
+    xs, scales, pvar, plan, scal)`` (``expander_fixed``'s counterpart);
+    ``scal`` = [0, count, beta, fmin], the count copied on the device."""
+    scales, pvar, plan, _ = part_plan(kernel, grid.shape[1], grid)
+    if on_device([kernel], grid):
+        scal = torch.stack([grid.new_zeros(()), state.count.to(grid.dtype),
+                            scalar(beta, grid), scalar(fmin, grid)])
+    else:
+        scal = torch.tensor([0.0, 0.0, float(beta), 0.0], dtype=grid.dtype,
+                            device=grid.device)
+        scal[1] = state.count
+        scal[3] = fmin
+    return (grid.T.contiguous(), unsafe.contiguous(), mu.contiguous(),
+            sigma.contiguous(), state.X.contiguous(), scales, pvar, plan,
+            scal)
 
 
 def expander_plan_operands(kernel, state, grid, unsafe, mu, sigma, Xc, uc,
-                           valid, beta, fmin):
+                           valid, beta, fmin, fixed=None):
     """K4's operands ``(zt, unsafe, mu, sigma, xs, xc, m2, cvec, scales,
     pvar, plan, scal)`` for one GP: ``mu`` / ``sigma`` (N,) its grid
     posterior, ``uc`` (C,) its candidates' upper bounds, ``fmin`` its
-    threshold; ``scal`` = [0, count, beta, fmin], the count copied on
-    the device."""
-    scales, pvar, plan, _ = part_plan(kernel, grid.shape[1], grid)
+    threshold, ``fixed`` the walk's ``expander_plan_fixed`` (built here
+    when None)."""
+    if fixed is None:
+        fixed = expander_plan_fixed(kernel, state, grid, unsafe, mu, sigma,
+                                    beta, fmin)
+    zt, unsafe, mu, sigma, xs, scales, pvar, plan, scal = fixed
     m2, cvec = candidate_terms(kernel, state, Xc, uc, valid)
-    scal = torch.tensor([0.0, 0.0, float(beta), 0.0], dtype=grid.dtype,
-                        device=grid.device)
-    scal[1] = state.count
-    scal[3] = fmin
-    return (grid.T.contiguous(), unsafe.contiguous(), mu.contiguous(),
-            sigma.contiguous(), state.X.contiguous(), Xc.contiguous(),
-            m2.contiguous(), cvec.contiguous(), scales, pvar, plan, scal)
+    return (zt, unsafe, mu, sigma, xs, Xc.contiguous(), m2.contiguous(),
+            cvec.contiguous(), scales, pvar, plan, scal)
 
 
 def fused_expander_plan_plain(zt, unsafe, mu, sigma, xs, xc, m2, cvec,
@@ -311,7 +348,14 @@ fused_expander_plan.launches = 0
 
 
 def fused_expander_predicate_single(kernel, state, grid, unsafe, mu, sigma,
-                                    Xc, uc, valid, beta, fmin):
-    """(C,) expander predicate of one GP whose kernel K2/K4 take."""
-    return fused_expander_plan(*expander_plan_operands(
-        kernel, state, grid, unsafe, mu, sigma, Xc, uc, valid, beta, fmin))
+                                    Xc, uc, valid, beta, fmin,
+                                    traced: bool = False, fixed=None):
+    """(C,) expander predicate of one GP whose kernel K2/K4 take (with
+    ``traced`` K4 through its operator; ``fixed`` the walk's
+    ``expander_plan_fixed``)."""
+    ops = expander_plan_operands(kernel, state, grid, unsafe, mu, sigma, Xc,
+                                 uc, valid, beta, fmin, fixed)
+    if traced:
+        from .library import fused_expander_plan as op
+        return op(*ops)
+    return fused_expander_plan(*ops)

@@ -64,6 +64,12 @@ CPU tensors, take any.
 
 Distances use the difference form: the ``|x|^2 + |z|^2 - 2 x.z`` form
 loses digits that the ill-conditioned factor then amplifies.
+
+The functions that build the operands read the kernels' hyperparameters
+on the host and upload them once (the live step, whose kernels keep
+them there), or, when they lie on the grid's device (``on_device``: the
+traced step of ``torch.export``), build the same values there with no
+host read.
 """
 
 from __future__ import annotations
@@ -75,7 +81,7 @@ import numpy as np
 import torch
 
 from ..gp.kernels import (Bias, Cosine, Exponential, Matern32, Matern52,
-                          Product, RBF, Sum)
+                          Product, RBF, Sum, kernel_leaves)
 from ..gp.regression import row_mask
 
 __all__ = ["KINDS", "LEAF_KINDS", "kind_of", "supports_kernel",
@@ -88,7 +94,8 @@ __all__ = ["KINDS", "LEAF_KINDS", "kind_of", "supports_kernel",
            "fused_intervals3_plain", "fused_intervals_batched",
            "interval_plan_operands", "fused_intervals_plan",
            "fused_intervals_plan_plain", "fused_intervals_plan3",
-           "fused_intervals_plan3_plain", "fused_intervals_single"]
+           "fused_intervals_plan3_plain", "fused_intervals_single",
+           "on_device", "scalar", "scalar_rows"]
 
 # kernel family -> kind code of the CUDA kernels (csrc/common.cuh); K1/K3
 # take the first four, K2/K4 every leaf kind
@@ -288,38 +295,100 @@ def kernel_plan_gram(a: torch.Tensor, b_t: torch.Tensor, scales, pvar, kinds,
     return out
 
 
+def on_device(kernels, like: torch.Tensor) -> bool:
+    """True when every hyperparameter of ``kernels`` lies on the device of
+    ``like``: the operands are then built from them by tensor operations
+    on that device, with no host read (the traced step, a kernel shipped
+    to the card); else from their host values, uploaded once."""
+    return all(t.device == like.device for k in kernels
+               for t in kernel_leaves(k))
+
+
+def scalar(value, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d tensor of ``value`` (a float or a tensor) in the dtype and on
+    the device of ``like``, made there (no upload)."""
+    if torch.is_tensor(value):
+        return value.to(like.dtype).reshape(())
+    return like.new_full((), float(value))
+
+
 def part_plan(kernel, d: int, like: torch.Tensor):
     """K2/K4's plan of ``kernel`` over a d-column grid, in the dtype and
     on the device of ``like``: ``(scales, pvar, plan, kdiag)`` with
     ``scales`` (P, d) 1/lengthscale on each leaf's active columns and 0
     elsewhere, ``pvar`` (P,) the leaf variances, ``plan`` (2, P) int32
     rows of leaf kind codes and term indices, and ``kdiag`` the prior
-    variance (a float: the sum over terms of the product of their leaf
-    variances). Any number of leaves."""
+    variance, the sum over terms of the product of their leaf variances:
+    a float, or (``on_device``) a 0-d tensor in the leaves' dtype, summed
+    in the same order. Any number of leaves."""
     terms = terms_of(kernel)
     leaves = [p for term in terms for p in term]
+    kinds = [LEAF_KINDS[type(p)] for p in leaves]
+    term_idx = [t for t, term in enumerate(terms) for _ in term]
+    plan = torch.tensor([kinds, term_idx], dtype=torch.int32,
+                        device=like.device)
+    if on_device([kernel], like):
+        zero, rows, kdiag = like.new_zeros(()), [], None
+        for p in leaves:
+            if isinstance(p, Bias):
+                rows.append(like.new_zeros((d,)))
+                continue
+            # the reciprocal in the leaves' float64, then rounded, as the
+            # host route computes it
+            inv = (1.0 / torch.broadcast_to(p.lengthscale, (p.input_dim,))
+                   ).to(like.dtype)
+            col = {c: j for j, c in enumerate(p.active_dims)}
+            rows.append(torch.stack([inv[col[c]] if c in col else zero
+                                     for c in range(d)]))
+        for term in terms:
+            prod = term[0].variance
+            for p in term[1:]:
+                prod = prod * p.variance
+            kdiag = prod if kdiag is None else kdiag + prod
+        return (torch.stack(rows),
+                torch.stack([p.variance.to(like.dtype) for p in leaves]),
+                plan, kdiag)
     scales = np.zeros((len(leaves), d))
     for q, p in enumerate(leaves):
         if not isinstance(p, Bias):      # constant: distances don't enter
             ls = np.broadcast_to(p.lengthscale.numpy(), (p.input_dim,))
             scales[q, list(p.active_dims)] = 1.0 / ls
-    kinds = [LEAF_KINDS[type(p)] for p in leaves]
-    term_idx = [t for t, term in enumerate(terms) for _ in term]
     kdiag = sum(math.prod(float(p.variance) for p in term)
                 for term in terms)
     to = dict(dtype=like.dtype, device=like.device)
     return (torch.tensor(scales, **to),
             torch.tensor([float(p.variance) for p in leaves], **to),
-            torch.tensor([kinds, term_idx], dtype=torch.int32,
-                         device=like.device),
-            kdiag)
+            plan, kdiag)
 
 
 def lengthscales(kernels, d: int, like: torch.Tensor) -> torch.Tensor:
     """(G, d) lengthscales in the dtype and on the device of ``like``."""
+    if on_device(kernels, like):
+        return torch.stack([torch.broadcast_to(k.lengthscale.to(like.dtype),
+                                               (d,)) for k in kernels])
     ls = np.stack([np.broadcast_to(k.lengthscale.numpy(), (d,))
                    for k in kernels])
     return torch.tensor(ls, dtype=like.dtype, device=like.device)
+
+
+def scalar_rows(kernels, like: torch.Tensor, beta, fill) -> torch.Tensor:
+    """(G, 4) rows ``[variance, variance, beta, 0]`` of K1's and K3's
+    ``scal``, column ``c`` replaced by ``fill[c]`` (a (G,) tensor on the
+    device: the counts, the thresholds), in the dtype and on the device of
+    ``like``."""
+    if on_device(kernels, like):
+        var = torch.stack([k.variance.to(like.dtype) for k in kernels])
+        cols = [var, var, scalar(beta, like).expand(len(kernels)),
+                like.new_zeros(len(kernels))]
+        for c, col in fill.items():
+            cols[c] = col.to(like.dtype)
+        return torch.stack(cols, dim=1)
+    scal = torch.tensor([[float(k.variance), float(k.variance),
+                          float(beta), 0.0] for k in kernels],
+                        dtype=like.dtype, device=like.device)
+    for c, col in fill.items():
+        scal[:, c] = col
+    return scal
 
 
 def interval_operands(kernels, states, grid: torch.Tensor, beta):
@@ -329,10 +398,8 @@ def interval_operands(kernels, states, grid: torch.Tensor, beta):
     n, d = grid.shape
     kind = kind_of(kernels)
     ls = lengthscales(kernels, d, grid)
-    scal = torch.tensor([[float(k.variance), float(k.variance),
-                          float(beta), 0.0] for k in kernels],
-                        dtype=grid.dtype, device=grid.device)
-    scal[:, 3] = torch.stack([st.count for st in states])
+    scal = scalar_rows(kernels, grid, beta,
+                       {3: torch.stack([st.count for st in states])})
     xs = torch.stack([st.X for st in states]) / ls[:, None, :]
     lm = torch.stack([st.Linv * row_mask(st)[None, :] for st in states])
     w = torch.stack([st.w for st in states])
@@ -587,11 +654,15 @@ fused_intervals3.launches = 0
 
 
 def fused_intervals_batched(kernels, states, grid: torch.Tensor, beta,
-                            three_pass: bool = False):
+                            three_pass: bool = False, traced: bool = False):
     """(G, 2, N) interval rows of GPs of one family and capacity, one
     pass over the grid for all of them: K1, or K1-3p with
-    ``three_pass``."""
+    ``three_pass``; with ``traced`` K1 through its ``torch.library``
+    operator (``ops/library.py``), which a traced program holds."""
     ops = interval_operands(kernels, states, grid, beta)
+    if traced:
+        from .library import fused_intervals as op
+        return op(*ops)
     return (fused_intervals3 if three_pass else fused_intervals)(*ops)
 
 
@@ -599,9 +670,13 @@ def interval_plan_operands(kernel, state, grid: torch.Tensor, beta):
     """K2's operands ``(zt, xs, lm, w, scales, pvar, plan, scal)`` for
     one GP over ``grid`` (N, d); ``scal`` = [0, kdiag, beta, count]."""
     scales, pvar, plan, kdiag = part_plan(kernel, grid.shape[1], grid)
-    scal = torch.tensor([0.0, kdiag, float(beta), 0.0], dtype=grid.dtype,
-                        device=grid.device)
-    scal[3] = state.count
+    if torch.is_tensor(kdiag):
+        scal = torch.stack([grid.new_zeros(()), scalar(kdiag, grid),
+                            scalar(beta, grid), state.count.to(grid.dtype)])
+    else:
+        scal = torch.tensor([0.0, kdiag, float(beta), 0.0], dtype=grid.dtype,
+                            device=grid.device)
+        scal[3] = state.count
     lm = state.Linv * row_mask(state)[None, :]
     return (grid.T.contiguous(), state.X.contiguous(), lm.contiguous(),
             state.w.contiguous(), scales, pvar, plan, scal)
@@ -703,9 +778,12 @@ fused_intervals_plan3.launches = 0
 
 
 def fused_intervals_single(kernel, state, grid: torch.Tensor, beta,
-                           three_pass: bool = False):
+                           three_pass: bool = False, traced: bool = False):
     """(2, N) interval rows of one GP whose kernel K2 takes: K2, or K2-3p
-    with ``three_pass``."""
+    with ``three_pass``; with ``traced`` K2 through its operator."""
     ops = interval_plan_operands(kernel, state, grid, beta)
+    if traced:
+        from .library import fused_intervals_plan as op
+        return op(*ops)
     return (fused_intervals_plan3 if three_pass
             else fused_intervals_plan)(*ops)

@@ -1,23 +1,31 @@
-"""Structured per-iteration stats.
+"""Structured per-iteration stats and profiler hooks.
 
-Counterpart of ``safeopt_tpu/utils/observability.py:24-78``: every
+Counterpart of ``safeopt_tpu/utils/observability.py``: every
 ``SafeOpt.optimize()`` records one ``IterationStats`` from scalars the
 host already pulled, the certified path's telemetry among them, and
 every fused ``SafeOptSwarm.optimize()`` one ``SwarmIterationStats``
 (with its CUDA graph's captures and replays).
 ``host_syncs`` counts the host's reads of device values (each waits for
 the device), so that a step's or a loop iteration's syncs can be read
-as the difference of two counts.
+as the difference of two counts. ``profile_trace`` wraps
+``torch.profiler`` (the card's kernels through CUPTI when one is
+present) and writes a Chrome trace of the enclosed block; ``timed`` is
+a wall-clock timer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import os
+import time
 from typing import List, Optional
 
+import torch
+
 __all__ = ["IterationStats", "SwarmIterationStats", "StatsRecorder",
-           "SyncCounter", "host_syncs"]
+           "SyncCounter", "host_syncs", "profile_trace", "timed"]
 
 logger = logging.getLogger("safeopt_torch")
 
@@ -121,3 +129,52 @@ class StatsRecorder:
             "mean_step_s": sum(times) / len(times),
             "last_safe_count": self.history[-1].safe_count,
         }
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Trace the enclosed block with ``torch.profiler`` (CPU activity, and
+    CUDA activity when a card is present) and write it as a Chrome trace,
+    ``log_dir/trace.json`` (``chrome://tracing``, Perfetto, TensorBoard's
+    profiler). Yields the profiler, whose ``key_averages()`` sum the
+    events by name. The counterpart of the JAX package's
+    ``jax.profiler`` trace.
+
+    Usage::
+
+        with profile_trace("/tmp/trace"):
+            opt.optimize()
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        # the trace holds the block's device work: none of it in flight
+        # at the start, all of it finished at the end
+        if cuda:
+            torch.cuda.synchronize()
+        try:
+            yield prof
+        finally:
+            if cuda:
+                torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def timed():
+    """Tiny wall-clock timer: ``with timed() as t: ...; t()`` -> seconds."""
+    start = time.perf_counter()
+    elapsed = [None]
+
+    def read():
+        return (elapsed[0] if elapsed[0] is not None
+                else time.perf_counter() - start)
+
+    try:
+        yield read
+    finally:
+        elapsed[0] = time.perf_counter() - start

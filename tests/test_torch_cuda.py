@@ -30,7 +30,10 @@ its wgmma kernel: it gives its own automatic layout's bits at every
 launch layout and lies within the split bound of K1-3p's plain version.
 The float32 K1-3p and K2-3p (``csrc/fused_intervals3.cu``) give the same
 bits on every launch, take grids of any length and capacities past the
-resident gram, and their SASS holds HGMMA.
+resident gram, and their SASS holds HGMMA. K1-K4's ``torch.library``
+operators give their launchers' bits and count their launches, and a
+step exported and loaded on the card gives the live step's bits,
+launching K1 once and K3 once a walk round.
 """
 
 import numpy as np
@@ -1377,3 +1380,66 @@ def test_swarm_fleet_graph_equals_eager_sync_free(cuda):
     assert (fp.fused_intervals.launches, fe.fused_expander.launches) == before
     assert [c.tolist() for c in (s.count for s in with_graph.states)] == \
         [[3 + n_iter] * K] * 2
+
+
+# -- K1-K4 as torch.library operators, and a loaded artifact ------------------
+#
+# The operators' implementation is each kernel's wrapper: on the same
+# operands they give the launcher's bits and count their launches. An
+# artifact exported on the card launches the kernels through them and
+# gives the live step's decisions and intervals bit for bit.
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_library_ops_match_their_launchers(cuda, dtype):
+    from safeopt_torch.ops import library
+
+    gps, grid = _gps("RBF", 2, 64, cuda, dtype)
+    kerns, states = [g.kern for g in gps], [g.state for g in gps]
+    k1 = fp.interval_operands(kerns, states, grid, 2.0)
+    Q = fp.fused_intervals(*k1)
+    mu, sigma = (Q[:, 0] + Q[:, 1]) * 0.5, (Q[:, 1] - Q[:, 0]) / 4.0
+    unsafe = Q[:, 0].amin(dim=0) < 0.4
+    Xc, ucs = grid[:32], Q[:, 1, :32]
+    valid = torch.ones(32, dtype=torch.bool, device=cuda)
+    fmin = torch.tensor([0.4, 0.6], dtype=dtype, device=cuda)
+    k3 = fe.expander_operands(kerns, states, grid, unsafe, mu, sigma, Xc,
+                              ucs, valid, 2.0, fmin)
+    cgps = [pt.GPRegression(g.X_host, g.Y_host,
+                            pt.RBF(1, active_dims=[0])
+                            * pt.RBF(1, active_dims=[1]),
+                            noise_var=0.01, capacity=64, device=cuda,
+                            dtype=dtype) for g in gps[:1]]
+    k2 = fp.interval_plan_operands(cgps[0].kern, cgps[0].state, grid, 2.0)
+    k4 = fe.expander_plan_operands(cgps[0].kern, cgps[0].state, grid, unsafe,
+                                   mu[0], sigma[0], Xc, ucs[0], valid, 2.0,
+                                   fmin[0])
+    pairs = [(library.fused_intervals, fp.fused_intervals, k1),
+             (library.fused_intervals_plan, fp.fused_intervals_plan, k2),
+             (library.fused_expander, fe.fused_expander, k3),
+             (library.fused_expander_plan, fe.fused_expander_plan, k4)]
+    for op, launcher, ops in pairs:
+        before = launcher.launches
+        assert torch.equal(op(*ops), launcher(*ops))
+        assert launcher.launches == before + 2     # the op's launch counts
+
+
+def test_loaded_step_matches_the_live_step_on_cuda(cuda, tmp_path):
+    from safeopt_torch.utils.deployment import (device_kernels, export_step,
+                                                load_step)
+
+    gps, grid = _gps("RBF", 2, 64, cuda, torch.float32, seed=3)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=cuda)  # noqa
+    kernels = tuple(g.kern for g in gps)
+    args = [kernels, tuple(g.state for g in gps), grid, t([0.3, 0.5]),
+            t(2.0), t([np.sqrt(2.0), np.sqrt(1.5)]), t([0.0, 0.0])]
+    live = core.safeopt_step(*args[:4], 2.0, *args[5:], chunk=16)
+    args[0] = device_kernels(kernels, cuda)
+    export_step(*args, chunk=16, path=str(tmp_path / "step.pt2"))
+    served = load_step(tmp_path / "step.pt2")
+    k1, k3 = fp.fused_intervals.launches, fe.fused_expander.launches
+    out = served(*args)
+    torch.cuda.synchronize()
+    for name in ("Q", "S", "M", "G", "next_idx"):
+        assert torch.equal(getattr(out, name), getattr(live, name)), name
+    assert fp.fused_intervals.launches == k1 + 1
+    assert fe.fused_expander.launches == k3 + int(out.walk_chunks)
