@@ -265,7 +265,29 @@ Phases, each reported on its own line:
     dimension), evaluated at the flagship's 1e6 points on the card in
     float64 within 1e-9 of the CPU; the draw's host ms and the
     evaluation's device ms; (d) ``profile_trace`` around one flagship
-    ``optimize()``: the trace names K1's and K3's CUDA kernels.
+    ``optimize()``: the trace names K1's and K3's CUDA kernels;
+22. sharding, in a child process with an NCCL group of world size 1
+    (``chip_smoke.py --shard-to FILE 1 0 PORT``; its failure fails the
+    run): on a ``make_mesh(device_type='cuda')`` of (1, 1), the flagship
+    step (two RBF GPs, the 1000 x 1000 grid, 50 observations, capacity
+    64, chunk 32) on ``shard_grid``'s ``DTensor`` in float64 and float32,
+    Q, S, M, G, next_idx and the walk bit for bit the unsharded step's,
+    K1 once and K3 once a walk chunk on the sharded path (counted from
+    zero around it), ms of a sharded and an unsharded step in turns (CUDA
+    events, medians); ``num_valid`` on the card: the flagship grid with 3
+    copies of its last row appended gives the unpadded step's S, M, G and
+    next_idx; phase 20 (a)'s fleet with ``mesh=`` bit for bit the fleet
+    without one. With two cards or more a world of 2 (a data axis of 2,
+    one process a card) runs the same, with four a world of 4 too; with
+    one card it prints that they did not run;
+23. the native host engine (``safeopt_torch.native``): built on the
+    card's host; the cap-512 state's two GPs (phase 3's, 400
+    observations) factored natively and by SciPy give posterior means and
+    variances on the grid within 1e-9; ms to append one observation to
+    both GPs with each engine (host clock, median of 20);
+24. the ten scripts of ``examples_torch/`` in this process on the card at
+    ``tests/test_examples.py``'s iteration counts, each script's own
+    asserts the checks; each one's wall seconds and last line.
 
 Any failed check exits non-zero. The last lines are one JSON object of
 the kernels, the nvidia-smi line, and the result line.
@@ -3412,6 +3434,443 @@ def drive_utilities(grid_np, params_np, smi, exports):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 22: sharding over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARD_REPS = 10
+
+
+def shard_case(mesh, dtype, rank, smi):
+    """Phase 22 on one mesh: the flagship step (two RBF GPs, the 1000 x
+    1000 grid, 50 observations, capacity 64, chunk 32) on ``shard_grid``'s
+    ``DTensor`` against the unsharded step, the K1 and K3 launches of the
+    sharded step, its ms and the unsharded step's (CUDA events, median of
+    SHARD_REPS), and ``num_valid`` on the padded grid."""
+    from safeopt_torch import linearly_spaced_combinations
+    from safeopt_torch.algorithms.safe_opt_core import safeopt_step
+    from safeopt_torch.parallel import (replicate, shard_grid,
+                                        shard_state)
+    from safeopt_torch.parallel.sharded_step import _Shards
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    grid = torch.tensor(linearly_spaced_combinations(
+        [(-5.0, 5.0), (-5.0, 5.0)], 1000), dtype=dtype, device=dev)
+    N = grid.shape[0]
+    gps = build_gps(np.random.default_rng(0), 50, 64, dev, dtype)
+    kernels = tuple(g.kern for g in gps)
+    states = tuple(g.state for g in gps)
+    t = functools.partial(torch.tensor, dtype=dtype, device=dev)
+    a = (t(FMIN), BETA, t(SCALING), t([0.0, 0.0]))
+    what = f"sharded flagship step {str(dtype)[6:]} on mesh " \
+        f"{tuple(mesh.mesh.shape)}"
+    ref = safeopt_step(kernels, states, grid, *a, chunk=32)
+    sgrid, pad = shard_grid(grid, mesh)
+    sstates = tuple(shard_state(st, mesh) for st in states)
+    sargs = replicate(a, mesh)
+
+    def sharded():
+        return safeopt_step(kernels, sstates, sgrid, *sargs, num_valid=N,
+                            chunk=32)
+
+    sharded()                                      # warm-up
+    zero_launches()
+    res = sharded()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    sh = _Shards(sgrid)
+    lo, hi = sh.offset, min(sh.offset + sh.n, N)
+    for name in ("Q", "S", "M", "G"):
+        mine = getattr(res, name).to_local()[:hi - lo]
+        check(torch.equal(mine, getattr(ref, name)[lo:hi]),
+              f"{what}: {name} differs from the unsharded step")
+    check(int(res.next_idx) == int(ref.next_idx)
+          and res.walk_chunks == ref.walk_chunks,
+          f"{what}: next_idx or walk differs from the unsharded step")
+    check(launches["K1"] == 1 and launches["K3"] == ref.walk_chunks >= 1,
+          f"{what} launched {launches} in {ref.walk_chunks} walk chunks")
+    # the two steps in turns, so that a drift of the card shows in both
+    ms = {"sharded": [], "unsharded": []}
+    for _ in range(SHARD_REPS):
+        ms["sharded"].append(timed_ms(sharded)[1])
+        ms["unsharded"].append(timed_ms(lambda: safeopt_step(
+            kernels, states, grid, *a, chunk=32))[1])
+    ms = {k: float(np.median(v)) for k, v in ms.items()}
+    # num_valid on the card: 3 copies of the last row appended
+    padded = torch.cat([grid, grid[-1:].expand(3, -1)])
+    pres = safeopt_step(kernels, states, padded, *a, None, N, chunk=32)
+    for name in ("S", "M", "G"):
+        check(torch.equal(getattr(pres, name)[:N], getattr(ref, name))
+              and not bool(getattr(pres, name)[N:].any()),
+              f"num_valid flagship step {str(dtype)[6:]}: {name} differs "
+              "from the unpadded step")
+    check(int(pres.next_idx) == int(ref.next_idx),
+          "num_valid flagship step: next_idx differs")
+    if rank == 0:
+        print(f"{what} ({smi}): equal to the unsharded step bit for bit, "
+              f"{ref.walk_chunks} walk chunks, launches K1 "
+              f"{launches['K1']} K3 {launches['K3']}; "
+              f"{ms['sharded']:.3f} ms a sharded step, "
+              f"{ms['unsharded']:.3f} ms unsharded (medians of "
+              f"{SHARD_REPS}, in turns); num_valid on the padded grid "
+              f"gives the unpadded step", flush=True)
+    return {"launches": {k: launches[k] for k in ("K1", "K3")},
+            "walk_chunks": ref.walk_chunks, "pad": pad,
+            "sharded_ms": ms["sharded"], "unsharded_ms": ms["unsharded"]}
+
+
+def shard_fleet(mesh):
+    """Phase 22: fleet (a) of phase 20 (8 flagship campaigns, 8 float32
+    iterations) with ``mesh=`` against the fleet without one: every field
+    the mesh wraps (the states, queries, observations, next_idx, safe
+    counts, has_safe, walk chunks) gathered whole and equal bit for
+    bit."""
+    from safeopt_torch.parallel import (run_safeopt_campaigns,
+                                        stack_campaign_states)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kernels, per = fleet_flagship_states(dev)
+    grid64 = torch.tensor(fleet_grid(), dtype=torch.float64, device=dev)
+    K, G, n = len(per), len(kernels), FLEET_ITERS
+    noise = torch.tensor(np.random.default_rng(20).normal(size=(K, n, G)),
+                         dtype=torch.float64, device=dev)
+    t = functools.partial(torch.tensor, dtype=torch.float64, device=dev)
+    args = (t(FMIN), BETA, t(SCALING), t([0.0] * G))
+    kw = dict(objectives=flag_objectives(), dtype=torch.float32, chunk=32,
+              noise_std=FLEET_NOISE, n_iter=n)
+    batched = stack_campaign_states(per)
+    plain = run_safeopt_campaigns(kernels, batched, grid64, *args, noise,
+                                  **kw)
+    zero_launches()
+    sharded = run_safeopt_campaigns(kernels, batched, grid64, *args, noise,
+                                    mesh=mesh, **kw)
+    launches = read_launches()
+    for name in ("next_idx", "xs", "ys", "safe_counts", "has_safe",
+                 "walk_chunks"):
+        check(torch.equal(getattr(sharded, name).full_tensor().cpu(),
+                          getattr(plain, name).cpu()),
+              f"fleet (a) with mesh=: {name} differs from the fleet "
+              "without a mesh")
+    for g, (st, ref) in enumerate(zip(sharded.states, plain.states)):
+        for field, a, b in zip(ref._fields, st, ref):
+            check(torch.equal(a.full_tensor(), b),
+                  f"fleet (a) with mesh=: GP {g}'s {field} differs from "
+                  "the fleet without a mesh")
+    return {k: launches[k] for k in ("K1", "K3")}
+
+
+def shard_main(world, rank, port, out_path):
+    """``chip_smoke.py --shard-to FILE [WORLD RANK PORT]``: phase 22 in a
+    process of its own with an NCCL group (world size 1 by default), its
+    numbers written to FILE as JSON."""
+    import torch.distributed as dist
+
+    from safeopt_torch.parallel import make_mesh
+
+    if not torch.cuda.is_available():
+        print("chip_smoke sharding: no CUDA device", file=sys.stderr)
+        return 1
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        mesh = make_mesh(device_type="cuda")
+        out = {str(dt)[6:]: shard_case(mesh, dt, rank, smi)
+               for dt in (torch.float64, torch.float32)}
+        out["fleet"] = shard_fleet(mesh)
+        if rank == 0:
+            with open(out_path, "w") as fh:
+                json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_shard_child(world, out_path, timeout=600):
+    """Start ``shard_main`` in ``world`` child processes (one card each)
+    and wait for them; the run fails if any fails."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    children = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-to", out_path,
+         str(world), str(rank), str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+    logs = []
+    try:
+        for child in children:
+            logs.append(child.communicate(timeout=timeout)[0])
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for child, log in zip(children, logs):
+        check(child.returncode == 0, f"phase 22's process failed "
+                                     f"({child.returncode}):\n{log[-4000:]}")
+    print(logs[0].rstrip(), flush=True)
+    with open(out_path) as fh:
+        return json.load(fh)
+
+
+def drive_sharding(smi):
+    """Phase 22: the sharded step and fleet on a (1, 1) NCCL mesh in a
+    child process, and on data axes of 2 and 4 where the host has as many
+    cards. Returns the sharded path's K1 and K3 launches."""
+    import os
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    launches = {"K1": 0, "K3": 0}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        worlds = [1] + [w for w in (2, 4) if torch.cuda.device_count() >= w]
+        for world in worlds:
+            out = run_shard_child(world, os.path.join(tmp, f"{world}.json"))
+            for dt in ("float64", "float32"):
+                for k in launches:
+                    launches[k] += out[dt]["launches"][k]
+            for k in launches:
+                launches[k] += out["fleet"][k]
+            print(f"sharding, {world} card(s) ({smi}): fleet (a) with "
+                  f"mesh= equal to the fleet without one, launches K1 "
+                  f"{out['fleet']['K1']} K3 {out['fleet']['K3']}",
+                  flush=True)
+    cards = torch.cuda.device_count()
+    missing = [w for w in (2, 4) if cards < w]
+    if missing:
+        print(f"sharding: the meshes with a data axis of {missing} did "
+              f"not run ({cards} card(s))", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the native host factor engine
+# ---------------------------------------------------------------------------
+
+NATIVE_SWEEP = (16, 32, 64, 128, 256)        # observations, cap 512
+ENGINES = ("native", "scipy", "default")
+
+
+def _turns(items, i):
+    """``items`` rotated by ``i``: each takes every place in turn, so
+    that a drift of the host shows in all alike."""
+    i %= len(items)
+    return items[i:] + items[:i]
+
+
+def _engine(gps, engine):
+    """``gps`` refactored by ``engine``: 'native' (the engine at every
+    size), 'scipy' (SciPy alone, gram included) or 'default' (the engine
+    up to ``NATIVE_MAX_ROWS`` observations). Returns the refit's ms for
+    all of them (host clock, the device mirrors rebuilt with each)."""
+    from safeopt_torch.gp.host_math import NATIVE_MAX_ROWS
+
+    for g in gps:
+        g._host._use_native = engine != "scipy"
+        g._host._native_max_rows = (10 ** 9 if engine == "native"
+                                    else NATIVE_MAX_ROWS)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for g in gps:
+        g.refit()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3
+
+
+def _append_ms(gps, x):
+    """ms of one append of ``x`` to every GP of ``gps`` (``append_data``,
+    add_new_data_point's update, host clock), undone by a pop outside
+    the clock."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for g in gps:
+        g.append_data(x, float(np.exp(-0.5 * x @ x)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) * 1e3
+    for g in gps:
+        g.pop_data()
+    return ms
+
+
+def _engine_times(sets, pts, refits):
+    """{engine: (median ms of a refit, median ms of an append)} of the
+    GP sets ``sets`` {engine: GPs}, the engines in turns: ``refits``
+    {engine: count} refits, then one append per point of ``pts``."""
+    ref = {e: [] for e in sets}
+    app = {e: [] for e in sets}
+    for i in range(max(refits.values())):
+        for e in _turns(list(sets), i):
+            if i < refits[e]:
+                ref[e].append(_engine(sets[e], e))
+    for i, x in enumerate(pts):
+        for e in _turns(list(sets), i):
+            app[e].append(_append_ms(sets[e], x))
+    return {e: (float(np.median(ref[e])), float(np.median(app[e])))
+            for e in sets}
+
+
+def _host_sweep():
+    """The host factor alone (RBF, two inputs, cap 512) at each row count
+    of ``NATIVE_SWEEP``: median ms of ``set_data`` (6) and of an append
+    (20) with the engine and with SciPy, in turns."""
+    from safeopt_torch import RBF
+    from safeopt_torch.gp.host_math import HostFactor
+
+    rng = np.random.default_rng(231)
+    out = {}
+    for n in NATIVE_SWEEP:
+        X = rng.uniform(-4.0, 4.0, size=(n, 2))
+        Y = rng.normal(size=(n, 1))
+        pts = rng.uniform(-4.0, 4.0, size=(20, 2))
+        hfs, sets, apps = {}, {}, {}
+        for engine in ("native", "scipy"):
+            hfs[engine] = HostFactor(RBF(2, variance=2.0, lengthscale=0.5),
+                                     512, 2, 0.01)
+            hfs[engine]._use_native = engine == "native"
+            hfs[engine]._native_max_rows = 10 ** 9
+            sets[engine], apps[engine] = [], []
+        for i in range(6):
+            for engine in _turns(["native", "scipy"], i):
+                start = time.perf_counter()
+                hfs[engine].set_data(X, Y)
+                sets[engine].append((time.perf_counter() - start) * 1e3)
+        for i, x in enumerate(pts):
+            for engine in _turns(["native", "scipy"], i):
+                start = time.perf_counter()
+                hfs[engine].append(x, 0.1)
+                apps[engine].append((time.perf_counter() - start) * 1e3)
+                hfs[engine].pop()
+        out[n] = {e: (float(np.median(sets[e])), float(np.median(apps[e])))
+                  for e in hfs}
+    return out
+
+
+def drive_native(grid64, smi):
+    """Phase 23: ``safeopt_torch.native`` built, and the cap-512 state's
+    GPs (phase 3's, 400 observations) factored by the engine against the
+    same GPs factored by SciPy: posterior mean and variance on the grid
+    within 1e-9. Then the engines' times on the host's clock, in turns:
+    ms per refit and per append of one observation to every GP, with the
+    engine, with SciPy and with the default (the engine up to
+    ``NATIVE_MAX_ROWS`` observations), on the flagship (cap 64, 50
+    observations), the cap-512 state and phase 18's exact GP (cap 2048,
+    2000 observations; one native refit, as it takes seconds); and the
+    host factor alone across ``NATIVE_SWEEP``'s row counts, which places
+    ``NATIVE_MAX_ROWS``."""
+    from safeopt_torch import native
+    from safeopt_torch.gp.host_math import NATIVE_MAX_ROWS
+
+    check(native.available(), "the native host engine did not build")
+    states = {"cap 64": (50, 64, 2, 64, 1.5), "cap 512": (400, 512, 2, 512,
+                                                          4.0),
+              "cap 2048": (2000, 2048, 1, 2048, 4.0)}
+    sets = {label: {e: flagship_gps(n, cap, g, seed=seed, spread=spread,
+                                    dtype=torch.float64) for e in ENGINES}
+            for label, (n, cap, g, seed, spread) in states.items()}
+    for label in ("cap 64", "cap 512"):
+        for e in ENGINES:
+            _engine(sets[label][e], e)
+    err = 0.0
+    for gn, gs in zip(sets["cap 512"]["native"], sets["cap 512"]["scipy"]):
+        for a, b in zip(gn.predict_noiseless(grid64),
+                        gs.predict_noiseless(grid64)):
+            err = max(err, float((a - b).abs().max()))
+    check(err <= 1e-9, f"native and SciPy factors part by {err:.3e} on the "
+                       "grid")
+    pts = np.random.default_rng(23).uniform(-4.0, 4.0, size=(20, 2))
+    ms = {label: _engine_times(sets[label], pts, dict.fromkeys(ENGINES, 5))
+          for label in ("cap 64", "cap 512")}
+    ms["cap 2048"] = _engine_times(sets["cap 2048"], pts[:6],
+                                   {"native": 1, "scipy": 3, "default": 3})
+    sweep = _host_sweep()
+    print(f"native host engine ({smi}): cap-512 posterior on the grid "
+          f"within {err:.3e} of the SciPy factor's; NATIVE_MAX_ROWS "
+          f"{NATIVE_MAX_ROWS}; ms per refit / per append of one "
+          f"observation to every GP (add_new_data_point's update; host "
+          f"clock, engines in turns, medians of 5 refits and 20 appends; "
+          f"at cap 2048 of 3 refits, one native, and 6 appends):",
+          flush=True)
+    for label, row in ms.items():
+        print(f"  {label}: " + "; ".join(
+            f"{e} {row[e][0]:.3f} / {row[e][1]:.3f}" for e in ENGINES),
+            flush=True)
+    print("  host factor alone, cap 512, ms of set_data / of an append, "
+          "native against SciPy (in turns, medians of 6 and 20): "
+          + "; ".join(f"{n} rows {r['native'][0]:.3f} / "
+                      f"{r['native'][1]:.3f} vs {r['scipy'][0]:.3f} / "
+                      f"{r['scipy'][1]:.3f}" for n, r in sweep.items()),
+          flush=True)
+    return err, ms
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLE_RUNS = [    # tests/test_examples.py's cases and iteration counts
+    ("example_1d.py", ("--algo", "grid", "--iters", "4")),
+    ("example_1d.py", ("--algo", "swarm", "--iters", "3")),
+    ("example_2d.py", ("--iters", "3")),
+    ("example_multiple_constraints.py", ("--iters", "4")),
+    ("example_context.py", ("--iters", "2")),
+    ("example_on_device_loop.py", ("--iters", "4")),
+    ("example_pendulum_tuning.py", ("--iters", "8")),
+    ("example_pendulum_tuning.py", ("--iters", "3", "--fleet", "8")),
+    ("example_campaign_fleet.py", ("--iters", "3")),
+    ("example_long_campaign.py", ("--n-pre", "60", "--iters", "6",
+                                  "--inducing", "9")),
+    ("example_quasi_periodic.py", ("--iters", "8", "--refit-every", "4")),
+    ("example_pipelined_campaign.py", ("--iters", "5", "--dim", "3")),
+]
+
+
+def drive_examples(smi):
+    """Phase 24: every script of ``examples_torch/`` in this process on
+    the card (``--device cuda``), its own asserts the checks; prints each
+    one's wall seconds. Returns the launches of K1-K4 over the phase."""
+    import contextlib
+    import io
+    import os
+    import runpy
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples_torch")
+    zero_launches()
+    for script, argv in EXAMPLE_RUNS:
+        old = sys.argv
+        sys.argv = [script, *argv, "--device", "cuda"]
+        buf = io.StringIO()
+        start = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(os.path.join(root, script),
+                               run_name="__main__")
+        except SystemExit as e:
+            check(not e.code, f"{script} exited with {e.code}")
+        except Exception as e:              # the script's own checks
+            fail(f"{script} {' '.join(argv)} failed: {e!r}\n"
+                 f"{buf.getvalue()[-2000:]}")
+        finally:
+            sys.argv = old
+        text = buf.getvalue()
+        check("best" in text or "fleet" in text,
+              f"{script} printed no best or fleet line")
+        last = [ln for ln in text.splitlines() if ln.strip()][-1]
+        print(f"example {script} {' '.join(argv)} on {smi}: "
+              f"{time.perf_counter() - start:.2f} s wall; {last.strip()}",
+              flush=True)
+    return read_launches()
+
+
 def main():
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
@@ -3973,6 +4432,18 @@ def main():
     for entry, key in zip(kernels[:4], ("K1", "K3", "K2", "K4")):
         entry["launches"] += via_ops[key]
         entry["op_launches"] = via_ops[key]
+    # 22. sharding ------------------------------------------------------------
+    sharded = drive_sharding(smi)
+    for entry, key in zip(kernels[:2], ("K1", "K3")):
+        entry["launches"] += sharded[key]
+        entry["sharded_launches"] = sharded[key]
+    # 23. the native host engine ----------------------------------------------
+    drive_native(grid64, smi)
+    # 24. the examples --------------------------------------------------------
+    example_launches = drive_examples(smi)
+    for entry, key in zip(kernels[:4], ("K1", "K3", "K2", "K4")):
+        entry["launches"] += example_launches[key]
+        entry["example_launches"] = example_launches[key]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -3986,4 +4457,7 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--export-to":
         sys.exit(export_main(sys.argv[2]))
+    if len(sys.argv) == 6 and sys.argv[1] == "--shard-to":
+        sys.exit(shard_main(int(sys.argv[3]), int(sys.argv[4]),
+                            int(sys.argv[5]), sys.argv[2]))
     sys.exit(main())

@@ -54,6 +54,14 @@ only when a verdict flips),
 and ``interval_scan`` -> ``device_oracle`` (float64 on the device) ->
 ``certified_finish`` (one classification, one pull). The top-k calls are
 K5's, so ties fall as in the JAX package.
+
+``num_valid`` (every public step but the traced one) masks the padding
+rows a sharded grid appends (``parallel.shard_grid``): rows at or past
+it are neither safe nor unsafe, never candidates, never chosen and never
+in the certified band (``safe_opt_core.py:218-231`` of the JAX package).
+A ``DTensor`` grid hands ``safeopt_step``, ``safe_maximum`` and
+``full_expander_sets`` to ``parallel/sharded_step.py``, which runs this
+module's code on each rank's rows; the certified functions refuse one.
 """
 
 from __future__ import annotations
@@ -285,23 +293,54 @@ def _moments_from_Q(Q, beta):
 # set classification
 # ---------------------------------------------------------------------------
 
-def _classify(Q, fmin, scaling, threshold, beta, S=None):
+def _valid_rows(N: int, num_valid, device, offset: int = 0):
+    """(N,) mask of the rows ``offset`` to ``offset + N`` that lie below
+    ``num_valid``, or None when it is None (every row is a grid point).
+    A sharded grid appends padding rows (``parallel.shard_grid``);
+    ``num_valid`` counts the rows before them. A count held on the host
+    is compared as a Python int: copied to the device, it would make the
+    host wait for the work queued there (K1)."""
+    if num_valid is None:
+        return None
+    if not isinstance(num_valid, torch.Tensor):
+        num_valid = int(num_valid)
+    return torch.arange(offset, offset + N, device=device) < num_valid
+
+
+def _unsafe(S, valid):
+    """The walk's unsafe rows: ``~S``, less the padding rows."""
+    return ~S if valid is None else valid & ~S
+
+
+def _identity(t, op):
+    return t
+
+
+def _classify(Q, fmin, scaling, threshold, beta, S=None, valid=None,
+              combine=_identity):
     """S, M, the expander-candidate mask and the unscaled widths that
     order the walk (reference gp_opt.py:478-552). A precomputed (e.g.
     boundary-certified) ``S`` may be given in place of the strict
-    interval test."""
+    interval test. ``valid`` masks the padding rows of a sharded grid
+    (JAX ``safe_opt_core.py:218-231``): they are neither safe nor
+    unsafe, so never candidates. ``combine(t, op)`` reduces a 0-d
+    tensor over the shards of a sharded grid (``op`` ``'max'``); the
+    identity on one device."""
     l = Q[:, 0::2]                                   # (N, G)
     u = Q[:, 1::2]
     widths = u - l
 
     if S is None:
         S = torch.all(l > fmin, dim=1)               # strict, like reference
-    has_safe = torch.any(S)
+        if valid is not None:
+            S = S & valid
+    has_safe = combine(torch.any(S), "max")
 
     l0, u0 = l[:, 0], u[:, 0]
-    best_l0 = torch.max(torch.where(S, l0, _NINF))
+    best_l0 = combine(torch.max(torch.where(S, l0, _NINF)), "max")
     M = S & (u0 >= best_l0)
-    max_var = torch.max(torch.where(M, u0 - l0, _NINF)) / scaling[0]
+    max_var = combine(torch.max(torch.where(M, u0 - l0, _NINF)),
+                      "max") / scaling[0]
 
     scaled_width = torch.amax(widths / scaling, dim=1)
     unscaled_width = torch.amax(widths, dim=1)
@@ -367,55 +406,84 @@ def _chunk_expander_predicate(kernels, states, grid, Q, unsafe, mu, sigma,
     calls K3 and K4 through their ``torch.library`` operators; ``fixed``
     is the walk's ``_walk_fixed`` (built per chunk when None).
     """
-    C = grid_idx.shape[0]
     Xc = grid[grid_idx]                                     # (C, d)
-    pred = torch.ones((C,), dtype=torch.bool, device=grid.device)
-
+    ucs = Q[grid_idx][:, 1::2].T                            # (G, C)
     if lipschitz is None:
-        if valid is None:
-            valid = torch.ones_like(pred)
-        ucs = Q[grid_idx][:, 1::2].T                             # (G, C)
-        groups = _gp_groups(kernels, states, grid.shape[1])
-        for g, (idx, route) in enumerate(groups):
-            fix = None if fixed is None else fixed[g]
-            if route == "eager":
-                i = idx[0]
-                preds = _eager_predicate(
-                    kernels[i], states[i], grid, unsafe, mu[i], sigma[i],
-                    None if Vs is None else Vs[i], Xc, ucs[i], fmin[i],
-                    beta)[None]
-            elif route == "plan":
-                i = idx[0]
-                preds = fused_expander_predicate_single(
-                    kernels[i], states[i], grid, unsafe, mu[i], sigma[i],
-                    Xc, ucs[i], valid, beta, fmin[i], traced=traced,
-                    fixed=fix)[None]
-            else:
-                pick = _pick if traced else (lambda t, rows: t[rows])
-                preds = fused_expander_predicate_batched(
-                    [kernels[i] for i in idx], [states[i] for i in idx],
-                    grid, unsafe, pick(mu, idx), pick(sigma, idx), Xc,
-                    pick(ucs, idx), valid, beta, pick(fmin, idx),
-                    traced=traced, fixed=fix)
-            for j, i in enumerate(idx):
-                pred &= preds[j] | (fmin[i] == _NINF)
-    else:
-        zt, norms = (grid.T, torch.sum(grid * grid, dim=1)) if fixed is None \
-            else fixed
-        d2 = (torch.sum(Xc * Xc, dim=1)[:, None] + norms[None, :]
-              - 2.0 * (Xc @ zt))
-        dist = torch.sqrt(torch.clamp(d2, min=0.0))
-        mindist = torch.amin(torch.where(unsafe[None, :], dist,
-                                         float("inf")), dim=1)
-        any_unsafe = torch.any(unsafe)
+        per = _gp_predicates(kernels, states, grid, unsafe, mu, sigma, fmin,
+                             beta, Xc, ucs, Vs, valid, traced, fixed)
+        pred = torch.ones((Xc.shape[0],), dtype=torch.bool,
+                          device=grid.device)
         for i in range(len(kernels)):
-            uc = Q[grid_idx, 2 * i + 1]
-            pred_i = any_unsafe & (uc - lipschitz[i] * mindist >= fmin[i])
-            pred &= pred_i | (fmin[i] == _NINF)
-
+            pred &= per[i] | (fmin[i] == _NINF)
+    else:
+        pred = _lipschitz_predicate(
+            _mindist(grid, unsafe, Xc, fixed), torch.any(unsafe), ucs,
+            lipschitz, fmin)
     # a candidate with no constrained GP at all is never an expander
     # (gp_opt.py:547,570,602)
     return pred & torch.any(fmin > _NINF)
+
+
+def _gp_predicates(kernels, states, grid, unsafe, mu, sigma, fmin, beta, Xc,
+                   ucs, Vs=None, valid=None, traced=False, fixed=None):
+    """(G, C) GP variant of the predicate, row i GP i's rank-1 test of
+    the candidates at ``Xc`` (C, d) with upper bounds ``ucs`` (G, C)
+    against the unsafe rows of ``grid`` (before the exemption of an
+    unconstrained GP): K3 for a group on K1, K4 on the plan route, plain
+    PyTorch on the eager route."""
+    C = Xc.shape[0]
+    if valid is None:
+        valid = torch.ones((C,), dtype=torch.bool, device=grid.device)
+    rows = [None] * len(kernels)
+    for g, (idx, route) in enumerate(_gp_groups(kernels, states,
+                                                grid.shape[1])):
+        fix = None if fixed is None else fixed[g]
+        if route == "eager":
+            i = idx[0]
+            preds = _eager_predicate(
+                kernels[i], states[i], grid, unsafe, mu[i], sigma[i],
+                None if Vs is None else Vs[i], Xc, ucs[i], fmin[i],
+                beta)[None]
+        elif route == "plan":
+            i = idx[0]
+            preds = fused_expander_predicate_single(
+                kernels[i], states[i], grid, unsafe, mu[i], sigma[i],
+                Xc, ucs[i], valid, beta, fmin[i], traced=traced,
+                fixed=fix)[None]
+        else:
+            pick = _pick if traced else (lambda t, rows: t[rows])
+            preds = fused_expander_predicate_batched(
+                [kernels[i] for i in idx], [states[i] for i in idx],
+                grid, unsafe, pick(mu, idx), pick(sigma, idx), Xc,
+                pick(ucs, idx), valid, beta, pick(fmin, idx),
+                traced=traced, fixed=fix)
+        for j, i in enumerate(idx):
+            rows[i] = preds[j]
+    return torch.stack(rows)
+
+
+def _mindist(grid, unsafe, Xc, fixed=None):
+    """(C,) distance of each candidate at ``Xc`` to its nearest unsafe row
+    of ``grid`` (inf with none); ``fixed`` is ``_walk_fixed``'s
+    transposed grid and row norms."""
+    zt, norms = (grid.T, torch.sum(grid * grid, dim=1)) if fixed is None \
+        else fixed
+    d2 = (torch.sum(Xc * Xc, dim=1)[:, None] + norms[None, :]
+          - 2.0 * (Xc @ zt))
+    dist = torch.sqrt(torch.clamp(d2, min=0.0))
+    return torch.amin(torch.where(unsafe[None, :], dist, float("inf")),
+                      dim=1)
+
+
+def _lipschitz_predicate(mindist, any_unsafe, ucs, lipschitz, fmin):
+    """(C,) Lipschitz variant: ``u_i - L_i * mindist >= fmin_i`` for every
+    constrained GP (gp_opt.py:558-576), ``ucs`` (G, C)."""
+    pred = torch.ones(mindist.shape, dtype=torch.bool,
+                      device=mindist.device)
+    for i in range(ucs.shape[0]):
+        pred_i = any_unsafe & (ucs[i] - lipschitz[i] * mindist >= fmin[i])
+        pred &= pred_i | (fmin[i] == _NINF)
+    return pred
 
 
 def _visit_order(key, count: int):
@@ -532,13 +600,13 @@ def _select_query(Q, S, M, G, scaling, ucb: bool):
 
 def _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta, scaling,
             threshold, lipschitz, ucb, use_lipschitz, chunk, S=None,
-            traced=False):
+            traced=False, valid=None):
     """Classification, expander walk and selection from intervals ``Q``
     (their moments and the eager route's kept ``Vs``), with ``S`` given
     or from the strict test; ``traced`` walks with
-    ``_find_first_expander_traced``."""
+    ``_find_first_expander_traced``; ``valid`` masks padding rows."""
     S, M, cand, width, has_safe = _classify(Q, fmin, scaling, threshold,
-                                            beta, S=S)
+                                            beta, S=S, valid=valid)
     if ucb:
         G = torch.zeros_like(S)
         M = torch.zeros_like(S)   # ucb never populates M/G (gp_opt.py:670)
@@ -548,23 +616,53 @@ def _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta, scaling,
         lip = lipschitz if use_lipschitz else None
         walk = _find_first_expander_traced if traced \
             else _find_first_expander
-        G, chunks = walk(kernels, states, grid, Q, ~S, mu, sigma, fmin, beta,
-                         lip, cand, width, chunk, Vs)
+        G, chunks = walk(kernels, states, grid, Q, _unsafe(S, valid), mu,
+                         sigma, fmin, beta, lip, cand, width, chunk, Vs)
     next_idx = _select_query(Q, S, M, G, scaling, ucb)
     return _pack_result(Q, S, M, G, next_idx, has_safe, chunks)
 
 
+def _sharded(grid, what=None):
+    """``parallel.sharded_step`` when ``grid`` is a ``DTensor`` (a grid
+    that ``parallel.shard_grid`` placed over a device mesh), else None.
+    ``what`` names a function with no sharded form, which then raises."""
+    if type(grid) is torch.Tensor or not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+    if not isinstance(grid, DTensor):
+        return None
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} on a sharded grid waits for the certified path over a "
+            "device mesh (ROADMAP Queue 1 item [16c]); pass num_valid on "
+            "one device instead")
+    from ..parallel import sharded_step
+    return sharded_step
+
+
 def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
-                 threshold, lipschitz=None, *, ucb: bool = False,
-                 use_lipschitz: bool = False, chunk: int = 64) -> StepResult:
+                 threshold, lipschitz=None, num_valid=None, *,
+                 ucb: bool = False, use_lipschitz: bool = False,
+                 chunk: int = 64) -> StepResult:
     """One full SafeOpt iteration over the candidate grid.
 
     ``grid`` (N, d), ``fmin``, ``scaling`` and ``threshold`` (G,) are
-    tensors on one device; ``beta`` is a float.
+    tensors on one device; ``beta`` is a float. ``num_valid`` masks the
+    padding rows a sharded grid appends (rows at or past it are neither
+    safe, unsafe nor chosen); None, every row is a grid point. A
+    ``DTensor`` grid (``parallel.shard_grid``) runs the sharded step
+    (``parallel/sharded_step.py``): Q, S, M and G come back sharded like
+    the grid.
     """
+    sharded = _sharded(grid)
+    if sharded is not None:
+        return sharded.safeopt_step(
+            kernels, states, grid, fmin, beta, scaling, threshold, lipschitz,
+            num_valid, ucb=ucb, use_lipschitz=use_lipschitz, chunk=chunk)
     Q, mu, sigma, Vs = _grid_posterior(kernels, states, grid, beta)
     return _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta,
-                   scaling, threshold, lipschitz, ucb, use_lipschitz, chunk)
+                   scaling, threshold, lipschitz, ucb, use_lipschitz, chunk,
+                   valid=_valid_rows(grid.shape[0], num_valid, grid.device))
 
 
 def traced_safeopt_step(kernels, states, grid, fmin, beta, scaling,
@@ -588,14 +686,22 @@ def traced_safeopt_step(kernels, states, grid, fmin, beta, scaling,
                    traced=True)
 
 
-def safe_maximum(kernels, states, grid, fmin, beta: float):
+def safe_maximum(kernels, states, grid, fmin, beta: float, num_valid=None):
     """Best safe point by objective lower bound (gp_opt.py:677-712).
 
     Returns ``(idx, lower_bound, has_safe, Q, S, diag)`` with ``diag``
-    packing [idx, lower_bound, has_safe] for one host read.
+    packing [idx, lower_bound, has_safe] for one host read. ``num_valid``
+    and a ``DTensor`` grid as in ``safeopt_step``.
     """
+    sharded = _sharded(grid)
+    if sharded is not None:
+        return sharded.safe_maximum(kernels, states, grid, fmin, beta,
+                                    num_valid)
     Q = _confidence_intervals(kernels, states, grid, beta)[0]
     S = torch.all(Q[:, 0::2] > fmin, dim=1)
+    valid = _valid_rows(grid.shape[0], num_valid, grid.device)
+    if valid is not None:
+        S = S & valid
     value = torch.where(S, Q[:, 0], _NINF)
     idx = torch.argmax(value)
     has_safe = torch.any(S)
@@ -605,14 +711,24 @@ def safe_maximum(kernels, states, grid, fmin, beta: float):
 
 
 def full_expander_sets(kernels, states, grid, fmin, beta: float, scaling,
-                       lipschitz=None, *, use_lipschitz: bool = False,
+                       lipschitz=None, num_valid=None, *,
+                       use_lipschitz: bool = False,
                        chunk: int = 64) -> StepResult:
     """Plotting variant: the expander predicate for EVERY safe point,
     with no early exit (reference ``compute_sets(full_sets=True)``,
-    gp_opt.py:527-555)."""
+    gp_opt.py:527-555). ``num_valid`` and a ``DTensor`` grid as in
+    ``safeopt_step``."""
+    sharded = _sharded(grid)
+    if sharded is not None:
+        return sharded.full_expander_sets(
+            kernels, states, grid, fmin, beta, scaling, lipschitz, num_valid,
+            use_lipschitz=use_lipschitz, chunk=chunk)
     Q, mu, sigma, Vs = _grid_posterior(kernels, states, grid, beta)
     l, u = Q[:, 0::2], Q[:, 1::2]
+    valid = _valid_rows(grid.shape[0], num_valid, grid.device)
     S = torch.all(l > fmin, dim=1)
+    if valid is not None:
+        S = S & valid
     has_safe = torch.any(S)
     best_l0 = torch.max(torch.where(S, l[:, 0], _NINF))
     M = S & (u[:, 0] >= best_l0) & has_safe
@@ -624,9 +740,9 @@ def full_expander_sets(kernels, states, grid, fmin, beta: float, scaling,
     chunks = 0
     for s in range(0, safe_idx.shape[0], chunk):
         gidx = safe_idx[s:s + chunk]
-        G[gidx] = _chunk_expander_predicate(kernels, states, grid, Q, ~S,
-                                            mu, sigma, fmin, beta, lip,
-                                            gidx, Vs)
+        G[gidx] = _chunk_expander_predicate(kernels, states, grid, Q,
+                                            _unsafe(S, valid), mu, sigma,
+                                            fmin, beta, lip, gidx, Vs)
         chunks += 1
     G = G & has_safe
     next_idx = torch.zeros((), dtype=torch.int64, device=grid.device)
@@ -637,12 +753,15 @@ def full_expander_sets(kernels, states, grid, fmin, beta: float, scaling,
 # boundary-certified decisions (exact_boundaries)
 # ---------------------------------------------------------------------------
 
-def _safety_margin(Q, fmin, scaling):
+def _safety_margin(Q, fmin, scaling, valid=None):
     """(N,) scaled distance of each row's lower bounds to the nearest
-    safety threshold (inf where no GP is constrained)."""
+    safety threshold (inf where no GP is constrained, and on padding
+    rows)."""
     margins = (Q[:, 0::2] - fmin).abs() / scaling
     margins = torch.where(fmin > _NINF, margins, float("inf"))
-    return torch.amin(margins, dim=1)
+    margin = torch.amin(margins, dim=1)
+    return margin if valid is None else torch.where(valid, margin,
+                                                    float("inf"))
 
 
 def _int32(*parts):
@@ -651,46 +770,59 @@ def _int32(*parts):
 
 
 def boundary_scan(kernels, states, grid, fmin, beta: float, scaling, band,
-                  *, k: int = 128):
+                  num_valid=None, *, k: int = 128):
     """Intervals plus the boundary triage, without classification:
     ``(Q, idx (k,), within (k,) bool, total_within ())`` with ``idx``
     the k rows closest to a safety threshold, ``within`` those inside
-    ``band`` and ``total_within > k`` a triage budget overflow."""
+    ``band`` and ``total_within > k`` a triage budget overflow.
+    ``num_valid`` as in ``safeopt_step``."""
+    _sharded(grid, "boundary_scan")
     Q = _confidence_intervals(kernels, states, grid, beta)[0]
-    margin = _safety_margin(Q, fmin, scaling)
+    margin = _safety_margin(Q, fmin, scaling,
+                            _valid_rows(grid.shape[0], num_valid,
+                                        grid.device))
     neg, idx = top_k(-margin, k)
     return Q, idx, (-neg) < band, torch.sum(margin < band)
 
 
-def _fix_safe_set(Q, fmin, fix_idx, fix_bits):
+def _fix_safe_set(Q, fmin, fix_idx, fix_bits, valid=None):
     """The strict safe set with the certified bits at ``fix_idx`` (entries
-    < 0 are padding and change nothing) written over it."""
+    < 0 are padding and change nothing) written over it; a padding row of
+    the grid (``valid`` False) stays unsafe."""
     S = torch.all(Q[:, 0::2] > fmin, dim=1)
     N = S.shape[0]
+    at = torch.where(fix_idx >= 0, fix_idx.long(), N)
+    bits = fix_bits & (fix_idx >= 0)
+    if valid is not None:
+        S = S & valid
+        bits = bits & torch.cat([valid, valid.new_zeros(1)])[at]
     ext = torch.cat([S, S.new_zeros(1)])        # padding writes slot N
-    ext[torch.where(fix_idx >= 0, fix_idx.long(), N)] = fix_bits & (
-        fix_idx >= 0)
+    ext[at] = bits
     return ext[:N]
 
 
 def safeopt_step_from_Q(kernels, states, grid, Q, fix_idx, fix_bits, fmin,
-                        beta: float, scaling, threshold, lipschitz=None, *,
-                        ucb: bool = False, use_lipschitz: bool = False,
+                        beta: float, scaling, threshold, lipschitz=None,
+                        num_valid=None, *, ucb: bool = False,
+                        use_lipschitz: bool = False,
                         chunk: int = 64) -> StepResult:
     """Pass 2 of a certified iteration: ``safeopt_step`` on intervals
     ``Q`` from pass 1, with the safe bits at ``fix_idx`` (entries < 0 are
     padding) OVERRIDDEN by the float64 verdicts ``fix_bits`` before
     maximizers, expanders and the query are derived; the moments come
-    from Q exactly (``_moments_from_Q``)."""
+    from Q exactly (``_moments_from_Q``). ``num_valid`` as in
+    ``safeopt_step``."""
+    _sharded(grid, "safeopt_step_from_Q")
+    valid = _valid_rows(grid.shape[0], num_valid, grid.device)
     mu, sigma = _moments_from_Q(Q, beta)
-    S = _fix_safe_set(Q, fmin, fix_idx, fix_bits)
+    S = _fix_safe_set(Q, fmin, fix_idx, fix_bits, valid)
     return _decide(kernels, states, grid, Q, mu, sigma, [None] * len(kernels),
                    fmin, beta, scaling, threshold, lipschitz, ucb,
-                   use_lipschitz, chunk, S=S)
+                   use_lipschitz, chunk, S=S, valid=valid)
 
 
 def _refine_Q(kernels, states, grid, Q, fmin, beta: float, scaling, rk: int,
-              band_k: int, refine_band):
+              band_k: int, refine_band, valid=None):
     """Recompute the decision-critical rows of a reduced-precision ``Q``
     at full float32 and write them back: ``(Q, band_pop, idx)``.
 
@@ -714,13 +846,16 @@ def _refine_Q(kernels, states, grid, Q, fmin, beta: float, scaling, rk: int,
     full-precision step's. The JAX package keeps the partial selection
     there and warns, leaving band rows at the reduced precision (ROADMAP
     Queue 3). The default budget (``safe_opt.REFINE_BAND_SHARE``) is
-    where refining the band would cost more than the full pass.
+    where refining the band would cost more than the full pass. Padding
+    rows (``valid`` False) are neither near a threshold nor safe.
     """
     l, u = Q[:, 0::2], Q[:, 1::2]
-    key = -_safety_margin(Q, fmin, scaling)
+    key = -_safety_margin(Q, fmin, scaling, valid)
     budget = min(band_k + rk, key.shape[0])
     if rk:
         S0 = torch.all(l > fmin, dim=1)
+        if valid is not None:
+            S0 = S0 & valid
         widths = torch.amax((u - l) / scaling, dim=1)
         s_w = widths - torch.max(torch.where(S0, widths, _NINF))
         l0s = l[:, 0] / scaling[0]
@@ -743,7 +878,7 @@ def _refine_Q(kernels, states, grid, Q, fmin, beta: float, scaling, rk: int,
 
 def _scan_intervals(kernels, states, grid, fmin, beta: float, scaling, band,
                     refine_band, refine_k: int, refine_band_k: int,
-                    interval_precision):
+                    interval_precision, valid=None):
     """Pass 1's intervals on the certified paths: the grid pass (three-pass
     under ``interval_precision='high'``), then the full-float32
     refinement (or a full-float32 pass where it cannot cover the band:
@@ -758,27 +893,30 @@ def _scan_intervals(kernels, states, grid, fmin, beta: float, scaling, band,
         Q, refine_pop, refined_idx = _refine_Q(
             kernels, states, grid, Q, fmin, beta, scaling, refine_k,
             max(refine_band_k, 1), band if refine_band is None
-            else refine_band)
+            else refine_band, valid)
         mu, sigma = _moments_from_Q(Q, beta)
         Vs = [None] * len(kernels)
     return Q, mu, sigma, Vs, refine_pop, refined_idx
 
 
-def _band_triage(Q, refined_idx, fmin, scaling, band, k: int):
+def _band_triage(Q, refined_idx, fmin, scaling, band, k: int, valid=None):
     """``(idx, within, total_within)``: the k rows closest to a safety
     threshold, flagged inside the float64 band; over the refined rows
-    when they number at least k (every possible band row was refined)."""
+    when they number at least k (every possible band row was refined).
+    Padding rows (``valid`` False) are never within."""
     if refined_idx is not None and refined_idx.shape[0] >= k:
-        sub = _safety_margin(Q[refined_idx], fmin, scaling)
+        sub = _safety_margin(Q[refined_idx], fmin, scaling,
+                             None if valid is None else valid[refined_idx])
         neg, j = top_k(-sub, k)
         return refined_idx[j], (-neg) < band, torch.sum(sub < band)
-    margin = _safety_margin(Q, fmin, scaling)
+    margin = _safety_margin(Q, fmin, scaling, valid)
     neg, idx = top_k(-margin, k)
     return idx, (-neg) < band, torch.sum(margin < band)
 
 
 def certified_scan(kernels, states, grid, fmin, beta: float, scaling,
-                   threshold, band, lipschitz=None, refine_band=None, *,
+                   threshold, band, lipschitz=None, num_valid=None,
+                   refine_band=None, *,
                    k: int = 128, refine_k: int = 0, refine_band_k: int = 0,
                    ucb: bool = False, use_lipschitz: bool = False,
                    chunk: int = 64, interval_precision=None):
@@ -787,30 +925,38 @@ def certified_scan(kernels, states, grid, fmin, beta: float, scaling,
     float64 band triage. Returns ``(StepResult, packed)`` with
     ``packed`` one int32 vector ``[diag(5), total_within, refine_pop,
     idx(k), within(k), S[idx](k)]``: one host pull tells the caller the
-    step, the rows inside the band and their float32 verdicts."""
+    step, the rows inside the band and their float32 verdicts.
+    ``num_valid`` as in ``safeopt_step``."""
+    _sharded(grid, "certified_scan")
+    valid = _valid_rows(grid.shape[0], num_valid, grid.device)
     Q, mu, sigma, Vs, refine_pop, refined_idx = _scan_intervals(
         kernels, states, grid, fmin, beta, scaling, band, refine_band,
-        refine_k, refine_band_k, interval_precision)
+        refine_k, refine_band_k, interval_precision, valid)
     res = _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta,
-                  scaling, threshold, lipschitz, ucb, use_lipschitz, chunk)
+                  scaling, threshold, lipschitz, ucb, use_lipschitz, chunk,
+                  valid=valid)
     idx, within, total_within = _band_triage(Q, refined_idx, fmin, scaling,
-                                             band, k)
+                                             band, k, valid)
     return res, _int32(res.diag, total_within, refine_pop, idx, within,
                        res.S[idx])
 
 
 def interval_scan(kernels, states, grid, fmin, beta: float, scaling, band,
-                  refine_band=None, *, k: int = 128, refine_k: int = 0,
-                  refine_band_k: int = 0, interval_precision=None):
+                  num_valid=None, refine_band=None, *, k: int = 128,
+                  refine_k: int = 0, refine_band_k: int = 0,
+                  interval_precision=None):
     """Pass 1 of the device-oracle certified iteration: intervals (and
     the refinement) and the band triage, no classification. Returns
     ``(Q, packed_t)``, ``packed_t`` = int32 ``[total_within,
-    refine_pop, idx(k), within(k)]``."""
+    refine_pop, idx(k), within(k)]``. ``num_valid`` as in
+    ``safeopt_step``."""
+    _sharded(grid, "interval_scan")
+    valid = _valid_rows(grid.shape[0], num_valid, grid.device)
     Q, _, _, _, refine_pop, refined_idx = _scan_intervals(
         kernels, states, grid, fmin, beta, scaling, band, refine_band,
-        refine_k, refine_band_k, interval_precision)
+        refine_k, refine_band_k, interval_precision, valid)
     idx, within, total_within = _band_triage(Q, refined_idx, fmin, scaling,
-                                             band, k)
+                                             band, k, valid)
     return Q, _int32(total_within, refine_pop, idx, within)
 
 
@@ -859,7 +1005,7 @@ def device_oracle(kernels, ostates, grid, Q, packed_t, fmin, beta: float, *,
 
 def certified_finish(kernels, states, grid, Q, packed_t, fix_idx, fix_bits,
                      flips, n_within, fmin, beta: float, scaling, threshold,
-                     lipschitz=None, *, ucb: bool = False,
+                     lipschitz=None, num_valid=None, *, ucb: bool = False,
                      use_lipschitz: bool = False, chunk: int = 64):
     """Pass 3 of the device-oracle certified iteration: classify once
     with the float64 bits written in (``safeopt_step_from_Q``), then pack
@@ -868,6 +1014,6 @@ def certified_finish(kernels, states, grid, Q, packed_t, fix_idx, fix_bits,
     path's one host pull."""
     res = safeopt_step_from_Q(kernels, states, grid, Q, fix_idx, fix_bits,
                               fmin, beta, scaling, threshold, lipschitz,
-                              ucb=ucb, use_lipschitz=use_lipschitz,
+                              num_valid, ucb=ucb, use_lipschitz=use_lipschitz,
                               chunk=chunk)
     return res, _int32(res.diag, flips, packed_t[0:2], n_within)

@@ -8,8 +8,24 @@ on the host in NumPy/SciPy float64, and the device holds a cast copy
 for the O(N) grid work (``regression.GPRegression``).
 
 This module covers every kernel family of ``kernels.py`` and their
-Product/Sum algebras on the SciPy path. The JAX package's native C++
-engine (``csrc/host_factor.cpp``) is not bound here yet.
+Product/Sum algebras on the SciPy path. When the port's native C++
+engine builds (``native/``, a copy of the JAX package's
+``csrc/host_factor.cpp``), ``HostFactor`` factors through it as the JAX
+package's does (``safeopt_tpu/gp/host_math.py:35-66``, ``:184-298``):
+its gram for the leaf kinds it knows, its Cholesky and triangular
+inverse in ``set_data`` and its bordered append in ``append``. Two
+kinds of leaf keep the gram here, where the engine's is wrong or
+refused: a leaf on a column subset of the data (the engine grams every
+column; ROADMAP Queue 3 entry 7) and data past 64 columns (entry 4).
+
+The engine's Cholesky, inverse and bordering are unblocked loops, which
+LAPACK's blocked routines and NumPy's BLAS outrun as the factor grows,
+so the factor takes them only up to ``NATIVE_MAX_ROWS`` observations
+and SciPy past it (``chip_smoke.py`` phase 23 times both on the card's
+host); the JAX package's always take the engine, so the two agree bit
+for bit up to that size and to round-off beyond. An append the engine
+refuses (a non-positive pivot, or a factor past its 4096-row buffer)
+falls back to the NumPy bordering, which clamps the pivot.
 """
 
 from __future__ import annotations
@@ -22,6 +38,26 @@ from .kernels import (Bias, Cosine, Exponential, Kernel, Linear, Matern32,
                       StdPeriodic, Sum, White)
 
 __all__ = ["np_kernel", "np_kdiag", "HostFactor"]
+
+_NATIVE_KINDS = ((RBF, "rbf"), (Matern32, "matern32"),
+                 (Matern52, "matern52"), (Exponential, "exponential"),
+                 (RatQuad, "ratquad"), (StdPeriodic, "stdperiodic"),
+                 (Linear, "linear"), (Cosine, "cosine"), (Poly, "poly"),
+                 (MLP, "mlp"))
+_NATIVE_MAX_DIM = 64       # the engine's inv_ls[64]
+NATIVE_MAX_ROWS = 64       # the largest factor the engine factors
+
+
+def _native_kind(kernel: Kernel, input_dim: int):
+    """The native gram kind of a single leaf that covers every one of the
+    data's ``input_dim`` columns (at most 64), else None."""
+    if input_dim > _NATIVE_MAX_DIM or tuple(kernel.active_dims) != tuple(
+            range(input_dim)):
+        return None
+    for cls, kind in _NATIVE_KINDS:
+        if type(kernel) is cls:
+            return kind
+    return None
 
 
 def np_kernel(kernel: Kernel, X: np.ndarray, X2=None) -> np.ndarray:
@@ -150,6 +186,59 @@ class HostFactor:
         self.L = np.eye(capacity)
         self.Linv = np.eye(capacity)
         self.w = np.zeros(capacity)
+        # the native engine when it built on this host; SciPy otherwise
+        from .. import native
+        self._use_native = native.available()
+        self._native = native if self._use_native else None
+        self._native_max_rows = NATIVE_MAX_ROWS
+
+    def _native_gram(self, kind: str, X: np.ndarray,
+                     Z: np.ndarray) -> np.ndarray:
+        kern = self.kernel
+        if kind == "linear":
+            # the per-column weights ride the lengthscale slot
+            return self._native.gram("linear", X, Z,
+                                     kern.variances.numpy(), 1.0)
+        if kind == "poly":
+            return self._native.gram(
+                "poly", X, Z, np.ones(kern.input_dim),
+                float(kern.variance), power=kern.order,
+                scale=float(kern.scale), bias=float(kern.bias))
+        if kind == "mlp":
+            return self._native.gram(
+                "mlp", X, Z, kern.weight_variance.numpy(),
+                float(kern.variance), bias=float(kern.bias_variance))
+        extras = {}
+        if kind == "ratquad":
+            extras["power"] = float(kern.power)
+        elif kind == "stdperiodic":
+            extras["period"] = kern.period.numpy().astype(np.float64)
+        return self._native.gram(kind, X, Z, kern.lengthscale.numpy(),
+                                 float(kern.variance), **extras)
+
+    def _kind(self):
+        if not self._use_native:
+            return None
+        return _native_kind(self.kernel, self.X.shape[1])
+
+    def _native_factor(self, n: int) -> bool:
+        """Whether the engine factors a factor of ``n`` rows."""
+        return self._use_native and n <= self._native_max_rows
+
+    def _gram(self, X: np.ndarray, Z: np.ndarray) -> np.ndarray:
+        """k(X, Z): the native gram for the kinds it takes."""
+        kind = self._kind()
+        if kind is not None:
+            return self._native_gram(kind, X, Z)
+        return np_kernel(self.kernel, X, Z)
+
+    def _gram_sym(self, X: np.ndarray) -> np.ndarray:
+        """The training gram K(X, X) with single-set semantics (White's
+        variance on the diagonal, which ``_gram(X, X)`` would drop)."""
+        kind = self._kind()
+        if kind is not None:
+            return self._native_gram(kind, X, X)
+        return np_kernel(self.kernel, X)
 
     @property
     def capacity(self) -> int:
@@ -157,7 +246,8 @@ class HostFactor:
         return self.X.shape[0]
 
     def set_data(self, X: np.ndarray, Y: np.ndarray) -> None:
-        """Full refactorization from scratch (float64 LAPACK)."""
+        """Full refactorization from scratch (float64; the engine up to
+        ``_native_max_rows`` rows, LAPACK past it)."""
         n = X.shape[0]
         cap = self.capacity
         if n > cap:
@@ -173,11 +263,16 @@ class HostFactor:
         self.w = np.zeros(cap)
         if n == 0:
             return
-        K = np_kernel(self.kernel, self.X[:n]) + self.noise_var * np.eye(n)
-        L = scipy.linalg.cholesky(K, lower=True)
-        self.L[:n, :n] = L
-        self.Linv[:n, :n] = scipy.linalg.solve_triangular(
-            L, np.eye(n), lower=True)
+        K = self._gram_sym(self.X[:n]) + self.noise_var * np.eye(n)
+        if self._native_factor(n):
+            self.L[:n, :n] = K
+            self._native.cholesky_lower(self.L, n)
+            self._native.tri_inverse_lower(self.L, n, self.Linv)
+        else:
+            L = scipy.linalg.cholesky(K, lower=True)
+            self.L[:n, :n] = L
+            self.Linv[:n, :n] = scipy.linalg.solve_triangular(
+                L, np.eye(n), lower=True)
         self.w[:n] = self.Linv[:n, :n] @ self.Y[:n, 0]
 
     def append(self, x: np.ndarray, y: float) -> None:
@@ -186,9 +281,20 @@ class HostFactor:
         if pos + 1 > self.capacity:
             raise ValueError("capacity exceeded")
         x = np.asarray(x, dtype=np.float64).reshape(-1)
-        kvec = (np_kernel(self.kernel, self.X[:pos], x[None, :])[:, 0]
+        kvec = (self._gram(self.X[:pos], x[None, :])[:, 0]
                 if pos else np.zeros(0))
         kxx = np_kdiag(self.kernel, x[None, :])[0]
+        self.X[pos] = x
+        self.Y[pos, 0] = float(y)
+        self.count = pos + 1
+        if self._native_factor(pos + 1):
+            try:
+                self._native.border_append(self.L, self.Linv, self.w, pos,
+                                           kvec, kxx + self.noise_var,
+                                           float(y))
+                return
+            except np.linalg.LinAlgError:
+                pass         # refused before writing: border below
 
         c = self.Linv[:pos, :pos] @ kvec
         dd2 = kxx + self.noise_var - c @ c
@@ -199,9 +305,6 @@ class HostFactor:
         self.Linv[pos, pos] = 1.0 / dd
         mu_x = c @ self.w[:pos]
         self.w[pos] = (float(y) - mu_x) / dd
-        self.X[pos] = x
-        self.Y[pos, 0] = float(y)
-        self.count = pos + 1
 
     def pop(self) -> None:
         """Drop the last observation (truncation; exact)."""
@@ -224,7 +327,7 @@ class HostFactor:
         kdiag = np_kdiag(self.kernel, Xq)
         if n == 0:
             return np.zeros(Xq.shape[0]), kdiag
-        kvec = np_kernel(self.kernel, self.X[:n], Xq)          # (n, m)
+        kvec = self._gram(self.X[:n], Xq)                      # (n, m)
         V = self.Linv[:n, :n] @ kvec
         mu = V.T @ self.w[:n]
         var = kdiag - np.sum(V * V, axis=0)
@@ -239,7 +342,7 @@ class HostFactor:
         Kqq = np_kernel(self.kernel, Xq)
         if n == 0:
             return Kqq
-        V = self.Linv[:n, :n] @ np_kernel(self.kernel, self.X[:n], Xq)
+        V = self.Linv[:n, :n] @ self._gram(self.X[:n], Xq)
         return Kqq - V.T @ V
 
     def grown(self, new_capacity: int) -> "HostFactor":

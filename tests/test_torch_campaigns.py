@@ -522,14 +522,16 @@ def test_stack_refuses_unequal_capacities():
 
 
 def test_fleet_refuses_wrong_noise_and_a_mesh():
-    """Noise and stream shapes are checked, a mesh waits for sharding, and
-    a fleet without room for its iterations is refused."""
+    """Noise and stream shapes are checked, a mesh must be a device mesh
+    with the named axis (``tests/test_torch_sharding.py`` runs the fleets
+    over real meshes), and a fleet without room for its iterations is
+    refused."""
     noise = torch.zeros((K, N_ITER + 1, 1), dtype=F64)
     with pytest.raises(ValueError, match="noise: shape"):
         _port_fleet("one", noise, 0.1)
-    with pytest.raises(NotImplementedError, match=r"\[16b\]"):
+    with pytest.raises(ValueError, match="named axis of a device mesh"):
         _port_fleet("one", mesh=object())
-    with pytest.raises(NotImplementedError, match=r"\[16b\]"):
+    with pytest.raises(ValueError, match="named axis of a device mesh"):
         shard_campaigns((), object())
     n_u = sum(int(np.prod(s)) for _, s in stream_layout(SWARM, ITERS, D))
     with pytest.raises(ValueError, match="streams: shape"):

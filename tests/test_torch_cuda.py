@@ -1443,3 +1443,34 @@ def test_loaded_step_matches_the_live_step_on_cuda(cuda, tmp_path):
         assert torch.equal(getattr(out, name), getattr(live, name)), name
     assert fp.fused_intervals.launches == k1 + 1
     assert fe.fused_expander.launches == k3 + int(out.walk_chunks)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_padded_step_on_cuda_matches_the_unpadded_step(cuda, dtype):
+    """``num_valid`` on the card: a grid with 3 copies of its last row
+    appended gives the unpadded step's S, M, G and next_idx on K1/K3, and
+    no padding row is safe or chosen."""
+    gps, grid = _gps("RBF", 2, 64, cuda, dtype, seed=5)
+    t = lambda v: torch.tensor(v, dtype=dtype, device=cuda)  # noqa: E731
+    args = (tuple(g.kern for g in gps), tuple(g.state for g in gps))
+    consts = (t([0.3, 0.5]), 2.0, t([np.sqrt(2.0), np.sqrt(1.5)]),
+              t([0.0, 0.0]))
+    ref = core.safeopt_step(*args, grid, *consts, chunk=16)
+    N = grid.shape[0]
+    padded = torch.cat([grid, grid[-1:].expand(3, -1)])
+    k1 = fp.fused_intervals.launches
+    res = core.safeopt_step(*args, padded, *consts, None, N, chunk=16)
+    assert fp.fused_intervals.launches == k1 + 1
+    for name in ("S", "M", "G"):
+        assert torch.equal(getattr(res, name)[:N], getattr(ref, name)), name
+    assert not res.S[N:].any() and int(res.next_idx) == int(ref.next_idx)
+
+
+def test_native_engine_builds_on_the_card_host(cuda):
+    """The card's host builds the native float64 engine, and a model on
+    the card factors through it."""
+    from safeopt_torch import native
+
+    assert native.available()
+    gps, _ = _gps("RBF", 1, 32, cuda, torch.float64)
+    assert gps[0]._host._use_native and gps[0]._host._kind() == "rbf"
