@@ -48,7 +48,8 @@ Phases, each reported on its own line:
    (``safeopt_torch/ops/interval_experiments.py``) against their plain
    versions at the cap-512 state (G=2, 400 observations, N=1e6) and the
    flagship's cap 64, in float64 and float32: B1 (K1 at other launch
-   layouts) bit-identical to K1; B2/B5 (ablations) and B3 (mu from the
+   layouts) bit-identical to K1 (in float64 at cap 512, where K1 runs
+   its tiled body, to B1's automatic layout, within 1e-9 of K1); B2/B5 (ablations) and B3 (mu from the
    gram) to 1e-9 in float64 and in float32 within ``float32_bound``, the
    worst case of their float32 arithmetic, against the plain version in
    float64 on the same operands; B4 (the split-limb tensor-core product,
@@ -175,8 +176,12 @@ Phases, each reported on its own line:
     output needs; for B2's rank-1 solve and B5's epilogue also the work
     the kernel is told to do, printed apart) and the share of that bound
     the kernel reaches; K1 also at phase 16's exact GP (G=1, 2000
-    observations, capacity 2048, past the resident gram), timed after
-    the others;
+    observations, capacity 2048, past the resident gram: the tiled
+    body), held first as phase 3 holds K1 (float64 within 1e-9, float32
+    within ``float32_bound`` with the dropped band past it, decisions
+    equal outside the band), then timed after the others; the body each
+    K1 launch ran (torch.profiler) on the flagship, cap 512, cap 1024
+    and cap 2048 in both dtypes, against the launcher's rule;
 19. SafeOptSwarm at the JAX bench's widths (``bench.py:1333-1353``,
     ``tools_torch/states.py`` ``swarm_*``: d=10, 20 particles, 100 PSO
     iterations, bounds [-3, 3]^10): (a) G=1 and G=2 from the bench's 5
@@ -634,6 +639,26 @@ def check_k1_gps(label, gps, grid64, fmin, scaling, bounded=False,
     return err64, err32
 
 
+# rows K1's resident body keeps in shared memory at most (the launcher
+# takes the tiled body past them: csrc/fused_intervals.cu)
+K1_RESIDENT_ROWS = {torch.float32: 512, torch.float64: 256}
+
+
+def k1_kernel_names(ops):
+    """The names of the CUDA kernels of ``safeopt::`` that one K1 launch
+    on ``ops`` ran, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from safeopt_torch.ops import fused_posterior as fp
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fp.fused_intervals(*ops)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "safeopt::" in e.name]
+
+
 def k1_operands(n_obs, cap, n_gps, grid64, seed, spread=1.5):
     """{dtype: K1's operands} of GPs built as ``check_k1`` builds them."""
     from safeopt_torch.ops import fused_posterior as fp
@@ -1021,13 +1046,24 @@ def check_experiments(label, ops64, ops32):
     f32, f64 = torch.float32, torch.float64
     cap = ops64[2].shape[1]
     for ops in (ops64, ops32):
-        k1 = fp.fused_intervals(*ops)
+        k1, ref = fp.fused_intervals(*ops), "K1"
+        if cap > K1_RESIDENT_ROWS[ops[0].dtype]:
+            # K1 runs its tiled body: B1 (the resident body at other
+            # layouts) gives its automatic layout's bits, near K1's
+            auto, ref = ie.intervals_launch(*ops), "its automatic layout"
+            err = (auto - k1).abs().max().item()
+            print(f"B1 {label} {ops[0].dtype}: K1 runs its tiled body; "
+                  f"B1's automatic layout within {err:.3e} of it",
+                  flush=True)
+            check(ops[0].dtype != f64 or err <= 1e-9,
+                  f"B1 {label} float64 automatic layout {err} from K1")
+            k1 = auto
         for slices, res, carveout in LAYOUTS[cap][ops[0].dtype]:
             got = ie.intervals_launch(*ops, slices=slices, res=res,
                                       carveout=carveout)
             check(torch.equal(got, k1),
                   f"B1 {label} {ops[0].dtype} slices={slices} res={res} "
-                  f"carveout={carveout} differs from K1")
+                  f"carveout={carveout} differs from {ref}")
     print(f"B1 {label}: K1's bits at every launch layout, float64 and "
           f"float32", flush=True)
     # every layout of LAYOUTS fits the card (B1 ran them all, with the
@@ -4249,21 +4285,45 @@ def main():
     for name, (kernel, plain, (bound_ms, bound_by)) in timed.items():
         time_kernel(name, kernel, plain, bound_ms, bound_by)
     # K1 at phase 16's exact GP: G=1, 2000 observations, capacity 2048
-    # (past the resident gram); its host factorization runs after the
-    # other kernels' timings, which a busy host would lengthen
-    exact = sparse_exact_gp("cuda", f32)
-    ops2048 = fp.interval_operands([exact.kern], [exact.state],
-                                   grid64.float(), BETA)
+    # (past the resident gram: the tiled body); its host factorization
+    # runs after the other kernels' timings, which a busy host would
+    # lengthen. Held against its plain version in both dtypes, then timed.
+    exact = {dt: [sparse_exact_gp("cuda", dt)] for dt in (f64, f32)}
+    k1_2048_err64, _ = check_k1_gps(
+        "G=1 cap=2048 (exact GP, 2000 obs, tiled body)", exact, grid64,
+        SPARSE_FMIN, SPARSE_SCALING, bounded=True)
+    ops2048 = {dt: fp.interval_operands([g.kern for g in gps],
+                                        [g.state for g in gps],
+                                        grid64.to(dt), BETA)
+               for dt, gps in exact.items()}
     time_kernel("K1 cap=2048 (exact GP, 2000 observations)",
-                lambda: fp.fused_intervals(*ops2048),
-                lambda: fp.fused_intervals_plain(*ops2048),
+                lambda: fp.fused_intervals(*ops2048[f32]),
+                lambda: fp.fused_intervals_plain(*ops2048[f32]),
                 *interval_bound(f32, 1, N, d, 2048, 2000), reps=3)
+    # the body each K1 launch ran, by the launcher's rule: the tiled one
+    # past the resident rows (float32 past cap 512, float64 past 256)
+    for label, by_dtype in (("flagship cap 64", k1_3p_ops["G=2 cap=64"]),
+                            ("cap 512", k1_3p_ops["G=2 cap=512"]),
+                            ("cap 1024", k1_3p_ops[
+                                "G=1 cap=1024 (600 obs, gram not resident)"]),
+                            ("cap 2048", ops2048)):
+        for dt in (f32, f64):
+            ops = by_dtype[dt]
+            cap = ops[2].shape[1]
+            want = ("intervals_tiled_kernel" if cap > K1_RESIDENT_ROWS[dt]
+                    else "intervals_kernel")
+            names = k1_kernel_names(ops)
+            print(f"K1 body, {label}, {str(dt)[6:]}: {names} (the rule: "
+                  f"{want})", flush=True)
+            check(len(names) == 1 and f"safeopt::{want}<" in names[0],
+                  f"K1 {label} {dt} ran {names}, not {want}")
 
     # K1, K3 and K1-3p count their main paths' launches: the flagship's
     # (K1-3p: the cap-512 certified runs') and the sparse path's
     sparse_n = sparse_paths["sparse c=0"][0]
     sparse_3p = sum(r[0]["K1-3p"] for r in sparse_cert.values())
-    k1_err64 = max([k1_err64] + [e[0] for e in sparse_errs.values()])
+    k1_err64 = max([k1_err64, k1_2048_err64]
+                   + [e[0] for e in sparse_errs.values()])
     k3_err64 = max([k3_err64] + [e[1] for e in sparse_errs.values()])
     print(f"main-path launches: K1 flagship {launches['K1']} + sparse "
           f"{sparse_n['K1']}; K3 flagship {launches['K3']} + sparse "

@@ -107,6 +107,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                "l"(gmem));
 }
+// cp_async16 that writes 16 zero bytes instead when in is false (a
+// source size of 0: gmem is not read)
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool in) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(in ? 16 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -259,10 +259,14 @@ def _check_rows(out, ref, dtype, kdiag):
 # 2048), far below capacity, at counts that are no multiple of 32, at
 # capacities whose last band reaches past cap (100) or whose factor rows
 # are not 16-byte aligned (50 in float32), and (K1) GPs of different
-# counts in one launch
+# counts in one launch. K1's tiled body (past the resident rows) at the
+# exact GP's 2000 of 2048, at counts that are no multiple of its 256-row
+# tiles, 16-column steps or 32-row warps (1999, 1025), and two GPs of
+# counts 300 and 1500 in one launch
 ACTIVE_CASES = [((600,), 1024), ((1100,), 2048), ((400,), 512),
                 ((20,), 512), ((77, 45), 128), ((20, 300), 512),
-                ((97,), 100), ((47, 45), 50)]
+                ((97,), 100), ((47, 45), 50), ((2000,), 2048),
+                ((1999,), 2048), ((1025,), 2048), ((300, 1500), 2048)]
 
 
 @pytest.mark.parametrize("counts,cap", ACTIVE_CASES)
@@ -290,6 +294,55 @@ def test_intervals_kernel_active_rows(cuda, counts, cap, dtype):
                                      else o for o in ops])
     for g in range(len(counts)):
         _check_rows(out[g], ref[g], dtype, ops[5][g, 1].item())
+
+
+def _one_gp(n, cap, device, dtype, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-4.0, 4.0, size=(n, 2))
+    Y = (np.cos(X.sum(axis=1)) + 0.05 * rng.normal(size=n))[:, None]
+    kern = pt.RBF(2, variance=1.5, lengthscale=[0.9, 1.3], ARD=True)
+    return pt.GPRegression(X, Y, kern, noise_var=0.01, capacity=cap,
+                           device=device, dtype=dtype), rng
+
+
+# K1's tiled body on grids whose length is no multiple of its 64 points a
+# block, down to one point
+@pytest.mark.parametrize("N", [1, 63, 65, 20037])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_intervals_tiled_grid_edges(cuda, N, dtype):
+    gp, rng = _one_gp(700, 1024, cuda, dtype, seed=N)
+    grid = torch.tensor(rng.uniform(-5.0, 5.0, size=(N, 2)), dtype=dtype,
+                        device=cuda)
+    ops = fp.interval_operands([gp.kern], [gp.state], grid, 2.0)
+    out = fp.fused_intervals(*ops)
+    torch.cuda.synchronize()
+    ref = fp.fused_intervals_plain(*[o.double() if torch.is_tensor(o)
+                                     else o for o in ops])
+    assert out.shape == (1, 2, N)
+    _check_rows(out[0], ref[0], dtype, ops[5][0, 1].item())
+
+
+# the launcher's rule: the resident body while its rows cover the
+# capacity (float32 to 512, float64 to 256), the tiled body past it
+@pytest.mark.parametrize("dtype,cap,body", [
+    (torch.float32, 512, "intervals_kernel"),
+    (torch.float32, 1024, "intervals_tiled_kernel"),
+    (torch.float64, 256, "intervals_kernel"),
+    (torch.float64, 512, "intervals_tiled_kernel")])
+def test_intervals_body_by_capacity(cuda, dtype, cap, body):
+    from torch.profiler import ProfilerActivity, profile
+
+    gp, rng = _one_gp(200, cap, cuda, dtype, seed=cap)
+    grid = torch.tensor(rng.uniform(-5.0, 5.0, size=(1000, 2)), dtype=dtype,
+                        device=cuda)
+    ops = fp.interval_operands([gp.kern], [gp.state], grid, 2.0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fp.fused_intervals(*ops)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "safeopt::" in e.name]
+    assert len(names) == 1 and f"safeopt::{body}<" in names[0], names
 
 
 PLAN_ACTIVE_CASES = [("context", 600, 1024), ("sum_bias", 1100, 2048),
@@ -532,11 +585,18 @@ LAUNCH_VARIANTS = [(0, 0, -1), (1, 0, -1), (1, 64, 100), (2, 64, -1),
 def test_launch_variants_give_k1_bits(cuda, counts, cap, dtype, three_pass):
     """B1 gives K1's bits at every layout; B1-3p, whose mma.sync body is
     no longer K1-3p's, gives its automatic layout's (0, 0, -1) at every
-    layout."""
+    layout. Past the resident body's rows (float64 at capacity 512) K1
+    runs its tiled body, and B1, the resident body at other layouts,
+    gives its automatic layout's bits there, within 1e-9 of K1's."""
     from safeopt_torch.ops import interval_experiments as ie
     ops = _experiment_ops(counts, cap, cuda, dtype)
-    k1 = (ie.intervals_launch(*ops, three_pass=True) if three_pass
-          else fp.fused_intervals(*ops))
+    if three_pass:
+        k1 = ie.intervals_launch(*ops, three_pass=True)
+    elif cap <= (512 if dtype == torch.float32 else 256):
+        k1 = fp.fused_intervals(*ops)
+    else:
+        k1 = ie.intervals_launch(*ops)
+        assert (k1 - fp.fused_intervals(*ops)).abs().max().item() <= 1e-9
     count = "three_pass_launches" if three_pass else "launches"
     before = getattr(ie.intervals_launch, count)
     for slices, res, carveout in LAUNCH_VARIANTS:

@@ -78,6 +78,32 @@ def test_intervals_plain_matches_pallas(family, n_gps, cap):
                                    rtol=0, atol=1e-10)
 
 
+@pytest.mark.parametrize("n_obs,cap", [(600, 1024), (2000, 2048)])
+def test_intervals_plain_matches_jax_past_resident_rows(n_obs, cap):
+    # capacities whose active rows K1's resident body cannot hold on the
+    # card (float32 past 512 rows), where the port launches its tiled
+    # body; the JAX package takes its XLA route at both (fused_vmem_ok:
+    # past 12 MB of factor and blocks)
+    rng = np.random.default_rng(cap)
+    X = rng.uniform(-4.0, 4.0, size=(n_obs, 2))
+    Y = (2.0 * np.exp(-0.5 * np.sum(X ** 2, axis=1))
+         + 0.05 * rng.normal(size=n_obs))[:, None]
+    jgp = jt.GPRegression(X, Y, jt.RBF(2, variance=2.0, lengthscale=1.0),
+                          noise_var=0.05 ** 2, capacity=cap)
+    pgp = gp_from_arrays(kernel_from_params(**kernel_params(jgp.kern)),
+                         **gp_arrays(jgp), device="cpu")
+    grid = rng.uniform(-5.0, 5.0, size=(1000, 2))
+    (l, u), = jfp.fused_intervals_batched(
+        (jgp.kern,), (jgp.state,), jnp.asarray(grid), 2.0, block=256)
+    pout = pfp.fused_intervals_batched([pgp.kern], [pgp.state],
+                                       torch.tensor(grid), 2.0)
+    assert int(pgp.state.count) == n_obs
+    np.testing.assert_allclose(pout[0, 0].numpy(), np.asarray(l), rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(pout[0, 1].numpy(), np.asarray(u), rtol=0,
+                               atol=1e-10)
+
+
 @pytest.mark.parametrize("family,n_gps,cap", CASES)
 def test_expander_plain_matches_pallas(family, n_gps, cap):
     jgps, pgps, grid = _models(family, n_gps, cap, seed=7 * cap + n_gps)

@@ -29,8 +29,10 @@ parent (registers, barriers, shared memory; spills) with this tree's
 line of the same instance; it exits 1 if any differs or is missing. The
 parent's float32 K1-3p and K2-3p instances (``REDESIGNED``: the
 mma.sync body, which their ``wgmma`` kernels of ``fused_intervals3.cu``
-replace) are printed beside the new instances' lines instead, and a new
-instance that spills exits 1 too.
+replace) are printed beside the new instances' lines instead. The lines
+of the kernels in ``NEW`` (those ``wgmma`` kernels and K1's tiled body,
+``intervals_tiled_kernel``) are printed, and one that spills exits 1
+too.
 """
 
 import argparse
@@ -42,10 +44,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PARENT = ROOT / "build" / "compare" / "parent"
 # The float32 three-pass instances of intervals.cuh's body that the wgmma
-# kernels replace (parent names), and those kernels' names in this tree.
+# kernels replace (parent names), and the names of the kernels that are
+# new since the port's first bodies: the wgmma kernels, K1's tiled body.
 REDESIGNED = ("intervals3_kernelIfE", "intervals_plan3_kernelIfE",
               "intervals_plan_wide_kernelIfNS_16ThreePassProduct")
-WGMMA = ("intervals3_wg_kernel", "intervals_plan3_wg_kernel")
+NEW = ("intervals3_wg_kernel", "intervals_plan3_wg_kernel",
+       "intervals_tiled_kernel")
 sys.path.insert(0, str(ROOT))
 
 
@@ -128,15 +132,15 @@ def ptxas():
               f"{change.get(k)!r}", flush=True)
     for k in replaced:
         print(f"replaced: {k}: parent {parent[k]!r}", flush=True)
-    new = [k for k in change if any(r in k for r in WGMMA)]
+    new = [k for k in change if any(r in k for r in NEW)]
     spills = [k for k in new if k.endswith(" spills")
               and "0 bytes spill stores, 0 bytes spill loads" not in change[k]]
     for k in new:
-        print(f"wgmma: {k}: {change[k]!r}", flush=True)
+        print(f"new: {k}: {change[k]!r}", flush=True)
     print(f"ptxas: {len(kept) - len(differ)} of the parent's {len(kept)} "
           f"lines identical in this tree (which has {len(change)}); "
           f"{len(replaced)} lines of the redesigned float32 three-pass "
-          f"instances replaced by {len(new)} of the wgmma kernels, "
+          f"instances replaced; {len(new)} lines of the new kernels, "
           f"{len(spills)} of them spilling", flush=True)
     return 1 if differ or spills or not new else 0
 

@@ -21,7 +21,14 @@ expander chunk 32:
   from ``default_rng(512)`` in [-4, 4]^2 (K1, K3);
 - ``context``: two GPs with the contextual kernel RBF(parameter) x
   RBF(context), 240 observations at context 0, capacity 256, a 1e6-point
-  parameter grid on [-3, 3] at context 0 (K2, K4).
+  parameter grid on [-3, 3] at context 0 (K2, K4);
+- ``cap1024``: GP 0 of the flagship pair at capacity 1024 with the 600
+  observations from ``default_rng(1024)`` in [-4, 4]^2, the state
+  chip_smoke phase 3 holds (K1 past its resident gram, K3);
+- ``cap2048``: the exact GP of chip_smoke phase 16.5 (``states.
+  sparse_exact_gp``: the sparse bench's 2000 observations, capacity
+  2048), ``fmin`` and scaling of the sparse path (K1 past its resident
+  gram, K3).
 
 For each it measures:
 
@@ -34,14 +41,17 @@ For each it measures:
   starting state (the expander kernel on the first chunk of the walk,
   for the contextual GP 0), beside ``bound_ms``, the least time the card
   could take for the same work (``chip_smoke.interval_bound`` /
-  ``expander_bound`` / ``split_bound``); beside K1, the
+  ``expander_bound`` / ``split_bound``); on the flagship also K1 over
+  chip_smoke phase 20 (a)'s fleet (8 campaigns x 2 GPs in one launch,
+  ``K1 fleet``); beside K1, the
   multiply-adds per point and GP that K1 executes against the n(n+1)/2
   its bound counts (``chip_smoke.band_macs``), beside K3/K4 the
   multiply-adds per point and GP they execute against the C n their
   bound counts (``chip_smoke.expander_macs``), and beside K1 one FP32
   ``torch.matmul`` of an (n, n) by an (n, 65536) matrix with TF32 off:
   the rate the card's FP32 pipe reaches on the product's shapes, a
-  ceiling for K1's product share (the port never calls it);
+  ceiling for K1's product share (the port never calls it); K1-3p at
+  the certified path's capacities (up to 512) only;
 - ``stages``: one ``safeopt_step`` on the starting state split into
   intervals, classify, expander walk and select + pack + diag pull;
   host-clock ms with a device sync after each stage, median of ``--reps``;
@@ -72,15 +82,17 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (BETA, CTX_FMIN, FMIN, SCALING,  # noqa: E402
-                        band_macs, build_gps, context_gps, context_truth,
-                        cuda_ms, expander_bound, expander_macs,
-                        interval_bound, plan_leaves, plant, split_bound,
-                        timed_ms)
+                        SPARSE_FMIN, SPARSE_SCALING, band_macs, build_gps,
+                        context_gps, context_truth, core_state, cuda_ms,
+                        expander_bound, expander_macs, fleet_flagship_states,
+                        interval_bound, plan_leaves, plant, sparse_exact_gp,
+                        split_bound, timed_ms)
 
 
 # name -> (capacity, observations, seed, spread of the observations)
 CONFIGS = {"flagship": (64, 50, 0, 1.5), "cap512": (512, 400, 512, 4.0),
-           "context": (256, 240, 3, 3.0)}
+           "context": (256, 240, 3, 3.0), "cap1024": (1024, 600, 1024, 4.0),
+           "cap2048": (2048, 2000, 11, 4.0)}
 
 
 def problem(name, grids):
@@ -96,12 +108,18 @@ def problem(name, grids):
         return (opt, lambda x: (context_truth([[float(x[0]), 0.0]])
                                 + 0.05 * rng.normal(size=(1, 2))),
                 {"context": 0.0})
-    gps = build_gps(np.random.default_rng(seed), n_obs, cap, "cuda", None,
-                    spread=spread)
     rng = np.random.default_rng(1)
-    return (SafeOpt(gps, grids["flagship"], fmin=FMIN, beta=BETA,
-                    scaling=SCALING, expander_chunk=32),
-            lambda x: plant(rng, x), {})
+    if name == "cap2048":
+        return (SafeOpt(sparse_exact_gp("cuda", None), grids["flagship"],
+                        fmin=SPARSE_FMIN, beta=BETA, scaling=SPARSE_SCALING,
+                        expander_chunk=32),
+                lambda x: plant(rng, x)[:, :1], {})
+    G = 1 if name == "cap1024" else 2
+    gps = build_gps(np.random.default_rng(seed), n_obs, cap, "cuda", None,
+                    spread=spread)[:G]
+    return (SafeOpt(gps, grids["flagship"], fmin=FMIN[:G], beta=BETA,
+                    scaling=SCALING[:G], expander_chunk=32),
+            lambda x: plant(rng, x)[:, :G], {})
 
 
 def stage_ms(opt, reps):
@@ -175,9 +193,10 @@ def kernel_times(opt, chunk, reps):
         runs = {"K1": (fp.fused_intervals, fp.fused_intervals_plain, iv,
                        interval_bound(f32, G, N, d, cap, n)),
                 "K3": (fe.fused_expander, fe.fused_expander_plain, ex,
-                       expander_bound(f32, G, N, U, d, cap, n, C)),
-                "K1-3p": (fp.fused_intervals3, fp.fused_intervals3_plain, iv,
-                          split_bound("bf16", N, d, cap, n, G=G))}
+                       expander_bound(f32, G, N, U, d, cap, n, C))}
+        if cap <= 512:      # the certified path's capacities
+            runs["K1-3p"] = (fp.fused_intervals3, fp.fused_intervals3_plain,
+                             iv, split_bound("bf16", N, d, cap, n, G=G))
     else:
         iv = fp.interval_plan_operands(kernels[0], states[0], grid, BETA)
         ex = fe.expander_plan_operands(kernels[0], states[0], grid, ~S,
@@ -204,6 +223,25 @@ def kernel_times(opt, chunk, reps):
     if interval == "K1":
         out["K1"]["fp32_matmul"] = matmul_ceiling(n, reps)
     return out
+
+
+def fleet_k1_times(grid, reps):
+    """K1 over chip_smoke phase 20 (a)'s fleet, 8 flagship campaigns x 2
+    GPs in one float32 launch, against its plain version and its bound."""
+    from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.parallel import stack_campaign_states
+
+    kernels, per = fleet_flagship_states()
+    st = stack_campaign_states([tuple(core_state(s, torch.float32)
+                                      for s in p) for p in per])
+    ops = fp.fleet_interval_operands(kernels, st, grid, BETA)
+    (N, d), G = grid.shape, ops[2].shape[0]
+    b_ms, b_by = interval_bound(torch.float32, G, N, d, ops[2].shape[1],
+                                int(per[0][0].count))
+    return {"kernel_ms": cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps),
+            "plain_ms": cuda_ms(lambda: fp.fused_intervals_plain(*ops),
+                                reps=3),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def profile(opt, kw, calls=5, top=6):
@@ -248,10 +286,13 @@ def measure(name, grids, reps):
     opt, _, kw = problem(name, grids)
     opt.optimize(**kw)                               # warm-up
     stages, chunk = stage_ms(opt, reps)
+    kernels = kernel_times(opt, chunk, reps)
+    if name == "flagship":
+        kernels["K1 fleet"] = fleet_k1_times(opt._grid(), reps)
     return {
         "config": name, "capacity": CONFIGS[name][0],
         "observations": CONFIGS[name][1],
-        "kernels": kernel_times(opt, chunk, reps),
+        "kernels": kernels,
         "stages_ms": stages,
         "profile": profile(opt, kw),
         "optimize_ms": statistics.median(opt_ms[1:]),
