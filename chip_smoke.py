@@ -35,11 +35,20 @@ Phases, each reported on its own line:
 5. K2 (intervals of one GP with a kernel algebra) against its plain
    version on the bench's contextual kernel, RBF(parameter) x
    RBF(context), over the same grid (column 1 is the context): capacity
-   64 with 50 observations, capacity 256 with 250, capacity 1024 with
-   600 (gram not resident), a Sum with a Bias leaf and a Cosine leaf
-   on one column, and the contextual kernel written as a product of nine
-   leaves at capacity 256 (one leaf past the plan K2/K4 stage in static
-   shared memory: their wide instances); tolerances as K1's;
+   64 with 50 observations, capacity 256 with 250, capacity 512 with 400
+   (float64 past its resident rows: the tiled body), capacity 1024 with
+   600 (gram not resident: the tiled body), GP 0 of
+   ``tools_torch/measure.py``'s ``context1024`` and ``context2048`` (600
+   and 2000 observations over contexts in [-1, 1], capacity 1024 and
+   2048: the tiled body), a Sum with a Bias leaf and a Cosine leaf on
+   one column, and the contextual kernel written as a product of nine
+   leaves at capacity 256 and at capacity 1024 with 600 observations
+   (one leaf past the plan K2/K4 stage in static shared memory: their
+   wide instances, resident and tiled); tolerances as K1's, and at
+   ``context1024`` and ``context2048`` the float32 kernel also within
+   ``float32_bound_plan(..., limb=None)`` of its function in float64 on
+   the kernel's own gram (``plan_rows_on_kernel_gram``), a planted fault
+   (the first 32 active rows of Lm dropped) past that bound;
 6. K4 (expander predicate of one GP with a kernel algebra) as K3's
    check, on the contextual kernel's two GPs at capacity 256, and on the
    same GPs with the nine-leaf kernel (K4's wide instances);
@@ -181,7 +190,16 @@ Phases, each reported on its own line:
     within ``float32_bound`` with the dropped band past it, decisions
     equal outside the band), then timed after the others; the body each
     K1 launch ran (torch.profiler) on the flagship, cap 512, cap 1024
-    and cap 2048 in both dtypes, against the launcher's rule;
+    and cap 2048 in both dtypes, against the launcher's rule; K2 at
+    phase 5's ``context1024`` and ``context2048`` states against its
+    plain version and its bound, and the body each K2 launch of phase 5
+    ran (capacities 256, 512, 1024, 2048 and the nine-leaf plan at 256
+    and 1024, both dtypes) against the same rule; three steps of the
+    contextual path at ``context2048`` (two GPs, 2000 observations over
+    contexts in [-1, 1], capacity 2048, the 1e6-point parameter grid at
+    context 0), ``optimize()`` and ``add_new_data_point()`` timed, K2
+    twice a step and K4 twice a walk chunk (counted from zero around the
+    run);
 19. SafeOptSwarm at the JAX bench's widths (``bench.py:1333-1353``,
     ``tools_torch/states.py`` ``swarm_*``: d=10, 20 particles, 100 PSO
     iterations, bounds [-3, 3]^10): (a) G=1 and G=2 from the bench's 5
@@ -388,15 +406,17 @@ def context_kernel(variant=None):
 
 
 def context_gps(n_gps, n_obs, cap, device, dtype, variant=None,
-                spread=3.0):
+                spread=3.0, spread_contexts=False):
     """``n_gps`` contextual GPs (``context_kernel(variant)``) with
     ``n_obs`` shared observations in [-spread, spread] at context 0
-    (``bench.py`` ``_context_config``; for ``"extra"``, contexts uniform
-    in [-1, 1])."""
+    (``bench.py`` ``_context_config``; for ``"extra"``, or with
+    ``spread_contexts``, contexts uniform in [-1, 1]: a long campaign
+    that has visited several contexts)."""
     from safeopt_torch import GPRegression
 
     rng = np.random.default_rng(3)
-    ctx = (rng.uniform(-1.0, 1.0, size=(n_obs, 1)) if variant == "extra"
+    ctx = (rng.uniform(-1.0, 1.0, size=(n_obs, 1))
+           if variant == "extra" or spread_contexts
            else np.zeros((n_obs, 1)))
     X = np.hstack([rng.uniform(-spread, spread, size=(n_obs, 1)), ctx])
     return [GPRegression(X, context_truth(X)[:, g:g + 1],
@@ -639,24 +659,42 @@ def check_k1_gps(label, gps, grid64, fmin, scaling, bounded=False,
     return err64, err32
 
 
-# rows K1's resident body keeps in shared memory at most (the launcher
-# takes the tiled body past them: csrc/fused_intervals.cu)
+# rows K1's and K2's resident body keeps in shared memory at most (the
+# launchers take the tiled body past them: csrc/fused_intervals.cu,
+# csrc/fused_intervals_plan.cu)
 K1_RESIDENT_ROWS = {torch.float32: 512, torch.float64: 256}
+K2_RESIDENT_ROWS = {torch.float32: 512, torch.float64: 256}
 
 
-def k1_kernel_names(ops):
-    """The names of the CUDA kernels of ``safeopt::`` that one K1 launch
-    on ``ops`` ran, from torch.profiler."""
+def kernel_names(launch, ops, attempts=4):
+    """The names of the CUDA kernels of ``safeopt::`` that one call of
+    ``launch`` (K1's or K2's wrapper) on ``ops`` ran, from
+    torch.profiler.
+
+    The profiler now and then records no kernel at all for a launch
+    (CUPTI drops the record). A window that recorded nothing says
+    nothing of the body, so the call is profiled again in a new window,
+    up to ``attempts`` windows; a window that recorded anything is
+    returned as it is, and the caller holds it to exactly one kernel of
+    the rule's body."""
     from torch.profiler import ProfilerActivity, profile
 
-    from safeopt_torch.ops import fused_posterior as fp
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fp.fused_intervals(*ops)
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "safeopt::" in e.name]
+    launch(*ops)                # loaded before the profiler starts
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)    # the window opens well before the launch
+            launch(*ops)
+            torch.cuda.synchronize()
+            time.sleep(0.01)    # and closes well after its end
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "safeopt::" in e.name]
+        if names:
+            break
+        print(f"kernel_names: window {attempt} of {attempts} recorded no "
+              "kernel", flush=True)
+    return names
 
 
 def k1_operands(n_obs, cap, n_gps, grid64, seed, spread=1.5):
@@ -858,15 +896,22 @@ def check_k3_gps(label, gps64, gps32, grid64, fmin, scaling,
     return err64, ops32
 
 
-def check_k2(label, n_obs, cap, grid64, variant=None):
+def check_k2(label, n_obs, cap, grid64, variant=None, spread_contexts=False,
+             bounded=False):
     """K2 vs its plain version in f64 and f32 on one contextual GP
-    (``context_kernel(variant)``); returns the f64 error and the float32
-    operands."""
+    (``context_kernel(variant)``, ``context_gps``' GP 0): float64 to
+    1e-9, float32 decisions equal outside the band. ``bounded``: the
+    float32 kernel also within ``float32_bound_plan(..., limb=None)`` of
+    ``plan_rows_on_kernel_gram`` on its own operands, and a planted fault
+    (the GP's first, then last, 32 active rows of Lm dropped) past that
+    bound. Returns the f64 error and the operands by dtype."""
     from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.ops import interval_experiments as ie
 
     out = {}
     for dtype in (torch.float64, torch.float32):
-        gp = context_gps(1, n_obs, cap, "cuda", dtype, variant=variant)[0]
+        gp = context_gps(1, n_obs, cap, "cuda", dtype, variant=variant,
+                         spread_contexts=spread_contexts)[0]
         ops = fp.interval_plan_operands(gp.kern, gp.state, grid64.to(dtype),
                                         BETA)
         out[dtype] = (fp.fused_intervals_plan(*ops), ops)
@@ -887,7 +932,22 @@ def check_k2(label, n_obs, cap, grid64, variant=None):
           f"{in_band})", flush=True)
     check(err64 <= 1e-9, f"K2 {label} f64 error {err64}")
     check(wrong == 0, f"K2 {label} f32 decisions differ outside the band")
-    return err64, ops32
+    if bounded:
+        want = ie.plan_rows_on_kernel_gram(*ops32)
+        bound_ = ie.float32_bound_plan(*ops32, limb=None)
+        share = ((k32.double() - want).abs() / bound_).max().item()
+        faults = fault_readings(ie.plan_rows_on_kernel_gram, ops32, "split",
+                                bound_)
+        print(f"K2 {label} float32 against its function in float64 on the "
+              f"kernel's gram: at most {share:.3g} of float32_bound_plan "
+              f"(limb=None; limit 1); the bound's median "
+              f"{bound_.median().item():.3e}; the first 32-row band dropped "
+              f"reads {faults[0]:.3g} x the bound (must be past 1), the "
+              f"last {faults[1]:.3g} x", flush=True)
+        check(share <= 1.0, f"K2 {label} f32 past its float32 bound")
+        check(faults[0] > 1.0, f"K2 {label}: the float32 bound cannot see "
+                               "a dropped band")
+    return err64, {torch.float64: ops64, torch.float32: ops32}
 
 
 def check_k4(grid64, variant=None):
@@ -2368,6 +2428,57 @@ def print_swarm(out, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the contextual path past K2's resident rows
+LONG_CTX_STEPS = 3
+
+
+def drive_long_context(params_np):
+    """Three steps of the contextual path at ``tools_torch/measure.py``'s
+    ``context2048`` state: two GPs of the contextual kernel, 2000
+    observations over contexts in [-1, 1], capacity 2048 (K2 on its tiled
+    body), the 1e6-point parameter grid at context 0, float32.
+    ``optimize()`` and ``add_new_data_point()`` timed with CUDA events;
+    K2 twice a step and K4 twice a walk chunk (the counts zeroed before
+    the run and read after it), finite intervals and a safe set at every
+    step. Returns (launches, optimize ms, add ms)."""
+    from safeopt_torch import SafeOpt
+
+    opt = SafeOpt(context_gps(2, 2000, 2048, "cuda", None,
+                              spread_contexts=True), params_np,
+                  fmin=CTX_FMIN, beta=BETA, num_contexts=1,
+                  expander_chunk=32)
+    rng = np.random.default_rng(2)
+    opt_ms, add_ms, chunks = [], [], 0
+    zero_launches()
+    for _ in range(LONG_CTX_STEPS):
+        x, ms = timed_ms(lambda: opt.optimize(context=0.0))
+        opt_ms.append(ms)
+        chunks += opt.stats.last.walk_chunks
+        y = (context_truth([[float(x[0]), 0.0]])
+             + 0.05 * rng.normal(size=(1, 2)))
+        add_ms.append(timed_ms(
+            lambda: opt.add_new_data_point(x, y, context=0.0))[1])
+        check(bool(np.isfinite(opt.Q).all())
+              and opt.stats.last.safe_count > 0,
+              "the contextual path at capacity 2048 gave a non-finite "
+              "interval or no safe point")
+    torch.cuda.synchronize()
+    n = read_launches()
+    print(f"contextual path at capacity 2048 (2000 obs, contexts in [-1, "
+          f"1], {LONG_CTX_STEPS} steps at context 0): optimize() ms "
+          f"{[round(t, 3) for t in opt_ms]}, add_new_data_point() ms "
+          f"{[round(t, 3) for t in add_ms]}, walk chunks {chunks}, "
+          f"launches {n}", flush=True)
+    check(n["K2"] == 2 * LONG_CTX_STEPS and n["K4"] == 2 * chunks,
+          f"the contextual path at capacity 2048 launched K2 {n['K2']} "
+          f"times (not {2 * LONG_CTX_STEPS}) or K4 {n['K4']} (not "
+          f"{2 * chunks})")
+    check(n["K1"] == n["K3"] == n["K1-3p"] == n["K2-3p"] == 0
+          and not any(experiment_launches().values()),
+          "the contextual path at capacity 2048 launched another kernel")
+    return n, opt_ms, add_ms
+
+
 # phase 20: campaign fleets
 # ---------------------------------------------------------------------------
 
@@ -3982,18 +4093,37 @@ def main():
     # 5. K2 against its plain version on contextual GPs ----------------------
     k2_err, _ = check_k2("1 GP cap=64 (50 obs)", 50, 64, grid64)
     n_k2 = 250          # K2 and K4 are timed at the 250-observation GP
-    err, k2_ops32 = check_k2("1 GP cap=256 (250 obs, factor streamed)", n_k2,
-                             256, grid64)
+    err, k2_ops = check_k2("1 GP cap=256 (250 obs, factor streamed)", n_k2,
+                           256, grid64)
+    k2_ops32 = k2_ops[torch.float32]
+    k2_err = max(k2_err, err)
+    err, k2_512_ops = check_k2("1 GP cap=512 (400 obs; float64 on the tiled "
+                               "body)", 400, 512, grid64)
     k2_err = max(k2_err, err)
     err, _ = check_k2("1 GP cap=1024 (600 obs, gram not resident)", 600,
                       1024, grid64)
     k2_err = max(k2_err, err)
+    # measure.py's context1024 and context2048 GP 0: a long campaign over
+    # contexts in [-1, 1], past the resident rows (the tiled body)
+    err, k2_1024_ops = check_k2(
+        "1 GP cap=1024 (600 obs, contexts in [-1, 1], tiled body)", 600,
+        1024, grid64, spread_contexts=True, bounded=True)
+    k2_err = max(k2_err, err)
+    err, k2_2048_ops = check_k2(
+        "1 GP cap=2048 (2000 obs, contexts in [-1, 1], tiled body)", 2000,
+        2048, grid64, spread_contexts=True, bounded=True)
+    k2_err = max(k2_err, err)
     err, _ = check_k2("Sum with Bias and Cosine leaves, cap=64", 50, 64,
                       grid64, variant="extra")
     k2_err = max(k2_err, err)
-    err, k2_nine_ops32 = check_k2("the contextual kernel as nine leaves "
-                                  "(wide plan), cap=256 (250 obs)", n_k2,
-                                  256, grid64, variant="nine")
+    err, k2_nine = check_k2("the contextual kernel as nine leaves (wide "
+                            "plan), cap=256 (250 obs)", n_k2, 256, grid64,
+                            variant="nine")
+    k2_nine_ops32 = k2_nine[torch.float32]
+    k2_err = max(k2_err, err)
+    err, k2_nine_1024 = check_k2(
+        "the contextual kernel as nine leaves (wide tiled plan), cap=1024 "
+        "(600 obs)", 600, 1024, grid64, variant="nine")
     k2_err = max(k2_err, err)
 
     # 6. K4 against its plain version on contextual candidates ---------------
@@ -4312,11 +4442,42 @@ def main():
             cap = ops[2].shape[1]
             want = ("intervals_tiled_kernel" if cap > K1_RESIDENT_ROWS[dt]
                     else "intervals_kernel")
-            names = k1_kernel_names(ops)
+            names = kernel_names(fp.fused_intervals, ops)
             print(f"K1 body, {label}, {str(dt)[6:]}: {names} (the rule: "
                   f"{want})", flush=True)
             check(len(names) == 1 and f"safeopt::{want}<" in names[0],
                   f"K1 {label} {dt} ran {names}, not {want}")
+    # K2 past its resident rows: phase 5's context1024 and context2048
+    # states, timed after the others, and the body each K2 launch ran by
+    # the same rule (a plan past the static leaves: the wide instances)
+    for label, ops, reps in (
+            ("K2 cap=1024 (600 obs, contexts in [-1, 1])",
+             k2_1024_ops[f32], 10),
+            ("K2 cap=2048 (2000 obs, contexts in [-1, 1])",
+             k2_2048_ops[f32], 3)):
+        time_kernel(label, lambda o=ops: fp.fused_intervals_plan(*o),
+                    lambda o=ops: fp.fused_intervals_plan_plain(*o),
+                    *interval_bound(f32, 1, N, d, ops[1].shape[0],
+                                    int(ops[7][3]),
+                                    plan_leaves(ops[4], ops[6])), reps=reps)
+    for label, by_dtype in (("cap 256", k2_ops), ("cap 512", k2_512_ops),
+                            ("cap 1024", k2_1024_ops),
+                            ("cap 2048", k2_2048_ops),
+                            ("nine leaves, cap 256", k2_nine),
+                            ("nine leaves, cap 1024", k2_nine_1024)):
+        for dt in (f32, f64):
+            ops = by_dtype[dt]
+            cap = ops[1].shape[0]
+            wide = "wide_" if ops[5].shape[0] > fp.MAX_LEAVES else ""
+            want = (f"intervals_plan_{wide}tiled_kernel"
+                    if cap > K2_RESIDENT_ROWS[dt]
+                    else f"intervals_plan_{wide}kernel")
+            names = kernel_names(fp.fused_intervals_plan, ops)
+            print(f"K2 body, {label}, {str(dt)[6:]}: {names} (the rule: "
+                  f"{want})", flush=True)
+            check(len(names) == 1 and f"safeopt::{want}<" in names[0],
+                  f"K2 {label} {dt} ran {names}, not {want}")
+    long_ctx, long_opt_ms, long_add_ms = drive_long_context(params_np)
 
     # K1, K3 and K1-3p count their main paths' launches: the flagship's
     # (K1-3p: the cap-512 certified runs') and the sparse path's
@@ -4370,6 +4531,16 @@ def main():
     kernels[0]["cap2048_ms"], kernels[0]["cap2048_plain_ms"], \
         kernels[0]["cap2048_bound_ms"], _ = times[
             "K1 cap=2048 (exact GP, 2000 observations)"]
+    # K2 past its resident rows (the tiled body), and the contextual
+    # path at capacity 2048
+    for cap, key in ((1024, "K2 cap=1024 (600 obs, contexts in [-1, 1])"),
+                     (2048, "K2 cap=2048 (2000 obs, contexts in [-1, 1])")):
+        kernels[2][f"cap{cap}_ms"], kernels[2][f"cap{cap}_plain_ms"], \
+            kernels[2][f"cap{cap}_bound_ms"], _ = times[key]
+    for entry, key in ((kernels[2], "K2"), (kernels[3], "K4")):
+        entry["launches"] += long_ctx[key]
+        entry["cap2048_path_launches"] = long_ctx[key]
+    kernels[2]["cap2048_path_optimize_ms"] = long_opt_ms
     kernels[4]["max_scaled_err_f32_vs_f64"] = k1_3p_dq
     kernels[5]["max_scaled_err_f32_vs_f64"] = k2_3p_dq
 

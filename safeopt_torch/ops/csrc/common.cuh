@@ -7,8 +7,9 @@
 // computed is a policy (StationaryGram for K1/K3, PlanGram for K2/K4)
 // with one body, rows<R>, for R rows at once (the interval body takes
 // four, the expander body eight; one entry is rows<1>). The block bodies
-// and their tiling are in intervals.cuh (K1/K2) and expander.cuh
-// (K3/K4); both stage operands with the asynchronous copies below.
+// and their tiling are in intervals.cuh and intervals_tiled.cuh (K1/K2)
+// and expander.cuh (K3/K4); they stage operands with the asynchronous
+// copies below.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -210,6 +211,64 @@ struct PlanGram {
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             const T diff = (x[r][k] - z) * sk;
+            r2[r] += diff * diff;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) leaf[r] = kfun(kd, r2[r], var);
+      }
+      const bool end = last[q];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        prod[r] *= leaf[r];
+        if (end) {
+          v[r] += prod[r];
+          prod[r] = T(1);
+        }
+      }
+    }
+  }
+  // rows<R> where the caller knows the column count D at compile time
+  // (the tiled body, intervals_tiled.cuh): the R rows' and the point's
+  // coordinates are read once, before the leaves, and each leaf walks
+  // the D columns in order and skips a zero scale, so it takes the same
+  // columns in the same order as rows<R> (the same bits) without loads
+  // that wait on its column list
+  template <int D, int R>
+  __device__ __forceinline__ void rows_d(T (&v)[R], const T* const (&x)[R],
+                                         const T* zs, int p, int ldz) const {
+    T xr[R][D], z[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      z[k] = zs[k * ldz + p];
+#pragma unroll
+      for (int r = 0; r < R; ++r) xr[r][k] = x[r][k];
+    }
+    T prod[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      v[r] = T(0);
+      prod[r] = T(1);
+    }
+    for (int q = 0; q < P; ++q) {
+      const T var = pvar[q];
+      const int kd = kind[q];
+      T leaf[R];
+      if (kd == kBias) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) leaf[r] = var;
+      } else {
+        const T* s = scales + q * D;
+        T r2[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) r2[r] = T(0);
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          const T sk = s[k];
+          if (sk == T(0)) continue;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const T diff = (xr[r][k] - z[k]) * sk;
             r2[r] += diff * diff;
           }
         }

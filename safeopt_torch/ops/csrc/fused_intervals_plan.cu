@@ -34,8 +34,21 @@
 // the same body with the whole plan staged once per block in dynamic
 // shared memory after the body's own (stage_plan), up to the block's
 // 227 KB; a plan past that makes the launch fail.
+//
+// Past the rows the resident gram holds (float32 past cap 512, float64
+// past 256) K2 runs K1's tiled body (intervals_tiled.cuh) with the
+// PlanGram policy: intervals_plan_tiled_kernel, and for a wide plan
+// intervals_plan_wide_tiled_kernel, the plan at wide_plan_at(the tiled
+// layout's bytes). The resident body there had each warp compute its
+// own 32-row piece of the gram, about 35k plan entries a point at
+// n = 2000 against the tiled body's 9.2k, and ran 5.7 times slower; the
+// plan's entries (the contextual product: two leaves, two exponentials)
+// still take about a fifth of the tiled launch, K1's a twentieth
+// (PERF.md). The launcher's rule is K1's: capacity and dtype alone, so
+// the count stays on the device.
 
 #include "intervals.cuh"
+#include "intervals_tiled.cuh"
 
 namespace safeopt {
 
@@ -103,9 +116,79 @@ __global__ void __launch_bounds__(
       cap, n, S, res, gram);
 }
 
+// PlanSmem::stage and stage_plan hand the plan out over kThreads threads
+static_assert(kTileThreads == kThreads, "the tiled block stages the plan");
+
+// K2 past the resident gram: K1's tiled body with the plan gram, one
+// block a kTileP points; the same launch bounds as intervals_tiled_kernel
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads,
+                                  sizeof(T) == 4 ? kTiledMinBlocks : 1)
+    intervals_plan_tiled_kernel(
+    const T* __restrict__ zt, const T* __restrict__ xs,
+    const T* __restrict__ lmt, const T* __restrict__ w,
+    const T* __restrict__ scales, const T* __restrict__ pvar,
+    const int* __restrict__ plan, const T* __restrict__ scal,
+    T* __restrict__ out, int N, int d, int cap, int ldl, int P) {
+  __shared__ PlanSmem<T> smem_plan;
+  const PlanGram<T> gram = smem_plan.stage(scales, pvar, plan, P, d);
+  const int count = (int)scal[3];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  interval_tiles<T>(zt, (const T*)nullptr, xs, lmt, ldl, w, scal[1],
+                    scal[2], out, N, d, n, gram);
+}
+
+// the same for a plan of more than kMaxLeaves leaves: the plan in dynamic
+// shared memory at wide_plan_at(the tiled layout's bytes)
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads,
+                                  sizeof(T) == 4 ? kTiledMinBlocks : 1)
+    intervals_plan_wide_tiled_kernel(
+    const T* __restrict__ zt, const T* __restrict__ xs,
+    const T* __restrict__ lmt, const T* __restrict__ w,
+    const T* __restrict__ scales, const T* __restrict__ pvar,
+    const int* __restrict__ plan, const T* __restrict__ scal,
+    T* __restrict__ out, int N, int d, int cap, int ldl, int P) {
+  extern __shared__ __align__(16) unsigned char smem_wide[];
+  const PlanGram<T> gram =
+      stage_plan<T>(smem_wide + wide_plan_at(TiledLayout<T>(d).bytes),
+                    scales, pvar, plan, P, d);
+  const int count = (int)scal[3];
+  const int n = count < 0 ? 0 : (count < cap ? count : cap);
+  interval_tiles<T>(zt, (const T*)nullptr, xs, lmt, ldl, w, scal[1],
+                    scal[2], out, N, d, n, gram);
+}
+
+// K2 past the resident gram, static or wide plan: one block a kTileP
+// points
+template <typename T>
+int launch_intervals_plan_tiled(const T* zt, const T* xs, const T* lmt,
+                                const T* w, const T* scales, const T* pvar,
+                                const int* plan, const T* scal, T* out, int N,
+                                int d, int cap, int P, cudaStream_t stream) {
+  const TiledLayout<T> lay(d);
+  const bool wide = P > kMaxLeaves;
+  const size_t bytes =
+      wide ? wide_plan_at(lay.bytes) + plan_bytes<T>(P, d) : lay.bytes;
+  if (bytes > kSmemPerBlock) return (int)cudaErrorInvalidValue;
+  auto kernel = wide ? intervals_plan_wide_tiled_kernel<T>
+                     : intervals_plan_tiled_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int ldl = (cap + kBand - 1) / kBand * kBand;  // Lm^T row stride
+  const dim3 grid((N + kTileP - 1) / kTileP);
+  kernel<<<grid, kTileThreads, bytes, stream>>>(
+      zt, xs, lmt, w, scales, pvar, plan, scal, out, N, d, cap, ldl, P);
+  return (int)cudaGetLastError();
+}
+
 // K2 (three_pass 0) or, in float64, K2-3p (1); past kMaxLeaves leaves,
 // their wide instances. The float32 K2-3p is launch_intervals_plan3
-// (fused_intervals3.cu).
+// (fused_intervals3.cu). K2 takes the resident body where
+// interval_layout keeps every row of the capacity resident, the tiled
+// body past it (float32 past cap 512, float64 past 256), as K1 does;
+// K2-3p keeps the resident body.
 template <typename T>
 int launch_intervals_plan(const T* zt, const T* xs, const T* lmt, const T* w,
                           const T* scales, const T* pvar, const int* plan,
@@ -113,6 +196,9 @@ int launch_intervals_plan(const T* zt, const T* xs, const T* lmt, const T* w,
                           int three_pass, cudaStream_t stream) {
   if (P < 1 || d < 1 || d > kMaxDim) return (int)cudaErrorInvalidValue;
   const IvLayout<T> lay = interval_layout<T>(cap, d);
+  if (!three_pass && lay.res < cap)
+    return launch_intervals_plan_tiled<T>(zt, xs, lmt, w, scales, pvar, plan,
+                                          scal, out, N, d, cap, P, stream);
   const bool wide = P > kMaxLeaves;
   const size_t bytes =
       wide ? wide_plan_at(lay.bytes) + plan_bytes<T>(P, d) : lay.bytes;

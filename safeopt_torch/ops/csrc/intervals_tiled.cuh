@@ -1,9 +1,11 @@
-// Block body of K1 past the resident gram (fused_intervals.cu
-// intervals_tiled_kernel): one GP's interval rows over the block's
-// kTileP grid points, for the capacities whose active rows the resident
-// body (intervals.cuh) cannot keep in shared memory (float32 past cap
-// 512, float64 past 256). It stands for the same TPU kernel,
-// safeopt_tpu/ops/fused_posterior.py::_interval_kernel_multi at
+// Block body of K1 and K2 past the resident gram (fused_intervals.cu
+// intervals_tiled_kernel; fused_intervals_plan.cu
+// intervals_plan_tiled_kernel and its wide instance): one GP's interval
+// rows over the block's kTileP grid points, for the capacities whose
+// active rows the resident body (intervals.cuh) cannot keep in shared
+// memory (float32 past cap 512, float64 past 256). It stands for the
+// same TPU kernels, safeopt_tpu/ops/fused_posterior.py::
+// _interval_kernel_multi (K1) and ::_interval_kernel (K2) at
 // three_pass=False, and computes the same function:
 //
 //   k[c]  = gram(xs[c], z)               difference form, c < n
@@ -49,9 +51,11 @@
 //   on every launch, no atomics, no workspace, no second pass.
 //
 // Full FP32 (FP64) FMAs on the CUDA cores: no TF32, no tensor cores.
-// fused_intervals.cu's launcher takes this body wherever
-// interval_layout's resident rows are fewer than the capacity.
-// tools_torch/tune_tiled.py times its variants and ablations.
+// The launchers of fused_intervals.cu and fused_intervals_plan.cu take
+// this body wherever interval_layout's resident rows are fewer than the
+// capacity. K2's plan gram (PlanGram::rows_d) is about four times K1's
+// share of the launch (tools_torch/tune_tiled.py `no_gram`), which
+// times the variants and ablations.
 #pragma once
 
 #include "common.cuh"
@@ -116,6 +120,27 @@ __device__ __forceinline__ void stage_tile(T* a, const T* __restrict__ lmt,
   }
 }
 
+// gram.rows for R rows at once; a plan whose column count D is known at
+// compile time takes PlanGram::rows_d (the same bits, its loads issued
+// before the leaves)
+template <int D, int R, typename T, class Gram>
+__device__ __forceinline__ void tile_rows(const Gram& gram, T (&v)[R],
+                                          const T* const (&x)[R],
+                                          const T* zs, int p, int d,
+                                          int ldz) {
+  gram.rows(v, x, zs, p, d, ldz);
+}
+template <int D, int R, typename T>
+__device__ __forceinline__ void tile_rows(const PlanGram<T>& gram,
+                                          T (&v)[R], const T* const (&x)[R],
+                                          const T* zs, int p, int d,
+                                          int ldz) {
+  if constexpr (D > 0)
+    gram.template rows_d<D>(v, x, zs, p, ldz);
+  else
+    gram.rows(v, x, zs, p, d, ldz);
+}
+
 // b[c * kTileP + p] = gram(xs[k0 + c], zs[:, p]) for the step's columns,
 // 0 at or past kend: thread t takes point t % kTileP and the kCols
 // columns from (t / kTileP) kCols, at most four per gram.rows call. D is
@@ -138,7 +163,7 @@ __device__ __forceinline__ void tile_gram(T* __restrict__ b,
       const T* x[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) x[r] = xs + (size_t)(c + r) * dd;
-      gram.rows(v, x, zs, p, dd, kTileP);
+      tile_rows<D>(gram, v, x, zs, p, dd, kTileP);
     } else {
 #pragma unroll
       for (int r = 0; r < R; ++r)

@@ -67,16 +67,16 @@ from ..gp.kernels import RBF
 from .fused_posterior import (KINDS, PLAIN_COLS, check_operands,
                               fused_intervals3_plain, fused_intervals_plain,
                               gram, interval_rows, k1_layout, kernel_gram,
-                              plan_gram, ptr, raise_on_error, round_limb,
-                              split_limbs, three_pass_rows,
-                              transposed_factor)
+                              kernel_plan_gram, plan_gram, ptr,
+                              raise_on_error, round_limb, split_limbs,
+                              three_pass_rows, transposed_factor)
 
 __all__ = ["ABLATIONS", "LIMBS", "intervals_launch", "interval_ablation",
            "interval_ablation_plain", "mu_weights", "intervals_mu_from_gram",
            "intervals_mu_from_gram_plain", "round_limb", "split_limbs",
            "kernel_gram", "padded_factor", "split_factor",
            "intervals_split", "intervals_split_plain", "float32_bound",
-           "float32_bound_plan", "drop_band"]
+           "float32_bound_plan", "plan_rows_on_kernel_gram", "drop_band"]
 
 ABLATIONS = {"gram_sums": 0, "solve_rank1": 1, "no_product": 2,
              "epilogue": 3}
@@ -523,7 +523,10 @@ def float32_bound_plan(zt, xs, lm, w, scales, pvar, plan, scal,
     with a plan gram, K2-3p against ``fused_intervals_plan3_plain``):
     (2, N), from the plan's float64 gram; any leaf kinds (the plain
     version computes the kernel's gram bit for bit, so the gram's own
-    error does not enter)."""
+    error does not enter). ``limb`` None bounds K2 itself, V in float32
+    FMA chains of at most n products a row (m = n, as
+    ``float32_bound``'s ``"intervals"``), against
+    ``plan_rows_on_kernel_gram``, which also takes the kernel's gram."""
     f64 = dict(dtype=torch.float64, device=zt.device)
     zt, xs, lm, w, pvar, scal = (t.to(**f64) for t in (zt, xs, lm, w, pvar,
                                                         scal))
@@ -533,16 +536,31 @@ def float32_bound_plan(zt, xs, lm, w, scales, pvar, plan, scal,
     kinds, terms = plan.tolist()
     rows = scales.tolist()
     L = lm[:n, :n]
-    m = 2 * 3 * -(-n // MMA_K[limb])
+    dv = n if limb is None else 2 * 3 * -(-n // MMA_K[limb]) + 2
     out = torch.empty((2, N), **f64)
     for s in range(0, N, PLAIN_COLS):
         e = min(s + PLAIN_COLS, N)
         k = plan_gram(xs[:n], zt[:, s:e], rows, pvar, kinds, terms)
-        tol = _rows_tolerance(L @ k, (m + 2) * U32 * (L.abs() @ k.abs()),
+        tol = _rows_tolerance(L @ k, dv * U32 * (L.abs() @ k.abs()),
                               w[:n], n, kdiag, beta)
         out[0, s:e] = tol
         out[1, s:e] = tol
     return out
+
+
+def plan_rows_on_kernel_gram(zt, xs, lm, w, scales, pvar, plan, scal):
+    """(2, N) rows of K2's function in float64 from its float32 operands,
+    on the gram the float32 kernel computes (``kernel_plan_gram``): what
+    ``float32_bound_plan(..., limb=None)`` holds the float32 K2 to, so
+    that only the product's and the sums' roundings are left."""
+    kinds, terms = plan.tolist()
+    rows = scales.tolist()
+    f64 = torch.float64
+    return interval_rows(
+        lambda s, e: kernel_plan_gram(xs, zt[:, s:e], rows, pvar, kinds,
+                                      terms).to(f64),
+        lm.to(f64), w.to(f64), scal[1].to(f64), scal[2].to(f64),
+        zt.shape[1])
 
 
 def drop_band(ops, what, first=True):

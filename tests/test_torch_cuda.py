@@ -36,6 +36,8 @@ step exported and loaded on the card gives the live step's bits,
 launching K1 once and K3 once a walk round.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -322,6 +324,28 @@ def test_intervals_tiled_grid_edges(cuda, N, dtype):
     _check_rows(out[0], ref[0], dtype, ops[5][0, 1].item())
 
 
+def _kernel_names(launch, attempts=4):
+    """The ``safeopt::`` kernels one call of ``launch`` ran, from
+    torch.profiler; a window that recorded no kernel at all (CUPTI drops
+    a record now and then) is profiled again, up to ``attempts``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()                    # loaded before the profiler starts
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)
+            launch()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "safeopt::" in e.name]
+        if names:
+            break
+    return names
+
+
 # the launcher's rule: the resident body while its rows cover the
 # capacity (float32 to 512, float64 to 256), the tiled body past it
 @pytest.mark.parametrize("dtype,cap,body", [
@@ -330,25 +354,39 @@ def test_intervals_tiled_grid_edges(cuda, N, dtype):
     (torch.float64, 256, "intervals_kernel"),
     (torch.float64, 512, "intervals_tiled_kernel")])
 def test_intervals_body_by_capacity(cuda, dtype, cap, body):
-    from torch.profiler import ProfilerActivity, profile
-
     gp, rng = _one_gp(200, cap, cuda, dtype, seed=cap)
     grid = torch.tensor(rng.uniform(-5.0, 5.0, size=(1000, 2)), dtype=dtype,
                         device=cuda)
     ops = fp.interval_operands([gp.kern], [gp.state], grid, 2.0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fp.fused_intervals(*ops)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "safeopt::" in e.name]
+    names = _kernel_names(lambda: fp.fused_intervals(*ops))
     assert len(names) == 1 and f"safeopt::{body}<" in names[0], names
 
 
 PLAN_ACTIVE_CASES = [("context", 600, 1024), ("sum_bias", 1100, 2048),
                      ("cosine", 400, 512), ("sum_bias", 20, 512),
                      ("context", 77, 128), ("context", 97, 100),
-                     ("cosine", 47, 50)]
+                     ("cosine", 47, 50), ("nine", 600, 1024)]
+
+
+# K2's launcher takes K1's rule: the resident body while its rows cover
+# the capacity (float32 to 512, float64 to 256), the tiled body past it;
+# a plan past the static leaves (nine) takes the wide instance of each
+@pytest.mark.parametrize("dtype,cap,name,body", [
+    (torch.float32, 512, "context", "intervals_plan_kernel"),
+    (torch.float32, 1024, "context", "intervals_plan_tiled_kernel"),
+    (torch.float64, 256, "context", "intervals_plan_kernel"),
+    (torch.float64, 512, "context", "intervals_plan_tiled_kernel"),
+    (torch.float32, 512, "nine", "intervals_plan_wide_kernel"),
+    (torch.float32, 1024, "nine", "intervals_plan_wide_tiled_kernel")])
+def test_plan_intervals_body_by_capacity(cuda, dtype, cap, name, body):
+    gp, grid = _algebra_gp(name, cap, cuda, dtype, n_obs=200)
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid, 2.0)
+    names = _kernel_names(lambda: fp.fused_intervals_plan(*ops))
+    assert len(names) == 1 and f"safeopt::{body}<" in names[0], names
+    out = fp.fused_intervals_plan(*ops)
+    ref = fp.fused_intervals_plan_plain(*[o.double() if o.is_floating_point()
+                                          else o for o in ops])
+    _check_rows(out, ref, dtype, ops[7][1].item())
 
 
 @pytest.mark.parametrize("name,n_obs,cap", PLAN_ACTIVE_CASES)

@@ -538,6 +538,35 @@ def test_float32_bound_plan_sees_a_dropped_band(first):
     assert (fault / ie.float32_bound_plan(*ops)).max().item() > 1.0
 
 
+@pytest.mark.parametrize("first", [True, False])
+def test_float32_bound_plan_of_k2_sees_a_dropped_band(first):
+    """K2's own float32 bound (``limb=None``: V in FMA chains of n
+    products) against ``plan_rows_on_kernel_gram``, K2's function in
+    float64 on the float32 kernel's gram: the float32 plain version lies
+    within it, and a version that drops the GP's first (last) 32 active
+    rows of Lm lands past it."""
+    import safeopt_torch as pt
+    rng = np.random.default_rng(17)
+    X = np.hstack([rng.uniform(-3.0, 3.0, size=(60, 1)),
+                   rng.uniform(-1.0, 1.0, size=(60, 1))])
+    Y = np.exp(-0.5 * X[:, :1] ** 2)
+    kern = (pt.RBF(1, variance=2.0, active_dims=[0])
+            * pt.RBF(1, lengthscale=1.5, active_dims=[1]))
+    gp = pt.GPRegression(X, Y, kern, noise_var=0.05 ** 2, capacity=64,
+                         device="cpu", dtype=torch.float32)
+    grid = torch.tensor(rng.uniform(-3.0, 3.0, size=(500, 2)),
+                        dtype=torch.float32)
+    ops = pfp.interval_plan_operands(gp.kern, gp.state, grid, 2.0)
+    bound = ie.float32_bound_plan(*ops, limb=None)
+    want = ie.plan_rows_on_kernel_gram(*ops)
+    assert want.dtype == torch.float64 and bound.shape == want.shape
+    got = pfp.fused_intervals_plan_plain(*ops).double()
+    assert ((got - want).abs() / bound).max().item() <= 1.0
+    fault = (ie.plan_rows_on_kernel_gram(*ie.drop_band(ops, "split", first))
+             - want).abs()
+    assert (fault / bound).max().item() > 1.0
+
+
 def test_padded_factor():
     lm = torch.arange(40 * 40, dtype=torch.float32).reshape(40, 40)
     p = ie.padded_factor(lm)

@@ -282,6 +282,41 @@ def test_plan_intervals_plain_matches_pallas(name, cap):
                                atol=1e-10)
 
 
+@pytest.mark.parametrize("name,n_obs,cap", [("context", 600, 1024),
+                                            ("context", 2000, 2048),
+                                            ("nine", 600, 1024)])
+def test_plan_intervals_plain_matches_jax_past_resident_rows(name, n_obs,
+                                                             cap):
+    # capacities whose active rows K2's resident body cannot hold on the
+    # card (float32 past 512 rows), where the port launches its tiled
+    # body (the nine-leaf plan its wide tiled instance): a long contextual
+    # campaign, observations over contexts in [-1, 1]
+    rng = np.random.default_rng(cap + n_obs)
+    X = np.hstack([rng.uniform(-3.0, 3.0, size=(n_obs, 1)),
+                   rng.uniform(-1.0, 1.0, size=(n_obs, 1))])
+    Y = (2.0 * np.exp(-0.5 * X[:, 0] ** 2 - 0.5 * (X[:, 1] / 1.5) ** 2)
+         + 0.05 * rng.normal(size=n_obs))[:, None]
+    kern = _algebra("context") if name == "context" else _nine_leaves(jt)
+    jgp = jt.GPRegression(X, Y, kern, noise_var=0.05 ** 2, capacity=cap)
+    pgp = gp_from_arrays(kernel_from_params(**kernel_params(jgp.kern)),
+                         **gp_arrays(jgp), device="cpu")
+    grid = np.hstack([rng.uniform(-3.0, 3.0, size=(1000, 1)),
+                      rng.uniform(-1.0, 1.0, size=(1000, 1))])
+    l, u = jfp.fused_intervals(jgp.kern, jgp.state, jnp.asarray(grid), 2.0,
+                               block=256)
+    before = pfp.fused_intervals_plan.launches
+    out = pfp.fused_intervals_single(pgp.kern, pgp.state,
+                                     torch.tensor(grid), 2.0)
+    assert pfp.fused_intervals_plan.launches == before
+    assert int(pgp.state.count) == n_obs
+    assert pfp.part_plan(pgp.kern, 2, out)[2].shape[1] == (
+        2 if name == "context" else pfp.MAX_LEAVES + 1)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(l), rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(u), rtol=0,
+                               atol=1e-10)
+
+
 @pytest.mark.parametrize("name,cap", ALGEBRAS)
 def test_plan_expander_plain_matches_pallas(name, cap):
     jgp, pgp, grid = _algebra_model(name, cap, seed=3 * cap)

@@ -333,6 +333,44 @@ def test_compute_sets_after_contextual_optimize_three_way():
         port.optimize(context=None)
 
 
+def test_contextual_step_past_resident_rows_matches_jax():
+    """A long contextual campaign: two GPs of the contextual kernel at
+    capacity 1024 with 600 observations over contexts in [-1, 1] (past
+    the rows K2's resident body holds on the card in float32, where the
+    port launches its tiled body), one ``optimize(context=0.0)`` on a
+    2,000-point parameter grid, the port on the CPU against safeopt_tpu
+    on the same host factors: the same S, M and G, the same query, the
+    intervals within 1e-10."""
+    rng = np.random.default_rng(1024)
+    X = np.hstack([rng.uniform(-3.0, 3.0, size=(600, 1)),
+                   rng.uniform(-1.0, 1.0, size=(600, 1))])
+    base = np.exp(-0.5 * X[:, 0] ** 2 - 0.5 * (X[:, 1] / 1.5) ** 2)
+    jgps = [jt.GPRegression(
+        X, (scale * base + 0.05 * rng.normal(size=600))[:, None],
+        jt.RBF(1, variance=2.0, lengthscale=1.0, active_dims=[0])
+        * jt.RBF(1, variance=1.0, lengthscale=1.5, active_dims=[1]),
+        noise_var=0.05 ** 2, capacity=1024) for scale in (2.0, 1.5)]
+    pgps = [gp_from_arrays(kernel_from_params(**kernel_params(g.kern)),
+                           **gp_arrays(g), device="cpu") for g in jgps]
+    params = pt.linearly_spaced_combinations([(-3.0, 3.0)], 2000)
+    kw = dict(fmin=[0.2, 0.3], num_contexts=1, expander_chunk=32)
+    port, jax_opt = pt.SafeOpt(pgps, params, **kw), jt.SafeOpt(jgps, params,
+                                                               **kw)
+    before = pfp.fused_intervals_plan.launches
+    x = port.optimize(context=0.0)
+    assert pfp.fused_intervals_plan.launches == before     # plain on CPU
+    assert_allclose(np.asarray(x), np.asarray(jax_opt.optimize(context=0.0)),
+                    rtol=0, atol=0)
+    assert_allclose(np.asarray(port.Q), np.asarray(jax_opt.Q), rtol=0,
+                    atol=1e-10)
+    for name in ("S", "M", "G"):
+        np.testing.assert_array_equal(np.asarray(getattr(port, name)),
+                                      np.asarray(getattr(jax_opt, name)),
+                                      err_msg=name)
+    assert port.S.any() and port.stats.last.next_index == int(
+        np.flatnonzero(np.all(port.inputs == np.append(x, 0.0), axis=1))[0])
+
+
 # -- safeopt_step against the JAX step on random problems -----------------
 
 def _random_problem(seed, d, n_obs, n_grid):

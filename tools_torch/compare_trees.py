@@ -30,9 +30,10 @@ line of the same instance; it exits 1 if any differs or is missing. The
 parent's float32 K1-3p and K2-3p instances (``REDESIGNED``: the
 mma.sync body, which their ``wgmma`` kernels of ``fused_intervals3.cu``
 replace) are printed beside the new instances' lines instead. The lines
-of the kernels in ``NEW`` (those ``wgmma`` kernels and K1's tiled body,
-``intervals_tiled_kernel``) are printed, and one that spills exits 1
-too.
+of the kernels in ``NEW`` (those ``wgmma`` kernels, K1's tiled body,
+``intervals_tiled_kernel``, and K2's on it, ``intervals_plan_tiled_kernel``
+and ``intervals_plan_wide_tiled_kernel``) are printed, and one that
+spills exits 1 too.
 """
 
 import argparse
@@ -45,11 +46,13 @@ ROOT = Path(__file__).resolve().parents[1]
 PARENT = ROOT / "build" / "compare" / "parent"
 # The float32 three-pass instances of intervals.cuh's body that the wgmma
 # kernels replace (parent names), and the names of the kernels that are
-# new since the port's first bodies: the wgmma kernels, K1's tiled body.
+# new since the port's first bodies: the wgmma kernels, K1's tiled body
+# and K2's instances of it.
 REDESIGNED = ("intervals3_kernelIfE", "intervals_plan3_kernelIfE",
               "intervals_plan_wide_kernelIfNS_16ThreePassProduct")
 NEW = ("intervals3_wg_kernel", "intervals_plan3_wg_kernel",
-       "intervals_tiled_kernel")
+       "intervals_tiled_kernel", "intervals_plan_tiled_kernel",
+       "intervals_plan_wide_tiled_kernel")
 sys.path.insert(0, str(ROOT))
 
 

@@ -28,7 +28,12 @@ expander chunk 32:
 - ``cap2048``: the exact GP of chip_smoke phase 16.5 (``states.
   sparse_exact_gp``: the sparse bench's 2000 observations, capacity
   2048), ``fmin`` and scaling of the sparse path (K1 past its resident
-  gram, K3).
+  gram, K3);
+- ``context1024`` / ``context2048``: the contextual GPs of ``context``
+  with 600 observations at capacity 1024 / 2000 (the JAX bench's
+  long-campaign size) at capacity 2048, their contexts uniform in
+  [-1, 1] (``context_gps(spread_contexts=True)``), stepped at context 0
+  on the same grid (K2 past its resident rows, K4).
 
 For each it measures:
 
@@ -43,15 +48,18 @@ For each it measures:
   could take for the same work (``chip_smoke.interval_bound`` /
   ``expander_bound`` / ``split_bound``); on the flagship also K1 over
   chip_smoke phase 20 (a)'s fleet (8 campaigns x 2 GPs in one launch,
-  ``K1 fleet``); beside K1, the
+  ``K1 fleet``); on ``context`` and ``context1024`` also K2 on the
+  contextual kernel written as nine leaves (chip_smoke's ``"nine"``,
+  K2's wide instances) at GP 0's state (``K2 nine leaves``); beside K1
+  (K2), the
   multiply-adds per point and GP that K1 executes against the n(n+1)/2
   its bound counts (``chip_smoke.band_macs``), beside K3/K4 the
   multiply-adds per point and GP they execute against the C n their
   bound counts (``chip_smoke.expander_macs``), and beside K1 one FP32
   ``torch.matmul`` of an (n, n) by an (n, 65536) matrix with TF32 off:
   the rate the card's FP32 pipe reaches on the product's shapes, a
-  ceiling for K1's product share (the port never calls it); K1-3p at
-  the certified path's capacities (up to 512) only;
+  ceiling for K1's product share (the port never calls it); K1-3p and
+  K2-3p at the certified path's capacities (up to 512) only;
 - ``stages``: one ``safeopt_step`` on the starting state split into
   intervals, classify, expander walk and select + pack + diag pull;
   host-clock ms with a device sync after each stage, median of ``--reps``;
@@ -92,7 +100,9 @@ from chip_smoke import (BETA, CTX_FMIN, FMIN, SCALING,  # noqa: E402
 # name -> (capacity, observations, seed, spread of the observations)
 CONFIGS = {"flagship": (64, 50, 0, 1.5), "cap512": (512, 400, 512, 4.0),
            "context": (256, 240, 3, 3.0), "cap1024": (1024, 600, 1024, 4.0),
-           "cap2048": (2048, 2000, 11, 4.0)}
+           "cap2048": (2048, 2000, 11, 4.0),
+           "context1024": (1024, 600, 3, 3.0),
+           "context2048": (2048, 2000, 3, 3.0)}
 
 
 def problem(name, grids):
@@ -100,8 +110,9 @@ def problem(name, grids):
     from safeopt_torch import SafeOpt
 
     cap, n_obs, seed, spread = CONFIGS[name]
-    if name == "context":
-        opt = SafeOpt(context_gps(2, n_obs, cap, "cuda", None),
+    if name.startswith("context"):
+        opt = SafeOpt(context_gps(2, n_obs, cap, "cuda", None,
+                                  spread_contexts=name != "context"),
                       grids["context"], fmin=CTX_FMIN, beta=BETA,
                       num_contexts=1, expander_chunk=32)
         rng = np.random.default_rng(2)
@@ -206,10 +217,11 @@ def kernel_times(opt, chunk, reps):
         runs = {"K2": (fp.fused_intervals_plan, fp.fused_intervals_plan_plain,
                        iv, interval_bound(f32, 1, N, d, cap, n, leaves)),
                 "K4": (fe.fused_expander_plan, fe.fused_expander_plan_plain,
-                       ex, expander_bound(f32, 1, N, U, d, cap, n, C, leaves)),
-                "K2-3p": (fp.fused_intervals_plan3,
-                          fp.fused_intervals_plan3_plain, iv,
-                          split_bound("bf16", N, d, cap, n, leaves=leaves))}
+                       ex, expander_bound(f32, 1, N, U, d, cap, n, C, leaves))}
+        if cap <= 512:      # the certified path's capacities
+            runs["K2-3p"] = (fp.fused_intervals_plan3,
+                             fp.fused_intervals_plan3_plain, iv,
+                             split_bound("bf16", N, d, cap, n, leaves=leaves))
     out = {key: {"kernel_ms": cuda_ms(lambda: kern(*ops), reps=reps),
                  "plain_ms": cuda_ms(lambda: plain(*ops), reps=reps),
                  "bound_ms": b[0], "bound_by": b[1]}
@@ -240,6 +252,26 @@ def fleet_k1_times(grid, reps):
                                 int(per[0][0].count))
     return {"kernel_ms": cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps),
             "plain_ms": cuda_ms(lambda: fp.fused_intervals_plain(*ops),
+                                reps=3),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def nine_leaf_times(name, grid, reps):
+    """K2 on GP 0 of the contextual configuration ``name`` with the
+    contextual kernel written as nine leaves (K2's wide instances),
+    against its plain version and its bound."""
+    from safeopt_torch.ops import fused_posterior as fp
+
+    cap, n_obs = CONFIGS[name][:2]
+    gp = context_gps(1, n_obs, cap, "cuda", torch.float32, variant="nine",
+                     spread_contexts=name != "context")[0]
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid, BETA)
+    N, d = grid.shape
+    b_ms, b_by = interval_bound(torch.float32, 1, N, d, cap, n_obs,
+                                plan_leaves(ops[4], ops[6]))
+    return {"kernel_ms": cuda_ms(lambda: fp.fused_intervals_plan(*ops),
+                                 reps=reps),
+            "plain_ms": cuda_ms(lambda: fp.fused_intervals_plan_plain(*ops),
                                 reps=3),
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -289,6 +321,8 @@ def measure(name, grids, reps):
     kernels = kernel_times(opt, chunk, reps)
     if name == "flagship":
         kernels["K1 fleet"] = fleet_k1_times(opt._grid(), reps)
+    if name in ("context", "context1024"):
+        kernels["K2 nine leaves"] = nine_leaf_times(name, opt._grid(), reps)
     return {
         "config": name, "capacity": CONFIGS[name][0],
         "observations": CONFIGS[name][1],
