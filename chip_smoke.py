@@ -300,9 +300,25 @@ Phases, each reported on its own line:
     events, medians); ``num_valid`` on the card: the flagship grid with 3
     copies of its last row appended gives the unpadded step's S, M, G and
     next_idx; phase 20 (a)'s fleet with ``mesh=`` bit for bit the fleet
-    without one. With two cards or more a world of 2 (a data axis of 2,
-    one process a card) runs the same, with four a world of 4 too; with
-    one card it prints that they did not run;
+    without one; the certified path on the same mesh at phase 12's
+    widths (``shard_certified``): the cap-512 state in float32 at
+    ``interval_precision='high'`` with ``SafeOpt``'s own refinement
+    budget, in float64 on the plain certified path, and the contextual
+    state (cap 256) in float32 at ``'high'``, each through the
+    host-oracle pair (``certified_scan`` -> ``safeopt_step_from_Q``) and
+    the device-oracle triple (``interval_scan`` -> ``device_oracle`` on
+    the float64 grid sharded alike -> ``certified_finish``; the
+    contextual state the host pair only), with one verdict planted
+    inverted so that the last pass writes a bit and walks: Q, S, M, G,
+    next_idx, ``packed``/``packed_t``/``diag9`` and the oracle's tensors
+    bit for bit the unsharded calls', K1-3p, K1, K3, K2-3p, K2 and K4
+    each launched on the sharded certified calls (counted from zero
+    around them), ms of the float32 device-oracle step sharded and
+    unsharded in turns (CUDA events, medians of SHARD_REPS) and each
+    protocol's host syncs, the sharded no more than the unsharded.
+    With two cards or more a world of 2 (a data axis of 2, one process a
+    card) runs the same, with four a world of 4 too; with one card it
+    prints that they did not run;
 23. the native host engine (``safeopt_torch.native``): built on the
     card's host; the cap-512 state's two GPs (phase 3's, 400
     observations) factored natively and by SciPy give posterior means and
@@ -3706,6 +3722,224 @@ def shard_fleet(mesh):
     return {k: launches[k] for k in ("K1", "K3")}
 
 
+def shard_certified_case(label, opt, mesh, tally, timed=False):
+    """Phase 22's certified case on ``opt``'s state (its own settings):
+    the host-oracle pair and, unless ``opt`` has contexts, the
+    device-oracle triple, each on ``shard_grid``'s ``DTensor`` and on the
+    whole grid, with the row nearest a threshold given the inverse of its
+    float32 verdict before the last pass; every result bit for bit. The
+    sharded calls' launches are added to ``tally``. Returns ``({protocol:
+    (sharded, unsharded) host syncs}, ms)``: with ``timed`` the
+    device-oracle step's ms each way (medians of SHARD_REPS in turns),
+    else None."""
+    from safeopt_torch.algorithms import safe_opt_core as core
+    from safeopt_torch.parallel import replicate, shard_grid, shard_state
+    from safeopt_torch.parallel.sharded_step import _Shards
+    from safeopt_torch.utils.observability import host_syncs
+
+    dev = opt.device
+    kernels, states = opt._model_args()
+    c = opt._step_consts()
+    beta = float(opt.beta(opt.t))
+    consts = (c["fmin"], beta, c["scaling"], c["threshold"])
+    N, k, chunk = opt.inputs.shape[0], opt._boundary_k, opt._expander_chunk
+    band = opt._boundary_band
+    grid, _ = shard_grid(opt._grid(), mesh)
+    grid64, _ = shard_grid(torch.tensor(opt.inputs, dtype=torch.float64,
+                                        device=dev), mesh)
+    sh = _Shards(grid)
+    sides = {"unsharded": dict(states=states, grid=grid.full_tensor(),
+                               consts=consts, grid64=grid64.full_tensor()),
+             "sharded": dict(states=tuple(shard_state(st, mesh)
+                                          for st in states),
+                             grid=grid, consts=replicate(consts, mesh),
+                             grid64=grid64)}
+    scan_kw = dict(
+        refine_band=opt._refine_band, k=k, refine_k=opt._refine_k,
+        refine_band_k=(opt._refine_band_k if opt._interval_precision
+                       else 0), interval_precision=opt._interval_precision)
+    fmin = np.atleast_1d(np.asarray(opt.fmin, dtype=np.float64))
+    ostates, kinds = zip(*(g.device_oracle_state() for g in opt.gps))
+    oracle_kw = dict(constrained=tuple(bool(np.isfinite(f)) for f in fmin),
+                     k=k, kinds=kinds)
+    fmin64 = torch.tensor(fmin, device=dev)
+
+    def both(fn):
+        """``fn(name, side)`` unsharded, then sharded with its launches
+        counted into ``tally``: the two results and the host syncs
+        (sharded, unsharded)."""
+        out, syncs = {}, {}
+        for name, side in sides.items():
+            if name == "sharded":
+                zero_launches()
+            before = host_syncs.count
+            out[name] = fn(name, side)
+            torch.cuda.synchronize()
+            syncs[name] = host_syncs.count - before
+        for key, v in read_launches().items():
+            tally[key] += v
+        return out["unsharded"], out["sharded"], (syncs["sharded"],
+                                                 syncs["unsharded"])
+
+    def rows(whole, mine, what):
+        check(torch.equal(mine.to_local(),
+                          whole[sh.offset:sh.offset + sh.n]),
+              f"{label} {what} differs from the unsharded call")
+
+    def same_step(ref, res, what):
+        for name in ("Q", "S", "M", "G"):
+            rows(getattr(ref, name), getattr(res, name), f"{what}: {name}")
+        check(torch.equal(res.next_idx, ref.next_idx)
+              and torch.equal(res.diag, ref.diag)
+              and res.walk_chunks == ref.walk_chunks,
+              f"{label} {what}: next_idx, diag or the walk differs from the "
+              "unsharded call")
+
+    def planted(fix_idx, fix_bits, row, S):
+        """The fixes with slot 0 moved to ``row`` and its bit the inverse
+        of ``S[row]``, the pass-1 float32 verdict."""
+        fix_idx, fix_bits = fix_idx.clone(), fix_bits.clone()
+        fix_idx[0], fix_bits[0] = row, not bool(S[row])
+        return fix_idx, fix_bits
+
+    def pass2_wrote(res, row, S, what):
+        check(bool(res.S[row]) != bool(S[row]),
+              f"{label} {what}: the planted bit was not written")
+
+    syncs = {}
+    # the host-oracle pair --------------------------------------------------
+    ref, res, n1 = both(lambda _, a: core.certified_scan(
+        kernels, a["states"], a["grid"], *a["consts"], band, None, N,
+        chunk=chunk, **scan_kw))
+    same_step(ref[0], res[0], "certified_scan")
+    check(torch.equal(res[1], ref[1]),
+          f"{label} certified_scan: packed differs from the unsharded call")
+    host = ref[1].cpu().numpy()
+    idx, within = host[7:7 + k], host[7 + k:7 + 2 * k].astype(bool)
+    safe64 = np.ones(k, dtype=bool)
+    for i, g in enumerate(opt.gps):
+        if np.isfinite(fmin[i]):
+            mu, var = g.predict_f64(opt.inputs[idx])
+            safe64 &= mu - beta * np.sqrt(var) > fmin[i]
+    S1 = ref[0].S
+    fixes = planted(torch.tensor(np.where(within, idx, -1), dtype=torch.int32,
+                                 device=dev),
+                    torch.tensor(within & safe64, device=dev), int(idx[0]),
+                    S1)
+    Q1 = {"unsharded": ref[0].Q, "sharded": res[0].Q}
+    ref, res, n2 = both(lambda name, a: core.safeopt_step_from_Q(
+        kernels, a["states"], a["grid"], Q1[name], *fixes, *a["consts"],
+        None, N, chunk=chunk))
+    same_step(ref, res, "safeopt_step_from_Q")
+    pass2_wrote(ref, int(idx[0]), S1, "safeopt_step_from_Q")
+    syncs["host oracle"] = (n1[0] + n2[0], n1[1] + n2[1])
+    if opt.num_contexts:
+        return syncs, None
+
+    # the device-oracle triple ----------------------------------------------
+    def scan_and_oracle(_, a):
+        Q, packed_t = core.interval_scan(kernels, a["states"], a["grid"],
+                                         *a["consts"][:3], band, N, **scan_kw)
+        return Q, packed_t, core.device_oracle(
+            kernels, ostates, a["grid64"], Q, packed_t, fmin64, beta,
+            **oracle_kw)
+
+    def finish(a, Q, packed_t, fix):
+        return core.certified_finish(kernels, a["states"], a["grid"], Q,
+                                     packed_t, *fix, *a["consts"], None, N,
+                                     chunk=chunk)
+
+    ref, res, n1 = both(scan_and_oracle)
+    rows(ref[0], res[0], "interval_scan: Q")
+    check(torch.equal(res[1], ref[1]),
+          f"{label} interval_scan: packed_t differs from the unsharded call")
+    for name, a, b in zip(("fix_idx", "fix_bits", "flips", "n_within"),
+                          ref[2], res[2]):
+        check(torch.equal(a, b), f"{label} device_oracle: {name} differs "
+                                 "from the unsharded call")
+    row = int(ref[1][2])
+    S1 = torch.all(ref[0][:, 0::2] > c["fmin"], dim=1)
+    fix = (*planted(*ref[2][:2], row, S1), *ref[2][2:])
+    scans = {"unsharded": ref, "sharded": res}
+    ref, res, n2 = both(lambda name, a: finish(a, *scans[name][:2], fix))
+    same_step(ref[0], res[0], "certified_finish")
+    check(torch.equal(ref[1], res[1]),
+          f"{label} certified_finish: diag9 differs from the unsharded call")
+    pass2_wrote(ref[0], row, S1, "certified_finish")
+    syncs["device oracle"] = (n1[0] + n2[0], n1[1] + n2[1])
+    if not timed:
+        return syncs, None
+
+    def step(a):
+        Q, packed_t, fix = scan_and_oracle(None, a)
+        return finish(a, Q, packed_t, fix)[1].cpu()
+
+    ms = {"sharded": [], "unsharded": []}
+    for _ in range(SHARD_REPS):
+        for name, a in sides.items():
+            ms[name].append(timed_ms(lambda: step(a))[1])
+    return syncs, {name: float(np.median(v)) for name, v in ms.items()}
+
+
+def shard_certified(mesh, rank, smi):
+    """Phase 22's certified path: phase 12's cap-512 state (phase 3's
+    GPs, 400 observations, the 1000 x 1000 grid) in float32 at
+    ``interval_precision='high'`` with ``SafeOpt``'s own refinement
+    budget and in float64 on the plain certified path, and the contextual
+    state (cap 256, 240 observations, context 0) in float32 at
+    ``'high'`` (``shard_certified_case``). Returns the sharded calls'
+    launches of K1-3p, K1, K3, K2-3p, K2 and K4, each at least 1, the
+    host syncs and the float32 step's ms."""
+    from safeopt_torch import SafeOpt, linearly_spaced_combinations
+
+    grid_np = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
+    params_np = linearly_spaced_combinations([(-3.0, 3.0)], 1_000_000)
+    tally = dict.fromkeys(("K1", "K3", "K2", "K4", "K1-3p", "K2-3p"), 0)
+
+    def cap512(dtype, **kw):
+        gps = build_gps(np.random.default_rng(512), 400, 512, "cuda", dtype,
+                        spread=4.0)
+        return SafeOpt(gps, grid_np, fmin=FMIN, beta=BETA, scaling=SCALING,
+                       expander_chunk=32, exact_boundaries=True, **kw)
+
+    syncs, ms = {}, None
+    for label, opt in (
+            ("cap 512 float32 'high'",
+             cap512(torch.float32, interval_precision="high")),
+            ("cap 512 float64", cap512(torch.float64))):
+        syncs[label], got = shard_certified_case(
+            label, opt, mesh, tally, timed=opt.dtype == torch.float32)
+        ms = ms or got
+    ctx = SafeOpt(context_gps(2, 240, 256, "cuda", torch.float32), params_np,
+                  fmin=CTX_FMIN, beta=BETA, num_contexts=1,
+                  expander_chunk=32, exact_boundaries=True,
+                  interval_precision="high")
+    ctx.context = 0.0
+    label = "contextual float32 'high'"
+    syncs[label], _ = shard_certified_case(label, ctx, mesh, tally)
+    missing = [key for key, n in tally.items() if n < 1]
+    check(not missing, f"the sharded certified path launched {tally}: "
+                       f"{missing} never")
+    for label, per in syncs.items():
+        for protocol, (n_sharded, n_whole) in per.items():
+            check(n_sharded <= n_whole,
+                  f"{label} {protocol}: {n_sharded} host syncs sharded, "
+                  f"{n_whole} unsharded")
+    if rank == 0:
+        print(f"sharded certified path on mesh {tuple(mesh.mesh.shape)} "
+              f"({smi}): cap 512 float32 'high' and float64, contextual "
+              f"float32 'high', host and device oracles with a planted "
+              f"flip, bit for bit the unsharded calls; launches {tally}; "
+              f"the float32 device-oracle step {ms['sharded']:.3f} ms "
+              f"sharded, {ms['unsharded']:.3f} ms unsharded (medians of "
+              f"{SHARD_REPS}, in turns); host syncs (sharded, unsharded) "
+              f"{syncs}", flush=True)
+    return {"launches": tally, "syncs": {label: {p: list(v) for p, v in
+                                                 per.items()}
+                                         for label, per in syncs.items()},
+            "sharded_ms": ms["sharded"], "unsharded_ms": ms["unsharded"]}
+
+
 def shard_main(world, rank, port, out_path):
     """``chip_smoke.py --shard-to FILE [WORLD RANK PORT]``: phase 22 in a
     process of its own with an NCCL group (world size 1 by default), its
@@ -3729,6 +3963,7 @@ def shard_main(world, rank, port, out_path):
         out = {str(dt)[6:]: shard_case(mesh, dt, rank, smi)
                for dt in (torch.float64, torch.float32)}
         out["fleet"] = shard_fleet(mesh)
+        out["certified"] = shard_certified(mesh, rank, smi)
         if rank == 0:
             with open(out_path, "w") as fh:
                 json.dump(out, fh)
@@ -3769,24 +4004,26 @@ def run_shard_child(world, out_path, timeout=600):
 
 
 def drive_sharding(smi):
-    """Phase 22: the sharded step and fleet on a (1, 1) NCCL mesh in a
-    child process, and on data axes of 2 and 4 where the host has as many
-    cards. Returns the sharded path's K1 and K3 launches."""
+    """Phase 22: the sharded step, fleet and certified path on a (1, 1)
+    NCCL mesh in a child process, and on data axes of 2 and 4 where the
+    host has as many cards. Returns the sharded paths' launches of K1-K4,
+    K1-3p and K2-3p."""
     import os
     import tempfile
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(root, exist_ok=True)
-    launches = {"K1": 0, "K3": 0}
+    launches = dict.fromkeys(("K1", "K3", "K2", "K4", "K1-3p", "K2-3p"), 0)
     with tempfile.TemporaryDirectory(dir=root) as tmp:
         worlds = [1] + [w for w in (2, 4) if torch.cuda.device_count() >= w]
         for world in worlds:
             out = run_shard_child(world, os.path.join(tmp, f"{world}.json"))
-            for dt in ("float64", "float32"):
-                for k in launches:
-                    launches[k] += out[dt]["launches"][k]
-            for k in launches:
+            for k in ("K1", "K3"):
+                launches[k] += sum(out[dt]["launches"][k]
+                                   for dt in ("float64", "float32"))
                 launches[k] += out["fleet"][k]
+            for k, n in out["certified"]["launches"].items():
+                launches[k] += n
             print(f"sharding, {world} card(s) ({smi}): fleet (a) with "
                   f"mesh= equal to the fleet without one, launches K1 "
                   f"{out['fleet']['K1']} K3 {out['fleet']['K3']}",
@@ -4665,7 +4902,8 @@ def main():
         entry["op_launches"] = via_ops[key]
     # 22. sharding ------------------------------------------------------------
     sharded = drive_sharding(smi)
-    for entry, key in zip(kernels[:2], ("K1", "K3")):
+    for entry, key in zip(kernels, ("K1", "K3", "K2", "K4", "K1-3p",
+                                    "K2-3p")):
         entry["launches"] += sharded[key]
         entry["sharded_launches"] = sharded[key]
     # 23. the native host engine ----------------------------------------------

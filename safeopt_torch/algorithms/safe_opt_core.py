@@ -59,9 +59,12 @@ K5's, so ties fall as in the JAX package.
 rows a sharded grid appends (``parallel.shard_grid``): rows at or past
 it are neither safe nor unsafe, never candidates, never chosen and never
 in the certified band (``safe_opt_core.py:218-231`` of the JAX package).
-A ``DTensor`` grid hands ``safeopt_step``, ``safe_maximum`` and
-``full_expander_sets`` to ``parallel/sharded_step.py``, which runs this
-module's code on each rank's rows; the certified functions refuse one.
+A ``DTensor`` grid hands every public step but the traced one to
+``parallel/sharded_step.py``, which runs this module's code on each
+rank's rows. The certified helpers (``_refine_Q``, ``_band_triage``,
+the oracle) take a view of the grid's rows, ``rows``: ``_OneDevice``
+(the default) here, a rank's ``_Shards`` there, whose reductions, top-k
+and rows from their owners span the shards.
 """
 
 from __future__ import annotations
@@ -622,22 +625,50 @@ def _decide(kernels, states, grid, Q, mu, sigma, Vs, fmin, beta, scaling,
     return _pack_result(Q, S, M, G, next_idx, has_safe, chunks)
 
 
-def _sharded(grid, what=None):
+def _sharded(grid):
     """``parallel.sharded_step`` when ``grid`` is a ``DTensor`` (a grid
-    that ``parallel.shard_grid`` placed over a device mesh), else None.
-    ``what`` names a function with no sharded form, which then raises."""
+    that ``parallel.shard_grid`` placed over a device mesh), else None:
+    every public step but the traced one hands such a grid to its
+    namesake there."""
     if type(grid) is torch.Tensor or not torch.distributed.is_available():
         return None
     from torch.distributed.tensor import DTensor
     if not isinstance(grid, DTensor):
         return None
-    if what is not None:
-        raise NotImplementedError(
-            f"{what} on a sharded grid waits for the certified path over a "
-            "device mesh (ROADMAP Queue 1 item [16c]); pass num_valid on "
-            "one device instead")
     from ..parallel import sharded_step
     return sharded_step
+
+
+class _OneDevice:
+    """The whole grid's ``n`` rows on one device, as the certified helpers
+    see them (``parallel.sharded_step._Shards`` is the view of a rank's
+    rows of a sharded grid): the rows' global offset and the grid's row
+    count, reductions over the shards (none here), the exact top-k of a
+    key over every row, the local rows of global indices (all of them,
+    for ``own``) and those rows' values from their owners (here, the
+    values given)."""
+
+    offset = 0
+    reduce = staticmethod(_identity)
+
+    def __init__(self, n: int):
+        self.n = self.total = n
+
+    @staticmethod
+    def top(key, k: int):
+        return top_k(key, k)
+
+    @staticmethod
+    def rows_at(idx):
+        return idx
+
+    @staticmethod
+    def own(idx):
+        return idx, torch.ones_like(idx, dtype=torch.bool)
+
+    @staticmethod
+    def from_owners(t, idx):
+        return t
 
 
 def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
@@ -775,24 +806,27 @@ def boundary_scan(kernels, states, grid, fmin, beta: float, scaling, band,
     ``(Q, idx (k,), within (k,) bool, total_within ())`` with ``idx``
     the k rows closest to a safety threshold, ``within`` those inside
     ``band`` and ``total_within > k`` a triage budget overflow.
-    ``num_valid`` as in ``safeopt_step``."""
-    _sharded(grid, "boundary_scan")
+    ``num_valid`` and a ``DTensor`` grid as in ``safeopt_step``."""
+    sharded = _sharded(grid)
+    if sharded is not None:
+        return sharded.boundary_scan(kernels, states, grid, fmin, beta,
+                                     scaling, band, num_valid, k=k)
     Q = _confidence_intervals(kernels, states, grid, beta)[0]
-    margin = _safety_margin(Q, fmin, scaling,
-                            _valid_rows(grid.shape[0], num_valid,
-                                        grid.device))
-    neg, idx = top_k(-margin, k)
-    return Q, idx, (-neg) < band, torch.sum(margin < band)
+    return (Q, *_band_triage(Q, None, fmin, scaling, band, k,
+                             _valid_rows(grid.shape[0], num_valid,
+                                         grid.device)))
 
 
-def _fix_safe_set(Q, fmin, fix_idx, fix_bits, valid=None):
-    """The strict safe set with the certified bits at ``fix_idx`` (entries
-    < 0 are padding and change nothing) written over it; a padding row of
+def _fix_safe_set(Q, fmin, fix_idx, fix_bits, valid=None, offset: int = 0):
+    """The strict safe set of the rows ``offset`` on with the certified
+    bits at the global ``fix_idx`` (entries < 0 are padding and change
+    nothing, as do rows outside these) written over it; a padding row of
     the grid (``valid`` False) stays unsafe."""
     S = torch.all(Q[:, 0::2] > fmin, dim=1)
     N = S.shape[0]
-    at = torch.where(fix_idx >= 0, fix_idx.long(), N)
-    bits = fix_bits & (fix_idx >= 0)
+    loc = fix_idx.long() - offset
+    at = torch.where((fix_idx >= 0) & (loc >= 0) & (loc < N), loc, N)
+    bits = fix_bits & (at < N)
     if valid is not None:
         S = S & valid
         bits = bits & torch.cat([valid, valid.new_zeros(1)])[at]
@@ -810,9 +844,14 @@ def safeopt_step_from_Q(kernels, states, grid, Q, fix_idx, fix_bits, fmin,
     ``Q`` from pass 1, with the safe bits at ``fix_idx`` (entries < 0 are
     padding) OVERRIDDEN by the float64 verdicts ``fix_bits`` before
     maximizers, expanders and the query are derived; the moments come
-    from Q exactly (``_moments_from_Q``). ``num_valid`` as in
-    ``safeopt_step``."""
-    _sharded(grid, "safeopt_step_from_Q")
+    from Q exactly (``_moments_from_Q``). ``num_valid`` and a ``DTensor``
+    grid as in ``safeopt_step``."""
+    sharded = _sharded(grid)
+    if sharded is not None:
+        return sharded.safeopt_step_from_Q(
+            kernels, states, grid, Q, fix_idx, fix_bits, fmin, beta, scaling,
+            threshold, lipschitz, num_valid, ucb=ucb,
+            use_lipschitz=use_lipschitz, chunk=chunk)
     valid = _valid_rows(grid.shape[0], num_valid, grid.device)
     mu, sigma = _moments_from_Q(Q, beta)
     S = _fix_safe_set(Q, fmin, fix_idx, fix_bits, valid)
@@ -822,7 +861,7 @@ def safeopt_step_from_Q(kernels, states, grid, Q, fix_idx, fix_bits, fmin,
 
 
 def _refine_Q(kernels, states, grid, Q, fmin, beta: float, scaling, rk: int,
-              band_k: int, refine_band, valid=None):
+              band_k: int, refine_band, valid=None, rows=None):
     """Recompute the decision-critical rows of a reduced-precision ``Q``
     at full float32 and write them back: ``(Q, band_pop, idx)``.
 
@@ -848,42 +887,54 @@ def _refine_Q(kernels, states, grid, Q, fmin, beta: float, scaling, rk: int,
     Queue 3). The default budget (``safe_opt.REFINE_BAND_SHARE``) is
     where refining the band would cost more than the full pass. Padding
     rows (``valid`` False) are neither near a threshold nor safe.
+
+    ``rows`` is the view of the grid's rows (default ``_OneDevice``; on a
+    sharded grid a rank's ``_Shards``, ``grid`` its rows): the maxima and
+    ``band_pop`` are reduced over the shards, the selection is the global
+    top-k and ``idx`` holds global indices, and each rank recomputes only
+    the selected rows it holds (``rows.own``: at most its own row
+    count), on its own points (a row's interval depends on its point
+    alone).
     """
+    rows = rows or _OneDevice(grid.shape[0])
     l, u = Q[:, 0::2], Q[:, 1::2]
     key = -_safety_margin(Q, fmin, scaling, valid)
-    budget = min(band_k + rk, key.shape[0])
+    budget = min(band_k + rk, rows.total)
     if rk:
         S0 = torch.all(l > fmin, dim=1)
         if valid is not None:
             S0 = S0 & valid
         widths = torch.amax((u - l) / scaling, dim=1)
-        s_w = widths - torch.max(torch.where(S0, widths, _NINF))
+        s_w = widths - rows.reduce(torch.max(torch.where(S0, widths, _NINF)),
+                                   "max")
         l0s = l[:, 0] / scaling[0]
-        best_l0 = torch.max(torch.where(S0, l0s, _NINF))
+        best_l0 = rows.reduce(torch.max(torch.where(S0, l0s, _NINF)), "max")
         s_l = l0s - best_l0
         s_m = -(u[:, 0] / scaling[0] - best_l0).abs()
         head = torch.maximum(torch.maximum(s_w, s_l), s_m)
         key = torch.maximum(key, torch.where(S0, head, _NINF))
-    band_pop = torch.sum(key > -refine_band)
+    band_pop = rows.reduce(torch.sum(key > -refine_band), "sum")
     host_syncs.add()
     if int(band_pop) > budget:
         return (_confidence_intervals(kernels, states, grid, beta)[0],
                 band_pop, None)
-    _, idx = top_k(key, budget)
-    rows = _confidence_intervals(kernels, states, grid[idx], beta)[0]
-    Q = Q.clone()
-    Q[idx] = rows
-    return Q, band_pop, idx
+    _, idx = rows.top(key, budget)
+    at, mine = rows.own(idx)
+    fresh = _confidence_intervals(kernels, states, grid[at], beta)[0]
+    # the buffer's placeholder rows are written to a spare row past the end
+    Q = torch.cat([Q, Q[:1]])
+    Q[torch.where(mine, at, rows.n)] = fresh
+    return Q[:rows.n], band_pop, idx
 
 
 def _scan_intervals(kernels, states, grid, fmin, beta: float, scaling, band,
                     refine_band, refine_k: int, refine_band_k: int,
-                    interval_precision, valid=None):
+                    interval_precision, valid=None, rows=None):
     """Pass 1's intervals on the certified paths: the grid pass (three-pass
     under ``interval_precision='high'``), then the full-float32
     refinement (or a full-float32 pass where it cannot cover the band:
     ``refined_idx`` None). ``(Q, mu, sigma, Vs, refine_pop,
-    refined_idx)``."""
+    refined_idx)``; ``rows`` as in ``_refine_Q``."""
     Q, mu, sigma, Vs = _grid_posterior(
         kernels, states, grid, beta,
         three_pass=interval_precision == "high")
@@ -893,25 +944,30 @@ def _scan_intervals(kernels, states, grid, fmin, beta: float, scaling, band,
         Q, refine_pop, refined_idx = _refine_Q(
             kernels, states, grid, Q, fmin, beta, scaling, refine_k,
             max(refine_band_k, 1), band if refine_band is None
-            else refine_band, valid)
+            else refine_band, valid, rows)
         mu, sigma = _moments_from_Q(Q, beta)
         Vs = [None] * len(kernels)
     return Q, mu, sigma, Vs, refine_pop, refined_idx
 
 
-def _band_triage(Q, refined_idx, fmin, scaling, band, k: int, valid=None):
+def _band_triage(Q, refined_idx, fmin, scaling, band, k: int, valid=None,
+                 rows=None):
     """``(idx, within, total_within)``: the k rows closest to a safety
-    threshold, flagged inside the float64 band; over the refined rows
-    when they number at least k (every possible band row was refined).
-    Padding rows (``valid`` False) are never within."""
+    threshold (global indices), flagged inside the float64 band; over
+    the refined rows when they number at least k (every possible band
+    row was refined), their margins from their owners. Padding rows
+    (``valid`` False) are never within. ``rows`` as in ``_refine_Q``."""
+    rows = rows or _OneDevice(Q.shape[0])
     if refined_idx is not None and refined_idx.shape[0] >= k:
-        sub = _safety_margin(Q[refined_idx], fmin, scaling,
-                             None if valid is None else valid[refined_idx])
+        at = rows.rows_at(refined_idx)
+        sub = rows.from_owners(_safety_margin(
+            Q[at], fmin, scaling, None if valid is None else valid[at]),
+            refined_idx)
         neg, j = top_k(-sub, k)
         return refined_idx[j], (-neg) < band, torch.sum(sub < band)
     margin = _safety_margin(Q, fmin, scaling, valid)
-    neg, idx = top_k(-margin, k)
-    return idx, (-neg) < band, torch.sum(margin < band)
+    neg, idx = rows.top(-margin, k)
+    return idx, (-neg) < band, rows.reduce(torch.sum(margin < band), "sum")
 
 
 def certified_scan(kernels, states, grid, fmin, beta: float, scaling,
@@ -926,8 +982,15 @@ def certified_scan(kernels, states, grid, fmin, beta: float, scaling,
     ``packed`` one int32 vector ``[diag(5), total_within, refine_pop,
     idx(k), within(k), S[idx](k)]``: one host pull tells the caller the
     step, the rows inside the band and their float32 verdicts.
-    ``num_valid`` as in ``safeopt_step``."""
-    _sharded(grid, "certified_scan")
+    ``num_valid`` and a ``DTensor`` grid as in ``safeopt_step``."""
+    sharded = _sharded(grid)
+    if sharded is not None:
+        return sharded.certified_scan(
+            kernels, states, grid, fmin, beta, scaling, threshold, band,
+            lipschitz, num_valid, refine_band, k=k, refine_k=refine_k,
+            refine_band_k=refine_band_k, ucb=ucb,
+            use_lipschitz=use_lipschitz, chunk=chunk,
+            interval_precision=interval_precision)
     valid = _valid_rows(grid.shape[0], num_valid, grid.device)
     Q, mu, sigma, Vs, refine_pop, refined_idx = _scan_intervals(
         kernels, states, grid, fmin, beta, scaling, band, refine_band,
@@ -948,9 +1011,14 @@ def interval_scan(kernels, states, grid, fmin, beta: float, scaling, band,
     """Pass 1 of the device-oracle certified iteration: intervals (and
     the refinement) and the band triage, no classification. Returns
     ``(Q, packed_t)``, ``packed_t`` = int32 ``[total_within,
-    refine_pop, idx(k), within(k)]``. ``num_valid`` as in
-    ``safeopt_step``."""
-    _sharded(grid, "interval_scan")
+    refine_pop, idx(k), within(k)]``. ``num_valid`` and a ``DTensor``
+    grid as in ``safeopt_step``."""
+    sharded = _sharded(grid)
+    if sharded is not None:
+        return sharded.interval_scan(
+            kernels, states, grid, fmin, beta, scaling, band, num_valid,
+            refine_band, k=k, refine_k=refine_k, refine_band_k=refine_band_k,
+            interval_precision=interval_precision)
     valid = _valid_rows(grid.shape[0], num_valid, grid.device)
     Q, _, _, _, refine_pop, refined_idx = _scan_intervals(
         kernels, states, grid, fmin, beta, scaling, band, refine_band,
@@ -975,13 +1043,35 @@ def device_oracle(kernels, ostates, grid, Q, packed_t, fmin, beta: float, *,
     the band rows (-1 elsewhere), ``fix_bits`` their float64
     verdicts, ``flips`` how many differ from the float32 verdicts of
     ``Q``. Unconstrained GPs (``constrained[i]`` False) are skipped, as
-    the host oracle skips them."""
+    the host oracle skips them. A ``DTensor`` grid (the float64 points
+    sharded like the float32 grid) as in ``safeopt_step``: every rank
+    gets the same four tensors."""
+    sharded = _sharded(grid)
+    if sharded is not None:
+        return sharded.device_oracle(kernels, ostates, grid, Q, packed_t,
+                                     fmin, beta, constrained=constrained,
+                                     k=k, kinds=kinds)
+    return _oracle(kernels, ostates, grid, Q, packed_t, fmin, beta,
+                   constrained, k, kinds)
+
+
+def _oracle(kernels, ostates, grid, Q, packed_t, fmin, beta, constrained,
+            k: int, kinds, rows=None):
+    """``device_oracle`` on ``grid``'s rows; ``rows`` as in ``_refine_Q``:
+    the band rows' float64 points and pass-1 lower bounds come from their
+    owners, then every rank settles the whole band."""
+    rows = rows or _OneDevice(grid.shape[0])
     idx = packed_t[2:2 + k].long()
     within = packed_t[2 + k:2 + 2 * k] > 0
-    rows = idx.clamp(min=0)
-    pts = grid[rows].to(torch.float64)
-    l_rows = Q[rows][:, 0::2]                           # pass-1 float32 l
-    safe64 = torch.ones((k,), dtype=torch.bool, device=grid.device)
+    band = idx.clamp(min=0)
+    at = rows.rows_at(band)
+    d = grid.shape[1]
+    got = rows.from_owners(torch.cat([grid[at].to(torch.float64),
+                                      Q[at][:, 0::2].to(torch.float64)], 1),
+                           band)
+    pts = got[:, :d]
+    l_rows = got[:, d:].to(Q.dtype)                     # pass-1 float32 l
+    safe64 = torch.ones((k,), dtype=torch.bool, device=pts.device)
     s_f32 = torch.ones_like(safe64)
     if kinds is None:
         kinds = ("exact",) * len(ostates)
@@ -1011,7 +1101,8 @@ def certified_finish(kernels, states, grid, Q, packed_t, fix_idx, fix_bits,
     with the float64 bits written in (``safeopt_step_from_Q``), then pack
     the caller's stats into one 9-int buffer ``[has_safe, next_idx,
     |S|, |M|, anyG, flips, total_within, refine_pop, n_within]``, the
-    path's one host pull."""
+    path's one host pull. A ``DTensor`` grid reaches the sharded step
+    through ``safeopt_step_from_Q``."""
     res = safeopt_step_from_Q(kernels, states, grid, Q, fix_idx, fix_bits,
                               fmin, beta, scaling, threshold, lipschitz,
                               num_valid, ucb=ucb, use_lipschitz=use_lipschitz,

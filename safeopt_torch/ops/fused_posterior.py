@@ -432,6 +432,16 @@ def fleet_interval_operands(kernels, states, grid: torch.Tensor, beta):
             w.reshape(K * g, cap), scal, kind)
 
 
+def col_sum(t: torch.Tensor) -> torch.Tensor:
+    """(B,) column sums of ``t`` (rows, B), each summed in an order
+    that does not depend on B: a reduction over the contiguous dim.
+    ``torch.sum(t, dim=0)`` vectorises across the columns, so on the CPU
+    a column's bits depend on where it falls in the block; the plain
+    versions keep a grid row's interval the same whichever rows it is
+    computed with, as the kernels keep it."""
+    return torch.sum(t.T.contiguous(), dim=1)
+
+
 def interval_rows(gram_at, lm, w, kdiag, beta, N: int) -> torch.Tensor:
     """(2, N) rows ``mu -+ beta sigma`` of one GP in plain PyTorch;
     ``gram_at(s, e)`` is its (cap, e - s) gram against grid columns
@@ -440,8 +450,8 @@ def interval_rows(gram_at, lm, w, kdiag, beta, N: int) -> torch.Tensor:
     for s in range(0, N, PLAIN_COLS):
         e = min(s + PLAIN_COLS, N)
         V = lm @ gram_at(s, e)
-        mu = torch.sum(w[:, None] * V, dim=0)
-        var = torch.clamp(kdiag - torch.sum(V * V, dim=0), min=0.0)
+        mu = col_sum(w[:, None] * V)
+        var = torch.clamp(kdiag - col_sum(V * V), min=0.0)
         spread = beta * torch.sqrt(var)
         out[0, s:e] = mu - spread
         out[1, s:e] = mu + spread
@@ -476,9 +486,9 @@ def three_pass_rows(gram_at, lm, w, kdiag, beta, N: int,
         k = gram_at(s, e)
         k_hi, k_lo = (t.double() for t in split_limbs(k, "bf16", round_lo))
         V = hi @ k_hi + hi @ k_lo + lo @ k_hi
-        mu = (torch.sum(w64[:, None] * V, dim=0) if u is None
+        mu = (col_sum(w64[:, None] * V) if u is None
               else u.double() @ k.double())
-        var = torch.clamp(float(kdiag) - torch.sum(V * V, dim=0), min=0.0)
+        var = torch.clamp(float(kdiag) - col_sum(V * V), min=0.0)
         spread = float(beta) * torch.sqrt(var)
         out[0, s:e] = mu - spread
         out[1, s:e] = mu + spread

@@ -5,17 +5,17 @@ XLA select equal to ``lax.top_k``). The expander walk's visit order
 (width descending, larger grid index first on exact ties) rests on
 ``lax.top_k``'s tie rule — value descending, then index ascending —
 applied to a flipped key. ``torch.topk`` promises no order among equal
-values, so ``top_k`` makes the rule explicit: ``torch.topk`` finds the
-k-th value, every element above it is taken together with the
-lowest-index elements equal to it, and a stable sort orders that small
-set. For k close to n one stable sort of the whole key is cheaper.
+values, so ``top_k`` makes the rule explicit, with no host read:
+``torch.topk`` finds the k-th value, every element above it is taken
+together with the lowest-index elements equal to it (a running count of
+the ties), a second ``torch.topk`` over the positions gathers that small
+set in index order, and a stable sort orders it by value. For k close
+to n one stable sort of the whole key is cheaper.
 """
 
 from __future__ import annotations
 
 import torch
-
-from ..utils.observability import host_syncs
 
 __all__ = ["top_k"]
 
@@ -31,9 +31,10 @@ def top_k(key: torch.Tensor, k: int):
         values, indices = torch.sort(key, descending=True, stable=True)
         return values[:k], indices[:k]
     kth = torch.topk(key, k).values[-1]
-    above = torch.nonzero(key > kth).squeeze(1)
-    ties = torch.nonzero(key == kth).squeeze(1)[: k - above.shape[0]]
-    host_syncs.add(2)                        # the two nonzero sizes
-    chosen = torch.sort(torch.cat([above, ties])).values  # index ascending
-    values, order = torch.sort(key[chosen], descending=True, stable=True)
-    return values, chosen[order]
+    above = key > kth
+    tie = key == kth
+    chosen = above | (tie & (torch.cumsum(tie, 0) <= k - torch.sum(above)))
+    pos = torch.arange(n, device=key.device)
+    idx = torch.topk(torch.where(chosen, pos, n), k, largest=False).values
+    values, order = torch.sort(key[idx], descending=True, stable=True)
+    return values, idx[order]

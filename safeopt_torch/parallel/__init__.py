@@ -1,5 +1,6 @@
 """Several cards and campaign fleets: device meshes, grid and state
-placement (``sharding.py``; a ``DTensor`` grid runs the step of
+placement (``sharding.py``; a ``DTensor`` grid runs the step, the safe
+maximum, the full expander sets and the certified functions of
 ``sharded_step.py``) and campaign fleets on one card or split over a
 mesh axis (``campaigns.py``)."""
 

@@ -1,8 +1,11 @@
 """The SafeOpt step over a device mesh: each rank's grid rows on its card.
 
-``safe_opt_core.safeopt_step``, ``safe_maximum`` and
-``full_expander_sets`` hand off here when the grid is a ``DTensor``
-(``sharding.shard_grid``). The step does not go through ``DTensor``
+``safe_opt_core.safeopt_step``, ``safe_maximum``, ``full_expander_sets``
+and the certified functions (``boundary_scan``, ``certified_scan``,
+``interval_scan``, ``safeopt_step_from_Q``, ``device_oracle``; and
+``certified_finish`` through ``safeopt_step_from_Q``) hand off here when
+the grid is a ``DTensor`` (``sharding.shard_grid``). The step does not
+go through ``DTensor``
 dispatch: K1-K4 are ``torch.library`` operators with no sharding rules,
 so every operand is unwrapped (``to_local``), the existing one-device
 code runs on the rank's rows, and the few collectives the JAX design
@@ -36,8 +39,40 @@ the mesh's process groups:
   tensors, the same on every rank; Q, S, M and G come back as
   ``DTensor``s sharded like the grid.
 
+The certified path adds, on the same rows and the same collectives:
+
+* **Intervals.** The grid pass (K1-3p under ``interval_precision='high'``,
+  K1 otherwise; K2-3p and K2 for a plan) runs on the local rows with the
+  whole factor (gathered over ``model`` once, as for the walk), whatever
+  the ``model`` size: splitting the three-pass product over ``model``
+  waits for a ``model`` axis inside K1 (ROADMAP [16d]). So Q is the
+  unsharded Q's rows bit for bit.
+* **The global top-k** (``_Shards.top``): each rank offers the k largest
+  keys of its rows (``ops.topk.top_k``, no host read), one ``all_gather``
+  and a merge under ``top_k``'s rule (``merge_top``: value descending,
+  the *smaller* global index first, the opposite tie rule to the walk's
+  ``merge_order``) give the one-device selection on every rank.
+* **The refinement** (``safe_opt_core._refine_Q`` on the rank's view):
+  the safe rows' widest width and ``best_l0`` are ``all_reduce(MAX)``,
+  the band population an ``all_reduce(SUM)``; the global top-k selects
+  the rows and each rank recomputes, with K1 (K2), only the selected
+  rows it holds, on its own points: ``_Shards.own`` puts them first in
+  a buffer of at most its own row count, so the recomputation shrinks
+  as ranks are added. Past the budget the full float32 pass runs on
+  the local rows.
+* **The triage** (``_band_triage``): the global top-k of the margins and
+  an ``all_reduce(SUM)`` of the band count; over the refined rows their
+  margins come from their owners, as do ``S[idx]`` in ``packed`` and the
+  device oracle's band points and pass-1 bounds (``_Shards.from_owners``,
+  one ``all_gather`` of k rows). Every rank then builds the same
+  ``packed``, ``packed_t`` and oracle verdicts.
+* **Pass 2** writes the fix bits whose global index falls in the rank's
+  rows, and decides as the plain step.
+
 A rank reads the device once for the candidate counts and once per walk
-round, as the one-device walk does (``host_syncs``).
+round, as the one-device walk does, and the certified path once more for
+the refinement's band population (``host_syncs``); the global top-k
+reads nothing.
 """
 
 from __future__ import annotations
@@ -48,16 +83,22 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
-from ..algorithms.safe_opt_core import (_NINF, StepResult, _classify,
+from ..algorithms.safe_opt_core import (_NINF, StepResult, _band_triage,
+                                        _classify, _fix_safe_set,
                                         _gp_predicates, _grid_gram,
-                                        _grid_posterior, _lipschitz_predicate,
-                                        _mindist, _unsafe, _valid_rows,
-                                        _visit_order)
-from ..gp.regression import GPState, row_mask
+                                        _grid_posterior, _int32,
+                                        _lipschitz_predicate, _mindist,
+                                        _moments_from_Q, _oracle,
+                                        _scan_intervals, _unsafe,
+                                        _valid_rows, _visit_order)
+from ..gp.regression import row_mask
+from ..ops.topk import top_k
 from ..utils.observability import host_syncs
 from .sharding import MODEL_AXIS, _shard_index, grid_axes
 
-__all__ = ["safeopt_step", "safe_maximum", "full_expander_sets"]
+__all__ = ["safeopt_step", "safe_maximum", "full_expander_sets",
+           "boundary_scan", "certified_scan", "interval_scan",
+           "safeopt_step_from_Q", "device_oracle"]
 
 
 def _gather(t: torch.Tensor, groups) -> torch.Tensor:
@@ -78,8 +119,10 @@ def _local(t):
 
 
 class _Shards:
-    """This rank's view of a sharded grid: its rows, their global offset
-    and the process groups of the mesh's grid and model axes."""
+    """This rank's view of a sharded grid: its rows, their global offset,
+    the grid's row count and the process groups of the mesh's grid and
+    model axes; the certified helpers' view of the rows
+    (``safe_opt_core._OneDevice`` on one device)."""
 
     def __init__(self, grid: DTensor):
         mesh = grid.device_mesh
@@ -90,6 +133,7 @@ class _Shards:
         axes = grid_axes(mesh)
         self.index, self.count = _shard_index(mesh, axes)
         self.offset = self.index * self.n
+        self.total = self.n * self.count
         # gathers run over the fastest axis first, so that the blocks
         # come out in global row order
         self.grid_groups = [mesh.get_group(a) for a in reversed(axes)
@@ -123,6 +167,53 @@ class _Shards:
         order (the same shape on every shard)."""
         return _gather(t, self.grid_groups)
 
+    def top(self, key: torch.Tensor, k: int):
+        """``top_k`` of the key over every shard's rows, ``(values,
+        global indices)`` on every rank: each shard offers its own top
+        ``min(k, n)``, padded to k with value -inf and index inf, and one
+        ``all_gather`` and ``merge_top`` order the offers. No host
+        read."""
+        if not 0 < k <= self.total:
+            raise ValueError(f"k={k} must be in [1, {self.total}]")
+        values, lidx = top_k(key, min(k, self.n))
+        m = values.shape[0]
+        offer = torch.full((k, 2), float("inf"), dtype=torch.float64,
+                           device=key.device)
+        offer[:, 0] = _NINF
+        offer[:m, 0] = values.to(torch.float64)
+        offer[:m, 1] = (self.offset + lidx).to(torch.float64)
+        offers = self.gather(offer)
+        pick = merge_top(offers[:, 0], offers[:, 1])[:k]
+        return offers[pick, 0].to(key.dtype), offers[pick, 1].long()
+
+    def rows_at(self, idx: torch.Tensor) -> torch.Tensor:
+        """The local rows of the global indices ``idx``, clamped into
+        this shard (the rows another shard holds are placeholders)."""
+        return (idx - self.offset).clamp(0, self.n - 1)
+
+    def own(self, idx: torch.Tensor):
+        """``(at, mine)``: the local rows of the global indices ``idx``
+        that this shard holds, in ``idx``'s order, first in a buffer of
+        ``min(len(idx), n)`` rows; ``mine`` is False on the buffer's
+        rest (placeholder row 0). A stable sort on ownership, no host
+        read."""
+        loc = idx - self.offset
+        held = (loc >= 0) & (loc < self.n)
+        first = torch.sort((~held).to(torch.uint8), stable=True).indices[
+            :min(idx.shape[0], self.n)]
+        mine = held[first]
+        return torch.where(mine, loc[first], 0), mine
+
+    def from_owners(self, t: torch.Tensor, idx: torch.Tensor):
+        """``t`` (one entry per index, this shard's rows ``rows_at(idx)``)
+        with each entry taken from the shard that holds row ``idx``: one
+        ``all_gather``; booleans as uint8."""
+        parts = self.gather(t.to(torch.uint8) if t.dtype == torch.bool
+                            else t).reshape(self.count, *t.shape)
+        out = parts[torch.div(idx, self.n, rounding_mode="floor"),
+                    torch.arange(idx.shape[0], device=idx.device)]
+        return out.to(torch.bool) if t.dtype == torch.bool else out
+
     def sharded(self, local: torch.Tensor) -> DTensor:
         """A local (n, ...) result as a ``DTensor`` placed like the
         grid."""
@@ -142,7 +233,9 @@ def _full(t, mesh):
 
 
 def _full_states(states, mesh):
-    return tuple(GPState(*(_full(t, mesh) for t in st)) for st in states)
+    """Each state (a ``GPState``, an ``OracleState``) with its tensors
+    whole."""
+    return tuple(type(st)(*(_full(t, mesh) for t in st)) for st in states)
 
 
 def _split_posterior(kernels, states, sh: _Shards, beta):
@@ -171,12 +264,17 @@ def _split_posterior(kernels, states, sh: _Shards, beta):
     return Q, (l + u) * 0.5, (u - l) / (2.0 * beta), [None] * len(kernels)
 
 
-def _setup(kernels, states, grid, fmin, scaling, beta):
-    """``(sh, states, fmin, scaling, Q, mu, sigma, Vs)``: the rank's
-    view, the full states and the local intervals."""
+def _view(states, grid, fmin, scaling):
+    """``(sh, states, fmin, scaling)``: the rank's view, the full states
+    and the local thresholds and scales."""
     sh = _Shards(grid)
-    states = _full_states(states, sh.mesh)
-    fmin, scaling = _local(fmin), _local(scaling)
+    return sh, _full_states(states, sh.mesh), _local(fmin), _local(scaling)
+
+
+def _setup(kernels, states, grid, fmin, scaling, beta):
+    """``(sh, states, fmin, scaling, Q, mu, sigma, Vs)``: ``_view`` and
+    the local intervals."""
+    sh, states, fmin, scaling = _view(states, grid, fmin, scaling)
     if sh.model > 1:
         Q, mu, sigma, Vs = _split_posterior(kernels, states, sh, beta)
     else:
@@ -230,6 +328,16 @@ def _offer(sh, key, lidx, grid, Q, chunk: int):
         out[:c, 2:2 + d] = grid[lidx].to(torch.float64)
         out[:c, 2 + d:] = Q[lidx][:, 1::2].to(torch.float64)
     return out
+
+
+def merge_top(values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """The order of gathered top-k offers under ``top_k``'s rule: value
+    descending, the *smaller* global index first on exact ties (padding
+    offers, value -inf and index inf, last). ``merge_order`` is the
+    walk's, with the opposite tie rule."""
+    by_index = torch.sort(index, stable=True).indices
+    return by_index[torch.sort(values[by_index], descending=True,
+                               stable=True).indices]
 
 
 def merge_order(keys: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -313,19 +421,13 @@ def _result(sh, Q, S, M, G, next_idx, has_safe, chunks) -> StepResult:
                       walk_chunks=chunks)
 
 
-def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
-                 threshold, lipschitz=None, num_valid=None, *,
-                 ucb: bool = False, use_lipschitz: bool = False,
-                 chunk: int = 64) -> StepResult:
-    """``safe_opt_core.safeopt_step`` on a ``DTensor`` grid: every rank
-    calls it with the same arguments (states, thresholds and the like
-    whole or as ``shard_state``/``replicate`` placed them) and gets the
-    same ``next_idx`` and scalars, and its rows of Q, S, M and G."""
-    sh, states, fmin, scaling, Q, mu, sigma, Vs = _setup(
-        kernels, states, grid, fmin, scaling, beta)
-    valid = sh.valid(num_valid)
+def _decide(kernels, states, sh, Q, mu, sigma, Vs, fmin, beta, scaling,
+            threshold, lipschitz, ucb, use_lipschitz, chunk, valid, S=None):
+    """``safe_opt_core._decide`` on the local rows: classification (with
+    ``S`` given or from the strict test), the global walk and the first
+    global maximum; the sharded ``StepResult``."""
     S, M, cand, width, has_safe = _classify(
-        Q, fmin, scaling, _local(threshold), beta, valid=valid,
+        Q, fmin, scaling, _local(threshold), beta, S=S, valid=valid,
         combine=sh.reduce)
     if ucb:
         G = torch.zeros_like(S)
@@ -340,6 +442,21 @@ def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
                                               / scaling, dim=1), _NINF)
     next_idx, _ = _first_max(sh, value)
     return _result(sh, Q, S, M, G, next_idx, has_safe, chunks)
+
+
+def safeopt_step(kernels, states, grid, fmin, beta: float, scaling,
+                 threshold, lipschitz=None, num_valid=None, *,
+                 ucb: bool = False, use_lipschitz: bool = False,
+                 chunk: int = 64) -> StepResult:
+    """``safe_opt_core.safeopt_step`` on a ``DTensor`` grid: every rank
+    calls it with the same arguments (states, thresholds and the like
+    whole or as ``shard_state``/``replicate`` placed them) and gets the
+    same ``next_idx`` and scalars, and its rows of Q, S, M and G."""
+    sh, states, fmin, scaling, Q, mu, sigma, Vs = _setup(
+        kernels, states, grid, fmin, scaling, beta)
+    return _decide(kernels, states, sh, Q, mu, sigma, Vs, fmin, beta,
+                   scaling, threshold, lipschitz, ucb, use_lipschitz, chunk,
+                   sh.valid(num_valid))
 
 
 def safe_maximum(kernels, states, grid, fmin, beta: float, num_valid=None):
@@ -408,3 +525,81 @@ def full_expander_sets(kernels, states, grid, fmin, beta: float, scaling,
     G = G & has_safe
     next_idx = torch.zeros((), dtype=torch.int64, device=S.device)
     return _result(sh, Q, S, M, G, next_idx, has_safe, chunks)
+
+
+def boundary_scan(kernels, states, grid, fmin, beta: float, scaling, band,
+                  num_valid=None, *, k: int = 128):
+    """``safe_opt_core.boundary_scan`` on a ``DTensor`` grid: Q sharded
+    like the grid, the global triage (``idx``, ``within``,
+    ``total_within``) the same on every rank."""
+    sh, states, fmin, scaling = _view(states, grid, fmin, scaling)
+    Q = _grid_posterior(kernels, states, sh.grid, beta)[0]
+    return (sh.sharded(Q), *_band_triage(Q, None, fmin, scaling, band, k,
+                                         sh.valid(num_valid), sh))
+
+
+def safeopt_step_from_Q(kernels, states, grid, Q, fix_idx, fix_bits, fmin,
+                        beta: float, scaling, threshold, lipschitz=None,
+                        num_valid=None, *, ucb: bool = False,
+                        use_lipschitz: bool = False,
+                        chunk: int = 64) -> StepResult:
+    """``safe_opt_core.safeopt_step_from_Q`` on a ``DTensor`` grid, with
+    ``Q`` sharded like it (or this rank's rows) and the global
+    ``fix_idx``/``fix_bits`` the same on every rank: each rank writes the
+    bits of the rows it holds."""
+    sh, states, fmin, scaling = _view(states, grid, fmin, scaling)
+    Q, valid = _local(Q), sh.valid(num_valid)
+    mu, sigma = _moments_from_Q(Q, beta)
+    S = _fix_safe_set(Q, fmin, _local(fix_idx), _local(fix_bits), valid,
+                      sh.offset)
+    return _decide(kernels, states, sh, Q, mu, sigma, [None] * len(kernels),
+                   fmin, beta, scaling, threshold, lipschitz, ucb,
+                   use_lipschitz, chunk, valid, S=S)
+
+
+def certified_scan(kernels, states, grid, fmin, beta: float, scaling,
+                   threshold, band, lipschitz=None, num_valid=None,
+                   refine_band=None, *, k: int = 128, refine_k: int = 0,
+                   refine_band_k: int = 0, ucb: bool = False,
+                   use_lipschitz: bool = False, chunk: int = 64,
+                   interval_precision=None):
+    """``safe_opt_core.certified_scan`` on a ``DTensor`` grid: the
+    sharded step and the same ``packed`` on every rank."""
+    sh, states, fmin, scaling = _view(states, grid, fmin, scaling)
+    valid = sh.valid(num_valid)
+    Q, mu, sigma, Vs, refine_pop, refined_idx = _scan_intervals(
+        kernels, states, sh.grid, fmin, beta, scaling, band, refine_band,
+        refine_k, refine_band_k, interval_precision, valid, sh)
+    res = _decide(kernels, states, sh, Q, mu, sigma, Vs, fmin, beta, scaling,
+                  threshold, lipschitz, ucb, use_lipschitz, chunk, valid)
+    idx, within, total_within = _band_triage(Q, refined_idx, fmin, scaling,
+                                             band, k, valid, sh)
+    S_at = sh.from_owners(res.S.to_local()[sh.rows_at(idx)], idx)
+    return res, _int32(res.diag, total_within, refine_pop, idx, within, S_at)
+
+
+def interval_scan(kernels, states, grid, fmin, beta: float, scaling, band,
+                  num_valid=None, refine_band=None, *, k: int = 128,
+                  refine_k: int = 0, refine_band_k: int = 0,
+                  interval_precision=None):
+    """``safe_opt_core.interval_scan`` on a ``DTensor`` grid: Q sharded
+    like the grid, the same ``packed_t`` on every rank."""
+    sh, states, fmin, scaling = _view(states, grid, fmin, scaling)
+    valid = sh.valid(num_valid)
+    Q, _, _, _, refine_pop, refined_idx = _scan_intervals(
+        kernels, states, sh.grid, fmin, beta, scaling, band, refine_band,
+        refine_k, refine_band_k, interval_precision, valid, sh)
+    idx, within, total_within = _band_triage(Q, refined_idx, fmin, scaling,
+                                             band, k, valid, sh)
+    return sh.sharded(Q), _int32(total_within, refine_pop, idx, within)
+
+
+def device_oracle(kernels, ostates, grid, Q, packed_t, fmin, beta: float, *,
+                  constrained, k: int, kinds=None):
+    """``safe_opt_core.device_oracle`` on the float64 grid sharded like
+    the float32 one: the band rows' points and pass-1 bounds gathered
+    from their owners, the same verdicts on every rank."""
+    sh = _Shards(grid)
+    return _oracle(kernels, _full_states(ostates, sh.mesh), sh.grid,
+                   _local(Q), _local(packed_t), _local(fmin), beta,
+                   constrained, k, kinds, sh)

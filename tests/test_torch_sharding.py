@@ -19,9 +19,16 @@ equal the unsharded step's, Q within 1e-12; ucb, Lipschitz, full sets,
 chunk, padding that repeats a safe row; the global visit order under
 ties; fleets over ``data`` and over ``dcn`` (one with a NumPy
 ``objective_args_batch``) equal their solo runs, a swarm fleet over
-``data`` the fleet on one device; the certified functions refuse a
-``DTensor`` grid. Then
-``tools_torch/mp_dryrun.py``'s two processes.
+``data`` the fleet on one device. The certified functions on a
+``DTensor`` grid, on (4, 1), (2, 2) and (2, 2, 1): ``certified_scan``
+(plain, and at ``'high'`` with the refinement within its budget, with
+a budget larger than a rank's rows, and past the budget), ``interval_scan`` -> ``device_oracle`` -> ``certified_finish``,
+``boundary_scan``, ``safeopt_step_from_Q`` with certified bits on every
+shard and on a padding row, a triage tie across a shard edge and the
+contextual kernel's certified scan, each bit for bit the unsharded call
+on the same padded grid; and the gathered results of ``certified_scan``
+and ``interval_scan`` on (4, 1) against safeopt_tpu's on its virtual
+4-device mesh. Then ``tools_torch/mp_dryrun.py``'s two processes.
 """
 
 import jax.numpy as jnp
@@ -250,15 +257,51 @@ WORLD_CASES = [c for c in sharding_checks.CASES if not c.startswith("dryrun")]
 
 
 @pytest.fixture(scope="module")
-def world():
+def world_dir(tmp_path_factory):
+    """The world's output directory (``certified_anchor``'s file)."""
+    return tmp_path_factory.mktemp("world")
+
+
+@pytest.fixture(scope="module")
+def world(world_dir):
     """Every case of ``WORLD_CASES`` in one spawned 4-rank gloo world."""
-    return sharding_checks.run_world(4, WORLD_CASES)
+    return sharding_checks.run_world(4, WORLD_CASES, out_dir=world_dir)
 
 
 @pytest.mark.parametrize("case", WORLD_CASES)
 def test_sharded_equals_unsharded(world, case):
     errors = [e for e in world[case] if e]
     assert not errors, f"{case}:\n" + "\n".join(errors)
+
+
+def test_sharded_certified_matches_safeopt_tpu(world, world_dir):
+    """The port's ``certified_scan`` and ``interval_scan`` on a (4, 1)
+    mesh (``certified_anchor``, gathered) against safeopt_tpu's on
+    ``shard_grid(grid, make_mesh(4))`` of the virtual CPU mesh, its
+    plain path (``use_pallas=False``): S, M, G, next_idx, ``packed`` and
+    ``packed_t`` equal, Q within 1e-12."""
+    from safeopt_tpu.parallel import make_mesh as jax_mesh
+    from safeopt_tpu.parallel import shard_grid as jax_shard_grid
+
+    assert not any(world["certified_anchor"])
+    ours = np.load(world_dir / "certified_anchor.npz")
+    jgrid, pad = jax_shard_grid(GRID, jax_mesh(n_devices=4))
+    assert pad == PAD
+    band, k = sharding_checks.BAND, sharding_checks.K
+    fmin, beta, scaling, threshold = _consts(jnp.asarray)
+    kernels, states = PROBS[jt]
+    res, packed = jcore.certified_scan(kernels, states, jgrid, fmin, beta,
+                                       scaling, threshold, band, None, N,
+                                       k=k, chunk=16)
+    Q_t, packed_t = jcore.interval_scan(kernels, states, jgrid, fmin, beta,
+                                        scaling, band, N, k=k)
+    for name in ("S", "M", "G", "next_idx"):
+        assert_array_equal(ours[name], np.asarray(getattr(res, name)), name)
+    assert_array_equal(ours["packed"], np.asarray(packed))
+    assert_array_equal(ours["packed_t"], np.asarray(packed_t))
+    assert int(ours["packed"][5]) > 0 and ours["G"].any()
+    for mine, theirs in ((ours["Q"], res.Q), (ours["Q_t"], Q_t)):
+        assert_allclose(mine, np.asarray(theirs), rtol=0, atol=1e-12)
 
 
 def test_two_process_dryrun():
