@@ -96,19 +96,27 @@ Phases, each reported on its own line:
     just after it; neither path launches an experiment kernel;
 11. K1-3p and K2-3p (``fused_intervals3`` / ``fused_intervals_plan3``,
     the three-pass bf16 product of the certified path; in float32 the
-    wgmma kernels of ``csrc/fused_intervals3.cu``) against their
+    wgmma kernels of ``csrc/fused_intervals3.cu``: the resident body up
+    to capacity 576, the tiled body past it) against their
     plain versions: K1-3p at capacity 64 (the flagship's GPs), 512 (400
-    observations), 512 with counts 20 and 300 in one launch and 1024 (600
-    observations); K2-3p on the contextual kernel at
-    capacity 256, on the Sum with Bias and Cosine leaves and on the
-    nine-leaf kernel (the wide instance): float64 to 1e-9, float32
-    within ``float32_bound(..., "split", "bf16")`` (``float32_bound_plan``
-    for K2-3p) of the plain version on the same operands, and that bound
-    below a planted fault (the plain rows with each GP's first, then
-    last, 32 active rows dropped, ``drop_band``, must land past it);
-    beside each the max scaled |dQ| against the float64 plain rows of
-    K1/K2 (which must stay below ``refine_band - boundary_band`` at the
-    defaults) and the decisions outside the 1e-3 band;
+    observations), 512 with counts 20 and 300 in one launch, 1024 (600
+    observations), the exact GP at 2048 (phase 16's, 2000 observations)
+    and 2048 with counts 50 and 1500 in one launch; K2-3p on the
+    contextual kernel at capacity 256, on the Sum with Bias and Cosine
+    leaves, on the nine-leaf kernel (the wide instance) at 256 and 1024
+    and at phase 5's ``context1024`` and ``context2048``: float64 to
+    1e-9, float32 within ``float32_bound(..., "split", "bf16")``
+    (``float32_bound_plan`` for K2-3p) of the plain version on the same
+    operands, and that bound below a planted fault (the plain rows with
+    each GP's first, then last, 32 active rows dropped, ``drop_band``,
+    must land past it); beside each the max scaled |dQ| against the
+    float64 plain rows of K1/K2 (which must stay below ``refine_band -
+    boundary_band`` at the defaults wherever the plain three-pass rows
+    themselves do; past it they are printed, ROADMAP Queue 3) and the
+    decisions outside the 1e-3 band; the body each float32 launch ran
+    (torch.profiler) at capacities 256-2048 against the launchers' rule
+    (``fused_posterior.three_pass_body``), and each tiled state's time
+    against its bound and the factor's bytes from L2 a launch;
 12. the certified paths: the cap-512 state (phase 3's GPs, 400
     observations), the contextual one (phase 10's) and the contextual
     one early in its run (20 observations in [-0.5, 0.5], context 0),
@@ -125,7 +133,14 @@ Phases, each reported on its own line:
     (``REFINE_BAND_SHARE`` of the grid) at every step; the contextual
     state's band is past it at context 0 (those steps take the full
     float32 pass) and within it on at least two steps at context 0.1.
-    Launch counts are zeroed just before each
+    Then three steps each, float32 ``'high'`` with the device oracle
+    alone, of the exact GP at capacity 2048 (phase 16's, 2000
+    observations) and of ``context2048`` (phase 5's two GPs, 2000
+    observations over contexts in [-1, 1], at context 0, with a triage
+    budget of 8,192 rows that covers its band): the tiled K1-3p / K2-3p
+    body on a certified path, the same lockstep checks, the refined and
+    full-pass steps printed. Launch counts are zeroed
+    just before each
     certified ``optimize()`` and read just after it: K1-3p (K2-3p) once
     per GP group, K1 (K2) once per group on the refined rows (or the
     full pass), no experiment kernel;
@@ -288,7 +303,11 @@ Phases, each reported on its own line:
     dimension), evaluated at the flagship's 1e6 points on the card in
     float64 within 1e-9 of the CPU; the draw's host ms and the
     evaluation's device ms; (d) ``profile_trace`` around one flagship
-    ``optimize()``: the trace names K1's and K3's CUDA kernels;
+    ``optimize()``: the trace names K1's and K3's CUDA kernels (in a
+    child process, ``chip_smoke.py --profile-to DIR``, whose profiler
+    windows are the only ones it opens: in a process that has opened
+    the earlier phases' windows the profiler lost K1's record in every
+    trace of the step);
 22. sharding, in a child process with an NCCL group of world size 1
     (``chip_smoke.py --shard-to FILE 1 0 PORT``; its failure fails the
     run): on a ``make_mesh(device_type='cuda')`` of (1, 1), the flagship
@@ -557,6 +576,17 @@ def split_bound(limb, N, d, cap, n, G=1, leaves=None, gram=True):
     return t * 1e3, by
 
 
+def three_pass_l2_bytes(N, n, body, G=1):
+    """Bytes of the factor's limb chunks that one launch of the float32
+    K1-3p/K2-3p streams from L2 at count n over N points (G GPs): each
+    work item (64 points in the resident body, 128 in the tiled one,
+    ``fused_posterior.three_pass_body``) reads the executed triangle
+    once, ceil(min(64 (m + 1), n) / 32) chunks of 8 KB for row tile m."""
+    points = 128 if body == "tiled" else 64
+    chunks = sum(-(-min(64 * (m + 1), n) // 32) for m in range(-(-n // 64)))
+    return G * -(-N // points) * chunks * 8192
+
+
 def band_macs(n):
     """Multiply-adds per point and GP that K1/K2 execute at count n:
     band b of 32 rows contracts over min(32 (b + 1), n) columns."""
@@ -675,6 +705,18 @@ def check_k1_gps(label, gps, grid64, fmin, scaling, bounded=False,
     return err64, err32
 
 
+# the float32 K1-3p and K2-3p kernels (csrc/fused_intervals3.cu): the
+# resident body's and the tiled body's, by three_pass_body's name
+THREE_PASS_KERNELS = ("intervals3_wg_kernel", "intervals_plan3_wg_kernel",
+                      "intervals3_tiled_kernel",
+                      "intervals_plan3_tiled_kernel")
+THREE_PASS_BODY = {
+    "K1-3p": {"resident": "intervals3_wg_kernel",
+              "tiled": "intervals3_tiled_kernel"},
+    "K2-3p": {"resident": "intervals_plan3_wg_kernel",
+              "tiled": "intervals_plan3_tiled_kernel"}}
+
+
 # rows K1's and K2's resident body keeps in shared memory at most (the
 # launchers take the tiled body past them: csrc/fused_intervals.cu,
 # csrc/fused_intervals_plan.cu)
@@ -682,35 +724,41 @@ K1_RESIDENT_ROWS = {torch.float32: 512, torch.float64: 256}
 K2_RESIDENT_ROWS = {torch.float32: 512, torch.float64: 256}
 
 
-def kernel_names(launch, ops, attempts=4):
+def kernel_names(calls, attempts=8):
     """The names of the CUDA kernels of ``safeopt::`` that one call of
-    ``launch`` (K1's or K2's wrapper) on ``ops`` ran, from
-    torch.profiler.
+    each ``(launch, ops)`` of ``calls`` (the wrapper of K1, K2, K1-3p or
+    K2-3p, each launching one kernel) ran, from torch.profiler: one list
+    a call.
 
-    The profiler now and then records no kernel at all for a launch
-    (CUPTI drops the record). A window that recorded nothing says
-    nothing of the body, so the call is profiled again in a new window,
-    up to ``attempts`` windows; a window that recorded anything is
-    returned as it is, and the caller holds it to exactly one kernel of
-    the rule's body."""
+    The calls run in one profiler window, each drained before the next,
+    so the i-th kernel in start order is the i-th call's. The profiler
+    now and then records no kernel for a launch (CUPTI drops the record,
+    the more often the more windows a process has opened): a window that
+    recorded other than one kernel a call says nothing of the bodies, so
+    the calls are profiled again in a new window, up to ``attempts``
+    windows, and past them each call's list is empty (the caller holds
+    each list to exactly one kernel of the rule's body)."""
     from torch.profiler import ProfilerActivity, profile
 
-    launch(*ops)                # loaded before the profiler starts
+    for launch, ops in calls:
+        launch(*ops)            # loaded before the profiler starts
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.01)    # the window opens well before the launch
-            launch(*ops)
-            torch.cuda.synchronize()
-            time.sleep(0.01)    # and closes well after its end
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "safeopt::" in e.name]
-        if names:
-            break
-        print(f"kernel_names: window {attempt} of {attempts} recorded no "
-              "kernel", flush=True)
-    return names
+            time.sleep(0.05)    # the window opens well before the launches
+            for launch, ops in calls:
+                launch(*ops)
+                torch.cuda.synchronize()
+            time.sleep(0.05)    # and closes well after their end
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "safeopt::" in e.name),
+                        key=lambda e: e.time_range.start)
+        if len(events) == len(calls):
+            return [[e.name] for e in events]
+        print(f"kernel_names: window {attempt} of {attempts} recorded "
+              f"{len(events)} kernels for {len(calls)} calls", flush=True)
+    return [[] for _ in calls]
 
 
 def k1_operands(n_obs, cap, n_gps, grid64, seed, spread=1.5):
@@ -752,6 +800,10 @@ def check_three_pass(label, ops, fmin, scale, what="split"):
     |dQ| printed, not held: the rank-1 stand-in gram reaches |k| = 20,
     and its rows are no SafeOpt intervals), ``"mu_from_gram"`` B3-3p
     (against K1's rows, its function). ``fmin`` and ``scale`` per GP.
+    The |dQ| check holds where the plain version's own float32 rows stay
+    under the slack; a state whose three-pass product is past it by
+    itself (a long campaign's factor, ROADMAP Queue 3) is printed, and
+    the kernel there is held by its float32 bound alone.
     Returns (float64 error, float32 max scaled |dQ|, the fault
     readings)."""
     from safeopt_torch.ops import fused_posterior as fp
@@ -801,7 +853,7 @@ def check_three_pass(label, ops, fmin, scale, what="split"):
     wrong, in_band = decisions_agree(
         k32[:, 0], ref[:, 0], torch.tensor(fmin, dtype=torch.float64,
                                            device="cuda")[:, None], sc)
-    held = what != "solve_rank1"
+    held = what != "solve_rank1" and dq_plain < slack
     torch.cuda.synchronize()
     print(f"{name} {label}: f64 max|kernel-plain|={err64:.3e} (limit 1e-9); "
           f"f32 at most {ratio:.3f} of its float32 bound (limit 1), a "
@@ -809,7 +861,10 @@ def check_three_pass(label, ops, fmin, scale, what="split"):
           f"{faults[0]:.4g} / {faults[1]:.4g} of it (limit: past 1); f32 "
           f"max scaled |dQ| against the float64 rows {dq:.3e} (the plain "
           f"version's own {dq_plain:.3e}; "
-          + (f"limit {slack:g}" if held else "not held") +
+          + (f"limit {slack:g}" if held else
+             "not held" if what == "solve_rank1" else
+             f"not held: the plain three-pass rows are past the slack "
+             f"{slack:g} themselves") +
           f"); f32 decisions differing outside the {BAND:g} band={wrong} "
           f"(rows inside the band: {in_band})", flush=True)
     check(err64 <= 1e-9, f"{name} {label} f64 error {err64}")
@@ -1284,9 +1339,9 @@ def drive(opt, ref, label, plant_fn, contexts, scaling, get_max):
 
 
 def drive_certified(label, make, plant_fn, contexts, iters=10,
-                    min_refined=0):
+                    min_refined=0, oracles=("host", "device")):
     """The certified path of ``make(device, dtype, **kw)`` in float32
-    with ``oracle`` host and device, each for ``iters`` iterations in
+    with each of ``oracles``, each for ``iters`` iterations in
     lockstep with float64 and float32 plain twins on the card (the
     certified query and measurement are added to all three); at least
     ``min_refined`` of the steps must refine their band within the
@@ -1294,7 +1349,7 @@ def drive_certified(label, make, plant_fn, contexts, iters=10,
     certified optimize() calls, its optimize() ms, the float32 plain
     twin's ms, rows below the 1e-9 margin, queries that differed)}."""
     out = {}
-    for oracle in ("host", "device"):
+    for oracle in oracles:
         cert = make("cuda", torch.float32, exact_boundaries=True,
                     interval_precision="high", oracle=oracle)
         f64 = make("cuda", torch.float64)
@@ -2446,6 +2501,10 @@ def print_swarm(out, smi):
 # ---------------------------------------------------------------------------
 # phase 18: the contextual path past K2's resident rows
 LONG_CTX_STEPS = 3
+# certified steps of phase 12's long campaigns (cap 2048, context2048),
+# and context2048's triage budget (its band holds about 3,800 rows)
+LONG_CERT_STEPS = 3
+LONG_CERT_TRIAGE = 8192
 
 
 def drive_long_context(params_np):
@@ -3494,25 +3553,33 @@ def sampling_case(grid_np, smi):
           flush=True)
 
 
-def profile_case(opt, tmp, smi):
+def profile_case(opt, tmp, smi, attempts=4):
     """Phase 21 (d): ``profile_trace`` around one flagship ``optimize()``:
     the trace file exists and names K1's CUDA kernel, and K3's when the
-    step walked."""
+    step walked. The profiler now and then drops a kernel's record
+    (``kernel_names``), so a trace that misses one is taken again, up to
+    ``attempts`` traces of the same step."""
     import os
 
     from safeopt_torch.utils.observability import profile_trace
 
-    log_dir = os.path.join(tmp, "trace")
-    with profile_trace(log_dir):
-        opt.optimize()
-    path = os.path.join(log_dir, "trace.json")
-    check(os.path.exists(path), "profile_trace wrote no trace")
-    with open(path) as fh:
-        kernels = sorted({e["name"] for e in json.load(fh)["traceEvents"]
-                          if e.get("cat") == "kernel"})
-    walked = opt.stats.last.walk_chunks
-    k1 = any("intervals_kernel" in k for k in kernels)
-    k3 = any("expander_kernel" in k for k in kernels)
+    for attempt in range(1, attempts + 1):
+        log_dir = os.path.join(tmp, f"trace{attempt}")
+        with profile_trace(log_dir):
+            opt.optimize()
+        path = os.path.join(log_dir, "trace.json")
+        check(os.path.exists(path), "profile_trace wrote no trace")
+        with open(path) as fh:
+            kernels = sorted({e["name"]
+                              for e in json.load(fh)["traceEvents"]
+                              if e.get("cat") == "kernel"})
+        walked = opt.stats.last.walk_chunks
+        k1 = any("intervals_kernel" in k for k in kernels)
+        k3 = any("expander_kernel" in k for k in kernels)
+        if k1 and (k3 or walked == 0):
+            break
+        print(f"profile_trace: trace {attempt} of {attempts} names K1's "
+              f"kernel: {k1}, K3's: {k3}", flush=True)
     check(k1 and (k3 or walked == 0),
           f"the trace names K1's kernel: {k1}, K3's: {k3} (walk chunks "
           f"{walked}); its {len(kernels)} kernels: {kernels}")
@@ -3520,6 +3587,41 @@ def profile_case(opt, tmp, smi):
           f"{len(kernels)} kernel names, intervals_kernel (K1) and "
           f"expander_kernel (K3; {walked} walk chunks) among them",
           flush=True)
+
+
+def profile_main(out_dir):
+    """``chip_smoke.py --profile-to DIR``: phase 21 (d) in a process of its
+    own, on a fresh flagship ``SafeOpt`` after one ``optimize()`` that
+    loads its kernels; the traces go under ``out_dir``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke profile: no CUDA device", file=sys.stderr)
+        return 1
+    from safeopt_torch import linearly_spaced_combinations
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    grid_np = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
+    opt = flagship_opt(grid_np)
+    opt.optimize()
+    torch.cuda.synchronize()
+    profile_case(opt, out_dir, smi)
+    return 0
+
+
+def profile_in_child(tmp):
+    """Phase 21 (d): ``profile_main`` in a child process writing under
+    ``tmp``; its output is printed and its failure fails the run."""
+    import os
+
+    child = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--profile-to", tmp],
+        capture_output=True, text=True, timeout=600)
+    print(child.stdout, end="", flush=True)
+    check(child.returncode == 0,
+          f"the profile_trace process failed ({child.returncode}):\n"
+          f"{child.stderr[-4000:]}")
 
 
 def drive_utilities(grid_np, params_np, smi, exports):
@@ -3589,7 +3691,7 @@ def drive_utilities(grid_np, params_np, smi, exports):
 
         # (c) sampling, (d) profile_trace ----------------------------------
         sampling_case(grid_np, smi)
-        profile_case(flag, tmp, smi)
+        profile_in_child(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"utilities: launches through K1-K4's operators (loaded steps "
@@ -4290,15 +4392,15 @@ def main():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas:", line.strip().replace("ptxas info    : ", ""))
-    # the float32 K1-3p and K2-3p (csrc/fused_intervals3.cu: static and
-    # wide plans for K2-3p, three consumer warpgroups a block and one)
-    # run on Hopper's warpgroup product: their SASS holds HGMMA
+    # the float32 K1-3p and K2-3p (csrc/fused_intervals3.cu: the resident
+    # body's static and wide plans for K2-3p, three consumer warpgroups a
+    # block and one, and the tiled body's three instances) run on
+    # Hopper's warpgroup product: their SASS holds HGMMA
     hgmma = {k: v for k, v in sass_opcodes("HGMMA").items()
-             if "intervals3_wg_kernel" in k
-             or "intervals_plan3_wg_kernel" in k}
+             if any(name in k for name in THREE_PASS_KERNELS)}
     for name, count in sorted(hgmma.items()):
         print(f"  sass: {name}: {count} HGMMA", flush=True)
-    check(len(hgmma) == 6 and min(hgmma.values()) > 0,
+    check(len(hgmma) == 9 and min(hgmma.values()) > 0,
           f"the wgmma instances of K1-3p/K2-3p hold no HGMMA: {hgmma}")
 
     grid_np = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
@@ -4472,36 +4574,125 @@ def main():
           flush=True)
 
     # 11. K1-3p and K2-3p against their plain versions ---------------------
+    # the exact GP at capacity 2048 (phase 16's data; phase 18 holds K1 on
+    # it too)
+    exact = {dt: [sparse_exact_gp("cuda", dt)] for dt in (f64, f32)}
+    exact_ops = {dt: fp.interval_operands([g.kern for g in gps],
+                                          [g.state for g in gps],
+                                          grid64.to(dt), BETA)
+                 for dt, gps in exact.items()}
     k1_3p_ops = {}
+    k1_3p_err = 0.0
     for label, args in (("G=2 cap=64", (50, 64, 2, grid64, 0)),
                         ("G=2 cap=512", (400, 512, 2, grid64, 512, 4.0)),
                         ("G=2 cap=512, counts 20 and 300 in one launch",
                          ((20, 300), 512, 2, grid64, 512, 4.0)),
                         ("G=1 cap=1024 (600 obs, gram not resident)",
-                         (600, 1024, 1, grid64, 1024, 4.0))):
-        ops = k1_operands(*args)
+                         (600, 1024, 1, grid64, 1024, 4.0)),
+                        ("G=1 cap=2048 (exact GP, 2000 obs)", None),
+                        ("G=2 cap=2048, counts 50 and 1500 in one launch",
+                         ((50, 1500), 2048, 2, grid64, 2048, 4.0))):
+        ops = exact_ops if args is None else k1_operands(*args)
         G = ops[f32][2].shape[0]
         k1_3p_ops[label] = ops
-        err, dq, _ = check_three_pass(label, ops, FMIN[:G], SCALING[:G])
+        err, dq, _ = check_three_pass(
+            f"{label}, {fp.three_pass_body(ops[f32][2].shape[1])} body", ops,
+            *((SPARSE_FMIN, SPARSE_SCALING) if args is None
+              else (FMIN[:G], SCALING[:G])))
+        k1_3p_err = max(k1_3p_err, err)
         if label == "G=2 cap=512":
-            k1_3p_err, k1_3p_dq = err, dq
+            k1_3p_dq = dq
     k2_3p_err = 0.0
+    k2_3p_by_label = {}
     for label, n_obs, cap, variant in (
             ("1 GP cap=256 (250 obs)", n_k2, 256, None),
             ("Sum with Bias and Cosine leaves, cap=64", 50, 64, "extra"),
             ("the contextual kernel as nine leaves (wide plan), cap=256",
-             n_k2, 256, "nine")):
-        ops = {}
-        for dt in (f64, f32):
-            gp = context_gps(1, n_obs, cap, "cuda", dt, variant=variant)[0]
-            ops[dt] = fp.interval_plan_operands(gp.kern, gp.state,
-                                                grid64.to(dt), BETA)
+             n_k2, 256, "nine"),
+            ("context1024 (600 obs, contexts in [-1, 1])", 600, 1024, None),
+            ("context2048 (2000 obs, contexts in [-1, 1])", 2000, 2048,
+             None),
+            ("the contextual kernel as nine leaves (wide plan), cap=1024 "
+             "(600 obs)", 600, 1024, "nine")):
+        # phase 5's operands where it built the state
+        ops = {(600, 1024, None): k2_1024_ops, (2000, 2048, None): k2_2048_ops,
+               (600, 1024, "nine"): k2_nine_1024}.get((n_obs, cap, variant))
+        if ops is None:
+            ops = {}
+            for dt in (f64, f32):
+                gp = context_gps(1, n_obs, cap, "cuda", dt,
+                                 variant=variant)[0]
+                ops[dt] = fp.interval_plan_operands(gp.kern, gp.state,
+                                                    grid64.to(dt), BETA)
+        k2_3p_by_label[label] = ops
         err, dq, _ = check_three_pass(
-            label, ops, CTX_FMIN[:1],
+            f"{label}, {fp.three_pass_body(cap)} body", ops, CTX_FMIN[:1],
             [math.sqrt(float(ops[f64][7][1]))], what="plan")
         k2_3p_err = max(k2_3p_err, err)
-        if variant is None:
+        if label == "1 GP cap=256 (250 obs)":
             k2_3p_ops, k2_3p_dq = ops[f32], dq
+    # the body each float32 launch ran, by the launchers' rule
+    # (fused_posterior.three_pass_body: the resident body up to capacity
+    # 576, the tiled body past it)
+    bodies = [
+        ("K1-3p", fp.fused_intervals3, "cap 512",
+         k1_3p_ops["G=2 cap=512"][f32]),
+        ("K1-3p", fp.fused_intervals3, "cap 1024",
+         k1_3p_ops["G=1 cap=1024 (600 obs, gram not resident)"][f32]),
+        ("K1-3p", fp.fused_intervals3, "cap 2048", exact_ops[f32]),
+        ("K2-3p", fp.fused_intervals_plan3, "cap 256", k2_3p_ops),
+        ("K2-3p", fp.fused_intervals_plan3, "cap 1024", k2_1024_ops[f32]),
+        ("K2-3p", fp.fused_intervals_plan3, "cap 2048", k2_2048_ops[f32]),
+        ("K2-3p", fp.fused_intervals_plan3, "nine leaves, cap 1024",
+         k2_nine_1024[f32])]
+    ran = kernel_names([(launch, ops) for _, launch, _, ops in bodies])
+    for (key, launch, label, ops), names in zip(bodies, ran):
+        cap = ops[2].shape[1] if key == "K1-3p" else ops[1].shape[0]
+        want = THREE_PASS_BODY[key][fp.three_pass_body(cap)]
+        print(f"{key} body, {label}, float32: {names} (the rule: {want})",
+              flush=True)
+        check(len(names) == 1 and f"safeopt::{want}" in names[0],
+              f"{key} {label} ran {names}, not {want}")
+    # the float64 K1-3p keeps intervals.cuh's resident ThreePassProduct
+    # body at every capacity (a check of the bands, no route of the card's
+    # float32 path): its time once at capacities 512, 1024 and 2048
+    for label, ops in (("cap 512 (G=2, 400 obs)",
+                        k1_3p_ops["G=2 cap=512"][f64]),
+                       ("cap 1024 (600 obs)", k1_3p_ops[
+                           "G=1 cap=1024 (600 obs, gram not resident)"][f64]),
+                       ("cap 2048 (exact GP, 2000 obs)", exact_ops[f64])):
+        _, ms = timed_ms(lambda: fp.fused_intervals3(*ops))
+        print(f"K1-3p float64 {label} (resident ThreePassProduct body): "
+              f"{ms:.3f} ms, one launch", flush=True)
+    # the tiled body's time at the long campaigns' states, beside its
+    # bound and the factor's bytes it streams from L2 a launch
+    N, d = grid_np.shape
+    tiled_times = {}
+    for key, label, launch, plain, ops, n, leaves in (
+            ("K1-3p", "cap1024", fp.fused_intervals3,
+             fp.fused_intervals3_plain,
+             k1_3p_ops["G=1 cap=1024 (600 obs, gram not resident)"][f32],
+             600, None),
+            ("K1-3p", "cap2048", fp.fused_intervals3,
+             fp.fused_intervals3_plain, exact_ops[f32], 2000, None),
+            ("K2-3p", "context1024", fp.fused_intervals_plan3,
+             fp.fused_intervals_plan3_plain, k2_1024_ops[f32], 600,
+             plan_leaves(k2_1024_ops[f32][4], k2_1024_ops[f32][6])),
+            ("K2-3p", "context2048", fp.fused_intervals_plan3,
+             fp.fused_intervals_plan3_plain, k2_2048_ops[f32], 2000,
+             plan_leaves(k2_2048_ops[f32][4], k2_2048_ops[f32][6]))):
+        cap = ops[2].shape[1] if key == "K1-3p" else ops[1].shape[0]
+        body = fp.three_pass_body(cap)
+        b_ms, b_by = split_bound("bf16", N, d, cap, n, leaves=leaves)
+        k_ms = cuda_ms(lambda: launch(*ops), reps=3)
+        p_ms = cuda_ms(lambda: plain(*ops), reps=1, warmup=0)
+        l2 = three_pass_l2_bytes(N, n, body)
+        tiled_times[(key, label)] = (k_ms, p_ms, b_ms)
+        print(f"{key} {label} float32 ({body} body): kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), share of "
+              f"the bound {b_ms / k_ms:.1%}; the factor's limb chunks from "
+              f"L2 {l2 / 1e9:.2f} GB a launch ({l2 / k_ms / 1e9:.3f} TB/s)",
+              flush=True)
 
     # 12. the certified paths -------------------------------------------------
     cert_rng = np.random.default_rng(5)
@@ -4541,19 +4732,52 @@ def main():
             "contextual, 20 observations in [-0.5, 0.5]",
             functools.partial(contextual_cert, n_obs=20, spread=0.5),
             ctx_plant, [0.0] * 10, min_refined=10)}
-    for name, kern3, kern1, per_step in (
-            ("cap 512", "K1-3p", "K1", 1), ("contextual", "K2-3p", "K2", 2),
-            ("contextual, 20 obs", "K2-3p", "K2", 2)):
+    # the tiled K1-3p / K2-3p body on a certified path: three steps each
+    # of the exact GP at capacity 2048 and of context2048 (device oracle)
+
+    def exact2048(device, dtype, **kw):
+        return SafeOpt([sparse_exact_gp(device, dtype)], grid_np,
+                       fmin=SPARSE_FMIN, beta=BETA, scaling=SPARSE_SCALING,
+                       expander_chunk=32, **kw)
+
+    # its band holds about 3,800 rows at context 0, past the default
+    # triage budget (1,024), where the uncertified rows rest on their
+    # float32 error and two of the first step's safe bits differed from
+    # float64 on the card (ROADMAP Queue 3 entry 19): the budget covers
+    # the band here
+    def context2048(device, dtype, **kw):
+        return SafeOpt(context_gps(2, 2000, 2048, device, dtype,
+                                   spread_contexts=True), params_np,
+                       fmin=CTX_FMIN, beta=BETA, num_contexts=1,
+                       expander_chunk=32, boundary_k=LONG_CERT_TRIAGE,
+                       **kw)
+
+    certified["cap 2048"] = drive_certified(
+        "cap 2048 (exact GP, 2000 obs, tiled K1-3p)", exact2048,
+        lambda x, c: plant(cert_rng, x)[:, :1], [None] * LONG_CERT_STEPS,
+        iters=LONG_CERT_STEPS, oracles=("device",))
+    certified["context2048"] = drive_certified(
+        "context2048 (2000 obs over contexts in [-1, 1], tiled K2-3p)",
+        context2048, ctx_plant, [0.0] * LONG_CERT_STEPS,
+        iters=LONG_CERT_STEPS, oracles=("device",))
+    torch.cuda.empty_cache()    # the long campaigns' float64 twins' memory
+    for name, kern3, kern1, per_step, iters in (
+            ("cap 512", "K1-3p", "K1", 1, 10),
+            ("contextual", "K2-3p", "K2", 2, 10),
+            ("contextual, 20 obs", "K2-3p", "K2", 2, 10),
+            ("cap 2048", "K1-3p", "K1", 1, LONG_CERT_STEPS),
+            ("context2048", "K2-3p", "K2", 2, LONG_CERT_STEPS)):
         for oracle, (n, c_ms, p_ms, _, _) in certified[name].items():
-            check(n[kern3] == 10 * per_step and n[kern1] == 10 * per_step,
+            check(n[kern3] == iters * per_step
+                  and n[kern1] == iters * per_step,
                   f"{name} certified ({oracle}): {kern3} launched "
                   f"{n[kern3]} times and {kern1} {n[kern1]}, not "
-                  f"{10 * per_step} each")
+                  f"{iters * per_step} each")
             other = ("K2", "K2-3p") if kern1 == "K1" else ("K1", "K1-3p")
             check(n[other[0]] == n[other[1]] == 0,
                   f"{name} certified ({oracle}) launched {other}")
             print(f"{name} certified path ({oracle} oracle) times (CUDA "
-                  f"events, iterations 2-10): median optimize() "
+                  f"events, iterations 2-{iters}): median optimize() "
                   f"{float(np.median(c_ms[1:])):.3f} ms against the float32 "
                   f"plain twin's {float(np.median(p_ms[1:])):.3f} ms",
                   flush=True)
@@ -4655,35 +4879,33 @@ def main():
     # (past the resident gram: the tiled body); its host factorization
     # runs after the other kernels' timings, which a busy host would
     # lengthen. Held against its plain version in both dtypes, then timed.
-    exact = {dt: [sparse_exact_gp("cuda", dt)] for dt in (f64, f32)}
     k1_2048_err64, _ = check_k1_gps(
         "G=1 cap=2048 (exact GP, 2000 obs, tiled body)", exact, grid64,
         SPARSE_FMIN, SPARSE_SCALING, bounded=True)
-    ops2048 = {dt: fp.interval_operands([g.kern for g in gps],
-                                        [g.state for g in gps],
-                                        grid64.to(dt), BETA)
-               for dt, gps in exact.items()}
+    ops2048 = exact_ops
     time_kernel("K1 cap=2048 (exact GP, 2000 observations)",
                 lambda: fp.fused_intervals(*ops2048[f32]),
                 lambda: fp.fused_intervals_plain(*ops2048[f32]),
                 *interval_bound(f32, 1, N, d, 2048, 2000), reps=3)
     # the body each K1 launch ran, by the launcher's rule: the tiled one
     # past the resident rows (float32 past cap 512, float64 past 256)
-    for label, by_dtype in (("flagship cap 64", k1_3p_ops["G=2 cap=64"]),
-                            ("cap 512", k1_3p_ops["G=2 cap=512"]),
-                            ("cap 1024", k1_3p_ops[
-                                "G=1 cap=1024 (600 obs, gram not resident)"]),
-                            ("cap 2048", ops2048)):
-        for dt in (f32, f64):
-            ops = by_dtype[dt]
-            cap = ops[2].shape[1]
-            want = ("intervals_tiled_kernel" if cap > K1_RESIDENT_ROWS[dt]
-                    else "intervals_kernel")
-            names = kernel_names(fp.fused_intervals, ops)
-            print(f"K1 body, {label}, {str(dt)[6:]}: {names} (the rule: "
-                  f"{want})", flush=True)
-            check(len(names) == 1 and f"safeopt::{want}<" in names[0],
-                  f"K1 {label} {dt} ran {names}, not {want}")
+    bodies = [(label, dt, by_dtype[dt])
+              for label, by_dtype in (
+                  ("flagship cap 64", k1_3p_ops["G=2 cap=64"]),
+                  ("cap 512", k1_3p_ops["G=2 cap=512"]),
+                  ("cap 1024", k1_3p_ops[
+                      "G=1 cap=1024 (600 obs, gram not resident)"]),
+                  ("cap 2048", ops2048))
+              for dt in (f32, f64)]
+    ran = kernel_names([(fp.fused_intervals, ops) for _, _, ops in bodies])
+    for (label, dt, ops), names in zip(bodies, ran):
+        cap = ops[2].shape[1]
+        want = ("intervals_tiled_kernel" if cap > K1_RESIDENT_ROWS[dt]
+                else "intervals_kernel")
+        print(f"K1 body, {label}, {str(dt)[6:]}: {names} (the rule: "
+              f"{want})", flush=True)
+        check(len(names) == 1 and f"safeopt::{want}<" in names[0],
+              f"K1 {label} {dt} ran {names}, not {want}")
     # K2 past its resident rows: phase 5's context1024 and context2048
     # states, timed after the others, and the body each K2 launch ran by
     # the same rule (a plan past the static leaves: the wide instances)
@@ -4697,23 +4919,25 @@ def main():
                     *interval_bound(f32, 1, N, d, ops[1].shape[0],
                                     int(ops[7][3]),
                                     plan_leaves(ops[4], ops[6])), reps=reps)
-    for label, by_dtype in (("cap 256", k2_ops), ("cap 512", k2_512_ops),
-                            ("cap 1024", k2_1024_ops),
-                            ("cap 2048", k2_2048_ops),
-                            ("nine leaves, cap 256", k2_nine),
-                            ("nine leaves, cap 1024", k2_nine_1024)):
-        for dt in (f32, f64):
-            ops = by_dtype[dt]
-            cap = ops[1].shape[0]
-            wide = "wide_" if ops[5].shape[0] > fp.MAX_LEAVES else ""
-            want = (f"intervals_plan_{wide}tiled_kernel"
-                    if cap > K2_RESIDENT_ROWS[dt]
-                    else f"intervals_plan_{wide}kernel")
-            names = kernel_names(fp.fused_intervals_plan, ops)
-            print(f"K2 body, {label}, {str(dt)[6:]}: {names} (the rule: "
-                  f"{want})", flush=True)
-            check(len(names) == 1 and f"safeopt::{want}<" in names[0],
-                  f"K2 {label} {dt} ran {names}, not {want}")
+    bodies = [(label, dt, by_dtype[dt])
+              for label, by_dtype in (
+                  ("cap 256", k2_ops), ("cap 512", k2_512_ops),
+                  ("cap 1024", k2_1024_ops), ("cap 2048", k2_2048_ops),
+                  ("nine leaves, cap 256", k2_nine),
+                  ("nine leaves, cap 1024", k2_nine_1024))
+              for dt in (f32, f64)]
+    ran = kernel_names([(fp.fused_intervals_plan, ops)
+                        for _, _, ops in bodies])
+    for (label, dt, ops), names in zip(bodies, ran):
+        cap = ops[1].shape[0]
+        wide = "wide_" if ops[5].shape[0] > fp.MAX_LEAVES else ""
+        want = (f"intervals_plan_{wide}tiled_kernel"
+                if cap > K2_RESIDENT_ROWS[dt]
+                else f"intervals_plan_{wide}kernel")
+        print(f"K2 body, {label}, {str(dt)[6:]}: {names} (the rule: "
+              f"{want})", flush=True)
+        check(len(names) == 1 and f"safeopt::{want}<" in names[0],
+              f"K2 {label} {dt} ran {names}, not {want}")
     long_ctx, long_opt_ms, long_add_ms = drive_long_context(params_np)
 
     # K1, K3 and K1-3p count their main paths' launches: the flagship's
@@ -4744,12 +4968,14 @@ def main():
     }
     meta["K1-3p"] = ("K1-3p fused_intervals3", "fused_intervals3.cu",
                      "safeopt_tpu/ops/fused_posterior.py:513",
-                     sum(r[0]["K1-3p"] for r in certified["cap 512"].values())
+                     sum(r[0]["K1-3p"] for name in ("cap 512", "cap 2048")
+                         for r in certified[name].values())
                      + sparse_3p, k1_3p_err)
     meta["K2-3p"] = ("K2-3p fused_intervals_plan3", "fused_intervals3.cu",
                      "safeopt_tpu/ops/fused_posterior.py:313",
                      sum(r[0]["K2-3p"] for name in ("contextual",
-                                                    "contextual, 20 obs")
+                                                    "contextual, 20 obs",
+                                                    "context2048")
                          for r in certified[name].values()),
                      k2_3p_err)
     kernels = []
@@ -4780,6 +5006,15 @@ def main():
     kernels[2]["cap2048_path_optimize_ms"] = long_opt_ms
     kernels[4]["max_scaled_err_f32_vs_f64"] = k1_3p_dq
     kernels[5]["max_scaled_err_f32_vs_f64"] = k2_3p_dq
+    # past the resident rows: the tiled body at the long campaigns' states
+    for (key, label), (k_ms, p_ms, b_ms) in tiled_times.items():
+        entry = kernels[4 if key == "K1-3p" else 5]
+        entry[f"{label}_ms"], entry[f"{label}_plain_ms"], \
+            entry[f"{label}_bound_ms"] = k_ms, p_ms, b_ms
+    kernels[4]["cap2048_path_launches"] = sum(
+        r[0]["K1-3p"] for r in certified["cap 2048"].values())
+    kernels[5]["context2048_path_launches"] = sum(
+        r[0]["K2-3p"] for r in certified["context2048"].values())
 
     o32 = exp_ops[f32]
     n512 = int(o32[5][0, 3])
@@ -4926,6 +5161,8 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--export-to":
         sys.exit(export_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile-to":
+        sys.exit(profile_main(sys.argv[2]))
     if len(sys.argv) == 6 and sys.argv[1] == "--shard-to":
         sys.exit(shard_main(int(sys.argv[3]), int(sys.argv[4]),
                             int(sys.argv[5]), sys.argv[2]))

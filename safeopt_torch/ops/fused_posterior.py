@@ -37,9 +37,11 @@ K1 and K2 with the TPU kernels' ``three_pass=True`` product
 (``_tri_matmul``): ``V = Lm_hi k_hi + Lm_hi k_lo + Lm_lo k_hi`` over bf16
 limbs (``split_limbs``), the certified path's interval pass. In float32
 they run on Hopper's warpgroup tensor-core product
-(``csrc/fused_intervals3.cu``, ``intervals3.cuh``), the factor's limbs cut
-once per call here and laid out in the order the kernel reads them
-(``factor_chunks``); in float64 they are the ``ThreePassProduct``
+(``csrc/fused_intervals3.cu``: the resident body ``intervals3.cuh`` up to
+capacity ``RESIDENT3_CAP``, the tiled body ``intervals3_tiled.cuh`` past
+it, ``three_pass_body``), the factor's limbs cut once per call here and
+laid out in the order the kernels read them (``factor_chunks``); in
+float64 they are the ``ThreePassProduct``
 instances of K1's and K2's sources, a check. Their plain versions
 (``fused_intervals3_plain``, ``fused_intervals_plan3_plain``) cut the
 limbs as the kernels do: from float32 operands with ``lo`` rounded to
@@ -95,6 +97,7 @@ __all__ = ["KINDS", "LEAF_KINDS", "kind_of", "supports_kernel",
            "interval_plan_operands", "fused_intervals_plan",
            "fused_intervals_plan_plain", "fused_intervals_plan3",
            "fused_intervals_plan3_plain", "fused_intervals_single",
+           "three_pass_body",
            "on_device", "scalar", "scalar_rows"]
 
 # kernel family -> kind code of the CUDA kernels (csrc/common.cuh); K1/K3
@@ -116,6 +119,21 @@ PLAIN_COLS = 1 << 16
 # kKC3): row tiles of 64, chunks of 32 columns.
 TILE_ROWS = 64
 CHUNK_COLS = 32
+# The largest capacity whose gram rows the float32 K1-3p/K2-3p resident
+# body keeps in shared memory in full (csrc/intervals3_tiled.cuh
+# kResidentCap3); past it their launchers take the tiled body.
+RESIDENT3_CAP = 576
+
+
+def three_pass_body(cap: int) -> str:
+    """The block body the float32 K1-3p and K2-3p launchers take at
+    capacity ``cap`` (``csrc/fused_intervals3.cu``, by the capacity
+    alone: the count lives on the device): ``"resident"``
+    (``intervals3.cuh``) while the capacity rounded up to ``TILE_ROWS``
+    is at most ``RESIDENT3_CAP``, ``"tiled"`` (``intervals3_tiled.cuh``)
+    past it."""
+    pad = -(-cap // TILE_ROWS) * TILE_ROWS
+    return "tiled" if pad > RESIDENT3_CAP else "resident"
 
 
 def supports_kernel(kernel, d: int) -> bool:

@@ -30,7 +30,11 @@ its wgmma kernel: it gives its own automatic layout's bits at every
 launch layout and lies within the split bound of K1-3p's plain version.
 The float32 K1-3p and K2-3p (``csrc/fused_intervals3.cu``) give the same
 bits on every launch, take grids of any length and capacities past the
-resident gram, and their SASS holds HGMMA. K1-K4's ``torch.library``
+resident gram, and their SASS holds HGMMA; past capacity 576 they run the
+tiled body (``fused_posterior.three_pass_body``, checked by kernel name),
+held at capacities 640 to 2048, counts that are no multiple of a row
+tile, a small count at a large capacity, unequal counts in one launch and
+the wide plan. K1-K4's ``torch.library``
 operators give their launchers' bits and count their launches, and a
 step exported and loaded on the card gives the live step's bits,
 launching K1 once and K3 once a walk round.
@@ -875,6 +879,100 @@ def test_three_pass_kernels_run_on_wgmma(cuda):
     counts = {k: v for k, v in sass_opcodes("HGMMA").items()
               if "wg_kernel" in k}
     assert len(counts) == 6 and min(counts.values()) > 0, counts
+
+
+# -- K1-3p and K2-3p past the resident gram: the tiled body ------------------
+
+# capacities past the resident body's 576 rows, counts that are no
+# multiple of a 64-row tile, a small count at a large capacity and unequal
+# counts in one launch
+TILED_THREE_PASS_CASES = [((600,), 640), ((700,), 1024), ((1000, 333), 1024),
+                          ((2000,), 2048), ((40,), 2048), ((50, 1500), 2048)]
+
+
+@pytest.mark.parametrize("counts,cap", TILED_THREE_PASS_CASES)
+def test_tiled_three_pass_kernel_matches_plain(cuda, counts, cap):
+    """The float32 K1-3p past capacity 576 runs the tiled body and lies
+    within the split bound of its plain version, the same bits twice."""
+    from safeopt_torch.ops import interval_experiments as ie
+    assert fp.three_pass_body(cap) == "tiled"
+    ops = _experiment_ops(counts, cap, cuda, torch.float32)
+    before = fp.fused_intervals3.launches
+    got = fp.fused_intervals3(*ops)
+    torch.cuda.synchronize()
+    assert fp.fused_intervals3.launches == before + 1
+    _within(got, fp.fused_intervals3_plain(*ops),
+            ie.float32_bound(*ops, "split", limb="bf16"))
+    assert torch.equal(got, fp.fused_intervals3(*ops))
+
+
+@pytest.mark.parametrize("N", [1, 127, 129, 128 * 37 + 13])
+def test_tiled_three_pass_kernels_take_a_grid_of_any_length(cuda, N):
+    """Grids shorter than, and not a multiple of, the tiled body's 128
+    points an item: every row is written and within the split bound."""
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops((700,), 1024, cuda, torch.float32)
+    ops = (ops[0][:, :N].contiguous(),) + ops[1:]
+    _within(fp.fused_intervals3(*ops), fp.fused_intervals3_plain(*ops),
+            ie.float32_bound(*ops, "split", limb="bf16"))
+    gp, grid = _algebra_gp("context", 1024, cuda, torch.float32, n_obs=600)
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid[:N], 2.0)
+    _within(fp.fused_intervals_plan3(*ops),
+            fp.fused_intervals_plan3_plain(*ops), ie.float32_bound_plan(*ops))
+
+
+@pytest.mark.parametrize("name,n_obs,cap", [
+    ("context", 600, 640), ("context", 1500, 2048), ("sum_bias", 97, 1024),
+    ("cosine", 700, 1024), ("nine", 600, 1024)])
+def test_tiled_plan_three_pass_kernel_matches_plain(cuda, name, n_obs, cap):
+    """The float32 K2-3p past capacity 576, its wide plan (nine leaves)
+    included: within ``float32_bound_plan`` of the plain version, the same
+    bits twice."""
+    from safeopt_torch.ops import interval_experiments as ie
+    gp, grid = _algebra_gp(name, cap, cuda, torch.float32, n_obs=n_obs)
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid, 2.0)
+    before = fp.fused_intervals_plan3.launches
+    got = fp.fused_intervals_plan3(*ops)
+    torch.cuda.synchronize()
+    assert fp.fused_intervals_plan3.launches == before + 1
+    _within(got, fp.fused_intervals_plan3_plain(*ops),
+            ie.float32_bound_plan(*ops))
+    assert torch.equal(got, fp.fused_intervals_plan3(*ops))
+
+
+# the launchers' rule (fused_posterior.three_pass_body): the resident body
+# up to capacity 576, the tiled body past it; a plan past the static
+# leaves (nine) takes the wide instance of each
+@pytest.mark.parametrize("cap,body", [(512, "intervals3_wg_kernel"),
+                                      (576, "intervals3_wg_kernel"),
+                                      (640, "intervals3_tiled_kernel"),
+                                      (2048, "intervals3_tiled_kernel")])
+def test_three_pass_body_by_capacity(cuda, cap, body):
+    ops = _experiment_ops((300,), cap, cuda, torch.float32)
+    names = _kernel_names(lambda: fp.fused_intervals3(*ops))
+    assert len(names) == 1 and f"safeopt::{body}" in names[0], names
+
+
+@pytest.mark.parametrize("cap,name,body", [
+    (512, "context", "intervals_plan3_wg_kernel<3, false>"),
+    (1024, "context", "intervals_plan3_tiled_kernel<false>"),
+    (512, "nine", "intervals_plan3_wg_kernel<3, true>"),
+    (1024, "nine", "intervals_plan3_tiled_kernel<true>")])
+def test_plan_three_pass_body_by_capacity(cuda, cap, name, body):
+    gp, grid = _algebra_gp(name, cap, cuda, torch.float32, n_obs=200)
+    ops = fp.interval_plan_operands(gp.kern, gp.state, grid, 2.0)
+    names = _kernel_names(lambda: fp.fused_intervals_plan3(*ops))
+    assert len(names) == 1 and f"safeopt::{body}" in names[0], names
+
+
+def test_tiled_three_pass_kernels_run_on_wgmma(cuda):
+    """The tiled K1-3p and K2-3p instances (K2-3p's static and wide
+    plans) hold Hopper's warpgroup product in their SASS."""
+    from safeopt_torch.ops._build import sass_opcodes
+    counts = {k: v for k, v in sass_opcodes("HGMMA").items()
+              if "intervals3_tiled_kernel" in k
+              or "intervals_plan3_tiled_kernel" in k}
+    assert len(counts) == 3 and min(counts.values()) > 0, counts
 
 
 # -- past the static plan's leaves and the kernels' columns; the certified

@@ -36,13 +36,13 @@ from safeopt_tpu.ops import fused_expander as jfe
 from safeopt_tpu.ops import fused_posterior as jfp
 
 
-def _models(family, n_gps, cap, seed, d=2):
+def _models(family, n_gps, cap, seed, d=2, n_obs=11):
     rng = np.random.default_rng(seed)
-    X = rng.uniform(-2.0, 2.0, size=(11, d))
+    X = rng.uniform(-2.0, 2.0, size=(n_obs, d))
     jgps = []
     for g in range(n_gps):
         Y = (1.0 - 0.2 * g + np.cos(X.sum(axis=1))
-             + 0.05 * rng.normal(size=11))[:, None]
+             + 0.05 * rng.normal(size=n_obs))[:, None]
         kern = getattr(jt, family)(d, variance=1.0 + 0.5 * g,
                                    lengthscale=[0.8 + 0.3 * g, 1.3][:d],
                                    ARD=True)
@@ -250,10 +250,11 @@ def _algebra(name):
             + jt.Exponential(2, variance=0.3, lengthscale=2.0))
 
 
-def _algebra_model(name, cap, seed):
+def _algebra_model(name, cap, seed, n_obs=23):
     rng = np.random.default_rng(seed)
-    X = rng.uniform(-2.0, 2.0, size=(23, 2))
-    Y = (1.0 + np.cos(X.sum(axis=1)) + 0.05 * rng.normal(size=23))[:, None]
+    X = rng.uniform(-2.0, 2.0, size=(n_obs, 2))
+    Y = (1.0 + np.cos(X.sum(axis=1))
+         + 0.05 * rng.normal(size=n_obs))[:, None]
     jgp = jt.GPRegression(X, Y, _algebra(name), noise_var=0.01,
                           capacity=cap)
     pgp = gp_from_arrays(kernel_from_params(**kernel_params(jgp.kern)),
@@ -557,12 +558,23 @@ def test_grid_past_the_column_limit_decides_on_the_cpu():
 
 # -- K1-3p / K2-3p: the three-pass plain versions -----------------------------
 
-@pytest.mark.parametrize("family,n_gps,cap", CASES)
+# capacities past the float32 K1-3p/K2-3p resident body's rows on the card
+# (``fused_posterior.three_pass_body``: the tiled body) and their
+# observations; a few hundred grid points there
+PAST_RESIDENT = {640: 600, 1024: 700}
+THREE_PASS_CASES = CASES + [("RBF", 1, 640), ("Matern52", 1, 1024)]
+
+
+@pytest.mark.parametrize("family,n_gps,cap", THREE_PASS_CASES)
 def test_three_pass_plain_matches_pallas(family, n_gps, cap):
     """float64, lo unrounded: the three-pass plain version is the JAX
     package's ``_fused_intervals_multi_impl(three_pass=True)`` (interpret
-    mode) up to summation order."""
-    jgps, pgps, grid = _models(family, n_gps, cap, seed=3 * cap + n_gps)
+    mode) up to summation order, also at capacities past the card's
+    resident rows."""
+    jgps, pgps, grid = _models(family, n_gps, cap, seed=3 * cap + n_gps,
+                               n_obs=PAST_RESIDENT.get(cap, 11))
+    if cap in PAST_RESIDENT:
+        grid = grid[:300]
     jout = jfp.fused_intervals_batched(
         tuple(g.kern for g in jgps), tuple(g.state for g in jgps),
         jnp.asarray(grid), 2.0, block=256, three_pass=True)
@@ -582,10 +594,14 @@ def test_three_pass_plain_matches_pallas(family, n_gps, cap):
                                    rtol=0, atol=1e-10)
 
 
-@pytest.mark.parametrize("name,cap", ALGEBRAS)
+@pytest.mark.parametrize("name,cap", ALGEBRAS + [("context", 640),
+                                                ("sum_bias", 1024)])
 def test_plan_three_pass_plain_matches_pallas(name, cap):
     """As above for K2-3p: ``_fused_intervals_impl(three_pass=True)``."""
-    jgp, pgp, grid = _algebra_model(name, cap, seed=2 * cap)
+    jgp, pgp, grid = _algebra_model(name, cap, seed=2 * cap,
+                                    n_obs=PAST_RESIDENT.get(cap, 23))
+    if cap in PAST_RESIDENT:
+        grid = grid[:300]
     l, u = jfp.fused_intervals(jgp.kern, jgp.state, jnp.asarray(grid), 2.0,
                                block=256, three_pass=True)
     before = pfp.fused_intervals_plan3.launches

@@ -32,8 +32,10 @@ mma.sync body, which their ``wgmma`` kernels of ``fused_intervals3.cu``
 replace) are printed beside the new instances' lines instead. The lines
 of the kernels in ``NEW`` (those ``wgmma`` kernels, K1's tiled body,
 ``intervals_tiled_kernel``, and K2's on it, ``intervals_plan_tiled_kernel``
-and ``intervals_plan_wide_tiled_kernel``) are printed, and one that
-spills exits 1 too.
+and ``intervals_plan_wide_tiled_kernel``, and the float32 K1-3p/K2-3p
+tiled body, ``intervals3_tiled_kernel`` and
+``intervals_plan3_tiled_kernel``) are printed, and one that spills exits
+1 too.
 """
 
 import argparse
@@ -47,12 +49,13 @@ PARENT = ROOT / "build" / "compare" / "parent"
 # The float32 three-pass instances of intervals.cuh's body that the wgmma
 # kernels replace (parent names), and the names of the kernels that are
 # new since the port's first bodies: the wgmma kernels, K1's tiled body
-# and K2's instances of it.
+# and K2's instances of it, and the three-pass tiled body.
 REDESIGNED = ("intervals3_kernelIfE", "intervals_plan3_kernelIfE",
               "intervals_plan_wide_kernelIfNS_16ThreePassProduct")
 NEW = ("intervals3_wg_kernel", "intervals_plan3_wg_kernel",
        "intervals_tiled_kernel", "intervals_plan_tiled_kernel",
-       "intervals_plan_wide_tiled_kernel")
+       "intervals_plan_wide_tiled_kernel", "intervals3_tiled_kernel",
+       "intervals_plan3_tiled_kernel")
 sys.path.insert(0, str(ROOT))
 
 

@@ -58,8 +58,12 @@ For each it measures:
   bound counts (``chip_smoke.expander_macs``), and beside K1 one FP32
   ``torch.matmul`` of an (n, n) by an (n, 65536) matrix with TF32 off:
   the rate the card's FP32 pipe reaches on the product's shapes, a
-  ceiling for K1's product share (the port never calls it); K1-3p and
-  K2-3p at the certified path's capacities (up to 512) only;
+  ceiling for K1's product share (the port never calls it); beside K1-3p
+  (K2-3p) the block body its capacity takes
+  (``fused_posterior.three_pass_body``) and the bytes of the factor's
+  limb chunks a launch streams from L2
+  (``chip_smoke.three_pass_l2_bytes``); past capacity 512 the plain
+  versions are timed over 3 calls;
 - ``stages``: one ``safeopt_step`` on the starting state split into
   intervals, classify, expander walk and select + pack + diag pull;
   host-clock ms with a device sync after each stage, median of ``--reps``;
@@ -94,7 +98,7 @@ from chip_smoke import (BETA, CTX_FMIN, FMIN, SCALING,  # noqa: E402
                         context_gps, context_truth, core_state, cuda_ms,
                         expander_bound, expander_macs, fleet_flagship_states,
                         interval_bound, plan_leaves, plant, sparse_exact_gp,
-                        split_bound, timed_ms)
+                        split_bound, three_pass_l2_bytes, timed_ms)
 
 
 # name -> (capacity, observations, seed, spread of the observations)
@@ -205,9 +209,8 @@ def kernel_times(opt, chunk, reps):
                        interval_bound(f32, G, N, d, cap, n)),
                 "K3": (fe.fused_expander, fe.fused_expander_plain, ex,
                        expander_bound(f32, G, N, U, d, cap, n, C))}
-        if cap <= 512:      # the certified path's capacities
-            runs["K1-3p"] = (fp.fused_intervals3, fp.fused_intervals3_plain,
-                             iv, split_bound("bf16", N, d, cap, n, G=G))
+        runs["K1-3p"] = (fp.fused_intervals3, fp.fused_intervals3_plain,
+                         iv, split_bound("bf16", N, d, cap, n, G=G))
     else:
         iv = fp.interval_plan_operands(kernels[0], states[0], grid, BETA)
         ex = fe.expander_plan_operands(kernels[0], states[0], grid, ~S,
@@ -218,14 +221,24 @@ def kernel_times(opt, chunk, reps):
                        iv, interval_bound(f32, 1, N, d, cap, n, leaves)),
                 "K4": (fe.fused_expander_plan, fe.fused_expander_plan_plain,
                        ex, expander_bound(f32, 1, N, U, d, cap, n, C, leaves))}
-        if cap <= 512:      # the certified path's capacities
-            runs["K2-3p"] = (fp.fused_intervals_plan3,
-                             fp.fused_intervals_plan3_plain, iv,
-                             split_bound("bf16", N, d, cap, n, leaves=leaves))
+        runs["K2-3p"] = (fp.fused_intervals_plan3,
+                         fp.fused_intervals_plan3_plain, iv,
+                         split_bound("bf16", N, d, cap, n, leaves=leaves))
+    # the plain versions past the certified path's first capacities take
+    # seconds a call
+    plain_reps = reps if cap <= 512 else 3
     out = {key: {"kernel_ms": cuda_ms(lambda: kern(*ops), reps=reps),
-                 "plain_ms": cuda_ms(lambda: plain(*ops), reps=reps),
+                 "plain_ms": cuda_ms(lambda: plain(*ops), reps=plain_reps),
                  "bound_ms": b[0], "bound_by": b[1]}
            for key, (kern, plain, ops, b) in runs.items()}
+    # the three-pass body the capacity takes (a tree from before the tiled
+    # body has the resident one only) and the factor's bytes a launch
+    body = (fp.three_pass_body(cap) if hasattr(fp, "three_pass_body")
+            else "resident")
+    three = "K1-3p" if "K1-3p" in out else "K2-3p"
+    out[three]["body"] = body
+    out[three]["l2_bytes"] = three_pass_l2_bytes(
+        N, n, body, G=len(kernels) if three == "K1-3p" else 1)
     interval = "K1" if "K1" in out else "K2"
     out[interval]["macs_per_point"] = {"executed": band_macs(n),
                                        "counted": n * (n + 1) // 2}

@@ -23,6 +23,20 @@ one process. Prints the card's ``nvidia-smi`` line and one JSON object
 per run: the median CUDA-event ms of ``optimize()`` over iterations 2
 on, and the steps that refined within the budget; writes all to
 ``--out``.
+
+``--compare`` names long-campaign states (``COMPARE``: ``measure.py``'s
+``cap1024``, ``cap2048`` and ``context2048``, float32, stepped at
+context 0) on which the certified step (device oracle, the default
+budget) and the plain step run in turns, certified, plain, plain,
+certified, each a fresh run of ``--iters`` iterations; beside them, on
+each state's first factor, the float32 K1 (K2 for a plan GP) over the
+whole grid, K1-3p (K2-3p) over it and K1 (K2) over the budget's rows
+(``REFINE_BAND_SHARE`` of N, the grid's first rows), CUDA-event ms, and
+the break-even share (K1 - K1-3p) / K1: the budget at which a refined
+certified step costs what the plain step's interval pass does. The
+float32 ``'auto'`` path is the plain one (``interval_precision='auto'``);
+these runs read whether certification could be the default at a
+capacity on this card.
 """
 
 import argparse
@@ -38,8 +52,12 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (BETA, CTX_FMIN, FMIN, SCALING,  # noqa: E402
-                        context_gps, context_truth, plant, timed_ms)
-from tools_torch.states import build_gps  # noqa: E402
+                        SPARSE_FMIN, SPARSE_SCALING, context_gps,
+                        context_truth, plant, timed_ms)
+from tools_torch.states import (build_gps, cuda_ms,  # noqa: E402
+                                sparse_exact_gp)
+
+COMPARE = ("cap1024", "cap2048", "context2048")
 
 
 def states():
@@ -67,6 +85,67 @@ def states():
             "contextual": (contextual, [0.0, 0.1], params.shape[0])}
 
 
+def compare_states():
+    """{name: (make(certified), contexts, G)} of ``COMPARE``: the
+    certified step (device oracle, default budget) or the plain one."""
+    from safeopt_torch import SafeOpt, linearly_spaced_combinations
+
+    grid = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
+    params = linearly_spaced_combinations([(-3.0, 3.0)], 1_000_000)
+    f32 = torch.float32
+
+    def kw(certified):
+        return (dict(exact_boundaries=True, interval_precision="high",
+                     oracle="device", expander_chunk=32) if certified
+                else dict(expander_chunk=32))
+
+    def cap1024(certified):
+        gps = build_gps(np.random.default_rng(1024), 600, 1024, "cuda", f32,
+                        spread=4.0)[:1]
+        return SafeOpt(gps, grid, fmin=FMIN[:1], beta=BETA,
+                       scaling=SCALING[:1], **kw(certified))
+
+    def cap2048(certified):
+        return SafeOpt(sparse_exact_gp("cuda", f32), grid, fmin=SPARSE_FMIN,
+                       beta=BETA, scaling=SPARSE_SCALING, **kw(certified))
+
+    def context2048(certified):
+        return SafeOpt(context_gps(2, 2000, 2048, "cuda", f32,
+                                   spread_contexts=True), params,
+                       fmin=CTX_FMIN, beta=BETA, num_contexts=1,
+                       **kw(certified))
+
+    return {"cap1024": (cap1024, None, 1), "cap2048": (cap2048, None, 1),
+            "context2048": (context2048, [0.0, 0.0], 2)}
+
+
+def pass_times(opt, reps=5):
+    """CUDA-event ms of the float32 grid passes on ``opt``'s first GP
+    group: the full-float32 kernel over the grid, the three-pass kernel
+    over it and the full-float32 kernel over the budget's rows (the
+    grid's first ``refine_band_k`` rows), and the break-even share."""
+    from safeopt_torch.algorithms.safe_opt import REFINE_BAND_SHARE
+    from safeopt_torch.ops import fused_posterior as fp
+
+    kernels, states = opt._model_args()
+    grid = opt._grid()
+    rows = grid[:int(grid.shape[0] * REFINE_BAND_SHARE)]
+    if fp.supports_kernel(kernels[0], grid.shape[1]):
+        def full(g, three=False):
+            return fp.fused_intervals_batched(kernels, states, g, BETA,
+                                              three_pass=three)
+    else:
+        def full(g, three=False):
+            return fp.fused_intervals_single(kernels[0], states[0], g, BETA,
+                                             three_pass=three)
+    k1 = cuda_ms(lambda: full(grid), reps=reps)
+    k3p = cuda_ms(lambda: full(grid, True), reps=reps)
+    budget = cuda_ms(lambda: full(rows), reps=reps)
+    return {"full_ms": k1, "three_pass_ms": k3p, "budget_rows": rows.shape[0],
+            "budget_ms": budget, "break_even_share": (k1 - k3p) / k1,
+            "refine_band_share": REFINE_BAND_SHARE}
+
+
 def run(make, contexts, budget, iters, seed):
     """One fresh run at refine budget ``budget``: (median ms from
     iteration 2, refined steps, band rows per step)."""
@@ -81,7 +160,7 @@ def run(make, contexts, budget, iters, seed):
         refined += not opt.stats.last.refine_full_pass
         pops.append(int(opt._refine_band_population))
         if c is None:
-            y = plant(rng, x)
+            y = plant(rng, x)[:, :len(opt.gps)]
         else:
             y = context_truth([[float(x[0]), c]]) + 0.05 * rng.normal(
                 size=(1, 2))
@@ -95,6 +174,10 @@ def main():
     parser.add_argument("--shares", type=float, nargs="+",
                         default=[0.1, 0.2, 0.55])
     parser.add_argument("--iters", type=int, default=10)
+    parser.add_argument("--states", nargs="*",
+                        default=["cap512", "contextual"],
+                        choices=["cap512", "contextual"])
+    parser.add_argument("--compare", nargs="*", default=[], choices=COMPARE)
     parser.add_argument("--out", default="chiprun_out/certified.json")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -106,6 +189,8 @@ def main():
     print(f"nvidia-smi: {smi}", flush=True)
     results = []
     for name, (make, contexts, n_rows) in states().items():
+        if name not in args.states:
+            continue
         for share in args.shares + args.shares[::-1]:
             med, refined, pops = run(make, contexts, int(share * n_rows),
                                      args.iters, 5)
@@ -113,9 +198,26 @@ def main():
                  "refined_steps": refined, "band_rows": pops}
             print(json.dumps(r), flush=True)
             results.append(r)
+    compared = []
+    for name, (make, contexts, G) in compare_states().items():
+        if name not in args.compare:
+            continue
+        r = {"state": name, "gps": G, "passes": pass_times(make(True)),
+             "certified_ms": [], "plain_ms": [], "refined_steps": [],
+             "band_rows": []}
+        for certified in (True, False, False, True):
+            med, refined, pops = run(lambda k, c=certified: make(c),
+                                     contexts, None, args.iters, 5)
+            r["certified_ms" if certified else "plain_ms"].append(med)
+            if certified:
+                r["refined_steps"].append(refined)
+                r["band_rows"].append(pops)
+        print(json.dumps(r), flush=True)
+        compared.append(r)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"nvidia_smi": smi,
-                                          "runs": results}, indent=1))
+                                          "runs": results,
+                                          "compare": compared}, indent=1))
     return 0
 
 
