@@ -14,7 +14,10 @@ Phases, each reported on its own line:
    kernel and checks that the SASS of the float32 K1-3p and K2-3p
    (``csrc/fused_intervals3.cu``: K1-3p and K2-3p's static and wide
    plans, each with three consumer warpgroups a block and with one)
-   holds HGMMA, Hopper's warpgroup tensor-core product;
+   and of the experiment kernels on their bodies
+   (``csrc/interval_experiments3.cu``: B1-3p and B4, each limb format
+   and cut, resident with one and three warpgroups, tiled) holds HGMMA,
+   Hopper's warpgroup tensor-core product;
 3. K1 (fused intervals) against its plain PyTorch version at G=2, d=2,
    N=1e6, capacity 64 (the flagship) and 512 (400 observations), one
    launch of two GPs at capacity 512 whose counts differ (20 and 300),
@@ -61,27 +64,36 @@ Phases, each reported on its own line:
    its tiled body, to B1's automatic layout, within 1e-9 of K1); B2/B5 (ablations) and B3 (mu from the
    gram) to 1e-9 in float64 and in float32 within ``float32_bound``, the
    worst case of their float32 arithmetic, against the plain version in
-   float64 on the same operands; B4 (the split-limb tensor-core product,
-   bf16 and tf32 limbs) within ``float32_bound`` of its plain version,
-   the same bits with Lm's limbs split in the kernel or passed
-   pre-split, and its scaled error against the float64 plain rows
-   printed beside K1's; beside each float32 bound its median and the
+   float64 on the same operands; B4 (the split-limb product on K1-3p's
+   wgmma bodies, bf16 and tf32 limbs) in all four variants, also at
+   ``measure.py``'s ``cap1024`` and ``cap2048`` (G=1, the tiled body):
+   the limbs cut in the kernel and hoisted give the same bits (in bf16
+   hoisted K1-3p's for the GP alone), within ``float32_bound`` of its
+   plain version, both planted faults past it, the body each variant
+   ran by kernel name, and its scaled error against the float64 plain
+   rows printed beside K1's; beside each float32 bound its median and the
    rows' median |.|, and how far past it the rows of a kernel that drops
-   each GP's first (which must be past the bound) or last 32 active
-   rows land (``drop_band``); the harnesses' three-pass columns, which
-   keep the mma.sync body K1-3p ran before its wgmma kernel: B1-3p
-   bit-identical at every launch layout to itself at its automatic
-   layout (0, 0, -1) in float64 and float32, and B1-3p (K1-3p's plain
-   version), B2-3p (the rank-1 solve) and B3-3p (mu from the gram) to
-   1e-9 in float64 and in float32 within their float32 bound of the
-   plain version on the same operands, both planted faults past it,
-   and the max scaled |dQ| against the float64 rows (B1-3p's and
-   B3-3p's below ``refine_band - boundary_band``; B2-3p's rank-1 rows
-   are no SafeOpt intervals, and theirs is printed beside the plain
-   version's own); then the experiment path,
+   each GP's first or last 32 active rows land (``drop_band``: B4's
+   both, the others' first, past the bound); the harnesses' three-pass columns: B1-3p
+   (K1-3p's own bodies at the caller's layout: float32 on its wgmma
+   bodies, ``tools_torch/states.py`` ``LAYOUTS3``; float64 on
+   ThreePassProduct, ``LAYOUTS``) bit-identical to K1-3p at every layout
+   that keeps K1-3p's summation order, within the split bound of its
+   plain version at the layouts with another count of consumer
+   warpgroups (both planted faults past it), the body each float32
+   layout ran by kernel name; B1-3p at its automatic layout (K1-3p's
+   plain version), B2-3p (the rank-1 solve, mma.sync) and B3-3p (mu
+   from the gram, mma.sync) to 1e-9 in float64 and in float32 within
+   their float32 bound of the plain version on the same operands, both
+   planted faults past it, and the max scaled |dQ| against the float64
+   rows (B1-3p's and B3-3p's below ``refine_band - boundary_band``;
+   B2-3p's rank-1 rows are no SafeOpt intervals, and theirs is printed
+   beside the plain version's own); then the experiment path,
    ``tools_torch/bench_interval_experiments.py``'s five harnesses on the
-   cap-512 state in float32 (B1-B3 with their ``3pass`` columns), with
-   every count zeroed before it and read after it;
+   cap-512 state in float32 (B1-B3 with their ``3pass`` columns; B4 also
+   at ``cap1024`` and ``cap2048``), with every count zeroed before it
+   and read after it, and B1-3p's time at its automatic layout beside
+   K1-3p's, B4's beside K1's;
 9. the flagship path: two RBF GPs, 1000 x 1000 grid, 50 observations,
    capacity 64, chunk 32, through ``SafeOpt.optimize`` and
    ``add_new_data_point`` for 10 iterations against a NumPy plant, with
@@ -361,9 +373,11 @@ import time
 import numpy as np
 import torch
 
-from tools_torch.states import (BETA, LAYOUTS, build_gps, cap512_operands,
-                                 cuda_ms, first_gp, fit_data, fit_kernel,
-                                 one_gp, sparse_data, sparse_exact_gp,
+from tools_torch.states import (BETA, LAYOUTS, LAYOUTS3, b1_3p_groups,
+                                 build_gps, cap512_operands, cuda_ms,
+                                 first_gp, fit_data, fit_kernel,
+                                 long_operands, one_gp, sparse_data,
+                                 sparse_exact_gp,
                                  sparse_gp, swarm_data, swarm_gps,
                                  swarm_plant, swarm_problem)
 
@@ -1165,12 +1179,163 @@ def fault_readings(plain, ops, what, bound_):
              / bound_).max().item() for first in (True, False)]
 
 
+def check_launch3(label, ops64, ops32):
+    """B1-3p at every launch layout of ``LAYOUTS`` (float64: the float64
+    K1-3p's ThreePassProduct body) and ``LAYOUTS3`` (float32: K1-3p's
+    wgmma bodies): K1-3p's bits (``fused_intervals3``) at every layout
+    that keeps its order, and at the layouts with another count of
+    consumer warpgroups within ``float32_bound(..., "split", "bf16")`` of
+    K1-3p's plain version, both planted faults past that bound; the body
+    each float32 layout ran, by kernel name. A layout of these lists that
+    raises fails."""
+    from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.ops import interval_experiments as ie
+
+    f32, f64 = torch.float32, torch.float64
+    cap = ops64[2].shape[1]
+    layouts = {f64: [dict(slices=s, res=r, carveout=c)
+                     for s, r, c in LAYOUTS[cap][f64]],
+               f32: [dict(groups=g, stages=st, res=r, carveout=c)
+                     for g, st, r, c in LAYOUTS3[cap]]}
+    bound_ = ie.float32_bound(*ops32, "split", limb="bf16")
+    faults = fault_readings(fp.fused_intervals3_plain, ops32, "split",
+                            bound_)
+    plain32 = fp.fused_intervals3_plain(*ops32).double()
+    kept, other = 0, []
+    for ops in (ops64, ops32):
+        dt = ops[0].dtype
+        k13 = fp.fused_intervals3(*ops)
+        for kw in layouts[dt]:
+            where = f"B1-3p {label} {dt} {kw}"
+            try:
+                got = ie.intervals_launch(*ops, three_pass=True, **kw)
+            except RuntimeError as err:
+                fail(f"{where} raised: {err}")
+            if kw.get("groups", 0) in (0, b1_3p_groups(cap)):
+                check(torch.equal(got, k13), f"{where} differs from K1-3p")
+                kept += 1
+            else:
+                share = ((got.double() - plain32).abs() / bound_).max().item()
+                other.append(share)
+                check(share <= 1.0, f"{where}: past the float32 bound")
+    torch.cuda.synchronize()
+    check(min(faults) > 1.0, f"B1-3p {label}: a dropped band stays within "
+                             f"the float32 bound {faults}")
+    print(f"B1-3p {label}: K1-3p's bits at {kept} layouts that keep its "
+          f"order ({len(layouts[f64])} float64, "
+          f"{len(layouts[f32]) - len(other)} float32); {len(other)} float32 "
+          f"layouts with another count of consumer warpgroups at most "
+          f"{max(other, default=0.0):.3f} of the float32 bound (limit 1), "
+          f"the first / last 32 active rows dropped {faults[0]:.4g} / "
+          f"{faults[1]:.4g} of it (limit: past 1)", flush=True)
+    # the body each float32 layout ran
+    ran = kernel_names([(functools.partial(ie.intervals_launch,
+                                           three_pass=True, **kw), ops32)
+                        for kw in layouts[f32]])
+    want = ("safeopt::tiled3_kernel<" if fp.three_pass_body(cap) == "tiled"
+            else "safeopt::wg3_kernel<")
+    for kw, names in zip(layouts[f32], ran):
+        check(len(names) == 1 and want in names[0]
+              and "Limbs3<false, false>" in names[0],
+              f"B1-3p {label} {kw} ran {names}, not {want}bf16 limbs")
+    print(f"B1-3p {label}: every float32 layout ran {want}Limbs3<false, "
+          f"false>, ...>", flush=True)
+
+
+def check_split(label, ops64, ops32, scaling):
+    """B4 in both limb formats on each GP of K1's operands ``ops32``
+    (float32; ``ops64`` the same state in float64): the limbs cut in the
+    kernel and hoisted give the same bits, in bf16 hoisted K1-3p's for the
+    GP alone; the rows within ``float32_bound(..., "split", limb)`` of
+    ``intervals_split_plain``, both planted faults past it; the scaled
+    error against the float64 rows beside K1's float32 one; the body
+    each variant ran, by kernel name. Returns {kernels-line name: max abs
+    error against the plain version}, and {"B4 bf16", "B4 tf32", "K1":
+    max scaled |dQ| against the float64 rows}."""
+    from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.ops import interval_experiments as ie
+
+    errs, dqs = {}, {}
+    ref = fp.fused_intervals_plain(*ops64)
+    scale = torch.tensor(scaling, dtype=torch.float64, device="cuda")
+    k1_dq = ((fp.fused_intervals(*ops32).double() - ref).abs()
+             / scale[:, None, None]).max().item()
+    cap = ops32[2].shape[1]
+    body = fp.three_pass_body(cap)
+    for limb in ie.LIMBS:
+        err, ratio, dq, lo_fault = 0.0, 0.0, 0.0, 0.0
+        first, last, lims, rows = math.inf, math.inf, [], []
+        for g in range(ops32[2].shape[0]):
+            one = one_gp(ops32, g)
+            limbs = ie.split_factor(one[3], limb)
+            got = ie.intervals_split(*one, limb=limb)
+            hoisted = ie.intervals_split(*one, limb=limb, limbs=limbs)
+            check(torch.equal(got, hoisted),
+                  f"B4 {limb} {label}: in-kernel and hoisted limbs differ")
+            if limb == "bf16":
+                alone = tuple(t[g:g + 1] if i in (1, 2, 3, 4, 5) else t
+                              for i, t in enumerate(ops32))
+                check(torch.equal(hoisted, fp.fused_intervals3(*alone)[0]),
+                      f"B4 bf16 {label} GP {g}: hoisted, not K1-3p's bits")
+            plain = functools.partial(ie.intervals_split_plain, limb=limb)
+            want = plain(*one)
+            lim = ie.float32_bound(*one, "split", limb=limb)
+            lims.append(lim)
+            rows.append(want.double().abs())
+            diff = (got.double() - want.double()).abs()
+            err = max(err, diff.max().item())
+            ratio = max(ratio, (diff / lim).max().item())
+            dq = max(dq, (got.double() - ref[g]).abs().max().item()
+                     / scaling[g])
+            readings = fault_readings(plain, one, "split", lim)
+            first, last = min(first, readings[0]), min(last, readings[1])
+            unrounded = plain(*one, round_lo=False)
+            lo_fault = max(lo_fault, ((unrounded.double() - want.double())
+                                      .abs() / lim).max().item())
+        torch.cuda.synchronize()
+        print(f"B4 {limb} {label} ({body} body): in-kernel == hoisted "
+              f"bitwise{' == K1-3p' if limb == 'bf16' else ''}; max abs "
+              f"err against its plain version={err:.3e}, at most "
+              f"{ratio:.3f} of float32_bound (limit 1); the bound's median "
+              f"{torch.cat(lims).median().item():.3e} against the rows' "
+              f"median |.| {torch.cat(rows).median().item():.3e}; max "
+              f"scaled |dQ| against float64 {dq:.3e} (K1 float32: "
+              f"{k1_dq:.3e}); per "
+              f"GP the first 32-row band dropped reads at least {first:.3g} "
+              f"x the bound (must be past 1), the last {last:.3g} x, lo "
+              f"left unrounded at most {lo_fault:.3g} x", flush=True)
+        check(ratio <= 1.0, f"B4 {limb} {label} error past its bound")
+        check(min(first, last) > 1.0, f"B4 {limb} {label}: float32_bound "
+                                      "hides a dropped band")
+        errs[f"B4 {limb}"] = err
+        dqs[f"B4 {limb}"] = dq
+    dqs["K1"] = k1_dq
+    # the body each variant ran
+    one = one_gp(ops32)
+    calls = [(functools.partial(ie.intervals_split, limb=limb, limbs=h), one)
+             for limb in ie.LIMBS
+             for h in (None, ie.split_factor(one[3], limb))]
+    ran = kernel_names(calls)
+    name = "tiled3_kernel" if body == "tiled" else "wg3_kernel"
+    for (call, _), names in zip(calls, ran):
+        tf32 = str(call.keywords["limb"] == "tf32").lower()
+        cut = str(call.keywords["limbs"] is None).lower()
+        want = f"Limbs3<{tf32}, {cut}>"
+        check(len(names) == 1 and f"safeopt::{name}<" in names[0]
+              and want in names[0],
+              f"B4 {label} {call.keywords['limb']} ran {names}, not "
+              f"{name}<{want}>")
+    print(f"B4 {label}: the four variants ran {name}<Limbs3<tf32, cut>> "
+          f"by their limbs", flush=True)
+    return errs, dqs
+
+
 def check_experiments(label, ops64, ops32):
     """B1-B5 and B1-3p-B3-3p against their plain versions on K1's
     operands of one state in float64 and float32, and how each float32
     bound compares with the rows and with a planted fault. Returns
     {kernels-line name: max abs error} (float64; B4's float32 against its
-    plain version)."""
+    plain version) and B4's and K1's max scaled |dQ| (``check_split``)."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
@@ -1197,27 +1362,7 @@ def check_experiments(label, ops64, ops32):
                   f"carveout={carveout} differs from {ref}")
     print(f"B1 {label}: K1's bits at every launch layout, float64 and "
           f"float32", flush=True)
-    # every layout of LAYOUTS fits the card (B1 ran them all, with the
-    # same shared memory): a raise here is B1-3p's own and fails. B1-3p
-    # keeps the mma.sync body that K1-3p ran before its wgmma redesign,
-    # whose sums run in another order: its bits at every layout are its
-    # own at the automatic layout, and its rows are held against the
-    # plain version below
-    for ops in (ops64, ops32):
-        auto = ie.intervals_launch(*ops, three_pass=True)
-        for slices, res, carveout in LAYOUTS[cap][ops[0].dtype]:
-            where = (f"B1-3p {label} {ops[0].dtype} slices={slices} "
-                     f"res={res} carveout={carveout}")
-            try:
-                got = ie.intervals_launch(*ops, slices=slices, res=res,
-                                          carveout=carveout, three_pass=True)
-            except RuntimeError as err:
-                fail(f"{where} raised: {err}")
-            check(torch.equal(got, auto),
-                  f"{where} differs from B1-3p at the automatic layout")
-    print(f"B1-3p {label}: its automatic layout's bits at every launch "
-          f"layout ({len(LAYOUTS[cap][f32])} float32, "
-          f"{len(LAYOUTS[cap][f64])} float64)", flush=True)
+    check_launch3(label, ops64, ops32)
     # B5 takes GP 0 alone, as its harness does (GP 1's prior variance, 1,
     # is all of sum V^2 at the grid's edge under ``epilogue``: sqrt would
     # magnify a last-bit difference there)
@@ -1253,54 +1398,14 @@ def check_experiments(label, ops64, ops32):
         check(first > 1.0, f"{name} {label}: float32_bound hides a dropped "
                            "band")
         errs[name] = err64
-    ref = fp.fused_intervals_plain(*ops64)
-    scale = torch.tensor(SCALING, dtype=torch.float64, device="cuda")
-    k1_dq = ((fp.fused_intervals(*ops32).double() - ref).abs()
-             / scale[:, None, None]).max().item()
-    for limb in ie.LIMBS:
-        err, ratio, dq, lo_fault = 0.0, 0.0, 0.0, 0.0
-        first, last, lims, rows = math.inf, math.inf, [], []
-        for g in range(ops32[2].shape[0]):
-            one = one_gp(ops32, g)
-            got = ie.intervals_split(*one, limb=limb)
-            check(torch.equal(got, ie.intervals_split(
-                *one, limb=limb, limbs=ie.split_factor(one[3], limb))),
-                  f"B4 {limb} {label}: in-kernel and hoisted limbs differ")
-            plain = functools.partial(ie.intervals_split_plain, limb=limb)
-            want = plain(*one)
-            lim = ie.float32_bound(*one, "split", limb=limb)
-            lims.append(lim)
-            rows.append(want.double().abs())
-            diff = (got.double() - want.double()).abs()
-            err = max(err, diff.max().item())
-            ratio = max(ratio, (diff / lim).max().item())
-            dq = max(dq, (got.double() - ref[g]).abs().max().item()
-                     / SCALING[g])
-            readings = fault_readings(plain, one, "split", lim)
-            first, last = min(first, readings[0]), min(last, readings[1])
-            unrounded = plain(*one, round_lo=False)
-            lo_fault = max(lo_fault, ((unrounded.double() - want.double())
-                                      .abs() / lim).max().item())
-        print(f"B4 {limb} {label}: in-kernel == hoisted bitwise; max abs "
-              f"err against its plain version={err:.3e}, at most "
-              f"{ratio:.3f} of float32_bound (limit 1); the bound's median "
-              f"{torch.cat(lims).median().item():.3e} against the rows' "
-              f"median |.| {torch.cat(rows).median().item():.3e}; max "
-              f"scaled |dQ| against float64 {dq:.3e} (K1 float32: "
-              f"{k1_dq:.3e}); per "
-              f"GP the first 32-row band dropped reads at least {first:.3g} "
-              f"x the bound (must be past 1), the last {last:.3g} x, lo "
-              f"left unrounded at most {lo_fault:.3g} x", flush=True)
-        check(ratio <= 1.0, f"B4 {limb} {label} error past its bound")
-        check(first > 1.0, f"B4 {limb} {label}: float32_bound hides a "
-                           "dropped band")
-        errs[f"B4 {limb}"] = err
+    split_errs, dqs = check_split(label, ops64, ops32, SCALING)
+    errs.update(split_errs)
     for name, what in (("B1-3p", "launch"),
                        ("B2-3p solve_rank1", "solve_rank1"),
                        ("B3-3p", "mu_from_gram")):
         errs[name] = check_three_pass(label, {f64: ops64, f32: ops32}, FMIN,
                                       SCALING, what=what)[0]
-    return errs
+    return errs, dqs
 
 
 def drive(opt, ref, label, plant_fn, contexts, scaling, get_max):
@@ -4396,12 +4501,22 @@ def main():
     # body's static and wide plans for K2-3p, three consumer warpgroups a
     # block and one, and the tiled body's three instances) run on
     # Hopper's warpgroup product: their SASS holds HGMMA
-    hgmma = {k: v for k, v in sass_opcodes("HGMMA").items()
+    sass = sass_opcodes("HGMMA")
+    hgmma = {k: v for k, v in sass.items()
              if any(name in k for name in THREE_PASS_KERNELS)}
     for name, count in sorted(hgmma.items()):
         print(f"  sass: {name}: {count} HGMMA", flush=True)
     check(len(hgmma) == 9 and min(hgmma.values()) > 0,
           f"the wgmma instances of K1-3p/K2-3p hold no HGMMA: {hgmma}")
+    # B1-3p's and B4's: four limb policies (bf16 or tf32, cut by the
+    # wrapper or in the kernel) on the resident body with one and three
+    # consumer warpgroups and on the tiled body
+    hgmma3 = {k: v for k, v in sass.items()
+              if "wg3_kernel" in k or "tiled3_kernel" in k}
+    for name, count in sorted(hgmma3.items()):
+        print(f"  sass: {name}: {count} HGMMA", flush=True)
+    check(len(hgmma3) == 12 and min(hgmma3.values()) > 0,
+          f"the wgmma instances of B1-3p/B4 hold no HGMMA: {hgmma3}")
 
     grid_np = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
     grid64 = torch.tensor(grid_np, dtype=torch.float64, device="cuda")
@@ -4488,16 +4603,27 @@ def main():
 
     f32, f64 = torch.float32, torch.float64
     exp_ops = {dt: cap512_operands(dt, grid_np) for dt in (f64, f32)}
-    exp_errs = check_experiments("G=2 cap=512 (400 obs)", exp_ops[f64],
-                                 exp_ops[f32])
+    exp_errs, b4_dq = check_experiments("G=2 cap=512 (400 obs)",
+                                        exp_ops[f64], exp_ops[f32])
+    b4_dq = {"cap512": b4_dq}
     flag_ops = [fp.interval_operands(
         [g.kern for g in gps], [g.state for g in gps], grid64.to(dt), BETA)
         for dt in (f64, f32)
         for gps in [build_gps(np.random.default_rng(0), 50, 64, "cuda", dt)]]
-    for name, err in check_experiments("G=2 cap=64", *flag_ops).items():
+    for name, err in check_experiments("G=2 cap=64", *flag_ops)[0].items():
         exp_errs[name] = max(exp_errs[name], err)
+    # B4 through the tiled body: measure.py's long-campaign states
+    long_ops = {name: {dt: long_operands(name, dt, grid_np)
+                       for dt in (f64, f32)}
+                for name in ("cap1024", "cap2048")}
+    for name, ops in long_ops.items():
+        errs, b4_dq[name] = check_split(f"{name} (G=1)", ops[f64], ops[f32],
+                                        SPARSE_SCALING)
+        for key, err in errs.items():
+            exp_errs[key] = max(exp_errs[key], err)
     zero_launches()
-    exp_results = bx.run(exp_ops[f32], EXPERIMENT_REPS)
+    exp_results = bx.run(exp_ops[f32], EXPERIMENT_REPS,
+                         {name: ops[f32] for name, ops in long_ops.items()})
     torch.cuda.synchronize()
     exp_launches = experiment_launches()
     check(all(n > 0 for n in exp_launches.values()),
@@ -4506,14 +4632,32 @@ def main():
     check(all(v["bitexact"] for v in exp_results["B1"]["variants"])
           and all(v for k, v in exp_results["B1"].items()
                   if k.endswith("_bitexact"))
-          and all(exp_results["B4"][limb]["hoisted_bitexact"]
-                  for limb in ie.LIMBS),
+          and all(res[limb]["hoisted_bitexact"] for limb in ie.LIMBS
+                  for res in (exp_results["B4"], *(
+                      exp_results["B4"][name] for name in long_ops))),
           "the experiment path lost K1's bits (B1), K1-3p's (B1-3p) or "
           "B4's limb pair")
-    print(f"experiment path (the five harnesses, cap 512, float32, "
-          f"{EXPERIMENT_REPS} reps): launches {exp_launches}", flush=True)
+    print(f"experiment path (the five harnesses, cap 512, float32, and B4 "
+          f"at {', '.join(long_ops)}; {EXPERIMENT_REPS} reps): launches "
+          f"{exp_launches}", flush=True)
     for name, res in exp_results.items():
         print(f"  {name}: {json.dumps(res)}", flush=True)
+    b1 = exp_results["B1"]
+    print(f"B1-3p float32 at its automatic layout: "
+          f"{b1[f'3pass_wgmma_{bx.layout_tag(0, 0, 0, -1)}_ms']:.4f} ms "
+          f"against K1-3p {b1['K1-3p_ms']:.4f} / {b1['K1-3p_ms_after']:.4f} "
+          f"ms before / after it ({b1['3pass_auto_vs_K1-3p']:.4f} x) on "
+          f"{smi}", flush=True)
+    for name in ("cap512", *long_ops):
+        res = exp_results["B4"] if name == "cap512" else exp_results["B4"][
+            name]
+        print(f"B4 {name} on {smi}: " + "; ".join(
+            f"{limb} in-kernel {res[limb]['inkernel_ms']:.4f} ms, hoisted "
+            f"{res[limb]['hoisted_ms']:.4f} ms, max scaled |dQ| against "
+            f"float64 {b4_dq[name][f'B4 {limb}']:.3e}" for limb in ie.LIMBS)
+            + f"; K1 (float32 FMAs) {res['K1_ms']:.4f} ms, max scaled |dQ| "
+            f"{b4_dq[name]['K1']:.3e}; tf32 / K1 {res['tf32_vs_K1']:.4f}",
+            flush=True)
 
     # 9. the flagship path ----------------------------------------------------
     def flagship(device, dtype):
@@ -5047,7 +5191,7 @@ def main():
         "B5 epilogue": (res["B5"]["epilogue_ms"],
                         *ablation(first, "epilogue")),
         "B1-3p": (res["B1"][
-                      f"3pass_mma_sync_{bx.layout_tag(0, 0, -1)}_ms"],
+                      f"3pass_wgmma_{bx.layout_tag(0, 0, 0, -1)}_ms"],
                   lambda: fp.fused_intervals3_plain(*o32),
                   split_bound("bf16", N, d, 512, n512, G=2)),
         "B2-3p solve_rank1": (res["B2"]["3pass_solve_only_ms"],
@@ -5083,6 +5227,8 @@ def main():
               f"of the bound {b_ms / k_ms:.1%}", flush=True)
         wrapper, tpu = b_meta[name]
         key, _, mode = name.partition(" ")
+        src = ("interval_experiments3.cu" if key in ("B1-3p", "B4")
+               else "interval_experiments.cu")
         if key in ("B2", "B5") and mode in ("solve_rank1", "epilogue"):
             ops = o32 if mode == "solve_rank1" else first
             t_ms, t_by = ablation_bound(mode, f32, ops[2].shape[0], N, d,
@@ -5092,10 +5238,39 @@ def main():
                   f"{t_ms / k_ms:.1%} of it", flush=True)
         kernels.append({
             "name": f"{key} {wrapper} {mode}".strip(), "route": "cuda",
-            "source": "safeopt_torch/ops/csrc/interval_experiments.cu",
+            "source": f"safeopt_torch/ops/csrc/{src}",
             "replaces": f"benchmarks/{tpu}", "launches": exp_launches[name],
             "max_abs_err": exp_errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        if key == "B4":
+            # the hoisted limbs, the scaled error against float64 beside
+            # K1's, and the tiled body at the long-campaign states
+            entry, limb = kernels[-1], mode
+            entry.update(hoisted_ms=res["B4"][limb]["hoisted_ms"],
+                         max_scaled_err_f32_vs_f64=b4_dq["cap512"][name],
+                         K1_max_scaled_err_f32_vs_f64=b4_dq["cap512"]["K1"])
+            for state, ops in long_ops.items():
+                n_long = int(ops[f32][5][0, 3])
+                cap_long = ops[f32][2].shape[1]
+                lb_ms, _ = split_bound(limb, N, d, cap_long, n_long)
+                r = res["B4"][state]
+                entry.update({
+                    f"{state}_ms": r[limb]["inkernel_ms"],
+                    f"{state}_hoisted_ms": r[limb]["hoisted_ms"],
+                    f"{state}_bound_ms": lb_ms,
+                    f"{state}_plain_ms": cuda_ms(
+                        lambda: ie.intervals_split_plain(
+                            *one_gp(ops[f32]), limb=limb), reps=1, warmup=0),
+                    f"{state}_K1_ms": r["K1_ms"],
+                    f"{state}_max_scaled_err_f32_vs_f64": b4_dq[state][name],
+                    f"{state}_K1_max_scaled_err_f32_vs_f64":
+                        b4_dq[state]["K1"]})
+                print(f"  {name} {state} (tiled body): kernel "
+                      f"{r[limb]['inkernel_ms']:.4f} ms (hoisted "
+                      f"{r[limb]['hoisted_ms']:.4f}), bound {lb_ms:.4f} ms, "
+                      f"share of the bound "
+                      f"{lb_ms / r[limb]['inkernel_ms']:.1%}; K1 "
+                      f"{r['K1_ms']:.4f} ms", flush=True)
     print(f"new paths on {smi} (CUDA events unless noted): mixed-route "
           f"optimize() median {float(np.median(mixed_ms[1:])):.3f} ms, "
           f"eager share {mixed_eager_ms / float(np.median(mixed_ms[1:])):.1%}"

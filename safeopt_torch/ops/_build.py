@@ -55,8 +55,9 @@ _SIGNATURES = {
     "safeopt_interval_ablation_f64": [_P] * 7 + [_I] * 7 + [_P],
     "safeopt_intervals_mu_from_gram_f32": [_P] * 7 + [_I] * 6 + [_P],
     "safeopt_intervals_mu_from_gram_f64": [_P] * 7 + [_I] * 6 + [_P],
-    "safeopt_intervals_split_bf16": [_P] * 8 + [_I] * 5 + [_P],
-    "safeopt_intervals_split_tf32": [_P] * 8 + [_I] * 5 + [_P],
+    "safeopt_intervals3_launch_f32": [_P] * 7 + [_I] * 9 + [_P],
+    "safeopt_intervals_split_bf16": [_P] * 7 + [_I] * 5 + [_P],
+    "safeopt_intervals_split_tf32": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

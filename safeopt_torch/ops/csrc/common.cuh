@@ -39,6 +39,23 @@ constexpr size_t kSmemPerBlock = 227 * 1024;
 
 constexpr int kThreads = 256;       // threads per block
 
+// A kernel's shared-memory carveout: a percentage, or (-1) the value it
+// had before any call set it, read once into *initial (-2 until then;
+// one per kernel). The attribute outlives the launch, so the experiment
+// launchers that take a carveout set it on every launch.
+template <class Kernel>
+inline int set_carveout(Kernel kernel, int carveout, int* initial) {
+  if (*initial == -2) {
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    *initial = attr.preferredShmemCarveout;
+  }
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      carveout < 0 ? *initial : carveout);
+}
+
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
 __device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }

@@ -41,19 +41,6 @@
 
 namespace safeopt {
 
-// The count of GP g's scal row, clamped to [0, cap].
-__device__ __forceinline__ int active_rows(const float* scal, int cap) {
-  const int count = (int)scal[3];
-  return count < 0 ? 0 : (count < cap ? count : cap);
-}
-
-// Blocks of C consumer warpgroups a multiprocessor holds: one of kGroups3
-// (its shared memory is the multiprocessor's), several of one.
-template <int C>
-constexpr int min_blocks3() {
-  return C == 1 ? 3 : 1;
-}
-
 // items = G x nbx work items of 64 points, GP-major; C consumer
 // warpgroups.
 template <int C>
@@ -165,42 +152,6 @@ __global__ void __launch_bounds__(kThreads3t, 1)
   };
   interval3_tiled_rows(zt, N, d, cap, stages, (N + kP3t - 1) / kP3t, item,
                        smem3);
-}
-
-// The body of the float32 K1-3p/K2-3p at capacity cap: the tiled one
-// past the resident body's capacity.
-inline bool three_pass_tiled(int cap) {
-  return (cap + kTM3 - 1) / kTM3 * kTM3 > kResidentCap3;
-}
-
-// Blocks of a persistent launch of `items` work items: as many as fit
-// the card at once (bytes of dynamic shared memory each), fewer for a
-// short launch.
-template <class Kernel>
-int persistent_blocks(Kernel kernel, int threads, size_t bytes, int items) {
-  int dev = 0, sms = 132, per_sm = 1;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                bytes);
-  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return items < blocks ? (items > 0 ? items : 1) : blocks;
-}
-
-// Dynamic shared memory a launch of kernel may take beside its static
-// shared memory (the static plan of K2-3p), less `extra` bytes.
-template <class Kernel>
-size_t dynamic_smem(Kernel kernel, size_t extra) {
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return 0;
-  const size_t taken = attr.sharedSizeBytes + extra;
-  return taken < kSmemPerBlock ? kSmemPerBlock - taken : 0;
-}
-
-template <class Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // K1-3p with C consumer warpgroups a block

@@ -66,6 +66,13 @@
 // a quarter of the time: computed between the products (by the
 // consumer warpgroups, or by a warpgroup of its own) it took issue slots
 // the tensor cores wait on, and the kernel was slower.
+//
+// The experiment kernels of interval_experiments3.cu run the same body at
+// other layouts (B1-3p: consumer warpgroups, ring stages, resident rows)
+// and in other limb formats (B4, Limbs3: tf32 limbs, m64n64k8 over
+// chunks of 16 columns, and limbs cut in the kernel from float32 chunks);
+// K1-3p and K2-3p take the defaults, bf16 limbs cut by the wrapper and
+// kStages3.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -101,46 +108,72 @@ static_assert(kKC3 % 16 == 0 && kTM3 % kKC3 == 0, "k16 steps in a chunk");
 constexpr int kBarConsumers3 = 1;
 constexpr int kBarGroup3 = 2;
 
-// Byte offsets of the block's dynamic shared memory: the rings, the
-// resident gram limbs (res rows), the warpgroups' gram chunks past them,
-// the points (d x 64), the warps' partial sums per point and the rings'
-// full and empty barriers.
-template <int C>
+// The limb format of the three-pass product (Tf32 false: bf16, K1-3p's
+// and K2-3p's; true: tf32, the experiment B4's) and where the factor's
+// limbs are cut (Cut false: by the wrapper, the chunks land as limbs;
+// true: in the kernel, each chunk lands as float32 and its warpgroup
+// cuts it in place, cut_chunk). A 16-byte core-matrix row holds kCoreK
+// values of a limb; a wgmma k-step (kK: k16 bf16, k8 tf32) takes two
+// core matrices along k, 32 bytes of each operand row, and a factor
+// chunk (kKC columns) two k-steps, so that a chunk's limbs take
+// kChunkBytes3 and a gram row's kSize bytes per limb in either format.
+template <bool Tf32, bool Cut>
+struct Limbs3 {
+  static constexpr bool kTf32 = Tf32, kCut = Cut;
+  static constexpr int kCoreK = Tf32 ? 4 : 8;
+  static constexpr int kK = 2 * kCoreK;
+  static constexpr int kKC = 4 * kCoreK;
+  static constexpr int kSize = 16 / kCoreK;   // bytes of a limb value
+  // bytes a chunk lands in: its limbs, or its float32 values
+  static constexpr int kLanded = Cut ? kTM3 * kKC * 4 : kChunkBytes3;
+};
+using Bf16Limbs3 = Limbs3<false, false>;
+static_assert(Bf16Limbs3::kKC == kKC3, "K1-3p's chunks");
+
+// Byte offsets of the block's dynamic shared memory: the rings (stages
+// chunks each), the resident gram limbs (res rows), the warpgroups' gram
+// chunks past them, the points (d x 64), the warps' partial sums per
+// point and the rings' full and empty barriers.
+template <int C, class L = Bf16Limbs3>
 struct Iv3Layout {
   int res;
   size_t ring, ghi, glo, scratch, zs, red, bars, bytes;
 
-  __host__ __device__ Iv3Layout(int cap, int d, int res_) : res(res_) {
+  __host__ __device__ Iv3Layout(int cap, int d, int res_,
+                                int stages = kStages3)
+      : res(res_) {
     const int cap_pad = (cap + kTM3 - 1) / kTM3 * kTM3;
     size_t o = 0;
     ring = o;
-    o += (size_t)C * kStages3 * kChunkBytes3;
+    o += (size_t)C * stages * kChunkBytes3;
     ghi = o;
-    o += (size_t)res * kP3 * 2;
+    o += (size_t)res * kP3 * L::kSize;
     glo = o;
-    o += (size_t)res * kP3 * 2;
+    o += (size_t)res * kP3 * L::kSize;
     scratch = o;
-    if (res < cap_pad) o += (size_t)C * kKC3 * kP3 * 4;
+    if (res < cap_pad) o += (size_t)C * L::kKC * kP3 * 2 * L::kSize;
     zs = o;
     o += sizeof(float) * (size_t)d * kP3;
     red = o;
     o += sizeof(float) * 2 * 4 * C * kP3;
     bars = o;
-    o += sizeof(uint64_t) * 2 * C * kStages3;
+    o += sizeof(uint64_t) * 2 * C * stages;
     bytes = o;
   }
 };
 
 // The layout of a launch with avail bytes of dynamic shared memory: the
-// most resident rows, a multiple of kKC3, that fit.
-template <int C>
-inline Iv3Layout<C> interval3_layout(int cap, int d, size_t avail) {
+// most resident rows, a multiple of the chunk's columns, that fit.
+template <int C, class L = Bf16Limbs3>
+inline Iv3Layout<C, L> interval3_layout(int cap, int d, size_t avail,
+                                        int stages = kStages3) {
   const int cap_pad = (cap + kTM3 - 1) / kTM3 * kTM3;
-  for (int res = cap_pad; res > 0; res -= kKC3) {
-    const Iv3Layout<C> lay(cap, d, res);
+  for (int res = cap_pad; res > 0; res -= L::kKC) {
+    const Iv3Layout<C, L> lay(cap, d, res, stages);
     if (lay.bytes <= avail) return lay;
   }
-  return Iv3Layout<C>(cap, d, 0);  // too large for the card: the launch fails
+  // too large for the card: the launch fails
+  return Iv3Layout<C, L>(cap, d, 0, stages);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -246,14 +279,99 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[32], uint64_t a,
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
 }
+// The same product in tf32 (m64n64k8, A 64 x 8 and B 8 x 64, both k
+// contiguous: wgmma takes tf32 operands in that layout only)
+__device__ __forceinline__ void wgmma_64x64_tf32(float (&d)[32], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+// one k-step of the limb format L
+template <class L>
+__device__ __forceinline__ void wg_mma(float (&d)[32], uint64_t a,
+                                       uint64_t b) {
+  if constexpr (L::kTf32)
+    wgmma_64x64_tf32(d, a, b);
+  else
+    wgmma_64x64(d, a, b);
+}
+
+// split_pack_bf16 (limbs.cuh) with both values of a limb cut by one
+// packed conversion: the same bits (round to nearest even), half the
+// conversions, which share the multiprocessor's 16-a-cycle pipe with the
+// gram's exponentials
+__device__ __forceinline__ void split_pack_bf16x2(float x0, float x1,
+                                                  uint32_t& hi,
+                                                  uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The limbs of the four values of a tf32 core-matrix row (limbs.cuh
+// split_tf32), one 16-byte vector each
+__device__ __forceinline__ void split_tf32x4(const float (&v)[4], uint4& hi,
+                                             uint4& lo) {
+  split_tf32(v[0], hi.x, lo.x);
+  split_tf32(v[1], hi.y, lo.y);
+  split_tf32(v[2], hi.z, lo.z);
+  split_tf32(v[3], hi.w, lo.w);
+}
+
+// A factor chunk landed as float32 (L::kCut), cut to its limbs in place
+// by thread t of its warpgroup's 128. The wrapper lays the float32 chunk
+// out so that each 16-byte core-matrix row of the limbs is cut from the
+// values at its own bytes (factor_landing in ops/interval_experiments.py):
+// in bf16 a row's 8 values lie as 4 at the hi row's bytes and 4 at the lo
+// row's (kLimbBytes3 on), in tf32 a row's 4 values at the hi row's. No
+// thread reads bytes another writes; the caller fences and synchronizes
+// the warpgroup before the products read the stage.
+template <class L>
+__device__ __forceinline__ void cut_chunk(unsigned char* stage, int t) {
+  constexpr int kRows = kTM3 * L::kKC / L::kCoreK;   // core rows a limb
+#pragma unroll
+  for (int q = t; q < kRows; q += 128) {
+    uint4* hi = reinterpret_cast<uint4*>(stage + 16 * q);
+    uint4* lo = reinterpret_cast<uint4*>(stage + kLimbBytes3 + 16 * q);
+    uint4 h4, l4;
+    if constexpr (L::kTf32) {
+      const float4 a = *reinterpret_cast<const float4*>(hi);
+      split_tf32x4({a.x, a.y, a.z, a.w}, h4, l4);
+    } else {
+      const float4 a = *reinterpret_cast<const float4*>(hi);
+      const float4 b = *reinterpret_cast<const float4*>(lo);
+      split_pack_bf16x2(a.x, a.y, h4.x, l4.x);
+      split_pack_bf16x2(a.z, a.w, h4.y, l4.y);
+      split_pack_bf16x2(b.x, b.y, h4.z, l4.z);
+      split_pack_bf16x2(b.z, b.w, h4.w, l4.w);
+    }
+    *hi = h4;
+    *lo = l4;
+  }
+}
 
 // Gram limbs for the block's 64 points: task t = 64 j + p of [t0, t1) is
-// point p's rows 8 (g0 + j) .. 8 (g0 + j) + 7, cut to limbs and stored as
-// one 16-byte vector per limb at hi/lo + j kGroupBytes3 + (p / 8) 128 +
-// (p % 8) 16 (the core-matrix order, k contiguous). Rows at or past n
-// are zeros. Tasks are spread over the threads tid = 0 .. threads - 1. D
-// as fill_gram's (intervals.cuh).
-template <int D, class Gram>
+// point p's rows kCoreK (g0 + j) .. kCoreK (g0 + j + 1) - 1 (8 in bf16, 4
+// in tf32), cut to limbs and stored as one 16-byte vector per limb at
+// hi/lo + j kGroupBytes3 + (p / 8) 128 + (p % 8) 16 (the core-matrix
+// order, k contiguous). Rows at or past n are zeros. Tasks are spread
+// over the threads tid = 0 .. threads - 1. D as fill_gram's
+// (intervals.cuh).
+template <int D, class L, class Gram>
 __device__ __forceinline__ void fill_gram3(unsigned char* hi, unsigned char* lo,
                                            const float* __restrict__ xs,
                                            const float* zs, int g0, int t0,
@@ -263,10 +381,10 @@ __device__ __forceinline__ void fill_gram3(unsigned char* hi, unsigned char* lo,
   const int dd = D > 0 ? D : d;
   for (int t = t0 + tid; t < t1; t += threads) {
     const int j = t / kP3, p = t - j * kP3;
-    const int r0 = 8 * (g0 + j);
-    float v[8];
+    const int r0 = L::kCoreK * (g0 + j);
+    float v[L::kCoreK];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < L::kCoreK / 4; ++h) {
       const float* x[4];
       float u[4];
 #pragma unroll
@@ -278,16 +396,24 @@ __device__ __forceinline__ void fill_gram3(unsigned char* hi, unsigned char* lo,
 #pragma unroll
       for (int r = 0; r < 4; ++r) v[4 * h + r] = r0 + 4 * h + r < n ? u[r] : 0.0f;
     }
-    uint32_t h4[4], l4[4];
+    if constexpr (L::kTf32) {
+      uint4 h4, l4;
+      split_tf32x4(v, h4, l4);
+      const size_t o = (size_t)j * kGroupBytes3 + (p >> 3) * 128 + (p & 7) * 16;
+      *reinterpret_cast<uint4*>(hi + o) = h4;
+      *reinterpret_cast<uint4*>(lo + o) = l4;
+    } else {
+      uint32_t h4[4], l4[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) split_pack_bf16(v[2 * e], v[2 * e + 1], h4[e], l4[e]);
-    const size_t o = (size_t)j * kGroupBytes3 + (p >> 3) * 128 + (p & 7) * 16;
-    *reinterpret_cast<uint4*>(hi + o) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
-    *reinterpret_cast<uint4*>(lo + o) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
+      for (int e = 0; e < 4; ++e) split_pack_bf16(v[2 * e], v[2 * e + 1], h4[e], l4[e]);
+      const size_t o = (size_t)j * kGroupBytes3 + (p >> 3) * 128 + (p & 7) * 16;
+      *reinterpret_cast<uint4*>(hi + o) = make_uint4(h4[0], h4[1], h4[2], h4[3]);
+      *reinterpret_cast<uint4*>(lo + o) = make_uint4(l4[0], l4[1], l4[2], l4[3]);
+    }
   }
 }
 
-template <class Gram>
+template <class L, class Gram>
 __device__ __forceinline__ void fill_gram3_d(unsigned char* hi,
                                              unsigned char* lo,
                                              const float* __restrict__ xs,
@@ -296,11 +422,11 @@ __device__ __forceinline__ void fill_gram3_d(unsigned char* hi,
                                              const Gram& gram, int tid,
                                              int threads) {
   switch (d) {
-    case 1: fill_gram3<1>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
-    case 2: fill_gram3<2>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
-    case 3: fill_gram3<3>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
-    case 4: fill_gram3<4>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
-    default: fill_gram3<0>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads);
+    case 1: fill_gram3<1, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
+    case 2: fill_gram3<2, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
+    case 3: fill_gram3<3, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
+    case 4: fill_gram3<4, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
+    default: fill_gram3<0, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads);
   }
 }
 
@@ -344,29 +470,34 @@ struct Item3 {
 // Interval rows of `items` work items (item(i) gives item i), each block
 // taking items blockIdx.x, blockIdx.x + gridDim.x, ...: the rings keep
 // streaming across a block's items. zt (d, N) is the grid; tiles hold
-// per GP (cap_pad / 64) x (cap_pad / kKC3) chunks of kChunkBytes3, row
-// tile major; res the resident gram rows of interval3_layout.
+// per GP (cap_pad / 64) x (cap_pad / L::kKC) chunks of L::kLanded bytes,
+// row tile major; res the resident gram rows of interval3_layout. S the
+// chunks in flight per ring (kStages3, K1-3p's and K2-3p's), or 0 for
+// the experiment B1-3p's choice at run time, stages_.
 //
 // Each item's resident gram is computed by all consumer threads before
 // its first product (see the note at the top).
-template <int C, class ItemF>
+template <int C, class L = Bf16Limbs3, int S = kStages3, class ItemF>
 __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
                                                int N, int d, int cap, int res,
                                                int items, ItemF item,
-                                               unsigned char* smem) {
+                                               unsigned char* smem,
+                                               int stages_ = S) {
   constexpr int kCons = 128 * C, kWarps = 4 * C;  // consumer threads, warps
-  const Iv3Layout<C> lay(cap, d, res);
+  const int stages = S > 0 ? S : stages_;
+  const Iv3Layout<C, L> lay(cap, d, res, stages);
   unsigned char* ring = smem + lay.ring;
   unsigned char* ghi = smem + lay.ghi;
   unsigned char* glo = smem + lay.glo;
   float* zs = reinterpret_cast<float*>(smem + lay.zs);
   float* red = reinterpret_cast<float*>(smem + lay.red);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  uint64_t* empty = full + C * kStages3;
-  const int nq = (cap + kTM3 - 1) / kTM3 * kTM3 / kKC3;  // chunks a tile row
+  uint64_t* empty = full + C * stages;
+  // chunks a tile row
+  const int nq = (cap + kTM3 - 1) / kTM3 * kTM3 / L::kKC;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < C * kStages3; ++s) {
+    for (int s = 0; s < C * stages; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, 4);  // a consumer warpgroup's four warps
     }
@@ -378,22 +509,22 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
     // producer warp r: ring r's chunks, in the order warpgroup r runs them
     const int r = (threadIdx.x - kCons) >> 5;
     if ((threadIdx.x & 31) != 0) return;
-    uint64_t* f = full + r * kStages3;
-    uint64_t* e = empty + r * kStages3;
-    unsigned char* buf = ring + (size_t)r * kStages3 * kChunkBytes3;
+    uint64_t* f = full + r * stages;
+    uint64_t* e = empty + r * stages;
+    unsigned char* buf = ring + (size_t)r * stages * kChunkBytes3;
     int s = 0;
     uint32_t ph = 0;
     for (int it = blockIdx.x; it < items; it += gridDim.x) {
       const unsigned char* tiles = item(it).tiles;
       for_my_tiles<C>(item(it).n, r, [&](int m, int kend) {
-        const unsigned char* src = tiles + (size_t)m * nq * kChunkBytes3;
-        for (int k0 = 0; k0 < kend; k0 += kKC3) {
+        const unsigned char* src = tiles + (size_t)m * nq * L::kLanded;
+        for (int k0 = 0; k0 < kend; k0 += L::kKC) {
           mbar_wait(e + s, ph ^ 1);
-          mbar_expect_tx(f + s, kChunkBytes3);
+          mbar_expect_tx(f + s, L::kLanded);
           bulk_load(buf + (size_t)s * kChunkBytes3,
-                    src + (size_t)(k0 / kKC3) * kChunkBytes3, kChunkBytes3,
+                    src + (size_t)(k0 / L::kKC) * L::kLanded, L::kLanded,
                     f + s);
-          if (++s == kStages3) {
+          if (++s == stages) {
             s = 0;
             ph ^= 1;
           }
@@ -408,12 +539,14 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
   const int wg = ct >> 7, warp = (ct >> 5) & 3, lane = ct & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int wq = ct >> 5;                 // warp of the block
-  uint64_t* f = full + wg * kStages3;
-  uint64_t* e = empty + wg * kStages3;
-  unsigned char* buf = ring + (size_t)wg * kStages3 * kChunkBytes3;
+  uint64_t* f = full + wg * stages;
+  uint64_t* e = empty + wg * stages;
+  unsigned char* buf = ring + (size_t)wg * stages * kChunkBytes3;
   const uint64_t a0 = wg_desc(buf, kGroupBytes3, 128);  // stage 0's hi limb
-  unsigned char* shi = smem + lay.scratch + (size_t)wg * kKC3 * kP3 * 4;
-  unsigned char* slo = shi + kKC3 * kP3 * 2;
+  // this warpgroup's gram chunk past the resident rows, hi then lo
+  unsigned char* shi =
+      smem + lay.scratch + (size_t)wg * L::kKC * kP3 * 2 * L::kSize;
+  unsigned char* slo = shi + L::kKC * kP3 * L::kSize;
   float* red_m = red + wq * kP3;          // this warp's sums per point
   float* red_q = red + (kWarps + wq) * kP3;
   int s = 0;
@@ -436,8 +569,8 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
     }
     for (int p = lane; p < kP3; p += 32) red_m[p] = red_q[p] = 0.0f;
     named_sync(kBarConsumers3, kCons);
-    fill_gram3_d(ghi, glo, I.xs, zs, 0, 0, rows / 8 * kP3, n, d, I.gram, ct,
-                 kCons);
+    fill_gram3_d<L>(ghi, glo, I.xs, zs, 0, 0, rows / L::kCoreK * kP3, n, d,
+                    I.gram, ct, kCons);
     fence_proxy_async();
     named_sync(kBarConsumers3, kCons);
 
@@ -452,11 +585,11 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
       for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
       fence_acc(acc);
       int prev = -1;
-      for (int k0 = 0; k0 < kend; k0 += kKC3) {
+      for (int k0 = 0; k0 < kend; k0 += L::kKC) {
         const unsigned char *bh, *bl;
         if (k0 < res) {
-          bh = ghi + (size_t)(k0 / 8) * kGroupBytes3;
-          bl = glo + (size_t)(k0 / 8) * kGroupBytes3;
+          bh = ghi + (size_t)(k0 / L::kCoreK) * kGroupBytes3;
+          bl = glo + (size_t)(k0 / L::kCoreK) * kGroupBytes3;
         } else {  // past the resident rows: this chunk's gram, here
           wg_wait<0>();
           fence_acc(acc);
@@ -466,31 +599,38 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
             prev = -1;
           }
           named_sync(kBarGroup3 + wg, 128);  // the last chunk's reads are done
-          fill_gram3_d(shi, slo, I.xs, zs, k0 / 8, 0, kKC3 / 8 * kP3, n, d,
-                       I.gram, ct & 127, 128);
+          fill_gram3_d<L>(shi, slo, I.xs, zs, k0 / L::kCoreK, 0,
+                          L::kKC / L::kCoreK * kP3, n, d, I.gram, ct & 127,
+                          128);
           fence_proxy_async();
           named_sync(kBarGroup3 + wg, 128);
           bh = shi;
           bl = slo;
         }
-        const int steps = (kend - k0 + 15) / 16 < kKC3 / 16
-                              ? (kend - k0 + 15) / 16 : kKC3 / 16;
+        const int steps = (kend - k0 + L::kK - 1) / L::kK < L::kKC / L::kK
+                              ? (kend - k0 + L::kK - 1) / L::kK
+                              : L::kKC / L::kK;
         mbar_wait(f + s, ph);
+        if constexpr (L::kCut) {  // the stage's float32 values to limbs
+          cut_chunk<L>(buf + (size_t)s * kChunkBytes3, ct & 127);
+          fence_proxy_async();
+          named_sync(kBarGroup3 + wg, 128);
+        }
         wg_fence();
         // descriptors of the stage's limbs and the gram's, advanced in
-        // the start address field (16-byte units) by a k16 step, two k8
-        // groups
+        // the start address field (16-byte units) by a k-step, two core
+        // matrices along k
         const uint64_t ahi = a0 + (uint64_t)(s * kChunkBytes3 >> 4);
         const uint64_t alo = ahi + (kLimbBytes3 >> 4);
         const uint64_t bhi = wg_desc(bh, kGroupBytes3, 128);
         const uint64_t blo = wg_desc(bl, kGroupBytes3, 128);
 #pragma unroll
-        for (int jj = 0; jj < kKC3 / 16; ++jj)
+        for (int jj = 0; jj < L::kKC / L::kK; ++jj)
           if (jj < steps) {
             const uint64_t o = (uint64_t)jj * (2 * kGroupBytes3 >> 4);
-            wgmma_64x64(acc, ahi + o, bhi + o);
-            wgmma_64x64(acc, ahi + o, blo + o);
-            wgmma_64x64(acc, alo + o, bhi + o);
+            wg_mma<L>(acc, ahi + o, bhi + o);
+            wg_mma<L>(acc, ahi + o, blo + o);
+            wg_mma<L>(acc, alo + o, bhi + o);
           }
         wg_commit();
         if (prev >= 0) {  // the chunk before this one is read: release it
@@ -499,7 +639,7 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
           if (lane == 0) mbar_arrive(e + prev);
         }
         prev = s;
-        if (++s == kStages3) {
+        if (++s == stages) {
           s = 0;
           ph ^= 1;
         }

@@ -50,6 +50,12 @@
 //   (ops/fused_posterior.py factor_chunks), persistent blocks, and sums
 //   in a fixed order (each warp adds its bands' tiles in band order, the
 //   block adds the warps in order).
+//
+// The body takes the limb format as the resident one does (Limbs3 in
+// intervals3.cuh): the experiment B4 runs it in tf32 (m64n128k8, chunks
+// of 16 columns and steps of 48, the same bytes a stage, a step's gram
+// and a block as in bf16, so the same ring stages fit) and with the
+// factor's limbs cut in the kernel (interval_experiments3.cu).
 #pragma once
 
 #include "intervals3.cuh"
@@ -61,17 +67,24 @@ constexpr int kP3t = 128;                  // points of a work item: wgmma's N
 // warpgroups of a block, and row tiles of a band (one each)
 constexpr int kGroups3t = 4;
 constexpr int kThreads3t = 128 * kGroups3t;
-constexpr int kStep3t = 3 * kKC3;          // gram columns of a step
-constexpr int kChunksStep3t = kStep3t / kKC3;
-// bytes of a k8 group of one gram limb (8 rows of the 128 points), of one
-// limb of a step's gram
-constexpr int kGroupBytes3t = 8 * kP3t * 2;
-constexpr int kStepBytes3t = kStep3t / 8 * kGroupBytes3t;
-// gram tasks (8 rows of a point) of a step per thread, and the slots of a
-// step: a chunk's products issued, then a task computed
-constexpr int kTasks3t = kStep3t / 8 * kP3t / kThreads3t;
-static_assert(kTasks3t * kThreads3t == kStep3t / 8 * kP3t,
+// factor chunks a step; its gram columns are kStep3t<L> (96 in bf16, 48
+// in tf32)
+constexpr int kChunksStep3t = 3;
+template <class L>
+constexpr int kStep3t = kChunksStep3t * L::kKC;
+// bytes of a core-matrix column of one gram limb (16 bytes of each of the
+// 128 points: 8 rows in bf16, 4 in tf32), of one limb of a step's gram
+// (the same in either format)
+constexpr int kGroupBytes3t = 16 * kP3t;
+constexpr int kStepBytes3t = kStep3t<Bf16Limbs3> / 8 * kGroupBytes3t;
+// gram tasks (a core-matrix row of a point) of a step per thread, and the
+// slots of a step: a chunk's products issued, then a task computed
+constexpr int kTasks3t = kStepBytes3t / kGroupBytes3t * kP3t / kThreads3t;
+static_assert(kTasks3t * kThreads3t == kStepBytes3t / kGroupBytes3t * kP3t,
               "whole gram tasks a thread");
+static_assert(kStep3t<Limbs3<true, false>> / 4 * kGroupBytes3t ==
+                  kStepBytes3t,
+              "a step's gram limbs take the same bytes in tf32");
 constexpr int kSlots3t =
     kTasks3t > kChunksStep3t ? kTasks3t : kChunksStep3t;
 // The largest capacity whose gram rows intervals3.cuh keeps resident in
@@ -103,7 +116,7 @@ struct Iv3TiledLayout {
 };
 
 // The most chunks in flight per ring that fit, from a step's three and
-// the next step's first down to 2.
+// the next step's first down to 2 (the same in either limb format).
 inline Iv3TiledLayout interval3_tiled_layout(int d, size_t avail) {
   for (int stages = kChunksStep3t + 1; stages > 2; --stages) {
     const Iv3TiledLayout lay(d, stages);
@@ -145,6 +158,40 @@ __device__ __forceinline__ void wgmma_64x128(float (&d)[64], uint64_t a,
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1));
 }
+// The same product in tf32 (m64n128k8, both operands k contiguous)
+__device__ __forceinline__ void wgmma_64x128_tf32(float (&d)[64], uint64_t a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+template <class L>
+__device__ __forceinline__ void wg_mma(float (&d)[64], uint64_t a,
+                                       uint64_t b) {
+  if constexpr (L::kTf32)
+    wgmma_64x128_tf32(d, a, b);
+  else
+    wgmma_64x128(d, a, b);
+}
 
 // mbar_wait with the spin inside one asm statement: the caller's control
 // flow stays warp-uniform to the compiler, which otherwise serializes the
@@ -160,20 +207,6 @@ __device__ __forceinline__ void mbar_wait_uniform(uint64_t* bar,
       : "memory");
 }
 
-// split_pack_bf16 (limbs.cuh) with both values of a limb cut by one
-// packed conversion: the same bits (round to nearest even), half the
-// conversions, which share the multiprocessor's 16-a-cycle pipe with the
-// gram's exponentials
-__device__ __forceinline__ void split_pack_bf16x2(float x0, float x1,
-                                                  uint32_t& hi,
-                                                  uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // waits until at most `pending` (0 or 1) of the warpgroup's committed
 // product groups are still running
 __device__ __forceinline__ void wg_wait_pending(int pending) {
@@ -183,15 +216,15 @@ __device__ __forceinline__ void wg_wait_pending(int pending) {
     wg_wait<0>();
 }
 
-// Gram task of a step whose first column is k0 for point p: the k8 group
-// j, rows k0 + 8 j .. k0 + 8 j + 7, cut to limbs and stored as one
-// 16-byte vector per limb at hi/lo + j kGroupBytes3t + (p / 8) 128 + (p %
-// 8) 16 (fill_gram3's core-matrix order). Rows at or past lim are zeros
-// (a group wholly past it is not computed); a group wholly below it takes
-// its rows from one base, with no per-row clamp. D as tile_gram's
-// (intervals_tiled.cuh): a plan takes PlanGram::rows_d, the same bits as
-// the resident body's rows.
-template <int D, class Gram>
+// Gram task of a step whose first column is k0 for point p: the
+// core-matrix column j, rows k0 + kCoreK j .. k0 + kCoreK (j + 1) - 1 (8
+// in bf16, 4 in tf32), cut to limbs and stored as one 16-byte vector per
+// limb at hi/lo + j kGroupBytes3t + (p / 8) 128 + (p % 8) 16 (fill_gram3's
+// core-matrix order). Rows at or past lim are zeros (a group wholly past
+// it is not computed); a group wholly below it takes its rows from one
+// base, with no per-row clamp. D as tile_gram's (intervals_tiled.cuh): a
+// plan takes PlanGram::rows_d, the same bits as the resident body's rows.
+template <int D, class L, class Gram>
 __device__ __forceinline__ void gram_task3t(unsigned char* hi,
                                             unsigned char* lo,
                                             const float* __restrict__ xs,
@@ -199,13 +232,13 @@ __device__ __forceinline__ void gram_task3t(unsigned char* hi,
                                             int p, int lim, int d,
                                             const Gram& gram) {
   const int dd = D > 0 ? D : d;
-  const int r0 = k0 + 8 * j;
-  float v[8];
+  const int r0 = k0 + L::kCoreK * j;
+  float v[L::kCoreK];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < L::kCoreK / 4; ++h) {
     const float* x[4];
     float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (r0 + 8 <= lim) {
+    if (r0 + L::kCoreK <= lim) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) x[r] = xs + (size_t)(r0 + 4 * h + r) * dd;
       tile_rows<D>(gram, u, x, zs, p, dd, kP3t);
@@ -224,16 +257,20 @@ __device__ __forceinline__ void gram_task3t(unsigned char* hi,
     for (int r = 0; r < 4; ++r) v[4 * h + r] = u[r];
   }
   uint4 h4, l4;
-  split_pack_bf16x2(v[0], v[1], h4.x, l4.x);
-  split_pack_bf16x2(v[2], v[3], h4.y, l4.y);
-  split_pack_bf16x2(v[4], v[5], h4.z, l4.z);
-  split_pack_bf16x2(v[6], v[7], h4.w, l4.w);
+  if constexpr (L::kTf32) {
+    split_tf32x4(v, h4, l4);
+  } else {
+    split_pack_bf16x2(v[0], v[1], h4.x, l4.x);
+    split_pack_bf16x2(v[2], v[3], h4.y, l4.y);
+    split_pack_bf16x2(v[4], v[5], h4.z, l4.z);
+    split_pack_bf16x2(v[6], v[7], h4.w, l4.w);
+  }
   const size_t o = (size_t)j * kGroupBytes3t + (p >> 3) * 128 + (p & 7) * 16;
   *reinterpret_cast<uint4*>(hi + o) = h4;
   *reinterpret_cast<uint4*>(lo + o) = l4;
 }
 
-template <class Gram>
+template <class L, class Gram>
 __device__ __forceinline__ void gram_task3t_d(unsigned char* hi,
                                               unsigned char* lo,
                                               const float* __restrict__ xs,
@@ -241,11 +278,11 @@ __device__ __forceinline__ void gram_task3t_d(unsigned char* hi,
                                               int p, int lim, int d,
                                               const Gram& gram) {
   switch (d) {
-    case 1: gram_task3t<1>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
-    case 2: gram_task3t<2>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
-    case 3: gram_task3t<3>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
-    case 4: gram_task3t<4>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
-    default: gram_task3t<0>(hi, lo, xs, zs, k0, j, p, lim, d, gram);
+    case 1: gram_task3t<1, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
+    case 2: gram_task3t<2, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
+    case 3: gram_task3t<3, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
+    case 4: gram_task3t<4, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
+    default: gram_task3t<0, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram);
   }
 }
 
@@ -266,7 +303,7 @@ __device__ __forceinline__ int band_end(int n, int mt, int nb, int b) {
 // The factor chunk a warpgroup loads next, in the order it runs them: its
 // tile of each band of its block's items, columns in order (invalid past
 // the last).
-template <class ItemF>
+template <class L, class ItemF>
 struct ChunkCursor3 {
   const ItemF& item;
   int items, w, nq;
@@ -292,7 +329,7 @@ struct ChunkCursor3 {
         m = band_tile(mt, nb, b, w);
         if (m >= 0) {
           const int kend = kTM3 * (m + 1) < n ? kTM3 * (m + 1) : n;
-          chunks = (kend + kKC3 - 1) / kKC3;
+          chunks = (kend + L::kKC - 1) / L::kKC;
           q = 0;
           return;
         }
@@ -301,7 +338,7 @@ struct ChunkCursor3 {
   }
   __device__ __forceinline__ bool valid() const { return it < items; }
   __device__ __forceinline__ const unsigned char* src() const {
-    return tiles + ((size_t)m * nq + q) * kChunkBytes3;
+    return tiles + ((size_t)m * nq + q) * L::kLanded;
   }
   __device__ __forceinline__ void advance() {
     if (++q == chunks) {
@@ -341,7 +378,8 @@ __device__ __forceinline__ void tile_sums3t(const float (&acc)[64],
 
 // one chunk's three limb products into acc: the stage's factor limbs at
 // descriptor ahi (lo 4 KB on) against the gram chunk's limbs at g0, ks
-// k16 steps
+// k-steps
+template <class L>
 __device__ __forceinline__ void chunk_products3t(float (&acc)[64],
                                                  uint64_t ahi,
                                                  const unsigned char* g0,
@@ -350,22 +388,23 @@ __device__ __forceinline__ void chunk_products3t(float (&acc)[64],
   const uint64_t bhi = wg_desc(g0, kGroupBytes3t, 128);
   const uint64_t blo = wg_desc(g0 + kStepBytes3t, kGroupBytes3t, 128);
 #pragma unroll
-  for (int jj = 0; jj < kKC3 / 16; ++jj)
+  for (int jj = 0; jj < L::kKC / L::kK; ++jj)
     if (jj < ks) {
       const uint64_t oa = (uint64_t)jj * (2 * kGroupBytes3 >> 4);
       const uint64_t ob = (uint64_t)jj * (2 * kGroupBytes3t >> 4);
-      wgmma_64x128(acc, ahi + oa, bhi + ob);
-      wgmma_64x128(acc, ahi + oa, blo + ob);
-      wgmma_64x128(acc, alo + oa, bhi + ob);
+      wg_mma<L>(acc, ahi + oa, bhi + ob);
+      wg_mma<L>(acc, ahi + oa, blo + ob);
+      wg_mma<L>(acc, alo + oa, bhi + ob);
     }
 }
 
 // Interval rows of `items` work items of kP3t points (item(i) gives item
 // i, its i0 a multiple of kP3t), each block taking items blockIdx.x,
 // blockIdx.x + gridDim.x, ...; zt (d, N) is the grid; tiles hold per GP
-// (cap_pad / 64) x (cap_pad / kKC3) chunks of kChunkBytes3, row tile
-// major; stages the chunks in flight per ring (interval3_tiled_layout).
-template <class ItemF>
+// (cap_pad / 64) x (cap_pad / L::kKC) chunks of L::kLanded bytes, row
+// tile major; stages the chunks in flight per ring
+// (interval3_tiled_layout).
+template <class L = Bf16Limbs3, class ItemF>
 __device__ __forceinline__ void interval3_tiled_rows(
     const float* __restrict__ zt, int N, int d, int cap, int stages,
     int items, ItemF item, unsigned char* smem) {
@@ -377,7 +416,9 @@ __device__ __forceinline__ void interval3_tiled_rows(
   float* zs = reinterpret_cast<float*>(smem + lay.zs);
   float* red = reinterpret_cast<float*>(smem + lay.red);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  const int nq = (cap + kTM3 - 1) / kTM3 * kTM3 / kKC3;  // chunks a tile row
+  // chunks a tile row
+  const int nq = (cap + kTM3 - 1) / kTM3 * kTM3 / L::kKC;
+  constexpr int kStep = kStep3t<L>;       // gram columns of a step
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C * stages; ++s) mbar_init(full + s, 1);
@@ -400,11 +441,11 @@ __device__ __forceinline__ void interval3_tiled_rows(
   // the warpgroup's first thread loads its ring: the next chunk into a
   // stage as soon as the products that read the stage are done
   const bool loader = (ct & 127) == 0;
-  ChunkCursor3<ItemF> cursor(item, items, wg, nq);
+  ChunkCursor3<L, ItemF> cursor(item, items, wg, nq);
   auto load = [&](int st) {
     if (loader && cursor.valid()) {
-      mbar_expect_tx(f + st, kChunkBytes3);
-      bulk_load(buf + (size_t)st * kChunkBytes3, cursor.src(), kChunkBytes3,
+      mbar_expect_tx(f + st, L::kLanded);
+      bulk_load(buf + (size_t)st * kChunkBytes3, cursor.src(), L::kLanded,
                 f + st);
       cursor.advance();
     }
@@ -422,8 +463,8 @@ __device__ __forceinline__ void interval3_tiled_rows(
     // point
     auto task = [&](int b, int k0, int i, int bend) {
       unsigned char* h = gram + (size_t)b * 2 * kStepBytes3t;
-      gram_task3t_d(h, h + kStepBytes3t, I.xs, zs, k0, wg + C * i,
-                    ct & (kP3t - 1), bend, d, I.gram);
+      gram_task3t_d<L>(h, h + kStepBytes3t, I.xs, zs, k0, wg + C * i,
+                       ct & (kP3t - 1), bend, d, I.gram);
     };
 
     // 1. the points and the first step's gram; the barrier first: the
@@ -447,9 +488,9 @@ __device__ __forceinline__ void interval3_tiled_rows(
     for (int b = 0; b < nb; ++b) {
       const int m = band_tile(mt, nb, b, wg);
       const int kend = m < 0 ? 0 : (kTM3 * (m + 1) < n ? kTM3 * (m + 1) : n);
-      const int chunks = (kend + kKC3 - 1) / kKC3;
+      const int chunks = (kend + L::kKC - 1) / L::kKC;
       const int bend = band_end(n, mt, nb, b);
-      const int steps = (bend + kStep3t - 1) / kStep3t;
+      const int steps = (bend + kStep - 1) / kStep;
       float acc[64];
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
@@ -463,7 +504,7 @@ __device__ __forceinline__ void interval3_tiled_rows(
         // slot c issues chunk c's products, computes gram task c, then
         // waits for chunk c - 1's products and loads its stage anew
         const bool more = j + 1 < steps || b + 1 < nb;
-        const int nk0 = j + 1 < steps ? kStep3t * (j + 1) : 0;
+        const int nk0 = j + 1 < steps ? kStep * (j + 1) : 0;
         const int nbend = j + 1 < steps ? bend : band_end(n, mt, nb, b + 1);
         const int s0 = s;
         int released = 0;
@@ -476,15 +517,22 @@ __device__ __forceinline__ void interval3_tiled_rows(
         };
         for (int c = 0; c < kSlots3t; ++c) {
           if (c < nc) {
-            const int k0 = kKC3 * (kChunksStep3t * j + c);
-            const int ks = (kend - k0 + 15) / 16 < kKC3 / 16
-                               ? (kend - k0 + 15) / 16 : kKC3 / 16;
+            const int k0 = L::kKC * (kChunksStep3t * j + c);
+            const int ks = (kend - k0 + L::kK - 1) / L::kK < L::kKC / L::kK
+                               ? (kend - k0 + L::kK - 1) / L::kK
+                               : L::kKC / L::kK;
             mbar_wait_uniform(f + s, ph);
+            if constexpr (L::kCut) {  // the stage's float32 values to limbs
+              cut_chunk<L>(buf + (size_t)s * kChunkBytes3, ct & 127);
+              fence_proxy_async();
+              named_sync(kBarGroup3 + wg, 128);
+            }
             wg_fence();
             // the stage's limbs and the chunk's gram, descriptors'
             // start address fields in 16-byte units
-            chunk_products3t(acc, a0 + (uint64_t)(s * kChunkBytes3 >> 4),
-                             gh + (size_t)c * (kKC3 / 8) * kGroupBytes3t, ks);
+            chunk_products3t<L>(
+                acc, a0 + (uint64_t)(s * kChunkBytes3 >> 4),
+                gh + (size_t)c * (L::kKC / L::kCoreK) * kGroupBytes3t, ks);
             wg_commit();
             if (++s == stages) {
               s = 0;
@@ -523,6 +571,58 @@ __device__ __forceinline__ void interval3_tiled_rows(
       I.out[N + I.i0 + ct] = mu + spread;
     }
   }
+}
+
+// -- launch helpers of the wgmma bodies (fused_intervals3.cu and the
+// experiment kernels of interval_experiments3.cu) --
+
+// The count of GP g's scal row, clamped to [0, cap].
+__device__ __forceinline__ int active_rows(const float* scal, int cap) {
+  const int count = (int)scal[3];
+  return count < 0 ? 0 : (count < cap ? count : cap);
+}
+
+// Blocks of C consumer warpgroups a multiprocessor holds: one of kGroups3
+// (its shared memory is the multiprocessor's), several of one.
+template <int C>
+constexpr int min_blocks3() {
+  return C == 1 ? 3 : 1;
+}
+
+// The body of the float32 K1-3p/K2-3p at capacity cap: the tiled one
+// past the resident body's capacity.
+inline bool three_pass_tiled(int cap) {
+  return (cap + kTM3 - 1) / kTM3 * kTM3 > kResidentCap3;
+}
+
+// Blocks of a persistent launch of `items` work items: as many as fit
+// the card at once (bytes of dynamic shared memory each), fewer for a
+// short launch.
+template <class Kernel>
+int persistent_blocks(Kernel kernel, int threads, size_t bytes, int items) {
+  int dev = 0, sms = 132, per_sm = 1;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                bytes);
+  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
+  return items < blocks ? (items > 0 ? items : 1) : blocks;
+}
+
+// Dynamic shared memory a launch of kernel may take beside its static
+// shared memory (the static plan of K2-3p), less `extra` bytes.
+template <class Kernel>
+size_t dynamic_smem(Kernel kernel, size_t extra) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return 0;
+  const size_t taken = attr.sharedSizeBytes + extra;
+  return taken < kSmemPerBlock ? kSmemPerBlock - taken : 0;
+}
+
+template <class Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace safeopt

@@ -26,16 +26,21 @@ PyTorch versions. No SafeOpt path calls them: they are driven by
   ``interval_ablation(mode="solve_rank1")`` and
   ``intervals_mu_from_gram``, the harnesses' ``3pass`` columns: the same
   functions with K1-3p's product ``V = Lm_hi k_hi + Lm_hi k_lo + Lm_lo
-  k_hi`` over bf16 limbs (``fused_intervals3``). B1-3p gives K1-3p's bits
-  at every layout; their plain versions are ``three_pass_rows`` on the
-  kernel's gram (``kernel_gram``; the rank-1 gram of B2 is one float32
-  multiply an entry), B3-3p's with mu ``u . k``. The other ablation modes
-  have no product and refuse ``three_pass``.
+  k_hi`` over bf16 limbs (``fused_intervals3``). B1-3p runs K1-3p's own
+  bodies at the caller's layout (in float32 its ``wgmma`` bodies,
+  ``csrc/interval_experiments3.cu``; in float64 ``ThreePassProduct``),
+  and gives K1-3p's bits at every layout that keeps its summation order;
+  B2-3p and B3-3p run ``ThreePassProduct``'s ``mma.sync`` body. Their
+  plain versions are ``three_pass_rows`` on the kernel's gram
+  (``kernel_gram``; the rank-1 gram of B2 is one float32 multiply an
+  entry), B3-3p's with mu ``u . k``. The other ablation modes have no
+  product and refuse ``three_pass``.
 - B4 ``intervals_split`` (``bench_interval_variants.py`` ``_kernel``, the
   TPU's 3-pass ``_dot3``): one GP's intervals with ``V = Lm_hi k_hi +
-  Lm_hi k_lo + Lm_lo k_hi`` on tensor cores in ``bf16`` or ``tf32`` limbs,
-  Lm split in the kernel or passed pre-split (``split_factor``, the
-  harness's ``hoisted``), float32 only.
+  Lm_hi k_lo + Lm_lo k_hi`` on K1-3p's ``wgmma`` bodies in ``bf16`` or
+  ``tf32`` limbs, Lm cut in the kernel from float32 chunks
+  (``factor_landing``) or passed as its limbs' chunks (``split_factor``,
+  the harness's ``hoisted``), float32 only.
 
 CUDA tensors launch the kernels, CPU tensors run the plain versions;
 nothing else chooses. Each wrapper adds one to its ``launches`` per
@@ -64,17 +69,19 @@ import math
 import torch
 
 from ..gp.kernels import RBF
-from .fused_posterior import (KINDS, PLAIN_COLS, check_operands,
+from .fused_posterior import (KINDS, PLAIN_COLS, RESIDENT3_CAP, TILE_ROWS,
+                              check_operands, factor_chunks,
                               fused_intervals3_plain, fused_intervals_plain,
                               gram, interval_rows, k1_layout, kernel_gram,
                               kernel_plan_gram, plan_gram, ptr,
                               raise_on_error, round_limb, split_limbs,
-                              three_pass_rows, transposed_factor)
+                              three_pass_body, three_pass_rows,
+                              transposed_factor)
 
 __all__ = ["ABLATIONS", "LIMBS", "intervals_launch", "interval_ablation",
            "interval_ablation_plain", "mu_weights", "intervals_mu_from_gram",
            "intervals_mu_from_gram_plain", "round_limb", "split_limbs",
-           "kernel_gram", "padded_factor", "split_factor",
+           "kernel_gram", "padded_factor", "split_factor", "factor_landing",
            "intervals_split", "intervals_split_plain", "float32_bound",
            "float32_bound_plan", "plan_rows_on_kernel_gram", "drop_band"]
 
@@ -82,8 +89,16 @@ ABLATIONS = {"gram_sums": 0, "solve_rank1": 1, "no_product": 2,
              "epilogue": 3}
 LIMBS = ("bf16", "tf32")
 U32 = 2.0 ** -24         # unit roundoff of float32
-# B4's contraction step per limb format: mma.m16n8k16 (bf16), m16n8k8 (tf32)
+# B4's contraction step per limb format: wgmma k16 (bf16), k8 (tf32)
 MMA_K = {"bf16": 16, "tf32": 8}
+# B4's factor chunks per limb format (csrc/intervals3.cuh Limbs3): columns
+# of a chunk, and values of a limb in a 16-byte core-matrix row
+CHUNK_COLS = {"bf16": 32, "tf32": 16}
+CORE_K = {"bf16": 8, "tf32": 4}
+# the float32 B1-3p's launch knobs (csrc/interval_experiments3.cu):
+# consumer warpgroups of the resident body, ring stages; 0 is K1-3p's
+B1_3P_GROUPS = (0, 1, 3)
+B1_3P_STAGES = (0, 2, 3, 4)
 
 
 def _library():
@@ -111,35 +126,87 @@ def _epilogue(V, w, kdiag, beta):
 
 # -- B1 -----------------------------------------------------------------------
 
-def intervals_launch(zt, ils, xs, lm, w, scal, kind, slices=0, res=0,
-                     carveout=-1, three_pass=False):
-    """(G, 2, N) interval rows, K1's operands and function: B1 on CUDA
-    (K1's body with ``slices`` slices of 32 points per block, a power of
-    two up to 8 or 0 for K1's own layout, ``res`` resident gram rows, a
-    multiple of 16, and a shared-memory ``carveout`` in percent, -1 for
-    CUDA's default), K1's plain version on CPU. A layout whose
-    shared memory does not fit the card raises. ``three_pass``: K1-3p's
-    function and body (B1-3p; ``fused_intervals3_plain`` on CPU)."""
-    if slices not in (0, 1, 2, 4, 8) or res < 0 or res % 16:
-        raise ValueError(f"B1 takes slices in (0, 1, 2, 4, 8) and res a "
-                         f"multiple of 16, got {slices}, {res}")
+def _check_launch(dtype, cap, slices, res, carveout, three_pass, groups,
+                  stages):
+    """Raise unless (slices, res, carveout, groups, stages) is a layout
+    that ``intervals_launch`` takes for ``dtype`` at capacity ``cap``."""
     if not (carveout == -1 or 0 <= carveout <= 100):
         raise ValueError(f"carveout is -1 or a percentage, got {carveout}")
+    if not (three_pass and dtype == torch.float32):
+        if slices not in (0, 1, 2, 4, 8) or res < 0 or res % 16:
+            raise ValueError(f"B1 takes slices in (0, 1, 2, 4, 8) and res "
+                             f"a multiple of 16, got {slices}, {res}")
+        if groups or stages:
+            raise ValueError("groups and stages are the float32 B1-3p's "
+                             f"knobs, got {groups}, {stages}")
+        return
+    pad = -(-cap // TILE_ROWS) * TILE_ROWS
+    if slices:
+        raise ValueError("the float32 B1-3p takes groups and stages (its "
+                         f"wgmma items are 64 points), not slices={slices}")
+    if groups not in B1_3P_GROUPS or stages not in B1_3P_STAGES:
+        raise ValueError(f"the float32 B1-3p takes groups in {B1_3P_GROUPS} "
+                         f"and stages in {B1_3P_STAGES}, got {groups}, "
+                         f"{stages}")
+    if res < 0 or res % CHUNK_COLS["bf16"] or res > pad:
+        raise ValueError(f"the float32 B1-3p takes res a multiple of "
+                         f"{CHUNK_COLS['bf16']} up to {pad}, got {res}")
+    if three_pass_body(cap) == "tiled" and (groups or res):
+        raise ValueError(f"past capacity {RESIDENT3_CAP} the float32 B1-3p "
+                         "runs the tiled body: no groups, no resident rows")
+
+
+def intervals_launch(zt, ils, xs, lm, w, scal, kind, slices=0, res=0,
+                     carveout=-1, three_pass=False, groups=0, stages=0):
+    """(G, 2, N) interval rows, K1's operands and function, at a launch
+    layout: B1 or B1-3p on CUDA, K1's or K1-3p's plain version on CPU
+    (``fused_intervals_plain``, ``fused_intervals3_plain``). A layout
+    whose shared memory does not fit the card raises.
+
+    - B1 and the float64 B1-3p (``three_pass``; the float64 K1-3p's
+      ``ThreePassProduct`` body): ``slices`` slices of 32 points per
+      block, a power of two up to 8 or 0 for K1's own layout, and ``res``
+      resident gram rows, a multiple of 16 (read only with ``slices``).
+      Every layout gives K1's (K1-3p's) bits.
+    - The float32 B1-3p: K1-3p's ``wgmma`` bodies (64-point items, so no
+      ``slices``) with ``groups`` consumer warpgroups a block (1 or 3),
+      ``stages`` factor chunks in flight per warpgroup (2 to 4) and
+      ``res`` resident gram rows (a multiple of 32 up to the capacity
+      rounded up to 64); 0 for each is K1-3p's own choice. Past capacity
+      ``RESIDENT3_CAP`` it runs the tiled body, which takes ``stages``
+      alone. ``stages``, ``res`` and the carveout keep K1-3p's summation
+      order and its bits; ``groups`` decides which warp adds which row
+      tile, so another count than K1-3p's (1 up to capacity 128, 3 past
+      it) changes the order, and the rows are held by
+      ``float32_bound(..., "split", limb="bf16")`` against
+      ``fused_intervals3_plain``.
+
+    ``carveout``: the shared-memory carveout in percent, -1 for the
+    kernel's default."""
+    _check_launch(zt.dtype, xs.shape[-2], slices, res, carveout, three_pass,
+                  groups, stages)
     what = "B1-3p" if three_pass else "B1"
     if zt.device.type == "cpu":
         plain = fused_intervals3_plain if three_pass else fused_intervals_plain
         return plain(zt, ils, xs, lm, w, scal, kind)
     G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, what)
-    lmt = transposed_factor(lm)
     out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
     lib = _library()
-    fn = (lib.safeopt_intervals_launch_f32 if dtype == torch.float32
-          else lib.safeopt_intervals_launch_f64)
-    err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(lmt), ptr(w), ptr(scal),
-             ptr(out), G, N, d, cap, kind, slices, res, carveout,
-             int(three_pass), _stream(zt))
-    raise_on_error(err, f"{what} (intervals_launch slices={slices} "
-                        f"res={res} carveout={carveout})")
+    if three_pass and dtype == torch.float32:
+        err = lib.safeopt_intervals3_launch_f32(
+            ptr(zt), ptr(ils), ptr(xs), ptr(factor_chunks(lm)), ptr(w),
+            ptr(scal), ptr(out), G, N, d, cap, kind, groups, stages, res,
+            carveout, _stream(zt))
+        layout = f"groups={groups} stages={stages}"
+    else:
+        fn = (lib.safeopt_intervals_launch_f32 if dtype == torch.float32
+              else lib.safeopt_intervals_launch_f64)
+        err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(transposed_factor(lm)),
+                 ptr(w), ptr(scal), ptr(out), G, N, d, cap, kind, slices,
+                 res, carveout, int(three_pass), _stream(zt))
+        layout = f"slices={slices}"
+    raise_on_error(err, f"{what} (intervals_launch {layout} res={res} "
+                        f"carveout={carveout})")
     if three_pass:
         intervals_launch.three_pass_launches += 1
     else:
@@ -297,15 +364,27 @@ intervals_mu_from_gram.three_pass_launches = 0
 # -- B4 -----------------------------------------------------------------------
 
 def padded_factor(lm: torch.Tensor) -> torch.Tensor:
-    """(ldl, ldl) ``lm`` with zeros past ``cap``, ldl the capacity rounded
-    up to 32: every band B4 reads lies in bounds."""
+    """(pad, pad) ``lm`` with zeros past ``cap``, pad the capacity rounded
+    up to ``TILE_ROWS`` (64): whole row tiles and chunks, as B4 reads
+    them."""
     cap = lm.shape[0]
-    ldl = -(-cap // 32) * 32
-    if ldl == cap:
+    pad = -(-cap // TILE_ROWS) * TILE_ROWS
+    if pad == cap:
         return lm.contiguous()
-    out = lm.new_zeros((ldl, ldl))
+    out = lm.new_zeros((pad, pad))
     out[:cap, :cap] = lm
     return out
+
+
+def _chunked(t: torch.Tensor, limb: str) -> torch.Tensor:
+    """(pad, pad) ``t`` in B4's chunk order for ``limb``'s chunks: row
+    tile, chunk, core-matrix column, row group of 8, row, value: (pad /
+    64, pad / kc, kc / core, 8, 8, core), each chunk's limb in wgmma's
+    no-swizzle core-matrix order (``factor_chunks``' for bf16)."""
+    pad = t.shape[0]
+    kc, core = CHUNK_COLS[limb], CORE_K[limb]
+    return t.view(pad // TILE_ROWS, 8, 8, pad // kc, kc // core,
+                  core).permute(0, 3, 4, 1, 2, 5)
 
 
 def intervals_split_plain(zt, ils, xs, lm, w, scal, kind, limb="bf16",
@@ -327,17 +406,38 @@ def intervals_split_plain(zt, ils, xs, lm, w, scal, kind, limb="bf16",
     return out.to(zt.dtype)
 
 
-def split_factor(lm: torch.Tensor, limb: str):
-    """Lm's limbs ``(hi, lo)`` as B4 reads them pre-split: ``lm`` padded
-    to a multiple of 32 (``padded_factor``), bf16 tensors for bf16 limbs,
-    float32 holding the tf32 bits for tf32. Split once and pass them to
-    ``intervals_split(limbs=...)`` for as many launches as needed."""
+def split_factor(lm: torch.Tensor, limb: str) -> torch.Tensor:
+    """Lm's limbs as B4 reads them pre-split (the harness's ``hoisted``):
+    ``lm`` padded to whole row tiles (``padded_factor``), cut to ``(hi,
+    lo)`` (``split_limbs``), in chunks of 64 rows by ``CHUNK_COLS[limb]``
+    columns, hi then lo, each in the core-matrix order (``_chunked``):
+    (pad / 64, pad / kc, 2, kc / core, 8, 8, core), bf16 for bf16 limbs
+    (``factor_chunks``' own layout, K1-3p's), float32 holding the tf32
+    bits for tf32. Cut once and pass to ``intervals_split(limbs=...)``
+    for as many launches as needed."""
     if limb not in LIMBS:
         raise ValueError(f"unknown limb format {limb!r}")
-    hi, lo = split_limbs(padded_factor(lm), limb)
+    limbs = split_limbs(padded_factor(lm), limb)
     if limb == "bf16":
-        hi, lo = hi.to(torch.bfloat16), lo.to(torch.bfloat16)
-    return hi.contiguous(), lo.contiguous()
+        limbs = [t.to(torch.bfloat16) for t in limbs]
+    return torch.stack([_chunked(t, limb) for t in limbs], dim=2).contiguous()
+
+
+def factor_landing(lm: torch.Tensor, limb: str) -> torch.Tensor:
+    """float32 ``lm`` as B4 takes it to cut its limbs in the kernel: in
+    chunks of ``split_factor``'s, each as one contiguous piece that the
+    kernel's warpgroup cuts in place (``csrc/intervals3.cuh``
+    ``cut_chunk``): a value lands on the bytes of its own hi limb's
+    core-matrix row. tf32 (4 values a 16-byte row): the hi limb's layout,
+    (pad / 64, pad / 16, 4, 8, 8, 4). bf16 (8 values a row, 4 a 16-byte
+    vector of float32): each row's first 4 values at its hi row, its last
+    4 at its lo row, (pad / 64, pad / 32, 2, 4, 8, 8, 4)."""
+    if limb not in LIMBS:
+        raise ValueError(f"unknown limb format {limb!r}")
+    t = _chunked(padded_factor(lm), limb)
+    if limb == "bf16":
+        t = t.reshape(*t.shape[:5], 2, 4).permute(0, 1, 5, 2, 3, 4, 6)
+    return t.contiguous()
 
 
 def intervals_split(zt, ils, xs, lm, w, scal, kind, limb="bf16",
@@ -348,8 +448,11 @@ def intervals_split(zt, ils, xs, lm, w, scal, kind, limb="bf16",
     K1's operands of one GP: ``zt`` (d, N), ``ils`` (d,), ``xs`` (cap,
     d) scaled, ``lm`` (cap, cap), ``w`` (cap,), ``scal`` (4,) = [variance,
     kdiag, beta, count]. ``limbs``, from ``split_factor(lm, limb)``, are
-    Lm's limbs split outside the kernel (the harness's ``hoisted``); None
-    splits Lm in the kernel. The rows are the same bits either way."""
+    Lm's limbs cut outside the kernel (the harness's ``hoisted``); None
+    cuts them in the kernel from ``factor_landing(lm, limb)``, laid out
+    by this call. The rows are the same bits either way. K1-3p's body for
+    the capacity (``three_pass_body``), one GP: in bf16 with the limbs
+    hoisted, K1-3p's own rows for that GP alone."""
     if limb not in LIMBS:
         raise ValueError(f"unknown limb format {limb!r}")
     if zt.device.type == "cpu":
@@ -367,22 +470,24 @@ def intervals_split(zt, ils, xs, lm, w, scal, kind, limb="bf16",
         torch.float32, dict(zt=(d, N), ils=(d,), xs=(cap, d),
                             lm=(cap, cap), w=(cap,), scal=(4,)))
     if limbs is None:
-        a = b = padded_factor(lm)
+        chunks = factor_landing(lm, limb)
     else:
-        a, b = limbs
-        ldl = -(-cap // 32) * 32
+        pad, kc, core = (-(-cap // TILE_ROWS) * TILE_ROWS, CHUNK_COLS[limb],
+                         CORE_K[limb])
+        shape = (pad // TILE_ROWS, pad // kc, 2, kc // core, 8, 8, core)
         dtype = torch.bfloat16 if limb == "bf16" else torch.float32
-        for t in (a, b):
-            if (t.device != zt.device or t.dtype != dtype
-                    or not t.is_contiguous() or t.shape != (ldl, ldl)):
-                raise ValueError(f"limbs are two contiguous ({ldl}, {ldl}) "
-                                 f"{dtype} tensors on {zt.device}, as "
-                                 "split_factor gives them")
+        if (not torch.is_tensor(limbs) or limbs.device != zt.device
+                or limbs.dtype != dtype or not limbs.is_contiguous()
+                or tuple(limbs.shape) != shape):
+            raise ValueError(f"limbs are one contiguous {shape} {dtype} "
+                             f"tensor on {zt.device}, as split_factor(lm, "
+                             f"{limb!r}) gives it")
+        chunks = limbs
     out = torch.empty((2, N), dtype=torch.float32, device=zt.device)
     lib = _library()
     fn = (lib.safeopt_intervals_split_bf16 if limb == "bf16"
           else lib.safeopt_intervals_split_tf32)
-    err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(a), ptr(b), ptr(w), ptr(scal),
+    err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(chunks), ptr(w), ptr(scal),
              ptr(out), N, d, cap, kind, int(limbs is not None), _stream(zt))
     raise_on_error(err, f"B4 (intervals_split {limb})")
     intervals_split.launches += 1
@@ -419,9 +524,13 @@ def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None,
       computes the kernel's gram bit for bit, so there eG = 2 u |k|;
     - a sum of m products in float32 is off by at most m u (sum of
       |products|): the FMA chains of K1's body take m = n per row of V;
-      B4's mma steps take at most two roundings each, m = 2 x 3 x
-      ceil(n / K) (K = 16 for bf16, 8 for tf32); the rank-1 gram adds one
-      rounding per entry;
+      the rank-1 gram adds one rounding per entry;
+    - the three-pass product over limbs (``"split"`` and ``three_pass``:
+      B4, K1-3p, B2-3p, B3-3p) takes, in each k-step of K columns (K =
+      16 for bf16, 8 for tf32) of a row's 64-row tile, the three limb
+      products with at most two roundings each, every one within u of
+      the row's running sum of |Lm| |k| after the step
+      (``_split_error``), and the limbs' two roundings, 2 u A;
     - mu and sum V^2 add n terms more: |dmu| <= sum |w| dV + n u sum |w V|
       (B3: n u sum |u k| + eG sum |u| + u sum |u k|), |dq| <= sum (2|V| +
       dV) dV + n u sum V^2;
@@ -480,8 +589,7 @@ def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None,
                 V = L @ k
                 A = La @ ka
                 if what == "split" or three_pass:
-                    m = 2 * 3 * -(-n // MMA_K[limb])
-                    dV = (m + 2) * u * A
+                    dV = _split_error(La, ka, n, limb, A)
                 elif what == "solve_rank1":
                     dV = (n + 1) * u * A
                 elif what in ("intervals", "mu_from_gram"):
@@ -498,6 +606,24 @@ def float32_bound(zt, ils, xs, lm, w, scal, kind, what, limb=None,
             out[g, 0, s:e] = tol
             out[g, 1, s:e] = tol
     return out[0] if single else out
+
+
+def _split_error(La, ka, n, limb, A=None):
+    """``float32_bound``'s |dV| (n, B) of the three-pass product over
+    ``limb`` limbs from |Lm| (n, n) and |k| (n, B): row r's tile (64 rows)
+    runs s_r = ceil(min(64 (r // 64 + 1), n) / K) k-steps of K =
+    ``MMA_K[limb]`` columns, each adding the three limb products with at
+    most two roundings, each within u of the running sum after the step,
+    which is at most the sum of |Lm[r, c]| |k[c]| over the columns read so
+    far: 6 u sum_c (s_r - c // K) |Lm[r, c]| |k[c]|, plus the limbs' own
+    2 u A (A = |Lm| |k|)."""
+    K = MMA_K[limb]
+    r = torch.arange(n, device=La.device)
+    steps = -(-torch.clamp(TILE_ROWS * (r // TILE_ROWS + 1), max=n) // K)
+    W = (steps[:, None] - (r // K)[None, :]).clamp(min=0).to(La.dtype)
+    if A is None:
+        A = La @ ka
+    return U32 * (6 * ((La * W) @ ka) + 2 * A)
 
 
 def _rows_tolerance(V, dV, w, n, kdiag, beta, dmu=None):
@@ -536,13 +662,13 @@ def float32_bound_plan(zt, xs, lm, w, scales, pvar, plan, scal,
     kinds, terms = plan.tolist()
     rows = scales.tolist()
     L = lm[:n, :n]
-    dv = n if limb is None else 2 * 3 * -(-n // MMA_K[limb]) + 2
     out = torch.empty((2, N), **f64)
     for s in range(0, N, PLAIN_COLS):
         e = min(s + PLAIN_COLS, N)
         k = plan_gram(xs[:n], zt[:, s:e], rows, pvar, kinds, terms)
-        tol = _rows_tolerance(L @ k, dv * U32 * (L.abs() @ k.abs()),
-                              w[:n], n, kdiag, beta)
+        dV = (n * U32 * (L.abs() @ k.abs()) if limb is None
+              else _split_error(L.abs(), k.abs(), n, limb))
+        tol = _rows_tolerance(L @ k, dV, w[:n], n, kdiag, beta)
         out[0, s:e] = tol
         out[1, s:e] = tol
     return out

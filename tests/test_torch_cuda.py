@@ -25,9 +25,12 @@ with their plain versions to 1e-9 in float64 and, in float32, within the
 worst-case bound of their arithmetic (``float32_bound(..., "split")``,
 ``float32_bound_plan``) on the same operands. So do the experiment
 kernels' three-pass forms B2-3p and B3-3p (``float32_bound(...,
-three_pass=True)``); B1-3p keeps the mma.sync body that K1-3p ran before
-its wgmma kernel: it gives its own automatic layout's bits at every
-launch layout and lies within the split bound of K1-3p's plain version.
+three_pass=True)``). B1-3p runs K1-3p's bodies at the caller's layout:
+it gives K1-3p's bits at every layout that keeps K1-3p's summation order
+and lies within the split bound of K1-3p's plain version at the others.
+B4 runs them in bf16 and tf32 limbs, cut in the kernel or hoisted (the
+same bits; in bf16 hoisted K1-3p's own for the GP), within the split
+bound of its plain version, through the tiled body past capacity 576.
 The float32 K1-3p and K2-3p (``csrc/fused_intervals3.cu``) give the same
 bits on every launch, take grids of any length and capacities past the
 resident gram, and their SASS holds HGMMA; past capacity 576 they run the
@@ -619,21 +622,31 @@ EXPERIMENT_CASES = [((45, 50), 64), ((400, 400), 512), ((20, 300), 512),
 # (slices, resident rows, carveout) that fit the card at these capacities
 LAUNCH_VARIANTS = [(0, 0, -1), (1, 0, -1), (1, 64, 100), (2, 64, -1),
                    (4, 32, 0), (8, 16, -1), (0, 0, -1)]
+# the float32 B1-3p's (groups, stages, resident rows, carveout) that keep
+# K1-3p's summation order: ring stages, resident rows and the carveout
+LAUNCH_VARIANTS3 = [(0, 0, 0, -1), (0, 2, 0, -1), (0, 4, 0, -1),
+                    (0, 0, 64, 100), (0, 2, 32, 0), (0, 0, 0, -1)]
 
 
 @pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("three_pass", [False, True])
 def test_launch_variants_give_k1_bits(cuda, counts, cap, dtype, three_pass):
-    """B1 gives K1's bits at every layout; B1-3p, whose mma.sync body is
-    no longer K1-3p's, gives its automatic layout's (0, 0, -1) at every
-    layout. Past the resident body's rows (float64 at capacity 512) K1
-    runs its tiled body, and B1, the resident body at other layouts,
-    gives its automatic layout's bits there, within 1e-9 of K1's."""
+    """B1 gives K1's bits at every layout; B1-3p K1-3p's at every layout
+    that keeps K1-3p's order (float64: every layout of its
+    ThreePassProduct body; float32: ``LAUNCH_VARIANTS3``). Past the
+    resident body's rows (float64 at capacity 512) K1 runs its tiled body,
+    and B1, the resident body at other layouts, gives its automatic
+    layout's bits there, within 1e-9 of K1's."""
     from safeopt_torch.ops import interval_experiments as ie
     ops = _experiment_ops(counts, cap, cuda, dtype)
+    variants = [dict(slices=s, res=r, carveout=c)
+                for s, r, c in LAUNCH_VARIANTS]
     if three_pass:
-        k1 = ie.intervals_launch(*ops, three_pass=True)
+        k1 = fp.fused_intervals3(*ops)
+        if dtype == torch.float32:
+            variants = [dict(groups=g, stages=s, res=r, carveout=c)
+                        for g, s, r, c in LAUNCH_VARIANTS3]
     elif cap <= (512 if dtype == torch.float32 else 256):
         k1 = fp.fused_intervals(*ops)
     else:
@@ -641,13 +654,25 @@ def test_launch_variants_give_k1_bits(cuda, counts, cap, dtype, three_pass):
         assert (k1 - fp.fused_intervals(*ops)).abs().max().item() <= 1e-9
     count = "three_pass_launches" if three_pass else "launches"
     before = getattr(ie.intervals_launch, count)
-    for slices, res, carveout in LAUNCH_VARIANTS:
-        got = ie.intervals_launch(*ops, slices=slices, res=res,
-                                  carveout=carveout, three_pass=three_pass)
+    for kw in variants:
+        got = ie.intervals_launch(*ops, three_pass=three_pass, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(got, k1), (slices, res, carveout)
-    assert (getattr(ie.intervals_launch, count)
-            == before + len(LAUNCH_VARIANTS))
+        assert torch.equal(got, k1), kw
+    assert getattr(ie.intervals_launch, count) == before + len(variants)
+
+
+@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
+def test_launch_three_pass_groups_within_the_bound(cuda, counts, cap):
+    """The float32 B1-3p at the other count of consumer warpgroups than
+    K1-3p's (which warp adds which row tile: another order) within the
+    split bound of K1-3p's plain version."""
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, torch.float32)
+    groups = 3 if cap <= 128 else 1
+    got = ie.intervals_launch(*ops, three_pass=True, groups=groups,
+                              stages=2)
+    _within(got, fp.fused_intervals3_plain(*ops),
+            ie.float32_bound(*ops, "split", limb="bf16"))
 
 
 def _faults_past(plain, ops, bound):
@@ -742,9 +767,12 @@ def test_rank1_solve_three_pass_kernel_matches_plain(cuda, counts, cap,
                                             three_pass=True))
 
 
-@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
+@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES + [((600,), 1024)])
 @pytest.mark.parametrize("limb", ["bf16", "tf32"])
 def test_split_kernel_matches_plain(cuda, counts, cap, limb):
+    """B4 in both limb formats, cut in the kernel and hoisted: the same
+    bits, within the split bound of its plain version; in bf16 with the
+    limbs hoisted, K1-3p's rows for the GP alone."""
     from safeopt_torch.ops import interval_experiments as ie
     zt, ils, xs, lm, w, scal, kind = _experiment_ops(counts, cap, cuda,
                                                      torch.float32)
@@ -759,6 +787,10 @@ def test_split_kernel_matches_plain(cuda, counts, cap, limb):
         assert torch.equal(inkernel, hoisted)
         _within(inkernel, ie.intervals_split_plain(*one, limb=limb),
                 ie.float32_bound(*one, "split", limb=limb))
+        if limb == "bf16":
+            alone = (zt, ils[g:g + 1], xs[g:g + 1], lm[g:g + 1],
+                     w[g:g + 1], scal[g:g + 1], kind)
+            assert torch.equal(hoisted, fp.fused_intervals3(*alone)[0])
 
 
 def test_split_kernel_takes_float32_only(cuda):

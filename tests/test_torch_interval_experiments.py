@@ -136,14 +136,50 @@ def test_launch_variants_plain_match_pallas(n_obs, cap, three_pass):
     assert _launches(ie.intervals_launch) == before   # CPU: plain version
 
 
+def _float32(ops):
+    return tuple(o.float() if torch.is_tensor(o) else o for o in ops)
+
+
 @pytest.mark.parametrize("three_pass", [False, True])
 def test_launch_variants_refuse_bad_layouts(three_pass):
+    # B1 and the float64 B1-3p: slices and res; groups and stages are the
+    # float32 B1-3p's knobs. The float32 B1-3p (K1-3p's wgmma bodies):
+    # groups 1 or 3, stages 2 to 4, res a multiple of 32 up to the
+    # capacity rounded to 64, no slices; past capacity 576 (the tiled
+    # body) stages alone. 0 is K1-3p's own choice of each.
     _, pgps, grid = _models(20, 64, seed=1)
     ops = _port_operands(pgps, grid)
     for kw in (dict(slices=3), dict(slices=16), dict(res=8), dict(res=-16),
-               dict(carveout=101), dict(carveout=-2)):
+               dict(carveout=101), dict(carveout=-2), dict(groups=1),
+               dict(stages=2)):
         with pytest.raises(ValueError):
             ie.intervals_launch(*ops, three_pass=three_pass, **kw)
+    ops32 = _float32(ops)
+    if not three_pass:             # B1 in float32: the same knobs
+        with pytest.raises(ValueError, match="float32 B1-3p's knobs"):
+            ie.intervals_launch(*ops32, groups=3)
+        return
+    for kw in (dict(slices=1), dict(slices=8, res=64), dict(groups=2),
+               dict(groups=4), dict(stages=1), dict(stages=5),
+               dict(res=16), dict(res=-32), dict(res=96), dict(carveout=101)):
+        with pytest.raises(ValueError):
+            ie.intervals_launch(*ops32, three_pass=True, **kw)
+    want = pfp.fused_intervals3_plain(*ops32)
+    for kw in (dict(groups=3, stages=4, res=32, carveout=0),
+               dict(groups=1, stages=2, res=64), dict(stages=3)):
+        assert torch.equal(ie.intervals_launch(*ops32, three_pass=True, **kw),
+                           want)
+    # past capacity 576: the tiled body takes no groups, no resident rows
+    zt, ils, xs, lm, w, scal, kind = ops32
+    G, _, d = xs.shape
+    big = (zt, ils, xs.new_zeros(G, 640, d), lm.new_zeros(G, 640, 640),
+           w.new_zeros(G, 640), scal, kind)
+    assert pfp.three_pass_body(640) == "tiled"
+    for kw in (dict(groups=3), dict(res=64)):
+        with pytest.raises(ValueError, match="tiled body"):
+            ie.intervals_launch(*big, three_pass=True, **kw)
+    assert ie.intervals_launch(*big, three_pass=True, stages=2).shape == (
+        2, 2, grid.shape[0])
 
 
 # -- B3-3p: bench_interval_mosaic4.py:80-82, 95-113, transcribed --------------
@@ -442,16 +478,238 @@ def test_kernel_gram_rounds_once_per_column():
                        pfp.gram(0, a.double(), b.double(), 1.5))
 
 
+def _unchunk(chunks):
+    """(2, pad, pad) hi and lo limbs from B4's chunks (``split_factor``'s
+    layout, or ``_cut_landing``'s), each value read where the kernel's
+    descriptors address it: element (r, c) of chunk (m, q) at [m, q, limb,
+    c // core, r // 8, r % 8, c % core]."""
+    mt, qt, _, cg, _, _, core = chunks.shape
+    t = chunks.float().permute(2, 0, 4, 5, 1, 3, 6)
+    return t.reshape(2, mt * 64, qt * cg * core)
+
+
+def _cut_landing(landed, limb):
+    """The chunks the kernel's ``cut_chunk`` leaves from
+    ``factor_landing``'s: each 16-byte core-matrix row's values read from
+    that row's own bytes (bf16: its first 4 values at the hi row, its last
+    4 at the lo row; tf32: its 4 values at the hi row), cut to (hi, lo) in
+    the limb format and written to the hi row and the lo row."""
+    if limb == "bf16":
+        rows = torch.cat([landed[:, :, 0], landed[:, :, 1]], dim=-1)
+    else:
+        rows = landed
+    limbs = ie.split_limbs(rows, limb)
+    if limb == "bf16":
+        limbs = [t.to(torch.bfloat16) for t in limbs]
+    return torch.stack(limbs, dim=2)
+
+
 def test_split_factor_pads_and_casts_the_limbs():
+    # B4's hoisted limbs: chunks of 64 rows by 32 (bf16) or 16 (tf32)
+    # columns, hi then lo, in the core-matrix order; bf16 is K1-3p's
+    # factor_chunks. Each entry is split_limbs' bit for bit, zero past
+    # the capacity; factor_landing, cut as the kernel cuts it, gives the
+    # same chunks (in-kernel == hoisted)
     lm = torch.tensor(np.random.default_rng(4).normal(size=(40, 40)),
                       dtype=torch.float32)
     for limb, dtype in (("bf16", torch.bfloat16), ("tf32", torch.float32)):
-        hi, lo = ie.split_factor(lm, limb)
-        assert hi.shape == lo.shape == (64, 64)
-        assert hi.dtype == lo.dtype == dtype
+        chunks = ie.split_factor(lm, limb)
+        kc, core = ie.CHUNK_COLS[limb], ie.CORE_K[limb]
+        assert chunks.shape == (1, 64 // kc, 2, kc // core, 8, 8, core)
+        assert chunks.dtype == dtype
+        assert chunks[0, 0, 0].numel() * chunks.element_size() == 4096
+        hi, lo = _unchunk(chunks)
         want = ie.split_limbs(ie.padded_factor(lm), limb)
-        assert torch.equal(hi.float(), want[0])
-        assert torch.equal(lo.float(), want[1])
+        assert torch.equal(hi, want[0]) and torch.equal(lo, want[1])
+        assert not hi[40:].any() and not hi[:, 40:].any()
+        landed = ie.factor_landing(lm, limb)
+        assert landed.dtype == torch.float32
+        assert landed.numel() * 4 == 64 * 64 * 4
+        assert torch.equal(_cut_landing(landed, limb), chunks)
+    assert torch.equal(ie.split_factor(lm, "bf16"),
+                       pfp.factor_chunks(lm[None])[0])
+
+
+# -- B4's body on the CPU: its chunk order and its summation order -----------
+#
+# csrc/intervals3.cuh and intervals3_tiled.cuh, the bodies B4 runs: rows
+# of a row tile, consumer warpgroups of the resident body past capacity
+# 128 (one at and below it), warpgroups of the tiled body (past capacity
+# 576, bands of four row tiles aligned to the last one)
+TILE, GROUPS, TILED_GROUPS = 64, 3, 4
+
+
+def _tile_order(n, groups):
+    """The resident body's row tiles at count n, largest first, each to
+    the warpgroup with less work so far in k16 steps (``for_my_tiles``):
+    [(tile, columns, warpgroup)]."""
+    load, out = [0] * groups, []
+    for m in range(-(-n // TILE) - 1, -1, -1):
+        kend = min(TILE * (m + 1), n)
+        g = min(range(groups), key=lambda q: (load[q], q))
+        load[g] += -(-kend // 16)
+        out.append((m, kend, g))
+    return out
+
+
+def _band_order(n):
+    """The tiled body's: tile w of each band to warpgroup w, bands in
+    order (``band_tile``)."""
+    mt = -(-n // TILE)
+    shift = TILED_GROUPS * -(-mt // TILED_GROUPS) - mt
+    return [(m, min(TILE * (m + 1), n), (m + shift) % TILED_GROUPS)
+            for m in range(mt)]
+
+
+def _b4_order(cap, n):
+    if pfp.three_pass_body(cap) == "tiled":
+        return _band_order(n)
+    return _tile_order(n, 1 if cap <= 128 else GROUPS)
+
+
+def emulate_split(k, chunks, w, n, kdiag, beta, limb, order, dtype):
+    """(2, B) rows of one GP as B4 computes them in ``dtype``: ``k`` (cap,
+    B) the kernel's gram, ``chunks`` the factor's limbs as the kernel
+    reads them (``split_factor``'s), ``order`` the body's tiles. Per row
+    tile and k-step (``MMA_K[limb]`` columns) the three limb products,
+    each added exactly to the accumulator and rounded once to ``dtype``;
+    in float32 the epilogue in the kernels' order (each thread's two rows,
+    a butterfly over a warp's 16, each warp's tiles in its order, the
+    warps in order), in float64 ``_epilogue``'s (the plain version's)."""
+    f = (lambda x: x.to(dtype))
+    B, K = k.shape[1], ie.MMA_K[limb]
+    nk = -(-n // 16) * 16
+    kg = torch.zeros((nk, B), dtype=k.dtype)
+    kg[:n] = k[:n]
+    k_hi, k_lo = (t.double() for t in ie.split_limbs(kg, limb))
+    a_hi, a_lo = (t.double() for t in _unchunk(chunks))
+    wv = torch.zeros(a_hi.shape[0], dtype=dtype)
+    wv[:n] = w[:n].to(dtype)
+    V = torch.zeros((a_hi.shape[0], B), dtype=dtype)
+    red = torch.zeros((2, 4 * TILED_GROUPS, B), dtype=dtype)
+    for m, kend, g in order:
+        rows = slice(TILE * m, TILE * (m + 1))
+        acc = torch.zeros((TILE, B), dtype=dtype)
+        for c in range(0, kend, K):
+            cols = slice(c, c + K)
+            for a, b in ((a_hi, k_hi), (a_hi, k_lo), (a_lo, k_hi)):
+                acc = f(acc.double() + a[rows, cols] @ b[cols])
+        V[rows] = acc
+        for warp in range(4):
+            r0 = torch.arange(8) + 16 * warp + TILE * m
+            v0, v1 = V[r0], V[r0 + 8]
+            mm = f((wv[r0, None] * v0).double()
+                   + wv[r0 + 8, None].double() * v1.double())
+            qq = f((v0 * v0).double() + v1.double() * v1.double())
+            for o in (1, 2, 4):                    # lanes xor 4, 8, 16
+                mm = mm + mm[torch.arange(8) ^ o]
+                qq = qq + qq[torch.arange(8) ^ o]
+            red[0, 4 * g + warp] += mm[0]
+            red[1, 4 * g + warp] += qq[0]
+    if dtype == torch.float64:
+        return ie._epilogue(V[:n], wv[:n], float(kdiag), float(beta))
+    mu, q = torch.zeros(B, dtype=dtype), torch.zeros(B, dtype=dtype)
+    for v in range(red.shape[1]):
+        mu, q = mu + red[0, v], q + red[1, v]
+    spread = f(beta) * torch.sqrt(torch.clamp(f(kdiag) - q, min=0.0))
+    return torch.stack([mu - spread, mu + spread])
+
+
+def _dyadic(rng, shape, bits, scale=1.0):
+    """Values of ``bits`` significant bits on one grid, in [-scale,
+    scale): every sum of products of a few of them is exact in float64."""
+    top = 2 ** bits
+    return torch.tensor(rng.integers(-top, top, size=shape) / top * scale,
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("limb", ie.LIMBS)
+@pytest.mark.parametrize("cap,n", [(64, 50), (200, 173), (640, 601)])
+def test_split_emulation_exact_products_match_plain_bitwise(monkeypatch,
+                                                            limb, cap, n):
+    """B4's chunk order, its cut in the kernel and its k-steps over each
+    body's tiles (the resident body with one warpgroup at capacity 64 and
+    three at 200, the tiled body at 640) cover exactly the plain
+    version's limb products: on operands whose every sum of limb products
+    is exact in float64 (values of 13 bits on one grid, so that both
+    limbs of each format are nonzero), the emulation's rows in float64
+    equal ``intervals_split_plain``'s bit for bit, from the hoisted limbs
+    and from the limbs the kernel cuts."""
+    rng = np.random.default_rng(cap + n)
+    lm = torch.zeros((cap, cap), dtype=torch.float32)
+    lm[:n, :n] = torch.tril(_dyadic(rng, (n, n), 13))
+    k = _dyadic(rng, (cap, 96), 13).abs()
+    w = _dyadic(rng, (cap,), 13)
+    # the gram as the kernel computes it, replaced by the exact one
+    monkeypatch.setattr(ie, "kernel_gram", lambda *a: k)
+    zt = torch.zeros((2, 96), dtype=torch.float32)
+    scal = torch.tensor([1.0, 2.0 ** 20, 2.0, n], dtype=torch.float32)
+    # float64 operands of the same values: the plain rows unrounded
+    ops = (zt, torch.ones(2), torch.zeros((cap, 2)), lm, w, scal, 0)
+    want = ie.intervals_split_plain(*(
+        t.double() if torch.is_tensor(t) else t for t in ops), limb=limb)
+    assert want.dtype == torch.float64
+    hoisted = ie.split_factor(lm, limb)
+    cut = _cut_landing(ie.factor_landing(lm, limb), limb)
+    assert torch.equal(cut, hoisted)
+    hi, lo = _unchunk(hoisted)
+    assert lo[:n, :n].any() and hi[:n, :n].any()
+    got = emulate_split(k, hoisted, w, n, scal[1], scal[2], limb,
+                        _b4_order(cap, n), torch.float64)
+    assert torch.equal(got, want)
+    # a chunk left out is seen
+    dropped = hoisted.clone()
+    dropped[-(-n // TILE) - 1, 0] = 0
+    assert not torch.equal(emulate_split(
+        k, dropped, w, n, scal[1], scal[2], limb, _b4_order(cap, n),
+        torch.float64), want)
+
+
+def _b4_state(n_obs, cap, seed, dtype, every):
+    """GP 0 of the flagship pair with ``n_obs`` observations from
+    ``default_rng(seed)`` in [-4, 4]^2 at ``cap`` (``tools_torch/
+    states.py``: chip_smoke's cap-512 state at seed 512, ``measure.py``'s
+    cap1024 at 1024), over every ``every``-th point of the 1000 x 1000
+    grid on [-5, 5]^2: K1's operands of one GP."""
+    import safeopt_torch as pt
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-4.0, 4.0, size=(n_obs, 2))
+    Y = (2.0 * np.exp(-0.5 * np.sum(X ** 2, axis=1))
+         + 0.05 * rng.normal(size=n_obs))[:, None]
+    gp = pt.GPRegression(X, Y, pt.RBF(2, variance=2.0, lengthscale=1.0),
+                         noise_var=0.05 ** 2, capacity=cap, device="cpu",
+                         dtype=dtype)
+    grid = pt.linearly_spaced_combinations([(-5.0, 5.0)] * 2, 1000)[::every]
+    return pfp.interval_operands([gp.kern], [gp.state],
+                                 torch.tensor(grid, dtype=dtype), BETA)
+
+
+@pytest.mark.parametrize("limb", ie.LIMBS)
+@pytest.mark.parametrize("n_obs,cap,seed,every", [(400, 512, 512, 97),
+                                                  (600, 1024, 1024, 389)])
+def test_split_emulated_order_within_the_float32_bound(limb, n_obs, cap, seed,
+                                                       every):
+    """B4's float32 order, from the hoisted chunks, on chip_smoke's
+    cap-512 state (the resident body) and ``measure.py``'s cap1024 (the
+    tiled body): within ``float32_bound(..., "split", limb)`` of
+    ``intervals_split_plain``; its scaled error against the float64 rows
+    printed beside the plain version's own."""
+    one = _one(_b4_state(n_obs, cap, seed, torch.float32, every), 0)
+    zt, ils, xs, lm, w, scal, kind = one
+    n = int(scal[3])
+    k = ie.kernel_gram(kind, xs, zt * ils[:, None], scal[0])
+    got = emulate_split(k, ie.split_factor(lm, limb), w, n, scal[1],
+                        scal[2], limb, _b4_order(cap, n), torch.float32)
+    want = ie.intervals_split_plain(*one, limb=limb).double()
+    bound = ie.float32_bound(*one, "split", limb=limb)
+    assert ((got.double() - want).abs() / bound).max().item() <= 1.0
+    ref = pfp.fused_intervals_plain(*_b4_state(n_obs, cap, seed,
+                                               torch.float64, every))[0]
+    dq = ((got.double() - ref).abs().max() / math.sqrt(2.0)).item()
+    dq_plain = ((want - ref).abs().max() / math.sqrt(2.0)).item()
+    print(f"B4 {limb} cap {cap}: emulated scaled |dQ| {dq:.3e}, plain "
+          f"{dq_plain:.3e}")
+    assert dq <= 2 * dq_plain + 1e-6
 
 
 # -- float32_bound: holds a float32 run, sees a dropped band -------------------
@@ -481,14 +739,41 @@ def test_float32_bound_holds_a_float32_run_and_sees_a_dropped_band(what):
 
 @pytest.mark.parametrize("limb", ie.LIMBS)
 def test_float32_bound_sees_a_dropped_band_of_the_split_product(limb):
+    # each GP's first and its last 32 active rows
     ops32, _ = _float32_ops(seed=12)
     for g in range(2):
         one = _one(ops32, g)
         want = ie.intervals_split_plain(*one, limb=limb).double()
         bound = ie.float32_bound(*one, "split", limb=limb)
-        fault = (ie.intervals_split_plain(*ie.drop_band(one, "split"),
-                                          limb=limb).double() - want).abs()
-        assert (fault / bound).max().item() > 1.0
+        for first in (True, False):
+            fault = (ie.intervals_split_plain(
+                *ie.drop_band(one, "split", first), limb=limb).double()
+                - want).abs()
+            assert (fault / bound).max().item() > 1.0, (g, first)
+
+
+@pytest.mark.parametrize("limb", ie.LIMBS)
+def test_split_error_counts_each_rows_steps(limb):
+    """The three-pass product's |dV| bound (``_split_error``): a row's
+    k-steps run to its tile's end, each rounding within the running sum:
+    at most the per-step worst case over all n columns, (6 ceil(n / K) +
+    2) u |Lm| |k|, and for the first tile's rows far below it."""
+    rng = np.random.default_rng(21)
+    n, K = 300, ie.MMA_K[limb]
+    La = torch.tensor(np.tril(rng.uniform(0.5, 1.0, size=(n, n))))
+    ka = torch.tensor(rng.uniform(0.5, 1.0, size=(n, 7)))
+    A = La @ ka
+    dV = ie._split_error(La, ka, n, limb)
+    worst = (6 * -(-n // K) + 2) * ie.U32 * A
+    assert bool((dV <= worst).all())
+    assert (dV[:64] / worst[:64]).max().item() < 0.25
+    # row r's own steps and running sums, summed step by step
+    r = 200
+    steps = -(-min(64 * (r // 64 + 1), n) // K)
+    running = sum((La[r, :K * (j + 1)] @ ka[:K * (j + 1)])
+                  for j in range(steps))
+    assert torch.allclose(dV[r], ie.U32 * (6 * running + 2 * A[r]),
+                          rtol=1e-12)
 
 
 @pytest.mark.parametrize("what", ["solve_rank1", "mu_from_gram"])
@@ -568,11 +853,14 @@ def test_float32_bound_plan_of_k2_sees_a_dropped_band(first):
 
 
 def test_padded_factor():
+    # to whole row tiles of 64: a capacity that is one already passes as
+    # it is
     lm = torch.arange(40 * 40, dtype=torch.float32).reshape(40, 40)
     p = ie.padded_factor(lm)
     assert p.shape == (64, 64) and torch.equal(p[:40, :40], lm)
     assert not p[40:].any() and not p[:, 40:].any()
-    assert ie.padded_factor(lm[:32, :32]).shape == (32, 32)
+    assert ie.padded_factor(p).data_ptr() == p.data_ptr()
+    assert ie.padded_factor(lm[:32, :32]).shape == (64, 64)
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

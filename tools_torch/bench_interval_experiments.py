@@ -12,35 +12,39 @@ The counterpart of the JAX package's five TPU harnesses
 ``bench_interval_ablation.py``), on ``measure.py``'s cap-512 state in
 float32: two RBF GPs, 400 observations from ``default_rng(512)`` in
 [-4, 4]^2, capacity 512, the 1000 x 1000 grid on [-5, 5]^2 (N = 1e6).
-B4 and B5 take GP 0 alone. Times are CUDA-event ms per call over
-``--reps`` calls after two warm-ups. One JSON object per harness; B1-B3
-also carry their ``3pass`` columns, as the TPU harnesses printed them.
-Their kernels keep K1-3p's mma.sync body as it stood before K1-3p's
-``wgmma`` redesign (``csrc/intervals.cuh`` ``ThreePassProduct``): the
-``3pass_mma_sync_*`` keys time that body, and ``K1-3p_wgmma_ms`` times
-K1-3p as the certified path runs it (``fused_intervals3``,
-``csrc/fused_intervals3.cu``), beside them in the same run:
+B4 and B5 take GP 0 alone; B4 also ``measure.py``'s long-campaign states
+``cap1024`` and ``cap2048`` (``states.long_operands``, G = 1, the tiled
+body). Times are CUDA-event ms per call over ``--reps`` calls after two
+warm-ups. One JSON object per harness; B1-B3 also carry their ``3pass``
+columns, as the TPU harnesses printed them. B1-3p runs K1-3p's float32
+``wgmma`` bodies (``csrc/interval_experiments3.cu``; its ``3pass_wgmma_*``
+keys), B2-3p and B3-3p the ``mma.sync`` body of ``csrc/intervals.cuh``
+(``ThreePassProduct``); ``K1-3p_ms`` times K1-3p as the certified path
+runs it (``fused_intervals3``) beside them in the same run:
 
 - ``B1``: K1 (``fused_intervals``) and each launch layout (slices per
   block, resident gram rows, shared-memory carveout) of
   ``intervals_launch``: ms and whether its rows are K1's bits;
-  ``K1-3p_wgmma_ms`` and, per layout ``s<slices>_r<res>_c<carveout>``,
-  ``3pass_mma_sync_<layout>_ms`` and
-  ``3pass_mma_sync_<layout>_bits_of_auto`` (the bits of B1-3p at its
-  automatic layout ``s0_r0_c-1``), and ``3pass_mma_sync_vs_wgmma``, the
-  mma.sync body at its automatic layout over the wgmma K1-3p;
+  ``K1-3p_ms`` and, per float32 B1-3p layout
+  ``g<groups>_s<stages>_r<res>_c<carveout>`` (``states.LAYOUTS3``),
+  ``3pass_wgmma_<layout>_ms`` and ``3pass_wgmma_<layout>_bits_of_K1-3p``
+  (whether its rows are K1-3p's bits: every layout with K1-3p's count of
+  consumer warpgroups), and ``3pass_auto_vs_K1-3p``, B1-3p at its
+  automatic layout ``g0_s0_r0_c-1`` over K1-3p;
 - ``B2``: ``gram_sums``, ``solve_rank1`` and K1 (total) ms and
   ``(gram + solve) / total``; ``3pass_solve_only_ms`` (B2-3p),
-  ``3pass_mma_sync_total_ms`` (B1-3p at its automatic layout, the body
-  B2-3p splits), ``3pass_sum_vs_mma_sync_total`` and ``K1-3p_wgmma_ms``;
+  ``3pass_wgmma_total_ms`` (B1-3p at its automatic layout: K1-3p's
+  function, which B2-3p's solve and B2's gram split),
+  ``3pass_sum_vs_wgmma_total`` and ``K1-3p_ms``;
 - ``B3``: ``intervals_mu_from_gram`` and K1 ms, max |dQ| against K1;
-  ``3pass_mxu_emit_ms`` (B3-3p), ``3pass_mma_sync_base_ms`` (B1-3p at
-  its automatic layout), ``3pass_max_dq`` against it and
-  ``K1-3p_wgmma_ms``;
+  ``3pass_mxu_emit_ms`` (B3-3p), ``3pass_wgmma_base_ms`` (B1-3p at its
+  automatic layout), ``3pass_max_dq`` against it and ``K1-3p_ms``;
 - ``B4``: ``intervals_split`` ms for each limb format, in-kernel and
-  hoisted (Lm's limbs from ``split_factor``, split once outside the
-  timed calls, as the TPU harness splits them outside its loop), whether
-  the pair gives the same bits, max |dQ| against K1 on GP 0;
+  hoisted (Lm's limbs from ``split_factor``, cut once outside the timed
+  calls, as the TPU harness splits them outside its loop), whether the
+  pair gives the same bits, max |dQ| against K1 on GP 0; K1's ms on GP 0
+  (``K1_ms``) and each format's in-kernel time over it
+  (``<limb>_vs_K1``); the same per long-campaign state under its name;
 - ``B5``: GP 0's full intervals through K1 (float32 pipe) and through
   B4 (bf16, hoisted: the TPU harness's 3-pass ``full``), ``no_product``
   and ``epilogue`` ms, and the shares they give: product = (full -
@@ -61,8 +65,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from tools_torch.states import (LAYOUTS, cap512_operands,  # noqa: E402
-                                 cuda_ms, first_gp, one_gp)
+from tools_torch.states import (LAYOUTS, LAYOUTS3,  # noqa: E402
+                                 b1_3p_groups, cap512_operands, cuda_ms,
+                                 first_gp, long_operands, one_gp)
 
 
 def max_dq(a, b):
@@ -70,46 +75,57 @@ def max_dq(a, b):
     return (a.double() - b.double()).abs().max().item()
 
 
-def layout_tag(slices, res, carveout):
-    """B1's name of a launch layout in its ``3pass_<layout>_*`` keys."""
-    return f"s{slices}_r{res}_c{carveout}"
+def layout_tag(groups, stages, res, carveout):
+    """The float32 B1-3p's name of a launch layout in its
+    ``3pass_wgmma_<layout>_*`` keys."""
+    return f"g{groups}_s{stages}_r{res}_c{carveout}"
 
 
 def b1(ops, reps):
-    """K1 and each launch layout, with the FP32 and the three-pass
-    mma.sync product: ms and bits against K1 (against B1-3p at its
-    automatic layout); the wgmma K1-3p's ms."""
+    """K1 and each launch layout of B1 (the FP32 product): ms and bits
+    against K1; each float32 B1-3p layout (K1-3p's wgmma bodies): ms and
+    bits against K1-3p, whose ms is taken between them."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
+    cap = ops[2].shape[1]
     k1 = fp.fused_intervals(*ops)
-    auto3 = ie.intervals_launch(*ops, three_pass=True)
+    k13 = fp.fused_intervals3(*ops)
     out = {"K1_ms": cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps),
-           "K1-3p_wgmma_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
-                                     reps=reps),
+           "K1-3p_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
+                               reps=reps),
            "variants": []}
-    for slices, res, carveout in LAYOUTS[512][ops[0].dtype]:
+    for slices, res, carveout in LAYOUTS[cap][ops[0].dtype]:
         run = functools.partial(ie.intervals_launch, *ops, slices=slices,
                                 res=res, carveout=carveout)
         out["variants"].append({
             "slices": slices, "res": res, "carveout": carveout,
             "bitexact": bool(torch.equal(run(), k1)),
             "ms": cuda_ms(run, reps=reps)})
-        run3 = functools.partial(run, three_pass=True)
-        tag = layout_tag(slices, res, carveout)
-        out[f"3pass_mma_sync_{tag}_bits_of_auto"] = bool(
-            torch.equal(run3(), auto3))
-        out[f"3pass_mma_sync_{tag}_ms"] = cuda_ms(run3, reps=reps)
-    out["3pass_mma_sync_vs_wgmma"] = (
-        out[f"3pass_mma_sync_{layout_tag(0, 0, -1)}_ms"]
-        / out["K1-3p_wgmma_ms"])
+    for groups, stages, res, carveout in LAYOUTS3[cap]:
+        run3 = functools.partial(ie.intervals_launch, *ops, three_pass=True,
+                                 groups=groups, stages=stages, res=res,
+                                 carveout=carveout)
+        tag = layout_tag(groups, stages, res, carveout)
+        same = bool(torch.equal(run3(), k13))
+        out[f"3pass_wgmma_{tag}_bits_of_K1-3p"] = same
+        if groups in (0, b1_3p_groups(cap)) and not same:
+            out["3pass_order_kept_bitexact"] = False
+        out[f"3pass_wgmma_{tag}_ms"] = cuda_ms(run3, reps=reps)
+    out.setdefault("3pass_order_kept_bitexact", True)
+    out["K1-3p_ms_after"] = cuda_ms(lambda: fp.fused_intervals3(*ops),
+                                    reps=reps)
+    out["3pass_auto_vs_K1-3p"] = (
+        out[f"3pass_wgmma_{layout_tag(0, 0, 0, -1)}_ms"]
+        / (0.5 * (out["K1-3p_ms"] + out["K1-3p_ms_after"])))
     return out
 
 
 def b2(ops, reps):
-    """The gram alone, the rank-1 solve alone and K1; the solve and the
-    mma.sync body's full intervals with the three-pass product, and the
-    wgmma K1-3p."""
+    """The gram alone, the rank-1 solve alone and K1; the solve with the
+    three-pass product (B2-3p, the mma.sync body) and the full intervals
+    with it (B1-3p at its automatic layout, K1-3p's wgmma body), and
+    K1-3p."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
@@ -121,20 +137,19 @@ def b2(ops, reps):
                            / out["total_ms"])
     out["3pass_solve_only_ms"] = cuda_ms(lambda: ie.interval_ablation(
         *ops, "solve_rank1", three_pass=True), reps=reps)
-    out["3pass_mma_sync_total_ms"] = cuda_ms(
+    out["3pass_wgmma_total_ms"] = cuda_ms(
         lambda: ie.intervals_launch(*ops, three_pass=True), reps=reps)
-    out["3pass_sum_vs_mma_sync_total"] = (
+    out["3pass_sum_vs_wgmma_total"] = (
         (out["gram_sums_ms"] + out["3pass_solve_only_ms"])
-        / out["3pass_mma_sync_total_ms"])
-    out["K1-3p_wgmma_ms"] = cuda_ms(lambda: fp.fused_intervals3(*ops),
-                                    reps=reps)
+        / out["3pass_wgmma_total_ms"])
+    out["K1-3p_ms"] = cuda_ms(lambda: fp.fused_intervals3(*ops), reps=reps)
     return out
 
 
 def b3(ops, reps):
     """mu from the gram against K1, and with the three-pass product
-    against the mma.sync body it shares (B1-3p at its automatic layout);
-    the wgmma K1-3p."""
+    (B3-3p, the mma.sync body) against B1-3p at its automatic layout
+    (K1-3p's wgmma body); K1-3p."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
@@ -146,22 +161,25 @@ def b3(ops, reps):
                              fp.fused_intervals(*ops)),
             "3pass_mxu_emit_ms": cuda_ms(lambda: ie.intervals_mu_from_gram(
                 *ops, three_pass=True), reps=reps),
-            "3pass_mma_sync_base_ms": cuda_ms(base3, reps=reps),
+            "3pass_wgmma_base_ms": cuda_ms(base3, reps=reps),
             "3pass_max_dq": max_dq(ie.intervals_mu_from_gram(
                 *ops, three_pass=True), base3()),
-            "K1-3p_wgmma_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
-                                      reps=reps)}
+            "K1-3p_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
+                                reps=reps)}
 
 
-def b4(ops, reps):
+def b4(ops, reps, long=None):
     """GP 0 through the split-limb product, each limb format in-kernel
-    and hoisted (Lm's limbs split once, before the timed launches)."""
+    and hoisted (Lm's limbs cut once, before the timed launches), beside
+    K1 on GP 0; the same on each state of ``long`` ({name: K1's operands
+    of one GP}), under its name."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
     one = one_gp(ops)
     k1 = fp.fused_intervals(*first_gp(ops))[0]
-    out = {}
+    out = {"K1_ms": cuda_ms(lambda: fp.fused_intervals(*first_gp(ops)),
+                            reps=reps)}
     for limb in ie.LIMBS:
         limbs = ie.split_factor(one[3], limb)
         pair = [ie.intervals_split(*one, limb=limb, limbs=h)
@@ -173,6 +191,9 @@ def b4(ops, reps):
                 *one, limb=limb, limbs=limbs), reps=reps),
             "hoisted_bitexact": bool(torch.equal(*pair)),
             "max_dq_vs_K1": max_dq(pair[0], k1)}
+        out[f"{limb}_vs_K1"] = out[limb]["inkernel_ms"] / out["K1_ms"]
+    for name, long_ops in (long or {}).items():
+        out[name] = b4(long_ops, reps)
     return out
 
 
@@ -198,10 +219,12 @@ def b5(ops, reps):
     return out
 
 
-def run(ops, reps):
-    """Every harness on K1's float32 operands ``ops``: {name: result}."""
+def run(ops, reps, long=None):
+    """Every harness on K1's float32 operands ``ops`` (B4 also on each
+    state of ``long``, {name: K1's float32 operands of one GP}): {name:
+    result}."""
     return {"B1": b1(ops, reps), "B2": b2(ops, reps), "B3": b3(ops, reps),
-            "B4": b4(ops, reps), "B5": b5(ops, reps)}
+            "B4": b4(ops, reps, long), "B5": b5(ops, reps)}
 
 
 def main():
@@ -220,7 +243,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}", flush=True)
-    results = run(cap512_operands(torch.float32), args.reps)
+    results = run(cap512_operands(torch.float32), args.reps,
+                  {name: long_operands(name, torch.float32)
+                   for name in ("cap1024", "cap2048")})
     for name, res in results.items():
         print(json.dumps({"harness": name, **res}), flush=True)
     out = Path(args.out)

@@ -27,15 +27,17 @@ builds the parent's CUDA sources and this tree's, both with this tree's
 nvcc flags, and compares ptxas's line of each kernel instance of the
 parent (registers, barriers, shared memory; spills) with this tree's
 line of the same instance; it exits 1 if any differs or is missing. The
-parent's float32 K1-3p and K2-3p instances (``REDESIGNED``: the
-mma.sync body, which their ``wgmma`` kernels of ``fused_intervals3.cu``
-replace) are printed beside the new instances' lines instead. The lines
-of the kernels in ``NEW`` (those ``wgmma`` kernels, K1's tiled body,
+parent's instances of redesigned kernels (``REDESIGNED``: the float32
+K1-3p and K2-3p on the mma.sync body, which their ``wgmma`` kernels of
+``fused_intervals3.cu`` replace; the float32 B1-3p and B4 on mma.sync,
+which the ``wgmma`` kernels of ``interval_experiments3.cu`` replace) are
+printed beside the new instances' lines instead. The lines of the
+kernels in ``NEW`` (those ``wgmma`` kernels, K1's tiled body,
 ``intervals_tiled_kernel``, and K2's on it, ``intervals_plan_tiled_kernel``
-and ``intervals_plan_wide_tiled_kernel``, and the float32 K1-3p/K2-3p
-tiled body, ``intervals3_tiled_kernel`` and
-``intervals_plan3_tiled_kernel``) are printed, and one that spills exits
-1 too.
+and ``intervals_plan_wide_tiled_kernel``, the float32 K1-3p/K2-3p tiled
+body, ``intervals3_tiled_kernel`` and ``intervals_plan3_tiled_kernel``,
+and B1-3p's and B4's, ``wg3_kernel`` and ``tiled3_kernel``) are
+printed, and one that spills exits 1 too.
 """
 
 import argparse
@@ -47,15 +49,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PARENT = ROOT / "build" / "compare" / "parent"
 # The float32 three-pass instances of intervals.cuh's body that the wgmma
-# kernels replace (parent names), and the names of the kernels that are
-# new since the port's first bodies: the wgmma kernels, K1's tiled body
-# and K2's instances of it, and the three-pass tiled body.
+# kernels replace, and the float32 B1-3p and B4 instances that the
+# experiment wgmma kernels replace (parent names); the names of the
+# kernels that are new since the port's first bodies: the wgmma kernels,
+# K1's tiled body and K2's instances of it, the three-pass tiled body,
+# and the experiments' wgmma kernels.
 REDESIGNED = ("intervals3_kernelIfE", "intervals_plan3_kernelIfE",
-              "intervals_plan_wide_kernelIfNS_16ThreePassProduct")
+              "intervals_plan_wide_kernelIfNS_16ThreePassProduct",
+              "intervals3_launch_kernelIfE", "split_kernel")
 NEW = ("intervals3_wg_kernel", "intervals_plan3_wg_kernel",
        "intervals_tiled_kernel", "intervals_plan_tiled_kernel",
        "intervals_plan_wide_tiled_kernel", "intervals3_tiled_kernel",
-       "intervals_plan3_tiled_kernel")
+       "intervals_plan3_tiled_kernel", "wg3_kernel", "tiled3_kernel")
 sys.path.insert(0, str(ROOT))
 
 

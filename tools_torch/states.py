@@ -1,8 +1,10 @@
 """The problem states that ``chip_smoke.py`` and the tools share.
 
 The flagship's two GPs (``build_gps``), the cap-512 state of the interval
-experiments in K1's operand layout (``cap512_operands``), its one-GP
-slices (``one_gp``, ``first_gp``), B1's launch layouts (``LAYOUTS``),
+experiments in K1's operand layout (``cap512_operands``) and
+``measure.py``'s long-campaign states (``long_operands``), their one-GP
+slices (``one_gp``, ``first_gp``), B1's launch layouts (``LAYOUTS``) and
+the float32 B1-3p's (``LAYOUTS3``),
 the long-campaign sparse model (``sparse_data``, ``sparse_gp``) and the
 exact GP on its data (``sparse_exact_gp``), the hyperparameter fits'
 data and kernel (``fit_data``, ``fit_kernel``), the 10-d swarm problem
@@ -29,6 +31,26 @@ LAYOUTS = {
                       [(0, 0, -1), (1, 0, -1), (1, 64, 100), (2, 32, -1),
                        (4, 0, 0), (8, 64, -1)]),
 }
+
+
+# The float32 B1-3p's launch layouts (consumer warpgroups, ring stages,
+# resident gram rows, shared-memory carveout; 0 and -1 are K1-3p's own
+# choice), by capacity. A count of warpgroups other than K1-3p's (one up
+# to capacity 128, three past it: ``b1_3p_groups``) changes the order in
+# which the rows are added; the others keep K1-3p's bits.
+LAYOUTS3 = {
+    512: [(0, 0, 0, -1), (0, 2, 0, -1), (0, 4, 0, -1), (0, 0, 256, -1),
+          (0, 0, 32, -1), (0, 2, 128, -1), (0, 0, 0, 100), (0, 0, 0, 0),
+          (3, 3, 512, -1), (1, 0, 0, -1), (1, 4, 64, -1)],
+    64: [(0, 0, 0, -1), (0, 2, 0, -1), (0, 4, 0, -1), (0, 0, 32, -1),
+         (0, 0, 0, 100), (1, 3, 64, 0), (3, 0, 0, -1), (3, 2, 32, -1)],
+}
+
+
+def b1_3p_groups(cap):
+    """K1-3p's consumer warpgroups a block at capacity ``cap`` (its
+    resident body; csrc/intervals3.cuh kSmallCap3)."""
+    return 1 if cap <= 128 else 3
 
 
 def build_gps(rng, n_obs, capacity, device, dtype, spread=1.5, d=2):
@@ -166,6 +188,30 @@ def cap512_operands(dtype, grid=None):
     return fp.interval_operands([g.kern for g in gps], [g.state for g in gps],
                                 torch.tensor(grid, dtype=dtype,
                                              device="cuda"), BETA)
+
+
+def long_operands(name, dtype, grid=None):
+    """K1's operands of one of ``measure.py``'s long-campaign states in
+    ``dtype`` on the card, G = 1, over ``grid`` (the 1000 x 1000 grid on
+    [-5, 5]^2 when None): ``cap1024`` GP 0 of the flagship pair with 600
+    observations from ``default_rng(1024)`` in [-4, 4]^2 at capacity
+    1024, ``cap2048`` the exact GP on ``sparse_data()`` (2000
+    observations) at capacity 2048."""
+    from safeopt_torch import linearly_spaced_combinations
+    from safeopt_torch.ops import fused_posterior as fp
+
+    if grid is None:
+        grid = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
+    if name == "cap2048":
+        gps = [sparse_exact_gp("cuda", dtype)]
+    elif name == "cap1024":
+        gps = build_gps(np.random.default_rng(1024), 600, 1024, "cuda",
+                        dtype, spread=4.0)[:1]
+    else:
+        raise ValueError(f"unknown long-campaign state {name!r}")
+    return fp.interval_operands([g.kern for g in gps], [g.state for g in gps],
+                                torch.as_tensor(grid, dtype=dtype,
+                                                device="cuda"), BETA)
 
 
 def one_gp(ops, g=0):

@@ -20,7 +20,10 @@ count): ``no_gram`` computes no gram (the resident body's resident rows
 and its chunks past them, the tiled body's steps), ``no_loads`` arrives
 on the ring barriers without copying the factor, ``no_product`` issues
 no wgmma and ``one_pass`` issues the first of the three limb products
-only. A patch whose file the tree lacks (a parent without ``intervals3_tiled.cuh``) is skipped. The
+only. A patch whose file the tree lacks (a parent without ``intervals3_tiled.cuh``) is skipped; the
+patches match the text of the bodies templated on their limb format
+(``Limbs3``), and a tree from before that template stops with "patch not
+found". The
 time that goes when a stage goes is that stage's share. Each variant
 builds ``fused_intervals3.cu`` alone (one nvcc each, all started
 together) and is timed in float32 on each state of ``STATES``: K1-3p on
@@ -62,28 +65,28 @@ from tools_torch.states import (BETA, build_gps, cap512_operands,  # noqa: E402
 
 H = "intervals3.cuh"
 T = "intervals3_tiled.cuh"
-_GRAM = ("    fill_gram3_d(ghi, glo, I.xs, zs, 0, 0, rows / 8 * kP3, n, d, "
-         "I.gram, ct,\n                 kCons);\n")
-_GRAM_PAST = ("          fill_gram3_d(shi, slo, I.xs, zs, k0 / 8, 0, "
-              "kKC3 / 8 * kP3, n, d,\n                       I.gram, ct & "
-              "127, 128);\n")
-_GRAM_TILED = ("      gram_task3t_d(h, h + kStepBytes3t, I.xs, zs, k0, "
-               "wg + C * i,\n                    ct & (kP3t - 1), bend, d, "
+_GRAM = ("    fill_gram3_d<L>(ghi, glo, I.xs, zs, 0, 0, rows / L::kCoreK * "
+         "kP3, n, d,\n                    I.gram, ct, kCons);\n")
+_GRAM_PAST = ("          fill_gram3_d<L>(shi, slo, I.xs, zs, k0 / L::kCoreK, "
+              "0,\n                          L::kKC / L::kCoreK * kP3, n, d, "
+              "I.gram, ct & 127,\n                          128);\n")
+_GRAM_TILED = ("      gram_task3t_d<L>(h, h + kStepBytes3t, I.xs, zs, k0, "
+               "wg + C * i,\n                       ct & (kP3t - 1), bend, d, "
                "I.gram);\n")
-_LOAD = ("          mbar_expect_tx(f + s, kChunkBytes3);\n"
+_LOAD = ("          mbar_expect_tx(f + s, L::kLanded);\n"
          "          bulk_load(buf + (size_t)s * kChunkBytes3,\n"
-         "                    src + (size_t)(k0 / kKC3) * kChunkBytes3, "
-         "kChunkBytes3,\n                    f + s);\n")
+         "                    src + (size_t)(k0 / L::kKC) * L::kLanded, "
+         "L::kLanded,\n                    f + s);\n")
 _NO_LOAD = "          mbar_arrive(f + s);\n"
-_PRODUCT = ("            wgmma_64x64(acc, ahi + o, bhi + o);\n"
-            "            wgmma_64x64(acc, ahi + o, blo + o);\n"
-            "            wgmma_64x64(acc, alo + o, bhi + o);\n")
-_PRODUCT_TILED = ("      wgmma_64x128(acc, ahi + oa, bhi + ob);\n"
-                  "      wgmma_64x128(acc, ahi + oa, blo + ob);\n"
-                  "      wgmma_64x128(acc, alo + oa, bhi + ob);\n")
-_LOAD_TILED = ("      mbar_expect_tx(f + st, kChunkBytes3);\n"
+_PRODUCT = ("            wg_mma<L>(acc, ahi + o, bhi + o);\n"
+            "            wg_mma<L>(acc, ahi + o, blo + o);\n"
+            "            wg_mma<L>(acc, alo + o, bhi + o);\n")
+_PRODUCT_TILED = ("      wg_mma<L>(acc, ahi + oa, bhi + ob);\n"
+                  "      wg_mma<L>(acc, ahi + oa, blo + ob);\n"
+                  "      wg_mma<L>(acc, alo + oa, bhi + ob);\n")
+_LOAD_TILED = ("      mbar_expect_tx(f + st, L::kLanded);\n"
                "      bulk_load(buf + (size_t)st * kChunkBytes3, cursor.src(), "
-               "kChunkBytes3,\n                f + st);\n")
+               "L::kLanded,\n                f + st);\n")
 _NO_LOAD_TILED = "      mbar_arrive(f + st);\n"
 
 
