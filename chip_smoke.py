@@ -16,7 +16,8 @@ Phases, each reported on its own line:
    plans, each with three consumer warpgroups a block and with one)
    and of the experiment kernels on their bodies
    (``csrc/interval_experiments3.cu``: B1-3p and B4, each limb format
-   and cut, resident with one and three warpgroups, tiled) holds HGMMA,
+   and cut, and B2-3p and B3-3p, resident with one and three warpgroups,
+   tiled) holds HGMMA,
    Hopper's warpgroup tensor-core product;
 3. K1 (fused intervals) against its plain PyTorch version at G=2, d=2,
    N=1e6, capacity 64 (the flagship) and 512 (400 observations), one
@@ -82,18 +83,27 @@ Phases, each reported on its own line:
    plain version at the layouts with another count of consumer
    warpgroups (both planted faults past it), the body each float32
    layout ran by kernel name; B1-3p at its automatic layout (K1-3p's
-   plain version), B2-3p (the rank-1 solve, mma.sync) and B3-3p (mu
-   from the gram, mma.sync) to 1e-9 in float64 and in float32 within
-   their float32 bound of the plain version on the same operands, both
-   planted faults past it, and the max scaled |dQ| against the float64
-   rows (B1-3p's and B3-3p's below ``refine_band - boundary_band``;
-   B2-3p's rank-1 rows are no SafeOpt intervals, and theirs is printed
-   beside the plain version's own); then the experiment path,
+   plain version), B2-3p (the rank-1 solve) and B3-3p (mu from the
+   gram), in float32 on K1-3p's wgmma bodies, at cap 512 and 64 (the
+   resident body) and at ``cap1024`` and ``cap2048`` (G=1, the tiled
+   body), to 1e-9 in float64 and in float32 within their float32 bound
+   of the plain version on the same operands, both planted faults past
+   it (B2-3p's last one printed at ``cap2048``, where no worst-case
+   bound of the rows sees it), the same bits twice, the body each ran by
+   kernel name (B3-3p also with resident gram rows short of the
+   capacity), and the max scaled |dQ| against the float64 rows and the
+   decisions that differ from float64's outside the band (B1-3p's and
+   B3-3p's |dQ| below ``refine_band - boundary_band`` and B3-3p's
+   decisions equal to its plain version's outside the band, where the
+   plain rows are under that slack; B2-3p's rank-1 rows are no SafeOpt
+   intervals, and theirs is printed beside the plain version's own);
+   then the experiment path,
    ``tools_torch/bench_interval_experiments.py``'s five harnesses on the
-   cap-512 state in float32 (B1-B3 with their ``3pass`` columns; B4 also
-   at ``cap1024`` and ``cap2048``), with every count zeroed before it
-   and read after it, and B1-3p's time at its automatic layout beside
-   K1-3p's, B4's beside K1's;
+   cap-512 state in float32 (B1-B3 with their ``3pass`` columns, B2's
+   and B3's and B4 also at ``cap1024`` and ``cap2048``), with every
+   count zeroed before it and read after it, and B1-3p's time at its
+   automatic layout beside K1-3p's, B2-3p's and B3-3p's beside B1-3p's,
+   B4's beside K1's;
 9. the flagship path: two RBF GPs, 1000 x 1000 grid, 50 observations,
    capacity 64, chunk 32, through ``SafeOpt.optimize`` and
    ``add_new_data_point`` for 10 iterations against a NumPy plant, with
@@ -731,6 +741,15 @@ THREE_PASS_BODY = {
               "tiled": "intervals_plan3_tiled_kernel"}}
 
 
+# the float32 B2-3p and B3-3p kernels (csrc/interval_experiments3.cu), by
+# the body K1-3p's rule gives the capacity (three_pass_body)
+EXPERIMENT3_BODY = {
+    "solve_rank1": {"resident": "rank1_wg3_kernel<",
+                    "tiled": "rank1_tiled3_kernel"},
+    "mu_from_gram": {"resident": "mu_wg3_kernel<",
+                     "tiled": "mu_tiled3_kernel"}}
+
+
 # rows K1's and K2's resident body keeps in shared memory at most (the
 # launchers take the tiled body past them: csrc/fused_intervals.cu,
 # csrc/fused_intervals_plan.cu)
@@ -801,7 +820,7 @@ def refine_slack():
         "boundary_band"].default
 
 
-def check_three_pass(label, ops, fmin, scale, what="split"):
+def check_three_pass(label, ops, fmin, scale, what="split", hold_last=True):
     """A three-pass kernel against its plain version on ``ops`` {dtype:
     operands}: float64 to 1e-9, float32 within its float32 bound, and a
     planted fault (the plain rows with each GP's first, then last, 32
@@ -817,7 +836,19 @@ def check_three_pass(label, ops, fmin, scale, what="split"):
     The |dQ| check holds where the plain version's own float32 rows stay
     under the slack; a state whose three-pass product is past it by
     itself (a long campaign's factor, ROADMAP Queue 3) is printed, and
-    the kernel there is held by its float32 bound alone.
+    the kernel there is held by its float32 bound alone. The float32
+    decisions that differ from float64's outside the band are printed:
+    the three-pass product itself moves rows by several times the band
+    (its plain version's float32 rows flip some too). Where the plain
+    rows are under the slack, B3-3p's decisions must equal its plain
+    version's on the same float32 operands outside the band (past it,
+    the float32 sums of a long campaign's factor move the rows by more
+    than the band). The float32 B2-3p and B3-3p must give the same bits
+    on a second launch and run K1-3p's body for the capacity
+    (``EXPERIMENT3_BODY``, by the profiler's kernel name); B3-3p also
+    with resident gram rows short of the capacity (``res``, the resident
+    body), within the same bound. ``hold_last`` False prints the last
+    band's fault without holding it (see the caller).
     Returns (float64 error, float32 max scaled |dQ|, the fault
     readings)."""
     from safeopt_torch.ops import fused_posterior as fp
@@ -868,11 +899,37 @@ def check_three_pass(label, ops, fmin, scale, what="split"):
         k32[:, 0], ref[:, 0], torch.tensor(fmin, dtype=torch.float64,
                                            device="cuda")[:, None], sc)
     held = what != "solve_rank1" and dq_plain < slack
+    # against the plain version's float32 rows: the same function
+    wrong_plain, _ = decisions_agree(
+        k32[:, 0], p32.view(-1, 2, N)[:, 0].double(),
+        torch.tensor(fmin, dtype=torch.float64, device="cuda")[:, None], sc)
+    body = None
+    if what in EXPERIMENT3_BODY:
+        check(torch.equal(kernel(*o32).view(-1, 2, N).double(), k32),
+              f"{name} {label}: a second launch gave other bits")
+        cap = o32[2].shape[1]
+        body = EXPERIMENT3_BODY[what][fp.three_pass_body(cap)]
+        ran = kernel_names([(kernel, o32)])[0]
+        check(len(ran) == 1 and f"safeopt::{body}" in ran[0],
+              f"{name} {label} ran {ran}, not {body}")
+        if what == "mu_from_gram" and fp.three_pass_body(cap) == "resident":
+            res = min(256, -(-cap // 64) * 32)
+            part = kernel(*o32, res=res)
+            share = ((part.double() - p32.double()).abs()
+                     / bound_).max().item()
+            print(f"{name} {label}: with {res} resident gram rows at most "
+                  f"{share:.3f} of its float32 bound (limit 1)", flush=True)
+            check(share <= 1.0, f"{name} {label} res={res} past its bound")
+            check(torch.equal(part, kernel(*o32, res=res)),
+                  f"{name} {label} res={res}: a second launch gave other "
+                  f"bits")
     torch.cuda.synchronize()
     print(f"{name} {label}: f64 max|kernel-plain|={err64:.3e} (limit 1e-9); "
           f"f32 at most {ratio:.3f} of its float32 bound (limit 1), a "
           f"kernel dropping the first / last 32 active rows "
-          f"{faults[0]:.4g} / {faults[1]:.4g} of it (limit: past 1); f32 "
+          f"{faults[0]:.4g} / {faults[1]:.4g} of it (limit: "
+          + ("past 1" if hold_last else "the first past 1, the last "
+             "printed") + "); f32 "
           f"max scaled |dQ| against the float64 rows {dq:.3e} (the plain "
           f"version's own {dq_plain:.3e}; "
           + (f"limit {slack:g}" if held else
@@ -880,13 +937,21 @@ def check_three_pass(label, ops, fmin, scale, what="split"):
              f"not held: the plain three-pass rows are past the slack "
              f"{slack:g} themselves") +
           f"); f32 decisions differing outside the {BAND:g} band={wrong} "
-          f"(rows inside the band: {in_band})", flush=True)
+          f"(rows inside the band: {in_band}), from its plain version's "
+          f"float32 decisions {wrong_plain}"
+          + (" (limit 0)" if what == "mu_from_gram" and held else "")
+          + (f"; ran {body}, the same bits twice" if body else ""),
+          flush=True)
     check(err64 <= 1e-9, f"{name} {label} f64 error {err64}")
     check(ratio <= 1.0, f"{name} {label} f32 error past its bound")
-    check(min(faults) > 1.0, f"{name} {label}: a kernel dropping a band of "
-                             f"rows stays within the float32 bound {faults}")
+    check(faults[0] > 1.0 and (faults[1] > 1.0 or not hold_last),
+          f"{name} {label}: a kernel dropping a band of rows stays within "
+          f"the float32 bound {faults}")
     check(not held or dq < slack, f"{name} {label}: the three-pass error "
                                   f"{dq} is past refine_band - boundary_band")
+    check(what != "mu_from_gram" or not held or wrong_plain == 0,
+          f"{name} {label}: {wrong_plain} float32 decisions differ from its "
+          f"plain version's outside the band")
     return err64, dq, faults
 
 
@@ -4510,13 +4575,14 @@ def main():
           f"the wgmma instances of K1-3p/K2-3p hold no HGMMA: {hgmma}")
     # B1-3p's and B4's: four limb policies (bf16 or tf32, cut by the
     # wrapper or in the kernel) on the resident body with one and three
-    # consumer warpgroups and on the tiled body
+    # consumer warpgroups and on the tiled body; B2-3p's and B3-3p's
+    # (rank1_*, mu_*) on the same three
     hgmma3 = {k: v for k, v in sass.items()
               if "wg3_kernel" in k or "tiled3_kernel" in k}
     for name, count in sorted(hgmma3.items()):
         print(f"  sass: {name}: {count} HGMMA", flush=True)
-    check(len(hgmma3) == 12 and min(hgmma3.values()) > 0,
-          f"the wgmma instances of B1-3p/B4 hold no HGMMA: {hgmma3}")
+    check(len(hgmma3) == 18 and min(hgmma3.values()) > 0,
+          f"the wgmma instances of B1-3p-B3-3p/B4 hold no HGMMA: {hgmma3}")
 
     grid_np = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
     grid64 = torch.tensor(grid_np, dtype=torch.float64, device="cuda")
@@ -4621,6 +4687,18 @@ def main():
                                         SPARSE_SCALING)
         for key, err in errs.items():
             exp_errs[key] = max(exp_errs[key], err)
+        # B2-3p and B3-3p through the tiled body. At the exact GP
+        # (cap2048) the rank-1 stand-in's last 32 rows of V = Lm x[:, 0]
+        # z[0] are the innovations of a linear function after 1968 rows,
+        # near zero: dropping them moves the rows by about 0.08 of any
+        # worst-case bound of the rows (PERF.md section 7), so that fault
+        # is printed there, not held
+        for key, what in (("B2-3p solve_rank1", "solve_rank1"),
+                          ("B3-3p", "mu_from_gram")):
+            err = check_three_pass(
+                f"{name} (G=1)", ops, SPARSE_FMIN, SPARSE_SCALING, what=what,
+                hold_last=not (name == "cap2048" and what == "solve_rank1"))[0]
+            exp_errs[key] = max(exp_errs[key], err)
     zero_launches()
     exp_results = bx.run(exp_ops[f32], EXPERIMENT_REPS,
                          {name: ops[f32] for name, ops in long_ops.items()})
@@ -4648,6 +4726,19 @@ def main():
           f"against K1-3p {b1['K1-3p_ms']:.4f} / {b1['K1-3p_ms_after']:.4f} "
           f"ms before / after it ({b1['3pass_auto_vs_K1-3p']:.4f} x) on "
           f"{smi}", flush=True)
+    for name in ("cap512", *long_ops):
+        r2, r3 = ((exp_results[h] if name == "cap512" else exp_results[h][
+            name]) for h in ("B2", "B3"))
+        body = "resident" if name == "cap512" else "tiled"
+        print(f"B2-3p / B3-3p {name} on {smi} (the wgmma {body} body): "
+              f"B2-3p {r2['3pass_solve_only_ms']:.4f} ms, gram sums "
+              f"{r2['gram_sums_ms']:.4f}, (gram + solve) / B1-3p "
+              f"{r2['3pass_wgmma_total_ms']:.4f} = "
+              f"{r2['3pass_sum_vs_wgmma_total']:.4f}; B3-3p "
+              f"{r3['3pass_mxu_emit_ms']:.4f} ms against B1-3p "
+              f"{r3['3pass_wgmma_base_ms']:.4f} "
+              f"({r3['3pass_mxu_emit_vs_wgmma_base']:.4f} x); K1-3p "
+              f"{r2['K1-3p_ms']:.4f} / {r3['K1-3p_ms']:.4f}", flush=True)
     for name in ("cap512", *long_ops):
         res = exp_results["B4"] if name == "cap512" else exp_results["B4"][
             name]
@@ -5227,7 +5318,8 @@ def main():
               f"of the bound {b_ms / k_ms:.1%}", flush=True)
         wrapper, tpu = b_meta[name]
         key, _, mode = name.partition(" ")
-        src = ("interval_experiments3.cu" if key in ("B1-3p", "B4")
+        src = ("interval_experiments3.cu"
+               if key in ("B1-3p", "B2-3p", "B3-3p", "B4")
                else "interval_experiments.cu")
         if key in ("B2", "B5") and mode in ("solve_rank1", "epilogue"):
             ops = o32 if mode == "solve_rank1" else first
@@ -5242,6 +5334,33 @@ def main():
             "replaces": f"benchmarks/{tpu}", "launches": exp_launches[name],
             "max_abs_err": exp_errs[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        if key in ("B2-3p", "B3-3p"):
+            # B1-3p in the same call, and the tiled body at the
+            # long-campaign states
+            entry = kernels[-1]
+            harness, k_key, b1_key, plain_long = (
+                ("B2", "3pass_solve_only_ms", "3pass_wgmma_total_ms",
+                 functools.partial(ie.interval_ablation_plain,
+                                   mode="solve_rank1", three_pass=True))
+                if key == "B2-3p" else
+                ("B3", "3pass_mxu_emit_ms", "3pass_wgmma_base_ms",
+                 functools.partial(ie.intervals_mu_from_gram_plain,
+                                   three_pass=True)))
+            entry["B1-3p_ms"] = res[harness][b1_key]
+            for state, ops in long_ops.items():
+                o_long, r = ops[f32], res[harness][state]
+                lb_ms, _ = split_bound("bf16", N, d, o_long[2].shape[1],
+                                       int(o_long[5][0, 3]),
+                                       gram=key == "B3-3p")
+                entry.update({
+                    f"{state}_ms": r[k_key], f"{state}_bound_ms": lb_ms,
+                    f"{state}_plain_ms": cuda_ms(
+                        lambda: plain_long(*o_long), reps=1, warmup=0),
+                    f"{state}_B1-3p_ms": r[b1_key]})
+                print(f"  {name} {state} (tiled body): kernel "
+                      f"{r[k_key]:.4f} ms, bound {lb_ms:.4f} ms, share of "
+                      f"the bound {lb_ms / r[k_key]:.1%}; B1-3p "
+                      f"{r[b1_key]:.4f} ms", flush=True)
         if key == "B4":
             # the hoisted limbs, the scaled error against float64 beside
             # K1's, and the tiled body at the long-campaign states

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "safeopt_intervals_mu_from_gram_f32": [_P] * 7 + [_I] * 6 + [_P],
     "safeopt_intervals_mu_from_gram_f64": [_P] * 7 + [_I] * 6 + [_P],
     "safeopt_intervals3_launch_f32": [_P] * 7 + [_I] * 9 + [_P],
+    "safeopt_rank1_solve3_f32": [_P] * 6 + [_I] * 4 + [_P],
+    "safeopt_mu_from_gram3_f32": [_P] * 7 + [_I] * 6 + [_P],
     "safeopt_intervals_split_bf16": [_P] * 7 + [_I] * 5 + [_P],
     "safeopt_intervals_split_tf32": [_P] * 7 + [_I] * 5 + [_P],
 }

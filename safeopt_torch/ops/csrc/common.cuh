@@ -178,6 +178,26 @@ struct StationaryGram {
   }
 };
 
+// The rank-1 stand-in gram of the experiment B2's solve and of B2-3p
+// (interval_experiments.cu, interval_experiments3.cu): xs[c, 0] * z[0],
+// one multiply an entry, on raw points (the block stages them unscaled).
+// Coordinate 0 of point p is zs[p] at any stride ldz.
+template <typename T>
+struct RankOneGram {
+  template <int R>
+  __device__ __forceinline__ void rows(T (&v)[R], const T* const (&x)[R],
+                                       const T* zs, int p, int d,
+                                       int ldz) const {
+    const T z = zs[p];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = x[r][0] * z;
+  }
+  __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
+                                          int d, int ldz) const {
+    return x[0] * zs[p];
+  }
+};
+
 // A plan of a Sum/Product algebra (K2, K4; the JAX package's _part_gram):
 // raw inputs, per leaf q a kind, a variance and a scale row (1 /
 // lengthscale on its active columns, 0 elsewhere). A leaf reads its

@@ -21,24 +21,23 @@
 // B3 (bench_interval_mosaic4.py::kern_mxu_emit): K1 with mu = sum_c u[c]
 //    k[c], u = Lm^T w precomputed by the wrapper (interval_rows
 //    MuFromGram): no band multiplies w into V.
-// B1-3p in float64, B2-3p, B3-3p: B1, B2's rank-1 solve and B3 at the
+// B1-3p, B2-3p, B3-3p in float64: B1, B2's rank-1 solve and B3 at the
 //    harnesses' three_pass=True (bench_interval_mosaic.py:76,
-//    mosaic3.py:114, mosaic4.py:107): the same bodies with the three-pass
-//    product of intervals.cuh (ThreePassProduct, V = Lm_hi k_hi + Lm_hi
-//    k_lo + Lm_lo k_hi over bf16 limbs, mma.sync in float32, FP64 FMAs of
-//    the limbs in float64) and K1-3p's launch bounds (float64 at one block
-//    an SM: its limbs and register tile take 254 registers). The float64
-//    B1-3p is the float64 K1-3p's body and gives its bits at every layout;
-//    B3-3p reads mu from the gram rows by lane = point, each band over its
-//    own 32 columns. The float32 B1-3p and B4 run K1-3p's wgmma bodies
+//    mosaic3.py:114, mosaic4.py:107): the same bodies with the float64
+//    K1-3p's product (intervals.cuh ThreePassProduct, V = Lm_hi k_hi +
+//    Lm_hi k_lo + Lm_lo k_hi over bf16 limbs as FP64 FMAs, lo unrounded)
+//    at one block an SM (its limbs and register tile take 254
+//    registers): checks of the gram policies and the limb cut against
+//    the plain versions to 1e-9, not routes. The float64 B1-3p is the
+//    float64 K1-3p's body and gives its bits at every layout; B3-3p reads
+//    mu from the gram rows by lane = point, each band over its own 32
+//    columns. In float32 all three, and B4, run K1-3p's wgmma bodies
 //    (interval_experiments3.cu).
 //
 // What bounds them: B1-B3 and B2/B5's rank-1 solve as K1 (the FP32/FP64
-// pipe: n(n+1)/2 FMAs a point); their three-pass forms as K1-3p (the
-// bf16 tensor cores, 3 n(n+1) flops a point, beside the gram, the limb
-// cuts and the epilogue on the FP32 pipe); B2's sums and B5's no-product and
-// epilogue modes n gram entries (or none) a point against 8 d bytes read,
-// still the FP32 pipe at n = 400.
+// pipe: n(n+1)/2 FMAs a point; in float64 their three-pass forms too);
+// B2's sums and B5's no-product and epilogue modes n gram entries (or
+// none) a point against 8 d bytes read, still the FP32 pipe at n = 400.
 #include "intervals.cuh"
 #include "limbs.cuh"
 
@@ -130,24 +129,6 @@ int launch_intervals_at(const T* zt, const T* ils, const T* xs, const T* lmt,
 enum AblationMode { kGramSums = 0, kSolveRank1 = 1, kNoProduct = 2,
                     kEpilogue = 3 };
 
-// The rank-1 stand-in gram of B2's solve: xs[c, 0] * z[0], one multiply
-// (the block stages raw points: K1's body gets no inverse lengthscales).
-template <typename T>
-struct RankOneGram {
-  template <int R>
-  __device__ __forceinline__ void rows(T (&v)[R], const T* const (&x)[R],
-                                       const T* zs, int p, int d,
-                                       int ldz) const {
-    const T z = zs[p];
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = x[r][0] * z;
-  }
-  __device__ __forceinline__ T operator()(const T* x, const T* zs, int p,
-                                          int d, int ldz) const {
-    return x[0] * zs[p];
-  }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kIvMinBlocks)
     rank1_solve_kernel(const T* __restrict__ zt, const T* __restrict__ xs,
@@ -163,9 +144,10 @@ __global__ void __launch_bounds__(kThreads, kIvMinBlocks)
                    N, d, cap, n, S, res, RankOneGram<T>{});
 }
 
-// B2-3p: the rank-1 solve with K1-3p's product
+// B2-3p in float64: the rank-1 solve with the float64 K1-3p's product
+// (the float32 B2-3p is interval_experiments3.cu's)
 template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
+__global__ void __launch_bounds__(kThreads, 1)
     rank1_solve3_kernel(const T* __restrict__ zt, const T* __restrict__ xs,
                         const T* __restrict__ lmt, const T* __restrict__ w,
                         const T* __restrict__ scal, T* __restrict__ out,
@@ -250,14 +232,16 @@ int launch_rowwise(const T* zt, const T* ils, const T* xs, const T* w,
   return (int)cudaGetLastError();
 }
 
-// three_pass: the rank-1 solve's three-pass form (B2-3p); the other
-// modes have no product and refuse it
+// three_pass: the rank-1 solve's three-pass form (B2-3p), in float64 only
+// (the float32 B2-3p is interval_experiments3.cu's); the other modes have
+// no product and refuse it
 template <typename T>
 int launch_ablation(const T* zt, const T* ils, const T* xs, const T* lmt,
                     const T* w, const T* scal, T* out, int G, int N, int d,
                     int cap, int kind, int mode, int three_pass,
                     cudaStream_t stream) {
-  if (three_pass && mode != kSolveRank1) return (int)cudaErrorInvalidValue;
+  if (three_pass && (mode != kSolveRank1 || sizeof(T) != 8))
+    return (int)cudaErrorInvalidValue;
   switch (mode) {
     case kGramSums:
       return launch_rowwise<T, kGramSums>(zt, ils, xs, w, scal, out, G, N, d,
@@ -270,7 +254,10 @@ int launch_ablation(const T* zt, const T* ils, const T* xs, const T* lmt,
                                           cap, kind, stream);
     case kSolveRank1: {
       const IvLayout<T> lay = interval_layout<T>(cap, d);
-      auto kernel = three_pass ? rank1_solve3_kernel<T> : rank1_solve_kernel<T>;
+      auto kernel = rank1_solve_kernel<T>;
+      if constexpr (sizeof(T) == 8) {
+        if (three_pass) kernel = rank1_solve3_kernel<T>;
+      }
       const cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
       if (err != cudaSuccess) return (int)err;
@@ -307,9 +294,10 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
       StationaryGram<T>{kind, scal[g * 4]});
 }
 
-// B3-3p: mu from the gram beside K1-3p's product
+// B3-3p in float64: mu from the gram beside the float64 K1-3p's product
+// (the float32 B3-3p is interval_experiments3.cu's)
 template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
+__global__ void __launch_bounds__(kThreads, 1)
     mu_from_gram3_kernel(const T* __restrict__ zt, const T* __restrict__ ils,
                          const T* __restrict__ xs, const T* __restrict__ lmt,
                          const T* __restrict__ u, const T* __restrict__ scal,
@@ -325,15 +313,19 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? kIvMinBlocks : 1)
       StationaryGram<T>{kind, scal[g * 4]});
 }
 
-// B3 (three_pass 0) or B3-3p (1)
+// B3 (three_pass 0) or, in float64, B3-3p (1)
 template <typename T>
 int launch_mu_from_gram(const T* zt, const T* ils, const T* xs, const T* lmt,
                         const T* u, const T* scal, T* out, int G, int N, int d,
                         int cap, int kind, int three_pass,
                         cudaStream_t stream) {
   const IvLayout<T> lay = interval_layout<T>(cap, d);
-  auto kernel =
-      three_pass ? mu_from_gram3_kernel<T> : mu_from_gram_kernel<T>;
+  auto kernel = mu_from_gram_kernel<T>;
+  if constexpr (sizeof(T) == 8) {
+    if (three_pass) kernel = mu_from_gram3_kernel<T>;
+  } else if (three_pass) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
   if (err != cudaSuccess) return (int)err;
@@ -381,7 +373,8 @@ int safeopt_intervals_launch_f64(const void* zt, const void* ils,
 
 // B2/B5: K1's operands, mode 0 gram sums, 1 rank-1 solve, 2 no product,
 // 3 epilogue only; three_pass 1: the rank-1 solve's three-pass form
-// (B2-3p; any other mode refuses it); out (G, 2, N).
+// (B2-3p), in float64 only (the float32 B2-3p is
+// safeopt_rank1_solve3_f32; any other mode refuses it); out (G, 2, N).
 int safeopt_interval_ablation_f32(const void* zt, const void* ils,
                                   const void* xs, const void* lmt,
                                   const void* w, const void* scal, void* out,
@@ -405,7 +398,8 @@ int safeopt_interval_ablation_f64(const void* zt, const void* ils,
       (cudaStream_t)stream);
 }
 
-// B3: K1's operands with u = Lm^T w in place of w; three_pass 1: B3-3p.
+// B3: K1's operands with u = Lm^T w in place of w; three_pass 1: B3-3p,
+// in float64 only (the float32 B3-3p is safeopt_mu_from_gram3_f32).
 int safeopt_intervals_mu_from_gram_f32(const void* zt, const void* ils,
                                        const void* xs, const void* lmt,
                                        const void* u, const void* scal,

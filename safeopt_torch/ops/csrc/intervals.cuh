@@ -52,21 +52,16 @@
 // band of a block running alone.
 //
 // The product is a policy next to the gram's. Fp32Product: the products
-// above are FP32 (FP64) FMAs; no TF32, no tensor cores. ThreePassProduct
-// (K1-3p, K2-3p, the certified path's interval pass): V = Lm k taken as
-// Lm_hi k_hi + Lm_hi k_lo + Lm_lo k_hi over bf16 limbs (limbs.cuh), the
-// TPU kernel's 3-pass product. In float32 a band runs on the tensor
-// cores, as 2 x 4 mma.m16n8k16 tiles of 16 rows by 8 points per k16
-// piece, three mma each with f32 accumulation; each lane cuts the limbs
-// of its fragments from the staged piece and the gram as it loads them
-// (every band re-cuts the block's gram: a cvt and a difference an
-// entry), and a band's sums per point are reduced over the 8 lanes that
-// share a point with a butterfly (the same bits on every lane, so the
-// partials stay deterministic). In float64 the band keeps the FP32
-// policy's register tile and adds the three limb products as FP64 FMAs
-// with lo unrounded, the JAX package's float64 3-pass product: a check
-// of the bands, the gram policies and the limb cut against the plain
-// version to 1e-9, not a route the card's float32 path takes.
+// above are FP32 (FP64) FMAs; no TF32, no tensor cores. ThreePassProduct,
+// float64 only (the float64 K1-3p and K2-3p, and the experiments B1-3p,
+// B2-3p and B3-3p in float64): V = Lm k taken as Lm_hi k_hi + Lm_hi k_lo
+// + Lm_lo k_hi over bf16 limbs (limbs.cuh), the TPU kernel's 3-pass
+// product; the band keeps the FP32 policy's register tile and adds the
+// three limb products as FP64 FMAs with lo unrounded, the JAX package's
+// float64 3-pass product: a check of the bands, the gram policies and the
+// limb cut against the plain version to 1e-9, not a route the card's
+// float32 path takes (the float32 three-pass kernels run the wgmma
+// bodies of intervals3.cuh and intervals3_tiled.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -241,54 +236,6 @@ __device__ __forceinline__ void band_steps(T (&acc)[kBandTM][kBandTN],
   }
 }
 
-// One k16 piece of a float32 three-pass band on the tensor cores: acc,
-// viewed as acc[4 mt + nt][e], is the m16n8 tile (mt, nt) of the band's
-// 32 rows by 32 points: row 16 mt + gid + 8 (e >> 1), point 8 nt + 2 tig
-// + (e & 1) (lane = 4 gid + tig, the mma.m16n8k16 D fragment). a is the
-// staged piece of Lm^T (a[c * kBand + r]), b the gram rows of the
-// piece's columns (b[c * ldb + p], the band's points from 0); columns at
-// or past steps count as zeros (neither is staged there). skip_top: every
-// column lies past the band's first 16 rows, whose products are zeros.
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): A a0 (row gid, k 2 tig,
-// +1), a1 (row gid + 8, the same k), a2 (row gid, k 2 tig + 8, +9), a3
-// (row gid + 8, those k); B b0 (k 2 tig, +1; n gid), b1 (k 2 tig + 8,
-// +9; n gid).
-__device__ __forceinline__ void band_mma3(float (&acc)[kBandTM][kBandTN],
-                                          const float* a, const float* b,
-                                          int ldb, int steps, bool skip_top,
-                                          int lane) {
-  const int gid = lane >> 2, tig = lane & 3;
-  const int ks[4] = {2 * tig, 2 * tig + 1, 2 * tig + 8, 2 * tig + 9};
-  uint32_t bhi[4][2], blo[4][2];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    float v[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      v[q] = ks[q] < steps ? b[(size_t)ks[q] * ldb + 8 * nt + gid] : 0.0f;
-    split_pack_bf16(v[0], v[1], bhi[nt][0], blo[nt][0]);
-    split_pack_bf16(v[2], v[3], bhi[nt][1], blo[nt][1]);
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    if (mt == 0 && skip_top) continue;
-    uint32_t ahi[4], alo[4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)      // k pair 2 tig (a0, a1), 2 tig + 8
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {  // row gid, gid + 8
-        const int r = 16 * mt + gid + 8 * rr;
-        const int k0 = ks[2 * h], k1 = ks[2 * h + 1];
-        const float x0 = k0 < steps ? a[k0 * kBand + r] : 0.0f;
-        const float x1 = k1 < steps ? a[k1 * kBand + r] : 0.0f;
-        split_pack_bf16(x0, x1, ahi[2 * h + rr], alo[2 * h + rr]);
-      }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      mma3_bf16(acc[4 * mt + nt], ahi, alo, bhi[nt], blo[nt]);
-  }
-}
-
 // out (2, N) rows of one GP for the block's points; ils scales the
 // points (null for raw points); lmt is Lm transposed with row stride ldl;
 // n the active rows; S and res from interval_layout. MuFromGram (the
@@ -301,8 +248,7 @@ __device__ __forceinline__ void band_mma3(float (&acc)[kBandTM][kBandTN],
 // share mu's work (the longest band sets a block's time, and the last
 // band, which reads every column, is the longest; PERF.md); each
 // lane adds its point from the gram rows in shared memory, in
-// column order (the mma D fragment holds other rows and points than the
-// FP32 tile, and one sum a lane leaves the float64 bands' registers to
+// column order (one sum a lane leaves the float64 bands' registers to
 // the limbs), and the bands' partials are added in band order. Product
 // is the contraction's policy (Fp32Product, ThreePassProduct).
 template <typename T, class Gram, bool MuFromGram = false,
@@ -312,9 +258,8 @@ __device__ __forceinline__ void interval_rows(
     const T* __restrict__ xs, const T* __restrict__ lmt, int ldl,
     const T* __restrict__ w, T kdiag, T beta, T* __restrict__ out, int N,
     int d, int cap, int n, int S, int res, const Gram& gram) {
-  // float32 three-pass bands run on the tensor cores (band_mma3)
-  constexpr bool kMma =
-      Product::kThreePass && std::is_same<T, float>::value;
+  static_assert(!Product::kThreePass || std::is_same<T, double>::value,
+                "the float32 three-pass bodies are intervals3.cuh's");
   // mu from the gram by lane = point (the three-pass bands)
   constexpr bool kMuLane = MuFromGram && Product::kThreePass;
   const IvLayout<T> lay(cap, d, S, res);
@@ -413,13 +358,8 @@ __device__ __forceinline__ void interval_rows(
         cp_async_wait<kStages - 1>();  // piece q has landed, later in flight
         __syncwarp();
         const int steps = cend - k0 < kKS ? cend - k0 : kKS;
-        if constexpr (kMma) {
-          band_mma3(acc, at0 + (q % kStages) * kKS * kBand, bsrc, ldb, steps,
-                    k0 >= r0 + 16, lane);
-        } else {
-          band_steps<Product::kThreePass>(acc, at0 + (q % kStages) * kKS * kBand,
-                                          bsrc, ldb, steps, ty, tx);
-        }
+        band_steps<Product::kThreePass>(acc, at0 + (q % kStages) * kKS * kBand,
+                                        bsrc, ldb, steps, ty, tx);
         if constexpr (kMuLane) {
           if (k0 >= r0) {  // the band's own columns: the bands cover [0, n)
             for (int c = 0; c < steps; ++c)
@@ -442,74 +382,38 @@ __device__ __forceinline__ void interval_rows(
         }
         __syncwarp();  // piece q (and the gram piece) is consumed
       }
-      if constexpr (kMma) {
-        // the band's partials per point, over the 8 lanes of a point
-        const int gid = lane >> 2, tig = lane & 3;
-        T* pm = red + (size_t)(b - lo) * P + s * kWP;
-        T* ps = pm + (size_t)lay.nred * P;
+      // the band's partials; rows past n hold exact zeros
+      T mu[kBandTN], ssq[kBandTN];
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+      for (int j = 0; j < kBandTN; ++j) mu[j] = ssq[j] = T(0);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            T m = T(0), q2 = T(0);
+      for (int i = 0; i < kBandTM; ++i) {
+        const int r = r0 + ty * kBandTM + i;
+        const T wr = r < n ? w[r] : T(0);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
+        for (int j = 0; j < kBandTN; ++j) {
+          if constexpr (!MuFromGram) mu[j] += wr * acc[i][j];
+          ssq[j] += acc[i][j] * acc[i][j];
+        }
+      }
+      if constexpr (MuFromGram && !kMuLane) {
 #pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const T v = acc[4 * mt + nt][2 * h + j];
-                if constexpr (!MuFromGram) {
-                  const int r = r0 + 16 * mt + gid + 8 * h;
-                  m += (r < n ? w[r] : T(0)) * v;
-                }
-                q2 += v * v;
-              }
-#pragma unroll
-            for (int o = 4; o < 32; o <<= 1) {
-              if constexpr (!MuFromGram)
-                m += __shfl_xor_sync(0xffffffffu, m, o);
-              q2 += __shfl_xor_sync(0xffffffffu, q2, o);
-            }
-            if (gid == 0) {
-              if constexpr (!MuFromGram) pm[8 * nt + 2 * tig + j] = m;
-              ps[8 * nt + 2 * tig + j] = q2;
-            }
-          }
-        if constexpr (kMuLane) pm[lane] = mg[0];
-        __syncwarp();
-      } else {
-        // the band's partials; rows past n hold exact zeros
-        T mu[kBandTN], ssq[kBandTN];
-#pragma unroll
-        for (int j = 0; j < kBandTN; ++j) mu[j] = ssq[j] = T(0);
-#pragma unroll
-        for (int i = 0; i < kBandTM; ++i) {
-          const int r = r0 + ty * kBandTM + i;
-          const T wr = r < n ? w[r] : T(0);
+        for (int j = 0; j < kBandTN; ++j) mu[j] = mg[j];
+      }
+      T* pm = red + (size_t)(b - lo) * P + s * kWP + tx * kBandTN;
+      T* ps = pm + (size_t)lay.nred * P;
+      for (int g = 0; g < 4; ++g) {  // the 4 row groups in order
+        if (ty == g) {
 #pragma unroll
           for (int j = 0; j < kBandTN; ++j) {
-            if constexpr (!MuFromGram) mu[j] += wr * acc[i][j];
-            ssq[j] += acc[i][j] * acc[i][j];
+            if constexpr (!kMuLane) pm[j] = g ? pm[j] + mu[j] : mu[j];
+            ps[j] = g ? ps[j] + ssq[j] : ssq[j];
           }
         }
-        if constexpr (MuFromGram && !kMuLane) {
-#pragma unroll
-          for (int j = 0; j < kBandTN; ++j) mu[j] = mg[j];
-        }
-        T* pm = red + (size_t)(b - lo) * P + s * kWP + tx * kBandTN;
-        T* ps = pm + (size_t)lay.nred * P;
-        for (int g = 0; g < 4; ++g) {  // the 4 row groups in order
-          if (ty == g) {
-#pragma unroll
-            for (int j = 0; j < kBandTN; ++j) {
-              if constexpr (!kMuLane) pm[j] = g ? pm[j] + mu[j] : mu[j];
-              ps[j] = g ? ps[j] + ssq[j] : ssq[j];
-            }
-          }
-          __syncwarp();
-        }
-        if constexpr (kMuLane)
-          red[(size_t)(b - lo) * P + s * kWP + lane] = mg[0];
+        __syncwarp();
       }
+      if constexpr (kMuLane)
+        red[(size_t)(b - lo) * P + s * kWP + lane] = mg[0];
     }
     __syncthreads();
     // 3. the round's bands in order, per point

@@ -364,20 +364,45 @@ __device__ __forceinline__ void cut_chunk(unsigned char* stage, int t) {
   }
 }
 
+// What a gram task adds up beside the limbs it stores: nothing (K1-3p,
+// K2-3p, B1-3p, B4), or the experiment B3-3p's mu = sum_c u[c] k[c] over
+// the rows below n, taken from the float32 entries before their limb cut
+// into one register of the thread (MuSum3). only(false) makes the tasks
+// that follow add nothing, only(true) the rows below n again.
+struct NoMuSum3 {
+  __device__ __forceinline__ NoMuSum3(const float*, int) {}
+  __device__ __forceinline__ NoMuSum3& only(bool) { return *this; }
+  __device__ __forceinline__ void add(int, float) const {}
+};
+struct MuSum3 {
+  const float* u;
+  int n, lim;          // the active rows; the rows added now (n or 0)
+  float acc = 0.0f;
+  __device__ __forceinline__ MuSum3(const float* u_, int n_)
+      : u(u_), n(n_), lim(n_) {}
+  __device__ __forceinline__ MuSum3& only(bool on) {
+    lim = on ? n : 0;
+    return *this;
+  }
+  __device__ __forceinline__ void add(int row, float v) {
+    if (row < lim) acc += u[row] * v;
+  }
+};
+
 // Gram limbs for the block's 64 points: task t = 64 j + p of [t0, t1) is
 // point p's rows kCoreK (g0 + j) .. kCoreK (g0 + j + 1) - 1 (8 in bf16, 4
 // in tf32), cut to limbs and stored as one 16-byte vector per limb at
 // hi/lo + j kGroupBytes3 + (p / 8) 128 + (p % 8) 16 (the core-matrix
 // order, k contiguous). Rows at or past n are zeros. Tasks are spread
-// over the threads tid = 0 .. threads - 1. D as fill_gram's
-// (intervals.cuh).
-template <int D, class L, class Gram>
+// over the threads tid = 0 .. threads - 1; each row's entry goes to
+// mu.add (NoMuSum3 or MuSum3). D as fill_gram's (intervals.cuh).
+template <int D, class L, class Gram, class Mu>
 __device__ __forceinline__ void fill_gram3(unsigned char* hi, unsigned char* lo,
                                            const float* __restrict__ xs,
                                            const float* zs, int g0, int t0,
                                            int t1, int n, int d,
                                            const Gram& gram, int tid,
-                                           int threads) {
+                                           int threads, Mu&& mu) {
   const int dd = D > 0 ? D : d;
   for (int t = t0 + tid; t < t1; t += threads) {
     const int j = t / kP3, p = t - j * kP3;
@@ -394,7 +419,10 @@ __device__ __forceinline__ void fill_gram3(unsigned char* hi, unsigned char* lo,
       }
       gram.template rows<4>(u, x, zs, p, dd, kP3);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) v[4 * h + r] = r0 + 4 * h + r < n ? u[r] : 0.0f;
+      for (int r = 0; r < 4; ++r) {
+        v[4 * h + r] = r0 + 4 * h + r < n ? u[r] : 0.0f;
+        mu.add(r0 + 4 * h + r, v[4 * h + r]);
+      }
     }
     if constexpr (L::kTf32) {
       uint4 h4, l4;
@@ -413,20 +441,20 @@ __device__ __forceinline__ void fill_gram3(unsigned char* hi, unsigned char* lo,
   }
 }
 
-template <class L, class Gram>
+template <class L, class Gram, class Mu>
 __device__ __forceinline__ void fill_gram3_d(unsigned char* hi,
                                              unsigned char* lo,
                                              const float* __restrict__ xs,
                                              const float* zs, int g0, int t0,
                                              int t1, int n, int d,
                                              const Gram& gram, int tid,
-                                             int threads) {
+                                             int threads, Mu&& mu) {
   switch (d) {
-    case 1: fill_gram3<1, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
-    case 2: fill_gram3<2, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
-    case 3: fill_gram3<3, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
-    case 4: fill_gram3<4, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads); break;
-    default: fill_gram3<0, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads);
+    case 1: fill_gram3<1, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads, mu); break;
+    case 2: fill_gram3<2, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads, mu); break;
+    case 3: fill_gram3<3, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads, mu); break;
+    case 4: fill_gram3<4, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads, mu); break;
+    default: fill_gram3<0, L>(hi, lo, xs, zs, g0, t0, t1, n, d, gram, tid, threads, mu);
   }
 }
 
@@ -477,7 +505,18 @@ struct Item3 {
 //
 // Each item's resident gram is computed by all consumer threads before
 // its first product (see the note at the top).
-template <int C, class L = Bf16Limbs3, int S = kStages3, class ItemF>
+//
+// Mu (the experiment B3-3p): the item's w holds u = Lm^T w and mu is
+// sum_c u[c] k[c], added from each gram entry before its limb cut, and
+// no warp multiplies w into V. Thread ct serves point ct % 64 in every
+// gram task (kCons and 128 are multiples of 64) and adds its entries'
+// u k in one register: the resident rows as it fills them, and past them
+// each chunk once, in its diagonal row tile (m = k0 / 64, which every
+// chunk below n has, the one warpgroup that runs it). The block adds the
+// kCons / 64 registers of a point in thread order: the same bits on
+// every launch.
+template <int C, class L = Bf16Limbs3, int S = kStages3, bool Mu = false,
+          class ItemF>
 __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
                                                int N, int d, int cap, int res,
                                                int items, ItemF item,
@@ -556,6 +595,7 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
     const int n = I.n;
     const int nk = (n + 15) / 16 * 16;
     const int rows = nk < res ? nk : res;   // resident gram rows to compute
+    std::conditional_t<Mu, MuSum3, NoMuSum3> usum(I.w, n);
 
     // 1. the points and the resident gram limbs (rows past n zero up to
     // the last k16 step); the barrier first: the last item's products are
@@ -570,7 +610,7 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
     for (int p = lane; p < kP3; p += 32) red_m[p] = red_q[p] = 0.0f;
     named_sync(kBarConsumers3, kCons);
     fill_gram3_d<L>(ghi, glo, I.xs, zs, 0, 0, rows / L::kCoreK * kP3, n, d,
-                    I.gram, ct, kCons);
+                    I.gram, ct, kCons, usum.only(true));
     fence_proxy_async();
     named_sync(kBarConsumers3, kCons);
 
@@ -601,7 +641,7 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
           named_sync(kBarGroup3 + wg, 128);  // the last chunk's reads are done
           fill_gram3_d<L>(shi, slo, I.xs, zs, k0 / L::kCoreK, 0,
                           L::kKC / L::kCoreK * kP3, n, d, I.gram, ct & 127,
-                          128);
+                          128, usum.only(m == k0 / kTM3));
           fence_proxy_async();
           named_sync(kBarGroup3 + wg, 128);
           bh = shi;
@@ -650,8 +690,9 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
         __syncwarp();
         if (lane == 0) mbar_arrive(e + prev);
       }
-      // w V and V^2 of the two rows, added over the warp's 16 rows; the
-      // warp's sums per point gather its tiles in its fixed order
+      // w V (not with Mu) and V^2 of the two rows, added over the warp's
+      // 16 rows; the warp's sums per point gather its tiles in its fixed
+      // order
 #pragma unroll
       for (int jn = 0; jn < 8; ++jn)
 #pragma unroll
@@ -661,24 +702,26 @@ __device__ __forceinline__ void interval3_rows(const float* __restrict__ zt,
           float qq = v0 * v0 + v1 * v1;
 #pragma unroll
           for (int o = 4; o < 32; o <<= 1) {
-            mm += __shfl_xor_sync(0xffffffffu, mm, o);
+            if constexpr (!Mu) mm += __shfl_xor_sync(0xffffffffu, mm, o);
             qq += __shfl_xor_sync(0xffffffffu, qq, o);
           }
           if (gid == 0) {
             const int p = 8 * jn + 2 * tig + c;
-            red_m[p] += mm;
+            if constexpr (!Mu) red_m[p] += mm;
             red_q[p] += qq;
           }
         }
     });
 
-    // 3. the warps' sums per point, added in warp order
+    // 3. the warps' sums per point, added in warp order (with Mu, the
+    // threads' sums of u k in thread order, in the rows of w V's sums)
+    if constexpr (Mu) red[ct] = usum.acc;
     named_sync(kBarConsumers3, kCons);
     if (ct < kP3 && I.i0 + ct < N) {
       float mu = 0.0f, q = 0.0f;
 #pragma unroll
       for (int v = 0; v < kWarps; ++v) {
-        mu += red[v * kP3 + ct];
+        if (!Mu || v < kCons / kP3) mu += red[v * kP3 + ct];
         q += red[(kWarps + v) * kP3 + ct];
       }
       const float var = I.kdiag - q;

@@ -222,15 +222,16 @@ __device__ __forceinline__ void wg_wait_pending(int pending) {
 // limb at hi/lo + j kGroupBytes3t + (p / 8) 128 + (p % 8) 16 (fill_gram3's
 // core-matrix order). Rows at or past lim are zeros (a group wholly past
 // it is not computed); a group wholly below it takes its rows from one
-// base, with no per-row clamp. D as tile_gram's (intervals_tiled.cuh): a
+// base, with no per-row clamp. Each row's entry goes to mu.add (NoMuSum3
+// or MuSum3, intervals3.cuh). D as tile_gram's (intervals_tiled.cuh): a
 // plan takes PlanGram::rows_d, the same bits as the resident body's rows.
-template <int D, class L, class Gram>
+template <int D, class L, class Gram, class Mu>
 __device__ __forceinline__ void gram_task3t(unsigned char* hi,
                                             unsigned char* lo,
                                             const float* __restrict__ xs,
                                             const float* zs, int k0, int j,
                                             int p, int lim, int d,
-                                            const Gram& gram) {
+                                            const Gram& gram, Mu&& mu) {
   const int dd = D > 0 ? D : d;
   const int r0 = k0 + L::kCoreK * j;
   float v[L::kCoreK];
@@ -254,7 +255,10 @@ __device__ __forceinline__ void gram_task3t(unsigned char* hi,
         if (r0 + 4 * h + r >= lim) u[r] = 0.0f;
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) v[4 * h + r] = u[r];
+    for (int r = 0; r < 4; ++r) {
+      v[4 * h + r] = u[r];
+      mu.add(r0 + 4 * h + r, u[r]);
+    }
   }
   uint4 h4, l4;
   if constexpr (L::kTf32) {
@@ -270,19 +274,19 @@ __device__ __forceinline__ void gram_task3t(unsigned char* hi,
   *reinterpret_cast<uint4*>(lo + o) = l4;
 }
 
-template <class L, class Gram>
+template <class L, class Gram, class Mu>
 __device__ __forceinline__ void gram_task3t_d(unsigned char* hi,
                                               unsigned char* lo,
                                               const float* __restrict__ xs,
                                               const float* zs, int k0, int j,
                                               int p, int lim, int d,
-                                              const Gram& gram) {
+                                              const Gram& gram, Mu&& mu) {
   switch (d) {
-    case 1: gram_task3t<1, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
-    case 2: gram_task3t<2, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
-    case 3: gram_task3t<3, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
-    case 4: gram_task3t<4, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram); break;
-    default: gram_task3t<0, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram);
+    case 1: gram_task3t<1, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram, mu); break;
+    case 2: gram_task3t<2, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram, mu); break;
+    case 3: gram_task3t<3, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram, mu); break;
+    case 4: gram_task3t<4, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram, mu); break;
+    default: gram_task3t<0, L>(hi, lo, xs, zs, k0, j, p, lim, d, gram, mu);
   }
 }
 
@@ -348,8 +352,10 @@ struct ChunkCursor3 {
   }
 };
 
-// w V and V^2 of the thread's two rows r0, r0 + 8 of a finished tile,
-// added over the warp's 16 rows into the warp's sums per point
+// w V (not with Mu) and V^2 of the thread's two rows r0, r0 + 8 of a
+// finished tile, added over the warp's 16 rows into the warp's sums per
+// point
+template <bool Mu = false>
 __device__ __forceinline__ void tile_sums3t(const float (&acc)[64],
                                             const float* __restrict__ w,
                                             int r0, int n, int gid, int tig,
@@ -365,12 +371,12 @@ __device__ __forceinline__ void tile_sums3t(const float (&acc)[64],
       float qq = v0 * v0 + v1 * v1;
 #pragma unroll
       for (int o = 4; o < 32; o <<= 1) {
-        mm += __shfl_xor_sync(0xffffffffu, mm, o);
+        if constexpr (!Mu) mm += __shfl_xor_sync(0xffffffffu, mm, o);
         qq += __shfl_xor_sync(0xffffffffu, qq, o);
       }
       if (gid == 0) {
         const int p = 8 * jn + 2 * tig + c;
-        red_m[p] += mm;
+        if constexpr (!Mu) red_m[p] += mm;
         red_q[p] += qq;
       }
     }
@@ -404,7 +410,15 @@ __device__ __forceinline__ void chunk_products3t(float (&acc)[64],
 // (cap_pad / 64) x (cap_pad / L::kKC) chunks of L::kLanded bytes, row
 // tile major; stages the chunks in flight per ring
 // (interval3_tiled_layout).
-template <class L = Bf16Limbs3, class ItemF>
+//
+// Mu (the experiment B3-3p): the item's w holds u = Lm^T w and mu is
+// sum_c u[c] k[c], added from each gram entry before its limb cut, and
+// no warp multiplies w into V. Every band computes its steps' gram anew;
+// only the last band's steps, whose columns end at n and so cover every
+// active column once, add u k. Thread ct serves point ct % 128 in every
+// task and adds its entries in one register; the block adds the four
+// registers of a point in thread order: the same bits on every launch.
+template <class L = Bf16Limbs3, bool Mu = false, class ItemF>
 __device__ __forceinline__ void interval3_tiled_rows(
     const float* __restrict__ zt, int N, int d, int cap, int stages,
     int items, ItemF item, unsigned char* smem) {
@@ -458,13 +472,15 @@ __device__ __forceinline__ void interval3_tiled_rows(
     const int n = __shfl_sync(0xffffffffu, I.n, 0);
     const int mt = (n + kTM3 - 1) / kTM3;        // row tiles
     const int nb = (mt + kGroups3t - 1) / kGroups3t;  // bands
-    // task i of the step from column k0 of a band whose columns end at
-    // bend, into gram buffer b: the k8 group wg + C i of the thread's
+    std::conditional_t<Mu, MuSum3, NoMuSum3> usum(I.w, n);
+    // task i of the step from column k0 of band `band` (whose columns end
+    // at bend), into gram buffer b: the k8 group wg + C i of the thread's
     // point
-    auto task = [&](int b, int k0, int i, int bend) {
+    auto task = [&](int b, int k0, int i, int bend, int band) {
       unsigned char* h = gram + (size_t)b * 2 * kStepBytes3t;
       gram_task3t_d<L>(h, h + kStepBytes3t, I.xs, zs, k0, wg + C * i,
-                       ct & (kP3t - 1), bend, d, I.gram);
+                       ct & (kP3t - 1), bend, d, I.gram,
+                       usum.only(band == nb - 1));
     };
 
     // 1. the points and the first step's gram; the barrier first: the
@@ -479,7 +495,8 @@ __device__ __forceinline__ void interval3_tiled_rows(
     for (int p = lane; p < kP3t; p += 32) red_m[p] = red_q[p] = 0.0f;
     named_sync(kBarConsumers3, kThreads3t);
     if (nb > 0)
-      for (int i = 0; i < kTasks3t; ++i) task(0, 0, i, band_end(n, mt, nb, 0));
+      for (int i = 0; i < kTasks3t; ++i)
+        task(0, 0, i, band_end(n, mt, nb, 0), 0);
     fence_proxy_async();
     named_sync(kBarConsumers3, kThreads3t);
 
@@ -539,7 +556,8 @@ __device__ __forceinline__ void interval3_tiled_rows(
               ph ^= 1;
             }
           }
-          if (more && c < kTasks3t) task(gb ^ 1, nk0, c, nbend);
+          if (more && c < kTasks3t)
+            task(gb ^ 1, nk0, c, nbend, j + 1 < steps ? b : b + 1);
           release(c < nc ? c : nc, c + 1 < nc ? c + 1 : nc);
         }
         release(nc, nc);
@@ -548,8 +566,8 @@ __device__ __forceinline__ void interval3_tiled_rows(
         // the band's tile is done: its sums per point (the warp's sums
         // gather its tiles band by band)
         if (j == steps - 1 && m >= 0)
-          tile_sums3t(acc, I.w, kTM3 * m + 16 * warp + gid, n, gid, tig,
-                      red_m, red_q);
+          tile_sums3t<Mu>(acc, I.w, kTM3 * m + 16 * warp + gid, n, gid, tig,
+                          red_m, red_q);
         // the next step's gram is written and this step's is read
         fence_proxy_async();
         named_sync(kBarConsumers3, kThreads3t);
@@ -557,12 +575,17 @@ __device__ __forceinline__ void interval3_tiled_rows(
       }
     }
 
-    // 3. the warps' sums per point, added in warp order
+    // 3. the warps' sums per point, added in warp order (with Mu, the
+    // threads' sums of u k in thread order, in the rows of w V's sums)
+    if constexpr (Mu) {
+      red[ct] = usum.acc;
+      named_sync(kBarConsumers3, kThreads3t);
+    }
     if (ct < kP3t && I.i0 + ct < N) {
       float mu = 0.0f, q = 0.0f;
 #pragma unroll
       for (int v = 0; v < kWarps; ++v) {
-        mu += red[v * kP3t + ct];
+        if (!Mu || v < kThreads3t / kP3t) mu += red[v * kP3t + ct];
         q += red[(kWarps + v) * kP3t + ct];
       }
       const float var = I.kdiag - q;

@@ -1,8 +1,8 @@
-// Split limbs and warp-level tensor-core products (mma.sync), shared by
-// the interval kernels' three-pass products: intervals.cuh's
-// ThreePassProduct (the float64 K1-3p and K2-3p, the experiments B1-3p in
-// float64, B2-3p and B3-3p) and the wgmma bodies of intervals3.cuh and
-// intervals3_tiled.cuh (the float32 K1-3p and K2-3p, B1-3p and B4).
+// Split limbs, shared by the interval kernels' three-pass products:
+// intervals.cuh's ThreePassProduct (float64: K1-3p and K2-3p, the
+// experiments B1-3p, B2-3p and B3-3p) and the wgmma bodies of
+// intervals3.cuh and intervals3_tiled.cuh (float32: K1-3p and K2-3p, the
+// experiments B1-3p, B2-3p, B3-3p and B4).
 //
 // A float32 x is cut into two limbs of a narrower format, hi = round(x)
 // and lo = round(x - hi); the product of two such numbers is taken as
@@ -33,16 +33,6 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo_col,
          ((uint32_t)__bfloat16_as_ushort(hi_col) << 16);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // hi and lo bf16 limbs of x, to nearest even
 __device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi,
                                            __nv_bfloat16& lo) {
@@ -50,9 +40,9 @@ __device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi,
   lo = __float2bfloat16_rn(x - __bfloat162float(hi));
 }
 
-// hi and lo bf16 limbs of the pair (x0, x1), packed as an mma operand
-// register holds them (x0 in the low half): the A and B fragments of
-// mma.m16n8k16 .bf16 hold two consecutive k a register
+// hi and lo bf16 limbs of the pair (x0, x1), packed two to a 32-bit
+// word (x0 in the low half), as a k-contiguous tensor-core operand holds
+// two consecutive k
 __device__ __forceinline__ void split_pack_bf16(float x0, float x1,
                                                 uint32_t& hi, uint32_t& lo) {
   __nv_bfloat16 h0, l0, h1, l1;
@@ -60,18 +50,6 @@ __device__ __forceinline__ void split_pack_bf16(float x0, float x1,
   split_bf16(x1, h1, l1);
   hi = pack_bf16(h0, h1);
   lo = pack_bf16(l0, l1);
-}
-
-// c += a_hi b_hi + a_hi b_lo + a_lo b_hi: the three-pass product of one
-// m16n8k16 tile, in the order the TPU kernel adds its passes
-__device__ __forceinline__ void mma3_bf16(float (&c)[4],
-                                          const uint32_t (&ahi)[4],
-                                          const uint32_t (&alo)[4],
-                                          const uint32_t (&bhi)[2],
-                                          const uint32_t (&blo)[2]) {
-  mma_bf16(c, ahi, bhi);
-  mma_bf16(c, ahi, blo);
-  mma_bf16(c, alo, bhi);
 }
 
 // The float64 limbs of x as the three-pass product of a float64 matrix

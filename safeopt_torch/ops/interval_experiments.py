@@ -26,15 +26,20 @@ PyTorch versions. No SafeOpt path calls them: they are driven by
   ``interval_ablation(mode="solve_rank1")`` and
   ``intervals_mu_from_gram``, the harnesses' ``3pass`` columns: the same
   functions with K1-3p's product ``V = Lm_hi k_hi + Lm_hi k_lo + Lm_lo
-  k_hi`` over bf16 limbs (``fused_intervals3``). B1-3p runs K1-3p's own
-  bodies at the caller's layout (in float32 its ``wgmma`` bodies,
-  ``csrc/interval_experiments3.cu``; in float64 ``ThreePassProduct``),
-  and gives K1-3p's bits at every layout that keeps its summation order;
-  B2-3p and B3-3p run ``ThreePassProduct``'s ``mma.sync`` body. Their
-  plain versions are ``three_pass_rows`` on the kernel's gram
-  (``kernel_gram``; the rank-1 gram of B2 is one float32 multiply an
-  entry), B3-3p's with mu ``u . k``. The other ablation modes have no
-  product and refuse ``three_pass``.
+  k_hi`` over bf16 limbs (``fused_intervals3``). In float32 all three run
+  K1-3p's ``wgmma`` bodies (``csrc/interval_experiments3.cu``; resident
+  up to capacity ``RESIDENT3_CAP``, tiled past it, by
+  ``three_pass_body``) on the factor's limb chunks (``factor_chunks``):
+  B1-3p at the caller's layout, with K1-3p's bits at every layout that
+  keeps its summation order; B2-3p on the rank-1 gram; B3-3p with mu
+  ``u . k`` added from the float32 gram entries before their limb cut,
+  each entry once, in a fixed order. In float64 they run
+  ``ThreePassProduct``'s body (FP64 FMAs of the limbs), a check of the
+  gram policies and the limb cut, not a route. Their plain versions are
+  ``three_pass_rows`` on the kernel's gram (``kernel_gram``; the rank-1
+  gram of B2 is one float32 multiply an entry), B3-3p's with mu ``u .
+  k``. The other ablation modes have no product and refuse
+  ``three_pass``.
 - B4 ``intervals_split`` (``bench_interval_variants.py`` ``_kernel``, the
   TPU's 3-pass ``_dot3``): one GP's intervals with ``V = Lm_hi k_hi +
   Lm_hi k_lo + Lm_lo k_hi`` on K1-3p's ``wgmma`` bodies in ``bf16`` or
@@ -140,7 +145,6 @@ def _check_launch(dtype, cap, slices, res, carveout, three_pass, groups,
             raise ValueError("groups and stages are the float32 B1-3p's "
                              f"knobs, got {groups}, {stages}")
         return
-    pad = -(-cap // TILE_ROWS) * TILE_ROWS
     if slices:
         raise ValueError("the float32 B1-3p takes groups and stages (its "
                          f"wgmma items are 64 points), not slices={slices}")
@@ -148,12 +152,24 @@ def _check_launch(dtype, cap, slices, res, carveout, three_pass, groups,
         raise ValueError(f"the float32 B1-3p takes groups in {B1_3P_GROUPS} "
                          f"and stages in {B1_3P_STAGES}, got {groups}, "
                          f"{stages}")
-    if res < 0 or res % CHUNK_COLS["bf16"] or res > pad:
-        raise ValueError(f"the float32 B1-3p takes res a multiple of "
-                         f"{CHUNK_COLS['bf16']} up to {pad}, got {res}")
-    if three_pass_body(cap) == "tiled" and (groups or res):
+    _check_res3(cap, res, "B1-3p")
+    if three_pass_body(cap) == "tiled" and groups:
         raise ValueError(f"past capacity {RESIDENT3_CAP} the float32 B1-3p "
-                         "runs the tiled body: no groups, no resident rows")
+                         "runs the tiled body: no groups")
+
+
+def _check_res3(cap, res, what):
+    """Raise unless ``res`` is resident gram rows that the float32
+    ``what`` takes on K1-3p's wgmma bodies at capacity ``cap``: a multiple
+    of 32 up to the capacity rounded up to 64, and none on the tiled
+    body."""
+    pad = -(-cap // TILE_ROWS) * TILE_ROWS
+    if res < 0 or res % CHUNK_COLS["bf16"] or res > pad:
+        raise ValueError(f"the float32 {what} takes res a multiple of "
+                         f"{CHUNK_COLS['bf16']} up to {pad}, got {res}")
+    if res and three_pass_body(cap) == "tiled":
+        raise ValueError(f"past capacity {RESIDENT3_CAP} the float32 {what} "
+                         "runs the tiled body: no resident rows")
 
 
 def intervals_launch(zt, ils, xs, lm, w, scal, kind, slices=0, res=0,
@@ -273,14 +289,19 @@ def interval_ablation(zt, ils, xs, lm, w, scal, kind, mode,
                                        three_pass)
     G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind,
                                      "B2/B5")
-    lmt = transposed_factor(lm) if mode == "solve_rank1" else lm
     out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
     lib = _library()
-    fn = (lib.safeopt_interval_ablation_f32 if dtype == torch.float32
-          else lib.safeopt_interval_ablation_f64)
-    err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(lmt), ptr(w), ptr(scal),
-             ptr(out), G, N, d, cap, kind, ABLATIONS[mode], int(three_pass),
-             _stream(zt))
+    if three_pass and dtype == torch.float32:     # K1-3p's wgmma bodies
+        err = lib.safeopt_rank1_solve3_f32(
+            ptr(zt), ptr(xs), ptr(factor_chunks(lm)), ptr(w), ptr(scal),
+            ptr(out), G, N, d, cap, _stream(zt))
+    else:
+        lmt = transposed_factor(lm) if mode == "solve_rank1" else lm
+        fn = (lib.safeopt_interval_ablation_f32 if dtype == torch.float32
+              else lib.safeopt_interval_ablation_f64)
+        err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(lmt), ptr(w), ptr(scal),
+                 ptr(out), G, N, d, cap, kind, ABLATIONS[mode],
+                 int(three_pass), _stream(zt))
     raise_on_error(err, f"{'B2-3p' if three_pass else 'B2/B5'} "
                         f"(interval_ablation {mode})")
     if three_pass:
@@ -332,24 +353,39 @@ def intervals_mu_from_gram_plain(zt, ils, xs, lm, w, scal, kind,
 
 
 def intervals_mu_from_gram(zt, ils, xs, lm, w, scal, kind,
-                           three_pass=False):
+                           three_pass=False, res=0):
     """(G, 2, N) interval rows, K1's operands and function with mu taken
     from the gram: B3 on CUDA, the plain version on CPU. ``three_pass``:
-    V through K1-3p's product (B3-3p)."""
+    V through K1-3p's product (B3-3p). ``res``: the float32 B3-3p's
+    resident gram rows, as B1-3p's (a multiple of 32 up to the capacity
+    rounded up to 64; 0, the most that fit: every row up to capacity
+    ``RESIDENT3_CAP``); past them its warpgroups compute each chunk's
+    gram as they come to it, and the chunk's diagonal row tile adds its
+    ``u k``. Every ``res`` gives the same function; the tiled body takes
+    none."""
     what = "B3-3p" if three_pass else "B3"
+    if res and not (three_pass and zt.dtype == torch.float32):
+        raise ValueError(f"res is the float32 B3-3p's knob, got {res}")
+    _check_res3(xs.shape[-2], res, what)
     if zt.device.type == "cpu":
         return intervals_mu_from_gram_plain(zt, ils, xs, lm, w, scal, kind,
                                             three_pass)
     G, N, d, cap, dtype = k1_layout(zt, ils, xs, lm, w, scal, kind, what)
-    lmt = transposed_factor(lm)
     u = mu_weights(lm, w).contiguous()
     out = torch.empty((G, 2, N), dtype=dtype, device=zt.device)
     lib = _library()
-    fn = (lib.safeopt_intervals_mu_from_gram_f32 if dtype == torch.float32
-          else lib.safeopt_intervals_mu_from_gram_f64)
-    err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(lmt), ptr(u), ptr(scal),
-             ptr(out), G, N, d, cap, kind, int(three_pass), _stream(zt))
-    raise_on_error(err, f"{what} (intervals_mu_from_gram)")
+    if three_pass and dtype == torch.float32:     # K1-3p's wgmma bodies
+        err = lib.safeopt_mu_from_gram3_f32(
+            ptr(zt), ptr(ils), ptr(xs), ptr(factor_chunks(lm)), ptr(u),
+            ptr(scal), ptr(out), G, N, d, cap, kind, res, _stream(zt))
+    else:
+        fn = (lib.safeopt_intervals_mu_from_gram_f32
+              if dtype == torch.float32
+              else lib.safeopt_intervals_mu_from_gram_f64)
+        err = fn(ptr(zt), ptr(ils), ptr(xs), ptr(transposed_factor(lm)),
+                 ptr(u), ptr(scal), ptr(out), G, N, d, cap, kind,
+                 int(three_pass), _stream(zt))
+    raise_on_error(err, f"{what} (intervals_mu_from_gram res={res})")
     if three_pass:
         intervals_mu_from_gram.three_pass_launches += 1
     else:

@@ -25,7 +25,12 @@ with their plain versions to 1e-9 in float64 and, in float32, within the
 worst-case bound of their arithmetic (``float32_bound(..., "split")``,
 ``float32_bound_plan``) on the same operands. So do the experiment
 kernels' three-pass forms B2-3p and B3-3p (``float32_bound(...,
-three_pass=True)``). B1-3p runs K1-3p's bodies at the caller's layout:
+three_pass=True)``), which in float32 run K1-3p's wgmma bodies (named by
+the profiler, resident to capacity 576 and tiled past it; B3-3p also
+with resident gram rows short of the capacity), give the same bits
+twice and sit at the tiled capacities within 1e-9 in float64; their FP32
+entries refuse ``three_pass`` in float32. B1-3p runs K1-3p's bodies at
+the caller's layout:
 it gives K1-3p's bits at every layout that keeps K1-3p's summation order
 and lies within the split bound of K1-3p's plain version at the others.
 B4 runs them in bf16 and tf32 limbs, cut in the kernel or hoisted (the
@@ -1005,6 +1010,139 @@ def test_tiled_three_pass_kernels_run_on_wgmma(cuda):
               if "intervals3_tiled_kernel" in k
               or "intervals_plan3_tiled_kernel" in k}
     assert len(counts) == 3 and min(counts.values()) > 0, counts
+
+
+# -- B2-3p and B3-3p on K1-3p's wgmma bodies ---------------------------------
+
+# the resident body (one consumer warpgroup up to capacity 128, three past
+# it) and the tiled body past capacity 576, with unequal counts, a count
+# that is no multiple of a row tile and a small count at a large capacity
+EXPERIMENT3_CASES = EXPERIMENT_CASES + [((600,), 640), ((1000, 333), 1024),
+                                        ((40,), 2048)]
+# the body of each float32 kernel, by the capacity (three_pass_body)
+EXPERIMENT3_BODY = {
+    "solve_rank1": {"resident": "rank1_wg3_kernel<",
+                    "tiled": "rank1_tiled3_kernel"},
+    "mu_from_gram": {"resident": "mu_wg3_kernel<",
+                     "tiled": "mu_tiled3_kernel"}}
+
+
+def _experiment3(what):
+    """B2-3p's or B3-3p's wrapper and plain version."""
+    import functools
+
+    from safeopt_torch.ops import interval_experiments as ie
+    if what == "mu_from_gram":
+        return (functools.partial(ie.intervals_mu_from_gram, three_pass=True),
+                functools.partial(ie.intervals_mu_from_gram_plain,
+                                  three_pass=True))
+    return (functools.partial(ie.interval_ablation, mode=what,
+                              three_pass=True),
+            functools.partial(ie.interval_ablation_plain, mode=what,
+                              three_pass=True))
+
+
+@pytest.mark.parametrize("counts,cap", EXPERIMENT3_CASES)
+@pytest.mark.parametrize("what", ["solve_rank1", "mu_from_gram"])
+def test_experiment_three_pass_on_the_wgmma_bodies(cuda, counts, cap, what):
+    """The float32 B2-3p and B3-3p run K1-3p's wgmma bodies (the profiler's
+    kernel name: resident up to capacity 576, tiled past it), within
+    ``float32_bound(..., three_pass=True)`` of their plain versions on the
+    same operands, which a kernel dropping each GP's first or last 32
+    active rows would pass; two launches give the same bits."""
+    from safeopt_torch.ops import interval_experiments as ie
+    kernel, plain = _experiment3(what)
+    ops = _experiment_ops(counts, cap, cuda, torch.float32)
+    count = (ie.intervals_mu_from_gram if what == "mu_from_gram"
+             else ie.interval_ablation)
+    before = count.three_pass_launches
+    got = kernel(*ops)
+    torch.cuda.synchronize()
+    assert count.three_pass_launches == before + 1
+    bound = ie.float32_bound(*ops, what, three_pass=True)
+    want = plain(*ops).double()
+    _within(got, want, bound)
+    for first in (True, False):
+        fault = plain(*ie.drop_band(ops, what, first)).double()
+        assert ((fault - want).abs() / bound).max().item() > 1.0, first
+    assert torch.equal(got, kernel(*ops))
+    names = _kernel_names(lambda: kernel(*ops))
+    body = EXPERIMENT3_BODY[what][fp.three_pass_body(cap)]
+    assert len(names) == 1 and f"safeopt::{body}" in names[0], names
+
+
+@pytest.mark.parametrize("counts,cap", [((600,), 640), ((40,), 2048)])
+@pytest.mark.parametrize("what", ["solve_rank1", "mu_from_gram"])
+def test_experiment_three_pass_float64_past_the_resident_body(cuda, counts,
+                                                              cap, what):
+    """The float64 B2-3p and B3-3p (ThreePassProduct at every capacity)
+    at the tiled body's capacities: within 1e-9 of the plain version."""
+    kernel, plain = _experiment3(what)
+    ops = _experiment_ops(counts, cap, cuda, torch.float64)
+    assert (kernel(*ops) - plain(*ops)).abs().max().item() <= 1e-9
+
+
+@pytest.mark.parametrize("counts,cap,res", [
+    ((400, 400), 512, 64), ((400, 400), 512, 256), ((20, 300), 512, 480),
+    ((173,), 200, 64), ((45, 50), 64, 32)])
+def test_mu_from_gram_three_pass_past_the_resident_rows(cuda, counts, cap,
+                                                        res):
+    """The float32 B3-3p with ``res`` resident gram rows: past them each
+    warpgroup computes a chunk's gram for every row tile that reaches it,
+    and only the chunk's diagonal tile adds its u k. Within the float32
+    bound of the plain version, the same bits twice."""
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, torch.float32)
+    got = ie.intervals_mu_from_gram(*ops, three_pass=True, res=res)
+    _within(got, ie.intervals_mu_from_gram_plain(*ops, three_pass=True),
+            ie.float32_bound(*ops, "mu_from_gram", three_pass=True))
+    assert torch.equal(got, ie.intervals_mu_from_gram(*ops, three_pass=True,
+                                                      res=res))
+
+
+def test_experiment_three_pass_kernels_run_on_wgmma(cuda):
+    """The float32 B2-3p and B3-3p instances (the resident body with one
+    and three consumer warpgroups, the tiled body) hold Hopper's
+    warpgroup product in their SASS."""
+    from safeopt_torch.ops._build import sass_opcodes
+    counts = {k: v for k, v in sass_opcodes("HGMMA").items()
+              if any(name in k for name in ("rank1_wg3_kernel",
+                                            "rank1_tiled3_kernel",
+                                            "mu_wg3_kernel",
+                                            "mu_tiled3_kernel"))}
+    assert len(counts) == 6 and min(counts.values()) > 0, counts
+
+
+def test_float32_experiment_entries_refuse_three_pass(cuda):
+    """The float32 B2-3p and B3-3p are the wgmma entries'
+    (``safeopt_rank1_solve3_f32``, ``safeopt_mu_from_gram3_f32``): the
+    FP32 entries refuse ``three_pass = 1`` with cudaErrorInvalidValue (1),
+    and the wgmma entry refuses resident rows past the capacity or on the
+    tiled body."""
+    from safeopt_torch.ops import interval_experiments as ie
+    from safeopt_torch.ops._build import library
+    lib = library()
+    ops = _experiment_ops((40,), 64, cuda, torch.float32)
+    zt, ils, xs, lm, w, scal, kind = ops
+    G, cap, d = xs.shape
+    N = zt.shape[1]
+    out = torch.empty((G, 2, N), device=cuda)
+    stream = ie._stream(zt)
+    lmt = fp.transposed_factor(lm)
+    args = [fp.ptr(t) for t in (zt, ils, xs, lmt, w, scal, out)]
+    assert lib.safeopt_interval_ablation_f32(
+        *args, G, N, d, cap, kind, ie.ABLATIONS["solve_rank1"], 1,
+        stream) == 1
+    assert lib.safeopt_intervals_mu_from_gram_f32(
+        *args, G, N, d, cap, kind, 1, stream) == 1
+    chunks = fp.factor_chunks(lm)
+    args3 = [fp.ptr(t) for t in (zt, ils, xs, chunks, w, scal, out)]
+    for res in (16, 96, -32):
+        assert lib.safeopt_mu_from_gram3_f32(*args3, G, N, d, cap, kind, res,
+                                             stream) == 1
+    big = _experiment_ops((40,), 640, cuda, torch.float32)
+    with pytest.raises(ValueError, match="tiled body"):
+        ie.intervals_mu_from_gram(*big, three_pass=True, res=64)
 
 
 # -- past the static plan's leaves and the kernels' columns; the certified

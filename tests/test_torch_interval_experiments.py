@@ -120,6 +120,10 @@ def _close(got, want, atol=1e-10):
 
 
 CASES = [(40, 64), (200, 256)]
+# the three-pass columns also past capacity RESIDENT3_CAP (576), where the
+# float32 B2-3p and B3-3p run the tiled body
+CASES_3P = ([(n, cap, tp) for n, cap in CASES for tp in (False, True)]
+            + [(600, 640, True)])
 
 
 @pytest.mark.parametrize("three_pass", [False, True])
@@ -215,8 +219,7 @@ def _mxu_emit(zt, ils, xs, lm, w, scal, three_pass):
     return np.asarray(out)
 
 
-@pytest.mark.parametrize("three_pass", [False, True])
-@pytest.mark.parametrize("n_obs,cap", CASES)
+@pytest.mark.parametrize("n_obs,cap,three_pass", CASES_3P)
 def test_mu_from_gram_plain_matches_pallas(n_obs, cap, three_pass):
     # B3 against K1 (its function), B3-3p against kern_mxu_emit's 3pass
     # column (its own: mu from the gram, V from the 3-pass product)
@@ -288,8 +291,7 @@ def test_gram_sums_plain_match_transcription(n_obs, cap):
         _close(got[g], _gram_only(*_active(jops, jgps, g))[0])
 
 
-@pytest.mark.parametrize("three_pass", [False, True])
-@pytest.mark.parametrize("n_obs,cap", CASES)
+@pytest.mark.parametrize("n_obs,cap,three_pass", CASES_3P)
 def test_rank1_solve_plain_matches_transcription(n_obs, cap, three_pass):
     # over the capacity, as the TPU kernel ran: Lm is zero past the count
     jgps, pgps, grid = _models(n_obs, cap, seed=cap + 3)
@@ -710,6 +712,219 @@ def test_split_emulated_order_within_the_float32_bound(limb, n_obs, cap, seed,
     print(f"B4 {limb} cap {cap}: emulated scaled |dQ| {dq:.3e}, plain "
           f"{dq_plain:.3e}")
     assert dq <= 2 * dq_plain + 1e-6
+
+
+# -- B2-3p and B3-3p: the routes, and B3-3p's partition of u . k -------------
+
+
+class _Library:
+    """A stand-in for the kernel library: records each entry called with
+    its arguments, and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("what", ["solve_rank1", "mu_from_gram"])
+def test_three_pass_routes_float32_to_the_wgmma_entries(monkeypatch, what):
+    # off the CPU, float32 with three_pass goes to the wgmma entries
+    # (safeopt_rank1_solve3_f32, safeopt_mu_from_gram3_f32) with the
+    # factor as factor_chunks; float64 keeps the FP32 entries with
+    # transposed_factor and three_pass 1; float32 without three_pass never
+    # passes three_pass 1 to an FP32 entry, which refuses it
+    lib, factors = _Library(), []
+    monkeypatch.setattr(ie, "_library", lambda: lib)
+    monkeypatch.setattr(ie, "_stream", lambda t: None)
+    monkeypatch.setattr(ie, "ptr", lambda t: t)
+    monkeypatch.setattr(ie, "k1_layout", lambda zt, ils, xs, *rest: (
+        xs.shape[0], zt.shape[1], xs.shape[2], xs.shape[1], zt.dtype))
+    for name in ("factor_chunks", "transposed_factor"):
+        fn = getattr(pfp, name)
+        monkeypatch.setattr(ie, name, lambda lm, fn=fn, name=name: (
+            factors.append(name), fn(lm))[1])
+    _, pgps, grid = _models(20, 64, seed=5)
+    ops = _port_operands(pgps, grid)
+    if what == "mu_from_gram":
+        run, counter = ie.intervals_mu_from_gram, ie.intervals_mu_from_gram
+        entry3, entry = "safeopt_mu_from_gram3_f32", (
+            "safeopt_intervals_mu_from_gram")
+    else:
+        run = functools.partial(ie.interval_ablation, mode=what)
+        counter = ie.interval_ablation
+        entry3, entry = "safeopt_rank1_solve3_f32", (
+            "safeopt_interval_ablation")
+    for dtype, three_pass in ((torch.float32, True), (torch.float64, True),
+                              (torch.float32, False)):
+        meta = tuple(o.to("meta", dtype) if torch.is_tensor(o) else o
+                     for o in ops)
+        before = counter.three_pass_launches
+        out = run(*meta, three_pass=three_pass)
+        assert out.shape == (2, 2, grid.shape[0]) and out.dtype == dtype
+        name, args = lib.calls[-1]
+        assert counter.three_pass_launches == before + three_pass
+        if dtype == torch.float32 and three_pass:
+            assert name == entry3 and factors[-1] == "factor_chunks"
+            assert args[2 if what == "solve_rank1" else 3].dtype == (
+                torch.bfloat16)
+            if what == "mu_from_gram":
+                assert args[-2] == 0            # res: K1-3p's layout
+            continue
+        suffix = "_f32" if dtype == torch.float32 else "_f64"
+        assert name == entry + suffix
+        assert factors[-1] == "transposed_factor"
+        assert args[-2] == int(three_pass)      # three_pass
+    if what == "mu_from_gram":
+        meta = tuple(o.to("meta") if torch.is_tensor(o) else o
+                     for o in _float32(ops))
+        ie.intervals_mu_from_gram(*meta, three_pass=True, res=32)
+        assert lib.calls[-1][0] == entry3 and lib.calls[-1][1][-2] == 32
+
+
+def test_mu_from_gram_res_knob_refusals():
+    # res is the float32 B3-3p's: a multiple of 32 up to the capacity
+    # rounded up to 64, none on the tiled body (past capacity 576) or
+    # without three_pass or in float64; every res gives the plain version
+    _, pgps, grid = _models(20, 64, seed=6)
+    ops = _port_operands(pgps, grid)
+    ops32 = _float32(ops)
+    for bad in (16, -32, 96):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            ie.intervals_mu_from_gram(*ops32, three_pass=True, res=bad)
+    with pytest.raises(ValueError, match="knob"):
+        ie.intervals_mu_from_gram(*ops32, res=32)
+    with pytest.raises(ValueError, match="knob"):
+        ie.intervals_mu_from_gram(*ops, three_pass=True, res=32)
+    zt, ils, xs, lm, w, scal, kind = ops32
+    G, _, d = xs.shape
+    big = (zt, ils, xs.new_zeros(G, 640, d), lm.new_zeros(G, 640, 640),
+           w.new_zeros(G, 640), scal, kind)
+    with pytest.raises(ValueError, match="tiled body"):
+        ie.intervals_mu_from_gram(*big, three_pass=True, res=64)
+    want = ie.intervals_mu_from_gram_plain(*ops32, three_pass=True)
+    for res in (0, 32, 64):
+        assert torch.equal(ie.intervals_mu_from_gram(
+            *ops32, three_pass=True, res=res), want)
+
+
+# csrc/intervals3.cuh and intervals3_tiled.cuh with Mu (B3-3p): which
+# thread adds u[c] k[c] for which column c of which point. Resident body:
+# thread ct serves point ct % 64; the kCons = 128 C consumer threads fill
+# the resident rows as tasks t = 64 j + p (rows 8 j .. 8 j + 7), thread
+# t % kCons; past them warpgroup g computes chunk k0's 32 rows for each
+# of its row tiles that reaches it, and adds them in the chunk's diagonal
+# tile m = k0 // 64 only, task t to thread 128 g + t % 128. Tiled body:
+# thread ct serves point ct % 128; only the last band's steps (96 columns
+# each, k8 group g + 4 i of a step to the threads of warpgroup g, task i)
+# add. A point's sum is its threads' registers added in thread order.
+CORE = 8
+
+
+def _resident_mu_tasks(n, cap, res=0, every_tile=False):
+    """{thread: [(row, point) in the order it adds them]} of the resident
+    body with Mu at count n, ``res`` resident rows (0: every row, the
+    default layout up to capacity 576); ``every_tile``: a faulty body that
+    adds a chunk's u k in each row tile that reaches it."""
+    groups = 1 if cap <= 128 else GROUPS
+    cons = 128 * groups
+    pad = -(-cap // TILE) * TILE
+    res = res or pad
+    nk = -(-n // 16) * 16
+    rows = min(nk, res)
+    adds = {}
+    for t in range(rows // CORE * TILE):
+        j, p = divmod(t, TILE)
+        for r in range(CORE * j, CORE * j + CORE):
+            if r < n:
+                adds.setdefault(t % cons, []).append((r, p))
+    for m, kend, g in _tile_order(n, groups):
+        for k0 in range(0, kend, 32):
+            if k0 < res or (m != k0 // TILE and not every_tile):
+                continue
+            for t in range(32 // CORE * TILE):
+                j, p = divmod(t, TILE)
+                for r in range(k0 + CORE * j, k0 + CORE * j + CORE):
+                    if r < n:
+                        adds.setdefault(128 * g + t % 128, []).append((r, p))
+    return adds, TILE
+
+
+def _tiled_mu_tasks(n):
+    """The same for the tiled body: the last band's steps (its columns end
+    at n), each step's 12 k8 groups, group g + 4 i to warpgroup g's
+    threads as task i."""
+    P, adds = 128, {}
+    for step in range(-(-n // 96)):
+        for ct in range(128 * TILED_GROUPS):
+            g, p = divmod(ct, P)
+            for i in range(3):
+                r0 = 96 * step + CORE * (g + TILED_GROUPS * i)
+                for r in range(r0, r0 + CORE):
+                    if r < n:
+                        adds.setdefault(ct, []).append((r, p))
+    return adds, P
+
+
+def _mu_from_tasks(adds, P, u, k):
+    """(P,) mu of each point as the kernel adds it, in float64: each
+    thread's register over its (row, point) in order, then a point's
+    threads in thread order."""
+    mu = torch.zeros(P, dtype=torch.float64)
+    for ct in sorted(adds):
+        reg = {}
+        for r, p in adds[ct]:
+            reg[p] = reg.get(p, 0.0) + float(u[r]) * float(k[r, p])
+        for p, v in reg.items():
+            assert p == ct % P
+            mu[p] += v
+    return mu
+
+
+@pytest.mark.parametrize("cap,n,res", [(64, 50, 0), (64, 50, 32),
+                                       (200, 173, 0), (200, 173, 64),
+                                       (512, 400, 0), (512, 400, 256),
+                                       (512, 7, 480), (576, 576, 0),
+                                       (640, 601, None), (2048, 1200, None),
+                                       (1024, 40, None)])
+def test_mu_partition_adds_every_active_column_once(cap, n, res):
+    """B3-3p's partition of u . k over the threads, on the resident body
+    (one warpgroup at capacity 64, three past 128; every row resident,
+    or ``res`` rows and the chunks past them) and the tiled body (past
+    capacity 576, ``res`` None): every point gets each active column
+    exactly once, from threads that serve it, and the sum in the kernel's
+    grouping equals u @ k within 1e-12. Adding u k in every row tile that
+    reaches a chunk (not its diagonal one alone) is seen."""
+    tiled = res is None
+    assert (pfp.three_pass_body(cap) == "tiled") == tiled
+    adds, P = _tiled_mu_tasks(n) if tiled else _resident_mu_tasks(n, cap,
+                                                                  res)
+    seen = {}
+    for ct, pairs in adds.items():
+        for r, p in pairs:
+            seen[(r, p)] = seen.get((r, p), 0) + 1
+    assert seen == {(r, p): 1 for r in range(n) for p in range(P)}
+    rng = np.random.default_rng(cap + n)
+    u = torch.tensor(rng.normal(size=n))
+    k = torch.tensor(rng.uniform(0.0, 2.0, size=(n, P)))
+    got = _mu_from_tasks(adds, P, u, k)
+    np.testing.assert_allclose(got.numpy(), (u @ k).numpy(), rtol=0,
+                               atol=1e-12)
+    if not tiled:
+        # a chunk's gram past res is computed by every tile reaching it:
+        # adding it in each counts a column twice wherever a tile past the
+        # chunk's diagonal one reaches it
+        faulty, _ = _resident_mu_tasks(n, cap, res, every_tile=True)
+        counts = {}
+        for pairs in faulty.values():
+            for rp in pairs:
+                counts[rp] = counts.get(rp, 0) + 1
+        below = bool(res) and res < n and -(-n // TILE) - 1 > res // TILE
+        assert any(c > 1 for c in counts.values()) == below
 
 
 # -- float32_bound: holds a float32 run, sees a dropped band -------------------

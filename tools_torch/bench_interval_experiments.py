@@ -12,15 +12,17 @@ The counterpart of the JAX package's five TPU harnesses
 ``bench_interval_ablation.py``), on ``measure.py``'s cap-512 state in
 float32: two RBF GPs, 400 observations from ``default_rng(512)`` in
 [-4, 4]^2, capacity 512, the 1000 x 1000 grid on [-5, 5]^2 (N = 1e6).
-B4 and B5 take GP 0 alone; B4 also ``measure.py``'s long-campaign states
-``cap1024`` and ``cap2048`` (``states.long_operands``, G = 1, the tiled
-body). Times are CUDA-event ms per call over ``--reps`` calls after two
-warm-ups. One JSON object per harness; B1-B3 also carry their ``3pass``
-columns, as the TPU harnesses printed them. B1-3p runs K1-3p's float32
-``wgmma`` bodies (``csrc/interval_experiments3.cu``; its ``3pass_wgmma_*``
-keys), B2-3p and B3-3p the ``mma.sync`` body of ``csrc/intervals.cuh``
-(``ThreePassProduct``); ``K1-3p_ms`` times K1-3p as the certified path
-runs it (``fused_intervals3``) beside them in the same run:
+B4 and B5 take GP 0 alone; B2's and B3's three-pass columns and B4 also
+``measure.py``'s long-campaign states ``cap1024`` and ``cap2048``
+(``states.long_operands``, G = 1, the tiled body). Times are CUDA-event
+ms per call over ``--reps`` calls after two warm-ups. One JSON object per
+harness; B1-B3 also carry their ``3pass`` columns, as the TPU harnesses
+printed them. B1-3p, B2-3p and B3-3p run K1-3p's float32 ``wgmma``
+bodies (``csrc/interval_experiments3.cu``: the resident one at cap 512,
+the tiled one at the long states), so that B2's and B3's three-pass
+ratios set one body against itself; ``K1-3p_ms`` times K1-3p as the
+certified path runs it (``fused_intervals3``) beside them in the same
+run:
 
 - ``B1``: K1 (``fused_intervals``) and each launch layout (slices per
   block, resident gram rows, shared-memory carveout) of
@@ -35,10 +37,14 @@ runs it (``fused_intervals3``) beside them in the same run:
   ``(gram + solve) / total``; ``3pass_solve_only_ms`` (B2-3p),
   ``3pass_wgmma_total_ms`` (B1-3p at its automatic layout: K1-3p's
   function, which B2-3p's solve and B2's gram split),
-  ``3pass_sum_vs_wgmma_total`` and ``K1-3p_ms``;
+  ``3pass_sum_vs_wgmma_total`` (the harness's question: is gram + solve
+  the total?) and ``K1-3p_ms``; the three-pass keys, with the gram
+  sums', also per long state under its name;
 - ``B3``: ``intervals_mu_from_gram`` and K1 ms, max |dQ| against K1;
   ``3pass_mxu_emit_ms`` (B3-3p), ``3pass_wgmma_base_ms`` (B1-3p at its
-  automatic layout), ``3pass_max_dq`` against it and ``K1-3p_ms``;
+  automatic layout), ``3pass_mxu_emit_vs_wgmma_base`` (the harness's
+  question: is mu from the gram cheaper?), ``3pass_max_dq`` against it
+  and ``K1-3p_ms``; the three-pass keys also per long state;
 - ``B4``: ``intervals_split`` ms for each limb format, in-kernel and
   hoisted (Lm's limbs from ``split_factor``, cut once outside the timed
   calls, as the TPU harness splits them outside its loop), whether the
@@ -121,11 +127,35 @@ def b1(ops, reps):
     return out
 
 
-def b2(ops, reps):
+def b2_3pass(ops, reps, gram_sums_ms=None):
+    """B2's gram sums (``gram_sums_ms`` when already timed), B2-3p's
+    solve and B1-3p at its automatic layout (the full intervals), the
+    latter two on the same wgmma body, and K1-3p."""
+    from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.ops import interval_experiments as ie
+
+    if gram_sums_ms is None:
+        gram_sums_ms = cuda_ms(
+            lambda: ie.interval_ablation(*ops, "gram_sums"), reps=reps)
+    out = {"gram_sums_ms": gram_sums_ms,
+           "3pass_solve_only_ms": cuda_ms(lambda: ie.interval_ablation(
+               *ops, "solve_rank1", three_pass=True), reps=reps),
+           "3pass_wgmma_total_ms": cuda_ms(
+               lambda: ie.intervals_launch(*ops, three_pass=True),
+               reps=reps)}
+    out["3pass_sum_vs_wgmma_total"] = (
+        (out["gram_sums_ms"] + out["3pass_solve_only_ms"])
+        / out["3pass_wgmma_total_ms"])
+    out["K1-3p_ms"] = cuda_ms(lambda: fp.fused_intervals3(*ops), reps=reps)
+    return out
+
+
+def b2(ops, reps, long=None):
     """The gram alone, the rank-1 solve alone and K1; the solve with the
-    three-pass product (B2-3p, the mma.sync body) and the full intervals
-    with it (B1-3p at its automatic layout, K1-3p's wgmma body), and
-    K1-3p."""
+    three-pass product (B2-3p) and the full intervals with it (B1-3p at
+    its automatic layout), both on K1-3p's wgmma body, and K1-3p; the
+    three-pass columns also on each state of ``long`` (the tiled body),
+    under its name."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
@@ -135,37 +165,48 @@ def b2(ops, reps):
     out["total_ms"] = cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps)
     out["sum_vs_total"] = ((out["gram_sums_ms"] + out["solve_rank1_ms"])
                            / out["total_ms"])
-    out["3pass_solve_only_ms"] = cuda_ms(lambda: ie.interval_ablation(
-        *ops, "solve_rank1", three_pass=True), reps=reps)
-    out["3pass_wgmma_total_ms"] = cuda_ms(
-        lambda: ie.intervals_launch(*ops, three_pass=True), reps=reps)
-    out["3pass_sum_vs_wgmma_total"] = (
-        (out["gram_sums_ms"] + out["3pass_solve_only_ms"])
-        / out["3pass_wgmma_total_ms"])
-    out["K1-3p_ms"] = cuda_ms(lambda: fp.fused_intervals3(*ops), reps=reps)
+    out.update(b2_3pass(ops, reps, out["gram_sums_ms"]))
+    for name, long_ops in (long or {}).items():
+        out[name] = b2_3pass(long_ops, reps)
     return out
 
 
-def b3(ops, reps):
-    """mu from the gram against K1, and with the three-pass product
-    (B3-3p, the mma.sync body) against B1-3p at its automatic layout
-    (K1-3p's wgmma body); K1-3p."""
+def b3_3pass(ops, reps):
+    """B3-3p (mu from the gram) against B1-3p at its automatic layout,
+    both on the same wgmma body, and K1-3p."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
     base3 = functools.partial(ie.intervals_launch, *ops, three_pass=True)
-    return {"mu_from_gram_ms": cuda_ms(
-                lambda: ie.intervals_mu_from_gram(*ops), reps=reps),
-            "K1_ms": cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps),
-            "max_dq": max_dq(ie.intervals_mu_from_gram(*ops),
-                             fp.fused_intervals(*ops)),
-            "3pass_mxu_emit_ms": cuda_ms(lambda: ie.intervals_mu_from_gram(
-                *ops, three_pass=True), reps=reps),
-            "3pass_wgmma_base_ms": cuda_ms(base3, reps=reps),
-            "3pass_max_dq": max_dq(ie.intervals_mu_from_gram(
-                *ops, three_pass=True), base3()),
-            "K1-3p_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
-                                reps=reps)}
+    out = {"3pass_mxu_emit_ms": cuda_ms(lambda: ie.intervals_mu_from_gram(
+               *ops, three_pass=True), reps=reps),
+           "3pass_wgmma_base_ms": cuda_ms(base3, reps=reps),
+           "3pass_max_dq": max_dq(ie.intervals_mu_from_gram(
+               *ops, three_pass=True), base3()),
+           "K1-3p_ms": cuda_ms(lambda: fp.fused_intervals3(*ops),
+                               reps=reps)}
+    out["3pass_mxu_emit_vs_wgmma_base"] = (out["3pass_mxu_emit_ms"]
+                                           / out["3pass_wgmma_base_ms"])
+    return out
+
+
+def b3(ops, reps, long=None):
+    """mu from the gram against K1, and with the three-pass product
+    (B3-3p) against B1-3p at its automatic layout, both on K1-3p's wgmma
+    body; K1-3p; the three-pass columns also on each state of ``long``
+    (the tiled body), under its name."""
+    from safeopt_torch.ops import fused_posterior as fp
+    from safeopt_torch.ops import interval_experiments as ie
+
+    out = {"mu_from_gram_ms": cuda_ms(
+               lambda: ie.intervals_mu_from_gram(*ops), reps=reps),
+           "K1_ms": cuda_ms(lambda: fp.fused_intervals(*ops), reps=reps),
+           "max_dq": max_dq(ie.intervals_mu_from_gram(*ops),
+                            fp.fused_intervals(*ops)),
+           **b3_3pass(ops, reps)}
+    for name, long_ops in (long or {}).items():
+        out[name] = b3_3pass(long_ops, reps)
+    return out
 
 
 def b4(ops, reps, long=None):
@@ -220,11 +261,12 @@ def b5(ops, reps):
 
 
 def run(ops, reps, long=None):
-    """Every harness on K1's float32 operands ``ops`` (B4 also on each
-    state of ``long``, {name: K1's float32 operands of one GP}): {name:
-    result}."""
-    return {"B1": b1(ops, reps), "B2": b2(ops, reps), "B3": b3(ops, reps),
-            "B4": b4(ops, reps, long), "B5": b5(ops, reps)}
+    """Every harness on K1's float32 operands ``ops`` (B2's and B3's
+    three-pass columns and B4 also on each state of ``long``, {name: K1's
+    float32 operands of one GP}): {name: result}."""
+    return {"B1": b1(ops, reps), "B2": b2(ops, reps, long),
+            "B3": b3(ops, reps, long), "B4": b4(ops, reps, long),
+            "B5": b5(ops, reps)}
 
 
 def main():

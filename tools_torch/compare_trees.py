@@ -10,6 +10,7 @@ is git-ignored, so a copy of the working tree carries it). Then, from
 the repository root on a machine with one CUDA card:
 
     python3 tools_torch/compare_trees.py run [--out-dir chiprun_out/compare]
+        [--experiments]
 
 runs this tree's ``tools_torch/measure.py`` four times, each in a
 process of its own, in the order parent, change, change, parent, so
@@ -19,7 +20,13 @@ trees alike. The parent's runs measure its ``safeopt_torch`` through
 writes ``<tree>_<i>.json`` and ``<tree>_<i>.log`` to ``--out-dir``, and
 one summary line per run is printed: per configuration the interval
 and expander kernel ms, the interval stage's ms and its host part, and
-the median ``optimize()`` ms.
+the median ``optimize()`` ms. With ``--experiments`` each run also runs
+its own tree's ``tools_torch/bench_interval_experiments.py`` (the
+parent's from its root, on its package), written to
+``<tree>_<i>_experiments.json``, and a second line gives the
+experiment kernels' ms: B1-3p at its automatic layout, B2-3p and B3-3p
+at cap 512 and per long-campaign state, and B4 in-kernel per limb and
+state.
 
     python3 tools_torch/compare_trees.py ptxas
 
@@ -29,15 +36,17 @@ parent (registers, barriers, shared memory; spills) with this tree's
 line of the same instance; it exits 1 if any differs or is missing. The
 parent's instances of redesigned kernels (``REDESIGNED``: the float32
 K1-3p and K2-3p on the mma.sync body, which their ``wgmma`` kernels of
-``fused_intervals3.cu`` replace; the float32 B1-3p and B4 on mma.sync,
-which the ``wgmma`` kernels of ``interval_experiments3.cu`` replace) are
-printed beside the new instances' lines instead. The lines of the
+``fused_intervals3.cu`` replace; the float32 B1-3p, B2-3p, B3-3p and B4
+on mma.sync, which the ``wgmma`` kernels of ``interval_experiments3.cu``
+replace) are printed beside the new instances' lines instead. The lines
+of the
 kernels in ``NEW`` (those ``wgmma`` kernels, K1's tiled body,
 ``intervals_tiled_kernel``, and K2's on it, ``intervals_plan_tiled_kernel``
 and ``intervals_plan_wide_tiled_kernel``, the float32 K1-3p/K2-3p tiled
 body, ``intervals3_tiled_kernel`` and ``intervals_plan3_tiled_kernel``,
-and B1-3p's and B4's, ``wg3_kernel`` and ``tiled3_kernel``) are
-printed, and one that spills exits 1 too.
+B1-3p's and B4's, ``wg3_kernel`` and ``tiled3_kernel``, and B2-3p's and
+B3-3p's, ``rank1_wg3_kernel``, ``rank1_tiled3_kernel``, ``mu_wg3_kernel``
+and ``mu_tiled3_kernel``) are printed, and one that spills exits 1 too.
 """
 
 import argparse
@@ -49,18 +58,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 PARENT = ROOT / "build" / "compare" / "parent"
 # The float32 three-pass instances of intervals.cuh's body that the wgmma
-# kernels replace, and the float32 B1-3p and B4 instances that the
-# experiment wgmma kernels replace (parent names); the names of the
-# kernels that are new since the port's first bodies: the wgmma kernels,
-# K1's tiled body and K2's instances of it, the three-pass tiled body,
-# and the experiments' wgmma kernels.
+# kernels replace, and the float32 B1-3p, B2-3p, B3-3p and B4 instances
+# that the experiment wgmma kernels replace (parent names); the names of
+# the kernels that are new since the port's first bodies: the wgmma
+# kernels, K1's tiled body and K2's instances of it, the three-pass tiled
+# body, and the experiments' wgmma kernels.
 REDESIGNED = ("intervals3_kernelIfE", "intervals_plan3_kernelIfE",
               "intervals_plan_wide_kernelIfNS_16ThreePassProduct",
-              "intervals3_launch_kernelIfE", "split_kernel")
+              "intervals3_launch_kernelIfE", "split_kernel",
+              "rank1_solve3_kernelIfE", "mu_from_gram3_kernelIfE")
 NEW = ("intervals3_wg_kernel", "intervals_plan3_wg_kernel",
        "intervals_tiled_kernel", "intervals_plan_tiled_kernel",
        "intervals_plan_wide_tiled_kernel", "intervals3_tiled_kernel",
-       "intervals_plan3_tiled_kernel", "wg3_kernel", "tiled3_kernel")
+       "intervals_plan3_tiled_kernel", "wg3_kernel", "tiled3_kernel",
+       "rank1_wg3_kernel", "rank1_tiled3_kernel", "mu_wg3_kernel",
+       "mu_tiled3_kernel")
 sys.path.insert(0, str(ROOT))
 
 
@@ -89,8 +101,31 @@ def summary(path):
     return "; ".join(parts)
 
 
-def run(out_dir, reps):
-    """The four measure.py runs; returns the exit code."""
+def experiments_summary(path):
+    """One line of the experiment kernels' ms."""
+    res = json.loads(path.read_text())["results"]
+    b1, b2, b3, b4 = (res[h] for h in ("B1", "B2", "B3", "B4"))
+    parts = [f"B1-3p {b1['3pass_wgmma_g0_s0_r0_c-1_ms']:.4f}",
+             f"B2-3p {b2['3pass_solve_only_ms']:.4f}",
+             f"B3-3p {b3['3pass_mxu_emit_ms']:.4f}",
+             f"K1-3p {b1['K1-3p_ms']:.4f}"]
+    for name in ("cap1024", "cap2048"):
+        if name in b2:      # a tree whose B2-3p and B3-3p take both bodies
+            parts.append(f"{name}: B2-3p "
+                         f"{b2[name]['3pass_solve_only_ms']:.4f} B3-3p "
+                         f"{b3[name]['3pass_mxu_emit_ms']:.4f} B1-3p "
+                         f"{b3[name]['3pass_wgmma_base_ms']:.4f}")
+    for name in ("cap512", "cap1024", "cap2048"):
+        r = b4 if name == "cap512" else b4[name]
+        parts.append(f"B4 {name} " + " ".join(
+            f"{limb} {r[limb]['inkernel_ms']:.4f}"
+            for limb in ("bf16", "tf32")))
+    return "; ".join(parts)
+
+
+def run(out_dir, reps, experiments=False):
+    """The four measure.py runs (and bench_interval_experiments.py runs
+    with ``experiments``); returns the exit code."""
     if not (PARENT / "safeopt_torch").is_dir():
         print(f"compare_trees: no parent tree in {PARENT}; run `unpack` "
               "first", file=sys.stderr)
@@ -116,6 +151,22 @@ def run(out_dir, reps):
             rc = 1
             continue
         print(f"{tag}: {summary(out_dir / f'{tag}.json')}", flush=True)
+        if not experiments:
+            continue
+        root = PARENT if tree == "parent" else ROOT
+        out = out_dir / f"{tag}_experiments.json"
+        with open(out_dir / f"{tag}_experiments.log", "w") as log:
+            proc = subprocess.run(
+                [sys.executable,
+                 str(root / "tools_torch" / "bench_interval_experiments.py"),
+                 "--reps", str(reps), "--out", str(out)], cwd=root,
+                stdout=log, stderr=subprocess.STDOUT)
+        if proc.returncode != 0:
+            print(f"{tag}: bench_interval_experiments.py exited "
+                  f"{proc.returncode}", flush=True)
+            rc = 1
+            continue
+        print(f"{tag} experiments: {experiments_summary(out)}", flush=True)
     return rc
 
 
@@ -163,13 +214,14 @@ def main():
     p_run = sub.add_parser("run")
     p_run.add_argument("--out-dir", default="chiprun_out/compare")
     p_run.add_argument("--reps", type=int, default=10)
+    p_run.add_argument("--experiments", action="store_true")
     sub.add_parser("ptxas")
     args = parser.parse_args()
     if args.step == "unpack":
         return unpack(args.rev)
     if args.step == "ptxas":
         return ptxas()
-    return run(ROOT / args.out_dir, args.reps)
+    return run(ROOT / args.out_dir, args.reps, args.experiments)
 
 
 if __name__ == "__main__":

@@ -65,12 +65,24 @@ from tools_torch.states import (BETA, build_gps, cap512_operands,  # noqa: E402
 
 H = "intervals3.cuh"
 T = "intervals3_tiled.cuh"
+# the gram's calls: this tree's (with the experiment B3-3p's sum of u k),
+# then a parent's from before it
 _GRAM = ("    fill_gram3_d<L>(ghi, glo, I.xs, zs, 0, 0, rows / L::kCoreK * "
+         "kP3, n, d,\n                    I.gram, ct, kCons, "
+         "usum.only(true));\n",
+         "    fill_gram3_d<L>(ghi, glo, I.xs, zs, 0, 0, rows / L::kCoreK * "
          "kP3, n, d,\n                    I.gram, ct, kCons);\n")
 _GRAM_PAST = ("          fill_gram3_d<L>(shi, slo, I.xs, zs, k0 / L::kCoreK, "
               "0,\n                          L::kKC / L::kCoreK * kP3, n, d, "
+              "I.gram, ct & 127,\n                          128, "
+              "usum.only(m == k0 / kTM3));\n",
+              "          fill_gram3_d<L>(shi, slo, I.xs, zs, k0 / L::kCoreK, "
+              "0,\n                          L::kKC / L::kCoreK * kP3, n, d, "
               "I.gram, ct & 127,\n                          128);\n")
 _GRAM_TILED = ("      gram_task3t_d<L>(h, h + kStepBytes3t, I.xs, zs, k0, "
+               "wg + C * i,\n                       ct & (kP3t - 1), bend, d, "
+               "I.gram,\n                       usum.only(band == nb - 1));\n",
+               "      gram_task3t_d<L>(h, h + kStepBytes3t, I.xs, zs, k0, "
                "wg + C * i,\n                       ct & (kP3t - 1), bend, d, "
                "I.gram);\n")
 _LOAD = ("          mbar_expect_tx(f + s, L::kLanded);\n"
@@ -103,7 +115,7 @@ def shape(groups, stages):
              f"constexpr int kStages3 = {stages};")]
 
 
-# name -> [(source file, old text, new text)]
+# name -> [(source file, old text or a tuple of alternatives, new text)]
 VARIANTS = {
     "default": [],
     "groups2_stages4": shape(2, 4),
@@ -188,9 +200,11 @@ def build(names, csrc):
             if not (src / file).exists():
                 continue
             text = (src / file).read_text()
-            if old not in text:
+            found = [o for o in (old if isinstance(old, tuple) else (old,))
+                     if o in text]
+            if not found:
                 raise SystemExit(f"{name}: patch not found in {file}")
-            (src / file).write_text(text.replace(old, new))
+            (src / file).write_text(text.replace(found[0], new))
             applied += 1
         if VARIANTS[name] and not applied:
             raise SystemExit(f"{name}: no patch applies to {csrc}")
