@@ -97,13 +97,22 @@ Phases, each reported on its own line:
    decisions equal to its plain version's outside the band, where the
    plain rows are under that slack; B2-3p's rank-1 rows are no SafeOpt
    intervals, and theirs is printed beside the plain version's own);
+   B2's gram sums and B5's two modes (the gram-only body,
+   ``csrc/gram_rows.cuh``) in float32 bit for bit the in-order sums of
+   ``kernel_gram``'s entries (``ablation_in_order``) at cap 512, 64,
+   ``cap1024`` and ``cap2048`` (there also float64 to 1e-9 and float32
+   within ``float32_bound`` of the plain version); their launch counts
+   show the body ran (no profiler window here: more windows in one
+   process lose phase 11's kernel records);
    then the experiment path,
    ``tools_torch/bench_interval_experiments.py``'s five harnesses on the
    cap-512 state in float32 (B1-B3 with their ``3pass`` columns, B2's
-   and B3's and B4 also at ``cap1024`` and ``cap2048``), with every
+   and B3's, B4 and B5 also at ``cap1024`` and ``cap2048``), with every
    count zeroed before it and read after it, and B1-3p's time at its
    automatic layout beside K1-3p's, B2-3p's and B3-3p's beside B1-3p's,
-   B4's beside K1's;
+   B4's beside K1's, B2's gram sums and B5's modes at the three states
+   beside their bounds (the largest of the FP32 pipe's, the MUFU's and
+   the bytes' time) and B5's product and gram shares;
 9. the flagship path: two RBF GPs, 1000 x 1000 grid, 50 observations,
    capacity 64, chunk 32, through ``SafeOpt.optimize`` and
    ``add_new_data_point`` for 10 iterations against a NumPy plant, with
@@ -137,8 +146,13 @@ Phases, each reported on its own line:
     themselves do; past it they are printed, ROADMAP Queue 3) and the
     decisions outside the 1e-3 band; the body each float32 launch ran
     (torch.profiler) at capacities 256-2048 against the launchers' rule
-    (``fused_posterior.three_pass_body``), and each tiled state's time
-    against its bound and the factor's bytes from L2 a launch;
+    (``fused_posterior.three_pass_body``), and in the same profiler
+    window the body each K1 launch ran on the flagship, cap 512, cap
+    1024 and cap 2048 and each K2 launch on phase 5's states (capacities
+    256, 512, 1024, 2048 and the nine-leaf plan at 256 and 1024), both
+    dtypes, against their launchers' rule (the tiled body past the
+    resident rows); each tiled state's time against its bound and the
+    factor's bytes from L2 a launch;
 12. the certified paths: the cap-512 state (phase 3's GPs, 400
     observations), the contextual one (phase 10's) and the contextual
     one early in its run (20 observations in [-0.5, 0.5], context 0),
@@ -225,13 +239,9 @@ Phases, each reported on its own line:
     observations, capacity 2048, past the resident gram: the tiled
     body), held first as phase 3 holds K1 (float64 within 1e-9, float32
     within ``float32_bound`` with the dropped band past it, decisions
-    equal outside the band), then timed after the others; the body each
-    K1 launch ran (torch.profiler) on the flagship, cap 512, cap 1024
-    and cap 2048 in both dtypes, against the launcher's rule; K2 at
-    phase 5's ``context1024`` and ``context2048`` states against its
-    plain version and its bound, and the body each K2 launch of phase 5
-    ran (capacities 256, 512, 1024, 2048 and the nine-leaf plan at 256
-    and 1024, both dtypes) against the same rule; three steps of the
+    equal outside the band), then timed after the others; K2 at phase
+    5's ``context1024`` and ``context2048`` states against its plain
+    version and its bound; three steps of the
     contextual path at ``context2048`` (two GPs, 2000 observations over
     contexts in [-1, 1], capacity 2048, the 1e6-point parameter grid at
     context 0), ``optimize()`` and ``add_new_data_point()`` timed, K2
@@ -369,8 +379,10 @@ Phases, each reported on its own line:
     ``tests/test_examples.py``'s iteration counts, each script's own
     asserts the checks; each one's wall seconds and last line.
 
-Any failed check exits non-zero. The last lines are one JSON object of
-the kernels, the nvidia-smi line, and the result line.
+After each phase a line ``phase N: <s> s (host clock)`` gives its
+seconds, so that a later slice sees where its 1200 s go. Any failed
+check exits non-zero. The last lines are one JSON object of the kernels,
+the nvidia-smi line, and the result line.
 """
 
 import functools
@@ -424,6 +436,22 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
 # dense tensor-core peaks of the same card (B4's limb formats)
 PEAK_TENSOR = {"bf16": 989e12, "tf32": 495e12}
+# The MUFU (the special-function unit: ex2, rsq, ...) gives 16 results a
+# clock on each SM against 128 FP32 lanes (the CUDA C++ Programming
+# Guide's arithmetic-throughput table, compute capability 9.0), at the
+# 1.98 GHz that PEAK_FLOPS[float32] implies (132 x 128 x 2 x 1.98e9).
+PEAK_MUFU = 132 * 16 * 1.98e9
+# MUFU operations of one gram entry by kind (csrc/common.cuh Kind: RBF,
+# Matern32, Matern52, Exponential, Cosine, Bias), from the SASS of one
+# entry of each kind (tools_torch/tune_gram_rows.py --mufu, on the H100):
+# float32's expf is one MUFU.EX2 and its sqrtf one MUFU.RSQ (a second
+# MUFU.RSQ sits in the square root's slow path for special inputs, not
+# counted), the accurate cosf a polynomial on the FP32 pipe; float64's
+# exp is a polynomial on the FP64 pipe and its sqrt one MUFU.RSQ64H
+GRAM_MUFU = {torch.float32: {0: 1, 1: 2, 2: 2, 3: 2, 4: 1, 5: 0},
+             torch.float64: {0: 0, 1: 1, 2: 1, 3: 1, 4: 1, 5: 0}}
+# the epilogue's square root a point and GP (a predicate's a candidate)
+EPILOGUE_MUFU = 1
 EXPERIMENT_REPS = 5
 
 
@@ -512,12 +540,35 @@ def timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def bound(dtype, flops, nbytes):
-    """(least ms, what bounds it): the larger of ``flops`` over the
-    card's peak rate for ``dtype`` and ``nbytes`` over its memory rate."""
-    t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem
-                                     else "bytes")
+def phase_clock():
+    """``clock(name)`` prints the host seconds of the phase begun at the
+    call before (``phase <its name>: <s> s``) and begins the phase
+    ``name``; ``clock(None)`` ends the last."""
+    state = {"name": None, "start": time.perf_counter()}
+
+    def clock(name):
+        now = time.perf_counter()
+        if state["name"] is not None:
+            print(f"phase {state['name']}: {now - state['start']:.1f} s "
+                  "(host clock)", flush=True)
+        state.update(name=name, start=now)
+    return clock
+
+
+def bound(dtype, flops, nbytes, mufu=0):
+    """(least ms, what bounds it): the largest of ``flops`` over the
+    card's peak rate for ``dtype`` on its FP32/FP64 pipe ("operations"),
+    ``mufu`` operations over the MUFU's rate ("mufu") and ``nbytes`` over
+    its memory rate ("bytes")."""
+    t, by = max((flops / PEAK_FLOPS[dtype], "operations"),
+                (mufu / PEAK_MUFU, "mufu"), (nbytes / PEAK_BYTES, "bytes"))
+    return t * 1e3, by
+
+
+def json_bound_by(by):
+    """The kernels line's ``bound_by`` of a bound's term: the MUFU's
+    operations are operations."""
+    return "operations" if by == "mufu" else by
 
 
 def plan_leaves(scales, plan):
@@ -539,15 +590,27 @@ def gram_flops(d, leaves=None):
     return sum(1 if k == 5 else 4 * a + 4 for k, a in leaves) + len(leaves)
 
 
+def gram_mufu(dtype, leaves=None):
+    """MUFU operations of one gram entry in ``dtype``: the sum of
+    ``GRAM_MUFU`` over a plan's ``leaves``, or for ``leaves`` None that of
+    RBF, the stationary family of every state these bounds are taken on
+    (as ``gram_flops`` counts its operations)."""
+    if leaves is None:
+        return GRAM_MUFU[dtype][0]
+    return sum(GRAM_MUFU[dtype][k] for k, _ in leaves)
+
+
 def interval_bound(dtype, G, N, d, cap, n, leaves=None):
     """Least time of K1/K2 on these inputs: per point and GP the gram of
-    the n active rows, the n(n+1)/2 FMAs of the triangular product, mu
-    and the sum of squares; inputs read once, the (G, 2, N) rows written
+    the n active rows (its transcendentals on the MUFU), the n(n+1)/2
+    FMAs of the triangular product, mu and the sum of squares, and the
+    epilogue's square root; inputs read once, the (G, 2, N) rows written
     once."""
     flops = G * N * (n * gram_flops(d, leaves) + n * (n + 1) + 4 * n + 8)
+    mufu = G * N * (n * gram_mufu(dtype, leaves) + EPILOGUE_MUFU)
     size = torch.finfo(dtype).bits // 8
     nbytes = size * (d * N + G * (cap * d + cap * cap + cap + 4 + 2 * N))
-    return bound(dtype, flops, nbytes)
+    return bound(dtype, flops, nbytes, mufu)
 
 
 def ablation_bound(mode, dtype, G, N, d, cap, n, prescribed=False):
@@ -555,29 +618,34 @@ def ablation_bound(mode, dtype, G, N, d, cap, n, prescribed=False):
     output needs, the inputs it depends on read once, the (G, 2, N) rows
     written once. ``gram_sums``: per point and GP the gram of the n
     active rows, an add and an FMA an entry; ``no_product``: the gram,
-    two FMAs an entry (mu and the sum of squares) and the epilogue. Under
-    ``solve_rank1`` and ``epilogue`` V is one column v times z[0] (v = Lm
-    xs[:, 0], or 0.01 in every row), so mu = z[0] (w . v) and sum V^2 =
-    z[0]^2 (v . v): one pass over Lm a GP (over w for ``epilogue``), then
-    per point three operations and the epilogue on grid column 0 alone.
-    ``prescribed`` counts for these two the work the kernel is told to do
-    instead: every row of V, the rank-1 gram and the triangular product."""
+    two FMAs an entry (mu and the sum of squares) and the epilogue. The
+    gram's transcendentals and the epilogue's square root count on the
+    MUFU. Under ``solve_rank1`` and ``epilogue`` V is one column v times
+    z[0] (v = Lm xs[:, 0], or 0.01 in every row), so mu = z[0] (w . v)
+    and sum V^2 = z[0]^2 (v . v): one pass over Lm a GP (over w for
+    ``epilogue``), then per point three operations and the epilogue on
+    grid column 0 alone. ``prescribed`` counts for these two the work the
+    kernel is told to do instead: every row of V, the rank-1 gram and the
+    triangular product."""
     size = torch.finfo(dtype).bits // 8
+    gram_ops = G * N * n * gram_mufu(dtype)
     if mode == "gram_sums":
         return bound(dtype, G * N * n * (gram_flops(d) + 3),
-                     size * (d * N + G * (cap * d + d + 4 + 2 * N)))
+                     size * (d * N + G * (cap * d + d + 4 + 2 * N)), gram_ops)
     if mode == "no_product":
         return bound(dtype, G * N * (n * (gram_flops(d) + 4) + 8),
-                     size * (d * N + G * (cap * d + d + cap + 4 + 2 * N)))
+                     size * (d * N + G * (cap * d + d + cap + 4 + 2 * N)),
+                     gram_ops + G * N * EPILOGUE_MUFU)
     solve = mode == "solve_rank1"
     nbytes = size * (N + G * (2 * N + cap + 4
                               + (cap * cap + cap if solve else 0)))
+    mufu = G * N * EPILOGUE_MUFU
     if prescribed:
         return bound(dtype, G * N * (n * (5 if solve else 4)
                                      + (n * (n + 1) if solve else 0) + 8),
-                     nbytes)
+                     nbytes, mufu)
     return bound(dtype, G * ((n * (n + 1) + 4 * n if solve else 2 * n)
-                             + 11 * N), nbytes)
+                             + 11 * N), nbytes, mufu)
 
 
 def split_bound(limb, N, d, cap, n, G=1, leaves=None, gram=True):
@@ -585,18 +653,22 @@ def split_bound(limb, N, d, cap, n, G=1, leaves=None, gram=True):
     GPs; a plan's ``leaves`` for K2-3p): the three limb products' 3
     n(n+1) flops a point on the tensor cores at the limb format's peak;
     on the FP32 pipe the gram, its split (two roundings and a difference
-    an entry) and the epilogue; inputs read once, the (G, 2, N) rows
-    written once. The largest of the three. ``gram`` False (B2-3p): no
+    an entry) and the epilogue; on the MUFU the gram's transcendentals
+    and the epilogue's square root; inputs read once, the (G, 2, N) rows
+    written once. The largest of the four. ``gram`` False (B2-3p): no
     gram term, and grid and inputs read in column 0 only (the rank-1
     gram; its limbs are no rank-1 product, so the product stays)."""
+    f32 = torch.float32
     dg = d if gram else 1
     t_tc = 3 * G * N * n * (n + 1) / PEAK_TENSOR[limb]
     t_fp = (G * N * (n * ((gram_flops(d, leaves) if gram else 0) + 3)
-                     + 4 * n + 8) / PEAK_FLOPS[torch.float32])
+                     + 4 * n + 8) / PEAK_FLOPS[f32])
+    t_mufu = G * N * (n * (gram_mufu(f32, leaves) if gram else 0)
+                      + EPILOGUE_MUFU) / PEAK_MUFU
     t_mem = 4 * (dg * N + G * (cap * dg + cap * cap + cap + 4 + 2 * N)
                  ) / PEAK_BYTES
     t, by = max((t_tc, "operations"), (t_fp, "operations"),
-                (t_mem, "bytes"))
+                (t_mufu, "mufu"), (t_mem, "bytes"))
     return t * 1e3, by
 
 
@@ -632,14 +704,17 @@ def expander_bound(dtype, G, N, U, d, cap, n, C, leaves=None, masks=1):
     """Least time of K3/K4 on these inputs: at each of the U unsafe
     points (a GP's mean, with ``masks`` masks of N bytes: one per
     campaign of a fleet launch) and per GP the gram of the n active rows
-    and of the C candidates, the C n FMAs of the cross term and the
-    epilogue; inputs read once, the (G, C) predicate written once."""
+    and of the C candidates (their transcendentals on the MUFU), the C n
+    FMAs of the cross term and the epilogue, a square root a candidate;
+    inputs read once, the (G, C) predicate written once."""
     g = gram_flops(d, leaves)
     flops = G * U * (n * g + C * g + 2 * C * n + 12 * C)
+    mufu = G * U * ((n + C) * gram_mufu(dtype, leaves)
+                    + C * EPILOGUE_MUFU)
     size = torch.finfo(dtype).bits // 8
     nbytes = (size * (d * N + G * (2 * N + cap * d + C * d + C * cap
                                    + 3 * C + 4)) + masks * N + 4 * G * C)
-    return bound(dtype, flops, nbytes)
+    return bound(dtype, flops, nbytes, mufu)
 
 
 def decisions_agree(l32, l64, fmin, scaling):
@@ -759,39 +834,105 @@ K2_RESIDENT_ROWS = {torch.float32: 512, torch.float64: 256}
 
 def kernel_names(calls, attempts=8):
     """The names of the CUDA kernels of ``safeopt::`` that one call of
-    each ``(launch, ops)`` of ``calls`` (the wrapper of K1, K2, K1-3p or
-    K2-3p, each launching one kernel) ran, from torch.profiler: one list
-    a call.
+    each ``(launch, ops)`` of ``calls`` (the wrapper of a kernel,
+    launching one kernel a call; a module function or a
+    ``functools.partial`` of one) ran, from torch.profiler: one list a
+    call.
 
     The calls run in one profiler window, each drained before the next,
     so the i-th kernel in start order is the i-th call's. The profiler
     now and then records no kernel for a launch (CUPTI drops the record,
-    the more often the more windows a process has opened): a window that
-    recorded other than one kernel a call says nothing of the bodies, so
-    the calls are profiled again in a new window, up to ``attempts``
-    windows, and past them each call's list is empty (the caller holds
-    each list to exactly one kernel of the rule's body)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    the more often the longer the process and the more windows it has
+    opened; a fresh process keeps them): a window that recorded other
+    than one kernel a call says nothing of the bodies, so then the calls
+    are profiled again in a fresh child process (``kernel_names_main``),
+    up to ``attempts`` windows there, and past them each call's list is
+    empty (the caller holds each list to exactly one kernel of the
+    rule's body)."""
     for launch, ops in calls:
         launch(*ops)            # loaded before the profiler starts
     torch.cuda.synchronize()
+    names, recorded = profile_calls(calls)
+    if names is not None:
+        return names
+    print(f"kernel_names: this process's window recorded {recorded} "
+          f"kernels for {len(calls)} calls; profiling them in a fresh "
+          "process", flush=True)
+    return kernel_names_in_child(calls, attempts)
+
+
+def profile_calls(calls):
+    """(one list of a kernel name a call, or None, and the count of
+    ``safeopt::`` kernels recorded) of one profiler window around
+    ``calls``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)        # the window opens well before the launches
+        for launch, ops in calls:
+            launch(*ops)
+            torch.cuda.synchronize()
+        time.sleep(0.05)        # and closes well after their end
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "safeopt::" in e.name),
+                    key=lambda e: e.time_range.start)
+    if len(events) == len(calls):
+        return [[e.name] for e in events], len(events)
+    return None, len(events)
+
+
+def kernel_names_in_child(calls, attempts):
+    """``kernel_names`` of ``calls`` in a child process
+    (``chip_smoke.py --kernel-names IN OUT ATTEMPTS``): the calls saved
+    with ``torch.save`` under ``build/``, their tensors on the card; the
+    child's output is printed and its failure fails the run."""
+    import os
+    import shutil
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kernel_names_", dir=root)
+    try:
+        path_in = os.path.join(tmp, "calls.pt")
+        path_out = os.path.join(tmp, "names.json")
+        torch.save(list(calls), path_in)
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--kernel-names",
+             path_in, path_out, str(attempts)],
+            capture_output=True, text=True, timeout=600)
+        print(child.stdout, end="", flush=True)
+        check(child.returncode == 0,
+              f"the kernel_names process failed ({child.returncode}):\n"
+              f"{child.stderr[-4000:]}")
+        with open(path_out) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def kernel_names_main(path_in, path_out, attempts):
+    """``chip_smoke.py --kernel-names IN OUT ATTEMPTS``: the calls saved
+    at ``path_in`` profiled in this fresh process, up to ``attempts``
+    windows, their names (or an empty list a call) written to
+    ``path_out`` as JSON; returns the exit code."""
+    calls = torch.load(path_in, weights_only=False)
+    for launch, ops in calls:
+        launch(*ops)
+    torch.cuda.synchronize()
+    names = [[] for _ in calls]
     for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.05)    # the window opens well before the launches
-            for launch, ops in calls:
-                launch(*ops)
-                torch.cuda.synchronize()
-            time.sleep(0.05)    # and closes well after their end
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and "safeopt::" in e.name),
-                        key=lambda e: e.time_range.start)
-        if len(events) == len(calls):
-            return [[e.name] for e in events]
-        print(f"kernel_names: window {attempt} of {attempts} recorded "
-              f"{len(events)} kernels for {len(calls)} calls", flush=True)
-    return [[] for _ in calls]
+        got, recorded = profile_calls(calls)
+        print(f"kernel_names (fresh process): window {attempt} of "
+              f"{attempts} recorded {recorded} kernels for {len(calls)} "
+              "calls", flush=True)
+        if got is not None:
+            names = got
+            break
+    with open(path_out, "w") as f:
+        json.dump(names, f)
+    return 0
 
 
 def k1_operands(n_obs, cap, n_gps, grid64, seed, spread=1.5):
@@ -1244,6 +1385,49 @@ def fault_readings(plain, ops, what, bound_):
              / bound_).max().item() for first in (True, False)]
 
 
+def check_gram_rows(label, ops64, ops32, plain_too=False):
+    """B2's gram sums (every GP) and B5's two modes (GP 0, as their
+    harnesses take them) on the gram-only body (``csrc/gram_rows.cuh``,
+    the only body of these modes: their launch counts show it ran): in
+    float32 bit for bit the in-order sums of ``ablation_in_order`` on the
+    same operands. ``plain_too``: also float64
+    within 1e-9 of the plain version and float32 within ``float32_bound``
+    of it in float64 (``check_experiments`` holds those at cap 512 and
+    64). Returns {kernels-line name: max float64 error}."""
+    from safeopt_torch.ops import interval_experiments as ie
+
+    start = time.perf_counter()
+    errs, runs = {}, (("B2 gram_sums", "gram_sums", ops64, ops32),
+                      ("B5 no_product", "no_product", first_gp(ops64),
+                       first_gp(ops32)),
+                      ("B5 epilogue", "epilogue", first_gp(ops64),
+                       first_gp(ops32)))
+    for name, mode, o64, o32 in runs:
+        got = ie.interval_ablation(*o32, mode)
+        same = bool(torch.equal(got, ie.ablation_in_order(*o32, mode)))
+        print(f"{name} {label}: float32 {'==' if same else '!='} the "
+              f"in-order sums of kernel_gram's entries, bit for bit",
+              flush=True)
+        check(same, f"{name} {label}: float32 rows differ from the "
+                    "in-order sums")
+        if not plain_too:
+            continue
+        up = tuple(o.double() if torch.is_tensor(o) else o for o in o32)
+        err64 = (ie.interval_ablation(*o64, mode)
+                 - ie.interval_ablation_plain(*o64, mode)).abs().max().item()
+        ratio = ((got.double() - ie.interval_ablation_plain(*up, mode)).abs()
+                 / ie.float32_bound(*o32, mode)).max().item()
+        print(f"{name} {label}: f64 max|kernel-plain|={err64:.3e} (limit "
+              f"1e-9); f32 at most {ratio:.3f} of float32_bound (limit 1)",
+              flush=True)
+        check(err64 <= 1e-9, f"{name} {label} f64 error {err64}")
+        check(ratio <= 1.0, f"{name} {label} f32 error past its bound")
+        errs[name] = err64
+    print(f"B2/B5 gram-only body {label}: checked in "
+          f"{time.perf_counter() - start:.1f} s (host clock)", flush=True)
+    return errs
+
+
 def check_launch3(label, ops64, ops32):
     """B1-3p at every launch layout of ``LAYOUTS`` (float64: the float64
     K1-3p's ThreePassProduct body) and ``LAYOUTS3`` (float32: K1-3p's
@@ -1463,6 +1647,7 @@ def check_experiments(label, ops64, ops32):
         check(first > 1.0, f"{name} {label}: float32_bound hides a dropped "
                            "band")
         errs[name] = err64
+    check_gram_rows(label, ops64, ops32)
     split_errs, dqs = check_split(label, ops64, ops32, SCALING)
     errs.update(split_errs)
     for name, what in (("B1-3p", "launch"),
@@ -4534,6 +4719,7 @@ def main():
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    clock = phase_clock()
 
     from safeopt_torch import SafeOpt, linearly_spaced_combinations
     from safeopt_torch.ops import fused_expander as fe
@@ -4541,6 +4727,7 @@ def main():
     from safeopt_torch.ops._build import build_info, library, sass_opcodes
     from safeopt_torch.ops.topk import top_k
 
+    clock("1")
     # 1. device ---------------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4552,6 +4739,7 @@ def main():
     # phase 21's exports trace on the host beside the build and phases 3-20
     exports = start_exports()
 
+    clock("2")
     # 2. build ----------------------------------------------------------------
     start = time.perf_counter()
     library()
@@ -4587,6 +4775,7 @@ def main():
     grid_np = linearly_spaced_combinations([(-5.0, 5.0), (-5.0, 5.0)], 1000)
     grid64 = torch.tensor(grid_np, dtype=torch.float64, device="cuda")
 
+    clock("3")
     # 3. K1 against its plain version -----------------------------------------
     k1_err64, k1_err32 = check_k1("G=2 cap=64", 50, 64, 2, grid64, seed=0)
     check_k1("G=2 cap=512", 400, 512, 2, grid64, seed=512, spread=4.0)
@@ -4596,6 +4785,7 @@ def main():
              grid64, seed=1024, spread=4.0)
     check_k1("G=1 cap=64", 50, 64, 1, grid64, seed=0)
 
+    clock("4")
     # 4. K3 against its plain version ------------------------------------------
     k3_err64, ops32 = check_k3("G=2 cap=64", 50, 64, 2, grid64, seed=0)
     err, k3_ops512 = check_k3("G=2 cap=512 (400 obs)", 400, 512, 2, grid64,
@@ -4610,6 +4800,7 @@ def main():
     gps32 = build_gps(np.random.default_rng(0), 50, 64, "cuda",
                       torch.float32)
 
+    clock("5")
     # 5. K2 against its plain version on contextual GPs ----------------------
     k2_err, _ = check_k2("1 GP cap=64 (50 obs)", 50, 64, grid64)
     n_k2 = 250          # K2 and K4 are timed at the 250-observation GP
@@ -4646,10 +4837,12 @@ def main():
         "(600 obs)", 600, 1024, grid64, variant="nine")
     k2_err = max(k2_err, err)
 
+    clock("6")
     # 6. K4 against its plain version on contextual candidates ---------------
     k4_err, k4_ops32 = check_k4(grid64)
     k4_err = max(k4_err, check_k4(grid64, variant="nine")[0])
 
+    clock("7")
     # 7. K5: exact top-k on the card ------------------------------------------
     ties = torch.tensor(np.random.default_rng(5).integers(0, 5, 1_000_000),
                         dtype=torch.float32, device="cuda")
@@ -4663,6 +4856,7 @@ def main():
     print("K5 top_k: massive ties (k=32, 4096) and all -inf match a stable "
           "sort", flush=True)
 
+    clock("8")
     # 8. the interval-stage experiments B1-B5 ---------------------------------
     from safeopt_torch.ops import interval_experiments as ie
     from tools_torch import bench_interval_experiments as bx
@@ -4683,6 +4877,10 @@ def main():
                        for dt in (f64, f32)}
                 for name in ("cap1024", "cap2048")}
     for name, ops in long_ops.items():
+        # B2's gram sums and B5's modes: the gram-only body past cap 512
+        for key, err in check_gram_rows(f"{name} (G=1)", ops[f64], ops[f32],
+                                        plain_too=True).items():
+            exp_errs[key] = max(exp_errs[key], err)
         errs, b4_dq[name] = check_split(f"{name} (G=1)", ops[f64], ops[f32],
                                         SPARSE_SCALING)
         for key, err in errs.items():
@@ -4700,9 +4898,11 @@ def main():
                 hold_last=not (name == "cap2048" and what == "solve_rank1"))[0]
             exp_errs[key] = max(exp_errs[key], err)
     zero_launches()
+    start = time.perf_counter()
     exp_results = bx.run(exp_ops[f32], EXPERIMENT_REPS,
                          {name: ops[f32] for name, ops in long_ops.items()})
     torch.cuda.synchronize()
+    exp_s = time.perf_counter() - start
     exp_launches = experiment_launches()
     check(all(n > 0 for n in exp_launches.values()),
           f"an experiment kernel was never launched on its path: "
@@ -4717,7 +4917,7 @@ def main():
           "B4's limb pair")
     print(f"experiment path (the five harnesses, cap 512, float32, and B4 "
           f"at {', '.join(long_ops)}; {EXPERIMENT_REPS} reps): launches "
-          f"{exp_launches}", flush=True)
+          f"{exp_launches}; {exp_s:.1f} s (host clock)", flush=True)
     for name, res in exp_results.items():
         print(f"  {name}: {json.dumps(res)}", flush=True)
     b1 = exp_results["B1"]
@@ -4740,6 +4940,17 @@ def main():
               f"({r3['3pass_mxu_emit_vs_wgmma_base']:.4f} x); K1-3p "
               f"{r2['K1-3p_ms']:.4f} / {r3['K1-3p_ms']:.4f}", flush=True)
     for name in ("cap512", *long_ops):
+        r5 = exp_results["B5"] if name == "cap512" else exp_results["B5"][
+            name]
+        print(f"B5 {name} GP 0 on {smi} (B2's gram sums and B5's modes on "
+              f"the gram-only body): full (K1) {r5['full_ms']:.4f} ms, "
+              f"no product {r5['no_product_ms']:.4f}, epilogue "
+              f"{r5['epilogue_ms']:.4f}: product share "
+              f"{r5['product_share']:.4f}, gram share "
+              f"{r5['gram_share']:.4f} (3-pass full "
+              f"{r5['full_3pass_ms']:.4f} ms: {r5['product_share_3pass']:.4f}"
+              f" / {r5['gram_share_3pass']:.4f})", flush=True)
+    for name in ("cap512", *long_ops):
         res = exp_results["B4"] if name == "cap512" else exp_results["B4"][
             name]
         print(f"B4 {name} on {smi}: " + "; ".join(
@@ -4750,6 +4961,7 @@ def main():
             f"{b4_dq[name]['K1']:.3e}; tf32 / K1 {res['tf32_vs_K1']:.4f}",
             flush=True)
 
+    clock("9")
     # 9. the flagship path ----------------------------------------------------
     def flagship(device, dtype):
         gps = build_gps(np.random.default_rng(0), 50, 64, device, dtype)
@@ -4773,6 +4985,7 @@ def main():
           f"{launches}, get_maximum x={np.round(maximum[0], 4).tolist()} "
           f"lb={maximum[1]:.4f}", flush=True)
 
+    clock("10")
     # 10. the contextual path -------------------------------------------------
     params_np = linearly_spaced_combinations([(-3.0, 3.0)], 1_000_000)
     contexts = [0.0] * 5 + [0.1] * 5
@@ -4808,6 +5021,7 @@ def main():
           f"{np.round(ctx_max[0], 4).tolist()} lb={ctx_max[1]:.4f}",
           flush=True)
 
+    clock("11")
     # 11. K1-3p and K2-3p against their plain versions ---------------------
     # the exact GP at capacity 2048 (phase 16's data; phase 18 holds K1 on
     # it too)
@@ -4880,7 +5094,31 @@ def main():
         ("K2-3p", fp.fused_intervals_plan3, "cap 2048", k2_2048_ops[f32]),
         ("K2-3p", fp.fused_intervals_plan3, "nine leaves, cap 1024",
          k2_nine_1024[f32])]
-    ran = kernel_names([(launch, ops) for _, launch, _, ops in bodies])
+    # the body each K1 launch ran, by the launcher's rule: the tiled one
+    # past the resident rows (float32 past cap 512, float64 past 256)
+    k1_bodies = [(label, dt, by_dtype[dt])
+                 for label, by_dtype in (
+                     ("flagship cap 64", k1_3p_ops["G=2 cap=64"]),
+                     ("cap 512", k1_3p_ops["G=2 cap=512"]),
+                     ("cap 1024", k1_3p_ops[
+                         "G=1 cap=1024 (600 obs, gram not resident)"]),
+                     ("cap 2048", exact_ops))
+                 for dt in (f32, f64)]
+    # and each K2 launch, by the same rule (a plan past the static
+    # leaves: the wide instances)
+    k2_bodies = [(label, dt, by_dtype[dt])
+                 for label, by_dtype in (
+                     ("cap 256", k2_ops), ("cap 512", k2_512_ops),
+                     ("cap 1024", k2_1024_ops), ("cap 2048", k2_2048_ops),
+                     ("nine leaves, cap 256", k2_nine),
+                     ("nine leaves, cap 1024", k2_nine_1024))
+                 for dt in (f32, f64)]
+    # one kernel_names call for all three: where this long process's
+    # profiler loses a record, one fresh child names them all
+    ran = kernel_names(
+        [(launch, ops) for _, launch, _, ops in bodies]
+        + [(fp.fused_intervals, ops) for _, _, ops in k1_bodies]
+        + [(fp.fused_intervals_plan, ops) for _, _, ops in k2_bodies])
     for (key, launch, label, ops), names in zip(bodies, ran):
         cap = ops[2].shape[1] if key == "K1-3p" else ops[1].shape[0]
         want = THREE_PASS_BODY[key][fp.three_pass_body(cap)]
@@ -4888,6 +5126,25 @@ def main():
               flush=True)
         check(len(names) == 1 and f"safeopt::{want}" in names[0],
               f"{key} {label} ran {names}, not {want}")
+    ran = ran[len(bodies):]
+    for (label, dt, ops), names in zip(k1_bodies, ran):
+        cap = ops[2].shape[1]
+        want = ("intervals_tiled_kernel" if cap > K1_RESIDENT_ROWS[dt]
+                else "intervals_kernel")
+        print(f"K1 body, {label}, {str(dt)[6:]}: {names} (the rule: "
+              f"{want})", flush=True)
+        check(len(names) == 1 and f"safeopt::{want}<" in names[0],
+              f"K1 {label} {dt} ran {names}, not {want}")
+    for (label, dt, ops), names in zip(k2_bodies, ran[len(k1_bodies):]):
+        cap = ops[1].shape[0]
+        wide = "wide_" if ops[5].shape[0] > fp.MAX_LEAVES else ""
+        want = (f"intervals_plan_{wide}tiled_kernel"
+                if cap > K2_RESIDENT_ROWS[dt]
+                else f"intervals_plan_{wide}kernel")
+        print(f"K2 body, {label}, {str(dt)[6:]}: {names} (the rule: "
+              f"{want})", flush=True)
+        check(len(names) == 1 and f"safeopt::{want}<" in names[0],
+              f"K2 {label} {dt} ran {names}, not {want}")
     # the float64 K1-3p keeps intervals.cuh's resident ThreePassProduct
     # body at every capacity (a check of the bands, no route of the card's
     # float32 path): its time once at capacities 512, 1024 and 2048
@@ -4929,6 +5186,7 @@ def main():
               f"L2 {l2 / 1e9:.2f} GB a launch ({l2 / k_ms / 1e9:.3f} TB/s)",
               flush=True)
 
+    clock("12")
     # 12. the certified paths -------------------------------------------------
     cert_rng = np.random.default_rng(5)
 
@@ -5017,9 +5275,11 @@ def main():
                   f"plain twin's {float(np.median(p_ms[1:])):.3f} ms",
                   flush=True)
 
+    clock("13")
     # 13. mixed routes: GP 1 on the eager route ------------------------------
     mixed_ms, mixed_eager_ms = drive_mixed(grid_np)
 
+    clock("14")
     # 14. run_safeopt_loop against the blocking loop --------------------------
     runner = {
         "flagship": drive_runner("flagship", lambda: flagship("cuda", None),
@@ -5032,16 +5292,20 @@ def main():
           "run_safeopt_loop did not launch K1 (flagship) or K2 "
           "(contextual) once a step per group")
 
+    clock("15")
     # 15. run_lagged_campaign, pipelined against serial -----------------------
     lagged = drive_lagged(grid_np)
 
+    clock("16")
     # 16. the sparse path -----------------------------------------------------
     sparse_errs = check_sparse_kernels(grid64)
     sparse_paths, sparse_cert = drive_sparse(grid_np, grid64)
 
+    clock("17")
     # 17. hyperparameter fits on the card -------------------------------------
     fit_s = drive_fits()
 
+    clock("18")
     # 18. times ---------------------------------------------------------------
     for label, o_ms, a_ms, n in (("flagship", opt_ms, add_ms,
                                   grid_np.shape[0]),
@@ -5122,28 +5386,8 @@ def main():
                 lambda: fp.fused_intervals(*ops2048[f32]),
                 lambda: fp.fused_intervals_plain(*ops2048[f32]),
                 *interval_bound(f32, 1, N, d, 2048, 2000), reps=3)
-    # the body each K1 launch ran, by the launcher's rule: the tiled one
-    # past the resident rows (float32 past cap 512, float64 past 256)
-    bodies = [(label, dt, by_dtype[dt])
-              for label, by_dtype in (
-                  ("flagship cap 64", k1_3p_ops["G=2 cap=64"]),
-                  ("cap 512", k1_3p_ops["G=2 cap=512"]),
-                  ("cap 1024", k1_3p_ops[
-                      "G=1 cap=1024 (600 obs, gram not resident)"]),
-                  ("cap 2048", ops2048))
-              for dt in (f32, f64)]
-    ran = kernel_names([(fp.fused_intervals, ops) for _, _, ops in bodies])
-    for (label, dt, ops), names in zip(bodies, ran):
-        cap = ops[2].shape[1]
-        want = ("intervals_tiled_kernel" if cap > K1_RESIDENT_ROWS[dt]
-                else "intervals_kernel")
-        print(f"K1 body, {label}, {str(dt)[6:]}: {names} (the rule: "
-              f"{want})", flush=True)
-        check(len(names) == 1 and f"safeopt::{want}<" in names[0],
-              f"K1 {label} {dt} ran {names}, not {want}")
     # K2 past its resident rows: phase 5's context1024 and context2048
-    # states, timed after the others, and the body each K2 launch ran by
-    # the same rule (a plan past the static leaves: the wide instances)
+    # states, timed after the others (phase 11 names the bodies)
     for label, ops, reps in (
             ("K2 cap=1024 (600 obs, contexts in [-1, 1])",
              k2_1024_ops[f32], 10),
@@ -5154,25 +5398,6 @@ def main():
                     *interval_bound(f32, 1, N, d, ops[1].shape[0],
                                     int(ops[7][3]),
                                     plan_leaves(ops[4], ops[6])), reps=reps)
-    bodies = [(label, dt, by_dtype[dt])
-              for label, by_dtype in (
-                  ("cap 256", k2_ops), ("cap 512", k2_512_ops),
-                  ("cap 1024", k2_1024_ops), ("cap 2048", k2_2048_ops),
-                  ("nine leaves, cap 256", k2_nine),
-                  ("nine leaves, cap 1024", k2_nine_1024))
-              for dt in (f32, f64)]
-    ran = kernel_names([(fp.fused_intervals_plan, ops)
-                        for _, _, ops in bodies])
-    for (label, dt, ops), names in zip(bodies, ran):
-        cap = ops[1].shape[0]
-        wide = "wide_" if ops[5].shape[0] > fp.MAX_LEAVES else ""
-        want = (f"intervals_plan_{wide}tiled_kernel"
-                if cap > K2_RESIDENT_ROWS[dt]
-                else f"intervals_plan_{wide}kernel")
-        print(f"K2 body, {label}, {str(dt)[6:]}: {names} (the rule: "
-              f"{want})", flush=True)
-        check(len(names) == 1 and f"safeopt::{want}<" in names[0],
-              f"K2 {label} {dt} ran {names}, not {want}")
     long_ctx, long_opt_ms, long_add_ms = drive_long_context(params_np)
 
     # K1, K3 and K1-3p count their main paths' launches: the flagship's
@@ -5221,7 +5446,8 @@ def main():
             "name": name, "route": "cuda",
             "source": f"safeopt_torch/ops/csrc/{src}", "replaces": replaces,
             "launches": n_launch, "max_abs_err": err, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": json_bound_by(b_by),
             # no single PyTorch call computes these fused functions
             "library_ms": None})
     kernels[0]["max_abs_err_f32"] = k1_err32
@@ -5333,7 +5559,29 @@ def main():
             "source": f"safeopt_torch/ops/csrc/{src}",
             "replaces": f"benchmarks/{tpu}", "launches": exp_launches[name],
             "max_abs_err": exp_errs[name], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": json_bound_by(b_by),
+            "library_ms": None})
+        if name in ("B2 gram_sums", "B5 no_product", "B5 epilogue"):
+            # the gram-only body at the long-campaign states (G=1)
+            entry, start = kernels[-1], time.perf_counter()
+            for state, ops in long_ops.items():
+                o_long = ops[f32]
+                r = res[key][state]
+                l_ms = r[f"{mode}_ms"]
+                lb_ms, lb_by = ablation_bound(
+                    mode, f32, 1, N, d, o_long[2].shape[1],
+                    int(o_long[5][0, 3]))
+                entry.update({
+                    f"{state}_ms": l_ms, f"{state}_bound_ms": lb_ms,
+                    f"{state}_plain_ms": cuda_ms(
+                        lambda: ie.interval_ablation_plain(*o_long, mode),
+                        reps=1, warmup=0)})
+                print(f"  {name} {state}: kernel {l_ms:.4f} ms, bound "
+                      f"{lb_ms:.4f} ms ({lb_by}), share of the bound "
+                      f"{lb_ms / l_ms:.1%}", flush=True)
+            print(f"  {name}: the long states' bounds and plain times in "
+                  f"{time.perf_counter() - start:.1f} s (host clock)",
+                  flush=True)
         if key in ("B2-3p", "B3-3p"):
             # B1-3p in the same call, and the tiled body at the
             # long-campaign states
@@ -5410,9 +5658,11 @@ def main():
           + f"; fits (host clock): card {fit_s['accel']:.3f} s, CPU "
           f"{fit_s['cpu']:.3f} s, sparse with moving inducing points "
           f"{fit_s['sparse']:.3f} s", flush=True)
+    clock("19")
     # 19. the swarm ---------------------------------------------------------
     swarm = drive_swarm(smi)
     print_swarm(swarm, smi)
+    clock("20")
     # 20. campaign fleets -----------------------------------------------------
     fleet = drive_fleets(grid_np, smi)
     for entry, key in ((kernels[0], "K1"), (kernels[1], "K3")):
@@ -5424,24 +5674,29 @@ def main():
                      fleet_bound_by=b_by)
     for entry, key in ((kernels[0], "k1_err64"), (kernels[1], "k3_err64")):
         entry["max_abs_err"] = max(entry["max_abs_err"], fleet[key])
+    clock("21")
     # 21. the utilities -------------------------------------------------------
     via_ops = drive_utilities(grid_np, params_np, smi, exports)
     for entry, key in zip(kernels[:4], ("K1", "K3", "K2", "K4")):
         entry["launches"] += via_ops[key]
         entry["op_launches"] = via_ops[key]
+    clock("22")
     # 22. sharding ------------------------------------------------------------
     sharded = drive_sharding(smi)
     for entry, key in zip(kernels, ("K1", "K3", "K2", "K4", "K1-3p",
                                     "K2-3p")):
         entry["launches"] += sharded[key]
         entry["sharded_launches"] = sharded[key]
+    clock("23")
     # 23. the native host engine ----------------------------------------------
     drive_native(grid64, smi)
+    clock("24")
     # 24. the examples --------------------------------------------------------
     example_launches = drive_examples(smi)
     for entry, key in zip(kernels[:4], ("K1", "K3", "K2", "K4")):
         entry["launches"] += example_launches[key]
         entry["example_launches"] = example_launches[key]
+    clock(None)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -5457,6 +5712,9 @@ if __name__ == "__main__":
         sys.exit(export_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-to":
         sys.exit(profile_main(sys.argv[2]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--kernel-names":
+        sys.exit(kernel_names_main(sys.argv[2], sys.argv[3],
+                                   int(sys.argv[4])))
     if len(sys.argv) == 6 and sys.argv[1] == "--shard-to":
         sys.exit(shard_main(int(sys.argv[3]), int(sys.argv[4]),
                             int(sys.argv[5]), sys.argv[2]))

@@ -29,6 +29,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
+# On CPU tensors a torch built with MKL takes float32 exp, sqrt, cos, ...
+# from MKL's vector math library. Where the first such call of a process
+# runs on several intra-op threads at once (a tensor past one thread's
+# grain), one thread's share of it can come out about 1.5e-4 off
+# (relative; float32's own rounding is 6e-8): seen in one process of six
+# on torch 2.13 with MKL 2024.2, and in none once any vector-math call
+# had run on one thread first. The kernels' plain versions are the
+# port's CPU route, so the package makes that first call here.
+torch.exp(torch.zeros(1))
+
 
 def default_dtype(device) -> torch.dtype:
     """Default floating dtype for tensors on ``device``: float64 on the

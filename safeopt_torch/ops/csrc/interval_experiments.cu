@@ -18,6 +18,18 @@
 //    n active rows. kSolveRank1: K1's body with the rank-1 gram xs[c, 0]
 //    z[0] (raw points), one multiply an entry. kNoProduct: V := k, then
 //    K1's epilogue. kEpilogue: V[r] := 0.01 z[0] (raw), then the epilogue.
+//    kGramSums, kNoProduct and kEpilogue replace the TPU kernels
+//    kern_gram_only and _kernel's no_mxu and epilogue variants with one
+//    body designed for the H100 (gram_rows.cuh gram_rows_kernel): the
+//    GP's active rows (and w) staged in shared memory in double-buffered
+//    cp.async chunks, several points a thread with their coordinates in
+//    registers (an RBF gram of d = 1, 2 or 10 at compile time; any other
+//    kind or d up to kMaxDim at run time, one point a thread in shared
+//    memory), each row read once by a broadcast vector load for all of a
+//    thread's points. The rows of a point are added in ascending order,
+//    one accumulator a sum, with StationaryGram's entry: the bits of the
+//    one-point-a-thread body it replaced, and for RBF of an in-order
+//    float32 sum of kernel_gram's entries.
 // B3 (bench_interval_mosaic4.py::kern_mxu_emit): K1 with mu = sum_c u[c]
 //    k[c], u = Lm^T w precomputed by the wrapper (interval_rows
 //    MuFromGram): no band multiplies w into V.
@@ -35,9 +47,23 @@
 //    (interval_experiments3.cu).
 //
 // What bounds them: B1-B3 and B2/B5's rank-1 solve as K1 (the FP32/FP64
-// pipe: n(n+1)/2 FMAs a point; in float64 their three-pass forms too);
-// B2's sums and B5's no-product and epilogue modes n gram entries (or
-// none) a point against 8 d bytes read, still the FP32 pipe at n = 400.
+// pipe: n(n+1)/2 FMAs a point; in float64 their three-pass forms too).
+// B2's sums and B5's no-product mode: n gram entries a point against 8 d
+// bytes read. At d = 2 an RBF entry is about eleven FP32 instructions
+// around one MUFU.EX2, so the FP32 issue rate binds; the MUFU (16 results
+// a clock an SM, 4.18e12 a second) binds only where an entry takes two
+// transcendentals. MUFU operations of one float32 entry, read from the
+// SASS of one entry of each kind on the H100 (tools_torch/
+// tune_gram_rows.py --mufu): RBF 1 (MUFU.EX2), Exponential, Matern32 and
+// Matern52 2 (the square root's MUFU.RSQ and MUFU.EX2; a second RSQ in
+// the square root's slow path for special inputs is not counted), Cosine
+// 1 (the square root; cosf's polynomial runs on the FP32 pipe), Bias 0. What the design does: the rows' coordinates come
+// from shared memory once per R rows for P points, not from global
+// memory for every entry; d and (for RBF) the kind are compile-time, so
+// no column loop, pointer arithmetic or kind branch is left an entry;
+// P R independent entries a thread keep the FP32 and MUFU pipes fed. The
+// epilogue mode has no gram: two FMAs an entry, w from shared memory.
+#include "gram_rows.cuh"
 #include "intervals.cuh"
 #include "limbs.cuh"
 
@@ -126,9 +152,6 @@ int launch_intervals_at(const T* zt, const T* ils, const T* xs, const T* lmt,
 
 // -- B2 / B5: ablations -------------------------------------------------------
 
-enum AblationMode { kGramSums = 0, kSolveRank1 = 1, kNoProduct = 2,
-                    kEpilogue = 3 };
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kIvMinBlocks)
     rank1_solve_kernel(const T* __restrict__ zt, const T* __restrict__ xs,
@@ -161,77 +184,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       out + (size_t)g * 2 * N, N, d, cap, n, S, res, RankOneGram<T>{});
 }
 
-// One thread per point, the rows in order: the gram's sums (kGramSums), or
-// K1's epilogue on V := k (kNoProduct) or V := 0.01 z[0] (kEpilogue).
-template <typename T, int Mode>
-__global__ void __launch_bounds__(kThreads)
-    rowwise_kernel(const T* __restrict__ zt, const T* __restrict__ ils,
-                   const T* __restrict__ xs, const T* __restrict__ w,
-                   const T* __restrict__ scal, T* __restrict__ out, int N,
-                   int d, int cap, int kind) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* zs = reinterpret_cast<T*>(smem_raw);  // d x kThreads scaled points
-  const int g = blockIdx.y;
-  const int count = (int)scal[g * 4 + 3];
-  const int n = count < 0 ? 0 : (count < cap ? count : cap);
-  const int p = threadIdx.x;
-  const int i = blockIdx.x * kThreads + p;
-  const T* il = ils + g * d;
-  for (int k = 0; k < d; ++k)
-    zs[k * kThreads + p] = i < N ? zt[(size_t)k * N + i] * il[k] : T(0);
-  if (i >= N) return;
-  const T* x = xs + (size_t)g * cap * d;
-  const T* wg = w + (size_t)g * cap;
-  const StationaryGram<T> gram{kind, scal[g * 4]};
-  T s1 = T(0), s2 = T(0);  // sum k and sum k^2, or mu and sum V^2
-  auto add = [&](int c, T v) {
-    s1 += Mode == kGramSums ? v : wg[c] * v;
-    s2 += v * v;
-  };
-  if constexpr (Mode == kEpilogue) {
-    const T v = T(0.01) * zt[i];
-    for (int c = 0; c < n; ++c) add(c, v);
-  } else {
-    constexpr int R = 4;
-    int c = 0;
-    for (; c + R <= n; c += R) {
-      const T* xr[R];
-      T v[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) xr[r] = x + (size_t)(c + r) * d;
-      gram.rows(v, xr, zs, p, d, kThreads);
-#pragma unroll
-      for (int r = 0; r < R; ++r) add(c + r, v[r]);
-    }
-    for (; c < n; ++c) add(c, gram(x + (size_t)c * d, zs, p, d, kThreads));
-  }
-  T* o = out + (size_t)g * 2 * N;
-  if constexpr (Mode == kGramSums) {
-    o[i] = s1;
-    o[N + i] = s2;
-  } else {
-    const T var = scal[g * 4 + 1] - s2;
-    const T spread = scal[g * 4 + 2] * dsqrt(var > T(0) ? var : T(0));
-    o[i] = s1 - spread;
-    o[N + i] = s1 + spread;
-  }
-}
-
-template <typename T, int Mode>
-int launch_rowwise(const T* zt, const T* ils, const T* xs, const T* w,
-                   const T* scal, T* out, int G, int N, int d, int cap,
-                   int kind, cudaStream_t stream) {
-  const size_t bytes = sizeof(T) * (size_t)d * kThreads;
-  const cudaError_t err = cudaFuncSetAttribute(
-      rowwise_kernel<T, Mode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kThreads - 1) / kThreads, G);
-  rowwise_kernel<T, Mode><<<grid, kThreads, bytes, stream>>>(
-      zt, ils, xs, w, scal, out, N, d, cap, kind);
-  return (int)cudaGetLastError();
-}
-
 // three_pass: the rank-1 solve's three-pass form (B2-3p), in float64 only
 // (the float32 B2-3p is interval_experiments3.cu's); the other modes have
 // no product and refuse it
@@ -244,14 +196,14 @@ int launch_ablation(const T* zt, const T* ils, const T* xs, const T* lmt,
     return (int)cudaErrorInvalidValue;
   switch (mode) {
     case kGramSums:
-      return launch_rowwise<T, kGramSums>(zt, ils, xs, w, scal, out, G, N, d,
-                                          cap, kind, stream);
+      return launch_gram_rows<T, kGramSums>(zt, ils, xs, w, scal, out, G, N,
+                                            d, cap, kind, stream);
     case kNoProduct:
-      return launch_rowwise<T, kNoProduct>(zt, ils, xs, w, scal, out, G, N,
-                                           d, cap, kind, stream);
+      return launch_gram_rows<T, kNoProduct>(zt, ils, xs, w, scal, out, G, N,
+                                             d, cap, kind, stream);
     case kEpilogue:
-      return launch_rowwise<T, kEpilogue>(zt, ils, xs, w, scal, out, G, N, d,
-                                          cap, kind, stream);
+      return launch_gram_rows<T, kEpilogue>(zt, ils, xs, w, scal, out, G, N,
+                                            d, cap, kind, stream);
     case kSolveRank1: {
       const IvLayout<T> lay = interval_layout<T>(cap, d);
       auto kernel = rank1_solve_kernel<T>;

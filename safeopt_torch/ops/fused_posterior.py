@@ -267,10 +267,21 @@ def kernel_gram(kind, a, b_t, variance):
 
 def _fma32(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
     """float32 ``a * b + c`` rounded once, as the kernels' fused
-    multiply-add: the product of two float32 values is exact in float64
-    (and the sum rounded twice, to float64 and to float32, differs from
-    one rounding only where the first lands on a float32 tie)."""
-    return (a.double() * b.double() + c).float()
+    multiply-add (``c`` float32 values, in either dtype). The product of
+    two float32 values is exact in float64; the sum is rounded to
+    float64 with the error that rounding dropped kept exactly (Knuth's
+    two-sum), then made odd where the error is not 0 (round to odd), so
+    that the rounding to float32 is the single rounding of the exact sum:
+    a plain float64 sum rounded again differs where it lands on a float32
+    tie."""
+    p, c = a.double() * b.double(), torch.as_tensor(c, dtype=torch.float64)
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
 
 
 def _kfun32(kind: int, r2: torch.Tensor, variance) -> torch.Tensor:

@@ -18,7 +18,10 @@ PyTorch versions. No SafeOpt path calls them: they are driven by
   rank-1 gram ``xs[:, 0] z[0]`` of raw points), ``no_product`` (V := k)
   and ``epilogue`` (V := 0.01 z[0], raw). Like K1 they run over each GP's
   active rows (its count, ``scal[:, 3]``); the TPU kernels ran over the
-  capacity.
+  capacity. ``gram_sums``, ``no_product`` and ``epilogue`` run one
+  gram-only body (``csrc/gram_rows.cuh``: rows staged in shared memory,
+  several points a thread), whose float32 rows are bit for bit the
+  in-order sums of ``ablation_in_order``.
 - B3 ``intervals_mu_from_gram`` (``bench_interval_mosaic4.py``
   ``kern_mxu_emit``): K1 with ``mu = sum_c u[c] k[c]``, ``u = Lm^T w``
   computed here in float64 once per call.
@@ -79,12 +82,13 @@ from .fused_posterior import (KINDS, PLAIN_COLS, RESIDENT3_CAP, TILE_ROWS,
                               fused_intervals3_plain, fused_intervals_plain,
                               gram, interval_rows, k1_layout, kernel_gram,
                               kernel_plan_gram, plan_gram, ptr,
-                              raise_on_error, round_limb, split_limbs,
+                              _fma32, raise_on_error, round_limb,
+                              split_limbs,
                               three_pass_body, three_pass_rows,
                               transposed_factor)
 
 __all__ = ["ABLATIONS", "LIMBS", "intervals_launch", "interval_ablation",
-           "interval_ablation_plain", "mu_weights", "intervals_mu_from_gram",
+           "interval_ablation_plain", "ablation_in_order", "mu_weights", "intervals_mu_from_gram",
            "intervals_mu_from_gram_plain", "round_limb", "split_limbs",
            "kernel_gram", "padded_factor", "split_factor", "factor_landing",
            "intervals_split", "intervals_split_plain", "float32_bound",
@@ -315,6 +319,55 @@ def interval_ablation(zt, ils, xs, lm, w, scal, kind, mode,
 interval_ablation.launches = 0
 interval_ablation.mode_launches = dict.fromkeys(ABLATIONS, 0)
 interval_ablation.three_pass_launches = 0
+
+
+def ablation_in_order(zt, ils, xs, lm, w, scal, kind, mode):
+    """float32 (G, 2, N) rows of the ablation ``mode`` (``gram_sums``,
+    ``no_product`` or ``epilogue``) summed as B2/B5's kernel sums them,
+    for a bitwise check of the kernel on the same float32 operands: per
+    grid point the GP's active rows in ascending order, one accumulator a
+    sum, each V[c] ``kernel_gram``'s entry (or 0.01 z[0]); ``s1 += V``
+    (``gram_sums``) or ``s1 = fma(w[c], V, s1)``, and ``s2 = fma(V, V,
+    s2)``, every fused multiply-add rounded once (``_fma32``); then K1's
+    epilogue, ``mu -+ beta sqrt(max(kdiag - s2, 0))`` with beta's product
+    fused into the sum. Under ``epilogue`` V is the same every row, and
+    nvcc computes its square once: ``s2 += V^2`` rounds twice. Those are
+    the contractions the card showed (a beta that is no power of two
+    tells them apart). ``kernel_gram`` is the kernel's gram for RBF and
+    the exponential (Matern entries differ in the last bits). At most 64
+    rows of the gram at a time."""
+    if zt.dtype != torch.float32:
+        raise TypeError(f"the in-order sums are float32's, not {zt.dtype}")
+    if mode not in ("gram_sums", "no_product", "epilogue"):
+        raise ValueError(f"the ablation {mode!r} is not a sum over the "
+                         "gram's rows")
+    G, cap, _ = xs.shape
+    N = zt.shape[1]
+    out = zt.new_empty((G, 2, N))
+    v0 = 0.01 * zt[0]
+    for g, n in enumerate(_counts(scal, cap)):
+        s1, s2 = zt.new_zeros(N), zt.new_zeros(N)
+        zg = zt * ils[g][:, None]
+        for r0 in range(0, n, 64):
+            r1 = min(r0 + 64, n)
+            if mode == "epilogue":
+                k, vv = v0.expand(r1 - r0, N), v0 * v0
+            else:
+                k = kernel_gram(kind, xs[g, r0:r1], zg, scal[g, 0])
+            for r in range(r1 - r0):
+                s1 = (s1 + k[r] if mode == "gram_sums"
+                      else _fma32(w[g, r0 + r], k[r], s1))
+                s2 = s2 + vv if mode == "epilogue" else _fma32(k[r], k[r], s2)
+        if mode == "gram_sums":
+            out[g, 0], out[g, 1] = s1, s2
+            continue
+        # float32's square root, correctly rounded as the card's sqrtf:
+        # one rounding of float64's, which holds it exactly
+        sigma = torch.sqrt(torch.clamp(scal[g, 1] - s2, min=0.0).double()
+                           ).float()
+        out[g, 0] = _fma32(-scal[g, 2], sigma, s1)
+        out[g, 1] = _fma32(scal[g, 2], sigma, s1)
+    return out
 
 
 # -- B3 -----------------------------------------------------------------------

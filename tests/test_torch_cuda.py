@@ -42,12 +42,20 @@ resident gram, and their SASS holds HGMMA; past capacity 576 they run the
 tiled body (``fused_posterior.three_pass_body``, checked by kernel name),
 held at capacities 640 to 2048, counts that are no multiple of a row
 tile, a small count at a large capacity, unequal counts in one launch and
-the wide plan. K1-K4's ``torch.library``
+the wide plan. B2's gram sums and B5's
+no-product and epilogue modes run one gram-only body
+(``csrc/gram_rows.cuh``) at widths 1, 2, 10 and 64, every stationary
+kind, counts 0 to 2000 and capacities to 2048, held against the plain
+version (float64 1e-9; float32 RBF within ``float32_bound``, the other
+kinds within 1e-4 (|.| + 1)) and, in float32 RBF, bit for bit against
+the in-order sums of ``kernel_gram``'s entries (``ablation_in_order``).
+K1-K4's ``torch.library``
 operators give their launchers' bits and count their launches, and a
 step exported and loaded on the card gives the live step's bits,
 launching K1 once and K3 once a walk round.
 """
 
+import math
 import time
 
 import numpy as np
@@ -594,22 +602,31 @@ def test_step_on_cuda_matches_cpu_float64(cuda):
 # float32 arithmetic. B4 must give the same bits with Lm's limbs split in
 # the kernel and passed pre-split.
 
-def _experiment_ops(counts, cap, device, dtype):
-    """K1's operands of RBF GPs with the given counts, over a 20000-point
-    grid on [-5, 5]^2."""
+def _experiment_ops(counts, cap, device, dtype, family="RBF", d=2):
+    """K1's operands of GPs of ``family`` with the given counts (a count
+    of 0: a GP of one observation whose count is set to 0), data in
+    [-4, 4]^d and a 20000-point grid on [-5, 5]^d, both scaled by
+    sqrt(2 / d) so that wide grams are not all 0."""
     rng = np.random.default_rng(sum(counts) + 7 * cap)
+    spread = math.sqrt(2.0 / d)
     gps = []
     for g, n in enumerate(counts):
-        X = rng.uniform(-4.0, 4.0, size=(n, 2))
-        Y = (np.cos(X.sum(axis=1)) + 0.05 * rng.normal(size=n))[:, None]
-        kern = pt.RBF(2, variance=1.0 + 0.5 * g, lengthscale=[0.8 + 0.3 * g,
-                                                              1.3], ARD=True)
+        m = max(n, 1)
+        X = rng.uniform(-4.0, 4.0, size=(m, d)) * spread
+        Y = (np.cos(X.sum(axis=1)) + 0.05 * rng.normal(size=m))[:, None]
+        kern = getattr(pt, family)(d, variance=1.0 + 0.5 * g,
+                                   lengthscale=[0.8 + 0.3 * g] + [1.3] * (
+                                       d - 1), ARD=True)
         gps.append(pt.GPRegression(X, Y, kern, noise_var=0.01, capacity=cap,
                                    device=device, dtype=dtype))
-    grid = torch.tensor(rng.uniform(-5.0, 5.0, size=(20000, 2)), dtype=dtype,
-                        device=device)
-    return fp.interval_operands([g.kern for g in gps], [g.state for g in gps],
-                                grid, 2.0)
+    grid = torch.tensor(rng.uniform(-5.0, 5.0, size=(20000, d)) * spread,
+                        dtype=dtype, device=device)
+    ops = fp.interval_operands([g.kern for g in gps], [g.state for g in gps],
+                               grid, 2.0)
+    for g, n in enumerate(counts):
+        if n == 0:
+            ops[5][g, 3] = 0
+    return ops
 
 
 def _upcast(ops):
@@ -714,20 +731,73 @@ def test_launch_refuses_a_layout_past_shared_memory(cuda):
         ie.intervals_launch(*ops, slices=8, res=512)
 
 
-@pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)
+# B2's gram sums and B5's modes on the gram-only body (csrc/gram_rows.cuh):
+# its RBF instances of 1, 2 and 10 columns, its runtime-d instance (64
+# columns, and every other kind), counts 0, 1, 33 and 400 and near the
+# capacity, capacities 1024 and 2048; the 20000-point grid is no whole
+# number of a block's points (512, 256 at d = 10, 128 at run time)
+GRAM_ROWS_CASES = [((33, 1), 64, "RBF", 1), ((400, 0), 512, "RBF", 10),
+                   ((33,), 64, "RBF", 64), ((1000,), 1024, "RBF", 2),
+                   ((2000,), 2048, "RBF", 2), ((400,), 512, "Matern32", 2),
+                   ((33, 400), 1024, "Matern52", 10),
+                   ((1, 400), 2048, "Exponential", 1),
+                   ((0, 33), 64, "Matern52", 64),
+                   ((400,), 512, "Exponential", 2),
+                   ((33,), 64, "Matern32", 1)]
+GRAM_MODES = ("gram_sums", "no_product", "epilogue")
+ABLATION_CASES = ([(counts, cap, "RBF", 2, mode)
+                   for mode in ("gram_sums", "solve_rank1", "no_product",
+                                "epilogue")
+                   for counts, cap in EXPERIMENT_CASES]
+                  + [(counts, cap, family, d, mode) for mode in GRAM_MODES
+                     for counts, cap, family, d in GRAM_ROWS_CASES])
+
+
+@pytest.mark.parametrize("counts,cap,family,d,mode", ABLATION_CASES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("mode", ["gram_sums", "solve_rank1", "no_product",
-                                  "epilogue"])
-def test_ablation_kernel_matches_plain(cuda, counts, cap, dtype, mode):
+def test_ablation_kernel_matches_plain(cuda, counts, cap, family, d, mode,
+                                       dtype):
+    """B2/B5 against the plain version: float64 within 1e-9; float32
+    within ``float32_bound`` of the float64 plain rows on the same
+    operands for RBF, and under ``epilogue`` (no gram: its bound holds
+    for every kind), the gram modes of the other kinds (no float32 bound
+    is derived for their grams) within 1e-4 (|.| + 1)."""
     from safeopt_torch.ops import interval_experiments as ie
-    ops = _experiment_ops(counts, cap, cuda, dtype)
+    ops = _experiment_ops(counts, cap, cuda, dtype, family, d)
     got = ie.interval_ablation(*ops, mode)
     want = ie.interval_ablation_plain(*_upcast(ops), mode)
     torch.cuda.synchronize()
     if dtype == torch.float64:
         assert (got - want).abs().max().item() <= 1e-9
+    elif family == "RBF" or mode == "epilogue":
+        _within(got, want, ie.float32_bound(*ops[:6], 0, mode))
     else:
-        _within(got, want, ie.float32_bound(*ops, mode))
+        _within(got, want, 1e-4 * (want.abs() + 1.0))
+
+
+@pytest.mark.parametrize("counts,cap,d", [((400, 400), 512, 2),
+                                          ((20, 300), 512, 2),
+                                          ((2000,), 2048, 2),
+                                          ((97,), 100, 1),
+                                          ((33, 400), 512, 10),
+                                          ((45, 0), 64, 64)])
+@pytest.mark.parametrize("beta", [2.0, 1.7])
+@pytest.mark.parametrize("mode", list(GRAM_MODES))
+def test_gram_rows_float32_bits_are_the_in_order_sums(cuda, counts, cap, d,
+                                                      beta, mode):
+    """The float32 B2/B5 bit for bit the in-order float32 sums of
+    ``kernel_gram``'s entries (``ablation_in_order``: a point's rows in
+    ascending order, one accumulator a sum, an FMA wherever nvcc
+    contracts) on the same operands, RBF at every instance's width; a
+    beta that is no power of two tells the epilogue's contraction
+    apart."""
+    from safeopt_torch.ops import interval_experiments as ie
+    ops = _experiment_ops(counts, cap, cuda, torch.float32, d=d)
+    ops[5][:, 2] = beta
+    got = ie.interval_ablation(*ops, mode)
+    want = ie.ablation_in_order(*ops, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 @pytest.mark.parametrize("counts,cap", EXPERIMENT_CASES)

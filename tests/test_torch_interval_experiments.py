@@ -60,22 +60,32 @@ BETA = 2.0
 BLOCK = 256
 
 
-def _models(n_obs, cap, seed, n_gps=2):
-    """JAX and port RBF GPs over [-3, 3]^2 data and a 1024-point grid."""
+def _models(n_obs, cap, seed, n_gps=2, d=2):
+    """JAX and port RBF GPs over [-3, 3]^d data and a 1024-point grid (GP
+    g's lengthscales 1 and 1 + g in turn, GP 0's all 1)."""
     rng = np.random.default_rng(seed)
-    X = rng.uniform(-3.0, 3.0, size=(n_obs, 2))
+    X = rng.uniform(-3.0, 3.0, size=(n_obs, d))
     jgps = []
     for g in range(n_gps):
         Y = (np.exp(-0.5 * np.sum(X ** 2, axis=1)) * (2.0 - g)
              + 0.05 * rng.normal(size=n_obs))[:, None]
-        kern = jt.RBF(2, variance=2.0 - 0.5 * g, lengthscale=[1.0, 1.0 + g],
+        kern = jt.RBF(d, variance=2.0 - 0.5 * g,
+                      lengthscale=[1.0 + g * (k % 2) for k in range(d)],
                       ARD=True)
         jgps.append(jt.GPRegression(X, Y, kern, noise_var=0.05 ** 2,
                                     capacity=cap))
     pgps = [gp_from_arrays(kernel_from_params(**kernel_params(g.kern)),
                            **gp_arrays(g), device="cpu") for g in jgps]
-    grid = rng.uniform(-5.0, 5.0, size=(4 * BLOCK, 2))
+    grid = rng.uniform(-5.0, 5.0, size=(4 * BLOCK, d))
     return jgps, pgps, grid
+
+
+@functools.lru_cache(maxsize=4)
+def _gram_models(n_obs, cap, seed, d):
+    """``_models`` for B2's and B5's transcription tests: one GP past
+    capacity 512 (a build of seconds, kept for the other tests of the
+    seed, which only read it), else two."""
+    return _models(n_obs, cap, seed, n_gps=1 if cap > 512 else 2, d=d)
 
 
 def _jax_operands(jgps, grid):
@@ -83,8 +93,9 @@ def _jax_operands(jgps, grid):
     variance, beta, 0])."""
     ils, xs, lm, w, scal = [], [], [], [], []
     cap = jgps[0].state.capacity
+    d = grid.shape[1]
     for g in jgps:
-        ls = np.broadcast_to(np.asarray(g.kern.lengthscale), (2,))
+        ls = np.broadcast_to(np.asarray(g.kern.lengthscale), (d,))
         ils.append(1.0 / ls)
         xs.append(np.asarray(g.state.X) / ls)
         mask = (np.arange(cap) < int(g.state.count)).astype(float)
@@ -120,6 +131,14 @@ def _close(got, want, atol=1e-10):
 
 
 CASES = [(40, 64), (200, 256)]
+# B2's sums and B5's modes (one kernel body, d = 1, 2 and 10 at compile
+# time) also at the long campaigns' capacities, counts near them (one GP:
+# its build takes seconds), and at d = 1 and 10, on the 1024-point grid
+GRAM_CASES = ([pytest.param(n, cap, 2, id=f"{n}-{cap}") for n, cap in CASES]
+              + [pytest.param(1000, 1024, 2, id="1000-1024"),
+                 pytest.param(2000, 2048, 2, id="2000-2048"),
+                 pytest.param(40, 64, 1, id="40-64-d1"),
+                 pytest.param(200, 256, 10, id="200-256-d10")])
 # the three-pass columns also past capacity RESIDENT3_CAP (576), where the
 # float32 B2-3p and B3-3p run the tiled body
 CASES_3P = ([(n, cap, tp) for n, cap in CASES for tp in (False, True)]
@@ -282,9 +301,9 @@ def _active(jops, jgps, g):
             w[g:g + 1, :n], scal[g:g + 1])
 
 
-@pytest.mark.parametrize("n_obs,cap", CASES)
-def test_gram_sums_plain_match_transcription(n_obs, cap):
-    jgps, pgps, grid = _models(n_obs, cap, seed=cap + 2)
+@pytest.mark.parametrize("n_obs,cap,d", GRAM_CASES)
+def test_gram_sums_plain_match_transcription(n_obs, cap, d):
+    jgps, pgps, grid = _gram_models(n_obs, cap, cap + 2, d)
     jops = _jax_operands(jgps, grid)
     got = ie.interval_ablation(*_port_operands(pgps, grid), "gram_sums")
     for g in range(len(jgps)):
@@ -337,18 +356,102 @@ def _ablation(zt, xs, lm, w, scal, variant):
     return np.asarray([mu - spread, mu + spread])
 
 
-@pytest.mark.parametrize("n_obs,cap", CASES)
+@pytest.mark.parametrize("n_obs,cap,d", GRAM_CASES)
 @pytest.mark.parametrize("mode,variant", [("no_product", "no_mxu"),
                                           ("epilogue", "epilogue")])
-def test_ablation_plain_matches_transcription(n_obs, cap, mode, variant):
+def test_ablation_plain_matches_transcription(n_obs, cap, d, mode, variant):
     # GP 0 has unit lengthscales, so its scaled grid is the raw grid that
     # the epilogue reads
-    jgps, pgps, grid = _models(n_obs, cap, seed=cap + 4)
+    jgps, pgps, grid = _gram_models(n_obs, cap, cap + 4, d)
     zt, ils, xs, lm, w, scal = _active(_jax_operands(jgps, grid), jgps, 0)
     assert np.all(np.asarray(ils) == 1.0)
     want = _ablation(zt, xs[0], lm[0], w, scal, variant)
     got = ie.interval_ablation(*_port_operands(pgps, grid), mode)
     _close(got[0], want)
+
+
+# -- B2/B5's gram-only body: its in-order reference and its bound -------------
+
+def test_fma32_rounds_the_exact_sum_once():
+    """``_fma32`` rounds a * b + c once, as the card's FMA: 1 + 2^-23 +
+    2^-24 (1 - 2^-46) lies just below the tie between 1 + 2^-23 and 1 +
+    2^-22, where a float64 sum rounded again to float32 lands."""
+    a = torch.tensor([2.0 ** -24 * (1 + 2.0 ** -23)], dtype=torch.float32)
+    b = torch.tensor([1 - 2.0 ** -23], dtype=torch.float32)
+    c = torch.tensor([1 + 2.0 ** -23], dtype=torch.float32)
+    assert (a.double() * b.double() + c.double()).float().item() == (
+        1 + 2.0 ** -22)
+    assert pfp._fma32(a, b, c).item() == 1 + 2.0 ** -23
+    assert pfp._fma32(-a, b, -c).item() == -(1 + 2.0 ** -23)
+    assert pfp._fma32(a, b, c.double()).item() == 1 + 2.0 ** -23
+    # sums that float64 holds exactly pass through
+    x = torch.tensor([1.5, -3.0, 0.0], dtype=torch.float32)
+    assert torch.equal(pfp._fma32(x, x, x), x * x + x)
+
+
+@pytest.mark.parametrize("d", [1, 2, 10])
+@pytest.mark.parametrize("mode", ["gram_sums", "no_product", "epilogue"])
+def test_in_order_sums_lie_within_the_float32_bound(mode, d):
+    """``ablation_in_order`` (B2/B5's float32 sums in the kernel's order,
+    the bitwise reference of the kernel on the card) within
+    ``float32_bound`` of the plain version in float64 on the same
+    operands; float64 operands and a mode with a product refuse it."""
+    _, pgps, grid = _models(60, 64, seed=11 + d, d=d)
+    ops = tuple(o.float() if torch.is_tensor(o) else o
+                for o in _port_operands(pgps, grid))
+    up = tuple(o.double() if torch.is_tensor(o) else o for o in ops)
+    got = ie.ablation_in_order(*ops, mode)
+    assert got.dtype == torch.float32
+    err = (got.double() - ie.interval_ablation_plain(*up, mode)).abs()
+    assert bool((err <= ie.float32_bound(*ops, mode)).all())
+    with pytest.raises(TypeError, match="float32"):
+        ie.ablation_in_order(*up, mode)
+    with pytest.raises(ValueError, match="not a sum"):
+        ie.ablation_in_order(*ops, "solve_rank1")
+
+
+def test_gram_bounds_count_the_mufu():
+    """chip_smoke's bounds take the largest of the FP32 pipe's, the
+    MUFU's (16 results a clock an SM, 4.18e12 a second) and the bytes'
+    time: B2's gram sums at cap 512, G=2, d=2, N=1e6, RBF read 0.191 ms,
+    bound by the MUFU, where the FP32 term alone reads 0.1552. A Matern32
+    state's plan (``plan_leaves`` of its K2 operands, as chip_smoke's
+    callers take it) counts a square root and an exponential an entry."""
+    import chip_smoke as cs
+    from safeopt_torch import GPRegression, Matern32
+
+    f32, f64, N = torch.float32, torch.float64, 10 ** 6
+    assert cs.PEAK_MUFU == pytest.approx(4.18e12, rel=1e-3)
+    ms, by = cs.ablation_bound("gram_sums", f32, 2, N, 2, 512, 400)
+    assert by == "mufu" and round(ms, 3) == 0.191
+    assert ms == pytest.approx(2 * N * 400 / cs.PEAK_MUFU * 1e3)
+    fp32 = 2 * N * 400 * (cs.gram_flops(2) + 3) / cs.PEAK_FLOPS[f32] * 1e3
+    assert round(fp32, 4) == 0.1552
+    # float64's exponential runs on the FP64 pipe
+    assert cs.ablation_bound("gram_sums", f64, 2, N, 2, 512, 400)[1] == (
+        "operations")
+    # K1 stays bound by its product, B5's epilogue by its bytes
+    assert cs.interval_bound(f32, 2, N, 2, 512, 400)[1] == "operations"
+    assert cs.ablation_bound("epilogue", f32, 1, N, 2, 512, 400)[1] == (
+        "bytes")
+    # the MUFU term counts in the other bounds too: K3's grams at the
+    # flagship
+    t_mufu = 2 * 1000 * ((64 + 32) * 1 + 32) / cs.PEAK_MUFU * 1e3
+    assert cs.expander_bound(f32, 2, N, 1000, 2, 64, 64, 32)[0] >= t_mufu
+    # and the three-pass body's gram of a Matern32 state at count 64
+    rng = np.random.default_rng(7)
+    X = rng.uniform(-3.0, 3.0, size=(64, 2))
+    gp = GPRegression(X, np.sin(X[:, :1]), Matern32(2, lengthscale=1.5),
+                      noise_var=0.05 ** 2, capacity=64, device="cpu",
+                      dtype=torch.float32)
+    ops = pfp.interval_plan_operands(gp.kern, gp.state,
+                                     torch.zeros((4, 2)), BETA)
+    leaves = cs.plan_leaves(ops[4], ops[6])
+    assert leaves == [(1, 2)] and cs.gram_mufu(f32, leaves) == 2
+    assert cs.split_bound("bf16", N, 2, 64, 64, leaves=leaves) == (
+        pytest.approx((N * (64 * 2 + 1) / cs.PEAK_MUFU * 1e3, "mufu")))
+    assert cs.gram_mufu(f32, leaves=[(0, 1), (1, 1), (5, 0)]) == 3
+    assert cs.json_bound_by("mufu") == "operations"
 
 
 # -- B4: bench_interval_variants.py:92-118, its product as _tri_matmul --------

@@ -195,11 +195,6 @@ def _f32(x):
     return x.to(torch.float32)
 
 
-def _fma32(a, b, c):
-    """float32 ``a * b + c`` rounded once."""
-    return _f32(a.double() * b.double() + c.double())
-
-
 def emulate(k, hi, lo, w, n, kdiag, beta, order=tile_order):
     """(2, B) float32 rows of one GP as the float32 K1-3p/K2-3p add them:
     ``k`` (cap, B) the kernel's float32 gram, ``hi``/``lo`` (cap, cap) the
@@ -229,8 +224,8 @@ def emulate(k, hi, lo, w, n, kdiag, beta, order=tile_order):
         for warp in range(4):
             r0 = torch.arange(8) + 16 * warp       # rows gid, gid + 8
             v0, v1 = acc[r0], acc[r0 + 8]
-            mm = _fma32(wt[r0 + 8, None], v1, _f32(wt[r0, None] * v0))
-            qq = _fma32(v1, v1, _f32(v0 * v0))
+            mm = fp._fma32(wt[r0 + 8, None], v1, _f32(wt[r0, None] * v0))
+            qq = fp._fma32(v1, v1, _f32(v0 * v0))
             for o in (1, 2, 4):                    # lanes xor 4, 8, 16
                 mm = mm + mm[torch.arange(8) ^ o]
                 qq = qq + qq[torch.arange(8) ^ o]

@@ -12,9 +12,9 @@ The counterpart of the JAX package's five TPU harnesses
 ``bench_interval_ablation.py``), on ``measure.py``'s cap-512 state in
 float32: two RBF GPs, 400 observations from ``default_rng(512)`` in
 [-4, 4]^2, capacity 512, the 1000 x 1000 grid on [-5, 5]^2 (N = 1e6).
-B4 and B5 take GP 0 alone; B2's and B3's three-pass columns and B4 also
-``measure.py``'s long-campaign states ``cap1024`` and ``cap2048``
-(``states.long_operands``, G = 1, the tiled body). Times are CUDA-event
+B4 and B5 take GP 0 alone; B2's and B3's three-pass columns, B2's gram
+sums, B4 and B5 also ``measure.py``'s long-campaign states ``cap1024``
+and ``cap2048`` (``states.long_operands``, G = 1, the tiled body). Times are CUDA-event
 ms per call over ``--reps`` calls after two warm-ups. One JSON object per
 harness; B1-B3 also carry their ``3pass`` columns, as the TPU harnesses
 printed them. B1-3p, B2-3p and B3-3p run K1-3p's float32 ``wgmma``
@@ -54,14 +54,23 @@ run:
 - ``B5``: GP 0's full intervals through K1 (float32 pipe) and through
   B4 (bf16, hoisted: the TPU harness's 3-pass ``full``), ``no_product``
   and ``epilogue`` ms, and the shares they give: product = (full -
-  no_product) / full, gram = (no_product - epilogue) / full.
+  no_product) / full, gram = (no_product - epilogue) / full; the same
+  per long-campaign state under its name.
+
+B2's gram sums and B5's two modes run one body (``csrc/gram_rows.cuh``).
+Beside every time each harness keeps a digest of the rows it timed
+(``digests``: sha256 of the output's bytes, by key), so that two trees'
+runs show whether they give the same bits.
 
 Prints the card's ``nvidia-smi`` name and power limit first and writes
-everything to ``--out``.
+everything to ``--out``. ``--package-root`` times the ``safeopt_torch``
+of another tree (its kernels build into that tree's ``build/``) with
+this tree's harnesses, as ``measure.py`` does.
 """
 
 import argparse
 import functools
+import hashlib
 import json
 import subprocess
 import sys
@@ -79,6 +88,12 @@ from tools_torch.states import (LAYOUTS, LAYOUTS3,  # noqa: E402
 def max_dq(a, b):
     """max |a - b| in float64."""
     return (a.double() - b.double()).abs().max().item()
+
+
+def digest(t):
+    """sha256 of a tensor's bytes (its dtype, shape and values)."""
+    return hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode()
+                          + t.cpu().numpy().tobytes()).hexdigest()
 
 
 def layout_tag(groups, stages, res, carveout):
@@ -147,6 +162,8 @@ def b2_3pass(ops, reps, gram_sums_ms=None):
         (out["gram_sums_ms"] + out["3pass_solve_only_ms"])
         / out["3pass_wgmma_total_ms"])
     out["K1-3p_ms"] = cuda_ms(lambda: fp.fused_intervals3(*ops), reps=reps)
+    out["digests"] = {"gram_sums": digest(ie.interval_ablation(
+        *ops, "gram_sums"))}
     return out
 
 
@@ -166,6 +183,8 @@ def b2(ops, reps, long=None):
     out["sum_vs_total"] = ((out["gram_sums_ms"] + out["solve_rank1_ms"])
                            / out["total_ms"])
     out.update(b2_3pass(ops, reps, out["gram_sums_ms"]))
+    out["digests"]["solve_rank1"] = digest(ie.interval_ablation(
+        *ops, "solve_rank1"))
     for name, long_ops in (long or {}).items():
         out[name] = b2_3pass(long_ops, reps)
     return out
@@ -238,9 +257,10 @@ def b4(ops, reps, long=None):
     return out
 
 
-def b5(ops, reps):
+def b5(ops, reps, long=None):
     """GP 0: full intervals (float32 pipe and 3-pass bf16), no product,
-    epilogue only, and the shares."""
+    epilogue only, and the shares; the same on each state of ``long``,
+    under its name."""
     from safeopt_torch.ops import fused_posterior as fp
     from safeopt_torch.ops import interval_experiments as ie
 
@@ -249,14 +269,18 @@ def b5(ops, reps):
     out = {"full_ms": cuda_ms(lambda: fp.fused_intervals(*ops1), reps=reps),
            "full_3pass_ms": cuda_ms(lambda: ie.intervals_split(
                *one, limb="bf16", limbs=limbs), reps=reps)}
+    out["digests"] = {}
     for m in ("no_product", "epilogue"):
         out[f"{m}_ms"] = cuda_ms(lambda: ie.interval_ablation(*ops1, m),
                                  reps=reps)
+        out["digests"][m] = digest(ie.interval_ablation(*ops1, m))
     for tag in ("", "_3pass"):
         full = out[f"full{tag}_ms"]
         out[f"product_share{tag}"] = (full - out["no_product_ms"]) / full
         out[f"gram_share{tag}"] = (out["no_product_ms"]
                                    - out["epilogue_ms"]) / full
+    for name, long_ops in (long or {}).items():
+        out[name] = b5(long_ops, reps)
     return out
 
 
@@ -266,7 +290,7 @@ def run(ops, reps, long=None):
     float32 operands of one GP}): {name: result}."""
     return {"B1": b1(ops, reps), "B2": b2(ops, reps, long),
             "B3": b3(ops, reps, long), "B4": b4(ops, reps, long),
-            "B5": b5(ops, reps)}
+            "B5": b5(ops, reps, long)}
 
 
 def main():
@@ -275,11 +299,15 @@ def main():
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--out",
                         default="chiprun_out/interval_experiments.json")
+    parser.add_argument("--package-root", default=None,
+                        help="a tree whose safeopt_torch is measured")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_interval_experiments: torch.cuda.is_available() is "
               "false", file=sys.stderr)
         return 1
+    if args.package_root is not None:
+        sys.path.insert(0, str(Path(args.package_root).resolve()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

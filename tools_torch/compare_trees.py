@@ -21,12 +21,15 @@ writes ``<tree>_<i>.json`` and ``<tree>_<i>.log`` to ``--out-dir``, and
 one summary line per run is printed: per configuration the interval
 and expander kernel ms, the interval stage's ms and its host part, and
 the median ``optimize()`` ms. With ``--experiments`` each run also runs
-its own tree's ``tools_torch/bench_interval_experiments.py`` (the
-parent's from its root, on its package), written to
+this tree's ``tools_torch/bench_interval_experiments.py`` (on the
+parent's package through ``--package-root``), written to
 ``<tree>_<i>_experiments.json``, and a second line gives the
 experiment kernels' ms: B1-3p at its automatic layout, B2-3p and B3-3p
-at cap 512 and per long-campaign state, and B4 in-kernel per limb and
-state.
+at cap 512 and per long-campaign state, B4 in-kernel per limb and
+state, and B2's gram sums and B5's two modes per state. A last line a
+run compares the digests of its experiment rows (B2's gram sums and
+rank-1 solve, B5's two modes, per state) with the first parent run's:
+the call exits 1 if any differs.
 
     python3 tools_torch/compare_trees.py ptxas
 
@@ -66,13 +69,14 @@ PARENT = ROOT / "build" / "compare" / "parent"
 REDESIGNED = ("intervals3_kernelIfE", "intervals_plan3_kernelIfE",
               "intervals_plan_wide_kernelIfNS_16ThreePassProduct",
               "intervals3_launch_kernelIfE", "split_kernel",
-              "rank1_solve3_kernelIfE", "mu_from_gram3_kernelIfE")
+              "rank1_solve3_kernelIfE", "mu_from_gram3_kernelIfE",
+              "rowwise_kernel")
 NEW = ("intervals3_wg_kernel", "intervals_plan3_wg_kernel",
        "intervals_tiled_kernel", "intervals_plan_tiled_kernel",
        "intervals_plan_wide_tiled_kernel", "intervals3_tiled_kernel",
        "intervals_plan3_tiled_kernel", "wg3_kernel", "tiled3_kernel",
        "rank1_wg3_kernel", "rank1_tiled3_kernel", "mu_wg3_kernel",
-       "mu_tiled3_kernel")
+       "mu_tiled3_kernel", "gram_rows_kernel")
 sys.path.insert(0, str(ROOT))
 
 
@@ -120,7 +124,30 @@ def experiments_summary(path):
         parts.append(f"B4 {name} " + " ".join(
             f"{limb} {r[limb]['inkernel_ms']:.4f}"
             for limb in ("bf16", "tf32")))
+    b5 = res["B5"]
+    for name in ("cap512", "cap1024", "cap2048"):
+        r2, r5 = (b2, b5) if name == "cap512" else (b2.get(name, {}),
+                                                    b5.get(name, {}))
+        if "no_product_ms" in r5:
+            parts.append(f"{name}: gram sums {r2['gram_sums_ms']:.4f} no "
+                         f"product {r5['no_product_ms']:.4f} epilogue "
+                         f"{r5['epilogue_ms']:.4f}")
     return "; ".join(parts)
+
+
+def experiment_digests(path):
+    """{state mode: digest} of the experiment rows a run recorded (B2's
+    and B5's, at cap 512 and per long-campaign state)."""
+    res = json.loads(path.read_text())["results"]
+    out = {}
+    for harness in ("B2", "B5"):
+        r = res[harness]
+        states = [("cap512", r)] + [(k, v) for k, v in r.items()
+                                    if isinstance(v, dict) and "digests" in v]
+        for name, value in states:
+            for mode, dig in value.get("digests", {}).items():
+                out[f"{name} {mode}"] = dig
+    return out
 
 
 def run(out_dir, reps, experiments=False):
@@ -135,7 +162,7 @@ def run(out_dir, reps, experiments=False):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    rc, runs = 0, {"parent": 0, "change": 0}
+    rc, runs, digests = 0, {"parent": 0, "change": 0}, {}
     for tree in ("parent", "change", "change", "parent"):
         runs[tree] += 1
         tag = f"{tree}_{runs[tree]}"
@@ -153,20 +180,30 @@ def run(out_dir, reps, experiments=False):
         print(f"{tag}: {summary(out_dir / f'{tag}.json')}", flush=True)
         if not experiments:
             continue
-        root = PARENT if tree == "parent" else ROOT
         out = out_dir / f"{tag}_experiments.json"
+        cmd = [sys.executable,
+               str(ROOT / "tools_torch" / "bench_interval_experiments.py"),
+               "--reps", str(reps), "--out", str(out)]
+        if tree == "parent":
+            cmd += ["--package-root", str(PARENT)]
         with open(out_dir / f"{tag}_experiments.log", "w") as log:
-            proc = subprocess.run(
-                [sys.executable,
-                 str(root / "tools_torch" / "bench_interval_experiments.py"),
-                 "--reps", str(reps), "--out", str(out)], cwd=root,
-                stdout=log, stderr=subprocess.STDOUT)
+            proc = subprocess.run(cmd, cwd=ROOT, stdout=log,
+                                  stderr=subprocess.STDOUT)
         if proc.returncode != 0:
             print(f"{tag}: bench_interval_experiments.py exited "
                   f"{proc.returncode}", flush=True)
             rc = 1
             continue
         print(f"{tag} experiments: {experiments_summary(out)}", flush=True)
+        digests[tag] = experiment_digests(out)
+    for tag, got in digests.items():
+        want = digests.get("parent_1", {})
+        differ = sorted(k for k in want if got.get(k) != want[k])
+        print(f"{tag} experiment rows against parent_1's bits: "
+              f"{len(want) - len(differ)} of {len(want)} equal"
+              + (f"; differ: {', '.join(differ)}" if differ else ""),
+              flush=True)
+        rc |= 1 if differ or not want else 0
     return rc
 
 
@@ -174,7 +211,7 @@ def ptxas():
     """The parent's ptxas lines against this tree's; returns the exit
     code."""
     from safeopt_torch.ops import _build
-    from tools_torch.tune_intervals import ptxas_usage
+    from tools_torch.variants import ptxas_usage
 
     csrc = PARENT / "safeopt_torch" / "ops" / "csrc"
     if not csrc.is_dir():

@@ -49,7 +49,6 @@ all, after the card's ``nvidia-smi`` line, to ``--out``.
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -63,6 +62,7 @@ sys.path.insert(0, str(ROOT / "tools_torch"))
 from chip_smoke import (BETA, cuda_ms, expander_bound,  # noqa: E402
                         interval_bound, plan_leaves)
 from measure import CONFIGS, problem, stage_ms  # noqa: E402
+from variants import patched_copy, ptxas_usage  # noqa: E402
 
 
 def constants(**values):
@@ -231,17 +231,7 @@ EX_BLOCKS = {"fused_expander.cu": ("k3", "expander_kernel"),
 def patched_sources(name, patches):
     """A copy of ``csrc`` under ``build/`` with ``patches`` applied and
     the occupancy query appended."""
-    from safeopt_torch.ops import _build
-
-    dst = ROOT / "build" / "tune_src" / name
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(_build._CSRC, dst)
-    for fname, old, new in patches:
-        path = dst / fname
-        text = path.read_text()
-        if old not in text:
-            raise RuntimeError(f"{name}: {old!r} not in {fname}")
-        path.write_text(text.replace(old, new))
+    dst = patched_copy(ROOT / "build" / "tune_src" / name, patches)
     for fname, (label, kernel) in BLOCKS.items():
         with open(dst / fname, "a") as f:
             f.write(OCCUPANCY % (label, kernel, kernel))
@@ -249,20 +239,6 @@ def patched_sources(name, patches):
         with open(dst / fname, "a") as f:
             f.write(EX_LAYOUT % (label, kernel, kernel))
     return dst
-
-
-def ptxas_usage(log):
-    """``{kernel: "N registers, M bytes spill stores"}`` of every kernel
-    instance, from nvcc's ``-Xptxas -v`` log."""
-    usage, name = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif name and "Used" in line:
-            usage[name] = line.split(":", 1)[1].strip()
-        elif name and "spill" in line:
-            usage[name + " spills"] = line.strip()
-    return usage
 
 
 def cases(grids):

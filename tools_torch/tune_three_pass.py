@@ -44,12 +44,9 @@ them all to ``--out``.
 """
 
 import argparse
-import ctypes
 import json
-import shutil
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import numpy as np
@@ -62,6 +59,8 @@ from chip_smoke import (context_gps, plan_leaves, split_bound,  # noqa: E402
                         three_pass_l2_bytes)
 from tools_torch.states import (BETA, build_gps, cap512_operands,  # noqa: E402
                                 cuda_ms, sparse_exact_gp)
+from tools_torch.variants import (build_all, load_entries,  # noqa: E402
+                                  patched_copy, ptxas_usage)
 
 H = "intervals3.cuh"
 T = "intervals3_tiled.cuh"
@@ -186,38 +185,17 @@ STATES = ("cap512", "cap1024", "cap2048", "context1024", "context2048")
 def build(names, csrc):
     """{name: (library path, {kernel: ptxas line}, nvcc log)}, built in
     parallel from patched copies of ``csrc``."""
-    from safeopt_torch.ops import _build
-    from tools_torch.tune_intervals import ptxas_usage
-
     base = ROOT / "build" / "tune3_src"
-    shutil.rmtree(base, ignore_errors=True)
-    procs = {}
-    for name in names:
-        src = base / name
-        shutil.copytree(csrc, src)
-        applied = 0
-        for file, old, new in VARIANTS[name]:
-            if not (src / file).exists():
-                continue
-            text = (src / file).read_text()
-            found = [o for o in (old if isinstance(old, tuple) else (old,))
-                     if o in text]
-            if not found:
-                raise SystemExit(f"{name}: patch not found in {file}")
-            (src / file).write_text(text.replace(found[0], new))
-            applied += 1
-        if VARIANTS[name] and not applied:
-            raise SystemExit(f"{name}: no patch applies to {csrc}")
-        so = src / "lib.so"
-        cmd = [_build._nvcc(), *_build._FLAGS, "-shared", "-o", str(so),
-               str(src / "fused_intervals3.cu")]
-        procs[name] = (so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+    try:
+        built = build_all({
+            name: (patched_copy(base / name, VARIANTS[name], csrc,
+                                skip_missing=True), ["fused_intervals3.cu"])
+            for name in names})
+    except ValueError as err:
+        raise SystemExit(str(err))
     out = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
+    for name, (so, log) in built.items():
+        if so is None:
             raise SystemExit(f"{name}: nvcc failed\n{log[-3000:]}")
         usage = {k: v for k, v in ptxas_usage(log).items()
                  if any(kern in k for kern in KERNELS)}
@@ -228,17 +206,8 @@ def build(names, csrc):
 def load(so):
     """The K1-3p and K2-3p entry points of a library built from
     ``fused_intervals3.cu`` alone, as the wrappers call them."""
-    from safeopt_torch.ops import _build
-
-    lib = ctypes.CDLL(str(so))
-    ns = types.SimpleNamespace(
-        safeopt_error_string=lambda err: b"(fused_intervals3.cu alone)")
-    for sym in ("safeopt_intervals3_f32", "safeopt_intervals_plan3_f32"):
-        fn = getattr(lib, sym)
-        fn.argtypes = _build._SIGNATURES[sym]
-        fn.restype = ctypes.c_int
-        setattr(ns, sym, fn)
-    return ns
+    return load_entries(so, ("safeopt_intervals3_f32",
+                             "safeopt_intervals_plan3_f32"))
 
 
 def main():

@@ -53,12 +53,10 @@ rate, not a call the port makes).
 """
 
 import argparse
-import ctypes
 import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -71,7 +69,8 @@ sys.path.insert(0, str(ROOT / "tools_torch"))
 from chip_smoke import (BETA, PEAK_FLOPS, context_gps,  # noqa: E402
                         interval_bound, plan_leaves)
 from states import build_gps, cuda_ms, sparse_exact_gp  # noqa: E402
-from tune_intervals import ptxas_usage  # noqa: E402
+from variants import (build_all, load_entries,  # noqa: E402
+                      patched_copy, ptxas_usage)
 
 TILED = "intervals_tiled.cuh"
 LAUNCH = "fused_intervals.cu"
@@ -118,47 +117,22 @@ PLAN = ("shipped", "everywhere", "resident", "plan_by_list", "no_gram",
 FLOAT64 = ("shipped", "resident")
 
 
-def build(name, patches):
-    """(name, library path or None, ptxas log) of one variant."""
-    src = ROOT / "safeopt_torch" / "ops" / "csrc"
-    out = ROOT / "build" / "tune_tiled" / name
-    subprocess.run(["rm", "-rf", str(out)], check=True)
-    out.mkdir(parents=True)
-    for f in src.iterdir():
-        text = f.read_text()
-        for fname, old, new in patches:
-            if f.name == fname:
-                if old not in text:
-                    raise ValueError(f"{name}: {old!r} not in {fname}")
-                text = text.replace(old, new)
-        (out / f.name).write_text(text)
-    from safeopt_torch.ops import _build
-
-    so = out / "lib.so"
-    sources = [str(out / LAUNCH)] + ([str(out / PLAN_LAUNCH)]
-                                     if name in PLAN else [])
-    proc = subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o",
-                           str(so), *sources], capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    return name, (so if proc.returncode == 0 else None), log
+def build(todo):
+    """{name: (library path or None, ptxas log)} of the variants ``todo``
+    ({name: patches}), every one at once."""
+    return build_all({
+        name: (patched_copy(ROOT / "build" / "tune_tiled" / name, patches),
+               [LAUNCH] + ([PLAN_LAUNCH] if name in PLAN else []))
+        for name, patches in todo.items()})
 
 
 def load(so, plan):
-    """The variant's library with K1's (and, with ``plan``, K2's) C
-    signatures."""
-    from safeopt_torch.ops import _build
-
-    lib = ctypes.CDLL(str(so))
+    """The variant's K1 (and, with ``plan``, K2) C entries, for the
+    wrappers."""
     names = ["safeopt_intervals_f32", "safeopt_intervals_f64"]
     if plan:
         names += ["safeopt_intervals_plan_f32", "safeopt_intervals_plan_f64"]
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = _build._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    lib.safeopt_error_string.argtypes = [ctypes.c_int]
-    lib.safeopt_error_string.restype = ctypes.c_char_p
-    return lib
+    return load_entries(so, names)
 
 
 def states(grid):
@@ -349,8 +323,7 @@ def main():
     todo = {k: v for k, v in {**VARIANTS, **ABLATIONS}.items()
             if args.only is None or k in args.only}
     start = time.perf_counter()
-    with ThreadPoolExecutor(len(todo)) as pool:
-        built = list(pool.map(lambda kv: build(*kv), todo.items()))
+    built = build(todo)
     print(f"built {len(built)} variants in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
     grid = torch.tensor(linearly_spaced_combinations([(-5.0, 5.0),
@@ -362,7 +335,7 @@ def main():
                        dtype=torch.float32, device="cuda")
     plan_all = plan_states(torch.cat([ctx, torch.zeros_like(ctx)], dim=1))
     results, rc, libs = {}, 0, {}
-    for name, so, log in built:
+    for name, (so, log) in built.items():
         usage = {k: v for k, v in ptxas_usage(log).items()
                  if "tiled_kernel" in k}
         if so is None:
